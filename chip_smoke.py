@@ -1,4 +1,5 @@
-"""Drive the PyTorch + CUDA port's DSEC eval path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's DSEC eval and train paths once on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -7,17 +8,25 @@ exits non-zero, with no result line):
 
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off for the f32 plain versions;
-2. build: compile the CUDA kernels of ``ess_tpu_torch/csrc`` and the host
-   binning library from the checkout's sources;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the DSEC shapes of the eval path, with kernel and plain times (CUDA
+2. build: compile the CUDA kernels of ``ess_tpu_torch/csrc`` (one ``nvcc``
+   per source, in parallel) and the host binning library from the
+   checkout's sources;
+3. kernels: each kernel (B1 voxelizer, B2 exact ConvLSTM cell, B2-int8
+   ConvLSTM cell) against its plain PyTorch version on the card at the DSEC
+   shapes of the eval and train paths, with kernel and plain times (CUDA
    events);
-4. slice: the supervised eval step at full width (E2VID base 32, 480x640
-   sensor cropped to 440x640, T=20 windows of 100k events, 5 bins, 11
-   classes, bf16, seeded weights, synthetic events) -- checks on its output
-   and kernel launch counts at B=2, agreement with the same step on the
-   plain versions, and eval-step throughput at B=8 with kernels and with
-   plain versions.
+4. eval slice: the supervised eval step at full width (E2VID base 32,
+   480x640 sensor cropped to 440x640, T=20 windows of 100k events, 5 bins,
+   11 classes, bf16, seeded weights, synthetic events) -- checks on its
+   output and kernel launch counts at B=2, agreement with the same step on
+   the plain versions, and eval-step throughput at B=8 with kernels and with
+   plain versions;
+5. train slice: the supervised train step at the same width with the train
+   rollout on the int8 cell (``bench.py``'s configuration) -- launch counts,
+   a finite loss, an updated head and an untouched E2VID over 3 steps at
+   B=2, agreement of the first step with the plain versions, and train-step
+   throughput at B=8 with int8 kernels, with exact-bf16 kernels and with
+   plain versions, and its peak device memory.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -29,7 +38,6 @@ import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -38,20 +46,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ess_tpu_torch import kernels  # noqa: E402
-from ess_tpu_torch.core.config import (  # noqa: E402
-    Config, DatasetConfig, EventDatasetConfig, ImageDatasetConfig,
-    ModelConfig, OptimConfig, TaskConfig)
+from ess_tpu_torch import bench, kernels  # noqa: E402
+from ess_tpu_torch.bench import (  # noqa: E402
+    BINS, CROP, SENSOR_H, SENSOR_W, make_batch, make_raw)
 from ess_tpu_torch.data import native  # noqa: E402
-from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig  # noqa: E402
+from ess_tpu_torch.data.pipeline import AugmentParams  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import batch_voxel, conv_lstm, voxel_folded  # noqa: E402
 from ess_tpu_torch.ops.voxel import masked_time_norm, normalize_from_stats  # noqa: E402
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
 
-SENSOR_H, SENSOR_W, CROP = 480, 640, 40
-WINDOWS, EVENTS, BINS, CLASSES = 20, 100_000, 5, 11
+WINDOWS, EVENTS, CLASSES = bench.WINDOWS, bench.EVENTS_PER_WINDOW, bench.NUM_CLASSES
 CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
 
 # tolerances, stated before any run on the card
@@ -67,6 +73,19 @@ SLICE_LATENT_REL = 0.05    # latent8 relative max |d|
 SLICE_PRED_AGREE = 90.0    # % of all pixels with the same argmax
 SLICE_GAP = 0.1            # logit units
 SLICE_PRED_AGREE_CLEAR = 99.5
+# B2-int8 vs the plain int8 cell: both accumulate the same integers exactly
+# and round every f32 operation of the epilogue alike, so h' and c' can
+# differ only where the kernel's expf/tanhf and torch's round differently
+# before the bf16 store: at most one bf16 ulp (+1e-6 for values next to 0).
+INT8_ULP_SLACK = 1e-6
+# Against the exact plain cell, the JAX package's int8 bounds
+# (tests/test_conv_lstm_pallas.py, measured there on a 2x12x20x16 cell) are
+# reported beside the DSEC-shape numbers, not enforced: the x scale is the
+# absmax over the whole tensor, which grows with its size.
+JAX_INT8_DH_MAX, JAX_INT8_DH_MEAN, JAX_INT8_DC_MAX = 0.05, 6e-3, 0.08
+# Train slice, int8-kernel path vs plain path on the first step.
+TRAIN_LATENT_REL = 0.05    # latent8 relative max |d|
+TRAIN_LOSS_REL = 0.02      # loss relative difference
 
 
 def log(msg: str) -> None:
@@ -86,64 +105,48 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_raw(rng, b: int):
-    """Synthetic DSEC windows (the recipe of bench.py::make_batch):
-    uniform rectified coordinates, sorted timestamps, random polarity."""
-    shape = (b, WINDOWS, EVENTS)
-    raw = np.zeros(shape + (4,), np.float32)
-    raw[..., 0] = rng.uniform(0, SENSOR_W - 1, shape)
-    raw[..., 1] = rng.uniform(0, SENSOR_H - 1, shape)
-    raw[..., 2] = np.sort(rng.uniform(0, 5e4, shape), axis=-1)
-    raw[..., 3] = rng.integers(0, 2, shape)
-    return raw, np.ones(shape, bool)
-
-
-def make_batch(seed: int, b: int, dev) -> dict:
-    """Host-folded batch on the device, with labels (bottom rows ignored)."""
-    rng = np.random.default_rng(seed)
-    raw, valid = make_raw(rng, b)
-    recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
-        raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS)
-        for i in range(b)))
-    cap = max(r.shape[1] for r in recs)
-    pad = lambda a: np.pad(a, [(0, 0), (0, cap - a.shape[1])]
-                           + [(0, 0)] * (a.ndim - 2))
-    recs = np.stack([pad(r) for r in recs])
-    vals = np.stack([pad(v) for v in vals])
-    label = rng.integers(0, CLASSES, (b, SENSOR_H - CROP, SENSOR_W))
-    label[:, -20:] = 255
-    host = {"ev_x": recs[..., 0], "ev_y": recs[..., 1], "ev_t": recs[..., 2],
-            "ev_p": recs[..., 3], "ev_valid": vals,
-            "ev_band_offsets": np.stack(offs), "label": label}
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in host.items()}
+def plain_cell(x, h, c, w, b, *, impl="pallas", prepared=None):
+    """The plain version of the cell ``impl`` names."""
+    fn = (conv_lstm.conv_lstm_int8_ref if impl == "pallas_int8"
+          else conv_lstm.conv_lstm_ref)
+    return fn(x, h, c, w, b)
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the eval path through the kernels' plain PyTorch versions (on
-    the same device tensors) for the comparison runs."""
+    """Route the eval and train paths through the kernels' plain PyTorch
+    versions (on the same device tensors) for the comparison runs."""
     saved = (batch_voxel.voxelize_folded, layers.conv_lstm_cell)
     batch_voxel.voxelize_folded = voxel_folded.voxelize_folded_ref
-    layers.conv_lstm_cell = (
-        lambda x, h, c, w, b, prepared=None: conv_lstm.conv_lstm_ref(
-            x, h, c, w, b))
+    layers.conv_lstm_cell = plain_cell
     try:
         yield
     finally:
         batch_voxel.voxelize_folded, layers.conv_lstm_cell = saved
 
 
+def reset_counts() -> None:
+    voxel_folded.launches = 0
+    conv_lstm.launches = 0
+    conv_lstm.launches_int8 = 0
+
+
+def read_counts() -> tuple:
+    torch.cuda.synchronize()
+    return voxel_folded.launches, conv_lstm.launches, conv_lstm.launches_int8
+
+
+def bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at max(|a|, |b|): 2^(e - 8) for values in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float32), e - 8)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false); the port runs its kernels on the GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(bench.card(), flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -157,6 +160,9 @@ def phase_build():
     kernels.get_lib()
     log(f"built CUDA kernels in {kernels.build_seconds:.1f} s "
         f"({kernels.BUILD_DIR})")
+    for line in kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.endswith(".cu:"):
+            log(f"  {line.strip()}")
     native.get_lib()
     log(f"built host binning in {time.perf_counter() - t0:.1f} s total")
 
@@ -242,44 +248,84 @@ def check_conv_lstm(dev):
             "max_abs_err": max(err_h, err_c), "ms": ms, "plain_ms": plain_ms}
 
 
-def make_cfg(batch: int) -> Config:
-    return Config(
-        dataset=DatasetConfig(
-            sensor_a=ImageDatasetConfig(shape=(440, 640)),
-            sensor_b=EventDatasetConfig(
-                name="DSEC_events", shape=(440, 640), nr_events_data=WINDOWS,
-                nr_temporal_bins=BINS, nr_events_window=EVENTS)),
-        model=ModelConfig(model_name="ess_supervised",
-                          compute_dtype="bfloat16"),
-        task=TaskConfig(semseg_num_classes=CLASSES),
-        optim=OptimConfig(batch_size_b=batch))
+def check_conv_lstm_int8(dev):
+    g = torch.Generator().manual_seed(5)
+    cl = torch.channels_last
+    err = ms = plain_ms = 0.0
+    for b, ch, hh, ww in CELL_SHAPES:
+        mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
+        x = (torch.relu(mk(b, ch, hh, ww)) * 2).to(dev, torch.bfloat16) \
+            .contiguous(memory_format=cl)
+        h = torch.tanh(mk(b, ch, hh, ww)).to(dev, torch.bfloat16).contiguous(
+            memory_format=cl)
+        c = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(
+            memory_format=cl)
+        w = mk(4 * ch, 2 * ch, 3, 3, scale=(18 * ch) ** -0.5).to(dev)
+        bias = mk(4 * ch, scale=0.05).to(dev)
+        prep = conv_lstm.prepare_gate_weights(w, torch.float32)
+        h_p, c_p = conv_lstm.conv_lstm_int8_ref(x, h, c, w, bias)
+        h_k, c_k = conv_lstm.conv_lstm_cell(x, h, c.clone(), w, bias,
+                                            impl="pallas_int8", prepared=prep)
+        bad, unequal, e = 0, 0, 0.0
+        for got, want in ((h_k, h_p), (c_k, c_p)):
+            d = (got.float() - want.float()).abs()
+            bad += int((d > bf16_ulp(got, want) + INT8_ULP_SLACK).sum())
+            unequal += int((got != want).sum())
+            e = max(e, d.max().item())
+        err = max(err, e)
+        h_e, c_e = conv_lstm.conv_lstm_ref(x, h, c, w, bias)
+        dh = (h_k.float() - h_e.float()).abs()
+        dc = (c_k.float() - c_e.float()).abs()
+        cw = c.clone()
+        t_k = cuda_ms(lambda: conv_lstm.conv_lstm_cell(
+            x, h, cw, w, bias, impl="pallas_int8", prepared=prep), 20)
+        t_p = cuda_ms(lambda: conv_lstm.conv_lstm_int8_ref(x, h, c, w, bias),
+                      3)
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        ops = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
+        log(f"B2-int8 conv_lstm_int8 B={b} C={ch} {hh}x{ww}: vs plain int8 "
+            f"max|d| {e:.3e}, {unequal} of {2 * h_k.numel()} values not "
+            f"bit-identical, {bad} beyond one bf16 ulp (bound 0); "
+            f"vs exact plain max|dh| {dh.max().item():.3e} mean|dh| "
+            f"{dh.mean().item():.3e} max|dc| {dc.max().item():.3e} (JAX int8 "
+            f"bounds on its test cell: {JAX_INT8_DH_MAX}, {JAX_INT8_DH_MEAN}, "
+            f"{JAX_INT8_DC_MAX}); kernel {t_k:.3f} ms "
+            f"({ops / t_k / 1e9:.1f} TOP/s, quantization prep included), "
+            f"plain {t_p:.3f} ms")
+        if bad:
+            raise AssertionError(f"B2-int8 disagrees with its plain version "
+                                 f"at {bad} values (max |d| {e})")
+    log(f"B2-int8 time for the three encoder cells (one window, B=2): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return {"name": "conv_lstm_int8", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/conv_lstm_int8.cu",
+            "replaces": "ess_tpu/ops/conv_lstm_pallas.py:137",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def phase_slice(dev, kern_rows):
-    cfg = make_cfg(2)
+    cfg = bench.make_cfg(2, None)
     mods = build_modules(cfg, device=dev)
     init_params(mods, torch.Generator().manual_seed(0))
-    pipe = EventPipeline(PipelineConfig(
-        sensor_height=SENSOR_H, sensor_width=SENSOR_W, num_bins=BINS,
-        normalize=True, crop_bottom=CROP))
+    pipe = bench.make_pipeline()
     step = make_eval_step(mods, pipe)
-    batch = make_batch(3, 2, dev)
+    batch = make_batch(3, 2, dev, ignore_rows=20)
     n_valid = int((batch["label"] != 255).sum())
 
     steps = 3
-    voxel_folded.launches = 0
-    conv_lstm.launches = 0
+    reset_counts()
     outs = [step(batch) for _ in range(steps)]
-    torch.cuda.synchronize()
-    n_b1, n_b2 = voxel_folded.launches, conv_lstm.launches
-    log(f"slice B=2 T={WINDOWS} {SENSOR_H}x{SENSOR_W} -> "
+    n_b1, n_b2, n_i8 = read_counts()
+    log(f"eval slice B=2 T={WINDOWS} {SENSOR_H}x{SENSOR_W} -> "
         f"{SENSOR_H - CROP}x{SENSOR_W}, "
         f"{EVENTS} events/window, {CLASSES} classes: {steps} eval steps, "
-        f"launches B1 {n_b1}, B2 {n_b2}")
-    if n_b1 != steps or n_b2 != steps * 3 * WINDOWS:
+        f"launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}")
+    if n_b1 != steps or n_b2 != steps * 3 * WINDOWS or n_i8:
         raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
-                             f"B2 {n_b2} (want {steps * 3 * WINDOWS})")
-    kern_rows[0]["launches"], kern_rows[1]["launches"] = n_b1, n_b2
+                             f"B2 {n_b2} (want {steps * 3 * WINDOWS}), "
+                             f"B2-int8 {n_i8} (want 0)")
+    for row, n in zip(kern_rows, (n_b1, n_b2, n_i8)):
+        row["launches_by_path"] = {"eval": n}
     out = outs[-1]
     loss = float(out["loss"])
     cm_sum = float(out["cm"].sum())
@@ -318,10 +364,10 @@ def phase_slice(dev, kern_rows):
         raise AssertionError("kernel path disagrees with the plain path")
     del outs, out, ref, batch, windows, latent
 
-    mods8 = build_modules(make_cfg(8), device=dev)
+    mods8 = build_modules(bench.make_cfg(8, None), device=dev)
     init_params(mods8, torch.Generator().manual_seed(0))
     step8 = make_eval_step(mods8, pipe)
-    batch8 = make_batch(4, 8, dev)
+    batch8 = make_batch(4, 8, dev, ignore_rows=20)
     torch.cuda.reset_peak_memory_stats()
 
     def timed(plain: bool, reps: int = 2) -> list[float]:
@@ -351,11 +397,108 @@ def phase_slice(dev, kern_rows):
         " GiB")
 
 
+def phase_train(dev, kern_rows):
+    steps, b = 3, 2
+    mods, state, step = bench.build_train(bench.make_cfg(b), dev)
+    batch = make_batch(3, b, dev, ignore_rows=20)
+    head0 = {k: v.clone() for k, v in mods.head.state_dict().items()}
+    e2vid0 = {k: v.clone() for k, v in mods.e2vid.state_dict().items()}
+
+    reset_counts()
+    losses = [step(state, batch)["loss"] for _ in range(steps)]
+    n_b1, n_b2, n_i8 = read_counts()
+    losses = [float(v) for v in losses]
+    log(f"train slice B={b} T={WINDOWS}, {steps} train steps (train rollout "
+        f"on the int8 cell): launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}; "
+        f"losses {[round(v, 6) for v in losses]}")
+    if n_b1 != steps or n_i8 != steps * 3 * WINDOWS or n_b2:
+        raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
+                             f"B2-int8 {n_i8} (want {steps * 3 * WINDOWS}), "
+                             f"B2 {n_b2} (want 0)")
+    for row, n in zip(kern_rows, (n_b1, n_b2, n_i8)):
+        row["launches_by_path"]["train"] = n
+        row["launches"] = sum(row["launches_by_path"].values())
+    changed = sum(not torch.equal(v, head0[k])
+                  for k, v in mods.head.state_dict().items())
+    frozen = all(torch.equal(v, e2vid0[k])
+                 for k, v in mods.e2vid.state_dict().items())
+    log(f"head tensors changed {changed} of {len(head0)}; E2VID unchanged "
+        f"{frozen}; RAdam steps {mods.opt_back.step_count}")
+    if not (all(np.isfinite(losses)) and changed and frozen
+            and state.step == steps):
+        raise AssertionError("bad train step: loss, head update or frozen "
+                             "E2VID")
+
+    # first step, kernel path vs plain path, from the same seeded state
+    mods_p, state_p, step_p = bench.build_train(bench.make_cfg(b), dev)
+    with plain_versions():
+        loss_p = float(step_p(state_p, batch)["loss"])
+    pipe = bench.make_pipeline()
+    with torch.no_grad():
+        windows, _ = pipe.build_all(batch, aug=AugmentParams(),
+                                    out_dtype=mods_p.e2vid.dtype)
+        lat_k = mods_p.recon_train.rollout(windows, decode=False)[2][8]
+        with plain_versions():
+            lat_p = mods_p.recon_train.rollout(windows, decode=False)[2][8]
+    rel = ((lat_k.float() - lat_p.float()).abs().max()
+           / lat_p.float().abs().max()).item()
+    loss_rel = abs(losses[0] - loss_p) / abs(loss_p)
+    log(f"train step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
+        f"{loss_p:.6f} (relative difference {loss_rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL}); latent8 rel max|d| {rel:.3e} (bound "
+        f"{TRAIN_LATENT_REL})")
+    if not (loss_rel <= TRAIN_LOSS_REL and rel <= TRAIN_LATENT_REL):
+        raise AssertionError("train kernel path disagrees with the plain path")
+    del mods, mods_p, state, state_p, step, step_p, windows, lat_k, lat_p
+    torch.cuda.empty_cache()
+
+    batch8 = make_batch(4, 8, dev, ignore_rows=20)
+    runs = {}
+    for name, impl in (("int8 kernels", "pallas_int8"),
+                       ("exact-bf16 kernels", None),
+                       ("plain versions", "pallas_int8")):
+        runs[name] = bench.build_train(bench.make_cfg(8, impl), dev)[1:]
+
+    def timed(name: str, reps: int) -> list[float]:
+        state8, step8 = runs[name]
+        ctx = (plain_versions() if name == "plain versions"
+               else contextlib.nullcontext())
+        times = []
+        with ctx:
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step8(state8, batch8)["loss"])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        return times
+
+    torch.cuda.reset_peak_memory_stats()
+    timed("int8 kernels", 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed("exact-bf16 kernels", 1)
+    timed("plain versions", 1)
+    samples = {name: [] for name in runs}
+    for name, reps in (("plain versions", 1), ("int8 kernels", 2),
+                       ("exact-bf16 kernels", 2), ("exact-bf16 kernels", 2),
+                       ("int8 kernels", 2), ("plain versions", 1)):
+        samples[name] += timed(name, reps)
+    for name, ts in samples.items():
+        med = statistics.median(ts)
+        log(f"train step B=8 T={WINDOWS} ({name}): "
+            f"{8 * WINDOWS / med:.2f} windows/s, median {1e3 * med:.1f} ms "
+            f"over {len(ts)} steps {[round(1e3 * t, 1) for t in ts]}")
+    log(f"peak device memory of the int8-kernel train step at B=8: "
+        f"{peak:.2f} GiB")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
-    rows = [check_voxelizer(dev), check_conv_lstm(dev)]
+    rows = [check_voxelizer(dev), check_conv_lstm(dev),
+            check_conv_lstm_int8(dev)]
     phase_slice(dev, rows)
+    phase_train(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,8 +92,11 @@ class ModelConfig:
     e2vid_recurrent_block: str = "convlstm"  # 'convlstm' | 'convgru'
     e2vid_norm: Optional[str] = None
     e2vid_checkpoint: str = ""
-    # Implementation selectors of the JAX package; read by its builder and
-    # kept here so both packages parse the same YAML to the same fields.
+    # Implementation selectors. lstm_impl / lstm_impl_train pick the
+    # ConvLSTM cell of the eval and train rollouts in both packages
+    # ('auto', 'xla', 'pallas', 'pallas_int8'; the port's
+    # ops/conv_lstm.py::resolve_lstm_impl); head_conv_impl is read by the
+    # JAX package only and kept so both parse the same YAML.
     head_conv_impl: str = "auto"
     lstm_impl: str = "auto"
     lstm_impl_train: Optional[str] = None

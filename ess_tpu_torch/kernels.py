@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``ess_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared library
 with a plain C interface, ``build/ess_tpu_torch/libkernels_<hash>.so`` at
-the repository root, on first use; the hash covers the sources and the
-flags, so an edited source rebuilds. The library is loaded with ``ctypes``:
-pointers and the CUDA stream travel as ``c_void_p``, and every entry point
-returns its ``cudaError_t``, which :func:`check` turns into an exception.
-Nothing here runs at import time.
+the repository root, on first use; the hash covers the sources, the headers
+and the flags, so an edited source rebuilds. The library is loaded with
+``ctypes``: pointers and the CUDA stream travel as ``c_void_p``, and every
+entry point returns its ``cudaError_t``, which :func:`check` turns into an
+exception. ``build_log`` keeps what ``ptxas -v`` said about each kernel
+(registers, shared memory, spills). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ess_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
+build_log = ""                          # ptxas report of that build
 
 
 def _nvcc() -> str:
@@ -48,8 +51,35 @@ def _sources() -> list[str]:
     return srcs
 
 
+def _compile(srcs: list[str], lib_path: str) -> str:
+    """Compile every source in its own ``nvcc`` process, all at once, then
+    link; returns the compilers' reports. Raises if any step fails."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        reports, failed = [], []
+        for s, p in zip(srcs, procs):
+            out, err = p.communicate()
+            reports.append(f"{os.path.basename(s)}:\n{out}{err}")
+            if p.returncode != 0:
+                failed.append(reports[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+        os.replace(so, lib_path)
+    return "\n".join(reports)
+
+
 def _build() -> ctypes.CDLL:
-    global build_seconds
+    global build_seconds, build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
@@ -59,17 +89,7 @@ def _build() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        build_log = _compile(srcs, lib_path)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(lib_path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -77,6 +97,11 @@ def _build() -> ctypes.CDLL:
     lib.ess_voxel_folded.restype = ci
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.ess_conv_lstm.restype = ci
+    i64 = ctypes.c_int64
+    lib.ess_conv_lstm_quant.argtypes = [vp] * 5 + [i64] * 2 + [vp]
+    lib.ess_conv_lstm_quant.restype = ci
+    lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.ess_conv_lstm_int8.restype = ci
     lib.ess_error_string.argtypes = [ci]
     lib.ess_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,6 +20,7 @@ import torch.nn as nn
 from ess_tpu_torch.models.layers import (
     ConvLayer, RecurrentConvLayer, ResidualBlock, UpsampleConvLayer,
     skip_merge)
+from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
 
 Latent = Dict[int, torch.Tensor]
 State = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
@@ -49,8 +50,10 @@ class RecurrentUNet(nn.Module):
     def __init__(self, *, in_channels: int = 5, base_channels: int = 32,
                  num_encoders: int = 3, num_residual_blocks: int = 2,
                  num_output_channels: int = 1, skip_type: str = "sum",
+                 lstm_impl: str = "pallas",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.lstm_impl = resolve_lstm_impl(lstm_impl)
         self.base_channels = base_channels
         self.num_encoders = num_encoders
         self.skip_type = skip_type
@@ -75,12 +78,15 @@ class RecurrentUNet(nn.Module):
                               "sigmoid", device=device)
 
     def forward(self, x: torch.Tensor, states: Sequence, *,
-                decode: bool = True
+                decode: bool = True, lstm_impl: Optional[str] = None
                 ) -> Tuple[Optional[torch.Tensor], State, Latent]:
         """One event window (B, C, H, W). ``decode=False`` runs only the head
         and the recurrent encoders (state update + latent) and returns
         ``(None, states, latent)``: only the last window of a rollout is
-        decoded."""
+        decoded. ``lstm_impl`` (a resolved cell name) overrides the model's
+        ConvLSTM cell for this call, as JAX's ``e2vid.clone(lstm_impl=...)``
+        does over the same parameters."""
+        impl = self.lstm_impl if lstm_impl is None else lstm_impl
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         head = self.head(x)
         latent: Latent = {1: head}
@@ -88,7 +94,7 @@ class RecurrentUNet(nn.Module):
         new_states = []
         h = head
         for i, enc in enumerate(self.encoders):
-            h, st = enc(h, states[i])
+            h, st = enc(h, states[i], impl)
             new_states.append(st)
             blocks.append(h)
             latent[2 ** (i + 1)] = h

@@ -17,7 +17,7 @@ mixed-precision rule (bf16 compute, f32 params).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -98,35 +98,44 @@ class UpsampleConvLayer(nn.Module):
 
 class ConvLSTMCell(nn.Module):
     """Convolutional LSTM cell: one 3x3 ``Gates`` conv over concat([x, h])
-    producing (i, f, o, g) x hidden channels (:mod:`ess_tpu_torch.ops.conv_lstm`)."""
+    producing (i, f, o, g) x hidden channels (:mod:`ess_tpu_torch.ops.conv_lstm`).
+    ``forward`` takes the resolved cell name (``'pallas'``, ``'pallas_int8'``
+    or ``'xla'``), so one parameter set serves rollouts on different cells."""
 
     def __init__(self, input_size: int, hidden_size: int, *, device=None):
         super().__init__()
         self.Gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size, 3,
                                padding=1, device=device)
-        self._prepared: Optional[Tuple[tuple, torch.Tensor]] = None
+        self._prepared: Dict[torch.dtype, Tuple[tuple, torch.Tensor]] = {}
 
-    def _prepared_weight(self) -> Optional[torch.Tensor]:
-        """The kernel's gate matrix, rebuilt only when the weight changes."""
+    def _prepared_weight(self, impl: str) -> Optional[torch.Tensor]:
+        """The kernel's gate matrix (bf16 for the exact kernel, f32 for the
+        int8 one, which re-quantizes it per call), rebuilt only when the
+        weight changes."""
         w = self.Gates.weight
-        if w.device.type != "cuda":
+        if w.device.type != "cuda" or impl == "xla":
             return None
+        dtype = torch.float32 if impl == "pallas_int8" else torch.bfloat16
         key = (w.data_ptr(), w._version, w.device)
-        if self._prepared is None or self._prepared[0] != key:
-            self._prepared = (key, prepare_gate_weights(w.detach()))
-        return self._prepared[1]
+        hit = self._prepared.get(dtype)
+        if hit is None or hit[0] != key:
+            hit = (key, prepare_gate_weights(w.detach(), dtype))
+            self._prepared[dtype] = hit
+        return hit[1]
 
-    def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]
+    def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
+                impl: str = "pallas"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         h_prev, c_prev = state
         h, c = conv_lstm_cell(x, h_prev.to(x.dtype), c_prev.to(x.dtype),
-                              self.Gates.weight, self.Gates.bias,
-                              prepared=self._prepared_weight())
+                              self.Gates.weight, self.Gates.bias, impl=impl,
+                              prepared=self._prepared_weight(impl))
         return h, (h, c)
 
 
 class RecurrentConvLayer(nn.Module):
-    """Stride-2 5x5 conv + ReLU followed by a ConvLSTM cell."""
+    """Stride-2 5x5 conv + ReLU followed by a ConvLSTM cell (``impl`` as
+    :class:`ConvLSTMCell`)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2, *, device=None):
@@ -136,8 +145,8 @@ class RecurrentConvLayer(nn.Module):
         self.recurrent_block = ConvLSTMCell(out_channels, out_channels,
                                             device=device)
 
-    def forward(self, x: torch.Tensor, state):
-        return self.recurrent_block(self.conv(x), state)
+    def forward(self, x: torch.Tensor, state, impl: str = "pallas"):
+        return self.recurrent_block(self.conv(x), state, impl)
 
 
 class ReLUINSConv2d(nn.Module):

@@ -10,6 +10,7 @@ JAX ``lax.scan``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -19,11 +20,13 @@ from ess_tpu_torch.ops.pad import CropGeometry
 
 @dataclass(frozen=True)
 class Reconstructor:
-    """Model plus the static input geometry of one rollout."""
+    """Model plus the static input geometry and the ConvLSTM cell of one
+    rollout (``lstm_impl``: a resolved cell name; None = the model's)."""
 
     model: RecurrentUNet
     height: int
     width: int
+    lstm_impl: Optional[str] = None
 
     @property
     def geometry(self) -> CropGeometry:
@@ -47,14 +50,17 @@ class Reconstructor:
                 f"{self.width} rollout padded to "
                 f"{(g.padded_height, g.padded_width)}: the port implements "
                 "no pad")
-        return self.model(events, state, decode=decode)
+        return self.model(events, state, decode=decode,
+                          lstm_impl=self.lstm_impl)
 
-    def rollout(self, windows: torch.Tensor, init_state=None):
+    def rollout(self, windows: torch.Tensor, init_state=None, *,
+                decode: bool = True):
         """(T, B, C, H, W) windows -> (final image, final state, final
-        latent)."""
+        latent). ``decode=False`` decodes no window (the image is None):
+        the train step reads only the latent."""
         t_dim, b = windows.shape[:2]
         state = (self.init_state(b, windows.device) if init_state is None
                  else init_state)
         for i in range(t_dim - 1):
             _, state, _ = self.step(windows[i], state, decode=False)
-        return self.step(windows[t_dim - 1], state, decode=True)
+        return self.step(windows[t_dim - 1], state, decode=decode)

@@ -1,9 +1,10 @@
-"""Model construction for the eval path from a Config.
+"""Model construction for the supervised eval and train steps from a Config.
 
-Counterpart of the eval subset of ``ess_tpu/train/builder.py``
-(``build_modules``, ``init_state``): the E2VID backbone, the segmentation
-head and the validation rollout geometry. Optimizers come with the train
-step.
+Counterpart of the supervised subset of ``ess_tpu/train/builder.py``
+(``build_modules``, ``init_state``): the frozen E2VID backbone, the
+segmentation head, the train and validation rollouts (each with its
+ConvLSTM cell, ``model.lstm_impl`` / ``model.lstm_impl_train``, over one
+parameter set) and the head's RAdam.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from ess_tpu_torch.core.config import Config
 from ess_tpu_torch.models.e2vid import RecurrentUNet
 from ess_tpu_torch.models.layers import INSResBlock, ReLUINSConv2d
 from ess_tpu_torch.models.seghead import SegmentationHead
+from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
 from ess_tpu_torch.recon.reconstructor import Reconstructor
+from ess_tpu_torch.train.state import RAdam, TrainState, make_radam
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -28,17 +31,22 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 @dataclass(frozen=True)
 class ESSModules:
-    """Modules and the validation rollout of one config."""
+    """Modules, rollouts and the head's optimizer of one config."""
 
     cfg: Config
     e2vid: RecurrentUNet
     head: SegmentationHead
+    recon_train: Reconstructor
     recon_val: Reconstructor
+    opt_back: RAdam
 
 
-def build_modules(cfg: Config, *, device=None) -> ESSModules:
-    """Supervised ESS eval modules on ``device`` (parameters uninitialized
-    beyond torch's defaults: call :func:`init_params` or load weights)."""
+def build_modules(cfg: Config, *, device=None,
+                  steps_per_epoch: int = 1) -> ESSModules:
+    """Supervised ESS modules on ``device`` (parameters uninitialized beyond
+    torch's defaults: call :func:`init_params` or load weights). The E2VID
+    parameters are frozen (``requires_grad=False``); ``opt_back`` updates
+    the head's."""
     m = cfg.model
     if m.model_name != "ess_supervised":
         raise ValueError(f"the port builds 'ess_supervised' only, got "
@@ -54,16 +62,34 @@ def build_modules(cfg: Config, *, device=None) -> ESSModules:
         base_channels=m.e2vid_base_channels,
         num_encoders=m.e2vid_num_encoders,
         num_residual_blocks=m.e2vid_num_residual_blocks,
-        skip_type=m.e2vid_skip_type, dtype=dtype, device=device)
+        skip_type=m.e2vid_skip_type, lstm_impl=resolve_lstm_impl(m.lstm_impl),
+        dtype=dtype, device=device)
+    e2vid.requires_grad_(False)
     head = SegmentationHead(
         cfg.task.semseg_num_classes,
         input_features=m.e2vid_base_channels * 2 ** m.e2vid_num_encoders,
         skip_type=m.skip_connect_task_type, dtype=dtype, device=device)
-    # supervised ESS rolls out at ceil(shape / 8) * 8
+    # supervised ESS trains and validates at ceil(shape / 8) * 8; the train
+    # rollout may run another ConvLSTM cell (the int8 one) over the same
+    # parameters
     h, w = cfg.dataset.sensor_b.shape
-    recon_val = Reconstructor(model=e2vid, height=math.ceil(h / 8) * 8,
-                              width=math.ceil(w / 8) * 8)
-    return ESSModules(cfg=cfg, e2vid=e2vid, head=head, recon_val=recon_val)
+    h8, w8 = math.ceil(h / 8) * 8, math.ceil(w / 8) * 8
+    train_impl = (e2vid.lstm_impl if m.lstm_impl_train is None
+                  else resolve_lstm_impl(m.lstm_impl_train))
+    recon_train = Reconstructor(model=e2vid, height=h8, width=w8,
+                                lstm_impl=train_impl)
+    recon_val = Reconstructor(model=e2vid, height=h8, width=w8)
+    opt_back = make_radam(head.parameters(), cfg.optim.lr_back,
+                          lr_decay=cfg.optim.lr_decay,
+                          steps_per_epoch=steps_per_epoch)
+    return ESSModules(cfg=cfg, e2vid=e2vid, head=head,
+                      recon_train=recon_train, recon_val=recon_val,
+                      opt_back=opt_back)
+
+
+def init_state(mods: ESSModules) -> TrainState:
+    """The train state at step 0 over the modules' head and optimizer."""
+    return TrainState(step=0, head=mods.head, opt_back=mods.opt_back)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
-"""Segmentation task loss (forward): dice + cross-entropy with ignore label.
+"""Segmentation task loss: dice + cross-entropy with ignore label.
 
 Counterpart of ``ess_tpu/train/losses.py::task_loss`` on NCHW logits
-(B, C, H, W) and NHW integer labels; the loss math runs in f32.
+(B, C, H, W) and NHW integer labels; the loss math runs in f32 and is
+differentiable in the logits (the train step's head backward).
 """
 
 from __future__ import annotations

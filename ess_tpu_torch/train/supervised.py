@@ -1,22 +1,68 @@
-"""Supervised ESS eval step: frozen E2VID rollout + segmentation head.
+"""Supervised ESS steps: frozen E2VID rollout + trainable segmentation head.
 
-Counterpart of ``ess_tpu/train/supervised.py::make_eval_step`` on host-folded
-batches: voxelize all windows, roll the recurrent backbone out at the
-validation geometry, run the head on the final latent, resize logits to the
-label size if they differ, then the task loss, argmax and confusion matrix.
+Counterparts of ``ess_tpu/train/supervised.py::make_train_step`` and
+``make_eval_step`` on host-folded batches.
+
+- Train: voxelize all windows once (with the flip augmentation), roll the
+  frozen backbone out under ``torch.no_grad`` on the train rollout's
+  ConvLSTM cell with no decoder (the head reads only the latent; XLA drops
+  the unused decoder in the JAX step), then the head forward, the task loss
+  times ``weight_task_loss``, its backward into the head, and one RAdam
+  update.
+- Eval: voxelize, roll out at the validation geometry, run the head on the
+  final latent, resize logits to the label size if they differ, then the
+  task loss, argmax and confusion matrix.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from ess_tpu_torch.data.pipeline import EventPipeline
+from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
 from ess_tpu_torch.train.builder import ESSModules
 from ess_tpu_torch.train.losses import task_loss
 from ess_tpu_torch.train.metrics import confusion_matrix
+from ess_tpu_torch.train.state import TrainState, apply_updates
+
+
+def make_train_step(mods: ESSModules, pipeline: EventPipeline
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
+    updates ``state`` (the head's parameters through ``state.opt_back``,
+    ``state.step``) in place. ``aug`` defaults to draws from a generator
+    seeded by ``cfg.seed`` and ``state.step``."""
+    cfg = mods.cfg
+    recon = mods.recon_train
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             aug: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
+        if aug is None:
+            seed = np.random.SeedSequence((cfg.seed, state.step))
+            gen = torch.Generator().manual_seed(
+                int(seed.generate_state(1)[0]))
+            aug = pipeline.sample_augment(gen, batch["ev_x"].shape[0],
+                                          train=True)
+        with torch.no_grad():
+            windows, labels = pipeline.build_all(batch, aug=aug,
+                                                 out_dtype=recon.model.dtype)
+            _, _, latent = recon.rollout(windows, decode=False)
+        params = [p for p in state.head.parameters() if p.requires_grad]
+        logits = state.head(latent)[1]
+        loss = task_loss(
+            logits, labels, num_classes=cfg.task.semseg_num_classes,
+            ignore_label=cfg.task.semseg_ignore_label,
+            losses=cfg.optim.task_loss) * cfg.optim.weight_task_loss
+        grads = torch.autograd.grad(loss, params)
+        apply_updates(params, grads, state.opt_back)
+        state.step += 1
+        loss = loss.detach()
+        return {"loss": loss, "semseg_sensor_b_loss": loss}
+
+    return step
 
 
 def make_eval_step(mods: ESSModules, pipeline: EventPipeline

@@ -8,7 +8,14 @@ Bounds:
   order;
 - ConvLSTM cell (bf16): h atol 2e-2, c atol 3e-2, the bounds of
   tests/test_conv_lstm_pallas.py: both accumulate bf16 products in f32,
-  in other orders, and round the state to bf16 once.
+  in other orders, and round the state to bf16 once;
+- int8 ConvLSTM cell against the plain int8 cell: the integer accumulators
+  are exact in both and the epilogue rounds each f32 operation as the plain
+  version does, so h' and c' can differ only where the kernel's expf/tanhf
+  and torch's round differently: at most one bf16 ulp (+1e-6);
+- both cells under autograd: the backward is conv_lstm_ref's at the saved
+  inputs, so gradients match conv_lstm_ref's with the same cotangents
+  (atol 1e-2 / rtol 1e-2 in bf16: cuDNN may pick other algorithms).
 """
 
 import numpy as np
@@ -119,3 +126,75 @@ def test_conv_lstm_wrapper_rejects(dev):
     x16, h16, c16, w16, b16 = cell_inputs(dev, 1, 4, 4, 16, 16)
     with pytest.raises(ValueError):
         cl.conv_lstm_cell(x16, h16, c16, w16, b16)
+
+
+def bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at max(|a|, |b|): 2^(e - 8) for values in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 13, 32, 32), (1, 22, 40, 64, 64),
+                                   (1, 5, 7, 64, 32), (1, 9, 11, 256, 256),
+                                   (2, 220, 320, 64, 64),
+                                   (2, 110, 160, 128, 128),
+                                   (2, 55, 80, 256, 256)])
+def test_conv_lstm_int8_kernel_matches_plain(dev, shape):
+    b, h, w, cx, ch = shape
+    x, hp, cp, wgt, bias = cell_inputs(dev, *shape)
+    x = torch.relu(x) * 2
+    wgt = wgt * (0.05 * (9 * (cx + ch)) ** 0.5) ** -1
+    h_ref, c_ref = cl.conv_lstm_int8_ref(x, hp, cp, wgt, bias)
+    hp0 = hp.clone()
+    n0, e0 = cl.launches_int8, cl.launches
+    h_new, c_new = cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8")
+    torch.cuda.synchronize()
+    assert cl.launches_int8 == n0 + 1 and cl.launches == e0
+    assert c_new.data_ptr() == cp.data_ptr()          # c updated in place
+    assert torch.equal(hp, hp0)                       # h_prev untouched
+    for got, want in ((h_new, h_ref), (c_new, c_ref)):
+        d = (got.float() - want.float()).abs()
+        assert (d <= bf16_ulp(got, want) + 1e-6).all(), d.max()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
+def test_kernel_cells_backward(dev, impl):
+    x, hp, cp, wgt, bias = cell_inputs(dev, 1, 12, 14, 32, 64, seed=3)
+    g = torch.Generator().manual_seed(4)
+    ct_h, ct_c = (torch.randn(1, 64, 12, 14, generator=g).to(dev)
+                  for _ in range(2))
+    with torch.no_grad():
+        h_ng, c_ng = cl.conv_lstm_cell(x, hp, cp.clone(), wgt, bias,
+                                       impl=impl)
+
+    def grads(fn):
+        ins = [t.detach().clone(memory_format=torch.preserve_format)
+               .requires_grad_(True) for t in (x, hp, cp, wgt, bias)]
+        c_before = ins[2].detach().clone()
+        hn, cn = fn(*ins)
+        ((hn.float() * ct_h).sum() + (cn.float() * ct_c).sum()).backward()
+        assert torch.equal(ins[2].detach(), c_before)   # c_prev intact
+        return (hn, cn), [t.grad for t in ins]
+
+    n0 = cl.launches + cl.launches_int8
+    (hn, cn), g_k = grads(lambda *a: cl.conv_lstm_cell(*a, impl=impl))
+    assert cl.launches + cl.launches_int8 == n0 + 1
+    assert torch.equal(hn, h_ng) and torch.equal(cn, c_ng)
+    _, g_r = grads(cl.conv_lstm_ref)
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+def test_conv_lstm_int8_wrapper_rejects(dev):
+    x, hp, cp, wgt, bias = cell_inputs(dev, 1, 4, 4, 32, 32)
+    for args in ((x.float(), hp, cp), (x.contiguous(), hp.contiguous(), cp),
+                 (x, hp, hp)):
+        with pytest.raises(ValueError):
+            cl.conv_lstm_cell(*args, wgt, bias, impl="pallas_int8")
+    x16, h16, c16, w16, b16 = cell_inputs(dev, 1, 4, 4, 16, 16)
+    with pytest.raises(ValueError):
+        cl.conv_lstm_cell(x16, h16, c16, w16, b16, impl="pallas_int8")
+    with pytest.raises(ValueError):
+        cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8",
+                          prepared=cl.prepare_gate_weights(wgt))
