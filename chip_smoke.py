@@ -1,5 +1,5 @@
-"""Drive the PyTorch + CUDA port's DSEC eval and train paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's DSEC eval, train and streaming-eval paths
+once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -11,10 +11,13 @@ exits non-zero, with no result line):
 2. build: compile the CUDA kernels of ``ess_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel) and the host binning library from the
    checkout's sources;
-3. kernels: each kernel (B1 voxelizer, B2 exact ConvLSTM cell, B2-int8
-   ConvLSTM cell) against its plain PyTorch version on the card at the DSEC
-   shapes of the eval and train paths, with kernel and plain times (CUDA
-   events);
+3. kernels: each kernel (B1 fold-free voxelizer, B2 exact ConvLSTM cell,
+   B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer) against its plain PyTorch
+   version on the card at the DSEC shapes of the paths, with kernel and
+   plain times (CUDA events) and the kernel's bound on this card (the larger
+   of bytes over memory rate and operations over peak rate); B1 also at a
+   128-wide sensor (one x-slot), B3 also with device-side binning, at 10
+   bins with integer coordinates, and on border and tile-edge events;
 4. eval slice: the supervised eval step at full width (E2VID base 32,
    480x640 sensor cropped to 440x640, T=20 windows of 100k events, 5 bins,
    11 classes, bf16, seeded weights, synthetic events) -- checks on its
@@ -26,7 +29,14 @@ exits non-zero, with no result line):
    a finite loss, an updated head and an untouched E2VID over 3 steps at
    B=2, agreement of the first step with the plain versions, and train-step
    throughput at B=8 with int8 kernels, with exact-bf16 kernels and with
-   plain versions, and its peak device memory.
+   plain versions, and its peak device memory;
+6. streaming slice: the streaming eval steps at the same width, at B=1 and
+   at B=8 streams: 40 carried-state windows with a state reset at window 0
+   and, for half of the streams, at window 20, a scored window every 20th,
+   on the tile wire (host tile offsets), the raw wire (no offsets) and the
+   band wire -- launch counts per wire, agreement of the confusion matrix
+   and the final latent with the plain versions and between the wires, and
+   windows/s, ms per window and the profiler's device idle share.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -39,6 +49,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,8 +63,10 @@ from ess_tpu_torch.bench import (  # noqa: E402
 from ess_tpu_torch.data import native  # noqa: E402
 from ess_tpu_torch.data.pipeline import AugmentParams  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
-from ess_tpu_torch.ops import batch_voxel, conv_lstm, voxel_folded  # noqa: E402
-from ess_tpu_torch.ops.voxel import masked_time_norm, normalize_from_stats  # noqa: E402
+from ess_tpu_torch.ops import (  # noqa: E402
+    batch_voxel, conv_lstm, voxel_folded, voxel_tiled)
+from ess_tpu_torch.ops.voxel import (  # noqa: E402
+    masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
 
@@ -86,6 +99,33 @@ JAX_INT8_DH_MAX, JAX_INT8_DH_MEAN, JAX_INT8_DC_MAX = 0.05, 6e-3, 0.08
 # Train slice, int8-kernel path vs plain path on the first step.
 TRAIN_LATENT_REL = 0.05    # latent8 relative max |d|
 TRAIN_LOSS_REL = 0.02      # loss relative difference
+# Streaming slice: kernel path vs plain path and wire vs wire, per batch
+# size, on the final latent and on the last scored window's argmax, under
+# the eval slice's bounds (SLICE_*): 40 carried windows reorder as many sums
+# as the eval step's 20.
+STREAM_WINDOWS = 40
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of ``nbytes``
+    over the memory rate and ``ops`` over the peak rate of ``kind``, and
+    which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def voxel_bound(live_events: int, n_offsets: int, out_floats: int):
+    """Bound of a voxelizer call: 16 B per event read (x, y, ts, pol), the
+    offsets, the outputs written once; 8 corners x 4 f32 operations (three
+    multiplies and an add) per event."""
+    return bound(16.0 * live_events + 4.0 * n_offsets + 4.0 * out_floats,
+                 32.0 * live_events, "f32")
 
 
 def log(msg: str) -> None:
@@ -116,24 +156,39 @@ def plain_cell(x, h, c, w, b, *, impl="pallas", prepared=None):
 def plain_versions():
     """Route the eval and train paths through the kernels' plain PyTorch
     versions (on the same device tensors) for the comparison runs."""
-    saved = (batch_voxel.voxelize_folded, layers.conv_lstm_cell)
+    saved = (batch_voxel.voxelize_folded, batch_voxel.voxelize_tiled,
+             layers.conv_lstm_cell)
     batch_voxel.voxelize_folded = voxel_folded.voxelize_folded_ref
+    batch_voxel.voxelize_tiled = voxel_tiled.voxelize_tiled_ref
     layers.conv_lstm_cell = plain_cell
     try:
         yield
     finally:
-        batch_voxel.voxelize_folded, layers.conv_lstm_cell = saved
+        (batch_voxel.voxelize_folded, batch_voxel.voxelize_tiled,
+         layers.conv_lstm_cell) = saved
 
 
 def reset_counts() -> None:
     voxel_folded.launches = 0
     conv_lstm.launches = 0
     conv_lstm.launches_int8 = 0
+    voxel_tiled.launches = 0
 
 
 def read_counts() -> tuple:
+    """Launches of (B1, B2, B2-int8, B3) since :func:`reset_counts`."""
     torch.cuda.synchronize()
-    return voxel_folded.launches, conv_lstm.launches, conv_lstm.launches_int8
+    return (voxel_folded.launches, conv_lstm.launches,
+            conv_lstm.launches_int8, voxel_tiled.launches)
+
+
+def add_launches(kern_rows, path: str, counts) -> None:
+    """Book one path's launch counts on the kernel rows (B1, B2, B2-int8,
+    B3 order)."""
+    for row, n in zip(kern_rows, counts):
+        by_path = row.setdefault("launches_by_path", {})
+        by_path[path] = by_path.get(path, 0) + n
+        row["launches"] = sum(by_path.values())
 
 
 def bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -198,18 +253,180 @@ def check_voxelizer(dev):
                                                       **kw), 20)
     plain_ms = cuda_ms(lambda: voxel_folded.voxelize_folded_ref(
         x, y, ts, pol, offs, **kw), 5)
+    bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
+                                     grid_k.numel() + stats_k.numel())
     log(f"B1 time for {n_win} windows: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
+        f"bound {100.0 * bound_ms / ms:.1f}%")
+    err = max(err, check_voxelizer_one_slot(dev))
     return {"name": "voxel_folded", "route": "cuda",
             "source": "ess_tpu_torch/csrc/voxel_folded.cu",
             "replaces": "ess_tpu/ops/voxel_pallas.py:334",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def edge_events(rng, n_win: int, n: int, h: int, w: int, th: int):
+    """(n_win, n, 4) raw windows with, on each axis, 3 events in 16 in the
+    (-1, 0) border zone, just below a tile-row or tile-column boundary or on
+    the last row or column (more would pile thousands of events on a few
+    cells, where f32 sums differ by more than the bound), plus validity
+    (the last tenth is padding)."""
+    raw = np.zeros((n_win, n, 4), np.float32)
+    frac = rng.uniform(0.02, 0.98, (2, n_win, n)).astype(np.float32)
+    kind = rng.integers(0, 16, (2, n_win, n))
+    for axis, (dim, step) in enumerate(((w, 128), (h, th))):
+        edge = rng.integers(1, dim // step + 1, (n_win, n)) * step - 1
+        raw[..., axis] = np.select(
+            [kind[axis] == 0, kind[axis] == 1, kind[axis] == 2],
+            [-frac[axis], np.minimum(edge + frac[axis], dim - 0.01),
+             dim - 1 + frac[axis] * 0.99],
+            rng.uniform(0, dim - 1, (n_win, n)))
+    raw[..., 2] = np.sort(rng.uniform(0, 5e4, (n_win, n)), axis=-1)
+    raw[..., 3] = rng.integers(0, 2, (n_win, n))
+    valid = np.ones((n_win, n), bool)
+    valid[:, n - n // 10:] = False
+    return raw, valid
+
+
+def check_voxelizer_one_slot(dev) -> float:
+    """B1 at a 128-wide sensor: one x-slot per band, the case the TPU
+    package serves with its halo kernel body in pre-folded mode."""
+    h, w, n_win, n = 120, 128, 8, 20000
+    rng = np.random.default_rng(6)
+    raw, valid = edge_events(rng, n_win, n, h, w,
+                             voxel_folded.tile_h_for_bins(BINS))
+    r, v, o = voxel_folded.host_band_bin_folded(raw, valid, height=h,
+                                                width=w, bins=BINS)
+    if o.shape[1] != h // voxel_folded.tile_h_for_bins(BINS) + 1:
+        raise AssertionError("expected one x-slot per band, offsets "
+                             f"{o.shape}")
+    cols = [torch.from_numpy(np.ascontiguousarray(r[..., i])).to(dev)
+            for i in range(4)] + [torch.from_numpy(v).to(dev)]
+    offs = torch.from_numpy(o).to(dev)
+    kw = dict(num_bins=BINS, height=h, width=w, normalize=True)
+    got = batch_voxel.voxelize_band(*cols, offs, **kw)
+    with plain_versions():
+        want = batch_voxel.voxelize_band(*cols, offs, **kw)
+    err = (got - want).abs().max().item()
+    log(f"B1 at a {h}x{w} sensor (one x-slot, {n_win} windows x {n} border "
+        f"and edge events): normalized grid max|d| {err:.3e} (bound "
+        f"{VOXEL_ATOL})")
+    if not err <= VOXEL_ATOL:
+        raise AssertionError(f"B1 (one slot) disagrees with its plain "
+                             f"version: {err}")
+    return err
+
+
+def check_voxel_tiled(dev):
+    """B3 against its plain version at the DSEC shape with host offsets and
+    with device-side binning, at 10 bins / tile height 10 with integer
+    coordinates, and on border and tile-edge events."""
+    n_win = 8
+    rng = np.random.default_rng(8)
+    raw, valid = make_raw(rng, n_win, 1)
+    raw, valid = raw[:, 0], valid[:, 0]
+    valid[:, EVENTS - EVENTS // 50:] = False             # some padding
+    th = voxel_tiled.tile_h_for_bins(BINS)
+    kw = dict(bins=BINS, height=-(-SENSOR_H // th) * th, width=SENSOR_W)
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def kernel_inputs(raw_, valid_):
+        x, y, t, p = (to_dev(raw_[..., i]) for i in range(4))
+        vd = to_dev(valid_)
+        ok = vd & (x > -1) & (x < SENSOR_W) & (y > -1) & (y < SENSOR_H)
+        ts = masked_time_norm(t, vd, BINS).contiguous()
+        pol = torch.where(ok, torch.where(p > 0, 1.0, -1.0), 0.0)
+        return x, y, ts, pol.contiguous(), ok
+
+    def compare(what, args):
+        got = voxel_tiled.voxelize_tiled(*args, **kw)
+        want = voxel_tiled.voxelize_tiled_ref(*args, **kw)
+        torch.cuda.synchronize()
+        e_raw = (got - want).abs().max().item()
+        e = (normalize_nonzero(got) - normalize_nonzero(want)).abs().max() \
+            .item()
+        log(f"B3 voxel_tiled, {what}: max|d| raw grid {e_raw:.3e}, "
+            f"normalized grid {e:.3e} (bound {VOXEL_ATOL})")
+        if not e <= VOXEL_ATOL:
+            raise AssertionError(f"B3 ({what}) disagrees with its plain "
+                                 f"version: {e}")
+        return got, e
+
+    # host offsets
+    r, v, o = voxel_tiled.host_tile_bin(raw, valid, height=SENSOR_H,
+                                        width=SENSOR_W, bins=BINS)
+    x, y, ts, pol, _ = kernel_inputs(r, v)
+    host_args = (x, y, ts, pol, to_dev(o))
+    grid_host, err = compare(f"{n_win} windows x {EVENTS} events, host "
+                             "offsets", host_args)
+    # device-side binning of the unsorted events
+    x, y, ts, pol, ok = kernel_inputs(raw, valid)
+    dev_args = voxel_tiled.bin_events_device(x, y, ts, pol, ok, **kw)
+    if not torch.equal(dev_args[4], host_args[4]):
+        raise AssertionError("bin_events_device and host_tile_bin disagree "
+                             "on the tile offsets")
+    grid_dev, e = compare("the same events through bin_events_device",
+                          dev_args)
+    err = max(err, e)
+    e = (normalize_nonzero(grid_dev) - normalize_nonzero(grid_host)).abs() \
+        .max().item()
+    log(f"B3 host binning vs device binning: normalized grid max|d| {e:.3e}")
+    if not e <= VOXEL_ATOL:
+        raise AssertionError(f"B3 host and device binning disagree: {e}")
+
+    def through_voxelize_tile(what, raw_, valid_, **opts):
+        """The wrapper above the kernel (voxelize_tile), kernel vs plain."""
+        cols = [to_dev(raw_[..., i]) for i in range(4)] + [to_dev(valid_)]
+        okw = dict(num_bins=BINS, height=SENSOR_H, width=SENSOR_W,
+                   normalize=True, **opts)
+        n0 = voxel_tiled.launches
+        got = batch_voxel.voxelize_tile(*cols, **okw)
+        if voxel_tiled.launches != n0 + 1:
+            raise AssertionError("voxelize_tile did not launch B3")
+        with plain_versions():
+            want = batch_voxel.voxelize_tile(*cols, **okw)
+        e = (got - want).abs().max().item()
+        log(f"B3 through voxelize_tile, {what}: grid {tuple(got.shape)}, "
+            f"normalized max|d| {e:.3e} (bound {VOXEL_ATOL})")
+        if not e <= VOXEL_ATOL:
+            raise AssertionError(f"B3 ({what}) disagrees with its plain "
+                                 f"version: {e}")
+        return e
+
+    err = max(err, through_voxelize_tile(
+        "10 bins / tile height 10, integer coordinates (separate_pol)",
+        np.concatenate([np.floor(raw[..., :2]), raw[..., 2:]], -1), valid,
+        separate_pol=True, trilinear=False))
+    edge_raw, edge_valid = edge_events(rng, n_win, EVENTS, SENSOR_H,
+                                       SENSOR_W, th)
+    err = max(err, through_voxelize_tile(
+        "events in (-1, 0), on tile edges and on the last row and column",
+        edge_raw, edge_valid, trilinear=True))
+
+    ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled(*host_args, **kw), 20)
+    plain_ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled_ref(*host_args,
+                                                              **kw), 5)
+    sort_ms = cuda_ms(lambda: voxel_tiled.bin_events_device(
+        x, y, ts, pol, ok, **kw), 10)
+    bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
+                                     grid_host.numel())
+    log(f"B3 time for {n_win} windows: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
+        f"bound {100.0 * bound_ms / ms:.1f}%; bin_events_device (torch.sort "
+        f"+ searchsorted, outside the kernel) {sort_ms:.3f} ms")
+    return {"name": "voxel_tiled", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/voxel_tiled.cu",
+            "replaces": "ess_tpu/ops/voxel_pallas.py:205",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def check_conv_lstm(dev):
     g = torch.Generator().manual_seed(2)
     cl = torch.channels_last
-    err_h = err_c = ms = plain_ms = 0.0
+    err_h = err_c = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
     for b, ch, hh, ww in CELL_SHAPES:
         mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
         x = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(
@@ -233,25 +450,36 @@ def check_conv_lstm(dev):
         t_p = cuda_ms(lambda: conv_lstm.conv_lstm_ref(x, h, c, w, bias), 5)
         ms, plain_ms = ms + t_k, plain_ms + t_p
         flop = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
+        # x, h, c read and h', c' written in bf16; f32 weights and bias
+        t_b, by = bound(2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel()),
+                        flop, "bf16")
+        bound_ms += t_b
+        bound_by.add(by)
         log(f"B2 conv_lstm B={b} C={ch} {hh}x{ww}: max|dh| {eh:.3e} "
             f"(bound {LSTM_H_ATOL}), max|dc| {ec:.3e} (bound {LSTM_C_ATOL}); "
             f"kernel {t_k:.3f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
-            f"{t_p:.3f} ms")
+            f"{t_p:.3f} ms, bound {t_b:.4f} ms ({by})")
         if not (eh <= LSTM_H_ATOL and ec <= LSTM_C_ATOL):
             raise AssertionError(f"B2 disagrees with its plain version: "
                                  f"dh {eh}, dc {ec}")
     log(f"B2 time for the three encoder cells (one window, B=2): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
     return {"name": "conv_lstm", "route": "cuda",
             "source": "ess_tpu_torch/csrc/conv_lstm.cu",
             "replaces": "ess_tpu/ops/conv_lstm_pallas.py:132",
-            "max_abs_err": max(err_h, err_c), "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max(err_h, err_c), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": None}
 
 
 def check_conv_lstm_int8(dev):
     g = torch.Generator().manual_seed(5)
     cl = torch.channels_last
-    err = ms = plain_ms = 0.0
+    err = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
     for b, ch, hh, ww in CELL_SHAPES:
         mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
         x = (torch.relu(mk(b, ch, hh, ww)) * 2).to(dev, torch.bfloat16) \
@@ -283,6 +511,10 @@ def check_conv_lstm_int8(dev):
                       3)
         ms, plain_ms = ms + t_k, plain_ms + t_p
         ops = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
+        t_b, by = bound(2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel()),
+                        ops, "int8")
+        bound_ms += t_b
+        bound_by.add(by)
         log(f"B2-int8 conv_lstm_int8 B={b} C={ch} {hh}x{ww}: vs plain int8 "
             f"max|d| {e:.3e}, {unequal} of {2 * h_k.numel()} values not "
             f"bit-identical, {bad} beyond one bf16 ulp (bound 0); "
@@ -291,16 +523,21 @@ def check_conv_lstm_int8(dev):
             f"bounds on its test cell: {JAX_INT8_DH_MAX}, {JAX_INT8_DH_MEAN}, "
             f"{JAX_INT8_DC_MAX}); kernel {t_k:.3f} ms "
             f"({ops / t_k / 1e9:.1f} TOP/s, quantization prep included), "
-            f"plain {t_p:.3f} ms")
+            f"plain {t_p:.3f} ms, bound {t_b:.4f} ms ({by})")
         if bad:
             raise AssertionError(f"B2-int8 disagrees with its plain version "
                                  f"at {bad} values (max |d| {e})")
     log(f"B2-int8 time for the three encoder cells (one window, B=2): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
     return {"name": "conv_lstm_int8", "route": "cuda",
             "source": "ess_tpu_torch/csrc/conv_lstm_int8.cu",
             "replaces": "ess_tpu/ops/conv_lstm_pallas.py:137",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": None}
 
 
 def phase_slice(dev, kern_rows):
@@ -315,17 +552,16 @@ def phase_slice(dev, kern_rows):
     steps = 3
     reset_counts()
     outs = [step(batch) for _ in range(steps)]
-    n_b1, n_b2, n_i8 = read_counts()
+    n_b1, n_b2, n_i8, n_b3 = read_counts()
     log(f"eval slice B=2 T={WINDOWS} {SENSOR_H}x{SENSOR_W} -> "
         f"{SENSOR_H - CROP}x{SENSOR_W}, "
         f"{EVENTS} events/window, {CLASSES} classes: {steps} eval steps, "
-        f"launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}")
-    if n_b1 != steps or n_b2 != steps * 3 * WINDOWS or n_i8:
+        f"launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}, B3 {n_b3}")
+    if n_b1 != steps or n_b2 != steps * 3 * WINDOWS or n_i8 or n_b3:
         raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
                              f"B2 {n_b2} (want {steps * 3 * WINDOWS}), "
-                             f"B2-int8 {n_i8} (want 0)")
-    for row, n in zip(kern_rows, (n_b1, n_b2, n_i8)):
-        row["launches_by_path"] = {"eval": n}
+                             f"B2-int8 {n_i8} (want 0), B3 {n_b3} (want 0)")
+    add_launches(kern_rows, "eval", (n_b1, n_b2, n_i8, n_b3))
     out = outs[-1]
     loss = float(out["loss"])
     cm_sum = float(out["cm"].sum())
@@ -406,18 +642,16 @@ def phase_train(dev, kern_rows):
 
     reset_counts()
     losses = [step(state, batch)["loss"] for _ in range(steps)]
-    n_b1, n_b2, n_i8 = read_counts()
+    n_b1, n_b2, n_i8, n_b3 = read_counts()
     losses = [float(v) for v in losses]
     log(f"train slice B={b} T={WINDOWS}, {steps} train steps (train rollout "
         f"on the int8 cell): launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}; "
         f"losses {[round(v, 6) for v in losses]}")
-    if n_b1 != steps or n_i8 != steps * 3 * WINDOWS or n_b2:
+    if n_b1 != steps or n_i8 != steps * 3 * WINDOWS or n_b2 or n_b3:
         raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
                              f"B2-int8 {n_i8} (want {steps * 3 * WINDOWS}), "
-                             f"B2 {n_b2} (want 0)")
-    for row, n in zip(kern_rows, (n_b1, n_b2, n_i8)):
-        row["launches_by_path"]["train"] = n
-        row["launches"] = sum(row["launches_by_path"].values())
+                             f"B2 {n_b2} (want 0), B3 {n_b3} (want 0)")
+    add_launches(kern_rows, "train", (n_b1, n_b2, n_i8, n_b3))
     changed = sum(not torch.equal(v, head0[k])
                   for k, v in mods.head.state_dict().items())
     frozen = all(torch.equal(v, e2vid0[k])
@@ -492,13 +726,130 @@ def phase_train(dev, kern_rows):
         f"{peak:.2f} GiB")
 
 
+def phase_stream(dev, kern_rows):
+    label_px = (SENSOR_H - CROP) * SENSOR_W
+    scored = STREAM_WINDOWS // bench.WINDOWS_PER_SCORE
+    for b in (1, 8):
+        mods, steps = bench.build_stream(b, dev)
+        logits = [None]     # the head's logits of the last scored window
+
+        def keep_logits(mod, args, out):
+            logits[0] = out[1].float()
+
+        hook = mods.head.register_forward_hook(keep_logits)
+        finals = {}
+        for wire in ("tile", "raw", "band"):
+            windows = bench.make_stream(
+                7, b, dev, wire, windows=STREAM_WINDOWS,
+                resets=((0, 1.0), (STREAM_WINDOWS // 2, 0.5)))
+            reset_counts()
+            state, cm = bench.run_stream(
+                steps, mods.recon_val.init_state(b, dev), windows)
+            counts = read_counts()
+            want = ((STREAM_WINDOWS, 3 * STREAM_WINDOWS, 0, 0)
+                    if wire == "band"
+                    else (0, 3 * STREAM_WINDOWS, 0, STREAM_WINDOWS))
+            log(f"stream slice B={b}, {wire} wire, {STREAM_WINDOWS} windows "
+                f"({scored} scored): launches B1 {counts[0]}, B2 {counts[1]}, "
+                f"B2-int8 {counts[2]}, B3 {counts[3]}")
+            if counts != want:
+                raise AssertionError(f"launch counts (B1, B2, B2-int8, B3) "
+                                     f"{counts}, want {want}")
+            add_launches(kern_rows, "stream", counts)
+            latent = state[-1][0].float()
+            pred = logits[0].argmax(dim=1)
+            cm_sum = float(cm.sum())
+            if (cm_sum != scored * b * label_px
+                    or tuple(latent.shape) != (b, 256, 55, 80)
+                    or not torch.isfinite(latent).all()):
+                raise AssertionError(f"bad stream output: cm.sum {cm_sum}, "
+                                     f"latent {tuple(latent.shape)}")
+            with plain_versions():
+                state_p, cm_p = bench.run_stream(
+                    steps, mods.recon_val.init_state(b, dev), windows)
+            if read_counts() != want:
+                raise AssertionError("the plain path launched a kernel")
+            top2 = logits[0].topk(2, dim=1).values
+            clear = top2[:, 0] - top2[:, 1] > SLICE_GAP
+            same = pred == logits[0].argmax(dim=1)
+            latent_p = state_p[-1][0].float()
+            rel = ((latent - latent_p).abs().max()
+                   / latent_p.abs().max()).item()
+            agree = 100.0 * same.float().mean().item()
+            agree_clear = 100.0 * same[clear].float().mean().item()
+            cm_moved = 100.0 * float((cm - cm_p).abs().sum()) / (2 * cm_sum)
+            log(f"  kernel path vs plain path: final latent rel max|d| "
+                f"{rel:.3e} (bound {SLICE_LATENT_REL}); last scored window "
+                f"pred agreement {agree:.3f}% (bound >= {SLICE_PRED_AGREE}%),"
+                f" {agree_clear:.3f}% where the top-2 gap exceeds {SLICE_GAP}"
+                f" (bound >= {SLICE_PRED_AGREE_CLEAR}%); confusion matrix "
+                f"{cm_moved:.3f}% of the pixels moved (bound <= "
+                f"{100.0 - SLICE_PRED_AGREE}%)")
+            if not (rel <= SLICE_LATENT_REL and agree >= SLICE_PRED_AGREE
+                    and agree_clear >= SLICE_PRED_AGREE_CLEAR
+                    and cm_moved <= 100.0 - SLICE_PRED_AGREE):
+                raise AssertionError(f"stream kernel path ({wire}) disagrees "
+                                     "with the plain path")
+            finals[wire] = (latent, pred, cm)
+            if wire == "tile":
+                timed = windows[:bench.WINDOWS_PER_SCORE]
+        for wire in ("raw", "band"):
+            lat0, pred0, cm0 = finals["tile"]
+            lat, pred, cm = finals[wire]
+            rel = ((lat - lat0).abs().max() / lat0.abs().max()).item()
+            agree = 100.0 * (pred == pred0).float().mean().item()
+            cm_moved = 100.0 * float((cm - cm0).abs().sum()) / (
+                2 * float(cm0.sum()))
+            log(f"stream slice B={b}, {wire} wire vs tile wire: final latent "
+                f"rel max|d| {rel:.3e} (bound {SLICE_LATENT_REL}), pred "
+                f"agreement {agree:.3f}% (bound >= {SLICE_PRED_AGREE}%), "
+                f"confusion matrix {cm_moved:.3f}% moved")
+            if not (rel <= SLICE_LATENT_REL and agree >= SLICE_PRED_AGREE):
+                raise AssertionError(f"the {wire} wire disagrees with the "
+                                     "tile wire")
+        hook.remove()
+        del finals, windows, state, state_p
+
+        rounds = 5 if b == 1 else 3
+        rates = {"plain": [], "kernel": []}
+        for plain in (True, False, False, True):
+            with plain_versions() if plain else contextlib.nullcontext():
+                rates["plain" if plain else "kernel"].append(
+                    bench.stream_windows_per_sec(mods, steps, timed, rounds))
+        for name, r in rates.items():
+            med = statistics.median(r)
+            log(f"streaming eval B={b}, tile wire, 19 encode + 1 score per 20 "
+                f"windows ({name} versions): {med:.2f} windows/s, "
+                f"{1e3 * b / med:.3f} ms per window (runs "
+                f"{[round(v, 1) for v in r]})")
+        state = [mods.recon_val.init_state(b, dev)]
+
+        def twenty_windows():
+            state[0], cm_ = bench.run_stream(steps, state[0], timed)
+            float(cm_.sum())
+
+        with tempfile.TemporaryDirectory() as tmp:
+            prof = bench.profile_call(twenty_windows, tmp, f"stream_b{b}",
+                                      top=8)
+        log(f"streaming eval B={b} profile over 20 windows: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+            f"over a {prof['span_ms']:.1f} ms span, device idle share "
+            f"{100.0 * prof['idle_share']:.1f}%")
+        for k in prof["top"]:
+            log(f"  {k['ms']:.2f} ms {100.0 * k['share']:.1f}% x{k['calls']} "
+                f"{k['name'][:90]}")
+        del mods, steps, timed, state
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
     rows = [check_voxelizer(dev), check_conv_lstm(dev),
-            check_conv_lstm_int8(dev)]
+            check_conv_lstm_int8(dev), check_voxel_tiled(dev)]
     phase_slice(dev, rows)
     phase_train(dev, rows)
+    phase_stream(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Benchmark: event windows per second of the DSEC supervised train step on
-one NVIDIA GPU.
+"""Benchmark: event windows per second of the DSEC supervised train step and
+of DSEC streaming eval on one NVIDIA GPU.
 
 The port's counterpart of the repository's ``bench.py``, at its shape and
 with its synthetic recipe: B=8 x T=20 windows x 100k events, a 480x640
@@ -9,17 +9,24 @@ the frozen E2VID out on the int8 ConvLSTM kernel (``lstm_impl_train=
 'pallas_int8'``), runs the segmentation head forward and backward, the
 dice + CE loss and an RAdam update of the head.
 
+Streaming eval (``bench_extra.py::bench_streaming_eval``'s shape): one
+carried-state window at a time at B=1 and at B=8 streams side by side, 19
+encoder-only windows and one scored window (decoder, head, confusion
+matrix) per 20, on the tile wire: host tile-sorted events through the
+halo-tiled voxelizer (kernel B3) and the exact ConvLSTM kernel (B2).
+
 Run from the repository root::
 
     python -m ess_tpu_torch.bench [--iters N] [--profile DIR]
 
-It prints JSON lines under ``bench.py``'s metric names: the exact-bf16
-companion (``lstm_impl_train=None``, the exact kernel) first, the headline
-last; each names the card and its power limit. ``--profile DIR`` traces one
-headline step with ``torch.profiler`` and prints, between the two, device
-time by kernel and the device's idle share, with the trace in ``DIR``. It
-needs a CUDA device and raises without one; there is no fallback
-configuration.
+It prints JSON lines under ``bench.py``'s and ``bench_extra.py``'s metric
+names: the two streaming readings, the exact-bf16 train companion
+(``lstm_impl_train=None``, the exact kernel), and the train headline last;
+each names the card and its power limit. ``--profile DIR`` traces 20
+streaming windows at each batch size and one headline train step with
+``torch.profiler`` and prints device time by kernel and the device's idle
+share for each, with the traces in ``DIR``. It needs a CUDA device and
+raises without one; there is no fallback configuration.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ from ess_tpu_torch.core.config import (
     Config, DatasetConfig, EventDatasetConfig, ImageDatasetConfig,
     ModelConfig, OptimConfig, TaskConfig)
 from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
-from ess_tpu_torch.ops import voxel_folded
+from ess_tpu_torch.ops import voxel_folded, voxel_tiled
 from ess_tpu_torch.train.builder import build_modules, init_params, init_state
+from ess_tpu_torch.train.streaming import make_streaming_steps
 from ess_tpu_torch.train.supervised import make_train_step
 
 BASELINE_WINDOWS_PER_SEC = 160.0   # bench.py's estimate for the reference
@@ -51,6 +59,8 @@ EVENTS_PER_WINDOW = 100_000
 BINS = 5
 NUM_CLASSES = 11
 METRIC = "dsec_supervised_train_event_windows_per_sec_per_chip"
+STREAM_METRIC = "dsec_streaming_eval{}_windows_per_sec_per_chip"
+WINDOWS_PER_SCORE = 20             # one labeled window in 20
 
 
 def make_cfg(batch: int = BATCH,
@@ -76,19 +86,27 @@ def make_pipeline() -> EventPipeline:
     40 bottom rows cropped; no flip (``bench.py::make_pipeline``)."""
     return EventPipeline(PipelineConfig(
         sensor_height=SENSOR_H, sensor_width=SENSOR_W, num_bins=BINS,
-        normalize=True, crop_bottom=CROP))
+        trilinear=True, normalize=True, crop_bottom=CROP))
 
 
-def make_raw(rng: np.random.Generator, batch: int):
+def make_raw(rng: np.random.Generator, batch: int, windows: int = WINDOWS):
     """Synthetic DSEC windows (``bench.py::make_batch``): uniform rectified
     coordinates, sorted timestamps, random polarity."""
-    shape = (batch, WINDOWS, EVENTS_PER_WINDOW)
+    shape = (batch, windows, EVENTS_PER_WINDOW)
     raw = np.zeros(shape + (4,), np.float32)
     raw[..., 0] = rng.uniform(0, SENSOR_W - 1, shape)
     raw[..., 1] = rng.uniform(0, SENSOR_H - 1, shape)
     raw[..., 2] = np.sort(rng.uniform(0, 5e4, shape), axis=-1)
     raw[..., 3] = rng.integers(0, 2, shape)
     return raw, np.ones(shape, bool)
+
+
+def _stack_padded(arrays) -> np.ndarray:
+    """Stack per-sample (T, cap_i, ...) arrays along a new first axis,
+    zero-padded to the largest capacity."""
+    cap = max(a.shape[1] for a in arrays)
+    return np.stack([np.pad(a, [(0, 0), (0, cap - a.shape[1])]
+                            + [(0, 0)] * (a.ndim - 2)) for a in arrays])
 
 
 def make_batch(seed: int, batch: int, device,
@@ -100,11 +118,7 @@ def make_batch(seed: int, batch: int, device,
     recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
         raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS)
         for i in range(batch)))
-    cap = max(r.shape[1] for r in recs)
-    pad = lambda a: np.pad(a, [(0, 0), (0, cap - a.shape[1])]
-                           + [(0, 0)] * (a.ndim - 2))
-    recs = np.stack([pad(r) for r in recs])
-    vals = np.stack([pad(v) for v in vals])
+    recs, vals = _stack_padded(recs), _stack_padded(vals)
     label = rng.integers(0, NUM_CLASSES, (batch, SENSOR_H - CROP, SENSOR_W))
     if ignore_rows:
         label[:, -ignore_rows:] = 255
@@ -113,6 +127,86 @@ def make_batch(seed: int, batch: int, device,
             "ev_band_offsets": np.stack(offs), "label": label}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}
+
+
+def make_stream(seed: int, batch: int, device, wire: str = "tile",
+                windows: int = WINDOWS_PER_SCORE,
+                resets=((0, 1.0),)) -> list:
+    """``windows`` consecutive window batches of ``batch`` streams on
+    ``device``, one dict per window in the form the streaming steps take:
+    (B, N) event columns, ``is_first`` (each ``(w, share)`` of ``resets``
+    restarts the first ``share`` of the streams at window ``w``), a label on
+    every 20th window, and the wire's offsets: ``'tile'`` host tile-sorted
+    events with ``ev_tile_offsets``, ``'band'`` host-folded records with
+    ``ev_band_offsets``, ``'raw'`` unsorted events with no offsets. The
+    same seed gives the same events on every wire."""
+    rng = np.random.default_rng(seed)
+    resets = dict(resets)
+    raw, valid = make_raw(rng, batch, windows)
+    labels = rng.integers(0, NUM_CLASSES,
+                          (windows, batch, SENSOR_H - CROP, SENSOR_W))
+    key = None
+    if wire != "raw":
+        bin_fn = (voxel_tiled.host_tile_bin if wire == "tile"
+                  else voxel_folded.host_band_bin_folded)
+        recs, vals, offs = zip(*(bin_fn(raw[i], valid[i], height=SENSOR_H,
+                                        width=SENSOR_W, bins=BINS)
+                                 for i in range(batch)))
+        raw, valid = _stack_padded(recs), _stack_padded(vals)
+        offs, key = np.stack(offs), f"ev_{wire}_offsets"
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    out = []
+    for w in range(windows):
+        first = np.arange(batch) < resets.get(w, 0.0) * batch
+        b = {"ev_x": raw[:, w, :, 0], "ev_y": raw[:, w, :, 1],
+             "ev_t": raw[:, w, :, 2], "ev_p": raw[:, w, :, 3],
+             "ev_valid": valid[:, w], "is_first": first}
+        if key:
+            b[key] = offs[:, w]
+        if w % WINDOWS_PER_SCORE == WINDOWS_PER_SCORE - 1:
+            b["label"] = labels[w]
+        out.append({k: to_dev(v) for k, v in b.items()})
+    return out
+
+
+def run_stream(steps, recon_state, windows: list):
+    """Drive ``windows`` through (encode_step, score_step): a window with a
+    label is scored. Returns the final state and the summed confusion
+    matrix, both on the device (no host synchronization)."""
+    encode_step, score_step = steps
+    cm = 0
+    for batch in windows:
+        if "label" in batch:
+            recon_state, cm_w = score_step(recon_state, batch)
+            cm = cm + cm_w
+        else:
+            recon_state = encode_step(recon_state, batch)
+    return recon_state, cm
+
+
+def build_stream(batch: int, device, seed: int = 0):
+    """Seeded modules and the streaming steps at ``batch`` streams."""
+    mods = build_modules(make_cfg(batch, None), device=device)
+    init_params(mods, torch.Generator().manual_seed(seed))
+    return mods, make_streaming_steps(mods, make_pipeline())
+
+
+def stream_windows_per_sec(mods, steps, windows: list, rounds: int) -> float:
+    """Sustained rate over ``rounds`` passes through ``windows`` after one
+    warm-up pass: the windows are enqueued back to back with the state
+    carried, and the host waits once, on the last confusion matrix."""
+    n_streams = windows[0]["ev_x"].shape[0]
+    state = mods.recon_val.init_state(n_streams, windows[0]["ev_x"].device)
+    state, cm = run_stream(steps, state, windows)
+    float(cm.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state, cm = run_stream(steps, state, windows)
+    float(cm.sum())
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (rounds * len(windows))
+    return n_streams / dt
 
 
 def build_train(cfg: Config, device, seed: int = 0):
@@ -147,25 +241,26 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def profile_step(step: Callable, state, batch: Dict[str, torch.Tensor],
-                 out_dir: str, top: int = 14) -> dict:
-    """Trace one step (after two warm-up steps) with ``torch.profiler``;
-    returns wall time, device busy time (the union of kernel, copy and set
-    intervals), their span, the idle share of the span and the top kernels
-    by device time. The Chrome trace goes to ``out_dir``."""
+def profile_call(fn: Callable[[], object], out_dir: str, name: str,
+                 top: int = 14) -> dict:
+    """Trace one call of ``fn`` (after two warm-up calls) with
+    ``torch.profiler``; returns wall time, device busy time (the union of
+    kernel, copy and set intervals), their span, the idle share of the span
+    and the top kernels by device time. The Chrome trace goes to
+    ``out_dir/<name>_trace.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        step(state, batch)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(step(state, batch)["loss"])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "train_step_trace.json")
+    path = os.path.join(out_dir, f"{name}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -209,6 +304,26 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = card()
+    for b in (1, BATCH):
+        mods, steps = build_stream(b, dev)
+        windows = make_stream(0, b, dev)
+        wps = stream_windows_per_sec(mods, steps, windows, args.iters)
+        print(json.dumps({
+            "metric": STREAM_METRIC.format("" if b == 1 else f"_b{b}"),
+            "value": round(wps, 2), "unit": "windows/s",
+            "ms_per_window": round(1e3 * b / wps, 3), "device": name}),
+            flush=True)
+        if args.profile:
+            state = [mods.recon_val.init_state(b, dev)]
+
+            def twenty_windows():
+                state[0], cm = run_stream(steps, state[0], windows)
+                float(cm.sum())
+
+            print(json.dumps({"profile": profile_call(
+                twenty_windows, args.profile, f"stream_b{b}"),
+                "windows": len(windows), "device": name}), flush=True)
+        del mods, steps, windows
     batch = make_batch(0, BATCH, dev)
     lines = []
     for impl, metric in ((None, METRIC + "_exact_bf16"),
@@ -222,9 +337,9 @@ def main(argv=None) -> None:
         del mods
     print(json.dumps(lines[0]), flush=True)
     if args.profile:
-        print(json.dumps({"profile": profile_step(step, state, batch,
-                                                  args.profile),
-                          "device": name}), flush=True)
+        print(json.dumps({"profile": profile_call(
+            lambda: float(step(state, batch)["loss"]), args.profile,
+            "train_step"), "device": name}), flush=True)
     print(json.dumps(lines[1]), flush=True)
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 The port's own binding: it builds the shared library with ``g++`` into
 ``build/ess_tpu_torch/`` at the repository root (never next to the source,
 where the JAX package keeps its copy), keyed by a hash of the source, and
-raises if the build fails. Only the ghost-folded band binning that the DSEC
-eval path uses is bound here.
+raises if the build fails. Bound here: the ghost-folded band binning of the
+fold-free voxelizer and the tile binning of the halo-tiled one.
 """
 
 from __future__ import annotations
@@ -57,6 +57,10 @@ def _build() -> ctypes.CDLL:
         f32p, u8p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
         ctypes.c_int, c_i64, c_i64, f32p, u8p, i32p, i64p, f32p, i32p]
     cdll.band_bin_folded_f32.restype = c_i64
+    cdll.tile_bin_f32.argtypes = [
+        f32p, u8p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
+        f32p, u8p, i32p, i64p, i32p]
+    cdll.tile_bin_f32.restype = None
     return cdll
 
 
@@ -118,3 +122,32 @@ def band_bin_folded(
         if needed <= cap2:
             return out, out_valid.astype(bool), offsets
         cap2 = quantize_folded_capacity(int(needed), n)
+
+
+def tile_bin(
+    raw_windows: np.ndarray, valid: np.ndarray, *, height: int, width: int,
+    tile_h: int, tile_w: int = 128,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Counting sort of (T, N, 4) raw windows by spatial tile id.
+
+    Returns (sorted (T, N, 4) f32, valid (T, N) bool, offsets
+    (T, n_tiles + 1) i32) on the grid padded to whole ``tile_h x tile_w``
+    tiles; events outside the frame or invalid are dropped, the tail is
+    zero.
+    """
+    lib = get_lib()
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    ntx = wp // tile_w
+    n_tiles = (hp // tile_h) * ntx
+    t_dim, n = raw_windows.shape[:2]
+    ev = np.ascontiguousarray(raw_windows, np.float32)
+    vd = np.ascontiguousarray(valid, np.uint8)
+    out = np.empty_like(ev)
+    out_valid = np.empty((t_dim, n), np.uint8)
+    offsets = np.empty((t_dim, n_tiles + 1), np.int32)
+    counts = np.empty(n_tiles, np.int64)
+    tid_scratch = np.empty(n, np.int32)
+    lib.tile_bin_f32(ev, vd, t_dim, n, height, width, tile_h, tile_w, ntx,
+                     n_tiles, out, out_valid, offsets, counts, tid_scratch)
+    return out, out_valid.astype(bool), offsets

@@ -1,26 +1,32 @@
 """Event-sample pipeline: voxelize, normalize, crop, flip.
 
-Counterpart of ``ess_tpu/data/pipeline.py`` (``PipelineConfig``,
-``AugmentParams``, ``EventPipeline.sample_augment``,
-``apply_label_transform`` and ``build_all`` with the horizontal flip): all
-B*T windows of a host-folded batch voxelize in one launch, window-major.
-DSEC drops the 40 bottom sensor rows (480 -> 440) after the per-window
-normalization, which covers the full sensor grid; a flipped sample has its
-windows and its label mirrored together. The random crop (DDD17 UDA) is not
-ported yet.
+Counterpart of ``ess_tpu/data/pipeline.py`` (``PipelineConfig``, ``to_soa``,
+``AugmentParams``, ``EventPipeline.sample_augment``, ``_transform_grid``,
+``make_window_fn``, ``apply_label_transform`` and ``build_all``) on the f32
+event wires: host-folded band batches (``ev_band_offsets``), host
+tile-sorted batches (``ev_tile_offsets``) and raw batches with no offsets,
+which are tile-sorted on the device. ``build_all`` voxelizes all B*T windows
+of a batch in one launch, window-major; ``make_window_fn`` voxelizes one
+window at a time for the streaming steps. DSEC drops the 40 bottom sensor
+rows (480 -> 440) after the per-window normalization, which covers the full
+sensor grid; a cropped or flipped sample has its windows and its label
+transformed together. The resize and the packed u16 wire are not ported
+yet.
 
-Flip draws come from an explicit ``torch.Generator``; they cannot reproduce
-JAX's PRNG bits, so parity tests pass :class:`AugmentParams` explicitly.
+Augmentation draws come from an explicit ``torch.Generator``; they cannot
+reproduce JAX's PRNG bits, so parity tests pass :class:`AugmentParams`
+explicitly.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ess_tpu_torch.ops.batch_voxel import voxelize_band
+from ess_tpu_torch.ops.batch_voxel import effective_bins, voxelize_window_soa
 
 
 @dataclass(frozen=True)
@@ -30,13 +36,48 @@ class PipelineConfig:
     sensor_height: int
     sensor_width: int
     num_bins: int = 5
+    separate_pol: bool = False
     normalize: bool = False          # per-window nonzero normalization
     crop_bottom: int = 0             # rows dropped from the bottom
+    random_crop: Optional[Tuple[int, int]] = None  # train-time crop (H, W)
+    crop_anchor: str = "random"      # 'random' | 'bottom'
     random_flip: bool = False        # train-time horizontal flip
+    trilinear: bool = False          # float-coordinate 8-corner voxelizer
+                                     # (rectified streams); False = temporal
+                                     # bilinear on floored coordinates
+
+    @property
+    def channels(self) -> int:
+        return effective_bins(self.num_bins, self.separate_pol,
+                              self.trilinear)
 
     @property
     def output_size(self) -> Tuple[int, int]:
         return (self.sensor_height - self.crop_bottom, self.sensor_width)
+
+
+def to_soa(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Host-side: split an AoS raw-event batch into contiguous SoA buffers.
+
+    {"raw_events": (..., N, 4), "valid": (..., N)} -> {"ev_x", "ev_y",
+    "ev_t", "ev_p": (..., N) f32, "ev_valid": (..., N) bool}; host offsets
+    ("tile_offsets", "band_offsets") ride along as "ev_tile_offsets" /
+    "ev_band_offsets", every other key unchanged.
+    """
+    if "ev_xq" in batch:
+        raise ValueError("the packed u16 wire is not ported: pass f32 "
+                         "raw_events")
+    out = {k: v for k, v in batch.items()
+           if k not in ("raw_events", "valid", "tile_offsets",
+                        "band_offsets")}
+    raw = batch["raw_events"]
+    for i, k in enumerate(("ev_x", "ev_y", "ev_t", "ev_p")):
+        out[k] = np.ascontiguousarray(raw[..., i])
+    out["ev_valid"] = np.ascontiguousarray(batch["valid"])
+    for k in ("tile_offsets", "band_offsets"):
+        if k in batch:
+            out["ev_" + k] = batch[k]
+    return out
 
 
 @dataclass(frozen=True)
@@ -44,6 +85,8 @@ class AugmentParams:
     """Per-sample augmentation draws, shared across a sample's windows."""
 
     flip: Optional[torch.Tensor] = None      # (B,) bool
+    crop_y: Optional[torch.Tensor] = None    # (B,) integer
+    crop_x: Optional[torch.Tensor] = None    # (B,) integer
 
 
 def random_flip(x: torch.Tensor, flip: torch.Tensor, batch_dim: int
@@ -56,24 +99,93 @@ def random_flip(x: torch.Tensor, flip: torch.Tensor, batch_dim: int
     return torch.where(sel, x.flip(-1), x)
 
 
+def crop_per_sample(x: torch.Tensor, crop_y: torch.Tensor,
+                    crop_x: torch.Tensor, size: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """(B, ..., H, W) -> (B, ..., ch, cw): sample ``i`` keeps the window at
+    (``crop_y[i]``, ``crop_x[i]``). A gather, so the offsets stay on their
+    device."""
+    ch, cw = size
+    dev = x.device
+    rows = crop_y.to(dev).long()[:, None] + torch.arange(ch, device=dev)
+    cols = crop_x.to(dev).long()[:, None] + torch.arange(cw, device=dev)
+    mid = (1,) * (x.ndim - 3)
+    rows = rows.view(-1, *mid, ch, 1).expand(*x.shape[:-2], ch, x.shape[-1])
+    x = torch.gather(x, -2, rows)
+    cols = cols.view(-1, *mid, 1, cw).expand(*x.shape[:-1], cw)
+    return torch.gather(x, -1, cols)
+
+
 class EventPipeline:
-    """Builds model-input windows from host-folded SoA event batches."""
+    """Builds model-input windows from SoA event batches."""
 
     def __init__(self, cfg: PipelineConfig):
         self.cfg = cfg
 
     def sample_augment(self, generator: Optional[torch.Generator],
                        batch_size: int, *, train: bool) -> AugmentParams:
-        """Draw one flip bit per sample (p = 0.5) from ``generator`` when
-        training with ``random_flip``; no augmentation otherwise."""
-        if not train or generator is None or not self.cfg.random_flip:
+        """Draw one flip bit (p = 0.5) and one crop offset per sample from
+        ``generator`` when training with ``random_flip`` / ``random_crop``;
+        no augmentation otherwise."""
+        cfg = self.cfg
+        if not train or generator is None:
             return AugmentParams()
-        return AugmentParams(
-            flip=torch.rand(batch_size, generator=generator) < 0.5)
+        flip = crop_y = crop_x = None
+        if cfg.random_flip:
+            flip = torch.rand(batch_size, generator=generator) < 0.5
+        if cfg.random_crop is not None:
+            ch, cw = cfg.random_crop
+            h, w = cfg.output_size
+            if cfg.crop_anchor == "bottom":
+                crop_y = torch.full((batch_size,), h - ch)
+            else:
+                crop_y = torch.randint(0, h - ch + 1, (batch_size,),
+                                       generator=generator)
+            crop_x = torch.randint(0, w - cw + 1, (batch_size,),
+                                   generator=generator)
+        return AugmentParams(flip=flip, crop_y=crop_y, crop_x=crop_x)
+
+    def _transform_grid(self, grids: torch.Tensor, aug: AugmentParams
+                        ) -> torch.Tensor:
+        """(B, C, Hs, Ws) sensor-size grids -> model-input grids: bottom
+        crop, per-sample crop, horizontal flip."""
+        cfg = self.cfg
+        if cfg.crop_bottom > 0:
+            grids = grids[:, :, :cfg.sensor_height - cfg.crop_bottom]
+        if aug.crop_y is not None:
+            grids = crop_per_sample(grids, aug.crop_y, aug.crop_x,
+                                    cfg.random_crop)
+        if aug.flip is not None:
+            grids = random_flip(grids, aug.flip, 0)
+        return grids
+
+    def make_window_fn(self, aug: AugmentParams, *,
+                       offsets_kind: str = "tile"
+                       ) -> Callable[..., torch.Tensor]:
+        """fn(x, y, t, p, valid, tile_offsets=None), each (B, N) ->
+        (B, C, H_out, W_out) f32: one window per sample on the voxelizer
+        that ``offsets_kind`` names, then the spatial transforms."""
+        cfg = self.cfg
+
+        def fn(x, y, t, p, valid, tile_offsets=None):
+            grids = voxelize_window_soa(
+                x, y, t, p, valid, offsets_kind=offsets_kind,
+                num_bins=cfg.num_bins, height=cfg.sensor_height,
+                width=cfg.sensor_width, separate_pol=cfg.separate_pol,
+                trilinear=cfg.trilinear, normalize=cfg.normalize,
+                tile_offsets=tile_offsets)
+            return self._transform_grid(grids, aug)
+
+        return fn
 
     def apply_label_transform(self, label: torch.Tensor, aug: AugmentParams
                               ) -> torch.Tensor:
         """The same spatial augmentation on (B, H, W) integer labels."""
+        cfg = self.cfg
+        if aug.crop_y is not None and \
+                tuple(label.shape[1:]) == tuple(cfg.output_size):
+            label = crop_per_sample(label, aug.crop_y, aug.crop_x,
+                                    cfg.random_crop)
         if aug.flip is not None:
             label = random_flip(label, aug.flip, 0)
         return label
@@ -83,30 +195,30 @@ class EventPipeline:
                   out_dtype: torch.dtype = torch.float32,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Batch {"ev_x", "ev_y", "ev_t", "ev_p", "ev_valid": (B, T, N),
-        "ev_band_offsets": (B, T, G + 1), "label": (B, H, W)} ->
-        (windows (T, B, C, H', W') in ``out_dtype``, label), with ``aug``
-        applied to each sample's windows and label alike.
+        "label": (B, H, W)} with "ev_band_offsets" (folded records),
+        "ev_tile_offsets" (tile-sorted events), each (B, T, G + 1), or no
+        offsets (raw events) -> (windows (T, B, C, H', W') in ``out_dtype``,
+        label), with ``aug`` applied to each sample's windows and label
+        alike. Key presence picks the voxelizer.
 
         Windows come out time-major, so the recurrent rollout reads window
         ``t`` as one contiguous block.
         """
-        cfg = self.cfg
-        if "ev_band_offsets" not in batch:
-            raise ValueError("the port reads host-folded batches only "
-                             "(ev_band_offsets)")
+        kind = "band" if "ev_band_offsets" in batch else "tile"
+        offs = batch.get(f"ev_{kind}_offsets")
         b, t_dim, n = batch["ev_x"].shape
         flat = lambda a: a.transpose(0, 1).reshape(t_dim * b, a.shape[-1])
-        grids = voxelize_band(
+        window_fn = self.make_window_fn(
+            AugmentParams(*(None if a is None else a.repeat(t_dim)
+                            for a in (aug.flip, aug.crop_y, aug.crop_x))),
+            offsets_kind=kind)
+        grids = window_fn(
             flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),
             flat(batch["ev_p"]), flat(batch["ev_valid"]),
-            flat(batch["ev_band_offsets"]), num_bins=cfg.num_bins,
-            height=cfg.sensor_height, width=cfg.sensor_width,
-            normalize=cfg.normalize)
-        grids = grids[:, :, :cfg.output_size[0]].to(out_dtype).contiguous()
+            tile_offsets=None if offs is None else flat(offs))
+        grids = grids.to(out_dtype).contiguous()
         windows = grids.view(t_dim, b, *grids.shape[1:])
         label = batch.get("label")
-        if aug.flip is not None:
-            windows = random_flip(windows, aug.flip, 1)
-            if label is not None:
-                label = self.apply_label_transform(label, aug)
+        if label is not None:
+            label = self.apply_label_transform(label, aug)
         return windows, label

@@ -95,6 +95,8 @@ def _build() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.ess_voxel_folded.restype = ci
+    lib.ess_voxel_tiled.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ess_voxel_tiled.restype = ci
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.ess_conv_lstm.restype = ci
     i64 = ctypes.c_int64

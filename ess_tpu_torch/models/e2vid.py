@@ -17,6 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ess_tpu_torch import resolve_device
 from ess_tpu_torch.models.layers import (
     ConvLayer, RecurrentConvLayer, ResidualBlock, UpsampleConvLayer,
     skip_merge)
@@ -30,8 +31,11 @@ def zero_recurrent_state(batch: int, height: int, width: int, *,
                          num_encoders: int = 3, base_channels: int = 32,
                          dtype: torch.dtype = torch.float32,
                          device=None) -> State:
-    """Zero (h, c) per encoder for a (height, width) input, channels-last;
-    h and c are distinct buffers (the CUDA cell updates c in place)."""
+    """Zero (h, c) per encoder for a (height, width) input, channels-last,
+    on ``device`` (None: the first CUDA device; raises where there is
+    none); h and c are distinct buffers (the CUDA cell updates c in
+    place)."""
+    device = resolve_device(device)
     states = []
     h, w = height, width
     for i in range(num_encoders):

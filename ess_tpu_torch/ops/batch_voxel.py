@@ -1,20 +1,45 @@
-"""Batched voxelization of host-folded event windows.
+"""Batched voxelization of event windows on the two event wires.
 
-Counterpart of the band branch of
-``ess_tpu/ops/batch_voxel.py::_voxelize_pallas`` (``offsets_kind='band'``):
-per-window time normalization over the valid records, the in-frame mask,
-the folded voxelizer on the kernel-aligned padded grid, normalization from
-the voxelizer's per-window stats at sensor resolution, and the crop back to
-the sensor size.
+Counterpart of ``ess_tpu/ops/batch_voxel.py``: ``effective_bins``, the two
+branches of ``_voxelize_pallas`` and their dispatcher
+``voxelize_window_soa`` for the ``voxel_grid`` representation.
+
+- :func:`voxelize_band` (``offsets_kind='band'``): host ghost-folded records
+  with pre-weighted polarity through the fold-free voxelizer, normalized
+  from its per-window stats.
+- :func:`voxelize_tile` (``offsets_kind='tile'``): raw events with +-1
+  polarity, tile-sorted on the host (``ev_tile_offsets``) or on the device
+  (no offsets), through the halo-tiled voxelizer, normalized over the grid.
+
+Both apply the per-window time normalization over the valid events and the
+in-frame mask, voxelize on the grid padded to whole tiles, and crop back to
+the sensor size. Grids are NCHW.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ess_tpu_torch.ops.voxel import masked_time_norm, normalize_from_stats
+from ess_tpu_torch.ops.voxel import (
+    masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.ops.voxel_folded import (
     TILE_W, tile_h_for_bins, voxelize_folded)
+from ess_tpu_torch.ops.voxel_tiled import bin_events_device, voxelize_tiled
+
+
+def effective_bins(num_bins: int, separate_pol: bool, trilinear: bool) -> int:
+    """Channel count the voxelizer builds (``separate_pol`` folds polarity
+    into the bin axis on the temporal-bilinear path). Host tile binning
+    (``host_tile_bin(bins=...)``) must use this value: it fixes the tile
+    height."""
+    return 2 * num_bins if (separate_pol and not trilinear) else num_bins
+
+
+def _padded(height: int, width: int, bins: int) -> tuple[int, int]:
+    th = tile_h_for_bins(bins)
+    return -(-height // th) * th, -(-width // TILE_W) * TILE_W
 
 
 def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
@@ -26,9 +51,7 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     ``p`` is the host's pre-weighted signed polarity; ``offsets`` the
     (B, n_groups + 1) group offsets of :func:`host_band_bin_folded`.
     """
-    th = tile_h_for_bins(num_bins)
-    hp = -(-height // th) * th
-    wp = -(-width // TILE_W) * TILE_W
+    hp, wp = _padded(height, width, num_bins)
     x, y, p = x.float(), y.float(), p.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
     ts = masked_time_norm(t.float(), valid, num_bins)
@@ -40,3 +63,68 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     if normalize:
         grid = normalize_from_stats(grid, stats)
     return grid[:, :, :height, :width]
+
+
+def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                  p: torch.Tensor, valid: torch.Tensor,
+                  offsets: Optional[torch.Tensor] = None, *, num_bins: int,
+                  height: int, width: int, separate_pol: bool = False,
+                  trilinear: bool = False, normalize: bool = False
+                  ) -> torch.Tensor:
+    """(B, N) raw events -> (B, C, height, width) f32 grids, C =
+    ``effective_bins(...)``.
+
+    ``offsets`` are the (B, n_tiles + 1) tile offsets of ``host_tile_bin``
+    for events that arrive tile-sorted; with None the events are sorted on
+    the device. ``trilinear=False`` floors the coordinates (pure temporal
+    bilinear); with ``separate_pol`` negative events then go to bins
+    ``num_bins .. 2 * num_bins - 1`` with weight +1.
+    """
+    x, y = x.float(), y.float()
+    ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
+    ts = masked_time_norm(t.float(), valid, num_bins)
+    pol = torch.where(p > 0, 1.0, -1.0).float()
+    if not trilinear:
+        x, y = torch.floor(x), torch.floor(y)
+        ts = torch.clamp(ts, 0.0, num_bins - 1)
+    bins_eff = effective_bins(num_bins, separate_pol, trilinear)
+    if bins_eff != num_bins:
+        ts = ts + torch.where(pol < 0, float(num_bins), 0.0)
+        pol = pol.abs()
+    hp, wp = _padded(height, width, bins_eff)
+    pol = torch.where(ok, pol, torch.zeros_like(pol))
+    if offsets is None:
+        x, y, ts, pol, offsets = bin_events_device(
+            x, y, ts, pol, ok, height=hp, width=wp, bins=bins_eff)
+    grid = voxelize_tiled(
+        x.contiguous(), y.contiguous(), ts.contiguous(), pol.contiguous(),
+        offsets.to(torch.int32).contiguous(), bins=bins_eff, height=hp,
+        width=wp)
+    grid = grid[:, :, :height, :width]
+    return normalize_nonzero(grid) if normalize else grid
+
+
+def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                        p: torch.Tensor, valid: torch.Tensor, *,
+                        num_bins: int, height: int, width: int,
+                        separate_pol: bool = False, trilinear: bool = False,
+                        normalize: bool = False,
+                        tile_offsets: Optional[torch.Tensor] = None,
+                        offsets_kind: str = "tile") -> torch.Tensor:
+    """One batched window of struct-of-arrays events -> (B, C, H, W) grids,
+    on the voxelizer that ``offsets_kind`` names: ``'band'`` for host-folded
+    records (``tile_offsets`` are then the band offsets), ``'tile'`` for raw
+    events with host tile offsets or none."""
+    kw = dict(num_bins=num_bins, height=height, width=width,
+              normalize=normalize)
+    if offsets_kind == "band":
+        if tile_offsets is None:
+            raise ValueError("band offsets require host binning")
+        if not trilinear:
+            raise ValueError("the folded wire is ported for trilinear "
+                             "(float-coordinate) streams only")
+        return voxelize_band(x, y, t, p, valid, tile_offsets, **kw)
+    if offsets_kind != "tile":
+        raise ValueError(f"unknown offsets_kind {offsets_kind!r}")
+    return voxelize_tile(x, y, t, p, valid, tile_offsets,
+                         separate_pol=separate_pol, trilinear=trilinear, **kw)

@@ -33,6 +33,8 @@ class Reconstructor:
         return CropGeometry(self.height, self.width, self.model.num_encoders)
 
     def init_state(self, batch: int, device=None):
+        """Zero recurrent state on ``device`` (None: the first CUDA
+        device)."""
         g = self.geometry
         return zero_recurrent_state(
             batch, g.padded_height, g.padded_width,

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 
+from ess_tpu_torch import resolve_device
 from ess_tpu_torch.core.config import Config
 from ess_tpu_torch.models.e2vid import RecurrentUNet
 from ess_tpu_torch.models.layers import INSResBlock, ReLUINSConv2d
@@ -43,10 +44,12 @@ class ESSModules:
 
 def build_modules(cfg: Config, *, device=None,
                   steps_per_epoch: int = 1) -> ESSModules:
-    """Supervised ESS modules on ``device`` (parameters uninitialized beyond
-    torch's defaults: call :func:`init_params` or load weights). The E2VID
+    """Supervised ESS modules on ``device`` (None: the first CUDA device;
+    raises where there is none), parameters uninitialized beyond torch's
+    defaults: call :func:`init_params` or load weights. The E2VID
     parameters are frozen (``requires_grad=False``); ``opt_back`` updates
     the head's."""
+    device = resolve_device(device)
     m = cfg.model
     if m.model_name != "ess_supervised":
         raise ValueError(f"the port builds 'ess_supervised' only, got "

@@ -173,7 +173,8 @@ def test_lstm_impl_selects_the_cell(lstm_impl, lstm_impl_train, val_cell,
     ``'xla'``, ``'pallas'`` and ``'auto'`` the exact cell's (checked on the
     first encoder's state after one window from zero state)."""
     mods = build_modules(small_cfg(lstm_impl=lstm_impl,
-                                   lstm_impl_train=lstm_impl_train))
+                                   lstm_impl_train=lstm_impl_train),
+                         device="cpu")
     init_params(mods, torch.Generator().manual_seed(0))
     assert mods.recon_train.model is mods.recon_val.model is mods.e2vid
     x = torch.relu(torch.randn(2, 5, 16, 32,
@@ -194,4 +195,4 @@ def test_lstm_impl_selects_the_cell(lstm_impl, lstm_impl_train, val_cell,
         torch.testing.assert_close(encoder0_latent(mods, recon, x),
                                    want[cell], atol=1e-6, rtol=0)
     with pytest.raises(ValueError):
-        build_modules(small_cfg(lstm_impl="pallas_interpret"))
+        build_modules(small_cfg(lstm_impl="pallas_interpret"), device="cpu")

@@ -98,13 +98,14 @@ def test_eval_step_matches_jax():
     jbatch["label"] = jbatch["label"].astype(jnp.int32)
     want = jax.device_get(jax_sup.make_eval_step(mods, jpipe)(state, jbatch))
 
-    pmods = build_modules(port_config(cfg))
+    pmods = build_modules(port_config(cfg), device="cpu")
     sd_e, sd_h = params_from_jax(jax.device_get(state.e2vid_params),
                                  jax.device_get(state.back_params))
     pmods.e2vid.load_state_dict(sd_e)
     pmods.head.load_state_dict(sd_h)
     pipe = EventPipeline(PipelineConfig(sensor_height=H, sensor_width=W,
-                                        num_bins=5, normalize=True))
+                                        num_bins=5, trilinear=True,
+                                        normalize=True))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in cols.items()}
     got = make_eval_step(pmods, pipe)(batch)

@@ -10,13 +10,15 @@ MODULES = [
     "ess_tpu_torch.core.config", "ess_tpu_torch.core.labels",
     "ess_tpu_torch.data.native", "ess_tpu_torch.data.pipeline",
     "ess_tpu_torch.ops.voxel", "ess_tpu_torch.ops.voxel_folded",
+    "ess_tpu_torch.ops.voxel_tiled",
     "ess_tpu_torch.ops.batch_voxel", "ess_tpu_torch.ops.conv_lstm",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.recon.reconstructor",
     "ess_tpu_torch.train.builder", "ess_tpu_torch.train.losses",
     "ess_tpu_torch.train.metrics", "ess_tpu_torch.train.supervised",
-    "ess_tpu_torch.io.convert",
+    "ess_tpu_torch.train.streaming", "ess_tpu_torch.io.convert",
+    "ess_tpu_torch.bench",
 ]
 
 

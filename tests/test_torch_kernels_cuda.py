@@ -3,9 +3,10 @@
 Marked ``cuda``: each test skips where no GPU is visible (the CPU test run);
 on a machine with an H100 run ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Bounds:
-- voxelizer: atol/rtol 1e-5 on the grid and the stats: both sum the same
-  f32 corner weights, the kernel with shared-memory atomics in run-dependent
-  order;
+- voxelizers (fold-free B1 and halo-tiled B3): atol/rtol 1e-5 on the grid
+  and the stats, 1e-4 on normalized grids at 100k events per window: both
+  sum the same f32 corner weights, the kernel with shared-memory atomics in
+  run-dependent order;
 - ConvLSTM cell (bf16): h atol 2e-2, c atol 3e-2, the bounds of
   tests/test_conv_lstm_pallas.py: both accumulate bf16 products in f32,
   in other orders, and round the state to bf16 once;
@@ -24,8 +25,9 @@ import torch
 
 from ess_tpu_torch.ops import conv_lstm as cl
 from ess_tpu_torch.ops import voxel_folded as vf
-from ess_tpu_torch.ops.batch_voxel import voxelize_band
-from ess_tpu_torch.ops.voxel import voxel_grid_trilinear
+from ess_tpu_torch.ops import voxel_tiled as vt
+from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
+from ess_tpu_torch.ops.voxel import normalize_nonzero, voxel_grid_trilinear
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +84,112 @@ def test_voxel_kernel_stats(dev):
     with pytest.raises(ValueError):
         vf.voxelize_folded(*args[:4], args[4].long(), bins=5, height=h,
                            width=w)
+
+
+def test_voxel_kernel_one_slot_sensor(dev):
+    """B1 at a 128-wide sensor: one x-slot per band."""
+    h, w = 120, 128
+    _, _, cols, offs = folded(np.random.default_rng(2), 4, 20000, h, w)
+    assert offs.shape[1] == h // 24 + 1
+    kw = dict(num_bins=5, height=h, width=w, normalize=True)
+    n0 = vf.launches
+    got = voxelize_band(*[c.to(dev) for c in cols], offs.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert vf.launches == n0 + 1
+    torch.testing.assert_close(got.cpu(), voxelize_band(*cols, offs, **kw),
+                               atol=1e-5, rtol=1e-5)
+
+
+def raw_windows(rng, b, n, h, w, edges=False):
+    raw = np.zeros((b, n, 4), np.float32)
+    raw[..., 0] = rng.uniform(-0.9, w - 0.1, (b, n))
+    raw[..., 1] = rng.uniform(-0.9, h - 0.1, (b, n))
+    if edges:
+        # just below tile boundaries (24 rows, 128 columns) and the borders
+        k = n // 3
+        frac = rng.uniform(0.02, 0.98, (2, b, k)).astype(np.float32)
+        raw[:, :k, 0] = np.minimum(
+            rng.integers(1, w // 128 + 1, (b, k)) * 128 - 1 + frac[0],
+            w - 0.01)
+        raw[:, k:2 * k, 1] = np.minimum(
+            rng.integers(1, h // 24 + 1, (b, k)) * 24 - 1 + frac[1],
+            h - 0.01)
+    raw[..., 2] = np.sort(rng.uniform(0, 5e4, (b, n)), axis=-1)
+    raw[..., 3] = rng.integers(0, 2, (b, n))
+    valid = np.ones((b, n), bool)
+    valid[:, n - n // 10:] = False
+    return raw, valid
+
+
+@pytest.mark.parametrize("host", [True, False])
+@pytest.mark.parametrize("h,w,n,edges", [(480, 640, 100_000, False),
+                                         (480, 640, 100_000, True),
+                                         (48, 256, 5000, True),
+                                         (16, 16, 500, False)])
+def test_voxel_tiled_kernel_matches_plain(dev, h, w, n, edges, host):
+    """B3 through voxelize_tile at the DSEC shape (8 windows x 100k events)
+    and small sensors, host offsets and device-side binning."""
+    raw, valid = raw_windows(np.random.default_rng(0), 8, n, h, w, edges)
+    offs = None
+    if host:
+        raw, valid, o = vt.host_tile_bin(raw, valid, height=h, width=w)
+        offs = torch.from_numpy(o)
+    cols = [torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+            for i in range(4)] + [torch.from_numpy(valid)]
+    kw = dict(num_bins=5, height=h, width=w, trilinear=True)
+    n0 = vt.launches
+    got = voxelize_tile(*[c.to(dev) for c in cols],
+                        None if offs is None else offs.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert vt.launches == n0 + 1
+    want = voxelize_tile(*cols, offs, **kw)
+    assert vt.launches == n0 + 1                      # CPU: the plain version
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(normalize_nonzero(got).cpu(),
+                               normalize_nonzero(want), atol=1e-4, rtol=1e-4)
+    plain = voxel_grid_trilinear(*cols, num_bins=5, height=h, width=w)
+    torch.testing.assert_close(got.cpu(), plain, atol=2e-3, rtol=1e-4)
+
+
+def test_voxel_tiled_kernel_ten_bins_integer(dev):
+    """bins 10 / tile height 10: the separate_pol temporal grid."""
+    h, w = 480, 640
+    raw, valid = raw_windows(np.random.default_rng(1), 8, 100_000, h, w)
+    raw[..., :2] = np.floor(raw[..., :2])
+    cols = [torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+            for i in range(4)] + [torch.from_numpy(valid)]
+    kw = dict(num_bins=5, height=h, width=w, separate_pol=True,
+              trilinear=False, normalize=True)
+    got = voxelize_tile(*[c.to(dev) for c in cols], **kw)
+    assert got.shape == (8, 10, h, w)
+    torch.testing.assert_close(got.cpu(), voxelize_tile(*cols, **kw),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_voxel_tiled_wrapper(dev):
+    """Kernel-level call: empty tiles write zeros, offsets stay on the
+    device, and the wrapper raises on what the kernel does not take."""
+    h, w = 48, 256
+    x = torch.tensor([[3.5, 200.25, 0.0]], device=dev)
+    y = torch.tensor([[2.0, 47.5, 0.0]], device=dev)
+    ts = torch.tensor([[0.5, 4.0, 0.0]], device=dev)
+    pol = torch.tensor([[1.0, -1.0, 0.0]], device=dev)
+    offs = torch.tensor([[0, 1, 1, 1, 2]], dtype=torch.int32, device=dev)
+    grid = vt.voxelize_tiled(x, y, ts, pol, offs, bins=5, height=h, width=w)
+    want = vt.voxelize_tiled_ref(x.cpu(), y.cpu(), ts.cpu(), pol.cpu(),
+                                 offs.cpu(), bins=5, height=h, width=w)
+    torch.testing.assert_close(grid.cpu(), want, atol=1e-6, rtol=0)
+    assert grid[0, :, :24, 128:].abs().sum().item() == 0      # empty tile
+    assert grid[0, 4, 47, 200].item() == pytest.approx(-0.375)
+    with pytest.raises(ValueError):
+        vt.voxelize_tiled(x, y, ts, pol, offs.long(), bins=5, height=h,
+                          width=w)
+    with pytest.raises(ValueError):
+        vt.voxelize_tiled(x.double(), y, ts, pol, offs, bins=5, height=h,
+                          width=w)
+    with pytest.raises(ValueError):
+        vt.voxelize_tiled(x, y, ts, pol, offs.cpu(), bins=5, height=h,
+                          width=w)
 
 
 def cell_inputs(dev, b, h, w, cx, ch, seed=0):

@@ -58,7 +58,8 @@ def test_recurrent_unet_matches_jax():
     xs = rng.normal(size=(2, B, H, W, 5)).astype(np.float32)
 
     st_j = jax_zero_state(B, H, W, num_encoders=3, base_channels=BASE)
-    st_p = zero_recurrent_state(B, H, W, num_encoders=3, base_channels=BASE)
+    st_p = zero_recurrent_state(B, H, W, num_encoders=3, base_channels=BASE,
+                                device="cpu")
     with torch.no_grad():
         for i, decode in enumerate((False, True)):
             img_j, st_j, lat_j = model.apply({"params": params},

@@ -90,8 +90,8 @@ def test_train_step_matches_jax(lstm_impl_train):
     assert any(f.any() for f in flips) and not all(f.all() for f in flips)
 
     pipe = EventPipeline(PipelineConfig(sensor_height=H, sensor_width=W,
-                                        num_bins=5, normalize=True,
-                                        random_flip=True))
+                                        num_bins=5, trilinear=True,
+                                        normalize=True, random_flip=True))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in cols.items()}
     augs = [AugmentParams(flip=torch.from_numpy(f.copy())) for f in flips]
@@ -116,7 +116,7 @@ def test_train_step_matches_jax(lstm_impl_train):
         jax.device_get(state.e2vid_params), jax.device_get(state.back_params))
 
     pcfg = port_config(cfg)
-    pmods = build_modules(pcfg)
+    pmods = build_modules(pcfg, device="cpu")
     assert pmods.recon_train.lstm_impl == (
         "pallas" if lstm_impl_train is None else "pallas_int8")
     sd_e, sd_h = params_from_jax(e2vid0, head0)
@@ -150,11 +150,11 @@ def test_train_step_samples_its_own_flips():
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in cols.items()}
     pipe = EventPipeline(PipelineConfig(sensor_height=H, sensor_width=W,
-                                        num_bins=5, normalize=True,
-                                        random_flip=True))
+                                        num_bins=5, trilinear=True,
+                                        normalize=True, random_flip=True))
     losses = []
     for _ in range(2):
-        mods = build_modules(cfg)
+        mods = build_modules(cfg, device="cpu")
         torch.manual_seed(0)
         for p in list(mods.e2vid.parameters()) + list(mods.head.parameters()):
             p.data.normal_(0, 0.1)
@@ -197,8 +197,8 @@ def test_flip_matches_jax_build_all():
     grids_j, label_j = jpipe.build_all(jbatch, rng, train=True)
 
     pipe = EventPipeline(PipelineConfig(sensor_height=H, sensor_width=W,
-                                        num_bins=5, normalize=True,
-                                        random_flip=True))
+                                        num_bins=5, trilinear=True,
+                                        normalize=True, random_flip=True))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in cols.items()}
     aug = AugmentParams(flip=torch.from_numpy(flip))

@@ -139,8 +139,8 @@ def test_build_all_matches_jax_with_crop():
     want, want_lbl = jpipe.build_all({k: jnp.asarray(v)
                                       for k, v in cols.items()})
     pipe = EventPipeline(PipelineConfig(sensor_height=h, sensor_width=w,
-                                        num_bins=5, normalize=True,
-                                        crop_bottom=crop))
+                                        num_bins=5, trilinear=True,
+                                        normalize=True, crop_bottom=crop))
     got, lbl = pipe.build_all({k: torch.from_numpy(np.ascontiguousarray(v))
                                for k, v in cols.items()})
     assert got.shape == (t_dim, b, 5, h - crop, w)
