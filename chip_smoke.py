@@ -1,5 +1,6 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train and streaming-eval paths
-once on one NVIDIA GPU.
+once on one NVIDIA GPU, in the builder's rollout form and with the block
+convs on the fused conv kernel.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -12,12 +13,15 @@ exits non-zero, with no result line):
    per source, in parallel) and the host binning library from the
    checkout's sources;
 3. kernels: each kernel (B1 fold-free voxelizer, B2 exact ConvLSTM cell,
-   B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer) against its plain PyTorch
-   version on the card at the DSEC shapes of the paths, with kernel and
-   plain times (CUDA events) and the kernel's bound on this card (the larger
-   of bytes over memory rate and operations over peak rate); B1 also at a
-   128-wide sensor (one x-slot), B3 also with device-side binning, at 10
-   bins with integer coordinates, and on border and tile-edge events;
+   B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer, B4 fused 3x3 conv, B4-int8
+   fused 3x3 conv) against its plain PyTorch version on the card at the DSEC
+   shapes of the paths, with kernel and plain times (CUDA events) and the
+   kernel's bound on this card (the larger of bytes over memory rate and
+   operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
+   B3 also with device-side binning, at 10 bins with integer coordinates,
+   and on border and tile-edge events; B4 and B4-int8 at the head and
+   first-encoder block shapes and at an odd one, with and without ReLU and
+   bias, B4 also beside the library's conv + bias + ReLU;
 4. eval slice: the supervised eval step at full width (E2VID base 32,
    480x640 sensor cropped to 440x640, T=20 windows of 100k events, 5 bins,
    11 classes, bf16, seeded weights, synthetic events) -- checks on its
@@ -36,7 +40,14 @@ exits non-zero, with no result line):
    on the tile wire (host tile offsets), the raw wire (no offsets) and the
    band wire -- launch counts per wire, agreement of the confusion matrix
    and the final latent with the plain versions and between the wires, and
-   windows/s, ms per window and the profiler's device idle share.
+   windows/s, ms per window and the profiler's device idle share;
+7. block-conv slice: the eval step (B=8), the train step (B=8, int8 cell and
+   int8 block convs) and streaming (B=8 and B=1, 40 windows, tile wire) with
+   the head and first-encoder convs on the fused conv kernel
+   (``block_conv_impl='pallas'``, train rollout ``'pallas_int8'``) --
+   launch counts (two per window), agreement with the plain versions and
+   with the standard 5x5 form, and each rate beside the block-space form on
+   the library conv and the standard 5x5 form, alternated in one run.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -64,7 +75,7 @@ from ess_tpu_torch.data import native  # noqa: E402
 from ess_tpu_torch.data.pipeline import AugmentParams  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
-    batch_voxel, conv_lstm, voxel_folded, voxel_tiled)
+    batch_voxel, conv3x3, conv_lstm, voxel_folded, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
@@ -72,6 +83,13 @@ from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
 
 WINDOWS, EVENTS, CLASSES = bench.WINDOWS, bench.EVENTS_PER_WINDOW, bench.NUM_CLASSES
 CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
+# block convs (name, B, C_in, C_out, H, W): the E2VID head conv and the first
+# encoder's conv over 2x2 space-to-depth blocks of a 440x640 window, and an
+# odd shape (other tile widths, a ragged last pixel tile)
+CONV_SHAPES = [("head", 2, 20, 128, 220, 320),
+               ("encoder 0", 2, 128, 64, 220, 320),
+               ("odd", 2, 24, 16, 13, 40)]
+KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8")
 
 # tolerances, stated before any run on the card
 VOXEL_ATOL = 1e-4      # normalized grid: same f32 weights, atomic order
@@ -96,6 +114,19 @@ INT8_ULP_SLACK = 1e-6
 # reported beside the DSEC-shape numbers, not enforced: the x scale is the
 # absmax over the whole tensor, which grows with its size.
 JAX_INT8_DH_MAX, JAX_INT8_DH_MEAN, JAX_INT8_DC_MAX = 0.05, 6e-3, 0.08
+# B4 vs the plain conv: both accumulate bf16 products in f32 (in other
+# orders) and round once, so they differ by at most one bf16 ulp except where
+# a sum lies next to a rounding boundary of a neighbouring binade.
+CONV_ULP_SHARE = 0.999     # share of values within one bf16 ulp
+CONV_MAX_REL = 2.0 ** -7   # max |d| over the plain output's absmax
+# B4-int8 vs the plain int8 conv: bit-identical (exact integer accumulators,
+# the same f32 operations in the same order). Against the exact plain conv,
+# the JAX package's bounds (tests/test_conv3x3_pallas.py, max and mean error
+# over the output's absmax, measured there with the ReLU on) are enforced at
+# the odd shape, which is close to that test's, with the ReLU on, and
+# reported elsewhere: without the ReLU the absmax-relative mean error is
+# larger, and the x scale grows with the size of the tensor.
+JAX_CONV_INT8_MAX, JAX_CONV_INT8_MEAN = 0.02, 2e-3
 # Train slice, int8-kernel path vs plain path on the first step.
 TRAIN_LATENT_REL = 0.05    # latent8 relative max |d|
 TRAIN_LOSS_REL = 0.02      # loss relative difference
@@ -152,20 +183,28 @@ def plain_cell(x, h, c, w, b, *, impl="pallas", prepared=None):
     return fn(x, h, c, w, b)
 
 
+def plain_conv(x, w, b, *, relu=True, impl="xla", prepared=None):
+    """The plain version of the fused conv ``impl`` names."""
+    fn = (conv3x3.conv3x3_int8_ref if impl == "pallas_int8"
+          else conv3x3.conv3x3_ref)
+    return fn(x, w, b, relu=relu)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the eval and train paths through the kernels' plain PyTorch
     versions (on the same device tensors) for the comparison runs."""
     saved = (batch_voxel.voxelize_folded, batch_voxel.voxelize_tiled,
-             layers.conv_lstm_cell)
+             layers.conv_lstm_cell, layers.conv3x3_fused)
     batch_voxel.voxelize_folded = voxel_folded.voxelize_folded_ref
     batch_voxel.voxelize_tiled = voxel_tiled.voxelize_tiled_ref
     layers.conv_lstm_cell = plain_cell
+    layers.conv3x3_fused = plain_conv
     try:
         yield
     finally:
         (batch_voxel.voxelize_folded, batch_voxel.voxelize_tiled,
-         layers.conv_lstm_cell) = saved
+         layers.conv_lstm_cell, layers.conv3x3_fused) = saved
 
 
 def reset_counts() -> None:
@@ -173,18 +212,32 @@ def reset_counts() -> None:
     conv_lstm.launches = 0
     conv_lstm.launches_int8 = 0
     voxel_tiled.launches = 0
+    conv3x3.launches = 0
+    conv3x3.launches_int8 = 0
 
 
 def read_counts() -> tuple:
-    """Launches of (B1, B2, B2-int8, B3) since :func:`reset_counts`."""
+    """Launches of (B1, B2, B2-int8, B3, B4, B4-int8) since
+    :func:`reset_counts`."""
     torch.cuda.synchronize()
     return (voxel_folded.launches, conv_lstm.launches,
-            conv_lstm.launches_int8, voxel_tiled.launches)
+            conv_lstm.launches_int8, voxel_tiled.launches,
+            conv3x3.launches, conv3x3.launches_int8)
+
+
+def show_counts(counts) -> str:
+    return ", ".join(f"{k} {n}" for k, n in zip(KERNEL_NAMES, counts))
+
+
+def need_counts(counts, want) -> None:
+    if tuple(counts) != tuple(want):
+        raise AssertionError(f"launch counts {show_counts(counts)}; want "
+                             f"{show_counts(want)}")
 
 
 def add_launches(kern_rows, path: str, counts) -> None:
-    """Book one path's launch counts on the kernel rows (B1, B2, B2-int8,
-    B3 order)."""
+    """Book one path's launch counts on the kernel rows (KERNEL_NAMES
+    order)."""
     for row, n in zip(kern_rows, counts):
         by_path = row.setdefault("launches_by_path", {})
         by_path[path] = by_path.get(path, 0) + n
@@ -540,6 +593,194 @@ def check_conv_lstm_int8(dev):
             "library_ms": None}
 
 
+def conv_inputs(g, dev, b, cin, cout, hh, ww):
+    """Post-ReLU activations (as the head conv's output is), a weight at
+    fan-in scale and a bias, on the card."""
+    x = (torch.relu(torch.randn(b, cin, hh, ww, generator=g)) * 2).to(
+        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).to(dev)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
+    return x, w, bias
+
+
+def conv_bound(x, w, bias, kind: str):
+    """Bound of one fused conv call: x read and the output written once in
+    bf16, f32 weights and bias; 2 operations per multiply-add of the
+    unpadded product."""
+    b, cin, hh, ww = x.shape
+    cout = w.shape[0]
+    out_numel = b * cout * hh * ww
+    return bound(2.0 * (x.numel() + out_numel)
+                 + 4.0 * (w.numel() + bias.numel()),
+                 2.0 * b * hh * ww * 9 * cin * cout, kind)
+
+
+def library_conv_fn(x, w, bias):
+    """The library's conv + bias + ReLU on bf16 channels-last operands:
+    one ATen call (``torch.cudnn_convolution_relu``) where this build has
+    it and takes the shape, else ``F.conv2d`` with bias and ``relu_`` (two
+    calls). Returns (callable, description). Timed as a yardstick only."""
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bl = bias.to(torch.bfloat16)
+    if hasattr(torch, "cudnn_convolution_relu"):
+        fused = lambda: torch.cudnn_convolution_relu(
+            x, wl, bl, [1, 1], [1, 1], [1, 1], 1)
+        try:
+            fused()
+            torch.cuda.synchronize()
+            return fused, "torch.cudnn_convolution_relu (one call)"
+        except RuntimeError as e:
+            log(f"  torch.cudnn_convolution_relu refused the shape: "
+                f"{str(e).splitlines()[0][:120]}")
+    two = lambda: torch.nn.functional.conv2d(x, wl, bl, padding=1).relu_()
+    return two, "F.conv2d with bias, then relu_ (two calls)"
+
+
+CONV_CASES = ((True, True), (False, True), (True, False))   # (relu, bias)
+
+
+def check_conv3x3(dev):
+    g = torch.Generator().manual_seed(9)
+    err = ms = plain_ms = bound_ms = lib_ms = 0.0
+    bound_by = set()
+    for name, b, cin, cout, hh, ww in CONV_SHAPES:
+        x, w, bias = conv_inputs(g, dev, b, cin, cout, hh, ww)
+        prep = conv3x3.prepare_conv_weights(w)
+        for relu, use_bias in CONV_CASES:
+            bb = bias if use_bias else None
+            want = conv3x3.conv3x3_ref(x, w, bb, relu=relu).float()
+            n0 = conv3x3.launches
+            got = conv3x3.conv3x3_fused(x, w, bb, relu=relu, impl="pallas",
+                                        prepared=prep)
+            torch.cuda.synchronize()
+            if conv3x3.launches != n0 + 1:
+                raise AssertionError("conv3x3_fused did not launch B4")
+            d = (got.float() - want).abs()
+            share = (d <= bf16_ulp(got, want)).float().mean().item()
+            e = d.max().item()
+            rel = e / want.abs().max().item()
+            err = max(err, e)
+            log(f"B4 conv3x3 {name} B={b} {cin}->{cout} {hh}x{ww} relu={relu} "
+                f"bias={use_bias}: {100.0 * share:.4f}% within one bf16 ulp "
+                f"(bound >= {100.0 * CONV_ULP_SHARE}%), max|d| {e:.3e} = "
+                f"{rel:.3e} of absmax (bound {CONV_MAX_REL:.3e})")
+            if not (share >= CONV_ULP_SHARE and rel <= CONV_MAX_REL):
+                raise AssertionError(f"B4 ({name}) disagrees with its plain "
+                                     f"version: {share}, {rel}")
+        if name == "odd":
+            continue
+        lib_fn, lib_what = library_conv_fn(x, w, bias)
+        lib_err = (lib_fn().float() - conv3x3.conv3x3_ref(
+            x, w, bias, relu=True).float()).abs().max().item()
+        t_k = cuda_ms(lambda: conv3x3.conv3x3_fused(
+            x, w, bias, relu=True, impl="pallas", prepared=prep), 20)
+        t_p = cuda_ms(lambda: conv3x3.conv3x3_ref(x, w, bias, relu=True), 5)
+        t_l = cuda_ms(lib_fn, 20)
+        t_b, by = conv_bound(x, w, bias, "bf16")
+        flop = 2.0 * b * hh * ww * 9 * cin * cout
+        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+        bound_ms += t_b
+        bound_by.add(by)
+        x8 = x.repeat(4, 1, 1, 1).contiguous(memory_format=torch.channels_last)
+        t_k8 = cuda_ms(lambda: conv3x3.conv3x3_fused(
+            x8, w, bias, relu=True, impl="pallas", prepared=prep), 10)
+        lib8, _ = library_conv_fn(x8, w, bias)
+        t_l8 = cuda_ms(lib8, 10)
+        t_b8, by8 = conv_bound(x8, w, bias, "bf16")
+        log(f"B4 conv3x3 {name}: kernel {t_k:.3f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.3f} ms, library "
+            f"{t_l:.3f} ms [{lib_what}; max|d| vs plain {lib_err:.3e}], "
+            f"bound {t_b:.4f} ms ({by}), share of bound "
+            f"{100.0 * t_b / t_k:.1f}%; at B=8: kernel {t_k8:.3f} ms, "
+            f"library {t_l8:.3f} ms, bound {t_b8:.4f} ms ({by8}), share "
+            f"{100.0 * t_b8 / t_k8:.1f}%")
+        del x8
+    log(f"B4 time for the head and encoder-0 block convs (one window, B=2): "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
+    return {"name": "conv3x3", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "ess_tpu/ops/conv3x3_pallas.py:53",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": lib_ms}
+
+
+def check_conv3x3_int8(dev):
+    g = torch.Generator().manual_seed(10)
+    err = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
+    for name, b, cin, cout, hh, ww in CONV_SHAPES:
+        x, w, bias = conv_inputs(g, dev, b, cin, cout, hh, ww)
+        prep = conv3x3.prepare_conv_weights(w, int8=True)
+        for relu, use_bias in CONV_CASES:
+            bb = bias if use_bias else None
+            want = conv3x3.conv3x3_int8_ref(x, w, bb, relu=relu)
+            n0 = conv3x3.launches_int8
+            got = conv3x3.conv3x3_fused(x, w, bb, relu=relu,
+                                        impl="pallas_int8", prepared=prep)
+            torch.cuda.synchronize()
+            if conv3x3.launches_int8 != n0 + 1:
+                raise AssertionError("conv3x3_fused did not launch B4-int8")
+            unequal = int((got != want).sum())
+            e = (got.float() - want.float()).abs().max().item()
+            err = max(err, e)
+            exact = conv3x3.conv3x3_ref(x, w, bb, relu=relu).float()
+            de = (got.float() - exact).abs()
+            scale = exact.abs().max().item()
+            e_max, e_mean = de.max().item() / scale, de.mean().item() / scale
+            enforced = name == "odd" and relu
+            log(f"B4-int8 conv3x3_int8 {name} B={b} {cin}->{cout} {hh}x{ww} "
+                f"relu={relu} bias={use_bias}: vs plain int8 {unequal} of "
+                f"{got.numel()} values not bit-identical (bound 0), max|d| "
+                f"{e:.3e}; vs exact plain max error {e_max:.3e} and mean "
+                f"error {e_mean:.3e} of absmax (JAX bounds "
+                f"{JAX_CONV_INT8_MAX}, {JAX_CONV_INT8_MEAN}: "
+                f"{'enforced' if enforced else 'reported'})")
+            if unequal:
+                raise AssertionError(f"B4-int8 ({name}) disagrees with its "
+                                     f"plain version at {unequal} values")
+            if enforced and not (e_max < JAX_CONV_INT8_MAX
+                                 and e_mean < JAX_CONV_INT8_MEAN):
+                raise AssertionError(f"B4-int8 ({name}) is beyond the int8 "
+                                     f"bounds: {e_max}, {e_mean}")
+        if name == "odd":
+            continue
+        t_k = cuda_ms(lambda: conv3x3.conv3x3_fused(
+            x, w, bias, relu=True, impl="pallas_int8", prepared=prep), 20)
+        t_p = cuda_ms(lambda: conv3x3.conv3x3_int8_ref(x, w, bias, relu=True),
+                      3)
+        t_b, by = conv_bound(x, w, bias, "int8")
+        ops = 2.0 * b * hh * ww * 9 * cin * cout
+        ms, plain_ms, bound_ms = ms + t_k, plain_ms + t_p, bound_ms + t_b
+        bound_by.add(by)
+        x8 = x.repeat(4, 1, 1, 1).contiguous(memory_format=torch.channels_last)
+        t_k8 = cuda_ms(lambda: conv3x3.conv3x3_fused(
+            x8, w, bias, relu=True, impl="pallas_int8", prepared=prep), 10)
+        t_b8, by8 = conv_bound(x8, w, bias, "int8")
+        log(f"B4-int8 conv3x3_int8 {name}: kernel {t_k:.3f} ms "
+            f"({ops / t_k / 1e9:.1f} TOP/s, absmax, weight quantization and "
+            f"quantize pre-pass included), plain {t_p:.3f} ms, bound "
+            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%; "
+            f"at B=8: kernel {t_k8:.3f} ms, bound {t_b8:.4f} ms ({by8}), "
+            f"share {100.0 * t_b8 / t_k8:.1f}%")
+        del x8
+    log(f"B4-int8 time for the head and encoder-0 block convs (one window, "
+        f"B=2): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
+    return {"name": "conv3x3_int8", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/conv3x3_int8.cu",
+            "replaces": "ess_tpu/ops/conv3x3_pallas.py:55",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": None}
+
+
 def phase_slice(dev, kern_rows):
     cfg = bench.make_cfg(2, None)
     mods = build_modules(cfg, device=dev)
@@ -552,16 +793,13 @@ def phase_slice(dev, kern_rows):
     steps = 3
     reset_counts()
     outs = [step(batch) for _ in range(steps)]
-    n_b1, n_b2, n_i8, n_b3 = read_counts()
+    counts = read_counts()
     log(f"eval slice B=2 T={WINDOWS} {SENSOR_H}x{SENSOR_W} -> "
         f"{SENSOR_H - CROP}x{SENSOR_W}, "
         f"{EVENTS} events/window, {CLASSES} classes: {steps} eval steps, "
-        f"launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}, B3 {n_b3}")
-    if n_b1 != steps or n_b2 != steps * 3 * WINDOWS or n_i8 or n_b3:
-        raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
-                             f"B2 {n_b2} (want {steps * 3 * WINDOWS}), "
-                             f"B2-int8 {n_i8} (want 0), B3 {n_b3} (want 0)")
-    add_launches(kern_rows, "eval", (n_b1, n_b2, n_i8, n_b3))
+        f"launches {show_counts(counts)}")
+    need_counts(counts, (steps, steps * 3 * WINDOWS, 0, 0, 0, 0))
+    add_launches(kern_rows, "eval", counts)
     out = outs[-1]
     loss = float(out["loss"])
     cm_sum = float(out["cm"].sum())
@@ -642,16 +880,13 @@ def phase_train(dev, kern_rows):
 
     reset_counts()
     losses = [step(state, batch)["loss"] for _ in range(steps)]
-    n_b1, n_b2, n_i8, n_b3 = read_counts()
+    counts = read_counts()
     losses = [float(v) for v in losses]
     log(f"train slice B={b} T={WINDOWS}, {steps} train steps (train rollout "
-        f"on the int8 cell): launches B1 {n_b1}, B2 {n_b2}, B2-int8 {n_i8}; "
+        f"on the int8 cell): launches {show_counts(counts)}; "
         f"losses {[round(v, 6) for v in losses]}")
-    if n_b1 != steps or n_i8 != steps * 3 * WINDOWS or n_b2 or n_b3:
-        raise AssertionError(f"launch counts B1 {n_b1} (want {steps}), "
-                             f"B2-int8 {n_i8} (want {steps * 3 * WINDOWS}), "
-                             f"B2 {n_b2} (want 0), B3 {n_b3} (want 0)")
-    add_launches(kern_rows, "train", (n_b1, n_b2, n_i8, n_b3))
+    need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
+    add_launches(kern_rows, "train", counts)
     changed = sum(not torch.equal(v, head0[k])
                   for k, v in mods.head.state_dict().items())
     frozen = all(torch.equal(v, e2vid0[k])
@@ -746,15 +981,12 @@ def phase_stream(dev, kern_rows):
             state, cm = bench.run_stream(
                 steps, mods.recon_val.init_state(b, dev), windows)
             counts = read_counts()
-            want = ((STREAM_WINDOWS, 3 * STREAM_WINDOWS, 0, 0)
+            want = ((STREAM_WINDOWS, 3 * STREAM_WINDOWS, 0, 0, 0, 0)
                     if wire == "band"
-                    else (0, 3 * STREAM_WINDOWS, 0, STREAM_WINDOWS))
+                    else (0, 3 * STREAM_WINDOWS, 0, STREAM_WINDOWS, 0, 0))
             log(f"stream slice B={b}, {wire} wire, {STREAM_WINDOWS} windows "
-                f"({scored} scored): launches B1 {counts[0]}, B2 {counts[1]}, "
-                f"B2-int8 {counts[2]}, B3 {counts[3]}")
-            if counts != want:
-                raise AssertionError(f"launch counts (B1, B2, B2-int8, B3) "
-                                     f"{counts}, want {want}")
+                f"({scored} scored): launches {show_counts(counts)}")
+            need_counts(counts, want)
             add_launches(kern_rows, "stream", counts)
             latent = state[-1][0].float()
             pred = logits[0].argmax(dim=1)
@@ -842,14 +1074,243 @@ def phase_stream(dev, kern_rows):
         torch.cuda.empty_cache()
 
 
+def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
+                    cm=None, cm_ref=None) -> None:
+    """Hold one path against a reference path under the slice bounds
+    (SLICE_*): the latent, the argmax on all pixels and on the pixels whose
+    top-2 logit gap in the reference exceeds SLICE_GAP, and, where given,
+    the share of confusion-matrix counts that moved."""
+    latent, latent_ref = latent.float(), latent_ref.float()
+    rel = ((latent - latent_ref).abs().max() / latent_ref.abs().max()).item()
+    top2 = logits_ref.float().topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > SLICE_GAP
+    same = pred == pred_ref
+    agree = 100.0 * same.float().mean().item()
+    agree_clear = 100.0 * same[clear].float().mean().item()
+    msg = (f"  {what}: latent rel max|d| {rel:.3e} (bound {SLICE_LATENT_REL}); "
+           f"pred agreement {agree:.3f}% (bound >= {SLICE_PRED_AGREE}%), "
+           f"{agree_clear:.3f}% where the top-2 gap exceeds {SLICE_GAP} "
+           f"(bound >= {SLICE_PRED_AGREE_CLEAR}%)")
+    ok = (rel <= SLICE_LATENT_REL and agree >= SLICE_PRED_AGREE
+          and agree_clear >= SLICE_PRED_AGREE_CLEAR)
+    if cm is not None:
+        moved = 100.0 * float((cm - cm_ref).abs().sum()) / (
+            2 * float(cm_ref.sum()))
+        msg += (f"; confusion matrix {moved:.3f}% of the pixels moved (bound "
+                f"<= {100.0 - SLICE_PRED_AGREE}%)")
+        ok = ok and moved <= 100.0 - SLICE_PRED_AGREE
+    log(msg)
+    if not ok:
+        raise AssertionError(f"{what}: the paths disagree")
+
+
+FORM_ORDER = ("standard", "block_xla", "block_pallas", "block_pallas",
+              "block_xla", "standard")
+FORM_TEXT = {"standard": "standard 5x5 form",
+             "block_xla": "block space, library conv",
+             "block_pallas": "block space, fused conv kernel"}
+
+
+def timed_forms(what: str, run, windows_per_call: int, reps: int = 2) -> None:
+    """Time ``run(form)`` (one synchronized call, seconds) for the three
+    rollout forms in turns and print the medians side by side."""
+    samples = {form: [] for form in bench.FORMS}
+    for form in FORM_ORDER:
+        samples[form] += [run(form) for _ in range(reps)]
+    for form in bench.FORMS:
+        ts = samples[form]
+        med = statistics.median(ts)
+        log(f"{what} ({FORM_TEXT[form]}): {windows_per_call / med:.2f} "
+            f"windows/s, median {1e3 * med:.1f} ms over {len(ts)} calls "
+            f"{[round(1e3 * t, 1) for t in ts]}")
+
+
+def phase_block(dev, kern_rows):
+    """The eval step, the train step and streaming with the head and
+    first-encoder convs on the fused conv kernel: launch counts, agreement
+    with the plain versions and with the standard 5x5 form, and the three
+    forms' rates side by side."""
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    # --- eval step, B=8 ---
+    batch8 = make_batch(4, 8, dev, ignore_rows=20)
+    evals, outs = {}, {}
+    for form in bench.FORMS:
+        mods, step = bench.build_eval(8, dev, form=form)
+        mods.head.register_forward_hook(keep_logits)
+        evals[form] = step
+        reset_counts()
+        out = step(batch8)
+        counts = read_counts()
+        kern = form == "block_pallas"
+        log(f"block-conv slice, eval step B=8 T={WINDOWS} "
+            f"({FORM_TEXT[form]}): launches {show_counts(counts)}")
+        need_counts(counts, (1, 3 * WINDOWS, 0, 0, 2 * WINDOWS * kern, 0))
+        if kern:
+            add_launches(kern_rows, "eval_block_conv", counts)
+        if not (torch.isfinite(out["latent8"]).all()
+                and np.isfinite(float(out["loss"]))):
+            raise AssertionError(f"eval step ({form}) output is not finite")
+        outs[form] = (out, logits[0])
+    with plain_versions():
+        ref = evals["block_pallas"](batch8)
+    if read_counts() != counts:
+        raise AssertionError("the plain path launched a kernel")
+    out_k = outs["block_pallas"][0]
+    slice_agreement("eval, fused conv kernel path vs plain path",
+                    out_k["latent8"], ref["latent8"], out_k["pred"],
+                    ref["pred"], logits[0])
+    out_s, logits_s = outs["standard"]
+    for form in ("block_xla", "block_pallas"):
+        slice_agreement(f"eval, {FORM_TEXT[form]} vs standard 5x5 form",
+                        outs[form][0]["latent8"], out_s["latent8"],
+                        outs[form][0]["pred"], out_s["pred"], logits_s)
+    log(f"  losses: standard {float(out_s['loss']):.6f}, block library "
+        f"{float(outs['block_xla'][0]['loss']):.6f}, block kernel "
+        f"{float(out_k['loss']):.6f}, plain {float(ref['loss']):.6f}")
+    del outs, out, ref, out_k, out_s, logits_s
+
+    def eval_call(form):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(evals[form](batch8)["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed_forms(f"eval step B=8 T={WINDOWS}", eval_call, 8 * WINDOWS)
+    del evals
+    torch.cuda.empty_cache()
+
+    # --- train step, B=8, int8 cell (and int8 block convs on the kernel) ---
+    trains, first = {}, {}
+    for form in bench.FORMS:
+        mods, state, step = bench.build_train(bench.make_cfg(8), dev,
+                                              form=form)
+        trains[form] = (state, step)
+        reset_counts()
+        first[form] = float(step(state, batch8)["loss"])
+        counts = read_counts()
+        kern = form == "block_pallas"
+        log(f"block-conv slice, train step B=8 T={WINDOWS} "
+            f"({FORM_TEXT[form]}): launches {show_counts(counts)}, loss "
+            f"{first[form]:.6f}")
+        need_counts(counts, (1, 0, 3 * WINDOWS, 0, 0, 2 * WINDOWS * kern))
+        if kern:
+            add_launches(kern_rows, "train_block_conv", counts)
+    mods_p, state_p, step_p = bench.build_train(bench.make_cfg(8), dev,
+                                                form="block_pallas")
+    with plain_versions():
+        loss_p = float(step_p(state_p, batch8)["loss"])
+    pipe = bench.make_pipeline()
+    with torch.no_grad():
+        windows, _ = pipe.build_all(batch8, aug=AugmentParams(),
+                                    out_dtype=mods_p.e2vid.dtype)
+        lat_k = mods_p.recon_train.rollout(windows, decode=False)[2][8].float()
+        with plain_versions():
+            lat_p = mods_p.recon_train.rollout(windows,
+                                               decode=False)[2][8].float()
+    rel = ((lat_k - lat_p).abs().max() / lat_p.abs().max()).item()
+    loss_rel = abs(first["block_pallas"] - loss_p) / abs(loss_p)
+    log(f"  train step 1, int8 kernels (cell and block convs) vs plain path: "
+        f"loss {first['block_pallas']:.6f} vs {loss_p:.6f} (relative "
+        f"difference {loss_rel:.3e}, bound {TRAIN_LOSS_REL}); latent8 rel "
+        f"max|d| {rel:.3e} (bound {TRAIN_LATENT_REL}); standard form's loss "
+        f"{first['standard']:.6f}, block library form's "
+        f"{first['block_xla']:.6f}")
+    if not (loss_rel <= TRAIN_LOSS_REL and rel <= TRAIN_LATENT_REL
+            and all(np.isfinite(v) for v in first.values())):
+        raise AssertionError("train block-conv kernel path disagrees with "
+                             "the plain path")
+    del mods_p, state_p, step_p, windows, lat_k, lat_p
+
+    def train_call(form):
+        state, step = trains[form]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(state, batch8)["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed_forms(f"train step B=8 T={WINDOWS}, int8 cell", train_call,
+                8 * WINDOWS)
+    del trains, batch8
+    torch.cuda.empty_cache()
+
+    # --- streaming, B=8 and B=1, tile wire ---
+    label_px = (SENSOR_H - CROP) * SENSOR_W
+    scored = STREAM_WINDOWS // bench.WINDOWS_PER_SCORE
+    for b in (8, 1):
+        windows = bench.make_stream(
+            7, b, dev, "tile", windows=STREAM_WINDOWS,
+            resets=((0, 1.0), (STREAM_WINDOWS // 2, 0.5)))
+        streams, finals = {}, {}
+        for form in bench.FORMS:
+            mods, steps = bench.build_stream(b, dev, form=form)
+            mods.head.register_forward_hook(keep_logits)
+            streams[form] = (mods, steps)
+            reset_counts()
+            state, cm = bench.run_stream(
+                steps, mods.recon_val.init_state(b, dev), windows)
+            counts = read_counts()
+            kern = form == "block_pallas"
+            log(f"block-conv slice, streaming B={b}, tile wire, "
+                f"{STREAM_WINDOWS} windows ({FORM_TEXT[form]}): launches "
+                f"{show_counts(counts)}")
+            need_counts(counts, (0, 3 * STREAM_WINDOWS, 0, STREAM_WINDOWS,
+                                 2 * STREAM_WINDOWS * kern, 0))
+            if kern:
+                add_launches(kern_rows, "stream_block_conv", counts)
+            latent = state[-1][0].float()
+            if (float(cm.sum()) != scored * b * label_px
+                    or tuple(latent.shape) != (b, 256, (SENSOR_H - CROP) // 8,
+                                               SENSOR_W // 8)
+                    or not torch.isfinite(latent).all()):
+                raise AssertionError(f"bad stream output ({form}): cm.sum "
+                                     f"{float(cm.sum())}, latent "
+                                     f"{tuple(latent.shape)}")
+            finals[form] = (latent, logits[0].argmax(dim=1), cm, logits[0])
+        mods, steps = streams["block_pallas"]
+        with plain_versions():
+            state_p, cm_p = bench.run_stream(
+                steps, mods.recon_val.init_state(b, dev), windows)
+        lat, pred, cm, _ = finals["block_pallas"]
+        slice_agreement(f"streaming B={b}, fused conv kernel path vs plain "
+                        "path", lat, state_p[-1][0], pred,
+                        logits[0].argmax(dim=1), logits[0], cm, cm_p)
+        lat_s, pred_s, cm_s, logits_s = finals["standard"]
+        for form in ("block_xla", "block_pallas"):
+            lat, pred, cm, _ = finals[form]
+            slice_agreement(f"streaming B={b}, {FORM_TEXT[form]} vs standard "
+                            "5x5 form", lat, lat_s, pred, pred_s, logits_s,
+                            cm, cm_s)
+        del finals, state, state_p
+        timed = windows[:bench.WINDOWS_PER_SCORE]
+        rounds = 5 if b == 1 else 3
+
+        def stream_call(form):
+            mods_, steps_ = streams[form]
+            wps = bench.stream_windows_per_sec(mods_, steps_, timed, rounds)
+            return b / wps                      # seconds per window
+
+        timed_forms(f"streaming eval B={b}, tile wire, 19 encode + 1 score "
+                    "per 20 windows", stream_call, b, reps=1)
+        del streams, windows, timed
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
     rows = [check_voxelizer(dev), check_conv_lstm(dev),
-            check_conv_lstm_int8(dev), check_voxel_tiled(dev)]
+            check_conv_lstm_int8(dev), check_voxel_tiled(dev),
+            check_conv3x3(dev), check_conv3x3_int8(dev)]
     phase_slice(dev, rows)
     phase_train(dev, rows)
     phase_stream(dev, rows)
+    phase_block(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,10 +20,16 @@ Run from the repository root::
     python -m ess_tpu_torch.bench [--iters N] [--profile DIR]
 
 It prints JSON lines under ``bench.py``'s and ``bench_extra.py``'s metric
-names: the two streaming readings, the exact-bf16 train companion
-(``lstm_impl_train=None``, the exact kernel), and the train headline last;
-each names the card and its power limit. ``--profile DIR`` traces 20
-streaming windows at each batch size and one headline train step with
+names: the two streaming readings, the eval step, the exact-bf16 train
+companion (``lstm_impl_train=None``, the exact kernel), and the train
+headline last; each names the card and its power limit. Every rollout runs
+in block space with the block convs (head, first encoder) on the library
+conv, the builder's form; beside each reading stands the same one with the
+block convs on the fused conv kernel (``block_conv_impl='pallas'``, the
+train rollout ``'pallas_int8'`` beside its int8 ConvLSTM cell), its metric
+name extended by ``_block_conv_pallas``. ``--profile DIR`` traces 20
+streaming windows at each batch size, one eval step and one headline train
+step (each in the builder's form) with
 ``torch.profiler`` and prints device time by kernel and the device's idle
 share for each, with the traces in ``DIR``. It needs a CUDA device and
 raises without one; there is no fallback configuration.
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,9 +54,10 @@ from ess_tpu_torch.core.config import (
     ModelConfig, OptimConfig, TaskConfig)
 from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
-from ess_tpu_torch.train.builder import build_modules, init_params, init_state
+from ess_tpu_torch.train.builder import (
+    ESSModules, build_modules, init_params, init_state, with_block_conv_impl)
 from ess_tpu_torch.train.streaming import make_streaming_steps
-from ess_tpu_torch.train.supervised import make_train_step
+from ess_tpu_torch.train.supervised import make_eval_step, make_train_step
 
 BASELINE_WINDOWS_PER_SEC = 160.0   # bench.py's estimate for the reference
 BATCH = 8
@@ -59,6 +67,9 @@ EVENTS_PER_WINDOW = 100_000
 BINS = 5
 NUM_CLASSES = 11
 METRIC = "dsec_supervised_train_event_windows_per_sec_per_chip"
+EVAL_METRIC = "dsec_supervised_eval_event_windows_per_sec_per_chip"
+PALLAS_SUFFIX = "_block_conv_pallas"
+FORMS = ("standard", "block_xla", "block_pallas")
 STREAM_METRIC = "dsec_streaming_eval{}_windows_per_sec_per_chip"
 WINDOWS_PER_SCORE = 20             # one labeled window in 20
 
@@ -184,10 +195,43 @@ def run_stream(steps, recon_state, windows: list):
     return recon_state, cm
 
 
-def build_stream(batch: int, device, seed: int = 0):
+def apply_form(mods: ESSModules, form: Optional[str]) -> ESSModules:
+    """``mods`` with both rollouts in one of :data:`FORMS`: ``'standard'``
+    the 5x5 head and encoder convs on the full-resolution window,
+    ``'block_xla'`` the block-space rollout on the library conv,
+    ``'block_pallas'`` the block-space rollout on the fused conv kernel
+    (exact for eval and streaming, int8 for the train rollout). None leaves
+    the builder's form."""
+    if form is None:
+        return mods
+    if form not in FORMS:
+        raise ValueError(f"unknown rollout form {form!r}; expected one of "
+                         f"{FORMS}")
+    if form == "standard":
+        return dataclasses.replace(mods, **{
+            name: dataclasses.replace(getattr(mods, name), block_space=False,
+                                      block_conv_impl=None)
+            for name in ("recon_train", "recon_val")})
+    if form == "block_xla":
+        return with_block_conv_impl(mods, "xla")
+    return with_block_conv_impl(mods, "pallas", "pallas_int8")
+
+
+def build_eval(batch: int, device, seed: int = 0,
+               form: Optional[str] = None):
+    """Seeded modules and the eval step at ``batch`` samples."""
+    mods = build_modules(make_cfg(batch, None), device=device)
+    init_params(mods, torch.Generator().manual_seed(seed))
+    mods = apply_form(mods, form)
+    return mods, make_eval_step(mods, make_pipeline())
+
+
+def build_stream(batch: int, device, seed: int = 0,
+                 form: Optional[str] = None):
     """Seeded modules and the streaming steps at ``batch`` streams."""
     mods = build_modules(make_cfg(batch, None), device=device)
     init_params(mods, torch.Generator().manual_seed(seed))
+    mods = apply_form(mods, form)
     return mods, make_streaming_steps(mods, make_pipeline())
 
 
@@ -209,10 +253,12 @@ def stream_windows_per_sec(mods, steps, windows: list, rounds: int) -> float:
     return n_streams / dt
 
 
-def build_train(cfg: Config, device, seed: int = 0):
+def build_train(cfg: Config, device, seed: int = 0,
+                form: Optional[str] = None):
     """Seeded modules, train state and train step of ``cfg``."""
     mods = build_modules(cfg, device=device)
     init_params(mods, torch.Generator().manual_seed(seed))
+    mods = apply_form(mods, form)
     return mods, init_state(mods), make_train_step(mods, make_pipeline())
 
 
@@ -220,12 +266,14 @@ def windows_per_sec(step: Callable, state, batch: Dict[str, torch.Tensor],
                     iters: int) -> float:
     """Sustained rate over ``iters`` steps after one warm-up step: the
     steps are enqueued back to back and the host waits once, on the last
-    loss (as ``bench.py`` fetches one final scalar)."""
-    float(step(state, batch)["loss"])
+    loss (as ``bench.py`` fetches one final scalar). ``state`` None: an
+    eval step, ``step(batch)``."""
+    args = (batch,) if state is None else (state, batch)
+    float(step(*args)["loss"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        out = step(state, batch)
+        out = step(*args)
     float(out["loss"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / iters
@@ -305,14 +353,16 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     name = card()
     for b in (1, BATCH):
-        mods, steps = build_stream(b, dev)
         windows = make_stream(0, b, dev)
-        wps = stream_windows_per_sec(mods, steps, windows, args.iters)
-        print(json.dumps({
-            "metric": STREAM_METRIC.format("" if b == 1 else f"_b{b}"),
-            "value": round(wps, 2), "unit": "windows/s",
-            "ms_per_window": round(1e3 * b / wps, 3), "device": name}),
-            flush=True)
+        for form, suffix in (("block_pallas", PALLAS_SUFFIX), (None, "")):
+            mods, steps = build_stream(b, dev, form=form)
+            wps = stream_windows_per_sec(mods, steps, windows, args.iters)
+            print(json.dumps({
+                "metric": STREAM_METRIC.format("" if b == 1 else f"_b{b}")
+                + suffix,
+                "value": round(wps, 2), "unit": "windows/s",
+                "ms_per_window": round(1e3 * b / wps, 3), "device": name}),
+                flush=True)
         if args.profile:
             state = [mods.recon_val.init_state(b, dev)]
 
@@ -325,22 +375,37 @@ def main(argv=None) -> None:
                 "windows": len(windows), "device": name}), flush=True)
         del mods, steps, windows
     batch = make_batch(0, BATCH, dev)
+    for form, suffix in (("block_pallas", PALLAS_SUFFIX), (None, "")):
+        mods, step = build_eval(BATCH, dev, form=form)
+        wps = windows_per_sec(step, None, batch, args.iters)
+        print(json.dumps({"metric": EVAL_METRIC + suffix,
+                          "value": round(wps, 2), "unit": "windows/s",
+                          "device": name}), flush=True)
+    if args.profile:
+        print(json.dumps({"profile": profile_call(
+            lambda: float(step(batch)["loss"]), args.profile, "eval_step"),
+            "device": name}), flush=True)
+    del mods, step
     lines = []
-    for impl, metric in ((None, METRIC + "_exact_bf16"),
-                         ("pallas_int8", METRIC)):
-        mods, state, step = build_train(make_cfg(BATCH, impl), dev)
+    for impl, form, metric in (
+            (None, None, METRIC + "_exact_bf16"),
+            ("pallas_int8", "block_pallas", METRIC + PALLAS_SUFFIX),
+            ("pallas_int8", None, METRIC)):
+        mods, state, step = build_train(make_cfg(BATCH, impl), dev, form=form)
         wps = windows_per_sec(step, state, batch, args.iters)
         lines.append({"metric": metric, "value": round(wps, 2),
                       "unit": "windows/s",
                       "vs_baseline": round(wps / BASELINE_WINDOWS_PER_SEC, 3),
                       "device": name})
         del mods
-    print(json.dumps(lines[0]), flush=True)
+    for line in lines[:-1]:
+        print(json.dumps(line), flush=True)
     if args.profile:
         print(json.dumps({"profile": profile_call(
             lambda: float(step(state, batch)["loss"]), args.profile,
             "train_step"), "device": name}), flush=True)
-    print(json.dumps(lines[1]), flush=True)
+    print(json.dumps(lines[-1]), flush=True)
+
 
 if __name__ == "__main__":
     main()

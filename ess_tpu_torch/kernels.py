@@ -104,6 +104,12 @@ def _build() -> ctypes.CDLL:
     lib.ess_conv_lstm_quant.restype = ci
     lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.ess_conv_lstm_int8.restype = ci
+    lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.ess_conv3x3.restype = ci
+    lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [i64] + [vp]
+    lib.ess_conv3x3_quant.restype = ci
+    lib.ess_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    lib.ess_conv3x3_int8.restype = ci
     lib.ess_error_string.argtypes = [ci]
     lib.ess_error_string.restype = ctypes.c_char_p
     return lib

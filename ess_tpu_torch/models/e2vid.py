@@ -6,8 +6,15 @@ conv + ConvLSTM) -> residual blocks -> bilinear-upsample decoders with skip
 merges -> 1x1 prediction + sigmoid. The latent dict maps downsample factor to
 feature (1 = head, 2**(i+1) = encoder i), as upstream ``unet.py`` does.
 
-Activations and recurrent state live in channels-last memory: the ConvLSTM
-kernel reads NHWC, and cuDNN runs bf16 convolutions natively in that layout.
+With ``block_input`` the window arrives as 2x2 space-to-depth blocks
+(:func:`ess_tpu_torch.ops.conv_s2d.space_to_depth`) and the head conv and
+the first encoder's stride-2 conv run as exact 3x3 convs in block space, on
+the library conv or on the fused conv kernel (``block_conv_impl``); the
+full-resolution head activation exists only on decode windows. Same
+parameters, same function.
+
+Activations and recurrent state live in channels-last memory: the kernels
+read NHWC, and cuDNN runs bf16 convolutions natively in that layout.
 """
 
 from __future__ import annotations
@@ -19,9 +26,10 @@ import torch.nn as nn
 
 from ess_tpu_torch import resolve_device
 from ess_tpu_torch.models.layers import (
-    ConvLayer, RecurrentConvLayer, ResidualBlock, UpsampleConvLayer,
-    skip_merge)
+    BLOCK_CONV_IMPLS, ConvLayer, RecurrentConvLayer, ResidualBlock,
+    UpsampleConvLayer, skip_merge)
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
+from ess_tpu_torch.ops.conv_s2d import depth_to_space
 
 Latent = Dict[int, torch.Tensor]
 State = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
@@ -54,10 +62,14 @@ class RecurrentUNet(nn.Module):
     def __init__(self, *, in_channels: int = 5, base_channels: int = 32,
                  num_encoders: int = 3, num_residual_blocks: int = 2,
                  num_output_channels: int = 1, skip_type: str = "sum",
-                 lstm_impl: str = "pallas",
+                 lstm_impl: str = "pallas", block_conv_impl: str = "xla",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.lstm_impl = resolve_lstm_impl(lstm_impl)
+        if block_conv_impl not in BLOCK_CONV_IMPLS:
+            raise ValueError(f"unknown block_conv_impl {block_conv_impl!r}; "
+                             f"expected one of {BLOCK_CONV_IMPLS}")
+        self.block_conv_impl = block_conv_impl
         self.base_channels = base_channels
         self.num_encoders = num_encoders
         self.skip_type = skip_type
@@ -82,23 +94,39 @@ class RecurrentUNet(nn.Module):
                               "sigmoid", device=device)
 
     def forward(self, x: torch.Tensor, states: Sequence, *,
-                decode: bool = True, lstm_impl: Optional[str] = None
+                decode: bool = True, lstm_impl: Optional[str] = None,
+                block_input: bool = False,
+                block_conv_impl: Optional[str] = None
                 ) -> Tuple[Optional[torch.Tensor], State, Latent]:
         """One event window (B, C, H, W). ``decode=False`` runs only the head
         and the recurrent encoders (state update + latent) and returns
         ``(None, states, latent)``: only the last window of a rollout is
         decoded. ``lstm_impl`` (a resolved cell name) overrides the model's
         ConvLSTM cell for this call, as JAX's ``e2vid.clone(lstm_impl=...)``
-        does over the same parameters."""
+        does over the same parameters.
+
+        ``block_input``: ``x`` is the space-to-depth window
+        (B, 4C, H/2, W/2); the head conv and the first encoder's conv run in
+        block space on ``block_conv_impl`` (None: the model's). The
+        full-resolution head activation, ``latent[1]``, is built only
+        where it is consumed: with ``decode=False`` the latent has no entry
+        1 (eager PyTorch drops no unused work)."""
         impl = self.lstm_impl if lstm_impl is None else lstm_impl
+        bimpl = (self.block_conv_impl if block_conv_impl is None
+                 else block_conv_impl)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        head = self.head(x)
-        latent: Latent = {1: head}
+        latent: Latent = {}
+        if block_input:
+            h = self.head(x, True, bimpl)
+            head = depth_to_space(h) if decode else None
+        else:
+            h = head = self.head(x)
+        if head is not None:
+            latent[1] = head
         blocks = []
         new_states = []
-        h = head
         for i, enc in enumerate(self.encoders):
-            h, st = enc(h, states[i], impl)
+            h, st = enc(h, states[i], impl, block_input and i == 0, bimpl)
             new_states.append(st)
             blocks.append(h)
             latent[2 ** (i + 1)] = h

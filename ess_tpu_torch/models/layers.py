@@ -1,12 +1,13 @@
 """Layer primitives of the E2VID backbone and the segmentation head (NCHW).
 
-Counterpart of ``ess_tpu/models/layers.py`` on its standard-layout paths
-(``ConvLayer``, ``ResidualBlock``, ``UpsampleConvLayer``, ``ConvLSTMCell``,
-``RecurrentConvLayer``, ``ReLUINSConv2d``, ``INSResBlock``,
-``upsample2x_nearest``, ``skip_merge``; ``instance_norm`` is
-``nn.InstanceNorm2d(affine=False)``). The JAX
-package's space-to-depth and im2col variants compute the same functions
-with remapped weights; a plain convolution is the same function here.
+Counterpart of ``ess_tpu/models/layers.py`` (``ConvLayer`` with its
+block-space form ``_BlockConv`` at ``in_block=2``, ``ResidualBlock``,
+``UpsampleConvLayer``, ``ConvLSTMCell``, ``RecurrentConvLayer``,
+``ReLUINSConv2d``, ``INSResBlock``, ``upsample2x_nearest``, ``skip_merge``;
+``instance_norm`` is ``nn.InstanceNorm2d(affine=False)``). The JAX
+package's im2col, decoder and quad-block space-to-depth variants compute
+the same functions with remapped weights; a plain convolution is the same
+function here.
 
 Submodule names follow upstream ESS/E2VID (``conv2d``,
 ``recurrent_block.Gates``, ``conv1``/``conv2``, ``model.<i>``), so a
@@ -23,7 +24,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ess_tpu_torch.ops.conv3x3 import (
+    IMPLS as BLOCK_CONV_IMPLS, conv3x3_fused, prepare_conv_weights)
 from ess_tpu_torch.ops.conv_lstm import conv_lstm_cell, prepare_gate_weights
+from ess_tpu_torch.ops.conv_s2d import block_bias, block_kernel
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 None: lambda x: x}
@@ -54,8 +58,83 @@ def skip_merge(kind: str, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, skip.to(x.dtype)], dim=1)
 
 
+class BlockConv:
+    """A 5x5 conv (stride 1 or 2) + activation evaluated on a 2x2
+    space-to-depth input, the JAX ``_BlockConv`` at ``in_block=2``. It owns
+    no parameters: it reads the (C_out, C_in, 5, 5) weight and the bias of
+    ``conv`` and remaps them to an exact 3x3 block conv at apply time
+    (:func:`ess_tpu_torch.ops.conv_s2d.block_kernel`), so checkpoints do not
+    change. Stride 1 gives the output in 2x2 blocks too, stride 2 at half
+    resolution unblocked.
+
+    ``impl``: ``'xla'`` is the library conv rounded to the input's dtype,
+    then bias and activation; ``'pallas'`` and ``'pallas_int8'`` run
+    :func:`ess_tpu_torch.ops.conv3x3.conv3x3_fused` with the bias and a ReLU
+    fused. While the parameters need no gradient, the remapped weights (cast
+    for ``'xla'``, kernel-ready for the others on CUDA) are kept per
+    ``impl`` and dtype and rebuilt only when a parameter changes."""
+
+    def __init__(self, conv: nn.Conv2d, activation: Optional[str]):
+        if conv.kernel_size != (5, 5) or conv.stride[0] not in (1, 2):
+            raise ValueError("the block-space form takes 5x5 convs of "
+                             f"stride 1 or 2, got {conv}")
+        self.conv = conv
+        self.stride = conv.stride[0]
+        self.activation = activation
+        self._cache: Dict[tuple, Tuple[tuple, tuple]] = {}
+
+    def _remap(self, weight, bias):
+        bo = 2 // self.stride
+        w2 = block_kernel(weight, bi=2, bo=bo, stride=self.stride)
+        return w2, None if bias is None else block_bias(bias, bo)
+
+    def _frozen_weights(self, impl: str, dtype: torch.dtype):
+        w, b = self.conv.weight, self.conv.bias
+        key = (w.data_ptr(), w._version, w.device,
+               None if b is None else (b.data_ptr(), b._version))
+        hit = self._cache.get((impl, dtype))
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                w2, b2 = self._remap(w.detach(),
+                                     None if b is None else b.detach())
+                prepared = None
+                if impl == "xla":
+                    w2 = w2.to(dtype)
+                    b2 = None if b2 is None else b2.to(dtype)
+                elif w.device.type == "cuda":
+                    prepared = prepare_conv_weights(
+                        w2, int8=impl == "pallas_int8")
+            hit = (key, (w2, b2, prepared))
+            self._cache[(impl, dtype)] = hit
+        return hit[1]
+
+    def __call__(self, x_blk: torch.Tensor, impl: str = "xla"
+                 ) -> torch.Tensor:
+        if impl not in BLOCK_CONV_IMPLS:
+            raise ValueError(f"unknown block_conv_impl {impl!r}; expected "
+                             f"one of {BLOCK_CONV_IMPLS}")
+        w, b = self.conv.weight, self.conv.bias
+        if torch.is_grad_enabled() and (
+                w.requires_grad or (b is not None and b.requires_grad)):
+            (w2, b2), prepared = self._remap(w, b), None
+        else:
+            w2, b2, prepared = self._frozen_weights(impl, x_blk.dtype)
+        if impl == "xla":
+            out = F.conv2d(x_blk, w2.to(x_blk.dtype),
+                           None if b2 is None else b2.to(x_blk.dtype),
+                           padding=1)
+            return _ACTIVATIONS[self.activation](out)
+        fuse_relu = self.activation == "relu"
+        out = conv3x3_fused(x_blk, w2, b2, relu=fuse_relu, impl=impl,
+                            prepared=prepared)
+        return out if fuse_relu else _ACTIVATIONS[self.activation](out)
+
+
 class ConvLayer(nn.Module):
-    """Conv (padding k//2) + optional activation."""
+    """Conv (padding k//2) + optional activation. With ``block_space`` the
+    input is a 2x2 space-to-depth tensor and the (5x5) conv runs in block
+    form (:class:`BlockConv`) on ``block_conv_impl``, over the same
+    parameters."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
@@ -64,8 +143,16 @@ class ConvLayer(nn.Module):
         self.conv2d = Conv2d(in_channels, out_channels, kernel_size, stride,
                              padding=kernel_size // 2, device=device)
         self.activation = _ACTIVATIONS[activation]
+        self._block = (BlockConv(self.conv2d, activation)
+                       if kernel_size == 5 and stride in (1, 2) else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block_space: bool = False,
+                block_conv_impl: str = "xla") -> torch.Tensor:
+        if block_space:
+            if self._block is None:
+                raise ValueError("the block-space path takes 5x5 convs of "
+                                 f"stride 1 or 2, got {self.conv2d}")
+            return self._block(x, block_conv_impl)
         return self.activation(self.conv2d(x))
 
 
@@ -135,7 +222,9 @@ class ConvLSTMCell(nn.Module):
 
 class RecurrentConvLayer(nn.Module):
     """Stride-2 5x5 conv + ReLU followed by a ConvLSTM cell (``impl`` as
-    :class:`ConvLSTMCell`)."""
+    :class:`ConvLSTMCell`). With ``block_space`` the input is a 2x2
+    space-to-depth tensor: the conv runs in block form and lands unblocked
+    at half resolution, where the cell runs as always."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2, *, device=None):
@@ -145,8 +234,10 @@ class RecurrentConvLayer(nn.Module):
         self.recurrent_block = ConvLSTMCell(out_channels, out_channels,
                                             device=device)
 
-    def forward(self, x: torch.Tensor, state, impl: str = "pallas"):
-        return self.recurrent_block(self.conv(x), state, impl)
+    def forward(self, x: torch.Tensor, state, impl: str = "pallas",
+                block_space: bool = False, block_conv_impl: str = "xla"):
+        return self.recurrent_block(
+            self.conv(x, block_space, block_conv_impl), state, impl)
 
 
 class ReLUINSConv2d(nn.Module):

@@ -1,0 +1,93 @@
+"""Space-to-depth (block) evaluation of 5x5 convs (NCHW).
+
+Counterpart of ``ess_tpu/ops/conv_s2d.py`` on the parts the block-space
+rollout uses: ``space_to_depth``, ``depth_to_space``, ``block_kernel`` and
+``block_bias``. A 5x5 SAME conv over an image equals a 3x3 SAME conv over
+its 2x2 space-to-depth blocks with remapped weights: at stride 1 it yields
+all four output phases at once (``bi=bo=2``: the E2VID head conv, 5 -> 32
+channels becomes 20 -> 128), at stride 2 it lands at half resolution
+unblocked (``bi=2, bo=1``: the first encoder's conv, 128 -> 64). The remap
+is a gather of the original weights, so parameters and checkpoints do not
+change and gradients flow through it.
+
+Channel order is the JAX package's: blocked channel ``(r*2 + s)*C + c``
+holds pixel ``(2Y + r, 2X + s)`` of channel ``c``.
+``torch.pixel_unshuffle`` orders channels ``c*4 + r*2 + s`` and is another
+function. Tensors are NCHW; results come out in channels-last memory, the
+layout the kernels and cuDNN read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 4C, H/2, W/2); channel = (r*2 + s)*C + c."""
+    b, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth needs even H and W, got {(h, w)}")
+    x = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+    return x.permute(0, 3, 1, 2)
+
+
+def depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """(B, 4C, H/2, W/2) -> (B, C, H, W); inverse of :func:`space_to_depth`."""
+    b, c4, hh, ww = x.shape
+    if c4 % 4:
+        raise ValueError(f"depth_to_space needs 4*C channels, got {c4}")
+    c = c4 // 4
+    x = x.permute(0, 2, 3, 1).reshape(b, hh, ww, 2, 2, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * hh, 2 * ww, c)
+    return x.permute(0, 3, 1, 2)
+
+
+def block_kernel(weight: torch.Tensor, *, bi: int, bo: int,
+                 stride: int = 1) -> torch.Tensor:
+    """(C_out, C_in, K, K) weight of a SAME conv (pad K//2) with ``stride``
+    -> the weight (bo^2*C_out, bi^2*C_in, KB, KB) of the stride-1 SAME conv
+    that computes the same function from an input stored in bi x bi blocks
+    (channel ``(r*bi + s)*C_in + c``) to an output in bo x bo blocks
+    (channel ``(p*bo + q)*C_out + n``). Needs ``stride * bo == bi`` so that
+    the block grids align, and an odd block-kernel size with centred
+    support (K=5 with ``bi=2``: KB=3)."""
+    cout, cin, k, k2 = weight.shape
+    if k != k2 or k % 2 != 1:
+        raise ValueError(f"block_kernel needs an odd square kernel, got "
+                         f"{tuple(weight.shape)}")
+    if stride * bo != bi:
+        raise ValueError(f"block_kernel needs stride*bo == bi, got stride "
+                         f"{stride}, bo {bo}, bi {bi}")
+    pad = k // 2
+    imax = stride * (bo - 1) + k - 1 - pad
+    dymin = -pad // bi
+    kb = imax // bi - dymin + 1
+    if kb % 2 != 1 or -dymin != kb // 2:
+        raise ValueError(
+            f"block_kernel needs an odd block-kernel size with centred "
+            f"support (kb={kb}, dymin={dymin}); (k={k}, bi={bi}, bo={bo}, "
+            f"stride={stride}) would need explicit conv padding")
+    # gather index into the kernel axis; k = the appended zero row (taps
+    # that fall outside the kernel's support)
+    idx = np.full((kb, bi, bo), k, np.int64)
+    for ky in range(kb):
+        for r in range(bi):
+            for p in range(bo):
+                dy = (ky + dymin) * bi + r - stride * p + pad
+                if 0 <= dy < k:
+                    idx[ky, r, p] = dy
+    flat = torch.from_numpy(idx.reshape(-1)).to(weight.device)
+    wp = F.pad(weight, (0, 1, 0, 1))                 # (cout, cin, k+1, k+1)
+    w = wp.index_select(2, flat).index_select(3, flat)
+    w = w.reshape(cout, cin, kb, bi, bo, kb, bi, bo)
+    #             n     c    ky  r   p   kx  s   q
+    w = w.permute(4, 7, 0, 3, 6, 1, 2, 5)            # p q n r s c ky kx
+    return w.reshape(bo * bo * cout, bi * bi * cin, kb, kb)
+
+
+def block_bias(bias: torch.Tensor, bo: int) -> torch.Tensor:
+    """Tile a conv bias for bo x bo blocked output channels."""
+    return bias.repeat(bo * bo)

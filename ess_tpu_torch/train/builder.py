@@ -4,13 +4,17 @@ Counterpart of the supervised subset of ``ess_tpu/train/builder.py``
 (``build_modules``, ``init_state``): the frozen E2VID backbone, the
 segmentation head, the train and validation rollouts (each with its
 ConvLSTM cell, ``model.lstm_impl`` / ``model.lstm_impl_train``, over one
-parameter set) and the head's RAdam.
+parameter set) and the head's RAdam. Both rollouts run in block space with
+the block convs on the library conv (``'xla'``), the JAX builder's choice;
+:func:`with_block_conv_impl` puts them on the fused conv kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -18,7 +22,8 @@ import torch.nn as nn
 from ess_tpu_torch import resolve_device
 from ess_tpu_torch.core.config import Config
 from ess_tpu_torch.models.e2vid import RecurrentUNet
-from ess_tpu_torch.models.layers import INSResBlock, ReLUINSConv2d
+from ess_tpu_torch.models.layers import (
+    BLOCK_CONV_IMPLS, INSResBlock, ReLUINSConv2d)
 from ess_tpu_torch.models.seghead import SegmentationHead
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
 from ess_tpu_torch.recon.reconstructor import Reconstructor
@@ -88,6 +93,28 @@ def build_modules(cfg: Config, *, device=None,
     return ESSModules(cfg=cfg, e2vid=e2vid, head=head,
                       recon_train=recon_train, recon_val=recon_val,
                       opt_back=opt_back)
+
+
+def with_block_conv_impl(mods: ESSModules, impl: str,
+                         impl_train: Optional[str] = None) -> ESSModules:
+    """The same modules with the rollouts' block convs (head and first
+    encoder) on ``impl`` for eval and streaming and on ``impl_train`` (None:
+    ``impl``) for the train rollout: ``'xla'``, ``'pallas'`` or
+    ``'pallas_int8'``. The counterpart of JAX's
+    ``e2vid.clone(block_conv_impl=...)``: one parameter set, so the train
+    rollout can run the int8 convs beside the int8 ConvLSTM cell while eval
+    stays exact."""
+    impl_train = impl if impl_train is None else impl_train
+    for name in (impl, impl_train):
+        if name not in BLOCK_CONV_IMPLS:
+            raise ValueError(f"unknown block_conv_impl {name!r}; expected "
+                             f"one of {BLOCK_CONV_IMPLS}")
+    return dataclasses.replace(
+        mods,
+        recon_train=dataclasses.replace(mods.recon_train, block_space=True,
+                                        block_conv_impl=impl_train),
+        recon_val=dataclasses.replace(mods.recon_val, block_space=True,
+                                      block_conv_impl=impl))
 
 
 def init_state(mods: ESSModules) -> TrainState:

@@ -10,6 +10,13 @@ Bounds: loss rtol 1e-4, ``latent8`` and ``img_fake`` atol 1e-4 (same f32
 math, other summation orders); predictions and the confusion matrix agree
 except at pixels whose top-2 logit gap is below 1e-4, where the argmax may
 flip.
+
+Both packages roll out in block space by default, their block convs on the
+library conv. ``test_eval_step_block_conv_matches_jax`` holds the other
+forms under the same bounds: the JAX step with its Pallas block conv in
+interpret mode against the port with ``block_conv_impl='pallas'`` (plain
+version on CPU), and the port's standard 5x5 layout (``block_space=False``)
+against the JAX default.
 """
 
 import dataclasses
@@ -34,7 +41,7 @@ from ess_tpu_torch.core import config as tcfg
 from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
 from ess_tpu_torch.io.convert import params_from_jax
 from ess_tpu_torch.ops.resize import resize_nearest
-from ess_tpu_torch.train.builder import build_modules
+from ess_tpu_torch.train.builder import build_modules, with_block_conv_impl
 from ess_tpu_torch.train.losses import task_loss
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.supervised import make_eval_step
@@ -79,7 +86,30 @@ def port_config(cfg):
     return conv(cfg, tcfg.Config)
 
 
+def jax_with_block_conv(mods, impl, impl_train=None):
+    """The JAX modules with the rollouts' models cloned onto
+    ``block_conv_impl`` (``e2vid.clone``), over the same parameter tree."""
+    impl_train = impl if impl_train is None else impl_train
+    return dataclasses.replace(
+        mods,
+        recon_val=dataclasses.replace(
+            mods.recon_val,
+            model=mods.recon_val.model.clone(block_conv_impl=impl)),
+        recon_train=dataclasses.replace(
+            mods.recon_train,
+            model=mods.recon_train.model.clone(block_conv_impl=impl_train)))
+
+
 def test_eval_step_matches_jax():
+    check_eval_step()
+
+
+@pytest.mark.parametrize("form", ["pallas", "standard_layout"])
+def test_eval_step_block_conv_matches_jax(form):
+    check_eval_step(form)
+
+
+def check_eval_step(form="block_xla"):
     cfg = tiny_config()
     cfg = cfg.replace(
         dataset=dataclasses.replace(
@@ -89,6 +119,9 @@ def test_eval_step_matches_jax():
     cols = folded_batch(np.random.default_rng(0))
 
     mods = jax_build(cfg)
+    assert mods.recon_val.block_space
+    if form == "pallas":
+        mods = jax_with_block_conv(mods, "pallas_interpret")
     state = init_state(mods, jax.random.PRNGKey(0))
     jpipe = JaxPipeline(JaxPipelineConfig(
         sensor_height=H, sensor_width=W, num_bins=5, trilinear=True,
@@ -99,6 +132,15 @@ def test_eval_step_matches_jax():
     want = jax.device_get(jax_sup.make_eval_step(mods, jpipe)(state, jbatch))
 
     pmods = build_modules(port_config(cfg), device="cpu")
+    assert pmods.recon_val.block_space
+    assert pmods.recon_val.block_conv_impl is None
+    assert pmods.e2vid.block_conv_impl == "xla"
+    if form == "pallas":
+        pmods = with_block_conv_impl(pmods, "pallas")
+        assert pmods.recon_val.block_conv_impl == "pallas"
+    elif form == "standard_layout":
+        pmods = dataclasses.replace(pmods, recon_val=dataclasses.replace(
+            pmods.recon_val, block_space=False))
     sd_e, sd_h = params_from_jax(jax.device_get(state.e2vid_params),
                                  jax.device_get(state.back_params))
     pmods.e2vid.load_state_dict(sd_e)

@@ -12,6 +12,7 @@ MODULES = [
     "ess_tpu_torch.ops.voxel", "ess_tpu_torch.ops.voxel_folded",
     "ess_tpu_torch.ops.voxel_tiled",
     "ess_tpu_torch.ops.batch_voxel", "ess_tpu_torch.ops.conv_lstm",
+    "ess_tpu_torch.ops.conv_s2d", "ess_tpu_torch.ops.conv3x3",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.recon.reconstructor",

@@ -14,6 +14,15 @@ Bounds:
   are exact in both and the epilogue rounds each f32 operation as the plain
   version does, so h' and c' can differ only where the kernel's expf/tanhf
   and torch's round differently: at most one bf16 ulp (+1e-6);
+- fused 3x3 conv (bf16): at most one bf16 ulp off the plain conv on at
+  least 99.9 % of the values and max |d| within 2^-7 of the plain output's
+  absmax (both accumulate bf16 products in f32, in other orders, and round
+  once; a sum next to a rounding boundary may land one step further);
+- int8 3x3 conv against the plain int8 conv: bit-identical (exact integer
+  accumulators, the same f32 operations in the same order);
+- both convs never reach ``F.conv2d`` or the plain version on a CUDA tensor,
+  raise on shapes the kernel does not take, and under autograd give
+  ``conv3x3_ref``'s gradients (atol 1e-2 / rtol 1e-2 in bf16);
 - both cells under autograd: the backward is conv_lstm_ref's at the saved
   inputs, so gradients match conv_lstm_ref's with the same cotangents
   (atol 1e-2 / rtol 1e-2 in bf16: cuDNN may pick other algorithms).
@@ -23,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from ess_tpu_torch.ops import conv3x3 as c3
 from ess_tpu_torch.ops import conv_lstm as cl
 from ess_tpu_torch.ops import voxel_folded as vf
 from ess_tpu_torch.ops import voxel_tiled as vt
@@ -306,3 +316,121 @@ def test_conv_lstm_int8_wrapper_rejects(dev):
     with pytest.raises(ValueError):
         cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8",
                           prepared=cl.prepare_gate_weights(wgt))
+
+
+def conv_inputs(dev, b, h, w, cin, cout, seed=0, bias=True):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.relu(torch.randn(b, cin, h, w, generator=g)) * 2).to(
+        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wgt = (torch.randn(cout, cin, 3, 3, generator=g)
+           * (9 * cin) ** -0.5).to(dev)
+    bia = (torch.randn(cout, generator=g) * 0.1).to(dev) if bias else None
+    return x, wgt, bia
+
+
+CONV_SHAPES = [(2, 13, 40, 24, 16), (1, 9, 11, 20, 128), (2, 22, 32, 128, 64),
+               (1, 7, 5, 4, 8), (1, 16, 16, 36, 40), (2, 220, 320, 20, 128),
+               (2, 220, 320, 128, 64)]
+
+
+@pytest.mark.parametrize("relu,bias", [(True, True), (False, True),
+                                       (True, False)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(dev, shape, relu, bias):
+    x, wgt, bia = conv_inputs(dev, *shape, bias=bias)
+    want = c3.conv3x3_ref(x, wgt, bia, relu=relu)
+    n0, i0 = c3.launches, c3.launches_int8
+    got = c3.conv3x3_fused(x, wgt, bia, relu=relu, impl="pallas")
+    torch.cuda.synchronize()
+    assert c3.launches == n0 + 1 and c3.launches_int8 == i0
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    d = (got.float() - want.float()).abs()
+    within = (d <= bf16_ulp(got, want)).float().mean().item()
+    assert within >= 0.999, within
+    assert d.max().item() <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("relu,bias", [(True, True), (False, True),
+                                       (True, False)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_int8_kernel_matches_plain(dev, shape, relu, bias):
+    x, wgt, bia = conv_inputs(dev, *shape, seed=1, bias=bias)
+    want = c3.conv3x3_int8_ref(x, wgt, bia, relu=relu)
+    n0, i0 = c3.launches, c3.launches_int8
+    got = c3.conv3x3_fused(x, wgt, bia, relu=relu, impl="pallas_int8")
+    torch.cuda.synchronize()
+    assert c3.launches == n0 and c3.launches_int8 == i0 + 1
+    assert int((got != want).sum()) == 0
+    # within the JAX package's int8 bounds of the exact conv at its shape
+    if shape == CONV_SHAPES[0]:
+        ref = c3.conv3x3_ref(x, wgt, bia, relu=relu).float()
+        err = (got.float() - ref).abs() / ref.abs().max()
+        assert err.max().item() < 0.02 and err.mean().item() < 2e-3
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
+def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
+    """On a CUDA tensor the fused conv launches its kernel and never reaches
+    ``F.conv2d``, ``torch.matmul`` or a plain version; it raises on what the
+    kernel does not take."""
+    x, wgt, bia = conv_inputs(dev, 1, 12, 14, 20, 32)
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused conv reached a library or plain conv")
+
+    prepared = c3.prepare_conv_weights(wgt, int8=impl == "pallas_int8")
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.nn.functional, "conv2d", refuse)
+        mp.setattr(torch, "matmul", refuse)
+        mp.setattr(c3, "conv3x3_ref", refuse)
+        mp.setattr(c3, "conv3x3_int8_ref", refuse)
+        n0 = c3.launches + c3.launches_int8
+        got = c3.conv3x3_fused(x, wgt, bia, impl=impl, prepared=prepared)
+        torch.cuda.synchronize()
+        assert c3.launches + c3.launches_int8 == n0 + 1
+    plain = c3.conv3x3_int8_ref if impl == "pallas_int8" else c3.conv3x3_ref
+    torch.testing.assert_close(got.float(),
+                               plain(x, wgt, bia, relu=True).float(),
+                               atol=2e-2, rtol=2e-2)
+    for bad_x in (x.float(), x.contiguous()):
+        with pytest.raises(ValueError):
+            c3.conv3x3_fused(bad_x, wgt, bia, impl=impl)
+    x6, w6, b6 = conv_inputs(dev, 1, 4, 4, 6, 8)           # C_in % 4
+    with pytest.raises(ValueError):
+        c3.conv3x3_fused(x6, w6, b6, impl=impl)
+    x8, w8, b8 = conv_inputs(dev, 1, 4, 4, 8, 12)          # C_out % 8
+    with pytest.raises(ValueError):
+        c3.conv3x3_fused(x8, w8, b8, impl=impl)
+    with pytest.raises(ValueError):
+        c3.conv3x3_fused(x, torch.zeros(32, 20, 5, 5, device=dev), bia,
+                         impl=impl)
+    with pytest.raises(ValueError):                        # the other kernel's
+        c3.conv3x3_fused(x, wgt, bia, impl=impl,
+                         prepared=c3.prepare_conv_weights(
+                             wgt, int8=impl != "pallas_int8"))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
+def test_conv3x3_kernel_backward(dev, impl):
+    x, wgt, bia = conv_inputs(dev, 1, 12, 14, 24, 16, seed=3)
+    ct = torch.randn(1, 16, 12, 14,
+                     generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.no_grad():
+        out_ng = c3.conv3x3_fused(x, wgt, bia, impl=impl)
+
+    def grads(fn):
+        ins = [t.detach().clone(memory_format=torch.preserve_format)
+               .requires_grad_(True) for t in (x, wgt, bia)]
+        out = fn(*ins)
+        (out.float() * ct).sum().backward()
+        return out, [t.grad for t in ins]
+
+    n0 = c3.launches + c3.launches_int8
+    out, g_k = grads(lambda *a: c3.conv3x3_fused(*a, impl=impl))
+    assert c3.launches + c3.launches_int8 == n0 + 1
+    assert torch.equal(out, out_ng)
+    _, g_r = grads(lambda *a: c3.conv3x3_ref(*a, relu=True))
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                   rtol=1e-2)

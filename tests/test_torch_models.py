@@ -6,6 +6,14 @@ convs in space-to-depth form and the bilinear decoder upsample through
 ``up2x_bilinear_s2d``, so sums run in other orders: atol 1e-4 / rtol 1e-4.
 A round trip writes the port's state dicts as reference-format checkpoints
 and reads them back through ``ess_tpu/io/convert.py``.
+
+The block-space rollout form (``block_input=True``: the window in 2x2
+space-to-depth blocks, head and first-encoder convs as 3x3 block convs) is
+held at base 8 on a 32x48 input over three carried windows, the JAX side on
+its Pallas conv in interpret mode (``block_conv_impl='pallas_interpret'``)
+or on XLA, the port on the plain versions (``'pallas'`` on CPU) or on the
+library conv (``'xla'``), under the same bound; it needs no parameter that
+the standard form lacks.
 """
 
 import jax
@@ -18,10 +26,12 @@ from ess_tpu.io.convert import load_e2vid_checkpoint, load_semseg_head_torch
 from ess_tpu.models import RecurrentUNet as JaxUNet
 from ess_tpu.models import SegmentationHead as JaxHead
 from ess_tpu.models import zero_recurrent_state as jax_zero_state
+from ess_tpu.ops.conv_s2d import space_to_depth as jax_s2d
 
 from ess_tpu_torch.io.convert import params_from_jax
 from ess_tpu_torch.models.e2vid import RecurrentUNet, zero_recurrent_state
 from ess_tpu_torch.models.seghead import SegmentationHead
+from ess_tpu_torch.ops.conv_s2d import space_to_depth
 
 B, H, W, BASE = 2, 16, 32, 8
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -79,6 +89,90 @@ def test_recurrent_unet_matches_jax():
                 np.testing.assert_allclose(img_p.numpy(), nchw(img_j), **TOL)
             else:
                 assert img_p is None and img_j is None
+
+
+@pytest.mark.parametrize("jax_impl,port_impl", [
+    ("pallas_interpret", "pallas"), ("xla", "xla"), ("xla", "pallas")])
+def test_recurrent_unet_block_input_matches_jax(jax_impl, port_impl):
+    """Three carried windows in block space, decode off, off, on: latents,
+    states and the image against JAX within TOL; without decode the port
+    builds no full-resolution head activation (no ``latent[1]``)."""
+    h, w = 32, 48
+    _, params = jax_unet()
+    model = JaxUNet(base_channels=BASE, num_encoders=3,
+                    block_conv_impl=jax_impl)
+    sd, _ = params_from_jax(to_np(params), to_np(jax_head()[1]))
+    port = RecurrentUNet(base_channels=BASE, block_conv_impl=port_impl)
+    port.load_state_dict(sd)
+    assert port.block_conv_impl == port_impl
+    rng = np.random.default_rng(3)
+    xs = rng.normal(size=(3, B, h, w, 5)).astype(np.float32)
+
+    st_j = jax_zero_state(B, h, w, num_encoders=3, base_channels=BASE)
+    st_p = zero_recurrent_state(B, h, w, num_encoders=3, base_channels=BASE,
+                                device="cpu")
+    with torch.no_grad():
+        for i, decode in enumerate((False, False, True)):
+            img_j, st_j, lat_j = model.apply(
+                {"params": params}, jax_s2d(jnp.asarray(xs[i])), st_j,
+                decode=decode, block_input=True)
+            x_blk = space_to_depth(torch.from_numpy(nchw(xs[i])))
+            assert x_blk.shape == (B, 20, h // 2, w // 2)
+            img_p, st_p, lat_p = port(x_blk, st_p, decode=decode,
+                                      block_input=True)
+            assert sorted(lat_p) == ([1, 2, 4, 8] if decode else [2, 4, 8])
+            for s in lat_p:
+                np.testing.assert_allclose(lat_p[s].numpy(), nchw(lat_j[s]),
+                                           **TOL)
+            for (hj, cj), (hp, cp) in zip(st_j, st_p):
+                np.testing.assert_allclose(hp.numpy(), nchw(hj), **TOL)
+                np.testing.assert_allclose(cp.numpy(), nchw(cj), **TOL)
+            if decode:
+                assert img_p.shape == (B, 1, h, w)
+                np.testing.assert_allclose(img_p.numpy(), nchw(img_j), **TOL)
+            else:
+                assert img_p is None and img_j is None
+    # the per-call override takes the place of JAX's clone(block_conv_impl=)
+    with torch.no_grad():
+        _, _, lat_o = port(x_blk, st_p, decode=False, block_input=True,
+                           block_conv_impl="pallas_int8")
+    assert (lat_o[2] - port(x_blk, st_p, decode=False,
+                            block_input=True)[2][2]).abs().max() > 1e-4
+    with pytest.raises(ValueError):
+        RecurrentUNet(base_channels=BASE, block_conv_impl="pallas_interpret")
+    with pytest.raises(ValueError):
+        port(x_blk, st_p, block_input=True, block_conv_impl="bogus")
+
+
+def test_block_space_needs_no_new_parameters():
+    """The block-space form remaps the 5x5 weights at apply time: JAX
+    initializes the same parameter tree under ``block_input=True`` with the
+    conv kernel as it does in the standard form, ``params_from_jax`` maps it
+    onto exactly the port's state-dict keys, and running the block form
+    adds none."""
+    _, params = jax_unet()
+    model = JaxUNet(base_channels=BASE, num_encoders=3,
+                    block_conv_impl="pallas_interpret")
+    st = jax_zero_state(1, H, W, num_encoders=3, base_channels=BASE)
+    params_blk = model.init(jax.random.PRNGKey(1),
+                            jnp.zeros((1, H // 2, W // 2, 20)), st,
+                            block_input=True)["params"]
+    flat = dict(jax.tree_util.tree_leaves_with_path(to_np(params)))
+    flat_blk = dict(jax.tree_util.tree_leaves_with_path(to_np(params_blk)))
+    assert sorted(map(str, flat)) == sorted(map(str, flat_blk))
+    for path, leaf in flat.items():
+        assert flat_blk[path].shape == leaf.shape
+    sd, _ = params_from_jax(to_np(params_blk), to_np(jax_head()[1]))
+    port = RecurrentUNet(base_channels=BASE, block_conv_impl="pallas")
+    keys = sorted(port.state_dict())
+    assert sorted(sd) == keys
+    port.load_state_dict(sd)
+    st_p = zero_recurrent_state(1, H, W, num_encoders=3, base_channels=BASE,
+                                device="cpu")
+    with torch.no_grad():
+        port(torch.zeros(1, 20, H // 2, W // 2), st_p, block_input=True)
+    assert sorted(port.state_dict()) == keys
+    assert sd["head.conv2d.weight"].shape == (BASE, 5, 5, 5)
 
 
 def test_segmentation_head_matches_jax():

@@ -16,6 +16,12 @@ lie on a 1/64-pixel lattice (the resolution of the JAX package's packed
 wire), so both formulations hold every tent position exactly and their
 normalized grids share one zero pattern.
 
+Both packages run the streaming steps in block space with the block convs
+on the library conv; ``test_run_streaming_eval_block_conv_matches_jax``
+holds, on the tile wire at 48x256, the JAX Pallas block conv in interpret
+mode against the port's ``block_conv_impl='pallas'`` (plain version on CPU)
+and the port's standard 5x5 layout against the JAX default.
+
 Bounds: the final recurrent state within 1e-4 (same f32 math, other
 summation orders), the confusion matrix identical. Also the B=2 step-level
 case with one stream reset and one not, and the entry points' device rule.
@@ -42,10 +48,10 @@ from ess_tpu_torch.data.pipeline import (
 from ess_tpu_torch.io.convert import params_from_jax
 from ess_tpu_torch.models.e2vid import zero_recurrent_state
 from ess_tpu_torch.train import metrics
-from ess_tpu_torch.train.builder import build_modules
+from ess_tpu_torch.train.builder import build_modules, with_block_conv_impl
 from ess_tpu_torch.train import streaming as port_streaming
 from ess_tpu_torch.train.streaming import make_streaming_steps
-from tests.test_torch_eval_step import port_config
+from tests.test_torch_eval_step import jax_with_block_conv, port_config
 from tests.test_train_steps import tiny_config
 
 CLASSES = 6
@@ -94,7 +100,7 @@ def make_stream(seed, wire, h, w, n, trilinear, n_windows=7, label_every=3,
     return out
 
 
-def build_both(h, w, trilinear):
+def build_both(h, w, trilinear, form="block_xla"):
     cfg = tiny_config()
     cfg = cfg.replace(dataset=dataclasses.replace(
         cfg.dataset,
@@ -102,6 +108,8 @@ def build_both(h, w, trilinear):
         sensor_b=dataclasses.replace(cfg.dataset.sensor_b, shape=(h, w),
                                      nr_events_data=1)))
     jmods = jax_build(cfg)
+    if form == "pallas":
+        jmods = jax_with_block_conv(jmods, "pallas_interpret")
     jstate = jax_init_state(jmods, jax.random.PRNGKey(0))
     geo = dict(sensor_height=h, sensor_width=w, num_bins=5, normalize=True,
                trilinear=trilinear)
@@ -113,6 +121,11 @@ def build_both(h, w, trilinear):
                                  jax.device_get(jstate.back_params))
     mods.e2vid.load_state_dict(sd_e)
     mods.head.load_state_dict(sd_h)
+    if form == "pallas":
+        mods = with_block_conv_impl(mods, "pallas")
+    elif form == "standard_layout":
+        mods = dataclasses.replace(mods, recon_val=dataclasses.replace(
+            mods.recon_val, block_space=False))
     return (jmods, jstate, jpipe), (mods, EventPipeline(PipelineConfig(**geo)))
 
 
@@ -172,6 +185,54 @@ def test_run_streaming_eval_matches_jax(sensor, wire, monkeypatch):
     assert s_p["mean_iou"] == pytest.approx(s_j["mean_iou"])
     assert s_p["acc"] == pytest.approx(s_j["acc"])
     assert sorted(map(str, s_p)) == sorted(map(str, s_j))
+
+
+@pytest.mark.parametrize("form", ["pallas", "standard_layout"])
+def test_run_streaming_eval_block_conv_matches_jax(form, monkeypatch):
+    h, w, n = SENSORS["48x256"]
+    (jmods, jstate, jpipe), (mods, pipe) = build_both(h, w, True, form)
+    assert mods.recon_val.block_space == (form == "pallas")
+    stream = make_stream(5, "tile", h, w, n, True)
+
+    seen_j = capture_final_state(monkeypatch, jax_streaming)
+    want = jax_streaming.run_streaming_eval(jmods, jstate, iter(stream),
+                                            jpipe)
+    seen_p = capture_final_state(monkeypatch, port_streaming)
+    got = port_streaming.run_streaming_eval(mods, iter(stream), pipe)
+
+    assert got.confusion.sum() == 2 * h * w
+    np.testing.assert_array_equal(got.confusion, want.confusion)
+    assert_states_close(seen_p["state"], jax.device_get(seen_j["state"]))
+
+
+def test_reconstructor_takes_space_to_depth_windows():
+    """``step(events_s2d=True)`` takes the window already in 2x2 blocks and
+    gives what the standard window gives; it needs a block-space rollout
+    and the block geometry."""
+    from ess_tpu_torch.ops.conv_s2d import space_to_depth
+
+    h, w = 16, 32
+    _, (mods, _) = build_both(h, w, False)
+    recon = mods.recon_val
+    x = torch.randn(2, 5, h, w, generator=torch.Generator().manual_seed(0))
+    state = recon.init_state(2, "cpu")
+    with torch.no_grad():
+        img, st, lat = recon.step(x, state)
+        img2, st2, lat2 = recon.step(space_to_depth(x), state,
+                                     events_s2d=True)
+        flat = dataclasses.replace(recon, block_space=False)
+        img3, st3, _ = flat.step(x, state)
+    assert torch.equal(img, img2) and sorted(lat) == sorted(lat2)
+    torch.testing.assert_close(img3, img, atol=1e-5, rtol=0)
+    for a, b, c in zip(st, st2, st3):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        torch.testing.assert_close(c[0], a[0], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError):
+        recon.step(x, state, events_s2d=True)            # not in blocks
+    with pytest.raises(ValueError):
+        recon.step(space_to_depth(x), state)             # blocks, unflagged
+    with pytest.raises(ValueError):
+        flat.step(space_to_depth(x), state, events_s2d=True)
 
 
 def test_wires_agree_with_each_other():

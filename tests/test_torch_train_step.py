@@ -19,6 +19,12 @@ over the train rollout's cell:
   The voxelizer and the flip are held against JAX by the exact case and
   ``test_flip_matches_jax_build_all``.
 
+``test_train_step_block_conv_matches_jax`` runs the int8 case with the
+rollout's block convs (head and first encoder) on the int8 conv too: JAX
+``block_conv_impl='pallas_int8_interpret'`` beside the int8 cell, the port
+``with_block_conv_impl(mods, 'pallas', 'pallas_int8')`` (plain versions on
+CPU), under the same bounds.
+
 Bounds:
 - per-step loss rtol 1e-4; head parameters atol 1e-5 after three RAdam
   steps; E2VID parameters bit-identical (frozen in both);
@@ -48,11 +54,12 @@ from ess_tpu.train.losses import task_loss as jax_loss
 from ess_tpu_torch.data.pipeline import (AugmentParams, EventPipeline,
                                          PipelineConfig)
 from ess_tpu_torch.io.convert import params_from_jax
-from ess_tpu_torch.train.builder import build_modules, init_state
+from ess_tpu_torch.train.builder import (build_modules, init_state,
+                                         with_block_conv_impl)
 from ess_tpu_torch.train.losses import task_loss
 from ess_tpu_torch.train.supervised import make_train_step
 from tests.test_torch_eval_step import (B, CLASSES, H, T, W, folded_batch,
-                                        port_config)
+                                        jax_with_block_conv, port_config)
 from tests.test_train_steps import tiny_config
 
 STEPS = 3
@@ -83,6 +90,14 @@ def slice_config(lstm_impl_train):
 
 @pytest.mark.parametrize("lstm_impl_train", ["pallas_int8_interpret", None])
 def test_train_step_matches_jax(lstm_impl_train):
+    check_train_step(lstm_impl_train)
+
+
+def test_train_step_block_conv_matches_jax():
+    check_train_step("pallas_int8_interpret", block_conv_train="pallas_int8")
+
+
+def check_train_step(lstm_impl_train, block_conv_train=None):
     cfg = slice_config(lstm_impl_train)
     cols = folded_batch(np.random.default_rng(0))
     jpipe = jax_pipeline(flip=True)
@@ -97,6 +112,10 @@ def test_train_step_matches_jax(lstm_impl_train):
     augs = [AugmentParams(flip=torch.from_numpy(f.copy())) for f in flips]
 
     mods = jax_build(cfg)
+    if block_conv_train is not None:
+        mods = jax_with_block_conv(mods, "pallas_interpret",
+                                   block_conv_train + "_interpret")
+        assert mods.recon_train.model.lstm_impl == "pallas_int8_interpret"
     state = jax_init_state(mods, jax.random.PRNGKey(0))
     e2vid0, head0 = (jax.device_get(state.e2vid_params),
                      jax.device_get(state.back_params))
@@ -119,6 +138,11 @@ def test_train_step_matches_jax(lstm_impl_train):
     pmods = build_modules(pcfg, device="cpu")
     assert pmods.recon_train.lstm_impl == (
         "pallas" if lstm_impl_train is None else "pallas_int8")
+    if block_conv_train is not None:
+        pmods = with_block_conv_impl(pmods, "pallas", block_conv_train)
+        assert pmods.recon_train.block_conv_impl == block_conv_train
+        assert pmods.recon_val.block_conv_impl == "pallas"
+        assert pmods.recon_train.model is pmods.e2vid
     sd_e, sd_h = params_from_jax(e2vid0, head0)
     pmods.e2vid.load_state_dict(sd_e)
     pmods.head.load_state_dict(sd_h)
