@@ -1,6 +1,6 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train and streaming-eval paths
 once on one NVIDIA GPU, in the builder's rollout form and with the block
-convs on the fused conv kernel.
+convs on the fused conv kernel, then its two encoder-level attribution tools.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -14,14 +14,20 @@ exits non-zero, with no result line):
    checkout's sources;
 3. kernels: each kernel (B1 fold-free voxelizer, B2 exact ConvLSTM cell,
    B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer, B4 fused 3x3 conv, B4-int8
-   fused 3x3 conv) against its plain PyTorch version on the card at the DSEC
+   fused 3x3 conv, B5 fused encoder level, T2 the cell kernels' attribution
+   variants) against its plain PyTorch version on the card at the DSEC
    shapes of the paths, with kernel and plain times (CUDA events) and the
    kernel's bound on this card (the larger of bytes over memory rate and
    operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
    B3 also with device-side binning, at 10 bins with integer coordinates,
    and on border and tile-edge events; B4 and B4-int8 at the head and
    first-encoder block shapes and at an odd one, with and without ReLU and
-   bias, B4 also beside the library's conv + bias + ReLU;
+   bias, B4 also beside the library's conv + bias + ReLU; B5 at the three
+   encoder levels at the tools' B=8, in the input form each uses, and from
+   a full-resolution input at a small shape with three row tiles (group
+   scales identical, h' and c' within one bf16 ulp, the same bits through
+   ``encoder_level_int8``); T2's four compared modes on both cell bodies at
+   the tools' B=8;
 4. eval slice: the supervised eval step at full width (E2VID base 32,
    480x640 sensor cropped to 440x640, T=20 windows of 100k events, 5 bins,
    11 classes, bf16, seeded weights, synthetic events) -- checks on its
@@ -47,7 +53,16 @@ exits non-zero, with no result line):
    (``block_conv_impl='pallas'``, train rollout ``'pallas_int8'``) --
    launch counts (two per window), agreement with the plain versions and
    with the standard 5x5 form, and each rate beside the block-space form on
-   the library conv and the standard 5x5 form, alternated in one run.
+   the library conv and the standard 5x5 form, alternated in one run;
+8. attribution tools: ``ess_tpu_torch.tools.bench_level`` (the fused level
+   beside the split path: library stride-2 conv, then the int8 cell) and
+   ``ess_tpu_torch.tools.bench_lstm_breakdown`` (the cell variants, both
+   bodies) through their ``main`` at B=8 and the three encoder levels of a
+   440x640 window, 20-step carried chains -- their lines, launch counts,
+   the level's and the split path's error against the f32 chain beside the
+   JAX test's bounds (enforced at a small shape, reported at the DSEC
+   shapes), and a 20-step fused chain against the plain chain at the same
+   B=8 shapes, through ``encoder_level_int8``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -75,9 +90,12 @@ from ess_tpu_torch.data import native  # noqa: E402
 from ess_tpu_torch.data.pipeline import AugmentParams  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
-    batch_voxel, conv3x3, conv_lstm, voxel_folded, voxel_tiled)
+    batch_voxel, conv3x3, conv_lstm, level, voxel_folded, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
+from ess_tpu_torch.tools import (  # noqa: E402
+    REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_level,
+    bench_lstm_breakdown)
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
 
@@ -89,7 +107,16 @@ CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
 CONV_SHAPES = [("head", 2, 20, 128, 220, 320),
                ("encoder 0", 2, 128, 64, 220, 320),
                ("odd", 2, 24, 16, 13, 40)]
-KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8")
+KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8", "B5", "T2")
+# fused encoder level (u shape, hidden channels, u_s2d): the three encoder
+# levels of a 440x640 window at the tools' B=8, the shapes phase 8 drives, in
+# the input form each uses, and level 0 from a full-resolution input at a
+# small shape with three row tiles of 13
+LEVEL_SHAPES = list(bench_level.LAYERS)
+LEVEL_ODD = ((1, 32, 78, 40), 64, False)
+# the attribution tools at a shape close to the JAX level test's (16 output
+# rows, one row tile; channel counts the kernels take)
+LEVEL_SMALL = [((2, 8, 32, 32), 32, False), ((2, 32, 16, 16), 32, True)]
 
 # tolerances, stated before any run on the card
 VOXEL_ATOL = 1e-4      # normalized grid: same f32 weights, atomic order
@@ -127,6 +154,29 @@ CONV_MAX_REL = 2.0 ** -7   # max |d| over the plain output's absmax
 # reported elsewhere: without the ReLU the absmax-relative mean error is
 # larger, and the x scale grows with the size of the tensor.
 JAX_CONV_INT8_MAX, JAX_CONV_INT8_MEAN = 0.02, 2e-3
+# B5 vs its plain version: the group scales are maxima of the same values and
+# x is the same f32 operations on exact integers, so amax_u and amax_x are
+# identical; h' and c' within one bf16 ulp as B2-int8 (INT8_ULP_SLACK). After
+# a 20-step carried chain, each on its own state, a state value one ulp off
+# can move an int8 code of h at the next step:
+CHAIN_ULP_SHARE = 0.999    # share of values within one bf16 ulp
+CHAIN_MAX_ABS = 0.05
+# Against the f32 reference chain, the JAX test's bounds
+# (tests/test_level_pallas.py:28-37, measured there on a 2x8x16x8 level) are
+# enforced at LEVEL_SMALL and reported at the DSEC shapes: a group's absmax
+# grows with the size of the group.
+JAX_LEVEL_DH_MAX, JAX_LEVEL_DC_MAX, JAX_LEVEL_DH_MEAN = 0.06, 0.12, 5e-3
+# T2 vs the plain variants. Int8 body: within one bf16 ulp for ptw_mul and
+# no_ptw (the same f32 operations on exact integers), on VARIANT_ULP_SHARE of
+# the values for ptw_bf16 (a tanhf that rounds to the other bf16 neighbour
+# moves the result by an ulp or two; all within VARIANT_BF16_INT8_MAX). bf16
+# body: f32 accumulation in another order, then one bf16 rounding of values
+# of any size: max |d| within VARIANT_REL of the plain output's absmax,
+# ptw_bf16 (values below 2) within VARIANT_BF16_MAX.
+VARIANT_ULP_SHARE = 0.999
+VARIANT_BF16_INT8_MAX = 2.0 ** -5
+VARIANT_REL = 2.0 ** -6
+VARIANT_BF16_MAX = 2.0 ** -4
 # Train slice, int8-kernel path vs plain path on the first step.
 TRAIN_LATENT_REL = 0.05    # latent8 relative max |d|
 TRAIN_LOSS_REL = 0.02      # loss relative difference
@@ -214,23 +264,32 @@ def reset_counts() -> None:
     voxel_tiled.launches = 0
     conv3x3.launches = 0
     conv3x3.launches_int8 = 0
+    level.launches = 0
+    conv_lstm.launches_variant = 0
 
 
 def read_counts() -> tuple:
-    """Launches of (B1, B2, B2-int8, B3, B4, B4-int8) since
+    """Launches of the kernels (KERNEL_NAMES order) since
     :func:`reset_counts`."""
     torch.cuda.synchronize()
     return (voxel_folded.launches, conv_lstm.launches,
             conv_lstm.launches_int8, voxel_tiled.launches,
-            conv3x3.launches, conv3x3.launches_int8)
+            conv3x3.launches, conv3x3.launches_int8, level.launches,
+            conv_lstm.launches_variant)
 
 
 def show_counts(counts) -> str:
     return ", ".join(f"{k} {n}" for k, n in zip(KERNEL_NAMES, counts))
 
 
+def all_counts(want) -> tuple:
+    """``want`` names the first kernels' counts; the rest are 0."""
+    return tuple(want) + (0,) * (len(KERNEL_NAMES) - len(want))
+
+
 def need_counts(counts, want) -> None:
-    if tuple(counts) != tuple(want):
+    want = all_counts(want)
+    if tuple(counts) != want:
         raise AssertionError(f"launch counts {show_counts(counts)}; want "
                              f"{show_counts(want)}")
 
@@ -781,6 +840,287 @@ def check_conv3x3_int8(dev):
             "library_ms": None}
 
 
+def level_bound(ushape, ch: int, u_s2d: bool):
+    """Bound of one fused-level call on an input of ``ushape``: u, h and c
+    read and h', c' written once in bf16, the f32 parameters read once; 2
+    operations per multiply-add of the 5x5 stride-2 conv (25 taps: the
+    space-to-depth product's zero taps are not work the function needs) and
+    of the gate conv, all int8. Returns (ms, bound by, operations)."""
+    b, _, ho, wo = bench_level.state_shape(ushape, ch, u_s2d)
+    cin = ushape[1] // 4 if u_s2d else ushape[1]
+    state = b * ch * ho * wo
+    params = 25 * cin * ch + ch + 9 * 2 * ch * 4 * ch + 4 * ch
+    nbytes = 2.0 * (int(np.prod(ushape)) + 4 * state) + 4.0 * params
+    ops = 2.0 * b * ho * wo * (25 * cin * ch + 9 * 2 * ch * 4 * ch)
+    return (*bound(nbytes, ops, "int8"), ops)
+
+
+def ulp_report(got, want):
+    """(values beyond one bf16 ulp, values not bit-identical, max |d|)."""
+    d = (got.float() - want.float()).abs()
+    return (int((d > bf16_ulp(got, want) + INT8_ULP_SLACK).sum()),
+            int((got != want).sum()), d.max().item())
+
+
+def check_level(dev):
+    """B5 against its plain version: the three encoder levels at the
+    tool's B=8 and a full-resolution level 0 with three row tiles; times at
+    the three. The kernels are called directly, for the group scales, and
+    through ``encoder_level_int8``, the entry the tool drives, which must
+    give the same bits."""
+    err = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
+    for li, (ushape, ch, u_s2d) in enumerate(LEVEL_SHAPES + [LEVEL_ODD]):
+        odd = li == len(LEVEL_SHAPES)
+        u, h0, c0, ek, eb, gk, _ = bench_level.make_inputs(
+            20 + li, ushape, ch, u_s2d, dev)
+        gb = torch.randn(4 * ch, generator=torch.Generator().manual_seed(li)
+                         ).to(dev) * 0.05
+        prep = level.prepare_level_weights(ek, eb, gk, gb)
+        th = conv_lstm.pick_row_tile(h0.shape[2])
+        kw = dict(u_s2d=u_s2d, th=th)
+        h_p, c_p, au_p, ax_p = level.level_int8_ref(u, h0, c0, prep, **kw)
+        n0 = level.launches
+        h_k, c_k, au_k, ax_k = level.level_int8_cuda(
+            u, h0, c0.clone(memory_format=torch.channels_last), prep, **kw)
+        torch.cuda.synchronize()
+        h_e, (_, c_e) = level.encoder_level_int8(
+            u, (h0, c0.clone(memory_format=torch.channels_last)), ek, eb, gk,
+            gb, u_s2d=u_s2d, prepared=prep)
+        torch.cuda.synchronize()
+        if level.launches != n0 + 2:
+            raise AssertionError("the level did not count its launches")
+        if not (torch.equal(h_e, h_k) and torch.equal(c_e, c_k)):
+            raise AssertionError(f"B5 ({tuple(ushape)}): encoder_level_int8 "
+                                 "and level_int8_cuda give different bits")
+        scales_equal = all(
+            torch.equal(k.clamp(min=level.AMAX_FLOOR), p)
+            for k, p in ((au_k, au_p), (ax_k, ax_p)))
+        bad = unequal = 0
+        e = 0.0
+        for got, want in ((h_k, h_p), (c_k, c_p)):
+            b_, u_, e_ = ulp_report(got, want)
+            bad, unequal, e = bad + b_, unequal + u_, max(e, e_)
+        err = max(err, e)
+        form = "space-to-depth" if u_s2d else "full-resolution"
+        log(f"B5 level_int8 {'odd' if odd else f'L{li}'} u "
+            f"{tuple(ushape)} ({form}) -> CH {ch} at "
+            f"{h0.shape[2]}x{h0.shape[3]}, th={th}, {au_k.numel()} groups: "
+            f"group scales identical {scales_equal} (bound: identical); "
+            f"encoder_level_int8 gives the same bits; "
+            f"{unequal} of {2 * h_k.numel()} values of h', c' not "
+            f"bit-identical, {bad} beyond one bf16 ulp (bound 0), max|d| "
+            f"{e:.3e}")
+        if bad or not scales_equal:
+            raise AssertionError(f"B5 ({tuple(ushape)}) disagrees with its "
+                                 f"plain version: {bad} values, scales "
+                                 f"{scales_equal}")
+        if odd:
+            continue
+        del h_p, c_p, h_k, c_k, h_e, c_e
+        cw = c0.clone(memory_format=torch.channels_last)
+        t_k = cuda_ms(lambda: level.level_int8_cuda(u, h0, cw, prep, **kw),
+                      20)
+        t_p = cuda_ms(lambda: level.level_int8_ref(u, h0, c0, prep, **kw), 2)
+        t_b, by, ops = level_bound(ushape, ch, u_s2d)
+        ms, plain_ms, bound_ms = ms + t_k, plain_ms + t_p, bound_ms + t_b
+        bound_by.add(by)
+        log(f"B5 level_int8 L{li}: kernels {t_k:.3f} ms "
+            f"({ops / t_k / 1e9:.1f} TOP/s), plain {t_p:.3f} ms, bound "
+            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%")
+    log(f"B5 time for the three encoder levels (one window, B=8): kernels "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
+    return {"name": "level_int8", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/level_int8.cu",
+            "replaces": "ess_tpu/ops/level_pallas.py:68",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": None}
+
+
+def check_cell_variants(dev):
+    """T2: the compared modes of both cell bodies against their plain
+    versions at the three encoder cells at the tool's B=8, the shapes phase
+    8 drives; the row's times are those of the three modes other than
+    ``full`` (which is B2 / B2-int8), both bodies."""
+    err = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
+    for li, shape in enumerate(bench_lstm_breakdown.SHAPES):
+        x, h0, c0, w, bias = bench_lstm_breakdown.make_inputs(30 + li, shape,
+                                                              dev)
+        b, ch, hh, ww = shape
+        ops = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
+        nbytes = 2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel())
+        for int8 in (False, True):
+            body = "int8" if int8 else "bf16"
+            prep = conv_lstm.prepare_gate_weights(
+                w, torch.float32 if int8 else torch.bfloat16)
+            t_b, by = bound(nbytes, ops, body)
+            times = []
+            for mode in bench_lstm_breakdown.COMPARED:
+                kw = dict(mode=mode, int8=int8)
+                h_p, c_p = bench_lstm_breakdown.cell_variant_ref(
+                    x, h0, c0, w, bias, **kw)
+                before = read_counts()
+                h_k, c_k = bench_lstm_breakdown.cell_variant(
+                    x, h0, c0.clone(memory_format=torch.channels_last), w,
+                    bias, prepared=prep, **kw)
+                moved = [a - b_ for a, b_ in zip(read_counts(), before)]
+                slot = KERNEL_NAMES.index(
+                    "T2" if mode != "full" else
+                    "B2-int8" if int8 else "B2")
+                if moved != [int(i == slot) for i in range(len(moved))]:
+                    raise AssertionError(f"T2 {body} {mode}: launch counts "
+                                         f"moved by {show_counts(moved)}")
+                ok, what, e = True, [], 0.0
+                for name, got, want in (("h'", h_k, h_p), ("c'", c_k, c_p)):
+                    bad, _, d = ulp_report(got, want)
+                    e = max(e, d)
+                    if int8 and mode != "ptw_bf16":
+                        ok &= bad == 0
+                        what.append(f"{name} {bad} beyond one bf16 ulp "
+                                    "(bound 0)")
+                    elif int8:
+                        ok &= (bad <= (1 - VARIANT_ULP_SHARE) * got.numel()
+                               and d <= VARIANT_BF16_INT8_MAX)
+                        what.append(
+                            f"{name} {bad} beyond one bf16 ulp (bound "
+                            f"{(1 - VARIANT_ULP_SHARE) * got.numel():.0f}), "
+                            f"max|d| {d:.3e} (bound "
+                            f"{VARIANT_BF16_INT8_MAX:.3e})")
+                    elif mode == "ptw_bf16":
+                        ok &= d <= VARIANT_BF16_MAX
+                        what.append(f"{name} max|d| {d:.3e} (bound "
+                                    f"{VARIANT_BF16_MAX:.3e})")
+                    else:
+                        rel = d / want.float().abs().max().item()
+                        ok &= rel <= VARIANT_REL
+                        what.append(f"{name} max|d| {rel:.3e} of absmax "
+                                    f"(bound {VARIANT_REL:.3e})")
+                err = max(err, e)
+                cw = c0.clone(memory_format=torch.channels_last)
+                t_k = cuda_ms(lambda: bench_lstm_breakdown.cell_variant(
+                    x, h0, cw, w, bias, prepared=prep, **kw), 20)
+                times.append(f"{mode} {t_k:.3f}")
+                if mode != "full":
+                    t_p = cuda_ms(
+                        lambda: bench_lstm_breakdown.cell_variant_ref(
+                            x, h0, c0, w, bias, **kw), 2)
+                    ms, plain_ms = ms + t_k, plain_ms + t_p
+                    bound_ms += t_b
+                    bound_by.add(by)
+                log(f"T2 {body} body, {mode}, B={b} C={ch} {hh}x{ww}: "
+                    + "; ".join(what))
+                if not ok:
+                    raise AssertionError(f"T2 {body} {mode} disagrees with "
+                                         "its plain version")
+                del h_p, c_p, h_k, c_k
+            log(f"T2 {body} body B={b} C={ch} {hh}x{ww}: kernel ms "
+                f"{', '.join(times)}; bound {t_b:.4f} ms ({by}) each")
+    log(f"T2 time for ptw_bf16, ptw_mul and no_ptw on both bodies at the "
+        f"three encoder cells (B=8, 18 calls): kernels {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({'/'.join(sorted(bound_by))}), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
+    return {"name": "conv_lstm_variants", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/conv_lstm.cu",
+            "sources": ["ess_tpu_torch/csrc/conv_lstm.cu",
+                        "ess_tpu_torch/csrc/conv_lstm_int8.cu",
+                        "ess_tpu_torch/csrc/mma_common.cuh"],
+            "replaces": "tools/bench_lstm_breakdown.py:47",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": None}
+
+
+def phase_tools(dev, kern_rows):
+    """The two attribution tools through their ``main``: at a small shape
+    with the JAX level test's bounds enforced, then at B=8 and the three
+    encoder levels with the counts read around each; then, at the same
+    shapes and through the entry the tool drives, a 20-step fused chain
+    against the plain chain."""
+    chains = 1 + CHAIN_REPEATS                  # warm-up + timed chains
+    res = bench_level.main(["--layers=0,1"], layers=LEVEL_SMALL)
+    for li, paths in res.items():
+        r = paths["fused"]
+        log(f"bench_level, small level {li}: fused max|dh| {r['dh_max']:.3e} "
+            f"(bound {JAX_LEVEL_DH_MAX}), max|dc| {r['dc_max']:.3e} (bound "
+            f"{JAX_LEVEL_DC_MAX}), mean|dh| {r['dh_mean']:.3e} (bound "
+            f"{JAX_LEVEL_DH_MEAN})")
+        if not (r["dh_max"] < JAX_LEVEL_DH_MAX and r["dc_max"]
+                < JAX_LEVEL_DC_MAX and r["dh_mean"] < JAX_LEVEL_DH_MEAN):
+            raise AssertionError("the fused level is beyond the int8 bounds")
+
+    n_levels = len(bench_level.LAYERS)
+    reset_counts()
+    res = bench_level.main([])
+    counts = read_counts()
+    per_path = n_levels * (1 + chains * CHAIN_STEPS)
+    log(f"bench_level at B=8: launches {show_counts(counts)}")
+    need_counts(counts, (0, 0, per_path, 0, 0, 0, per_path, 0))
+    add_launches(kern_rows, "bench_level", counts)
+    for li, paths in res.items():
+        f, s_ = paths["fused"], paths["split"]
+        t_b, by, ops = level_bound(*bench_level.LAYERS[li])
+        log(f"bench_level L{li} (B=8): fused {f['ms_per_step']:.3f} ms/step "
+            f"({ops / f['ms_per_step'] / 1e9:.1f} TOP/s; bound {t_b:.4f} ms, "
+            f"{by}, share {100.0 * t_b / f['ms_per_step']:.1f}%), "
+            f"split {s_['ms_per_step']:.3f} ms/step (fused / split "
+            f"{f['ms_per_step'] / s_['ms_per_step']:.3f}); vs the f32 chain "
+            f"fused max|dh| {f['dh_max']:.3e} mean|dh| {f['dh_mean']:.3e} "
+            f"max|dc| {f['dc_max']:.3e}, split {s_['dh_max']:.3e} "
+            f"{s_['dh_mean']:.3e} {s_['dc_max']:.3e} (JAX bounds on its test "
+            f"level, reported here: {JAX_LEVEL_DH_MAX}, {JAX_LEVEL_DH_MEAN}, "
+            f"{JAX_LEVEL_DC_MAX})")
+        if not all(np.isfinite(v) for p in paths.values()
+                   for v in p.values()):
+            raise AssertionError("bench_level returned a non-finite value")
+
+    reset_counts()
+    bench_lstm_breakdown.main(["--int8=0"])
+    bench_lstm_breakdown.main(["--int8=1"])
+    counts = read_counts()
+    per_mode = n_levels * chains * CHAIN_STEPS
+    n_other = len(bench_lstm_breakdown.MODES) - 1
+    log(f"bench_lstm_breakdown at B=8, both bodies: launches "
+        f"{show_counts(counts)}")
+    need_counts(counts, (0, per_mode, per_mode, 0, 0, 0, 0,
+                         2 * n_other * per_mode))
+    add_launches(kern_rows, "bench_lstm_breakdown", counts)
+
+    for li, (ushape, ch, u_s2d) in enumerate(LEVEL_SHAPES):
+        u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(
+            40 + li, ushape, ch, u_s2d, dev)
+        kw = dict(u_s2d=u_s2d,
+                  prepared=level.prepare_level_weights(ek, eb, gk, gb))
+        hk, ck = h0, c0.clone(memory_format=torch.channels_last)
+        hp, cp = h0, c0
+        for _ in range(CHAIN_STEPS):
+            hk, ck = level.encoder_level_int8(u, (hk, ck), ek, eb, gk, gb,
+                                              **kw)[1]
+            hp, cp = level.encoder_level_int8_ref(u, hp, cp, ek, eb, gk, gb,
+                                                  **kw)
+        bad_h, ne_h, e_h = ulp_report(hk, hp)
+        bad_c, ne_c, e_c = ulp_report(ck, cp)
+        n = hk.numel()
+        log(f"B5 {CHAIN_STEPS}-step chain L{li} (B={ushape[0]}), kernels vs "
+            f"plain, "
+            f"each on its own state: h' {ne_h} of {n} not bit-identical, "
+            f"{bad_h} beyond one bf16 ulp, max|d| {e_h:.3e}; c' {ne_c}, "
+            f"{bad_c}, {e_c:.3e} (bounds: <= "
+            f"{(1 - CHAIN_ULP_SHARE) * n:.0f} beyond one ulp, max|d| <= "
+            f"{CHAIN_MAX_ABS})")
+        if (max(bad_h, bad_c) > (1 - CHAIN_ULP_SHARE) * n
+                or max(e_h, e_c) > CHAIN_MAX_ABS
+                or not torch.isfinite(hk.float()).all()):
+            raise AssertionError(f"B5 chain L{li} drifts from its plain "
+                                 "version")
+
+
 def phase_slice(dev, kern_rows):
     cfg = bench.make_cfg(2, None)
     mods = build_modules(cfg, device=dev)
@@ -999,7 +1339,7 @@ def phase_stream(dev, kern_rows):
             with plain_versions():
                 state_p, cm_p = bench.run_stream(
                     steps, mods.recon_val.init_state(b, dev), windows)
-            if read_counts() != want:
+            if read_counts() != all_counts(want):
                 raise AssertionError("the plain path launched a kernel")
             top2 = logits[0].topk(2, dim=1).values
             clear = top2[:, 0] - top2[:, 1] > SLICE_GAP
@@ -1306,11 +1646,13 @@ def main() -> None:
     phase_build()
     rows = [check_voxelizer(dev), check_conv_lstm(dev),
             check_conv_lstm_int8(dev), check_voxel_tiled(dev),
-            check_conv3x3(dev), check_conv3x3_int8(dev)]
+            check_conv3x3(dev), check_conv3x3_int8(dev), check_level(dev),
+            check_cell_variants(dev)]
     phase_slice(dev, rows)
     phase_train(dev, rows)
     phase_stream(dev, rows)
     phase_block(dev, rows)
+    phase_tools(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

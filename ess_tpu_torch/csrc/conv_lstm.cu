@@ -28,6 +28,12 @@
 // encoder level against a few MB of operands, so the tensor cores bound it.
 // This first version uses mma.sync with a 3-stage cp.async pipeline and
 // 128x128x32 block tiles; wgmma, TMA and warp specialisation come later.
+//
+// The MODE template parameter (mma_common.cuh::CellMode) compiles the
+// attribution variants of the body: kFull is the cell; the others replace
+// the epilogue (variant_pointwise) or, kNoBuild, also skip the cp.async
+// gather of the A tile, so that the product runs on whatever the shared
+// memory holds and the output is undefined (it is timed, never compared).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +60,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_lstm_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ h,
@@ -102,7 +109,8 @@ conv_lstm_kernel(const __nv_bfloat16* __restrict__ x,
       const bool ok = a_ok[i] && sy >= 0 && sy < H && sx >= 0 && sx < W;
       const __nv_bfloat16* g =
           ok ? src + ((int64_t)(a_b[i] * H + sy) * W + sx) * cs + co : src;
-      cp_async16(As + row * LDS + part, g, ok);
+      if constexpr (MODE != kNoBuild)
+        cp_async16(As + row * LDS + part, g, ok);
       const __nv_bfloat16* gb = w + (int64_t)(n0 + row) * K + ks * BK + part;
       cp_async16(Bs + row * LDS + part, gb, true);
     }
@@ -180,12 +188,20 @@ conv_lstm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int r = half * 2 + j;
-        const float gi = acc[mt][0][r] + bi[0][j];
-        const float gf = acc[mt][1][r] + bi[1][j];
-        const float go = acc[mt][2][r] + bi[2][j];
-        const float gg = acc[mt][3][r] + bi[3][j];
-        cn[j] = sigmoidf_(gf) * cp[j] + sigmoidf_(gi) * tanhf(gg);
-        hn[j] = sigmoidf_(go) * tanhf(cn[j]);
+        if constexpr (MODE == kFull) {
+          const float gi = acc[mt][0][r] + bi[0][j];
+          const float gf = acc[mt][1][r] + bi[1][j];
+          const float go = acc[mt][2][r] + bi[2][j];
+          const float gg = acc[mt][3][r] + bi[3][j];
+          cn[j] = sigmoidf_(gf) * cp[j] + sigmoidf_(gi) * tanhf(gg);
+          hn[j] = sigmoidf_(go) * tanhf(cn[j]);
+        } else {
+          float gt[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            gt[g] = __fadd_rn(acc[mt][g][r], bi[g][j]);
+          variant_pointwise<MODE>(gt, cp[j], hn[j], cn[j]);
+        }
       }
       *reinterpret_cast<__nv_bfloat162*>(c + off) =
           __floats2bfloat162_rn(cn[0], cn[1]);
@@ -195,22 +211,52 @@ conv_lstm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+template <int MODE>
+int launch(const void* x, const void* h, void* c, const void* w,
+           const void* bias, void* h_out, int B, int H, int W, int CX, int CH,
+           void* stream) {
+  const int M = B * H * W;
+  if (M == 0) return 0;
+  const int smem = STAGES * kStageElems * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_lstm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 blocks((M + BM - 1) / BM, 4 * CH / BN);
+  conv_lstm_kernel<MODE><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (__nv_bfloat16*)c,
+      (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)h_out, B,
+      H, W, CX, CH);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ess_conv_lstm(const void* x, const void* h, void* c,
                              const void* w, const void* bias, void* h_out,
                              int B, int H, int W, int CX, int CH,
                              void* stream) {
-  const int M = B * H * W;
-  if (M == 0) return 0;
-  const int smem = STAGES * kStageElems * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 blocks((M + BM - 1) / BM, 4 * CH / BN);
-  conv_lstm_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (__nv_bfloat16*)c,
-      (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)h_out, B,
-      H, W, CX, CH);
-  return (int)cudaGetLastError();
+  return launch<kFull>(x, h, c, w, bias, h_out, B, H, W, CX, CH, stream);
+}
+
+// The same cell in the attribution variant `mode`: a CellMode other than
+// kFull, which is ess_conv_lstm and is refused here.
+extern "C" int ess_conv_lstm_mode(const void* x, const void* h, void* c,
+                                  const void* w, const void* bias,
+                                  void* h_out, int B, int H, int W, int CX,
+                                  int CH, int mode, void* stream) {
+  switch (mode) {
+    case kPtwBf16:
+      return launch<kPtwBf16>(x, h, c, w, bias, h_out, B, H, W, CX, CH,
+                              stream);
+    case kPtwMul:
+      return launch<kPtwMul>(x, h, c, w, bias, h_out, B, H, W, CX, CH,
+                             stream);
+    case kNoPtw:
+      return launch<kNoPtw>(x, h, c, w, bias, h_out, B, H, W, CX, CH, stream);
+    case kNoBuild:
+      return launch<kNoBuild>(x, h, c, w, bias, h_out, B, H, W, CX, CH,
+                              stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,11 @@
 //    kernel's h' and c' equal the plain int8 cell's bit for bit wherever
 //    expf/tanhf agree with torch's; h' to a new buffer, c in place.
 //
+// The MODE template parameter (mma_common.cuh::CellMode) compiles the
+// attribution variants of the GEMM body, as in conv_lstm.cu: kFull is the
+// cell; the others replace the epilogue or, kNoBuild, also skip the gather
+// of the A tile (output undefined, timed only).
+//
 // K per tap is CIN rounded up to BK; the tail of a tap is zero-filled in
 // both operands, so CX and CH need only be multiples of 32 (a 16-byte copy
 // never straddles x and h).
@@ -102,6 +107,7 @@ quantize_kernel(const __nv_bfloat16* __restrict__ x, int64_t nx8,
   *reinterpret_cast<uint2*>(dst + i * 8) = q;
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_lstm_int8_kernel(const int8_t* __restrict__ xq,
                       const int8_t* __restrict__ hq,
@@ -153,7 +159,8 @@ conv_lstm_int8_kernel(const int8_t* __restrict__ xq,
                       sx < W;
       const int8_t* g =
           ok ? src + ((int64_t)(a_b[i] * H + sy) * W + sx) * cs + cc : src;
-      cp_async16(As + row * LDS + part, g, ok);
+      if constexpr (MODE != kNoBuild)
+        cp_async16(As + row * LDS + part, g, ok);
       const int8_t* gb =
           in_k ? w + (int64_t)(n0 + row) * K + tap * CIN + co : w;
       cp_async16(Bs + row * LDS + part, gb, in_k);
@@ -238,11 +245,15 @@ conv_lstm_int8_kernel(const int8_t* __restrict__ xq,
         for (int g = 0; g < 4; ++g)
           gt[g] = __fadd_rn(
               __fmul_rn(__int2float_rn(acc[mt][g][r]), sc[g][j]), bi[g][j]);
-        // one rounding per operation, no fused multiply-add: the plain
-        // version's elementwise ops, so both round alike
-        cn[j] = __fadd_rn(__fmul_rn(sigmoidf_(gt[1]), cp[j]),
-                          __fmul_rn(sigmoidf_(gt[0]), tanhf(gt[3])));
-        hn[j] = __fmul_rn(sigmoidf_(gt[2]), tanhf(cn[j]));
+        if constexpr (MODE == kFull) {
+          // one rounding per operation, no fused multiply-add: the plain
+          // version's elementwise ops, so both round alike
+          cn[j] = __fadd_rn(__fmul_rn(sigmoidf_(gt[1]), cp[j]),
+                            __fmul_rn(sigmoidf_(gt[0]), tanhf(gt[3])));
+          hn[j] = __fmul_rn(sigmoidf_(gt[2]), tanhf(cn[j]));
+        } else {
+          variant_pointwise<MODE>(gt, cp[j], hn[j], cn[j]);
+        }
       }
       *reinterpret_cast<__nv_bfloat162*>(c + off) =
           __floats2bfloat162_rn(cn[0], cn[1]);
@@ -250,6 +261,26 @@ conv_lstm_int8_kernel(const int8_t* __restrict__ xq,
           __floats2bfloat162_rn(hn[0], hn[1]);
     }
   }
+}
+
+template <int MODE>
+int launch(const void* xq, const void* hq, void* c, const void* w,
+           const void* ws, const void* bias, void* h_out, int B, int H, int W,
+           int CX, int CH, void* stream) {
+  const int M = B * H * W;
+  if (M == 0) return 0;
+  const int smem = STAGES * kStageBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_lstm_int8_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 blocks((M + BM - 1) / BM, 4 * CH / BN);
+  conv_lstm_int8_kernel<MODE>
+      <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          (const int8_t*)xq, (const int8_t*)hq, (__nv_bfloat16*)c,
+          (const int8_t*)w, (const float*)ws, (const float*)bias,
+          (__nv_bfloat16*)h_out, B, H, W, CX, CH);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -273,17 +304,30 @@ extern "C" int ess_conv_lstm_int8(const void* xq, const void* hq, void* c,
                                   const void* w, const void* ws,
                                   const void* bias, void* h_out, int B, int H,
                                   int W, int CX, int CH, void* stream) {
-  const int M = B * H * W;
-  if (M == 0) return 0;
-  const int smem = STAGES * kStageBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_lstm_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 blocks((M + BM - 1) / BM, 4 * CH / BN);
-  conv_lstm_int8_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)xq, (const int8_t*)hq, (__nv_bfloat16*)c,
-      (const int8_t*)w, (const float*)ws, (const float*)bias,
-      (__nv_bfloat16*)h_out, B, H, W, CX, CH);
-  return (int)cudaGetLastError();
+  return launch<kFull>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
+                       stream);
+}
+
+// The same GEMM in the attribution variant `mode`: a CellMode other than
+// kFull, which is ess_conv_lstm_int8 and is refused here.
+extern "C" int ess_conv_lstm_int8_mode(const void* xq, const void* hq,
+                                       void* c, const void* w, const void* ws,
+                                       const void* bias, void* h_out, int B,
+                                       int H, int W, int CX, int CH, int mode,
+                                       void* stream) {
+  switch (mode) {
+    case kPtwBf16:
+      return launch<kPtwBf16>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
+                              stream);
+    case kPtwMul:
+      return launch<kPtwMul>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
+                             stream);
+    case kNoPtw:
+      return launch<kNoPtw>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
+                            stream);
+    case kNoBuild:
+      return launch<kNoBuild>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
+                              stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
 // Device helpers shared by the ConvLSTM kernels (conv_lstm.cu,
-// conv_lstm_int8.cu): cp.async copies into shared memory, ldmatrix, and the
-// f32 sigmoid of the LSTM epilogue.
+// conv_lstm_int8.cu) and the fused encoder level (level_int8.cu): cp.async
+// copies into shared memory, ldmatrix, the f32 sigmoid of the LSTM epilogue,
+// and the epilogues of the cell kernels' attribution variants.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ess {
@@ -39,6 +41,54 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
 // 1 / (1 + exp(-v)) rounded per operation, as torch.sigmoid computes it
 __device__ __forceinline__ float sigmoidf_(float v) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+}
+
+// Compile-time variants of the cell kernels (the MODE template parameter;
+// ess_tpu_torch/ops/conv_lstm.py::MODES in this order). kFull is the cell.
+// Replaces the TPU kernel tools/bench_lstm_breakdown.py::kern, whose modes
+// these are: the differences between their times attribute the cell's time
+// to the pointwise, the transcendentals and the operand gather. The product
+// bounds every variant as it bounds the cell.
+enum CellMode { kFull = 0, kPtwBf16 = 1, kPtwMul = 2, kNoPtw = 3,
+                kNoBuild = 4 };
+
+// v rounded to bf16 and back: one bf16 operation's result
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// tanh(v / 2) / 2 + 1 / 2 with every operation rounded to bf16
+__device__ __forceinline__ float sigmoid_bf16_(float v) {
+  const float t = bf16_round(tanhf(bf16_round(__fmul_rn(v, 0.5f))));
+  return bf16_round(__fadd_rn(bf16_round(__fmul_rn(t, 0.5f)), 0.5f));
+}
+
+// The epilogue of a variant other than kFull on the f32 gates gt = (i, f, o,
+// g) and the previous cell state cp (a bf16 value), every f32 operation
+// rounded on its own as the plain version's elementwise operations are.
+// kPtwMul: c' = f*c + i*g, h' = o*c' on the raw gates. kPtwBf16: the gates
+// rounded to bf16, sigmoid as tanh, every operation in bf16. kNoPtw and
+// kNoBuild: h' = gate i, c' = gate f.
+template <int MODE>
+__device__ __forceinline__ void variant_pointwise(const float (&gt)[4],
+                                                  float cp, float& hn,
+                                                  float& cn) {
+  static_assert(MODE != kFull, "the cell's own epilogue is in its kernel");
+  if constexpr (MODE == kPtwMul) {
+    cn = __fadd_rn(__fmul_rn(gt[1], cp), __fmul_rn(gt[0], gt[3]));
+    hn = __fmul_rn(gt[2], cn);
+  } else if constexpr (MODE == kPtwBf16) {
+    const float gi = bf16_round(gt[0]), gf = bf16_round(gt[1]);
+    const float go = bf16_round(gt[2]), gg = bf16_round(gt[3]);
+    const float keep = bf16_round(__fmul_rn(sigmoid_bf16_(gf), cp));
+    const float add = bf16_round(
+        __fmul_rn(sigmoid_bf16_(gi), bf16_round(tanhf(gg))));
+    cn = bf16_round(__fadd_rn(keep, add));
+    hn = bf16_round(__fmul_rn(sigmoid_bf16_(go), bf16_round(tanhf(cn))));
+  } else {
+    hn = gt[0];
+    cn = gt[1];
+  }
 }
 
 }  // namespace ess

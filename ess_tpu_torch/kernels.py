@@ -104,6 +104,12 @@ def _build() -> ctypes.CDLL:
     lib.ess_conv_lstm_quant.restype = ci
     lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.ess_conv_lstm_int8.restype = ci
+    lib.ess_conv_lstm_mode.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.ess_conv_lstm_mode.restype = ci
+    lib.ess_conv_lstm_int8_mode.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ess_conv_lstm_int8_mode.restype = ci
+    lib.ess_level_int8.argtypes = [vp] * 14 + [ci] * 7 + [vp]
+    lib.ess_level_int8.restype = ci
     lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
     lib.ess_conv3x3.restype = ci
     lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [i64] + [vp]

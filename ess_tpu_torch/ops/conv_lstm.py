@@ -1,8 +1,9 @@
 """Fused ConvLSTM cell: 3x3 gate conv over concat(x, h) + LSTM pointwise.
 
 Counterpart of ``ess_tpu/ops/conv_lstm_pallas.py`` (``conv_lstm_ref``,
-``quant_cols``/``quantize_gate_weights``, ``resolve_lstm_impl`` and
-``conv_lstm_cell`` with the exact bf16 and the int8 ``_fused_kernel``).
+``pick_row_tile``, ``quant_cols``/``quantize_gate_weights``,
+``resolve_lstm_impl`` and ``conv_lstm_cell`` with the exact bf16 and the
+int8 ``_fused_kernel``).
 Gate order is i, f, o, g over the output channels of one conv on
 ``concat([x, h])``: ``c' = sigmoid(f) * c + sigmoid(i) * tanh(g)``,
 ``h' = sigmoid(o) * tanh(c')``, gates accumulated in f32 (exact cell) or
@@ -23,18 +24,27 @@ bf16, writes h' to a new tensor and updates c in place; under autograd the
 kernel runs on a copy of c. The backward of a kernel and of the plain int8
 cell recomputes :func:`conv_lstm_ref`, as the JAX package's ``custom_vjp``
 does.
+
+The kernels also exist with their epilogue or their operand gather replaced
+at compile time (``MODES``, :func:`launch_variant`): the attribution
+variants that ``ess_tpu_torch/tools/bench_lstm_breakdown.py`` times.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 launches = 0        # exact-cell kernel launches (CUDA tensors only)
 launches_int8 = 0   # int8-cell launches, quantize pre-pass + GEMM (CUDA only)
+launches_variant = 0   # launches of a kernel in a mode other than 'full'
+
+# Compile-time variants of the two cell kernels, by the index the CUDA entry
+# points take: 'full' is the cell itself.
+MODES = ("full", "ptw_bf16", "ptw_mul", "no_ptw", "no_build")
 
 GATE_GROUP = 8   # channels per gate run in the prepared weight columns
 IMPLS = ("auto", "xla", "pallas", "pallas_int8")
@@ -47,6 +57,27 @@ def resolve_lstm_impl(requested: str) -> str:
         raise ValueError(f"unknown lstm_impl {requested!r}; expected one of "
                          f"{IMPLS}")
     return "pallas" if requested == "auto" else requested
+
+
+def pick_row_tile(height: int, lo: int = 2, hi: int = 24) -> Optional[int]:
+    """Divisor of ``height`` in [lo, hi] closest to 22 (the larger wins a
+    tie), or None. The CUDA cell kernels tile pixels, not rows, and do not
+    use it; the fused encoder level (:mod:`ess_tpu_torch.ops.level`)
+    quantizes per (sample, row tile of this height), so its result depends
+    on this choice and the port keeps the JAX package's."""
+    cands = [t for t in range(lo, hi + 1) if height % t == 0]
+    if not cands:
+        return None
+    return min(cands, key=lambda t: (abs(t - 22), -t))
+
+
+def quant_cols(w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) f32 -> int8 weights quantized per column (output channel) and
+    the (N,) f32 column scales ``max(absmax_k, 1e-20) / 127``; the weights
+    are divided by the scale, then rounded half to even and clipped."""
+    ws = torch.clamp(w2.abs().amax(dim=0), min=1e-20) / 127.0
+    wq = torch.clamp(torch.round(w2 / ws), -127, 127).to(torch.int8)
+    return wq, ws
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,11 +160,16 @@ def conv_lstm_ref(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
     """Plain ConvLSTM cell: the gate conv runs in f32 on operands rounded to
     x's dtype (f32 accumulation of bf16 products), the pointwise in f32;
     h' returns in x's dtype and c' in c_prev's."""
-    xh = torch.cat([x, h_prev.to(x.dtype)], dim=1)
-    gates = F.conv2d(xh.float(), weight.to(x.dtype).float(), bias.float(),
-                     padding=1)
-    h_new, c_new = _pointwise(gates, c_prev)
+    h_new, c_new = _pointwise(gates_ref(x, h_prev, weight, bias), c_prev)
     return h_new.to(x.dtype), c_new.to(c_prev.dtype)
+
+
+def gates_ref(x: torch.Tensor, h_prev: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """The f32 gates (B, 4*CH, H, W; i, f, o, g) of the plain exact cell."""
+    xh = torch.cat([x, h_prev.to(x.dtype)], dim=1)
+    return F.conv2d(xh.float(), weight.to(x.dtype).float(), bias.float(),
+                    padding=1)
 
 
 def conv_lstm_int8_ref(x: torch.Tensor, h_prev: torch.Tensor,
@@ -148,21 +184,32 @@ def conv_lstm_int8_ref(x: torch.Tensor, h_prev: torch.Tensor,
     2^24 at CIN = 512, beyond f32's integers); then
     ``gates = f32(acc) * ws + bias`` and the pointwise in f32. h' returns
     in x's dtype and c' in c_prev's."""
+    h_new, c_new = _pointwise(gates_int8_ref(x, h_prev, weight, bias),
+                              c_prev)
+    return h_new.to(x.dtype), c_new.to(c_prev.dtype)
+
+
+def unpermute_gate_rows(wq: torch.Tensor, cin: int) -> torch.Tensor:
+    """A prepared (4*CH, 9*cin) gate matrix (:func:`gate_column_order` row
+    order) -> the (4*CH, cin, 3, 3) conv weight in i, f, o, g order."""
+    n = wq.shape[0]
+    w_conv = torch.empty_like(wq)
+    w_conv[gate_column_order(n // 4, wq.device)] = wq
+    return w_conv.view(n, 3, 3, cin).permute(0, 3, 1, 2)
+
+
+def gates_int8_ref(x: torch.Tensor, h_prev: torch.Tensor,
+                   weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The f32 gates of the plain int8 cell: ``f32(acc) * ws + bias``."""
     cx, ch = x.shape[1], h_prev.shape[1]
     s_x = input_scale(x)
     xq = quantize(x, torch.reciprocal(s_x))
     hq = quantize(h_prev.to(x.dtype), 127.0)
     wq, ws = quantize_gate_weights(weight, s_x, cx)
-    order = gate_column_order(ch, wq.device)
-    w_conv = torch.empty_like(wq)
-    w_conv[order] = wq
-    w_conv = w_conv.view(4 * ch, 3, 3, cx + ch).permute(0, 3, 1, 2)
-    acc = F.conv2d(torch.cat([xq, hq], dim=1).double(), w_conv.double(),
-                   padding=1)
-    gates = (acc.float() * ws[None, :, None, None]
-             + bias.float()[None, :, None, None])
-    h_new, c_new = _pointwise(gates, c_prev)
-    return h_new.to(x.dtype), c_new.to(c_prev.dtype)
+    acc = F.conv2d(torch.cat([xq, hq], dim=1).double(),
+                   unpermute_gate_rows(wq, cx + ch).double(), padding=1)
+    return (acc.float() * ws[None, :, None, None]
+            + bias.float()[None, :, None, None])
 
 
 def _check_operands(name: str, x, h_prev, c_prev) -> Tuple[int, ...]:
@@ -207,8 +254,19 @@ def _f32_vector(name: str, v: torch.Tensor, n: int, device) -> torch.Tensor:
     return v
 
 
-def _launch_exact(x, h_prev, c_prev, weight, bias, prepared):
-    """Exact kernel; returns (h', c_prev updated in place)."""
+def _count_launch(int8: bool, mode: int) -> None:
+    global launches, launches_int8, launches_variant
+    if mode:
+        launches_variant += 1
+    elif int8:
+        launches_int8 += 1
+    else:
+        launches += 1
+
+
+def _launch_exact(x, h_prev, c_prev, weight, bias, prepared, mode=0):
+    """Exact kernel (in variant ``MODES[mode]``); returns (h', c_prev
+    updated in place)."""
     b, cx, hh, ww, ch = _check_operands("conv_lstm_cell", x, h_prev, c_prev)
     if prepared is None:
         prepared = prepare_gate_weights(weight)
@@ -218,21 +276,23 @@ def _launch_exact(x, h_prev, c_prev, weight, bias, prepared):
     bias = _f32_vector("conv_lstm_cell bias", bias, 4 * ch, x.device)
     from ess_tpu_torch import kernels
 
-    global launches
     lib = kernels.get_lib()
     h_new = torch.empty_like(h_prev, memory_format=torch.channels_last)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ess_conv_lstm(x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
-                            prepared.data_ptr(), bias.data_ptr(),
-                            h_new.data_ptr(), b, hh, ww, cx, ch, stream)
-    kernels.check(err, "conv_lstm kernel")
-    launches += 1
+    args = (x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
+            prepared.data_ptr(), bias.data_ptr(), h_new.data_ptr(), b, hh, ww,
+            cx, ch)
+    err = (lib.ess_conv_lstm_mode(*args, mode, stream) if mode
+           else lib.ess_conv_lstm(*args, stream))
+    kernels.check(err, f"conv_lstm kernel ({MODES[mode]})")
+    _count_launch(False, mode)
     return h_new, c_prev
 
 
-def _launch_int8(x, h_prev, c_prev, weight, bias, prepared):
-    """Int8 kernels (quantize pre-pass + GEMM); returns (h', c_prev updated
-    in place). ``prepared`` is the f32 prepared gate matrix."""
+def _launch_int8(x, h_prev, c_prev, weight, bias, prepared, mode=0):
+    """Int8 kernels (quantize pre-pass + GEMM, the GEMM in variant
+    ``MODES[mode]``); returns (h', c_prev updated in place). ``prepared``
+    is the f32 prepared gate matrix."""
     name = "conv_lstm_int8_cell"
     b, cx, hh, ww, ch = _check_operands(name, x, h_prev, c_prev)
     if prepared is None:
@@ -248,7 +308,6 @@ def _launch_int8(x, h_prev, c_prev, weight, bias, prepared):
     _check_aligned(name, x, h_prev, c_prev, wq, xq, hq)
     from ess_tpu_torch import kernels
 
-    global launches_int8
     lib = kernels.get_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ess_conv_lstm_quant(x.data_ptr(), h_prev.data_ptr(),
@@ -257,13 +316,35 @@ def _launch_int8(x, h_prev, c_prev, weight, bias, prepared):
                                   stream)
     kernels.check(err, "conv_lstm int8 quantize kernel")
     h_new = torch.empty_like(h_prev, memory_format=torch.channels_last)
-    err = lib.ess_conv_lstm_int8(xq.data_ptr(), hq.data_ptr(),
-                                 c_prev.data_ptr(), wq.data_ptr(),
-                                 ws.data_ptr(), bias.data_ptr(),
-                                 h_new.data_ptr(), b, hh, ww, cx, ch, stream)
-    kernels.check(err, "conv_lstm int8 kernel")
-    launches_int8 += 1
+    args = (xq.data_ptr(), hq.data_ptr(), c_prev.data_ptr(), wq.data_ptr(),
+            ws.data_ptr(), bias.data_ptr(), h_new.data_ptr(), b, hh, ww, cx,
+            ch)
+    err = (lib.ess_conv_lstm_int8_mode(*args, mode, stream) if mode
+           else lib.ess_conv_lstm_int8(*args, stream))
+    kernels.check(err, f"conv_lstm int8 kernel ({MODES[mode]})")
+    _count_launch(True, mode)
     return h_new, c_prev
+
+
+def launch_variant(x: torch.Tensor, h_prev: torch.Tensor,
+                   c_prev: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, *, mode: str, int8: bool,
+                   prepared: torch.Tensor | None = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the exact or the int8 cell kernel on CUDA tensors with its
+    epilogue or operand gather replaced as ``mode`` (one of ``MODES``)
+    says; operands and ``prepared`` as :func:`conv_lstm_cell` takes them.
+    Returns (h', c' in ``c_prev``'s storage). ``'full'`` is the cell itself
+    and counts as its launch; every other mode counts in
+    ``launches_variant``. No autograd, no CPU route."""
+    if mode not in MODES:
+        raise ValueError(f"unknown cell mode {mode!r}; expected one of "
+                         f"{MODES}")
+    if x.device.type != "cuda":
+        raise ValueError(f"launch_variant: the kernels run on CUDA tensors, "
+                         f"got {x.device}")
+    fn = _launch_int8 if int8 else _launch_exact
+    return fn(x, h_prev, c_prev, weight, bias, prepared, MODES.index(mode))
 
 
 class _RecomputeBackward(torch.autograd.Function):

@@ -1,8 +1,9 @@
 """Space-to-depth (block) evaluation of 5x5 convs (NCHW).
 
 Counterpart of ``ess_tpu/ops/conv_s2d.py`` on the parts the block-space
-rollout uses: ``space_to_depth``, ``depth_to_space``, ``block_kernel`` and
-``block_bias``. A 5x5 SAME conv over an image equals a 3x3 SAME conv over
+rollout and the fused encoder level use: ``space_to_depth``,
+``depth_to_space``, ``block_kernel``, ``block_bias``, ``s2d_kernel_stride2``
+and ``conv5x5_s2d_stride2``. A 5x5 SAME conv over an image equals a 3x3 SAME conv over
 its 2x2 space-to-depth blocks with remapped weights: at stride 1 it yields
 all four output phases at once (``bi=bo=2``: the E2VID head conv, 5 -> 32
 channels becomes 20 -> 128), at stride 2 it lands at half resolution
@@ -91,3 +92,29 @@ def block_kernel(weight: torch.Tensor, *, bi: int, bo: int,
 def block_bias(bias: torch.Tensor, bo: int) -> torch.Tensor:
     """Tile a conv bias for bo x bo blocked output channels."""
     return bias.repeat(bo * bo)
+
+
+def s2d_kernel_stride2(weight: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, 5, 5) weight of a stride-2 conv (pad 2) ->
+    (C_out, 4*C_in, 3, 3): the stride-1 SAME conv over the space-to-depth
+    input that computes the same function at half resolution. It is
+    :func:`block_kernel` with ``bi=2, bo=1, stride=2``, kept under the JAX
+    package's name for the 5x5 case."""
+    if tuple(weight.shape[2:]) != (5, 5):
+        raise ValueError(f"s2d_kernel_stride2 needs a 5x5 kernel, got "
+                         f"{tuple(weight.shape)}")
+    return block_kernel(weight, bi=2, bo=1, stride=2)
+
+
+def conv5x5_s2d_stride2(x_s2d: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor | None,
+                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Stride-2 5x5 conv evaluated on a space-to-depth input:
+    (B, 4*C_in, H/2, W/2) -> (B, C_out, H/2, W/2) in ``dtype``, the library
+    conv on operands cast to ``dtype``. Equals the conv of the
+    full-resolution input with stride 2 and padding 2."""
+    out = F.conv2d(x_s2d.to(dtype), s2d_kernel_stride2(weight).to(dtype),
+                   padding=1)
+    if bias is not None:
+        out = out + bias.to(dtype)[None, :, None, None]
+    return out

@@ -1,0 +1,87 @@
+"""Attribution tools of the port: small programs that time one piece of the
+rollout on the GPU, counterparts of the JAX package's ``tools/``.
+
+- :mod:`ess_tpu_torch.tools.bench_level`: the fused encoder level beside the
+  split path (library stride-2 conv, then the int8 ConvLSTM cell);
+- :mod:`ess_tpu_torch.tools.bench_lstm_breakdown`: the ConvLSTM cell kernel
+  with its pointwise, its transcendentals or its operand gather taken out.
+
+Each runs on ``cuda:0`` unless called with ``device="cpu"``, where it runs
+the kernels' plain versions at whatever small shape the caller passes and
+its times are host times of those, not device times. This module holds what
+the tools share: argument parsing, the carried chain and its timing.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+STEPS = 20     # steps of a carried chain
+REPEATS = 3    # timed chains; the best is reported
+
+Step = Callable[[torch.Tensor, torch.Tensor],
+                Tuple[torch.Tensor, torch.Tensor]]
+
+
+def parse_args(argv: Optional[List[str]]) -> Dict[str, str]:
+    """``--key=value`` arguments as a dictionary (the JAX tools' form)."""
+    return dict(a.split("=", 1) for a in (argv or []) if "=" in a)
+
+
+def parse_layers(args: Dict[str, str], n: int) -> List[int]:
+    layers = [int(i) for i in args.get("--layers", "0,1,2").split(",")]
+    if any(not 0 <= i < n for i in layers):
+        raise ValueError(f"--layers {layers} not within 0..{n - 1}")
+    return layers
+
+
+def device_line(device: torch.device) -> str:
+    """What the times of a run are times of."""
+    if device.type != "cuda":
+        return (f"device {device}: plain versions, host clock (no device "
+                "time)")
+    from ess_tpu_torch.bench import card
+    return f"device {card()}: kernels, CUDA events"
+
+
+def chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` carried applications of ``step`` from (h0, c0). The
+    kernels update c in place, so the chain works on a copy of c0."""
+    h, c = h0, c0.clone(memory_format=torch.preserve_format)
+    for _ in range(steps):
+        h, c = step(h, c)
+    return h, c
+
+
+def time_chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int,
+               repeats: int = REPEATS) -> float:
+    """Best time in ms of a ``steps``-step chain over ``repeats`` runs after
+    one warm-up chain: CUDA events on a CUDA device, the host clock on the
+    CPU."""
+    cuda = h0.device.type == "cuda"
+    chain(step, h0, c0, steps)
+    best = float("inf")
+    for _ in range(repeats):
+        if cuda:
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            chain(step, h0, c0, steps)
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            chain(step, h0, c0, steps)
+            best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best
+
+
+def chain_line(name: str, ms: float, steps: int, note: str = "") -> str:
+    return (f"  {name:9s}: {ms:7.2f} ms / {steps} steps "
+            f"({ms / steps:6.3f} ms/step){note}")

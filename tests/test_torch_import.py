@@ -13,6 +13,9 @@ MODULES = [
     "ess_tpu_torch.ops.voxel_tiled",
     "ess_tpu_torch.ops.batch_voxel", "ess_tpu_torch.ops.conv_lstm",
     "ess_tpu_torch.ops.conv_s2d", "ess_tpu_torch.ops.conv3x3",
+    "ess_tpu_torch.ops.level", "ess_tpu_torch.tools",
+    "ess_tpu_torch.tools.bench_level",
+    "ess_tpu_torch.tools.bench_lstm_breakdown",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.recon.reconstructor",

@@ -25,7 +25,21 @@ Bounds:
   ``conv3x3_ref``'s gradients (atol 1e-2 / rtol 1e-2 in bf16);
 - both cells under autograd: the backward is conv_lstm_ref's at the saved
   inputs, so gradients match conv_lstm_ref's with the same cotangents
-  (atol 1e-2 / rtol 1e-2 in bf16: cuDNN may pick other algorithms).
+  (atol 1e-2 / rtol 1e-2 in bf16: cuDNN may pick other algorithms);
+- fused encoder level against its plain version: the group scales amax_u
+  and amax_x identical (max of the same values; x is the same f32
+  operations on exact integers), h' and c' within one bf16 ulp (+1e-6), as
+  the int8 cell; after a 20-step carried chain, each on its own state, at
+  least 99.9 % of the values within one bf16 ulp and max |d| <= 0.05 (a
+  state value that differs by an ulp can move an int8 code of h at the next
+  step);
+- cell variants against their plain versions: int8 body within one bf16 ulp
+  (+1e-6) for ``ptw_mul`` and ``no_ptw`` (the same f32 operations on exact
+  integers) and on at least 99.9 % of the values for ``ptw_bf16`` (a tanhf
+  that rounds to the other bf16 neighbour moves the result by an ulp or
+  two; all within 2^-5); bf16 body: max |d| within 2^-6 of the plain
+  output's absmax (f32 accumulation in another order, then one bf16
+  rounding of values of any size), ``ptw_bf16`` within 2^-4 absolute.
 """
 
 import numpy as np
@@ -34,10 +48,12 @@ import torch
 
 from ess_tpu_torch.ops import conv3x3 as c3
 from ess_tpu_torch.ops import conv_lstm as cl
+from ess_tpu_torch.ops import level as lv
 from ess_tpu_torch.ops import voxel_folded as vf
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
 from ess_tpu_torch.ops.voxel import normalize_nonzero, voxel_grid_trilinear
+from ess_tpu_torch.tools import bench_level, bench_lstm_breakdown as bd
 
 pytestmark = pytest.mark.cuda
 
@@ -434,3 +450,217 @@ def test_conv3x3_kernel_backward(dev, impl):
     for a, b in zip(g_k, g_r):
         torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
                                    rtol=1e-2)
+
+
+# (u shape, hidden channels, u_s2d): the three DSEC levels at B=2, L0 also
+# from a full-resolution input at a small shape with three row tiles, a
+# shape whose conv has 32 output columns and a ragged last pixel tile, and
+# the three DSEC levels at the tool's B=8 (80 or 40 groups; the widest
+# scratch)
+LEVEL_CASES = [((2, 128, 220, 320), 64, True), ((2, 64, 220, 320), 128, False),
+               ((2, 128, 110, 160), 256, False), ((1, 32, 78, 40), 64, False),
+               ((2, 16, 26, 24), 32, True), ((1, 8, 14, 10), 32, False),
+               *bench_level.LAYERS]
+
+
+def assert_within_ulp(got, want, share=1.0, cap=None):
+    d = (got.float() - want.float()).abs()
+    beyond = int((d > bf16_ulp(got, want) + 1e-6).sum())
+    assert beyond <= (1.0 - share) * d.numel(), (beyond, d.max().item())
+    if cap is not None:
+        assert d.max().item() <= cap, d.max().item()
+
+
+@pytest.mark.parametrize("case", LEVEL_CASES)
+def test_level_kernel_matches_plain(dev, case):
+    ushape, ch, u_s2d = case
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(1, ushape, ch, u_s2d,
+                                                        dev)
+    gb = torch.randn(4 * ch, device=dev) * 0.05
+    prep = lv.prepare_level_weights(ek, eb, gk, gb)
+    th = cl.pick_row_tile(h0.shape[2])
+    want = lv.level_int8_ref(u, h0, c0, prep, u_s2d=u_s2d, th=th)
+    h_before = h0.clone()
+    n0 = lv.launches
+    c = c0.clone(memory_format=torch.channels_last)
+    got = lv.level_int8_cuda(u, h0, c, prep, u_s2d=u_s2d, th=th)
+    torch.cuda.synchronize()
+    assert lv.launches == n0 + 1
+    assert got[1].data_ptr() == c.data_ptr()          # c updated in place
+    assert torch.equal(h0, h_before)                  # h_prev untouched
+    floor = lambda a: a.clamp(min=lv.AMAX_FLOOR)
+    assert torch.equal(floor(got[2]), want[2]), "amax_u differs"
+    assert torch.equal(floor(got[3]), want[3]), "amax_x differs"
+    assert_within_ulp(got[0], want[0])
+    assert_within_ulp(got[1], want[1])
+    # the public entry gives the same result and leaves its inputs' c alone
+    # only under autograd; here it updates c in place too
+    c2 = c0.clone(memory_format=torch.channels_last)
+    h2, (h2b, c2n) = lv.encoder_level_int8(u, (h0, c2), ek, eb, gk, gb,
+                                           u_s2d=u_s2d)
+    assert h2b is h2 and torch.equal(h2, got[0]) and torch.equal(c2n, got[1])
+
+
+@pytest.mark.parametrize("case", LEVEL_CASES[:3] + LEVEL_CASES[4:5]
+                         + LEVEL_CASES[6:])
+def test_level_kernel_20_step_chain(dev, case):
+    ushape, ch, u_s2d = case
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(2, ushape, ch, u_s2d,
+                                                        dev)
+    prep = lv.prepare_level_weights(ek, eb, gk, gb)
+    kw = dict(u_s2d=u_s2d, prepared=prep)
+    hk, ck = h0, c0.clone(memory_format=torch.channels_last)
+    hp, cp = h0, c0
+    for _ in range(20):
+        hk, ck = lv.encoder_level_int8(u, (hk, ck), ek, eb, gk, gb, **kw)[1]
+        hp, cp = lv.encoder_level_int8_ref(u, hp, cp, ek, eb, gk, gb, **kw)
+    assert_within_ulp(hk, hp, share=0.999, cap=0.05)
+    assert_within_ulp(ck, cp, share=0.999, cap=0.05)
+
+
+def test_level_kernel_is_the_only_route_on_cuda(dev, monkeypatch):
+    """On CUDA tensors the level launches its kernels and reaches no library
+    conv, no matmul and no plain version; it raises on what they do not
+    take and returns None where the geometry does not tile."""
+    ushape, ch, u_s2d = LEVEL_CASES[4]
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(3, ushape, ch, u_s2d,
+                                                        dev)
+    prep = lv.prepare_level_weights(ek, eb, gk, gb)
+
+    def refuse(*a, **k):
+        raise AssertionError("the level reached a library or plain version")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.nn.functional, "conv2d", refuse)
+        mp.setattr(torch, "matmul", refuse)
+        mp.setattr(lv, "level_int8_ref", refuse)
+        mp.setattr(lv, "encoder_level_ref", refuse)
+        n0 = lv.launches
+        out = lv.encoder_level_int8(u, (h0, c0.clone()), ek, eb, gk, gb,
+                                    u_s2d=u_s2d, prepared=prep)
+        torch.cuda.synchronize()
+        assert out is not None and lv.launches == n0 + 1
+    for bad in ((u.float(), h0, c0), (u.contiguous(), h0, c0), (u, h0, h0)):
+        with pytest.raises(ValueError):
+            lv.encoder_level_int8(bad[0], bad[1:], ek, eb, gk, gb,
+                                  u_s2d=u_s2d)
+    # 29 rows: no row tile
+    z = torch.zeros(1, 32, 29, 8, device=dev, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    assert lv.encoder_level_int8(
+        torch.zeros(1, 16, 29, 8, device=dev, dtype=torch.bfloat16), (z, z),
+        ek, eb, gk, gb, u_s2d=True) is None
+    # hidden channels not a multiple of 32
+    u16, h16, c16, *w16 = bench_level.make_inputs(3, (1, 16, 8, 8), 16, True,
+                                                  dev)
+    with pytest.raises(ValueError):
+        lv.encoder_level_int8(u16, (h16, c16), *w16, u_s2d=True)
+
+
+def test_level_kernel_backward(dev):
+    ushape, ch, u_s2d = LEVEL_CASES[5]
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(4, ushape, ch, u_s2d,
+                                                        dev)
+    g = torch.Generator().manual_seed(5)
+    ct_h, ct_c = (torch.randn(*h0.shape, generator=g).to(dev)
+                  for _ in range(2))
+    with torch.no_grad():
+        h_ng, (_, c_ng) = lv.encoder_level_int8(u, (h0, c0.clone()), ek, eb,
+                                                gk, gb, u_s2d=u_s2d)
+
+    def grads(fn):
+        ins = [t.detach().clone(memory_format=torch.preserve_format)
+               .requires_grad_(True) for t in (u, h0, c0, ek, eb, gk, gb)]
+        c_before = ins[2].detach().clone()
+        hn, cn = fn(*ins)
+        ((hn.float() * ct_h).sum() + (cn.float() * ct_c).sum()).backward()
+        assert torch.equal(ins[2].detach(), c_before)   # c_prev intact
+        return (hn, cn), [t.grad for t in ins]
+
+    n0 = lv.launches
+    (hn, cn), g_k = grads(lambda u_, h_, c_, *w: lv.encoder_level_int8(
+        u_, (h_, c_), *w, u_s2d=u_s2d)[1])
+    assert lv.launches == n0 + 1
+    assert torch.equal(hn, h_ng) and torch.equal(cn, c_ng)
+    _, g_r = grads(lambda *a: lv.encoder_level_ref(*a, u_s2d=u_s2d))
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mode", bd.COMPARED)
+@pytest.mark.parametrize("shape", [(2, 32, 10, 13), (1, 64, 22, 40),
+                                   (2, 64, 220, 320), (2, 256, 55, 80),
+                                   *bd.SHAPES])
+def test_cell_variant_kernel_matches_plain(dev, shape, mode, int8):
+    x, h0, c0, wgt, bias = bd.make_inputs(6, shape, dev)
+    want_h, want_c = bd.cell_variant_ref(x, h0, c0, wgt, bias, mode=mode,
+                                         int8=int8)
+    counts = (cl.launches, cl.launches_int8, cl.launches_variant)
+    c = c0.clone(memory_format=torch.channels_last)
+    got_h, got_c = bd.cell_variant(x, h0, c, wgt, bias, mode=mode, int8=int8)
+    torch.cuda.synchronize()
+    after = (cl.launches, cl.launches_int8, cl.launches_variant)
+    moved = 2 if mode != "full" else int(int8)
+    assert after == tuple(n + (i == moved) for i, n in enumerate(counts))
+    assert got_c.data_ptr() == c.data_ptr()
+    for got, want in ((got_h, want_h), (got_c, want_c)):
+        if int8 and mode != "ptw_bf16":
+            assert_within_ulp(got, want)
+        elif int8:
+            assert_within_ulp(got, want, share=0.999, cap=2.0 ** -5)
+        elif mode == "ptw_bf16":
+            assert (got.float() - want.float()).abs().max() <= 2.0 ** -4
+        else:
+            d = (got.float() - want.float()).abs().max().item()
+            assert d <= 2.0 ** -6 * want.float().abs().max().item(), d
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_full_mode_is_the_cells_own_entry_point(dev, int8):
+    """``full`` launches the cell's own entry point, the only one that
+    holds that instantiation (it counts as the cell's launch and gives the
+    cell's result); the mode entry points refuse it."""
+    from ess_tpu_torch import kernels
+
+    x, h0, c0, wgt, bias = bd.make_inputs(7, (2, 64, 22, 40), dev)
+    impl = "pallas_int8" if int8 else "pallas"
+    h1, c1 = cl.conv_lstm_cell(x, h0, c0.clone(), wgt, bias, impl=impl)
+    counts = (cl.launches, cl.launches_int8, cl.launches_variant)
+    h2, c2 = cl.launch_variant(x, h0, c0.clone(), wgt, bias, mode="full",
+                               int8=int8)
+    assert (cl.launches, cl.launches_int8, cl.launches_variant) == tuple(
+        n + (i == int(int8)) for i, n in enumerate(counts))
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
+    lib = kernels.get_lib()
+    entry = lib.ess_conv_lstm_int8_mode if int8 else lib.ess_conv_lstm_mode
+    n_ptr = 7 if int8 else 6
+    for mode in (0, len(cl.MODES)):
+        assert entry(*[None] * n_ptr, 2, 22, 40, 64, 64, mode, None) != 0
+    # no_build runs and writes finite-or-not values of the right shape
+    h3, _ = cl.launch_variant(x, h0, c0.clone(), wgt, bias, mode="no_build",
+                              int8=int8)
+    torch.cuda.synchronize()
+    assert h3.shape == h0.shape
+
+
+def test_tools_run_on_the_card(dev, capsys, tmp_path):
+    """Both tools' ``main`` at one small level: they launch the kernels;
+    ``bench_level --profile`` traces one more chain of each path (two
+    warm-up calls and the traced one) and prints its device time by kernel.
+    """
+    n0, v0 = lv.launches, cl.launches_variant
+    layers = [((2, 16, 26, 24), 32, True)]
+    res = bench_level.main(["--layers=0", f"--profile={tmp_path}"],
+                           layers=layers, steps=3)
+    assert lv.launches == n0 + 1 + (4 + 3) * 3
+    assert res[0]["fused"]["dh_max"] < 0.06 and res[0]["fused"]["dc_max"] < 0.12
+    bd.main(["--layers=0", "--int8=0"], shapes=[(2, 32, 10, 13)], steps=3)
+    assert cl.launches_variant == v0 + 4 * 4 * 3
+    out = capsys.readouterr().out
+    assert "kernels, CUDA events" in out
+    for path in ("fused", "split"):
+        assert f"L0_{path} profile: wall" in out
+        assert (tmp_path / f"L0_{path}_trace.json").exists()
+    assert "level_" in out.split("L0_fused profile")[1]
