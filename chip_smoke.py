@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train and streaming-eval paths
 once on one NVIDIA GPU, in the builder's rollout form and with the block
-convs on the fused conv kernel, then its two encoder-level attribution tools.
+convs on the fused conv kernel, then its three kernel tools, then the host
+event path from an in-memory recording to the eval and streaming steps.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -15,10 +16,11 @@ exits non-zero, with no result line):
 3. kernels: each kernel (B1 fold-free voxelizer, B2 exact ConvLSTM cell,
    B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer, B4 fused 3x3 conv, B4-int8
    fused 3x3 conv, B5 fused encoder level, T2 the cell kernels' attribution
-   variants) against its plain PyTorch version on the card at the DSEC
-   shapes of the paths, with kernel and plain times (CUDA events) and the
-   kernel's bound on this card (the larger of bytes over memory rate and
-   operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
+   variants, B3-legacy the fold-free voxelizer's full-width band wire, T1
+   the C-major head conv with its normalize fused) against its plain
+   PyTorch version on the card at the DSEC shapes of the paths, with
+   kernel and plain times (CUDA events) and the kernel's bound on this card
+   (the larger of bytes over memory rate and operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
    B3 also with device-side binning, at 10 bins with integer coordinates,
    and on border and tile-edge events; B4 and B4-int8 at the head and
    first-encoder block shapes and at an odd one, with and without ReLU and
@@ -27,7 +29,10 @@ exits non-zero, with no result line):
    a full-resolution input at a small shape with three row tiles (group
    scales identical, h' and c' within one bf16 ulp, the same bits through
    ``encoder_level_int8``); T2's four compared modes on both cell bodies at
-   the tools' B=8;
+   the tools' B=8; B3-legacy at B=8 x T=20 windows of 100k events on
+   480x640, also against the x-slot wire (B1) on the same events; T1 in both
+   output layouts at the tool's B=8, beside the library's conv + bias + ReLU
+   on the same normalized window;
 4. eval slice: the supervised eval step at full width (E2VID base 32,
    480x640 sensor cropped to 440x640, T=20 windows of 100k events, 5 bins,
    11 classes, bf16, seeded weights, synthetic events) -- checks on its
@@ -54,7 +59,7 @@ exits non-zero, with no result line):
    launch counts (two per window), agreement with the plain versions and
    with the standard 5x5 form, and each rate beside the block-space form on
    the library conv and the standard 5x5 form, alternated in one run;
-8. attribution tools: ``ess_tpu_torch.tools.bench_level`` (the fused level
+8. kernel tools: ``ess_tpu_torch.tools.bench_level`` (the fused level
    beside the split path: library stride-2 conv, then the int8 cell) and
    ``ess_tpu_torch.tools.bench_lstm_breakdown`` (the cell variants, both
    bodies) through their ``main`` at B=8 and the three encoder levels of a
@@ -62,7 +67,18 @@ exits non-zero, with no result line):
    the level's and the split path's error against the f32 chain beside the
    JAX test's bounds (enforced at a small shape, reported at the DSEC
    shapes), and a 20-step fused chain against the plain chain at the same
-   B=8 shapes, through ``encoder_level_int8``.
+   B=8 shapes, through ``encoder_level_int8``; ``ess_tpu_torch.tools.
+   bench_head`` (T1 in both layouts beside the relayout + library conv) at
+   its B=8, with its launch counts and the variants' agreement;
+9. host event path: an in-memory DSEC-shaped recording (20M events on
+   480x640, a rectify map with sub-pixel offsets, labels every ~0.3 s)
+   through ``DSECSequence.from_store`` (slicer, then the fused native
+   rectify + band binning on both band wires: 5 x-slots and full-width
+   bands) -> ``BatchLoader`` (pinned collate ring) -> ``prefetch_to_device``
+   -> the eval step at B=8, T=20 windows of 100k events, with the two
+   wires' outputs held against each other, and through ``SequenceRecurrent``
+   -> ``run_streaming_eval`` at B=1 on both wires -- host ingest ms per
+   window, launch counts, windows/s and the device idle share.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -86,17 +102,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ess_tpu_torch import bench, kernels  # noqa: E402
 from ess_tpu_torch.bench import (  # noqa: E402
     BINS, CROP, SENSOR_H, SENSOR_W, make_batch, make_raw)
-from ess_tpu_torch.data import native  # noqa: E402
-from ess_tpu_torch.data.pipeline import AugmentParams  # noqa: E402
+from ess_tpu_torch.data import dsec, loader, native  # noqa: E402
+from ess_tpu_torch.data.pipeline import AugmentParams, to_soa  # noqa: E402
+from ess_tpu_torch.data.slicer import ArrayEventStore  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
-    batch_voxel, conv3x3, conv_lstm, level, voxel_folded, voxel_tiled)
+    batch_voxel, conv3x3, conv_lstm, head_cmajor, level, voxel_folded,
+    voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.tools import (  # noqa: E402
-    REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_level,
+    REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head, bench_level,
     bench_lstm_breakdown)
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
+from ess_tpu_torch.train.streaming import run_streaming_eval  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
 
 WINDOWS, EVENTS, CLASSES = bench.WINDOWS, bench.EVENTS_PER_WINDOW, bench.NUM_CLASSES
@@ -107,7 +126,8 @@ CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
 CONV_SHAPES = [("head", 2, 20, 128, 220, 320),
                ("encoder 0", 2, 128, 64, 220, 320),
                ("odd", 2, 24, 16, 13, 40)]
-KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8", "B5", "T2")
+KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8", "B5", "T2",
+                "B3-legacy", "T1")
 # fused encoder level (u shape, hidden channels, u_s2d): the three encoder
 # levels of a 440x640 window at the tools' B=8, the shapes phase 8 drives, in
 # the input form each uses, and level 0 from a full-resolution input at a
@@ -185,6 +205,15 @@ TRAIN_LOSS_REL = 0.02      # loss relative difference
 # the eval slice's bounds (SLICE_*): 40 carried windows reorder as many sums
 # as the eval step's 20.
 STREAM_WINDOWS = 40
+# Host event path (phase 9): an in-memory recording of DATA_EVENTS events at
+# ~2M events/s, DATA_SAMPLES labeled samples (two B=8 eval batches per band
+# wire) and DATA_STREAM windows streamed at B=1 per wire; both band wires
+# (DSECSequence binnings: 5 x-slots per band, B1; full-width bands,
+# B3-legacy) are held against each other under the slice bounds (SLICE_*).
+DATA_EVENTS = 20_000_000
+DATA_SAMPLES = 16
+DATA_STREAM = 60
+DATA_WIRES = ("folded", "folded_bands")
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -266,6 +295,8 @@ def reset_counts() -> None:
     conv3x3.launches_int8 = 0
     level.launches = 0
     conv_lstm.launches_variant = 0
+    voxel_folded.launches_legacy = 0
+    head_cmajor.launches = 0
 
 
 def read_counts() -> tuple:
@@ -275,7 +306,8 @@ def read_counts() -> tuple:
     return (voxel_folded.launches, conv_lstm.launches,
             conv_lstm.launches_int8, voxel_tiled.launches,
             conv3x3.launches, conv3x3.launches_int8, level.launches,
-            conv_lstm.launches_variant)
+            conv_lstm.launches_variant, voxel_folded.launches_legacy,
+            head_cmajor.launches)
 
 
 def show_counts(counts) -> str:
@@ -1037,6 +1069,148 @@ def check_cell_variants(dev):
             "library_ms": None}
 
 
+def check_voxel_folded_legacy(dev):
+    """B3-legacy, the full-width band wire, against its plain version at the
+    DSEC shape its path runs (B=8 x T=20 windows of 100k events on 480x640,
+    records of ``host_band_bin_folded(x_slots=False)``), and the normalized
+    grid against the x-slot wire's (B1) on the same events."""
+    n_win = 8 * WINDOWS
+    rng = np.random.default_rng(2)
+    raw, valid = make_raw(rng, 8)
+    raw, valid = raw.reshape(n_win, EVENTS, 4), valid.reshape(n_win, EVENTS)
+    wires = {}
+    for x_slots in (False, True):
+        t0 = time.perf_counter()
+        r, v, o = voxel_folded.host_band_bin_folded(
+            raw, valid, height=SENSOR_H, width=SENSOR_W, bins=BINS,
+            x_slots=x_slots)
+        host_ms = 1e3 * (time.perf_counter() - t0) / n_win
+        cols = [torch.from_numpy(np.ascontiguousarray(r[..., i])).to(dev)
+                for i in range(4)] + [torch.from_numpy(v).to(dev)]
+        wires[x_slots] = (cols, torch.from_numpy(o).to(dev), o)
+        log(f"B3-legacy: host binning with x_slots={x_slots}: {host_ms:.3f} "
+            f"ms per window of {EVENTS} events (one thread), "
+            f"{int(o[:, -1].mean())} folded records per window, offsets "
+            f"{o.shape}")
+    (x, y, t, p, vd), offs, o = wires[False]
+    th = voxel_folded.tile_h_for_bins(BINS)
+    hp = -(-SENSOR_H // th) * th
+    if offs.shape[1] != hp // th + 1:
+        raise AssertionError(f"full-width band offsets {tuple(offs.shape)}")
+    ts = masked_time_norm(t, vd, BINS).contiguous()
+    pol = torch.where(vd, p, torch.zeros_like(p)).contiguous()
+    kw = dict(bins=BINS, height=hp, width=SENSOR_W)
+    n0 = voxel_folded.launches_legacy
+    grid_k, stats_k = voxel_folded.voxelize_folded(x, y, ts, pol, offs, **kw)
+    torch.cuda.synchronize()
+    if voxel_folded.launches_legacy != n0 + 1:
+        raise AssertionError("voxelize_folded did not launch B3-legacy")
+    grid_p, stats_p = voxel_folded.voxelize_folded_ref(x, y, ts, pol, offs,
+                                                       **kw)
+    err_raw = (grid_k - grid_p).abs().max().item()
+    err = (normalize_from_stats(grid_k, stats_k)
+           - normalize_from_stats(grid_p, stats_p)).abs().max().item()
+    del grid_p
+    kwb = dict(num_bins=BINS, height=SENSOR_H, width=SENSOR_W, normalize=True)
+    got = batch_voxel.voxelize_band(x, y, t, p, vd, offs, **kwb)
+    scols, soffs, _ = wires[True]
+    err_wire = (got - batch_voxel.voxelize_band(*scols, soffs, **kwb)
+                ).abs().max().item()
+    log(f"B3-legacy voxel_folded_band ({n_win} windows): max|d| raw grid "
+        f"{err_raw:.3e}, normalized grid {err:.3e} (bound {VOXEL_ATOL}); "
+        f"normalized grid vs the x-slot wire (B1) on the same events "
+        f"{err_wire:.3e} (bound {VOXEL_ATOL})")
+    if not (err <= VOXEL_ATOL and err_wire <= VOXEL_ATOL):
+        raise AssertionError(f"B3-legacy disagrees: {err}, {err_wire}")
+    sx, sy, st, sp, svd = scols
+    sts = masked_time_norm(st, svd, BINS).contiguous()
+    spol = torch.where(svd, sp, torch.zeros_like(sp)).contiguous()
+    slot_ms = cuda_ms(lambda: voxel_folded.voxelize_folded(
+        sx, sy, sts, spol, soffs, **kw), 20)
+    del got, scols, soffs, wires, sx, sy, st, sp, svd, sts, spol
+    ms = cuda_ms(lambda: voxel_folded.voxelize_folded(x, y, ts, pol, offs,
+                                                      **kw), 20)
+    plain_ms = cuda_ms(lambda: voxel_folded.voxelize_folded_ref(
+        x, y, ts, pol, offs, **kw), 3)
+    bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
+                                     grid_k.numel() + stats_k.numel())
+    n_slabs, slab_w = voxel_folded.band_slabs(BINS, SENSOR_W)
+    log(f"B3-legacy time for {n_win} windows ({hp // th} bands x {n_slabs} "
+        f"column slabs of {slab_w}): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
+        f"bound {100.0 * bound_ms / ms:.1f}%; the x-slot wire (B1) on the "
+        f"same events {slot_ms:.3f} ms")
+    del grid_k, x, y, t, p, vd, ts, pol
+    torch.cuda.empty_cache()
+    return {"name": "voxel_folded_legacy", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/voxel_folded.cu",
+            "replaces": "ess_tpu/ops/voxel_pallas.py:1177",
+            "max_abs_err": max(err, err_wire), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def check_head_cmajor(dev):
+    """T1 against its plain version in both output layouts at the tool's
+    B=8 (20 -> 128 channels on a 220x320 C-major window), with its time,
+    rate, bound, and the library's conv + bias + ReLU on the same
+    normalized window in channels-last layout."""
+    b, cin, hh, ww, cout = bench_head.SHAPE
+    x, w, bias = bench_head.make_inputs(13, bench_head.SHAPE, dev)
+    prep = conv3x3.prepare_conv_weights(w)
+    kw = dict(shift=bench_head.SHIFT, scale=bench_head.SCALE)
+    flop = 2.0 * b * hh * ww * 9 * cin * cout
+    t_b, by = bound(2.0 * (x.numel() + b * cout * hh * ww)
+                    + 4.0 * (w.numel() + bias.numel()), flop, "bf16")
+    err, times = 0.0, {}
+    for nchw_out in (False, True):
+        layout = "NCHW" if nchw_out else "NHWC"
+        want = head_cmajor.head_cmajor_ref(x, w, bias, nchw_out=nchw_out,
+                                           **kw).float()
+        n0 = head_cmajor.launches
+        got = head_cmajor.head_cmajor(x, w, bias, nchw_out=nchw_out,
+                                      prepared=prep, **kw)
+        torch.cuda.synchronize()
+        if head_cmajor.launches != n0 + 1:
+            raise AssertionError("head_cmajor did not launch T1")
+        d = (got.float() - want).abs()
+        share = (d <= bf16_ulp(got, want)).float().mean().item()
+        e = d.max().item()
+        rel = e / want.abs().max().item()
+        err = max(err, e)
+        log(f"T1 head_cmajor {layout} out, B={b} {cin}->{cout} {hh}x{ww}: "
+            f"{100.0 * share:.4f}% within one bf16 ulp (bound >= "
+            f"{100.0 * CONV_ULP_SHARE}%), max|d| {e:.3e} = {rel:.3e} of "
+            f"absmax (bound {CONV_MAX_REL:.3e})")
+        if not (share >= CONV_ULP_SHARE and rel <= CONV_MAX_REL):
+            raise AssertionError(f"T1 ({layout}) disagrees with its plain "
+                                 f"version: {share}, {rel}")
+        del got, want, d
+        times[nchw_out] = cuda_ms(lambda: head_cmajor.head_cmajor(
+            x, w, bias, nchw_out=nchw_out, prepared=prep, **kw), 20)
+    plain_ms = cuda_ms(lambda: head_cmajor.head_cmajor_ref(
+        x, w, bias, nchw_out=False, **kw), 3)
+    xn = head_cmajor.normalize_apply(x, kw["shift"], kw["scale"]).contiguous(
+        memory_format=torch.channels_last)
+    lib_fn, lib_what = library_conv_fn(xn, w, bias)
+    lib_err = (lib_fn().float() - head_cmajor.head_cmajor_ref(
+        x, w, bias, nchw_out=True, **kw).float()).abs().max().item()
+    lib_ms = cuda_ms(lib_fn, 20)
+    for nchw_out, t_k in times.items():
+        log(f"T1 head_cmajor {'NCHW' if nchw_out else 'NHWC'} out: kernel "
+            f"{t_k:.3f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), bound "
+            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%")
+    log(f"T1 plain {plain_ms:.3f} ms; library {lib_ms:.3f} ms [{lib_what} "
+        f"on the normalized window, channels-last; max|d| vs plain "
+        f"{lib_err:.3e}]")
+    return {"name": "head_cmajor", "route": "cuda",
+            "source": "ess_tpu_torch/csrc/head_cmajor.cu",
+            "replaces": "tools/bench_head.py:66",
+            "max_abs_err": err, "ms": times[False], "ms_nchw": times[True],
+            "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def phase_tools(dev, kern_rows):
     """The two attribution tools through their ``main``: at a small shape
     with the JAX level test's bounds enforced, then at B=8 and the three
@@ -1091,6 +1265,19 @@ def phase_tools(dev, kern_rows):
     need_counts(counts, (0, per_mode, per_mode, 0, 0, 0, 0,
                          2 * n_other * per_mode))
     add_launches(kern_rows, "bench_lstm_breakdown", counts)
+
+    reset_counts()
+    res = bench_head.main([])
+    counts = read_counts()
+    per_variant = 1 + chains * CHAIN_STEPS
+    log(f"bench_head at B={bench_head.SHAPE[0]}: launches "
+        f"{show_counts(counts)}")
+    need_counts(counts, (0,) * (len(KERNEL_NAMES) - 1) + (2 * per_variant,))
+    add_launches(kern_rows, "bench_head", counts)
+    for name, r in res.items():
+        if not (r["max_abs_diff_vs_xla"] <= CONV_MAX_REL * r["absmax"]
+                and np.isfinite(r["ms_per_call"])):
+            raise AssertionError(f"bench_head {name}: {r}")
 
     for li, (ushape, ch, u_s2d) in enumerate(LEVEL_SHAPES):
         u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(
@@ -1414,6 +1601,168 @@ def phase_stream(dev, kern_rows):
         torch.cuda.empty_cache()
 
 
+def make_recording(seed: int):
+    """A DSEC-shaped recording held in memory: DATA_EVENTS raw events on the
+    480x640 sensor (u16 pixel columns, int64 microseconds at ~2M events/s,
+    u8 polarity), a rectify map with sub-pixel offsets that vary over the
+    frame, and label timestamps and (440, 640) labels: the 6 that the
+    dataset drops, then two per sample, each sample's label with at least
+    T x 100k events before it. Returns ``DSECSequence.from_store``'s
+    arguments."""
+    rng = np.random.default_rng(seed)
+    n = DATA_EVENTS
+    x = rng.integers(0, SENSOR_W, n, dtype=np.uint16)
+    y = rng.integers(0, SENSOR_H, n, dtype=np.uint16)
+    t = np.cumsum(rng.integers(0, 2, n, dtype=np.int64))
+    p = rng.integers(0, 2, n, dtype=np.uint8)
+    yy, xx = np.mgrid[0:SENSOR_H, 0:SENSOR_W].astype(np.float32)
+    rmap = np.stack([
+        np.clip(xx + 0.3 + 0.2 * np.sin(yy / 37.0), 0, SENSOR_W - 1),
+        np.clip(yy + 0.4 + 0.3 * np.cos(xx / 53.0), 0, SENSOR_H - 1)],
+        -1).astype(np.float32)
+    span = WINDOWS * EVENTS + 1000
+    step = (n - span) // DATA_SAMPLES
+    ends = span + step * np.arange(DATA_SAMPLES)
+    idx = np.concatenate([np.arange(6) * 1000,
+                          (ends[:, None] + [0, step // 2]).ravel()])
+    labels = rng.integers(0, CLASSES, (len(idx), SENSOR_H - CROP, SENSOR_W),
+                          dtype=np.uint8)
+    return ArrayEventStore(x, y, t, p), rmap, t[idx], labels
+
+
+def phase_data(dev, kern_rows):
+    """Phase 9: the host event path on both band wires, from an in-memory
+    recording through the dataset, the loader and the device prefetch to
+    the eval step (B=8), and through ``SequenceRecurrent`` to
+    ``run_streaming_eval`` (B=1)."""
+    t0 = time.perf_counter()
+    rec = make_recording(5)
+    log(f"data: in-memory recording of {DATA_EVENTS} events "
+        f"({(int(rec[0].t[-1]) + 1) / 1e6:.2f} s), {len(rec[3])} labels, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    seqs = {wire: dsec.DSECSequence.from_store(
+        *rec, nr_events_data=WINDOWS, nr_events_window=EVENTS,
+        binning=wire) for wire in DATA_WIRES}
+    n_groups = {"folded": SENSOR_H // 24 * (SENSOR_W // 128),
+                "folded_bands": SENSOR_H // 24}
+    for wire, seq in seqs.items():
+        best = float("inf")
+        for i in range(3):
+            t0 = time.perf_counter()
+            sample = seq[i]
+            best = min(best, time.perf_counter() - t0)
+        offs = sample["band_offsets"]
+        if offs.shape != (WINDOWS, n_groups[wire] + 1):
+            raise AssertionError(f"{wire}: band offsets {offs.shape}")
+        log(f"host ingest, {wire} wire: {1e3 * best / WINDOWS:.3f} ms per "
+            f"window of {EVENTS} events (slicer + fused native rectify, time "
+            f"re-zero and ghost-folded binning, one thread; best of 3 "
+            f"samples), offsets {offs.shape}, record capacity "
+            f"{sample['raw_events'].shape[1]}")
+
+    mods, step = bench.build_eval(8, dev)
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    n_batches = DATA_SAMPLES // 8
+    label_px = 8 * (SENSOR_H - CROP) * SENSOR_W
+    results = {}
+    for wire in DATA_WIRES:
+        dl = loader.BatchLoader(seqs[wire], batch_size=8, shuffle=False,
+                                num_workers=4, collate_buffers=4,
+                                prefetch_size=2, pin_memory=True)
+
+        def one_pass(keep=None):
+            for batch in loader.prefetch_to_device(iter(dl), size=2,
+                                                   device=dev):
+                out = step(to_soa(batch))
+                if keep is not None:
+                    keep.append((out["latent8"], out["pred"], out["cm"],
+                                 logits[0]))
+            torch.cuda.synchronize()
+
+        reset_counts()
+        keep = []
+        one_pass(keep)
+        counts = read_counts()
+        want = ((n_batches, 3 * WINDOWS * n_batches) if wire == "folded"
+                else (0, 3 * WINDOWS * n_batches) + (0,) * 6 + (n_batches,))
+        log(f"data -> loader -> prefetch -> eval step, {wire} wire, "
+            f"{n_batches} batches of B=8 T={WINDOWS}: launches "
+            f"{show_counts(counts)}")
+        need_counts(counts, want)
+        add_launches(kern_rows, "data", counts)
+        for latent, pred, cm, _ in keep:
+            if (float(cm.sum()) != label_px or not torch.isfinite(latent).all()
+                    or tuple(pred.shape) != (8, SENSOR_H - CROP, SENSOR_W)):
+                raise AssertionError(f"bad eval output on the {wire} wire: "
+                                     f"cm.sum {float(cm.sum())}")
+        results[wire] = keep
+        with tempfile.TemporaryDirectory() as tmp:
+            prof = bench.profile_call(one_pass, tmp, f"data_{wire}", top=6)
+        log(f"  {n_batches * 8 * WINDOWS / (prof['wall_ms'] / 1e3):.2f} "
+            f"windows/s through the loader (one pass of {DATA_SAMPLES} "
+            f"samples: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms over a {prof['span_ms']:.1f} ms span, "
+            f"device idle share {100.0 * prof['idle_share']:.1f}%)")
+    hook.remove()
+    for i, (ref, got) in enumerate(zip(*(results[w] for w in DATA_WIRES))):
+        slice_agreement(f"eval batch {i}, full-width band wire vs x-slot "
+                        "wire", got[0], ref[0], got[1], ref[1], ref[3],
+                        got[2], ref[2])
+    del results, keep, mods, step
+    torch.cuda.empty_cache()
+
+    mods1, _ = bench.build_stream(1, dev)
+    pipe = bench.make_pipeline()
+    cms = {}
+    for wire in DATA_WIRES:
+        stream = dsec.SequenceRecurrent(
+            dsec.DSECSequence.from_store(*rec, nr_events_data=1,
+                                         nr_events_window=EVENTS,
+                                         binning=wire),
+            nr_events_window=EVENTS)
+        scored = sum(w < DATA_STREAM for w in stream.label_idx)
+
+        def run():
+            return run_streaming_eval(
+                mods1, (stream[i] for i in range(DATA_STREAM)), pipe)
+
+        reset_counts()
+        m = run()
+        counts = read_counts()
+        want = ((DATA_STREAM, 3 * DATA_STREAM) if wire == "folded"
+                else (0, 3 * DATA_STREAM) + (0,) * 6 + (DATA_STREAM,))
+        log(f"data -> SequenceRecurrent -> run_streaming_eval B=1, {wire} "
+            f"wire, {DATA_STREAM} windows ({scored} scored): launches "
+            f"{show_counts(counts)}")
+        need_counts(counts, want)
+        add_launches(kern_rows, "data_stream", counts)
+        cm_sum = float(m.confusion.sum())
+        if scored < 2 or cm_sum != scored * label_px / 8:
+            raise AssertionError(f"bad stream output on the {wire} wire: "
+                                 f"cm.sum {cm_sum}, {scored} scored")
+        cms[wire] = m.confusion.astype(np.float64)
+        with tempfile.TemporaryDirectory() as tmp:
+            prof = bench.profile_call(run, tmp, f"data_stream_{wire}", top=6)
+        log(f"  {DATA_STREAM / (prof['wall_ms'] / 1e3):.2f} windows/s "
+            f"(wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms over a {prof['span_ms']:.1f} ms span, "
+            f"device idle share {100.0 * prof['idle_share']:.1f}%)")
+    moved = 100.0 * np.abs(cms["folded_bands"] - cms["folded"]).sum() / (
+        2 * cms["folded"].sum())
+    log(f"  streaming, full-width band wire vs x-slot wire: confusion matrix "
+        f"{moved:.3f}% of the pixels moved (bound <= "
+        f"{100.0 - SLICE_PRED_AGREE}%)")
+    if not moved <= 100.0 - SLICE_PRED_AGREE:
+        raise AssertionError("the band wires disagree in streaming")
+    del mods1, rec, seqs
+    torch.cuda.empty_cache()
+
+
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
                     cm=None, cm_ref=None) -> None:
     """Hold one path against a reference path under the slice bounds
@@ -1647,10 +1996,12 @@ def main() -> None:
     rows = [check_voxelizer(dev), check_conv_lstm(dev),
             check_conv_lstm_int8(dev), check_voxel_tiled(dev),
             check_conv3x3(dev), check_conv3x3_int8(dev), check_level(dev),
-            check_cell_variants(dev)]
+            check_cell_variants(dev), check_voxel_folded_legacy(dev),
+            check_head_cmajor(dev)]
     phase_slice(dev, rows)
     phase_train(dev, rows)
     phase_stream(dev, rows)
+    phase_data(dev, rows)
     phase_block(dev, rows)
     phase_tools(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)

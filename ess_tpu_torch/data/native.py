@@ -4,7 +4,12 @@ The port's own binding: it builds the shared library with ``g++`` into
 ``build/ess_tpu_torch/`` at the repository root (never next to the source,
 where the JAX package keeps its copy), keyed by a hash of the source, and
 raises if the build fails. Bound here: the ghost-folded band binning of the
-fold-free voxelizer and the tile binning of the halo-tiled one.
+fold-free voxelizer and the tile binning of the halo-tiled one, the fused
+DSEC ingests (rectify + per-window time re-zero + one of the two binnings,
+in one pass over the raw event columns), the gather-pad of event windows
+and a vectorized ``searchsorted``. The contracts are those of
+``ess_tpu/data/native.py``, except that nothing returns ``None``: without
+the library every entry point raises.
 """
 
 from __future__ import annotations
@@ -61,6 +66,23 @@ def _build() -> ctypes.CDLL:
         f32p, u8p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
         f32p, u8p, i32p, i64p, i32p]
     cdll.tile_bin_f32.restype = None
+    u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    cdll.searchsorted_i64.argtypes = [i64p, c_i64, i64p, c_i64, i64p]
+    cdll.searchsorted_i64.restype = None
+    cdll.pad_windows_f64.argtypes = [f64p, i64p, i64p, c_i64, c_i64, f32p,
+                                     u8p]
+    cdll.pad_windows_f64.restype = None
+    cdll.ingest_rectify_bin_f32.argtypes = [
+        u16p, u16p, i64p, u8p, i64p, i64p, c_i64, c_i64,
+        f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
+        f32p, u8p, i32p, i64p, f32p, i32p]
+    cdll.ingest_rectify_bin_f32.restype = None
+    cdll.ingest_rectify_bin_folded.argtypes = [
+        u16p, u16p, i64p, u8p, i64p, i64p, c_i64, c_i64, c_i64,
+        f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
+        f32p, u8p, i32p, i64p, f32p, i32p]
+    cdll.ingest_rectify_bin_folded.restype = c_i64
     return cdll
 
 
@@ -151,3 +173,110 @@ def tile_bin(
     lib.tile_bin_f32(ev, vd, t_dim, n, height, width, tile_h, tile_w, ntx,
                      n_tiles, out, out_valid, offsets, counts, tid_scratch)
     return out, out_valid.astype(bool), offsets
+
+
+def searchsorted_i64(t: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """First index with ``t[i] >= q`` for each query (``t`` sorted int64):
+    ``np.searchsorted(t, queries, side='left')`` as int64."""
+    lib = get_lib()
+    t = np.ascontiguousarray(t, np.int64)
+    q = np.ascontiguousarray(queries, np.int64)
+    out = np.empty(len(q), np.int64)
+    lib.searchsorted_i64(t, len(t), q, len(q), out)
+    return out
+
+
+def pad_windows_from_bounds(
+    events_f64: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+    capacity: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Gather-pad (N, 4) float64 events into (T, capacity, 4) f32 + (T,
+    capacity) bool, window ``i`` holding events ``[starts[i], ends[i])``:
+    a longer window keeps its last ``capacity`` events, times re-zeroed to
+    the window's first kept event (``slicer.pad_windows``)."""
+    lib = get_lib()
+    t_dim = len(starts)
+    ev = np.ascontiguousarray(events_f64, np.float64)
+    out = np.empty((t_dim, capacity, 4), np.float32)
+    valid = np.empty((t_dim, capacity), np.uint8)
+    lib.pad_windows_f64(ev, np.ascontiguousarray(starts, np.int64),
+                        np.ascontiguousarray(ends, np.int64), t_dim,
+                        capacity, out, valid)
+    return out, valid.astype(bool)
+
+
+def _event_columns(ev: dict):
+    return (np.ascontiguousarray(ev["x"], np.uint16),
+            np.ascontiguousarray(ev["y"], np.uint16),
+            np.ascontiguousarray(ev["t"], np.int64),
+            np.ascontiguousarray(ev["p"], np.uint8))
+
+
+def ingest_rectify_bin(
+    ev: dict, starts: np.ndarray, ends: np.ndarray, capacity: int,
+    rectify_map: np.ndarray, *, tile_h: int, tile_w: int = 128,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fused DSEC ingest on the tile wire: rectify (``rectify_map[y, x]``)
+    + pad + tile binning of raw event columns ``ev`` ({"x", "y", "t", "p"}
+    as in events.h5), window ``i`` over ``[starts[i], ends[i])``. Returns
+    (raw (T, capacity, 4) f32, valid (T, capacity) bool, offsets (T,
+    n_tiles + 1) i32), as :func:`tile_bin` on the rectified windows."""
+    lib = get_lib()
+    mh, mw = rectify_map.shape[:2]
+    hp = -(-mh // tile_h) * tile_h
+    wp = -(-mw // tile_w) * tile_w
+    ntx = wp // tile_w
+    n_tiles = (hp // tile_h) * ntx
+    t_dim = len(starts)
+    out = np.empty((t_dim, capacity, 4), np.float32)
+    out_valid = np.empty((t_dim, capacity), np.uint8)
+    offsets = np.empty((t_dim, n_tiles + 1), np.int32)
+    counts = np.empty(n_tiles, np.int64)
+    xy_scratch = np.empty((capacity, 2), np.float32)
+    tid_scratch = np.empty(capacity, np.int32)
+    lib.ingest_rectify_bin_f32(
+        *_event_columns(ev), np.ascontiguousarray(starts, np.int64),
+        np.ascontiguousarray(ends, np.int64), t_dim, capacity,
+        np.ascontiguousarray(rectify_map, np.float32), mh, mw, tile_h,
+        tile_w, ntx, n_tiles, out, out_valid, offsets, counts, xy_scratch,
+        tid_scratch)
+    return out, out_valid.astype(bool), offsets
+
+
+def ingest_rectify_bin_folded(
+    ev: dict, starts: np.ndarray, ends: np.ndarray, capacity: int,
+    rectify_map: np.ndarray, *, tile_h: int,
+    out_capacity: Optional[int] = None, ntx: int = 1, slot_w: int = 128,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fused DSEC ingest on the folded wire: rectify + per-window time
+    re-zero + ghost-folded band binning of raw event columns in one pass.
+    ``ntx`` x-slots of ``slot_w`` columns per band (``ntx=1``: the legacy
+    full-width bands). Returns (records (T, cap2, 4) f32 with pre-weighted
+    polarity, valid (T, cap2) bool, offsets (T, n_bands * ntx + 1) i32),
+    growing ``cap2`` (default :func:`folded_capacity` of ``capacity``) to
+    the next quantized level when a window overflows it."""
+    lib = get_lib()
+    mh, mw = rectify_map.shape[:2]
+    n_bands = -(-mh // tile_h)
+    t_dim = len(starts)
+    cols = _event_columns(ev)
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    rmap = np.ascontiguousarray(rectify_map, np.float32)
+    cap2 = (out_capacity if out_capacity is not None
+            else folded_capacity(capacity))
+    n_groups = n_bands * ntx
+    while True:
+        out = np.empty((t_dim, cap2, 4), np.float32)
+        out_valid = np.empty((t_dim, cap2), np.uint8)
+        offsets = np.empty((t_dim, n_groups + 1), np.int32)
+        counts = np.empty(n_groups, np.int64)
+        rec_scratch = np.empty((4 * capacity, 4), np.float32)
+        band_scratch = np.empty(4 * capacity, np.int32)
+        needed = lib.ingest_rectify_bin_folded(
+            *cols, starts, ends, t_dim, capacity, cap2, rmap, mh, mw,
+            tile_h, n_bands, ntx, slot_w, out, out_valid, offsets, counts,
+            rec_scratch, band_scratch)
+        if needed <= cap2:
+            return out, out_valid.astype(bool), offsets
+        cap2 = quantize_folded_capacity(int(needed), capacity)

@@ -57,12 +57,13 @@ class PipelineConfig:
 
 
 def to_soa(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Host-side: split an AoS raw-event batch into contiguous SoA buffers.
+    """Split an AoS raw-event batch into contiguous SoA buffers.
 
     {"raw_events": (..., N, 4), "valid": (..., N)} -> {"ev_x", "ev_y",
     "ev_t", "ev_p": (..., N) f32, "ev_valid": (..., N) bool}; host offsets
     ("tile_offsets", "band_offsets") ride along as "ev_tile_offsets" /
-    "ev_band_offsets", every other key unchanged.
+    "ev_band_offsets", every other key unchanged. Numpy arrays on the host,
+    or tensors where they lie (a batch after ``loader.prefetch_to_device``).
     """
     if "ev_xq" in batch:
         raise ValueError("the packed u16 wire is not ported: pass f32 "
@@ -71,9 +72,11 @@ def to_soa(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
            if k not in ("raw_events", "valid", "tile_offsets",
                         "band_offsets")}
     raw = batch["raw_events"]
+    contiguous = (torch.Tensor.contiguous if isinstance(raw, torch.Tensor)
+                  else np.ascontiguousarray)
     for i, k in enumerate(("ev_x", "ev_y", "ev_t", "ev_p")):
-        out[k] = np.ascontiguousarray(raw[..., i])
-    out["ev_valid"] = np.ascontiguousarray(batch["valid"])
+        out[k] = contiguous(raw[..., i])
+    out["ev_valid"] = contiguous(batch["valid"])
     for k in ("tile_offsets", "band_offsets"):
         if k in batch:
             out["ev_" + k] = batch[k]

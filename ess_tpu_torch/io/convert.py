@@ -24,6 +24,12 @@ def _conv(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def conv_state(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """One JAX conv's parameters (HWIO ``kernel``, optional ``bias``) as the
+    port's ``{prefix}.weight`` (OIHW) and ``{prefix}.bias``."""
+    return _conv(p, prefix)
+
+
 def params_from_jax(e2vid_params: Mapping[str, Any],
                     back_params: Mapping[str, Any]
                     ) -> tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

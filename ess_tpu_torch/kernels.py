@@ -95,6 +95,8 @@ def _build() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.ess_voxel_folded.restype = ci
+    lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+    lib.ess_voxel_folded_band.restype = ci
     lib.ess_voxel_tiled.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.ess_voxel_tiled.restype = ci
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 5 + [vp]
@@ -116,6 +118,9 @@ def _build() -> ctypes.CDLL:
     lib.ess_conv3x3_quant.restype = ci
     lib.ess_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.ess_conv3x3_int8.restype = ci
+    cf = ctypes.c_float
+    lib.ess_head_cmajor.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 2 + [ci, vp]
+    lib.ess_head_cmajor.restype = ci
     lib.ess_error_string.argtypes = [ci]
     lib.ess_error_string.restype = ctypes.c_char_p
     return lib

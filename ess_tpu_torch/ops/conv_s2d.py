@@ -2,8 +2,8 @@
 
 Counterpart of ``ess_tpu/ops/conv_s2d.py`` on the parts the block-space
 rollout and the fused encoder level use: ``space_to_depth``,
-``depth_to_space``, ``block_kernel``, ``block_bias``, ``s2d_kernel_stride2``
-and ``conv5x5_s2d_stride2``. A 5x5 SAME conv over an image equals a 3x3 SAME conv over
+``depth_to_space``, ``block_kernel``, ``block_bias``, ``s2d_kernel``,
+``s2d_kernel_stride2``, ``conv5x5_s2d_blocks`` and ``conv5x5_s2d_stride2``. A 5x5 SAME conv over an image equals a 3x3 SAME conv over
 its 2x2 space-to-depth blocks with remapped weights: at stride 1 it yields
 all four output phases at once (``bi=bo=2``: the E2VID head conv, 5 -> 32
 channels becomes 20 -> 128), at stride 2 it lands at half resolution
@@ -92,6 +92,30 @@ def block_kernel(weight: torch.Tensor, *, bi: int, bo: int,
 def block_bias(bias: torch.Tensor, bo: int) -> torch.Tensor:
     """Tile a conv bias for bo x bo blocked output channels."""
     return bias.repeat(bo * bo)
+
+
+def s2d_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, 5, 5) weight of a stride-1 conv (pad 2) ->
+    (4*C_out, 4*C_in, 3, 3): the 3x3 SAME conv over space-to-depth blocks
+    that yields all four output phases at once. It is :func:`block_kernel`
+    with ``bi=bo=2, stride=1``, kept under the JAX package's name."""
+    if tuple(weight.shape[2:]) != (5, 5):
+        raise ValueError(f"s2d_kernel needs a 5x5 kernel, got "
+                         f"{tuple(weight.shape)}")
+    return block_kernel(weight, bi=2, bo=2, stride=1)
+
+
+def conv5x5_s2d_blocks(x_s2d: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor | None,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Stride-1 5x5 conv evaluated in block space: space-to-depth input
+    (B, 4*C_in, H/2, W/2) -> space-to-depth output (B, 4*C_out, H/2, W/2)
+    in ``dtype``, the library conv on operands cast to ``dtype``. Equals
+    ``space_to_depth`` of the full-resolution conv with padding 2."""
+    out = F.conv2d(x_s2d.to(dtype), s2d_kernel(weight).to(dtype), padding=1)
+    if bias is not None:
+        out = out + block_bias(bias, 2).to(dtype)[None, :, None, None]
+    return out
 
 
 def s2d_kernel_stride2(weight: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Fold-free trilinear voxelizer over host ghost-folded (band, x-slot) records.
 
 Counterpart of ``ess_tpu/ops/voxel_pallas.py``: :func:`host_band_bin_folded`
-(``x_slots=True``, trilinear) and :func:`voxelize_folded` (the x-slot branch
-that runs ``_kernel_slotted``).
+(trilinear, with or without x-slots) and :func:`voxelize_folded` on both of
+its wires: the x-slot branch that runs ``_kernel_slotted`` and the legacy
+full-width band branch that runs ``_kernel`` with ``k_tiles=1``.
 
 The host pass rewrites every event whose bilinear footprint crosses a frame
 edge, a band of ``tile_h`` rows or a 128-column x-slot into single-corner
@@ -12,6 +13,15 @@ into its own ``bins x tile_h x 128`` tile of the grid, so one CUDA block
 per (window, group) accumulates the tile in shared memory and writes it
 out whole (``csrc/voxel_folded.cu``), together with the tile's
 normalization partials (sum, sum of squares, nonzero count).
+
+Without x-slots (``x_slots=False``, the legacy wire) the host folds across
+band rows and frame edges only, groups are whole bands and columns stay
+global; the offsets then have ``n_bands + 1`` columns and the kernel's
+second entry splits each band into column slabs of at most
+:data:`SLAB_BYTES` of shared memory (``ess_voxel_folded_band``).
+:func:`voxelize_folded` picks the wire by the width of the offsets, as the
+JAX function does; at a 128-wide grid the two wires are the same and run the
+x-slot kernel.
 
 On a CUDA tensor :func:`voxelize_folded` launches that kernel; on a CPU
 tensor it runs :func:`voxelize_folded_ref`, the plain PyTorch scatter of the
@@ -29,7 +39,9 @@ from ess_tpu_torch.data import native
 
 TILE_W = 128
 
-launches = 0   # kernel launches of voxelize_folded (CUDA tensors only)
+launches = 0          # x-slot kernel launches (CUDA tensors only)
+launches_legacy = 0   # full-width band kernel launches (CUDA tensors only)
+SLAB_BYTES = 160 * 1024   # shared memory of one band slab, legacy kernel
 
 
 def tile_h_for_bins(bins: int) -> int:
@@ -50,24 +62,29 @@ def _geometry(height: int, width: int, bins: int) -> tuple[int, int, int]:
 
 def host_band_bin_folded(raw_windows: np.ndarray, valid: np.ndarray, *,
                          height: int, width: int, bins: int = 5,
-                         capacity: Optional[int] = None):
+                         capacity: Optional[int] = None,
+                         x_slots: bool = True):
     """(T, N, 4) raw (x, y, t, p) windows + validity -> (records (T, N2, 4)
     f32 with pre-weighted signed polarity, valid (T, N2) bool, offsets
-    (T, n_bands * n_slots + 1) i32), binned by the native library."""
+    (T, n_groups + 1) i32), binned by the native library. ``x_slots``
+    groups by (band, 128-column slot), ``n_groups = n_bands * n_slots``;
+    without it by band only (the legacy wire), ``n_groups = n_bands``."""
     th, hp, wp = _geometry(height, width, bins)
     return native.band_bin_folded(
         raw_windows, valid, height=height, width=width, tile_h=th,
-        trilinear=True, capacity=capacity, ntx=wp // TILE_W, slot_w=TILE_W)
+        trilinear=True, capacity=capacity,
+        ntx=wp // TILE_W if x_slots else 1, slot_w=TILE_W)
 
 
 def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
                              height: int, width: int, bins: int = 5,
-                             capacity: Optional[int] = None):
+                             capacity: Optional[int] = None,
+                             x_slots: bool = True):
     """Plain numpy version of :func:`host_band_bin_folded` (float64 folds,
     stable argsort by group). Same contract; the test reference."""
     th, hp, wp = _geometry(height, width, bins)
     n_bands = hp // th
-    ntx = wp // TILE_W
+    ntx = wp // TILE_W if x_slots else 1
     t_dim, n = raw_windows.shape[:2]
     n2 = capacity if capacity is not None else native.folded_capacity(n)
 
@@ -109,19 +126,20 @@ def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
         y = np.concatenate([y, gy])
         t = np.concatenate([t, gt])
         p = np.concatenate([p, gp])
-        # x-slot boundary: a right corner on a TILE_W multiple moves to a
-        # ghost on the next slot's first column
-        fx = x - np.floor(x)
-        xr = np.floor(x) + 1.0
-        bm = (fx > 0) & (np.mod(xr, TILE_W) == 0) & (xr <= width - 1)
-        gx2, gy2, gt2 = xr[bm], y[bm], t[bm]
-        gp2 = p[bm] * fx[bm]
-        p[bm] *= 1.0 - fx[bm]
-        x[bm] = np.floor(x[bm])
-        x = np.concatenate([x, gx2])
-        y = np.concatenate([y, gy2])
-        t = np.concatenate([t, gt2])
-        p = np.concatenate([p, gp2])
+        if x_slots:
+            # x-slot boundary: a right corner on a TILE_W multiple moves to
+            # a ghost on the next slot's first column
+            fx = x - np.floor(x)
+            xr = np.floor(x) + 1.0
+            bm = (fx > 0) & (np.mod(xr, TILE_W) == 0) & (xr <= width - 1)
+            gx2, gy2, gt2 = xr[bm], y[bm], t[bm]
+            gp2 = p[bm] * fx[bm]
+            p[bm] *= 1.0 - fx[bm]
+            x[bm] = np.floor(x[bm])
+            x = np.concatenate([x, gx2])
+            y = np.concatenate([y, gy2])
+            t = np.concatenate([t, gt2])
+            p = np.concatenate([p, gp2])
         band = np.clip((y // th).astype(np.int64), 0, n_bands - 1)
         slot = np.clip((x // TILE_W).astype(np.int64), 0, ntx - 1)
         group = band * ntx + slot
@@ -153,24 +171,27 @@ def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                         bins: int, height: int, width: int):
     """Plain PyTorch version of :func:`voxelize_folded`: an index_add scatter
     of each record's 8 trilinear corners, with every corner outside its
-    record's (band, x-slot) tile or bin range dropped (those corners carry
-    zero weight on folded input)."""
+    record's group (band and x-slot, or the whole band on the legacy wire)
+    or bin range dropped (those corners carry zero weight on folded
+    input)."""
     b, n = x.shape
     th = tile_h_for_bins(bins)
-    n_bands, ntx = height // th, width // TILE_W
+    n_bands = height // th
+    ntx = (offsets.shape[1] - 1) // n_bands
+    slot_w = width // ntx
     live = (torch.arange(n, device=x.device)[None, :]
             < offsets[:, -1:].to(torch.int64))
     band = torch.clamp(torch.div(torch.floor(y), th, rounding_mode="floor"),
                        0, n_bands - 1)
-    slot = torch.clamp(torch.div(torch.floor(x), TILE_W,
+    slot = torch.clamp(torch.div(torch.floor(x), slot_w,
                                  rounding_mode="floor"), 0, ntx - 1)
     yl = y - band * th
-    xl = x - slot * TILE_W
+    xl = x - slot * slot_w
     yi, xi, c0 = torch.floor(yl), torch.floor(xl), torch.floor(ts)
     fy, fx, wt = yl - yi, xl - xi, ts - c0
     s0, s1 = pol * (1.0 - wt), pol * wt
     row0 = band.long() * th
-    col0 = slot.long() * TILE_W
+    col0 = slot.long() * slot_w
     bidx = torch.arange(b, device=x.device)[:, None]
     flat = torch.zeros(b * bins * height * width, dtype=torch.float32,
                        device=x.device)
@@ -181,7 +202,7 @@ def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
             for dx, wx in ((0, 1.0 - fx), (1, fx)):
                 col = xi.long() + dx
                 ok = (live & (c >= 0) & (c < bins) & (r >= 0) & (r < th)
-                      & (col >= 0) & (col < TILE_W))
+                      & (col >= 0) & (col < slot_w))
                 idx = (((bidx * bins + c) * height + row0 + r) * width
                        + col0 + col)
                 flat.index_add_(0, idx[ok], (s * wy * wx)[ok])
@@ -189,6 +210,17 @@ def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     stats = torch.stack([grid.sum((1, 2, 3)), (grid * grid).sum((1, 2, 3)),
                          (grid != 0).sum((1, 2, 3)).float()], dim=-1)
     return grid, stats
+
+
+def band_slabs(bins: int, width: int) -> tuple[int, int]:
+    """(n_slabs, slab_w) of the legacy kernel: the fewest column slabs
+    whose ``bins x tile_h x slab_w`` f32 accumulator fits in
+    :data:`SLAB_BYTES`, each a multiple of 32 columns wide (320 at DSEC's
+    640 columns and 5 bins)."""
+    row_bytes = 4 * bins * tile_h_for_bins(bins)
+    n_slabs = -(-row_bytes * width // SLAB_BYTES)
+    slab_w = -(-width // (32 * n_slabs)) * 32
+    return -(-width // slab_w), slab_w
 
 
 def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
@@ -201,19 +233,25 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     ``x, y`` are sensor coordinates, ``ts`` the time normalized to
     [0, bins - 1], ``pol`` the pre-weighted polarity (zero for dropped
     records); only records before ``offsets[:, -1]`` are read. ``height`` is
-    a multiple of ``tile_h_for_bins(bins)`` and ``width`` of 128.
+    a multiple of ``tile_h_for_bins(bins)`` and ``width`` of 128. The width
+    of the offsets picks the wire: ``n_bands * width // 128 + 1`` columns
+    the x-slot one, ``n_bands + 1`` the legacy full-width band one.
     """
     th = tile_h_for_bins(bins)
     b, n = x.shape
-    n_groups = (height // th) * (width // TILE_W)
     if height % th or width % TILE_W:
         raise ValueError(f"grid {height}x{width} is not a multiple of the "
                          f"{th}x{TILE_W} tile")
+    n_bands, n_slots = height // th, width // TILE_W
     if b > 65535:
         raise ValueError(f"voxelize_folded: {b} windows exceed one launch "
                          "(65535)")
-    if tuple(offsets.shape) != (b, n_groups + 1):
-        raise ValueError(f"offsets {tuple(offsets.shape)} != {(b, n_groups + 1)}")
+    if (offsets.ndim != 2 or offsets.shape[0] != b
+            or offsets.shape[1] - 1 not in (n_bands * n_slots, n_bands)):
+        raise ValueError(f"offsets {tuple(offsets.shape)} are neither "
+                         f"{(b, n_bands * n_slots + 1)} (x-slots) nor "
+                         f"{(b, n_bands + 1)} (full-width bands)")
+    legacy = offsets.shape[1] - 1 != n_bands * n_slots
     if x.device.type == "cpu":
         return voxelize_folded_ref(x, y, ts, pol, offsets, bins=bins,
                                    height=height, width=width)
@@ -230,17 +268,28 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                          f"on {x.device}")
     from ess_tpu_torch import kernels
 
-    global launches
+    global launches, launches_legacy
     lib = kernels.get_lib()
     grid = torch.empty((b, bins, height, width), dtype=torch.float32,
                        device=x.device)
-    partials = torch.empty((b, n_groups, 3), dtype=torch.float32,
-                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ess_voxel_folded(
-        x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
-        offsets.data_ptr(), grid.data_ptr(), partials.data_ptr(),
-        b, n, bins, th, height // th, width // TILE_W, width, stream)
-    kernels.check(err, "voxel_folded kernel")
-    launches += 1
+    cols = (x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
+            offsets.data_ptr(), grid.data_ptr())
+    if legacy:
+        n_slabs, slab_w = band_slabs(bins, width)
+        partials = torch.empty((b, n_bands * n_slabs, 3),
+                               dtype=torch.float32, device=x.device)
+        err = lib.ess_voxel_folded_band(
+            *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slabs,
+            slab_w, width, stream)
+        kernels.check(err, "voxel_folded band kernel")
+        launches_legacy += 1
+    else:
+        partials = torch.empty((b, n_bands * n_slots, 3),
+                               dtype=torch.float32, device=x.device)
+        err = lib.ess_voxel_folded(
+            *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slots,
+            width, stream)
+        kernels.check(err, "voxel_folded kernel")
+        launches += 1
     return grid, partials.sum(dim=1)

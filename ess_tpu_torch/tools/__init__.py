@@ -4,12 +4,14 @@ rollout on the GPU, counterparts of the JAX package's ``tools/``.
 - :mod:`ess_tpu_torch.tools.bench_level`: the fused encoder level beside the
   split path (library stride-2 conv, then the int8 ConvLSTM cell);
 - :mod:`ess_tpu_torch.tools.bench_lstm_breakdown`: the ConvLSTM cell kernel
-  with its pointwise, its transcendentals or its operand gather taken out.
+  with its pointwise, its transcendentals or its operand gather taken out;
+- :mod:`ess_tpu_torch.tools.bench_head`: the head conv on a C-major window
+  with its normalize fused (T1) beside the library conv after a relayout.
 
 Each runs on ``cuda:0`` unless called with ``device="cpu"``, where it runs
 the kernels' plain versions at whatever small shape the caller passes and
 its times are host times of those, not device times. This module holds what
-the tools share: argument parsing, the carried chain and its timing.
+the tools share: argument parsing, the carried chain and the timing.
 """
 
 from __future__ import annotations
@@ -57,13 +59,12 @@ def chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int
     return h, c
 
 
-def time_chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int,
-               repeats: int = REPEATS) -> float:
-    """Best time in ms of a ``steps``-step chain over ``repeats`` runs after
-    one warm-up chain: CUDA events on a CUDA device, the host clock on the
-    CPU."""
-    cuda = h0.device.type == "cuda"
-    chain(step, h0, c0, steps)
+def time_best(run: Callable[[], object], device: torch.device,
+              repeats: int = REPEATS) -> float:
+    """Best time in ms of ``run()`` over ``repeats`` runs after one warm-up
+    run: CUDA events on a CUDA device, the host clock on the CPU."""
+    cuda = device.type == "cuda"
+    run()
     best = float("inf")
     for _ in range(repeats):
         if cuda:
@@ -71,15 +72,22 @@ def time_chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int,
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-            chain(step, h0, c0, steps)
+            run()
             end.record()
             torch.cuda.synchronize()
             best = min(best, start.elapsed_time(end))
         else:
             t0 = time.perf_counter()
-            chain(step, h0, c0, steps)
+            run()
             best = min(best, 1e3 * (time.perf_counter() - t0))
     return best
+
+
+def time_chain(step: Step, h0: torch.Tensor, c0: torch.Tensor, steps: int,
+               repeats: int = REPEATS) -> float:
+    """Best time in ms of a ``steps``-step chain over ``repeats`` runs after
+    one warm-up chain (:func:`time_best`)."""
+    return time_best(lambda: chain(step, h0, c0, steps), h0.device, repeats)
 
 
 def chain_line(name: str, ms: float, steps: int, note: str = "") -> str:

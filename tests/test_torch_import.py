@@ -9,11 +9,14 @@ MODULES = [
     "ess_tpu_torch", "ess_tpu_torch.kernels",
     "ess_tpu_torch.core.config", "ess_tpu_torch.core.labels",
     "ess_tpu_torch.data.native", "ess_tpu_torch.data.pipeline",
+    "ess_tpu_torch.data.slicer", "ess_tpu_torch.data.synthetic",
+    "ess_tpu_torch.data.loader", "ess_tpu_torch.data.dsec",
     "ess_tpu_torch.ops.voxel", "ess_tpu_torch.ops.voxel_folded",
     "ess_tpu_torch.ops.voxel_tiled",
     "ess_tpu_torch.ops.batch_voxel", "ess_tpu_torch.ops.conv_lstm",
     "ess_tpu_torch.ops.conv_s2d", "ess_tpu_torch.ops.conv3x3",
-    "ess_tpu_torch.ops.level", "ess_tpu_torch.tools",
+    "ess_tpu_torch.ops.level", "ess_tpu_torch.ops.head_cmajor",
+    "ess_tpu_torch.tools", "ess_tpu_torch.tools.bench_head",
     "ess_tpu_torch.tools.bench_level",
     "ess_tpu_torch.tools.bench_lstm_breakdown",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",

@@ -3,10 +3,11 @@
 Marked ``cuda``: each test skips where no GPU is visible (the CPU test run);
 on a machine with an H100 run ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Bounds:
-- voxelizers (fold-free B1 and halo-tiled B3): atol/rtol 1e-5 on the grid
-  and the stats, 1e-4 on normalized grids at 100k events per window: both
-  sum the same f32 corner weights, the kernel with shared-memory atomics in
-  run-dependent order;
+- voxelizers (fold-free B1, its full-width band wire and halo-tiled B3):
+  atol/rtol 1e-5 on the grid and the stats, 1e-4 on normalized grids at
+  100k events per window: both sum the same f32 corner weights, the kernel
+  with shared-memory atomics in run-dependent order; the band wire also
+  against the x-slot wire on the same events (normalized grids, 1e-4);
 - ConvLSTM cell (bf16): h atol 2e-2, c atol 3e-2, the bounds of
   tests/test_conv_lstm_pallas.py: both accumulate bf16 products in f32,
   in other orders, and round the state to bf16 once;
@@ -14,7 +15,8 @@ Bounds:
   are exact in both and the epilogue rounds each f32 operation as the plain
   version does, so h' and c' can differ only where the kernel's expf/tanhf
   and torch's round differently: at most one bf16 ulp (+1e-6);
-- fused 3x3 conv (bf16): at most one bf16 ulp off the plain conv on at
+- fused 3x3 conv (bf16) and the C-major head conv with its normalize fused
+  (T1, both output layouts): at most one bf16 ulp off the plain conv on at
   least 99.9 % of the values and max |d| within 2^-7 of the plain output's
   absmax (both accumulate bf16 products in f32, in other orders, and round
   once; a sum next to a rounding boundary may land one step further);
@@ -48,12 +50,16 @@ import torch
 
 from ess_tpu_torch.ops import conv3x3 as c3
 from ess_tpu_torch.ops import conv_lstm as cl
+from ess_tpu_torch.ops import head_cmajor as hc
 from ess_tpu_torch.ops import level as lv
 from ess_tpu_torch.ops import voxel_folded as vf
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
-from ess_tpu_torch.ops.voxel import normalize_nonzero, voxel_grid_trilinear
-from ess_tpu_torch.tools import bench_level, bench_lstm_breakdown as bd
+from ess_tpu_torch.ops.voxel import (
+    masked_time_norm, normalize_from_stats, normalize_nonzero,
+    voxel_grid_trilinear)
+from ess_tpu_torch.tools import bench_head, bench_level
+from ess_tpu_torch.tools import bench_lstm_breakdown as bd
 
 pytestmark = pytest.mark.cuda
 
@@ -664,3 +670,130 @@ def test_tools_run_on_the_card(dev, capsys, tmp_path):
         assert f"L0_{path} profile: wall" in out
         assert (tmp_path / f"L0_{path}_trace.json").exists()
     assert "level_" in out.split("L0_fused profile")[1]
+
+
+HEAD_SHAPES = [(8, 20, 220, 320, 128),    # the tool's shape (T1's path)
+               (2, 20, 13, 37, 128),      # tiles cross images, odd H*W
+               (1, 12, 9, 16, 24)]        # C_in 12, C_out one 24-wide tile
+
+
+@pytest.mark.parametrize("nchw_out", [False, True])
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_head_cmajor_kernel_matches_plain(dev, shape, nchw_out):
+    """T1 against its plain version: at most one bf16 ulp on 99.9 % of the
+    values, max |d| within 2^-7 of the plain output's absmax (the fused
+    conv's bound: f32 sums of the same bf16 products in another order)."""
+    x, w2, b4 = bench_head.make_inputs(11, shape, dev)
+    kw = dict(shift=0.1, scale=1.5, nchw_out=nchw_out)
+    want = hc.head_cmajor_ref(x, w2, b4, **kw)
+    n0 = hc.launches
+    got = hc.head_cmajor(x, w2, b4, **kw)
+    torch.cuda.synchronize()
+    assert hc.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert got.shape == want.shape
+    d = (got.float() - want.float()).abs()
+    within = (d <= bf16_ulp(got, want)).float().mean().item()
+    assert within >= 0.999, within
+    assert d.max().item() <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+def test_head_cmajor_kernel_is_the_only_route_on_cuda(dev, monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises: it never
+    reaches the plain version or the library conv."""
+    x, w2, b4 = bench_head.make_inputs(12, (1, 20, 8, 16, 128), dev)
+
+    def boom(*a, **k):
+        raise AssertionError("plain path reached on CUDA")
+
+    monkeypatch.setattr(hc, "head_cmajor_ref", boom)
+    monkeypatch.setattr(hc.F, "conv2d", boom)
+    kw = dict(shift=0.0, scale=1.0, nchw_out=True)
+    hc.head_cmajor(x, w2, b4, **kw)
+    with pytest.raises(ValueError):
+        hc.head_cmajor(x.float(), w2, b4, **kw)                # not bf16
+    with pytest.raises(ValueError):
+        hc.head_cmajor(x.contiguous(memory_format=torch.channels_last),
+                       w2, b4, **kw)                           # not C-major
+    with pytest.raises(ValueError):
+        hc.head_cmajor(x.repeat(1, 2, 1, 1), w2.repeat(1, 2, 1, 1), b4,
+                       **kw)                                   # C_in 40
+
+
+def legacy_inputs(rng, b, n, h, w):
+    """(B, N) raw windows binned on both band wires."""
+    raw, valid = raw_windows(rng, b, n, h, w, edges=True)
+    wires = {}
+    for x_slots in (False, True):
+        r, v, o = vf.host_band_bin_folded(raw, valid, height=h, width=w,
+                                          bins=5, x_slots=x_slots)
+        cols = [torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                for i in range(4)]
+        wires[x_slots] = (cols + [torch.from_numpy(v)], torch.from_numpy(o))
+    return wires
+
+
+@pytest.mark.parametrize("h,w,b,n", [(480, 640, 160, 100_000),
+                                     (72, 384, 3, 20000), (26, 170, 2, 5000)])
+def test_voxel_legacy_kernel_matches_plain(dev, h, w, b, n):
+    """The full-width band wire against its plain version (raw grid and
+    stats atol/rtol 1e-5, normalized grid 1e-4, the B1 bounds) and against
+    the slotted wire on the same events (normalized grids 1e-4), at the
+    DSEC shape the band wire runs (B=8 x T=20 windows of 100k events on
+    480x640) and two small ones."""
+    wires = legacy_inputs(np.random.default_rng(h + b), b, n, h, w)
+    cols, offs = wires[False]
+    assert offs.shape[1] == -(-h // 24) + 1
+    x, y, t, p, valid = [c.to(dev) for c in cols]
+    offs = offs.to(dev)
+    ts = masked_time_norm(t, valid, 5).contiguous()
+    pol = torch.where(valid, p, torch.zeros_like(p)).contiguous()
+    hp = -(-h // 24) * 24
+    wp = -(-w // 128) * 128
+    kw = dict(bins=5, height=hp, width=wp)
+    n0, l0 = vf.launches, vf.launches_legacy
+    grid, stats = vf.voxelize_folded(x, y, ts, pol, offs, **kw)
+    torch.cuda.synchronize()
+    assert (vf.launches, vf.launches_legacy) == (n0, l0 + 1)
+    grid_r, stats_r = vf.voxelize_folded_ref(x, y, ts, pol, offs, **kw)
+    torch.testing.assert_close(grid, grid_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats, stats_r, atol=1e-3, rtol=1e-5)
+    del grid_r
+    kwb = dict(num_bins=5, height=h, width=w, normalize=True)
+    got = voxelize_band(x, y, t, p, valid, offs, **kwb)
+    scols, soffs = wires[True]
+    slotted = voxelize_band(*[c.to(dev) for c in scols], soffs.to(dev),
+                            **kwb)
+    torch.testing.assert_close(got, slotted, atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        got, normalize_from_stats(grid, stats)[:, :, :h, :w], atol=1e-4,
+        rtol=0)
+
+
+@pytest.mark.parametrize("pin", [False, True])
+def test_prefetch_to_device_onto_cuda_with_a_recycled_ring(dev, pin):
+    """``prefetch_to_device`` onto the card from a recycled collate ring (the
+    smallest ring the rule allows, pinned or not): every batch arrives on
+    ``cuda`` equal to the loader's fresh arrays, also when the consumer
+    holds the card busy before it reads each batch, so that the producer
+    runs ahead and the ring is rewritten as soon as the rule allows."""
+    from ess_tpu_torch.data import loader, synthetic
+
+    ds = synthetic.SyntheticEvents(length=24, height=64, width=64,
+                                   nr_events_data=4, nr_events_window=4096)
+    want = [{k: np.copy(v) for k, v in b.items()}
+            for b in loader.BatchLoader(ds, batch_size=2, shuffle=False)]
+    dl = loader.BatchLoader(ds, batch_size=2, shuffle=False,
+                            collate_buffers=4, prefetch_size=2,
+                            pin_memory=pin)
+    busy = torch.randn(2048, 2048, device=dev)
+    n = 0
+    for got, w in zip(loader.prefetch_to_device(iter(dl), size=2,
+                                                device=dev), want):
+        for _ in range(4):
+            busy = busy @ busy / busy.norm()
+        assert all(v.device.type == "cuda" for v in got.values())
+        for k, v in w.items():
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+        n += 1
+    assert n == len(want) == 12
