@@ -23,8 +23,10 @@ exits non-zero, with no result line):
    (the larger of bytes over memory rate and operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
    B3 also with device-side binning, at 10 bins with integer coordinates,
    and on border and tile-edge events; B4 and B4-int8 at the head and
-   first-encoder block shapes and at an odd one, with and without ReLU and
-   bias, B4 also beside the library's conv + bias + ReLU; B5 at the three
+   first-encoder block shapes (B=2) and at an odd one, with and without
+   ReLU and bias, B4 also at the main path's B=8, where its row's times are
+   taken, beside the library's conv + bias + ReLU, with what ``ptxas -v``
+   said of the halo-tile kernels; B5 at the three
    encoder levels at the tools' B=8, in the input form each uses, and from
    a full-resolution input at a small shape with three row tiles (group
    scales identical, h' and c' within one bf16 ulp, the same bits through
@@ -107,8 +109,8 @@ from ess_tpu_torch.data.pipeline import AugmentParams, to_soa  # noqa: E402
 from ess_tpu_torch.data.slicer import ArrayEventStore  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
-    batch_voxel, conv3x3, conv_lstm, head_cmajor, level, voxel_folded,
-    voxel_tiled)
+    batch_voxel, conv3x3, conv_halo, conv_lstm, head_cmajor, level,
+    voxel_folded, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.tools import (  # noqa: E402
@@ -730,10 +732,54 @@ def library_conv_fn(x, w, bias):
 CONV_CASES = ((True, True), (False, True), (True, False))   # (relu, bias)
 
 
+def log_ptxas(what: str, entry: str) -> None:
+    """Print what ``ptxas -v`` said (registers, shared memory, spills) about
+    the kernels whose mangled entry name contains ``entry``."""
+    lines, cur = [], None
+    for line in kernels.build_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "'" in line else line
+        elif cur and entry in cur and ("registers" in line or "spill" in line
+                                       or "smem" in line):
+            lines.append(f"{cur[:60]}: {line.split(':', 1)[-1].strip()}")
+    if not lines and not kernels.build_log:
+        lines = ["library loaded from an earlier build: no ptxas report"]
+    for line in lines:
+        log(f"  ptxas {what}: {line}")
+
+
+def log_plan(what: str, plan) -> None:
+    """The halo-tile core's plan of a launch: patch, N tile, dynamic shared
+    memory (``ptxas -v`` reports static shared memory only) and grid."""
+    log(f"  plan {what}: {plan.th}x{plan.tw} pixels x {plan.bn} channels a "
+        f"block, {plan.smem} B dynamic shared memory, weights "
+        f"{'resident' if plan.resident else 'streamed'} ({plan.chunks} "
+        f"chunks), grid {plan.grid_x} x {plan.n_tiles_n} persistent blocks "
+        f"over {plan.n_tiles} pixel tiles")
+
+
 def check_conv3x3(dev):
+    """B4 against its plain version at CONV_SHAPES (B=2) and at the main
+    path's B=8 for the head and encoder-0 block convs; the row's times,
+    bound and library time are those of the two B=8 convs, the B=2 ones are
+    logged beside them."""
     g = torch.Generator().manual_seed(9)
     err = ms = plain_ms = bound_ms = lib_ms = 0.0
     bound_by = set()
+
+    def compare(what, got, want):
+        d = (got.float() - want).abs()
+        share = (d <= bf16_ulp(got, want)).float().mean().item()
+        e = d.max().item()
+        rel = e / want.abs().max().item()
+        log(f"B4 conv3x3 {what}: {100.0 * share:.4f}% within one bf16 ulp "
+            f"(bound >= {100.0 * CONV_ULP_SHARE}%), max|d| {e:.3e} = "
+            f"{rel:.3e} of absmax (bound {CONV_MAX_REL:.3e})")
+        if not (share >= CONV_ULP_SHARE and rel <= CONV_MAX_REL):
+            raise AssertionError(f"B4 ({what}) disagrees with its plain "
+                                 f"version: {share}, {rel}")
+        return e
+
     for name, b, cin, cout, hh, ww in CONV_SHAPES:
         x, w, bias = conv_inputs(g, dev, b, cin, cout, hh, ww)
         prep = conv3x3.prepare_conv_weights(w)
@@ -746,51 +792,59 @@ def check_conv3x3(dev):
             torch.cuda.synchronize()
             if conv3x3.launches != n0 + 1:
                 raise AssertionError("conv3x3_fused did not launch B4")
-            d = (got.float() - want).abs()
-            share = (d <= bf16_ulp(got, want)).float().mean().item()
-            e = d.max().item()
-            rel = e / want.abs().max().item()
-            err = max(err, e)
-            log(f"B4 conv3x3 {name} B={b} {cin}->{cout} {hh}x{ww} relu={relu} "
-                f"bias={use_bias}: {100.0 * share:.4f}% within one bf16 ulp "
-                f"(bound >= {100.0 * CONV_ULP_SHARE}%), max|d| {e:.3e} = "
-                f"{rel:.3e} of absmax (bound {CONV_MAX_REL:.3e})")
-            if not (share >= CONV_ULP_SHARE and rel <= CONV_MAX_REL):
-                raise AssertionError(f"B4 ({name}) disagrees with its plain "
-                                     f"version: {share}, {rel}")
+            err = max(err, compare(
+                f"{name} B={b} {cin}->{cout} {hh}x{ww} relu={relu} "
+                f"bias={use_bias}", got, want))
         if name == "odd":
             continue
+        flop = 2.0 * b * hh * ww * 9 * cin * cout
         lib_fn, lib_what = library_conv_fn(x, w, bias)
-        lib_err = (lib_fn().float() - conv3x3.conv3x3_ref(
-            x, w, bias, relu=True).float()).abs().max().item()
         t_k = cuda_ms(lambda: conv3x3.conv3x3_fused(
             x, w, bias, relu=True, impl="pallas", prepared=prep), 20)
-        t_p = cuda_ms(lambda: conv3x3.conv3x3_ref(x, w, bias, relu=True), 5)
         t_l = cuda_ms(lib_fn, 20)
         t_b, by = conv_bound(x, w, bias, "bf16")
-        flop = 2.0 * b * hh * ww * 9 * cin * cout
-        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-        bound_ms += t_b
-        bound_by.add(by)
-        x8 = x.repeat(4, 1, 1, 1).contiguous(memory_format=torch.channels_last)
+        log(f"B4 conv3x3 {name} B={b}: kernel {t_k:.3f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s), library {t_l:.3f} ms "
+            f"[{lib_what}], bound {t_b:.4f} ms ({by}), share of bound "
+            f"{100.0 * t_b / t_k:.1f}%")
+        del x, lib_fn
+        # the main path's B=8 (eval and train steps, streaming at B=8)
+        x8, w, bias = conv_inputs(g, dev, 8, cin, cout, hh, ww)
+        prep = conv3x3.prepare_conv_weights(w)
+        want = conv3x3.conv3x3_ref(x8, w, bias, relu=True).float()
+        got = conv3x3.conv3x3_fused(x8, w, bias, relu=True, impl="pallas",
+                                    prepared=prep)
+        err = max(err, compare(f"{name} B=8 {cin}->{cout} {hh}x{ww} "
+                               "relu=True bias=True", got, want))
+        lib8, lib_what = library_conv_fn(x8, w, bias)
+        lib_err = (lib8().float() - want).abs().max().item()
+        del got, want
         t_k8 = cuda_ms(lambda: conv3x3.conv3x3_fused(
-            x8, w, bias, relu=True, impl="pallas", prepared=prep), 10)
-        lib8, _ = library_conv_fn(x8, w, bias)
-        t_l8 = cuda_ms(lib8, 10)
+            x8, w, bias, relu=True, impl="pallas", prepared=prep), 20)
+        t_p8 = cuda_ms(lambda: conv3x3.conv3x3_ref(x8, w, bias, relu=True), 3)
+        t_l8 = cuda_ms(lib8, 20)
         t_b8, by8 = conv_bound(x8, w, bias, "bf16")
-        log(f"B4 conv3x3 {name}: kernel {t_k:.3f} ms "
-            f"({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.3f} ms, library "
-            f"{t_l:.3f} ms [{lib_what}; max|d| vs plain {lib_err:.3e}], "
-            f"bound {t_b:.4f} ms ({by}), share of bound "
-            f"{100.0 * t_b / t_k:.1f}%; at B=8: kernel {t_k8:.3f} ms, "
-            f"library {t_l8:.3f} ms, bound {t_b8:.4f} ms ({by8}), share "
-            f"{100.0 * t_b8 / t_k8:.1f}%")
-        del x8
-    log(f"B4 time for the head and encoder-0 block convs (one window, B=2): "
+        flop8 = 4.0 * flop
+        log(f"B4 conv3x3 {name} B=8 {cin}->{cout} {hh}x{ww}: kernel "
+            f"{t_k8:.3f} ms ({flop8 / t_k8 / 1e9:.1f} TFLOP/s), plain "
+            f"{t_p8:.3f} ms, library {t_l8:.3f} ms ({flop8 / t_l8 / 1e9:.1f} "
+            f"TFLOP/s) [{lib_what}; max|d| vs plain {lib_err:.3e}], bound "
+            f"{t_b8:.4f} ms ({by8}), share of bound "
+            f"{100.0 * t_b8 / t_k8:.1f}%, kernel / library "
+            f"{t_k8 / t_l8:.3f} ({'beats' if t_k8 < t_l8 else 'loses to'} "
+            "the library)")
+        log_plan("B4", conv_halo.conv_plan(8, hh, ww, cin, cout,
+                                           sm_count=conv_halo.sm_count(dev)))
+        ms, plain_ms, lib_ms = ms + t_k8, plain_ms + t_p8, lib_ms + t_l8
+        bound_ms += t_b8
+        bound_by.add(by8)
+        del x8, lib8
+    log(f"B4 time for the head and encoder-0 block convs (one window, B=8): "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
         f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({'/'.join(sorted(bound_by))}), share of bound "
         f"{100.0 * bound_ms / ms:.1f}%")
+    log_ptxas("B4", "conv3x3_halo_kernel")
     return {"name": "conv3x3", "route": "cuda",
             "source": "ess_tpu_torch/csrc/conv3x3.cu",
             "replaces": "ess_tpu/ops/conv3x3_pallas.py:53",
@@ -1199,10 +1253,17 @@ def check_head_cmajor(dev):
     for nchw_out, t_k in times.items():
         log(f"T1 head_cmajor {'NCHW' if nchw_out else 'NHWC'} out: kernel "
             f"{t_k:.3f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), bound "
-            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%")
-    log(f"T1 plain {plain_ms:.3f} ms; library {lib_ms:.3f} ms [{lib_what} "
-        f"on the normalized window, channels-last; max|d| vs plain "
-        f"{lib_err:.3e}]")
+            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%, "
+            f"kernel / library {t_k / lib_ms:.3f} "
+            f"({'beats' if t_k < lib_ms else 'loses to'} the library)")
+    log(f"T1 plain {plain_ms:.3f} ms; library {lib_ms:.3f} ms "
+        f"({flop / lib_ms / 1e9:.1f} TFLOP/s) [{lib_what} on the normalized "
+        f"window, channels-last; max|d| vs plain {lib_err:.3e}]")
+    for nchw_out in (False, True):
+        log_plan(f"T1 {'NCHW' if nchw_out else 'NHWC'}", conv_halo.head_plan(
+            b, hh, ww, cin, cout, nchw_out=nchw_out, aligned=ww % 8 == 0,
+            sm_count=conv_halo.sm_count(dev)))
+    log_ptxas("T1", "head_halo_kernel")
     return {"name": "head_cmajor", "route": "cuda",
             "source": "ess_tpu_torch/csrc/head_cmajor.cu",
             "replaces": "tools/bench_head.py:66",

@@ -1,15 +1,16 @@
-// Implicit-GEMM body shared by the fused 3x3 conv kernels (conv3x3.cu,
-// conv3x3_int8.cu): 3x3 SAME conv over NHWC + per-channel scale/bias +
-// optional ReLU, one rounding to bf16.
+// Implicit-GEMM body of the int8 fused 3x3 conv (conv3x3_int8.cu, B4-int8):
+// 3x3 SAME conv over NHWC s8 + per-channel scale/bias + optional ReLU, one
+// rounding to bf16. The exact bf16 conv (B4) and the C-major head conv (T1)
+// run on the halo-tile core of conv_halo.cuh instead; moving this body onto
+// that core too is queued.
 //
 //   M = pixels (B*H*W, NHWC order), N = COUT, K = 9*CP,
 //   k = tap*CP + cin with tap = dy*3 + dx and CP = CIN rounded up to one
-//   64-byte chunk (32 bf16 or 64 s8 values).
+//   64-byte chunk (64 s8 values).
 //
-// Everything below counts the K dimension in bytes: the s8 m16n8k32
-// fragments are byte-for-byte images of the bf16 m16n8k16 ones, so one
-// loader, one ldmatrix addressing and one accumulator layout serve both
-// operand types (as conv_lstm.cu and conv_lstm_int8.cu share theirs).
+// Everything below counts the K dimension in bytes (the s8 m16n8k32
+// fragments are byte-for-byte images of bf16 m16n8k16 ones); Acc is the
+// i32 accumulator.
 //
 // A tile: 128 pixels x 64 bytes of one tap, gathered with cp.async from the
 // shifted pixels; zero fill outside the image is the conv's padding, zero
@@ -45,31 +46,6 @@ constexpr int kConvLDSB = kConvBKB + 16;   // padded smem row: 80 B (ldmatrix
                                            // rows on distinct bank groups)
 constexpr int kConvThreads = 256;
 
-// cp.async of N bytes (16, 8 or 4); !valid writes N zero bytes
-template <int N>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
-                                               bool valid) {
-  const int n = valid ? N : 0;
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(N), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void mma_tile(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_tile(int (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   asm volatile(
@@ -79,15 +55,9 @@ __device__ __forceinline__ void mma_tile(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// f32 accumulator: acc + bias. i32 accumulator: float(acc) * ws + bias with
-// each f32 operation rounded on its own (no fused multiply-add), the plain
-// version's elementwise ops in its order.
-__device__ __forceinline__ float conv_finish(float acc, float, float bias,
-                                             int relu) {
-  const float v = acc + bias;
-  return relu ? fmaxf(v, 0.f) : v;
-}
-
+// i32 accumulator: float(acc) * ws + bias with each f32 operation rounded
+// on its own (no fused multiply-add), the plain version's elementwise ops
+// in its order.
 __device__ __forceinline__ float conv_finish(int acc, float scale, float bias,
                                              int relu) {
   const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);

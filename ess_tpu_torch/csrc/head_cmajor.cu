@@ -1,4 +1,4 @@
-// E2VID head conv on a C-major space-to-depth window, normalize fused.
+// E2VID head conv on a C-major space-to-depth window, normalize fused (T1).
 //
 // Replaces the TPU kernel tools/bench_head.py::kern (built by make_pallas,
 // pallas_call at :133): a 3x3 SAME conv over the 2x2 space-to-depth window
@@ -10,258 +10,195 @@
 // bf16, stored NHWC or NCHW. The TPU kernel builds 180 (th, W) plane copies
 // and contracts their outer dimension; none of that is carried over.
 //
-// Design: the implicit GEMM of conv3x3_common.cuh (M = pixels in 128-pixel
-// tiles, N = C_out in 128-column tiles, K = 9 taps x 32 channels, C_in
-// padded to 32 per tap, mma.sync m16n8k16, 8 warps of 64 x 32) with two
-// other ends:
-// - the A tile cannot be copied with cp.async: the input is C-major and
-//   every value must be normalized before the product. Each thread owns one
-//   pixel of the tile and every other channel; per tap it loads its values
-//   (consecutive threads read consecutive pixels of one channel plane),
-//   normalizes them in registers with __fsub_rn / __fmul_rn (no contraction
-//   into a fused multiply-add), rounds once to bf16 and stores them into a
-//   K-major shared tile ([channel][pixel]); ldmatrix.trans turns that into
-//   the row-major A fragment. Conv padding and the channels past C_in are
-//   zeros written after the normalize. The next tap's loads are issued
-//   before the current tap's products, the weights arrive by cp.async into
-//   a two-stage ring.
-// - the NCHW store stages the bf16 tile transposed ([channel][pixel]) and
-//   writes 16-byte runs along the pixel axis: with H*W a multiple of 128
-//   (220 x 320 = 550 x 128) a tile never crosses an image and its pixels are
-//   contiguous in every channel plane. Other shapes store pixel by pixel.
-//
 // Bounds on the H100 at B=8, 220x320: 22.5 MB read and 144.2 MB written
 // (0.050 ms at 3.35 TB/s) for 25.9 GFLOP (0.026 ms at 989 TFLOP/s): the
-// output bytes bound it, so the stores are the part that must be coalesced.
-// The kernel multiplies 288 K columns per pixel for the 180 real ones.
+// output bytes bound it.
+//
+// Design: the halo-tile core of conv_halo.cuh with a C-major loader. Per
+// pixel tile (8 x 16 pixels x 128 channels a block):
+// 1. every channel plane's halo rows are staged raw with aligned 16-byte
+//    cp.async copies: the span starts at the 8-pixel boundary left of the
+//    halo (x0 - 8) and ends at the one right of it, and the normalize pass
+//    indexes the shift; outside the image the copies zero-fill. Where W is
+//    not a multiple of 8 (rows not 16-byte aligned), the pass reads the
+//    values from device memory itself.
+// 2. one pass over the staged values normalizes each value once with
+//    __fsub_rn / __fmul_rn (no contraction into a fused multiply-add, the
+//    plain version's rounding, v != 0 kept), rounds it once to bf16 and
+//    writes the pixel-major halo tile that the core's ldmatrix reads; the
+//    channels CIN..31 are zero. The zero fill of the padding is exact: the
+//    plain version pads after the normalize, and the normalize maps 0 to 0.
+// 3. the nine taps as shifted ldmatrix rows into wgmma (K padded 20 -> 32
+//    per tap), resident weights (74 KB, loaded once per persistent block),
+//    and the per-warp epilogue in NHWC or NCHW (runs of 16 pixels along W).
+// The next tile's raw rows are copied while this tile multiplies and stores.
 
-#include "conv3x3_common.cuh"
+#include "conv_halo.cuh"
 
 namespace {
 
-constexpr int kBM = 128;                 // pixels per block
-constexpr int kBN = 128;                 // output channels per block
-constexpr int kKP = 32;                  // K per tap: C_in padded to 32
-constexpr int kThreads = 256;
-constexpr int kPerThread = kKP / 2;      // channels per thread per tap
-constexpr int kLDA = kBM + 8;            // A row (one channel), bf16: 272 B
-constexpr int kLDB = kKP + 8;            // B row (one output channel): 80 B
-constexpr int kLDC = kBM + 8;            // epilogue row, bf16: 272 B
-constexpr int kABytes = kKP * kLDA * 2;
-constexpr int kBBytes = kBN * kLDB * 2;
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kCBytes = kBM * kLDC * 2;
-constexpr int kSmem =
-    2 * kStageBytes > kCBytes ? 2 * kStageBytes : kCBytes;
+using namespace ess::halo;
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(ess::smem_u32(p)));
+template <int MT, int BN, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<BN>)
+head_halo_kernel(const __nv_bfloat16* __restrict__ x,   // (B, CIN, H, W)
+                 const unsigned char* __restrict__ w,   // (COUT, 9*kKC)
+                 const float* __restrict__ bias,        // (COUT,)
+                 __nv_bfloat16* __restrict__ out,       // NHWC or NCHW
+                 int H, int W, int CIN, int COUT, float shift, float scale,
+                 int nchw_out, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hw = p.tw + 2, hh = p.th + 2, npix = hh * hw;
+  const int span = p.tw + 16;                 // staged raw row, pixels
+  const int n0 = blockIdx.y * BN;
+  // [weights][halo][raw rows, kAligned only][epilogue slots]
+  unsigned char* halo = smem + BN * kWRowBytes;
+  __nv_bfloat16* raw =
+      reinterpret_cast<__nv_bfloat16*>(halo + npix * kPixBytes);
+  unsigned char* slot = reinterpret_cast<unsigned char*>(raw) +
+                        (kAligned ? CIN * hh * span * 2 : 0) +
+                        warp * (nchw_out ? kStageNchw : kStageNhwc);
+
+  const int T = my_tiles(p);
+  if (T == 0) return;
+
+  auto load_raw = [&](int t) {
+    const TilePos tp = tile_pos(p, t);
+    const int cpr = span / 8;
+    for (int c = tid; c < CIN * hh * cpr; c += kThreads) {
+      const int j = c % cpr, r = c / cpr;
+      const int hr = r % hh, ch = r / hh;
+      const int y = tp.y0 - 1 + hr, xs = tp.x0 - 8 + j * 8;
+      const bool ok = y >= 0 && y < H && xs >= 0 && xs < W;
+      const __nv_bfloat16* src =
+          x + (((int64_t)tp.b * CIN + ch) * H + y) * W + xs;
+      ess::cp_async_zfill<16>(raw + (r * span + j * 8), ok ? src : x, ok);
+    }
+  };
+
+  // raw (or device memory) -> normalized bf16, pixel-major halo tile
+  auto normalize = [&](int t) {
+    const TilePos tp = tile_pos(p, t);
+    for (int c = tid; c < 4 * npix; c += kThreads) {
+      const int grp = c / npix, px = c - grp * npix;
+      const int hr = px / hw, hc = px - hr * hw;
+      const int y = tp.y0 - 1 + hr, xx = tp.x0 - 1 + hc;
+      const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+      unsigned packed[4];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        float f[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = grp * 8 + j + e;
+          float v = 0.f;
+          if (ch < CIN) {
+            if constexpr (kAligned)
+              v = __bfloat162float(raw[(ch * hh + hr) * span + hc + 7]);
+            else if (in)
+              v = __bfloat162float(
+                  x[(((int64_t)tp.b * CIN + ch) * H + y) * W + xx]);
+          }
+          f[e] = v != 0.f ? __fmul_rn(__fsub_rn(v, shift), scale) : 0.f;
+        }
+        const __nv_bfloat162 b2 = __floats2bfloat162_rn(f[0], f[1]);
+        packed[j / 2] = *reinterpret_cast<const unsigned*>(&b2);
+      }
+      *reinterpret_cast<uint4*>(halo + px * kPixBytes + grp * 16) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+  };
+
+  load_weights<BN>(smem, w, n0, COUT, kKC, 0);
+  if (kAligned) load_raw(blockIdx.x);
+  ess::cp_async_commit();
+
+  const Frag<MT> f(p.tw, warp, lane);
+  float acc[MT][BN / 8][4];
+
+  for (int i = 0; i < T; ++i) {
+    const int t = blockIdx.x + i * gridDim.x;
+    ess::cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();          // raw rows landed; the last tile's taps done
+    normalize(t);
+    __syncthreads();          // halo ready; raw rows free
+    if (kAligned && i + 1 < T) load_raw(t + gridDim.x);
+    ess::cp_async_commit();
+    zero(acc);
+    mma_chunk<MT, BN>(acc, halo, smem, f);
+    store_tile(acc, bias, 1, nchw_out, slot, out, tile_pos(p, t), p.tw, H, W,
+               COUT, n0, warp, lane);
+  }
+  ess::cp_async_wait<0>();
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-head_cmajor_kernel(const __nv_bfloat16* __restrict__ x,   // (B, CIN, H, W)
-                   const unsigned char* __restrict__ w,   // (COUT, 9*kKP) bf16
-                   const float* __restrict__ bias,        // (COUT,)
-                   __nv_bfloat16* __restrict__ out,       // NHWC or NCHW
-                   int B, int H, int W, int CIN, int COUT, float shift,
-                   float scale, int nchw_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps of 64 x 32
-  const int HW = H * W, M = B * HW;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+template <int MT, int BN, bool kAligned>
+int launch(const void* x, const void* w, const void* bias, void* out, int H,
+           int W, int CIN, int COUT, float shift, float scale, int nchw_out,
+           const Plan& p, int grid_x, int smem, void* stream) {
+  if (p.th * p.tw != Cfg<MT, BN>::BM || p.tw % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int want = BN * kWRowBytes + (p.th + 2) * (p.tw + 2) * kPixBytes +
+                   (kAligned ? CIN * (p.th + 2) * (p.tw + 16) * 2 : 0) +
+                   kWarps * (nchw_out ? kStageNchw : kStageNhwc);
+  if (smem != want) return (int)cudaErrorInvalidValue;
+  auto kern = head_halo_kernel<MT, BN, kAligned>;
+  int err = prepare_launch(kern, smem);
+  if (err) return err;
+  dim3 grid(grid_x, (COUT + BN - 1) / BN);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const unsigned char*)w, (const float*)bias,
+      (__nv_bfloat16*)out, H, W, CIN, COUT, shift, scale, nchw_out, p);
+  return (int)cudaGetLastError();
+}
 
-  // A loader: this thread's pixel, and channels a_c0, a_c0 + 2, ...
-  const int a_pix = tid & (kBM - 1), a_c0 = tid >> 7;
-  const int a_m = m0 + a_pix;
-  const bool a_ok = a_m < M;
-  const int a_b = a_ok ? a_m / HW : 0;
-  const int a_rem = a_ok ? a_m - a_b * HW : 0;
-  const int a_y = a_rem / W, a_x = a_rem - a_y * W;
-  const __nv_bfloat16* a_img = x + (int64_t)a_b * CIN * HW;
-
-  auto a_tile = [&](int stage) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + stage * kStageBytes);
-  };
-  auto b_tile = [&](int stage) {
-    return smem + stage * kStageBytes + kABytes;
-  };
-
-  // normalized bf16 values of this thread's channels at tap (dy, dx); zero
-  // outside the image (the conv's padding) and past CIN (the K padding)
-  auto load_a = [&](int tap, __nv_bfloat16 (&v)[kPerThread]) {
-    const int sy = a_y + tap / 3 - 1, sx = a_x + tap % 3 - 1;
-    const bool ok = a_ok && sy >= 0 && sy < H && sx >= 0 && sx < W;
-    const __nv_bfloat16* src = a_img + (ok ? sy * W + sx : 0);
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int c = a_c0 + 2 * j;
-      float f = 0.f;
-      if (ok && c < CIN) {
-        const float raw = __bfloat162float(src[(int64_t)c * HW]);
-        f = raw != 0.f ? __fmul_rn(__fsub_rn(raw, shift), scale) : 0.f;
-      }
-      v[j] = __float2bfloat16_rn(f);
-    }
-  };
-  auto store_a = [&](int stage, const __nv_bfloat16 (&v)[kPerThread]) {
-    __nv_bfloat16* a = a_tile(stage);
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j)
-      a[(a_c0 + 2 * j) * kLDA + a_pix] = v[j];
-  };
-  auto load_b = [&](int stage, int tap) {
-    unsigned char* b = b_tile(stage);
-    for (int c = tid; c < kBN * 4; c += kThreads) {
-      const int row = c >> 2, part = (c & 3) * 16;
-      const bool ok = n0 + row < COUT;
-      ess::cp_async_zfill<16>(
-          b + row * kLDB * 2 + part,
-          ok ? w + ((int64_t)(n0 + row) * 9 * kKP + tap * kKP) * 2 + part
-             : w,
-          ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  __nv_bfloat16 va[kPerThread];
-  load_b(0, 0);
-  ess::cp_async_commit();
-  load_a(0, va);
-  store_a(0, va);
-  ess::cp_async_wait<0>();
-  __syncthreads();
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int cur = tap & 1;
-    if (tap + 1 < 9) {
-      load_b(cur ^ 1, tap + 1);
-      ess::cp_async_commit();
-      load_a(tap + 1, va);
-    }
-    const __nv_bfloat16* a = a_tile(cur);
-    const unsigned char* bs = b_tile(cur);
-#pragma unroll
-    for (int kk = 0; kk < kKP; kk += 16) {
-      unsigned af[4][4], bf[4][2];
-      const int q = lane >> 3, r8 = lane & 7;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int k = kk + (q >> 1) * 8 + r8;
-        const int m = wm * 64 + mt * 16 + (q & 1) * 8;
-        ldmatrix_x4_trans(af[mt], a + k * kLDA + m);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        unsigned r4[4];
-        const int row = wn * 32 + np * 16 + (lane >> 4) * 8 + (lane & 7);
-        ess::ldmatrix_x4(r4, bs + row * kLDB * 2 + kk * 2 +
-                                 ((lane >> 3) & 1) * 16);
-        bf[np * 2][0] = r4[0];
-        bf[np * 2][1] = r4[1];
-        bf[np * 2 + 1][0] = r4[2];
-        bf[np * 2 + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          ess::mma_tile(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-    }
-    if (tap + 1 < 9) store_a(cur ^ 1, va);
-    ess::cp_async_wait<0>();
-    __syncthreads();   // the other stage is ready, this one is free
-  }
-
-  // epilogue: bias + ReLU, bf16 tile staged in shared memory as [pixel][n]
-  // (NHWC) or [n][pixel] (NCHW), then 16-byte stores along the minor axis
-  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = wn * 32 + nt * 8 + (lane & 3) * 2;
-    const float b0 = n0 + col < COUT ? bias[n0 + col] : 0.f;
-    const float b1 = n0 + col + 1 < COUT ? bias[n0 + col + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = wm * 64 + mt * 16 + (lane >> 2) + half * 8;
-        const float v0 = fmaxf(acc[mt][nt][half * 2] + b0, 0.f);
-        const float v1 = fmaxf(acc[mt][nt][half * 2 + 1] + b1, 0.f);
-        if (nchw_out) {
-          cs[col * kLDC + row] = __float2bfloat16_rn(v0);
-          cs[(col + 1) * kLDC + row] = __float2bfloat16_rn(v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(cs + row * kLDC + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (!nchw_out) {
-    for (int c = tid; c < kBM * (kBN / 8); c += kThreads) {
-      const int row = c / (kBN / 8), cc = (c % (kBN / 8)) * 8;
-      const int m = m0 + row, n = n0 + cc;
-      if (m < M && n < COUT)
-        *reinterpret_cast<uint4*>(out + (int64_t)m * COUT + n) =
-            *reinterpret_cast<const uint4*>(cs + row * kLDC + cc);
-    }
-    return;
-  }
-  const int b0i = m0 / HW, rem0 = m0 - b0i * HW;
-  const bool runs = HW % 8 == 0 && m0 + kBM <= M && rem0 + kBM <= HW;
-  for (int c = tid; c < kBN * (kBM / 8); c += kThreads) {
-    const int nr = c / (kBM / 8), pc = (c % (kBM / 8)) * 8;
-    const int n = n0 + nr;
-    if (n >= COUT) continue;
-    if (runs) {
-      *reinterpret_cast<uint4*>(out + ((int64_t)b0i * COUT + n) * HW + rem0 +
-                                pc) =
-          *reinterpret_cast<const uint4*>(cs + nr * kLDC + pc);
-    } else {
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + pc + i;
-        if (m >= M) break;
-        const int bi = m / HW;
-        out[((int64_t)bi * COUT + n) * HW + (m - bi * HW)] =
-            cs[nr * kLDC + pc + i];
-      }
-    }
-  }
+template <int MT, int BN>
+int launch_aligned(const void* x, const void* w, const void* bias, void* out,
+                   int H, int W, int CIN, int COUT, float shift, float scale,
+                   int nchw_out, int aligned, const Plan& p, int grid_x,
+                   int smem, void* stream) {
+  if (aligned)
+    return launch<MT, BN, true>(x, w, bias, out, H, W, CIN, COUT, shift,
+                                scale, nchw_out, p, grid_x, smem, stream);
+  return launch<MT, BN, false>(x, w, bias, out, H, W, CIN, COUT, shift, scale,
+                               nchw_out, p, grid_x, smem, stream);
 }
 
 }  // namespace
 
-// x: bf16 (B, CIN, H, W) contiguous, CIN <= 32; w: bf16 (COUT, 9*32) with
-// column (dy*3 + dx)*32 + cin, zero for cin >= CIN, 16-byte aligned; bias:
-// f32 (COUT,); out: bf16 (B, H, W, COUT) or, with nchw_out, (B, COUT, H, W),
-// 16-byte aligned; COUT a multiple of 8.
+// x: bf16 (B, CIN, H, W) contiguous, CIN <= 32; with `aligned` (W a
+// multiple of 8, x 16-byte aligned) its rows are copied with 16-byte
+// cp.async. w: bf16 (COUT, 9*32) with column (dy*3 + dx)*32 + cin, zero for
+// cin >= CIN, 16-byte aligned; bias: f32 (COUT,); out: bf16 (B, H, W, COUT)
+// or, with nchw_out, (B, COUT, H, W), 16-byte aligned; COUT a multiple of
+// 8. The plan (th, tw, grid_x, smem) is ops/conv_halo.py::head_plan's.
 extern "C" int ess_head_cmajor(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int CIN,
                                int COUT, float shift, float scale,
-                               int nchw_out, void* stream) {
-  const int64_t M = (int64_t)B * H * W;
-  if (M == 0 || COUT == 0) return 0;
-  if (CIN <= 0 || CIN > kKP || COUT % 8 != 0 || M > (int64_t)INT32_MAX - kBM)
+                               int nchw_out, int aligned, int th, int tw,
+                               int grid_x, int smem, void* stream) {
+  if ((int64_t)B * H * W == 0 || COUT == 0) return 0;
+  if (CIN <= 0 || CIN > kKC || COUT % 8 != 0 || th <= 0 || tw <= 0 ||
+      grid_x <= 0 || (aligned && W % 8 != 0))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      head_cmajor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 blocks((unsigned)((M + kBM - 1) / kBM), (COUT + kBN - 1) / kBN);
-  head_cmajor_kernel<<<blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const unsigned char*)w, (const float*)bias,
-      (__nv_bfloat16*)out, B, H, W, CIN, COUT, shift, scale, nchw_out);
-  return (int)cudaGetLastError();
+  Plan p;
+  p.th = th;
+  p.tw = tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.n_tiles = B * p.tiles_y * p.tiles_x;
+  p.resident = 1;
+  if (COUT > 64)
+    return launch_aligned<1, 128>(x, w, bias, out, H, W, CIN, COUT, shift,
+                                  scale, nchw_out, aligned, p, grid_x,
+                                  smem, stream);
+  if (COUT > 32)
+    return launch_aligned<2, 64>(x, w, bias, out, H, W, CIN, COUT, shift,
+                                 scale, nchw_out, aligned, p, grid_x,
+                                 smem, stream);
+  return launch_aligned<2, 32>(x, w, bias, out, H, W, CIN, COUT, shift, scale,
+                               nchw_out, aligned, p, grid_x, smem,
+                               stream);
 }

@@ -1,7 +1,8 @@
 // Device helpers shared by the ConvLSTM kernels (conv_lstm.cu,
-// conv_lstm_int8.cu) and the fused encoder level (level_int8.cu): cp.async
-// copies into shared memory, ldmatrix, the f32 sigmoid of the LSTM epilogue,
-// and the epilogues of the cell kernels' attribution variants.
+// conv_lstm_int8.cu), the fused encoder level (level_int8.cu) and the 3x3
+// conv kernels (conv_halo.cuh, conv3x3_common.cuh): cp.async copies into
+// shared memory, ldmatrix, the f32 sigmoid of the LSTM epilogue, and the
+// epilogues of the cell kernels' attribution variants.
 
 #pragma once
 
@@ -20,6 +21,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(n));
+}
+
+// cp.async of N bytes (16, 8 or 4); !valid writes N zero bytes
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool valid) {
+  const int n = valid ? N : 0;
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(N), "r"(n));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -112,14 +112,15 @@ def _build() -> ctypes.CDLL:
     lib.ess_conv_lstm_int8_mode.restype = ci
     lib.ess_level_int8.argtypes = [vp] * 14 + [ci] * 7 + [vp]
     lib.ess_level_int8.restype = ci
-    lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 11 + [vp]
     lib.ess_conv3x3.restype = ci
     lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [i64] + [vp]
     lib.ess_conv3x3_quant.restype = ci
     lib.ess_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.ess_conv3x3_int8.restype = ci
     cf = ctypes.c_float
-    lib.ess_head_cmajor.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 2 + [ci, vp]
+    lib.ess_head_cmajor.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 2 + [ci] * 6 + [
+        vp]
     lib.ess_head_cmajor.restype = ci
     lib.ess_error_string.argtypes = [ci]
     lib.ess_error_string.restype = ctypes.c_char_p

@@ -9,7 +9,8 @@ applies the ReLU and rounds once to the input's dtype.
 
 By ``impl`` name:
 
-- ``'pallas'``: the exact conv; on CUDA the kernel of ``csrc/conv3x3.cu``;
+- ``'pallas'``: the exact conv; on CUDA the kernel of ``csrc/conv3x3.cu``
+  on the halo-tile core (tile plan: :func:`conv_halo.conv_plan`);
 - ``'pallas_int8'``: per-call absmax scale ``s_x`` for x, x quantized to s8,
   the weights ``W * s_x`` quantized per output channel, i32 accumulation,
   ``acc * ws + bias``; on CUDA the kernels of ``csrc/conv3x3_int8.cu``
@@ -33,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv_lstm import (
     _check_aligned, _check_matrix, input_scale, quantize)
 
@@ -163,11 +165,14 @@ def _launch_exact(x, weight, bias, relu, prepared):
     from ess_tpu_torch import kernels
 
     global launches
+    plan = conv_halo.conv_plan(b, hh, ww, cin, cout,
+                               sm_count=conv_halo.sm_count(x.device))
     lib = kernels.get_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ess_conv3x3(x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
                           out.data_ptr(), b, hh, ww, cin, cout, int(relu),
-                          stream)
+                          plan.th, plan.tw, int(plan.resident), plan.grid_x,
+                          plan.smem, stream)
     kernels.check(err, "conv3x3 kernel")
     launches += 1
     return out

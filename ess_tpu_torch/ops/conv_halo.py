@@ -1,0 +1,172 @@
+"""Tile plans of the halo-tile 3x3 conv core (``csrc/conv_halo.cuh``).
+
+The exact fused conv (B4, :mod:`ess_tpu_torch.ops.conv3x3`) and the C-major
+head conv (T1, :mod:`ess_tpu_torch.ops.head_cmajor`) run on one CUDA core:
+a block owns a ``th x tw`` patch of output pixels of one image and ``bn``
+output channels, stages the ``(th + 2) x (tw + 2)`` input halo in shared
+memory one 32-channel chunk at a time, and reads every tap as a shifted
+view of it. Blocks are persistent: block ``(bx, nt)`` of a ``(grid_x,
+n_tiles_n)`` grid walks the pixel tiles ``bx, bx + grid_x, ...`` (in
+:func:`tile_origin` order) for its N tile ``nt``. The plan is computed
+here, where the CPU tests reach it, and passed to the kernels as
+arguments; the CUDA launchers recompute the shared-memory layout and
+refuse a plan that disagrees.
+
+Shared memory of a block, in bytes (the layout of ``conv_halo.cuh``):
+
+- one staged halo pixel: ``PIX_BYTES`` = 32 channels x 2 + 16 of padding;
+- one output channel of a weight chunk (nine taps of 32 channels, held as
+  wgmma's K-major core matrices): ``W_ROW_BYTES`` = 9 x 32 x 2;
+- B4: every weight chunk of the N tile resident plus two halo stages where
+  that fits, else two stages of (halo + one weight chunk); T1: its one
+  weight chunk, one halo tile and, where W is a multiple of 8, the raw
+  C-major rows of the halo, ``tw + 16`` pixels wide from an 8-pixel
+  boundary;
+- per warp an epilogue slot: 16 pixels x 40 (NHWC) or 32 channels x 24
+  (NCHW) bf16 values.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+KC = 32                      # input channels per chunk
+PIX_BYTES = KC * 2 + 16      # 80: odd multiple of 16 (no ldmatrix conflict)
+W_ROW_BYTES = 9 * KC * 2     # 576: one output channel of a weight chunk
+THREADS = 256
+WARPS = THREADS // 32
+SLOT_NHWC = 16 * (32 + 8) * 2
+SLOT_NCHW = 32 * (16 + 8) * 2
+MAX_SMEM = 232_448           # per block on the H100
+SM_SMEM = 233_472            # per SM
+BLOCK_RESERVED = 1_024       # the runtime's share per resident block
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    th: int               # output patch rows
+    tw: int               # output patch columns (a multiple of 16)
+    bm: int               # th * tw: pixels per block tile
+    bn: int               # output channels per block
+    tiles_y: int
+    tiles_x: int
+    n_tiles: int          # B * tiles_y * tiles_x pixel tiles
+    n_tiles_n: int        # N tiles: ceil(C_out / bn), grid dimension y
+    chunks: int           # 32-channel chunks of C_in
+    resident: bool        # every weight chunk held in shared memory
+    smem: int             # dynamic shared memory per block, bytes
+    grid_x: int           # persistent blocks per N tile
+
+
+def block_shape(cout: int) -> Tuple[int, int]:
+    """(bm, bn) of a block of two warpgroups, each issuing m64 x bn wgmma
+    tiles: one m64 tile each at C_out > 64 (128 x 128), two at C_out > 32
+    (256 x 64) and below (256 x 32)."""
+    if cout > 64:
+        return 128, 128
+    if cout > 32:
+        return 256, 64
+    return 256, 32
+
+
+def patch(bm: int, w: int) -> Tuple[int, int]:
+    """(th, tw) of a ``bm``-pixel tile: 32 columns at 256 pixels where the
+    image is wider than 16, else 16."""
+    tw = 32 if bm == 256 and w > 16 else 16
+    return bm // tw, tw
+
+
+def halo_bytes(th: int, tw: int) -> int:
+    return (th + 2) * (tw + 2) * PIX_BYTES
+
+
+def blocks_per_sm(bn: int, smem: int) -> int:
+    """Blocks an SM holds at once: by shared memory, and by registers (the
+    kernels' ``__launch_bounds__``: two blocks of 128 columns, else one)."""
+    by_regs = 2 if bn == 128 else 1
+    return max(1, min(by_regs, SM_SMEM // (smem + BLOCK_RESERVED)))
+
+
+def _grid_x(n_tiles: int, n_tiles_n: int, bn: int, smem: int,
+            sm_count: int) -> int:
+    per_sm = blocks_per_sm(bn, smem)
+    return min(n_tiles, max(1, math.ceil(sm_count * per_sm / n_tiles_n)))
+
+
+def conv_smem(th: int, tw: int, bn: int, chunks: int, resident: bool) -> int:
+    """B4's shared memory: resident weights and two halo stages, or two
+    stages of (one weight chunk + halo); the epilogue slots."""
+    wchunk = bn * W_ROW_BYTES
+    ring = (chunks * wchunk + 2 * halo_bytes(th, tw) if resident
+            else 2 * (halo_bytes(th, tw) + wchunk))
+    return ring + WARPS * SLOT_NHWC
+
+
+def _tiles(b: int, h: int, w: int, cout: int):
+    bm, bn = block_shape(cout)
+    th, tw = patch(bm, w)
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    return bm, bn, th, tw, tiles_y, tiles_x, b * tiles_y * tiles_x
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, *,
+              sm_count: int = H100_SMS) -> HaloPlan:
+    """The plan of B4 (``ess_conv3x3``) for an NHWC (b, h, w, cin) input:
+    every weight chunk resident where that fits beside the two halo stages,
+    else the weights streamed chunk by chunk with the halo."""
+    bm, bn, th, tw, tiles_y, tiles_x, n_tiles = _tiles(b, h, w, cout)
+    chunks = -(-cin // KC)
+    n_tiles_n = -(-cout // bn)
+    resident = conv_smem(th, tw, bn, chunks, True) <= MAX_SMEM
+    smem = conv_smem(th, tw, bn, chunks, resident)
+    return HaloPlan(th, tw, bm, bn, tiles_y, tiles_x, n_tiles, n_tiles_n,
+                    chunks, resident, smem,
+                    _grid_x(n_tiles, n_tiles_n, bn, smem, sm_count))
+
+
+def head_plan(b: int, h: int, w: int, cin: int, cout: int, *,
+              nchw_out: bool, aligned: bool,
+              sm_count: int = H100_SMS) -> HaloPlan:
+    """The plan of T1 (``ess_head_cmajor``) for a C-major (b, cin, h, w)
+    input, cin <= 32; ``aligned``: the raw rows are staged with 16-byte
+    copies (W a multiple of 8 and x 16-byte aligned)."""
+    if aligned and w % 8:
+        raise ValueError(f"head_plan: W={w} rows are not 16-byte aligned")
+    bm, bn, th, tw, tiles_y, tiles_x, n_tiles = _tiles(b, h, w, cout)
+    n_tiles_n = -(-cout // bn)
+    smem = (bn * W_ROW_BYTES + halo_bytes(th, tw)
+            + (cin * (th + 2) * (tw + 16) * 2 if aligned else 0)
+            + WARPS * (SLOT_NCHW if nchw_out else SLOT_NHWC))
+    return HaloPlan(th, tw, bm, bn, tiles_y, tiles_x, n_tiles, n_tiles_n, 1,
+                    True, smem, _grid_x(n_tiles, n_tiles_n, bn, smem, sm_count))
+
+
+def tile_origin(plan: HaloPlan, t: int) -> Tuple[int, int, int]:
+    """(image, first row, first column) of pixel tile ``t``, as the
+    kernels' ``tile_pos`` decodes it."""
+    tx = t % plan.tiles_x
+    r = t // plan.tiles_x
+    return r // plan.tiles_y, (r % plan.tiles_y) * plan.th, tx * plan.tw
+
+
+def block_tiles(plan: HaloPlan, bx: int) -> range:
+    """The pixel tiles block ``bx`` walks (for each of the N tiles)."""
+    return range(bx, plan.n_tiles, plan.grid_x)
+
+
+_SM_COUNT = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    import torch
+
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]

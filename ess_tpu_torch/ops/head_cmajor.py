@@ -21,8 +21,9 @@ the 5x5 head kernel, (C_out, C_in, 3, 3)) and the bias their tiled bias
 floats (the JAX tool's compile-time constants).
 
 On a CPU tensor :func:`head_cmajor` runs :func:`head_cmajor_ref`; on a CUDA
-tensor it launches the kernel of ``csrc/head_cmajor.cu`` or raises. There
-is no size gate and no route to the plain version on CUDA.
+tensor it launches the kernel of ``csrc/head_cmajor.cu`` (the halo-tile
+core, tile plan :func:`conv_halo.head_plan`) or raises. There is no size
+gate and no route to the plain version on CUDA.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv3x3 import prepare_conv_weights, tap_channels
 from ess_tpu_torch.ops.conv_lstm import _check_aligned, _check_matrix
 
@@ -107,6 +109,10 @@ def head_cmajor(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     shape = (b, cout, hh, ww) if nchw_out else (b, hh, ww, cout)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     _check_aligned("head_cmajor", prepared, out)
+    aligned = ww % 8 == 0 and x.data_ptr() % 16 == 0
+    plan = conv_halo.head_plan(b, hh, ww, cin, cout, nchw_out=nchw_out,
+                               aligned=aligned,
+                               sm_count=conv_halo.sm_count(x.device))
     from ess_tpu_torch import kernels
 
     global launches
@@ -115,7 +121,8 @@ def head_cmajor(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     err = lib.ess_head_cmajor(
         x.data_ptr(), prepared.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, hh, ww, cin, cout, float(shift), float(scale),
-        int(nchw_out), stream)
+        int(nchw_out), int(aligned), plan.th, plan.tw, plan.grid_x,
+        plan.smem, stream)
     kernels.check(err, "head_cmajor kernel")
     launches += 1
     return out

@@ -350,9 +350,16 @@ def conv_inputs(dev, b, h, w, cin, cout, seed=0, bias=True):
     return x, wgt, bia
 
 
+# (B, H, W, C_in, C_out). After the first seven, shapes for the 2-D pixel
+# tiles of the halo core: H and W not multiples of the patch, W below its
+# width, B > 1, C_in 4 / 20 / 36 / 128 against C_out 8 / 24 / 64 / 128, and
+# weights too large to stay resident (C_in 512) over two N tiles.
 CONV_SHAPES = [(2, 13, 40, 24, 16), (1, 9, 11, 20, 128), (2, 22, 32, 128, 64),
                (1, 7, 5, 4, 8), (1, 16, 16, 36, 40), (2, 220, 320, 20, 128),
-               (2, 220, 320, 128, 64)]
+               (2, 220, 320, 128, 64),
+               (3, 17, 45, 4, 24), (2, 9, 7, 36, 128), (2, 30, 50, 128, 8),
+               (2, 11, 70, 20, 64), (1, 5, 200, 36, 24),
+               (2, 19, 21, 128, 128), (1, 8, 16, 512, 136)]
 
 
 @pytest.mark.parametrize("relu,bias", [(True, True), (False, True),
@@ -431,6 +438,48 @@ def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
         c3.conv3x3_fused(x, wgt, bia, impl=impl,
                          prepared=c3.prepare_conv_weights(
                              wgt, int8=impl != "pallas_int8"))
+
+
+def test_halo_launchers_refuse_a_plan_that_disagrees(dev):
+    """B4's and T1's launchers recompute the shared-memory layout of the
+    plan they are given and refuse (an error, no launch) one that disagrees
+    with it or with the block's warp layout; the wrappers' own plans run."""
+    from ess_tpu_torch import kernels
+    from ess_tpu_torch.ops import conv_halo
+
+    lib = kernels.get_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    x, wgt, bia = conv_inputs(dev, 1, 12, 14, 20, 32)
+    prep = c3.prepare_conv_weights(wgt)
+    bias = bia.float().contiguous()
+    out = torch.empty(1, 32, 12, 14, dtype=torch.bfloat16, device=dev,
+                      memory_format=torch.channels_last)
+    plan = conv_halo.conv_plan(1, 12, 14, 20, 32)
+    head = (x.data_ptr(), prep.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            1, 12, 14, 20, 32, 1)
+    for th, tw, smem in ((plan.th, plan.tw, plan.smem + 16),
+                         (2 * plan.th, plan.tw, plan.smem),
+                         (2 * plan.th, plan.tw // 2, plan.smem)):
+        assert lib.ess_conv3x3(*head, th, tw, int(plan.resident),
+                               plan.grid_x, smem, stream) != 0
+    assert lib.ess_conv3x3(*head, plan.th, plan.tw, int(plan.resident),
+                           plan.grid_x, plan.smem, stream) == 0
+    torch.cuda.synchronize()
+
+    xc, w2, b4 = bench_head.make_inputs(12, (1, 20, 8, 16, 128), dev)
+    prep = c3.prepare_conv_weights(w2)
+    b4 = b4.float().contiguous()
+    out = torch.empty(1, 128, 8, 16, dtype=torch.bfloat16, device=dev)
+    plan = conv_halo.head_plan(1, 8, 16, 20, 128, nchw_out=True,
+                               aligned=True)
+    head = (xc.data_ptr(), prep.data_ptr(), b4.data_ptr(), out.data_ptr(),
+            1, 8, 16, 20, 128, 0.0, 1.0, 1)
+    for aligned, smem in ((1, plan.smem - 16), (0, plan.smem)):
+        assert lib.ess_head_cmajor(*head, aligned, plan.th, plan.tw,
+                                   plan.grid_x, smem, stream) != 0
+    assert lib.ess_head_cmajor(*head, 1, plan.th, plan.tw, plan.grid_x,
+                               plan.smem, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
@@ -673,8 +722,11 @@ def test_tools_run_on_the_card(dev, capsys, tmp_path):
 
 
 HEAD_SHAPES = [(8, 20, 220, 320, 128),    # the tool's shape (T1's path)
-               (2, 20, 13, 37, 128),      # tiles cross images, odd H*W
-               (1, 12, 9, 16, 24)]        # C_in 12, C_out one 24-wide tile
+               (2, 20, 13, 37, 128),      # W = 37: rows not 16-byte aligned
+               (1, 12, 9, 16, 24),        # C_in 12, C_out one 24-wide tile
+               (3, 20, 21, 48, 128),      # ragged last patch row, B = 3
+               (2, 16, 10, 40, 64),       # 8 x 32 patches, ragged column
+               (1, 20, 6, 13, 136)]       # W below the patch, two N tiles
 
 
 @pytest.mark.parametrize("nchw_out", [False, True])
