@@ -26,7 +26,12 @@ exits non-zero, with no result line):
    first-encoder block shapes (B=2) and at an odd one, with and without
    ReLU and bias, B4 also at the main path's B=8, where its row's times are
    taken, beside the library's conv + bias + ReLU, with what ``ptxas -v``
-   said of the halo-tile kernels; B5 at the three
+   said of the halo-tile kernels; B2 and B2-int8 at the three encoder cells
+   at B=2 and at the main path's B=8, where their rows' times are taken
+   (TFLOP/s or TOP/s, share of bound, the int8 prep's launches per cell,
+   and the library's gate conv alone, which is not the same function),
+   with their plan and what ``ptxas -v``
+   said of them; B5 at the three
    encoder levels at the tools' B=8, in the input form each uses, and from
    a full-resolution input at a small shape with three row tiles (group
    scales identical, h' and c' within one bf16 ulp, the same bits through
@@ -292,6 +297,7 @@ def reset_counts() -> None:
     voxel_folded.launches = 0
     conv_lstm.launches = 0
     conv_lstm.launches_int8 = 0
+    conv_lstm.launches_int8_prep = 0
     voxel_tiled.launches = 0
     conv3x3.launches = 0
     conv3x3.launches_int8 = 0
@@ -568,122 +574,154 @@ def check_voxel_tiled(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def check_conv_lstm(dev):
-    g = torch.Generator().manual_seed(2)
-    cl = torch.channels_last
-    err_h = err_c = ms = plain_ms = bound_ms = 0.0
-    bound_by = set()
-    for b, ch, hh, ww in CELL_SHAPES:
-        mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
-        x = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
-        h = torch.tanh(mk(b, ch, hh, ww)).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
-        c = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
-        w = mk(4 * ch, 2 * ch, 3, 3, scale=(18 * ch) ** -0.5).to(dev)
-        bias = mk(4 * ch, scale=0.1).to(dev)
-        prep = conv_lstm.prepare_gate_weights(w)
-        h_p, c_p = conv_lstm.conv_lstm_ref(x, h, c, w, bias)
-        h_k, c_k = conv_lstm.conv_lstm_cell(x, h, c.clone(), w, bias,
-                                            prepared=prep)
-        eh = (h_k.float() - h_p.float()).abs().max().item()
-        ec = (c_k.float() - c_p.float()).abs().max().item()
-        err_h, err_c = max(err_h, eh), max(err_c, ec)
-        cw = c.clone()
-        t_k = cuda_ms(lambda: conv_lstm.conv_lstm_cell(
-            x, h, cw, w, bias, prepared=prep), 20)
-        t_p = cuda_ms(lambda: conv_lstm.conv_lstm_ref(x, h, c, w, bias), 5)
-        ms, plain_ms = ms + t_k, plain_ms + t_p
-        flop = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
-        # x, h, c read and h', c' written in bf16; f32 weights and bias
-        t_b, by = bound(2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel()),
-                        flop, "bf16")
-        bound_ms += t_b
-        bound_by.add(by)
-        log(f"B2 conv_lstm B={b} C={ch} {hh}x{ww}: max|dh| {eh:.3e} "
-            f"(bound {LSTM_H_ATOL}), max|dc| {ec:.3e} (bound {LSTM_C_ATOL}); "
-            f"kernel {t_k:.3f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
-            f"{t_p:.3f} ms, bound {t_b:.4f} ms ({by})")
-        if not (eh <= LSTM_H_ATOL and ec <= LSTM_C_ATOL):
-            raise AssertionError(f"B2 disagrees with its plain version: "
-                                 f"dh {eh}, dc {ec}")
-    log(f"B2 time for the three encoder cells (one window, B=2): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({'/'.join(sorted(bound_by))}), share of bound "
-        f"{100.0 * bound_ms / ms:.1f}%")
-    return {"name": "conv_lstm", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/conv_lstm.cu",
-            "replaces": "ess_tpu/ops/conv_lstm_pallas.py:132",
-            "max_abs_err": max(err_h, err_c), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": None}
+def cell_inputs(g, dev, b, ch, hh, ww, *, int8: bool):
+    """Seeded operands of one encoder cell (CX = CH = ch) on the card: x
+    (post-ReLU for the int8 cell, as the encoder's conv output is), h, c,
+    the gate weight at fan-in scale and the bias."""
+    cl_ = torch.channels_last
+    mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
+    x = mk(b, ch, hh, ww)
+    x = torch.relu(x) * 2 if int8 else x
+    x = x.to(dev, torch.bfloat16).contiguous(memory_format=cl_)
+    h = torch.tanh(mk(b, ch, hh, ww)).to(dev, torch.bfloat16).contiguous(
+        memory_format=cl_)
+    c = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(memory_format=cl_)
+    w = mk(4 * ch, 2 * ch, 3, 3, scale=(18 * ch) ** -0.5).to(dev)
+    bias = mk(4 * ch, scale=0.05 if int8 else 0.1).to(dev)
+    return x, h, c, w, bias
 
 
-def check_conv_lstm_int8(dev):
-    g = torch.Generator().manual_seed(5)
-    cl = torch.channels_last
-    err = ms = plain_ms = bound_ms = 0.0
+def cell_bound(x, w, bias, kind: str):
+    """Bound of one cell call: x, h, c read and h', c' written in bf16, f32
+    weights and bias; 2 operations per multiply-add of the gate conv."""
+    b, ch, hh, ww = x.shape
+    ops = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
+    return ops, bound(2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel()),
+                      ops, kind)
+
+
+def library_gate_conv(x, h, w, bias):
+    """The library's gate conv alone (``F.conv2d`` with bias on the
+    channels-last bf16 concat(x, h), built outside the timing): a yardstick
+    for the product, not the same function (no pointwise)."""
+    xh = torch.cat([x, h], 1).contiguous(memory_format=torch.channels_last)
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bl = bias.to(torch.bfloat16)
+    return lambda: torch.nn.functional.conv2d(xh, wl, bl, padding=1)
+
+
+def check_cells(dev, *, int8: bool):
+    """B2 (exact) or B2-int8 against its plain version at CELL_SHAPES (B=2,
+    logged) and at the main path's B=8 (the three encoder cells of one
+    window), where the row's times are taken, beside the library's gate
+    conv alone; the int8 cell's prep launches per cell."""
+    name, impl = ("B2-int8", "pallas_int8") if int8 else ("B2", "pallas")
+    kind, unit = ("int8", "TOP/s") if int8 else ("bf16", "TFLOP/s")
+    plain = conv_lstm.conv_lstm_int8_ref if int8 else conv_lstm.conv_lstm_ref
+    g = torch.Generator().manual_seed(5 if int8 else 2)
+    err = ms = plain_ms = bound_ms = lib_ms = 0.0
     bound_by = set()
-    for b, ch, hh, ww in CELL_SHAPES:
-        mk = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
-        x = (torch.relu(mk(b, ch, hh, ww)) * 2).to(dev, torch.bfloat16) \
-            .contiguous(memory_format=cl)
-        h = torch.tanh(mk(b, ch, hh, ww)).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
-        c = mk(b, ch, hh, ww).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
-        w = mk(4 * ch, 2 * ch, 3, 3, scale=(18 * ch) ** -0.5).to(dev)
-        bias = mk(4 * ch, scale=0.05).to(dev)
-        prep = conv_lstm.prepare_gate_weights(w, torch.float32)
-        h_p, c_p = conv_lstm.conv_lstm_int8_ref(x, h, c, w, bias)
-        h_k, c_k = conv_lstm.conv_lstm_cell(x, h, c.clone(), w, bias,
-                                            impl="pallas_int8", prepared=prep)
-        bad, unequal, e = 0, 0, 0.0
-        for got, want in ((h_k, h_p), (c_k, c_p)):
-            d = (got.float() - want.float()).abs()
-            bad += int((d > bf16_ulp(got, want) + INT8_ULP_SLACK).sum())
-            unequal += int((got != want).sum())
-            e = max(e, d.max().item())
-        err = max(err, e)
-        h_e, c_e = conv_lstm.conv_lstm_ref(x, h, c, w, bias)
-        dh = (h_k.float() - h_e.float()).abs()
-        dc = (c_k.float() - c_e.float()).abs()
-        cw = c.clone()
-        t_k = cuda_ms(lambda: conv_lstm.conv_lstm_cell(
-            x, h, cw, w, bias, impl="pallas_int8", prepared=prep), 20)
-        t_p = cuda_ms(lambda: conv_lstm.conv_lstm_int8_ref(x, h, c, w, bias),
-                      3)
-        ms, plain_ms = ms + t_k, plain_ms + t_p
-        ops = 2.0 * b * hh * ww * 9 * 2 * ch * 4 * ch
-        t_b, by = bound(2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel()),
-                        ops, "int8")
-        bound_ms += t_b
-        bound_by.add(by)
-        log(f"B2-int8 conv_lstm_int8 B={b} C={ch} {hh}x{ww}: vs plain int8 "
-            f"max|d| {e:.3e}, {unequal} of {2 * h_k.numel()} values not "
-            f"bit-identical, {bad} beyond one bf16 ulp (bound 0); "
-            f"vs exact plain max|dh| {dh.max().item():.3e} mean|dh| "
-            f"{dh.mean().item():.3e} max|dc| {dc.max().item():.3e} (JAX int8 "
-            f"bounds on its test cell: {JAX_INT8_DH_MAX}, {JAX_INT8_DH_MEAN}, "
-            f"{JAX_INT8_DC_MAX}); kernel {t_k:.3f} ms "
-            f"({ops / t_k / 1e9:.1f} TOP/s, quantization prep included), "
-            f"plain {t_p:.3f} ms, bound {t_b:.4f} ms ({by})")
-        if bad:
-            raise AssertionError(f"B2-int8 disagrees with its plain version "
-                                 f"at {bad} values (max |d| {e})")
-    log(f"B2-int8 time for the three encoder cells (one window, B=2): kernel "
+    for b8 in (False, True):
+        for b, ch, hh, ww in CELL_SHAPES:
+            b = 8 if b8 else b
+            x, h, c, w, bias = cell_inputs(g, dev, b, ch, hh, ww, int8=int8)
+            prep = conv_lstm.prepare_cell_weights(w, impl)
+            h_p, c_p = plain(x, h, c, w, bias)
+            n0, p0 = read_counts(), conv_lstm.launches_int8_prep
+            h_k, c_k = conv_lstm.conv_lstm_cell(x, h, c.clone(), w, bias,
+                                                impl=impl, prepared=prep)
+            moved = [a - b_ for a, b_ in zip(read_counts(), n0)]
+            slot = KERNEL_NAMES.index(name)
+            if moved != [int(i == slot) for i in range(len(moved))]:
+                raise AssertionError(f"{name}: launch counts moved by "
+                                     f"{show_counts(moved)}")
+            n_prep = conv_lstm.launches_int8_prep - p0
+            if n_prep != (2 if int8 else 0):
+                raise AssertionError(f"{name}: {n_prep} prep launches")
+            if int8:
+                bad, unequal, e = 0, 0, 0.0
+                for got, want in ((h_k, h_p), (c_k, c_p)):
+                    d = (got.float() - want.float()).abs()
+                    bad += int((d > bf16_ulp(got, want)
+                                + INT8_ULP_SLACK).sum())
+                    unequal += int((got != want).sum())
+                    e = max(e, d.max().item())
+                h_e, c_e = conv_lstm.conv_lstm_ref(x, h, c, w, bias)
+                dh = (h_k.float() - h_e.float()).abs()
+                dc = (c_k.float() - c_e.float()).abs()
+                what = (f"vs plain int8 max|d| {e:.3e}, {unequal} of "
+                        f"{2 * h_k.numel()} values not bit-identical, {bad} "
+                        f"beyond one bf16 ulp (bound 0); vs exact plain "
+                        f"max|dh| {dh.max().item():.3e} mean|dh| "
+                        f"{dh.mean().item():.3e} max|dc| "
+                        f"{dc.max().item():.3e} (JAX int8 bounds on its test "
+                        f"cell: {JAX_INT8_DH_MAX}, {JAX_INT8_DH_MEAN}, "
+                        f"{JAX_INT8_DC_MAX}); prep launches per cell "
+                        f"{n_prep} (bound 3)")
+                ok = bad == 0
+                del h_e, c_e, dh, dc
+            else:
+                eh = (h_k.float() - h_p.float()).abs().max().item()
+                ec = (c_k.float() - c_p.float()).abs().max().item()
+                e = max(eh, ec)
+                what = (f"max|dh| {eh:.3e} (bound {LSTM_H_ATOL}), max|dc| "
+                        f"{ec:.3e} (bound {LSTM_C_ATOL})")
+                ok = eh <= LSTM_H_ATOL and ec <= LSTM_C_ATOL
+            err = max(err, e)
+            del h_p, c_p, h_k, c_k
+            cw = c.clone()
+            t_k = cuda_ms(lambda: conv_lstm.conv_lstm_cell(
+                x, h, cw, w, bias, impl=impl, prepared=prep), 20)
+            ops, (t_b, by) = cell_bound(x, w, bias, kind)
+            line = (f"{name} B={b} C={ch} {hh}x{ww}: {what}; kernel "
+                    f"{t_k:.3f} ms ({ops / t_k / 1e9:.1f} {unit}"
+                    f"{', prep included' if int8 else ''}), bound "
+                    f"{t_b:.4f} ms ({by}), share of bound "
+                    f"{100.0 * t_b / t_k:.1f}%")
+            if b8:
+                t_p = cuda_ms(lambda: plain(x, h, c, w, bias), 3)
+                t_l = cuda_ms(library_gate_conv(x, h, w, bias), 20)
+                line += (f"; plain {t_p:.3f} ms; library gate conv alone "
+                         f"{t_l:.3f} ms ({ops / t_l / 1e9:.1f} TFLOP/s; "
+                         "F.conv2d with bias on the bf16 concat: "
+                         "not the same function, no pointwise)")
+                ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+                bound_ms += t_b
+                bound_by.add(by)
+            log(line)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at B={b} C={ch}")
+            if b8 and ch == CELL_SHAPES[0][1]:
+                log_cell_plan(name, conv_halo.cell_plan(
+                    b, hh, ww, ch, ch, int8=int8,
+                    sm_count=conv_halo.sm_count(dev)))
+            del x, h, c, cw
+    log(f"{name} time for the three encoder cells (one window, B=8): kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({'/'.join(sorted(bound_by))}), share of bound "
-        f"{100.0 * bound_ms / ms:.1f}%")
-    return {"name": "conv_lstm_int8", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/conv_lstm_int8.cu",
-            "replaces": "ess_tpu/ops/conv_lstm_pallas.py:137",
+        f"{100.0 * bound_ms / ms:.1f}%; library gate convs alone "
+        f"{lib_ms:.3f} ms (not the same function)")
+    log_ptxas(name, "cell_kernelILb1ELi0E" if int8 else "cell_kernelILb0ELi0E")
+    src = "conv_lstm_int8.cu" if int8 else "conv_lstm.cu"
+    return {"name": "conv_lstm_int8" if int8 else "conv_lstm",
+            "route": "cuda", "source": f"ess_tpu_torch/csrc/{src}",
+            "replaces": ("ess_tpu/ops/conv_lstm_pallas.py:137" if int8
+                         else "ess_tpu/ops/conv_lstm_pallas.py:132"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by else "bytes",
             "library_ms": None}
+
+
+def log_cell_plan(what: str, plan) -> None:
+    """The cell kernels' plan of a launch."""
+    log(f"  plan {what}: {plan.th}x{plan.tw} pixels x {plan.bn} gate "
+        f"columns a block, {plan.chunks} chunks of {plan.kc} channels "
+        f"({plan.chunks_x} from x), ring of {conv_halo.CELL_STAGES} stages, "
+        f"{plan.smem} B dynamic shared memory, {plan.grid} persistent "
+        f"blocks over {plan.n_tiles} pixel tiles x {plan.n_tiles_n} N "
+        "tiles")
 
 
 def conv_inputs(g, dev, b, cin, cout, hh, ww):
@@ -1042,8 +1080,8 @@ def check_cell_variants(dev):
         nbytes = 2.0 * 5 * x.numel() + 4.0 * (w.numel() + bias.numel())
         for int8 in (False, True):
             body = "int8" if int8 else "bf16"
-            prep = conv_lstm.prepare_gate_weights(
-                w, torch.float32 if int8 else torch.bfloat16)
+            prep = conv_lstm.prepare_cell_weights(
+                w, "pallas_int8" if int8 else "pallas")
             t_b, by = bound(nbytes, ops, body)
             times = []
             for mode in bench_lstm_breakdown.COMPARED:
@@ -1474,6 +1512,10 @@ def phase_train(dev, kern_rows):
         f"on the int8 cell): launches {show_counts(counts)}; "
         f"losses {[round(v, 6) for v in losses]}")
     need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
+    prep = conv_lstm.launches_int8_prep / counts[2]
+    log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3)")
+    if prep > 3:
+        raise AssertionError(f"{prep} int8 prep launches per cell")
     add_launches(kern_rows, "train", counts)
     changed = sum(not torch.equal(v, head0[k])
                   for k, v in mods.head.state_dict().items())
@@ -2054,8 +2096,8 @@ def phase_block(dev, kern_rows):
 def main() -> None:
     dev = phase_device()
     phase_build()
-    rows = [check_voxelizer(dev), check_conv_lstm(dev),
-            check_conv_lstm_int8(dev), check_voxel_tiled(dev),
+    rows = [check_voxelizer(dev), check_cells(dev, int8=False),
+            check_cells(dev, int8=True), check_voxel_tiled(dev),
             check_conv3x3(dev), check_conv3x3_int8(dev), check_level(dev),
             check_cell_variants(dev), check_voxel_folded_legacy(dev),
             check_head_cmajor(dev)]

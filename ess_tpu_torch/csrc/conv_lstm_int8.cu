@@ -1,73 +1,61 @@
-// Int8 ConvLSTM cell: the 3x3 gate conv over concat(x, h) as one int8
-// product with int32 accumulation, a per-column dequantizing epilogue, then
-// the LSTM pointwise in f32.
+// Int8 ConvLSTM cell (B2-int8): the 3x3 gate conv over concat(x, h) as one
+// int8 product with int32 accumulation, a per-column dequantizing epilogue,
+// then the LSTM pointwise in f32.
 //
 // Replaces the int8 variant of the TPU kernel
 // ess_tpu/ops/conv_lstm_pallas.py::_fused_kernel (int8=True), which
 // quantizes its x and h row tiles in VMEM (x by a per-call absmax scale,
 // h by the static 1/127 of a tanh*sigmoid-bounded state), multiplies them
-// on the int8 MXU path against per-output-channel quantized weights and
-// dequantizes the i32 accumulator with one multiply per column. The scale
-// reduce and the weight re-quantization stay torch ops on the device, as
-// they are XLA ops beside the TPU kernel (ess_tpu_torch/ops/conv_lstm.py).
+// on the int8 MXU path against per-output-channel quantized weights (both
+// scales folded in, ess_tpu/ops/conv_lstm_pallas.py:238-253) and
+// dequantizes the i32 accumulator with one multiply per column.
 //
-// Two launches per cell:
-// 1. quantize_kernel: x (bf16 NHWC) * inv_sx and h (bf16) * 127, rounded
-//    half to even and clipped to [-127, 127], into int8 copies. inv_sx is
-//    read from device memory, so no host sync happens per cell. cp.async
-//    cannot convert while it copies, so this is a pre-pass: at DSEC level
-//    0, B=8, it reads ~72 MB and writes ~36 MB (~35 us at 3.35 TB/s).
-// 2. conv_lstm_int8_kernel: the implicit GEMM of conv_lstm.cu with int8
-//    operands, mma.sync m16n8k32 (s8 x s8 -> s32). Its fragments are
-//    byte-for-byte images of the bf16 m16n8k16 fragments, so the ldmatrix
-//    addressing of the bf16 kernel carries over with the k step counted in
-//    bytes (BK = 64 int8 = the bf16 kernel's 64 bytes per stage row), and
-//    the accumulator layout (hence the permuted gate columns and the
-//    shared-memory-free epilogue) is unchanged. Epilogue:
+// Three launches per cell:
+// 1. absmax_kernel: per-block maxima of |x| over bf16 bits (non-negative
+//    bf16 values order as their bits), written to `partials`.
+// 2. prep_kernel: every block reduces the partials to
+//    s_x = max(amax, 1e-8) / 127 and 1/s_x (as input_scale and
+//    torch.reciprocal compute them; block 0 stores both); then
+//    - weight blocks, one warp per prepared gate row: the row scale (s_x on
+//      x columns, 1/127 on h columns) folded in with __fmul_rn,
+//      ws = max(absmax, 1e-20) / 127, wq = clip(rint(w~ / ws)) with
+//      __fdiv_rn, written straight into the kernel's weight image (zeros
+//      on channels past CX or CH) and ws in i, f, o, g order
+//      (ops/conv_lstm.py::quantize_gate_weights, bit for bit);
+//    - quantize blocks: x * (1/s_x) and h * 127, rounded half to even and
+//      clipped to [-127, 127], into int8 NHWC copies whose channels are
+//      padded with zeros to a multiple of 64 (one 64-byte halo pixel per
+//      chunk; TMA cannot convert while it copies).
+// 3. the cell: conv_halo.cuh::cell_kernel with INT8 = true, wgmma
+//    m64n128k32 .s32.s8.s8 with A from registers (the register-A form
+//    exists for .s8; its fragment is the m16n8k32 one, byte for byte the
+//    bf16 m16n8k16 fragment, so the swizzled ldmatrix addressing of the
+//    exact cell carries over with 64 int8 channels a chunk). Epilogue:
 //    gates = float(acc) * ws + bias, c' = sigmoid(f)*c + sigmoid(i)*tanh(g),
 //    h' = sigmoid(o)*tanh(c'), each f32 operation rounded on its own as in
-//    the plain version's elementwise ops (no contraction into FMAs), so the
-//    kernel's h' and c' equal the plain int8 cell's bit for bit wherever
+//    the plain version's elementwise ops (no contraction into FMAs), so
+//    h' and c' equal the plain int8 cell's bit for bit wherever
 //    expf/tanhf agree with torch's; h' to a new buffer, c in place.
+// No host sync: the scales stay on the device.
 //
 // The MODE template parameter (mma_common.cuh::CellMode) compiles the
-// attribution variants of the GEMM body, as in conv_lstm.cu: kFull is the
-// cell; the others replace the epilogue or, kNoBuild, also skip the gather
-// of the A tile (output undefined, timed only).
+// attribution variants of the cell, as in conv_lstm.cu.
 //
-// K per tap is CIN rounded up to BK; the tail of a tap is zero-filled in
-// both operands, so CX and CH need only be multiples of 32 (a 16-byte copy
-// never straddles x and h).
-//
-// Bounds on the H100: twice the MACs of the bf16 cell per byte staged, on
-// a 1,979 TOP/s int8 peak; this first version keeps the bf16 kernel's
-// mma.sync and 3-stage cp.async ring, so it is bound by issue and
-// shared-memory traffic well below that peak.
+// Bounds on the H100: twice the bf16 cell's operations per staged byte on
+// a 1,979 TOP/s int8 peak.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <algorithm>
 
-#include "mma_common.cuh"
+#include "conv_halo.cuh"
 
 namespace {
 
 using namespace ess;
+using namespace ess::halo;
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;   // BK in bytes
-constexpr int LDS = BK + 16;         // padded smem row: 80 B, as conv_lstm.cu
-constexpr int kThreads = 256;        // 8 warps: 2 along M x 4 along N
-constexpr int kStageBytes = (BM + BN) * LDS;
-constexpr int kQuantThreads = 256;
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kPrepThreads = 256;
+constexpr int kMaxPartials = 512;
+constexpr int kMaxQuantBlocks = 2048;
 
 __device__ __forceinline__ unsigned quant4(const __nv_bfloat16* v, float s) {
   unsigned out = 0;
@@ -80,254 +68,203 @@ __device__ __forceinline__ unsigned quant4(const __nv_bfloat16* v, float s) {
   return out;
 }
 
-// 8 elements per thread: threads [0, nx8) take x, the rest h.
-__global__ void __launch_bounds__(kQuantThreads)
-quantize_kernel(const __nv_bfloat16* __restrict__ x, int64_t nx8,
-                const __nv_bfloat16* __restrict__ h, int64_t nh8,
-                const float* __restrict__ inv_sx,
-                int8_t* __restrict__ xq, int8_t* __restrict__ hq) {
-  int64_t i = (int64_t)blockIdx.x * kQuantThreads + threadIdx.x;
-  const __nv_bfloat16* src = x;
-  int8_t* dst = xq;
-  float s;
-  if (i < nx8) {
-    s = *inv_sx;
-  } else {
-    i -= nx8;
-    if (i >= nh8) return;
-    src = h;
-    dst = hq;
-    s = 127.f;
-  }
-  const uint4 v = *reinterpret_cast<const uint4*>(src + i * 8);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-  uint2 q;
-  q.x = quant4(e, s);
-  q.y = quant4(e + 4, s);
-  *reinterpret_cast<uint2*>(dst + i * 8) = q;
+// max over the block of v (every thread gets it)
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < kPrepThreads / 32; ++w) v = fmaxf(v, red[w]);
+  return v;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_lstm_int8_kernel(const int8_t* __restrict__ xq,
-                      const int8_t* __restrict__ hq,
-                      __nv_bfloat16* __restrict__ c,
-                      const int8_t* __restrict__ w,     // (4*CH, 9*CIN) permuted
-                      const float* __restrict__ ws,     // (4*CH,) i,f,o,g
-                      const float* __restrict__ bias,   // (4*CH,) i,f,o,g
-                      __nv_bfloat16* __restrict__ h_out,
-                      int B, int H, int W, int CX, int CH) {
-  extern __shared__ __align__(16) int8_t smem8[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int M = B * H * W, HW = H * W;
-  const int CIN = CX + CH, K = 9 * CIN;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int chunks_per_tap = (CIN + BK - 1) / BK, KT = 9 * chunks_per_tap;
-
-  // the two A rows (pixels) and B rows this thread loads each stage
-  int a_y[2], a_x[2], a_b[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + (tid >> 2) + i * 64;
-    a_ok[i] = m < M;
-    const int mm = a_ok[i] ? m : 0;
-    a_b[i] = mm / HW;
-    const int rem = mm - a_b[i] * HW;
-    a_y[i] = rem / W;
-    a_x[i] = rem - a_y[i] * W;
-  }
-  const int part = (tid & 3) * 16;   // this thread's 16 bytes of a row
-
-  auto load_stage = [&](int stage, int ks) {
-    int8_t* As = smem8 + stage * kStageBytes;
-    int8_t* Bs = As + BM * LDS;
-    const int tap = ks / chunks_per_tap;
-    const int co = (ks - tap * chunks_per_tap) * BK + part;   // input channel
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const bool in_k = co < CIN;
-    const bool from_x = co < CX;
-    const int8_t* src = from_x ? xq : hq;
-    const int cs = from_x ? CX : CH;
-    const int cc = from_x ? co : co - CX;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid >> 2) + i * 64;
-      const int sy = a_y[i] + dy, sx = a_x[i] + dx;
-      const bool ok = in_k && a_ok[i] && sy >= 0 && sy < H && sx >= 0 &&
-                      sx < W;
-      const int8_t* g =
-          ok ? src + ((int64_t)(a_b[i] * H + sy) * W + sx) * cs + cc : src;
-      if constexpr (MODE != kNoBuild)
-        cp_async16(As + row * LDS + part, g, ok);
-      const int8_t* gb =
-          in_k ? w + (int64_t)(n0 + row) * K + tap * CIN + co : w;
-      cp_async16(Bs + row * LDS + part, gb, in_k);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
+__global__ void __launch_bounds__(kPrepThreads)
+absmax_kernel(const uint4* __restrict__ x, int64_t n16,
+              float* __restrict__ partials) {
+  __shared__ float red[kPrepThreads / 32];
+  unsigned m = 0;
+  for (int64_t i = (int64_t)blockIdx.x * kPrepThreads + threadIdx.x; i < n16;
+       i += (int64_t)gridDim.x * kPrepThreads) {
+    const uint4 v = x[i];
+    const unsigned w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+      m = max(m, max(w4[j] & 0x7fffu, (w4[j] >> 16) & 0x7fffu));
   }
+  const float amax = block_max(__uint_as_float(m << 16), red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = amax;
+}
 
-  for (int ks = 0; ks < KT; ++ks) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = ks + STAGES - 1;
-    if (nxt < KT) load_stage(nxt % STAGES, nxt);
-    cp_async_commit();
-
-    const int8_t* As = smem8 + (ks % STAGES) * kStageBytes;
-    const int8_t* Bs = As + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + (lane & 15);
-        ldmatrix_x4(a[mt], As + r * LDS + kk + (lane >> 4) * 16);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        unsigned r4[4];
-        const int r = wn * 32 + np * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(r4, Bs + r * LDS + kk + ((lane >> 3) & 1) * 16);
-        b[np * 2][0] = r4[0];
-        b[np * 2][1] = r4[1];
-        b[np * 2 + 1][0] = r4[2];
-        b[np * 2 + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_s8(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-    }
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kernel(const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ h,
+            const float* __restrict__ w,        // (4*CH, 9*(CX+CH)) prepared
+            const float* __restrict__ partials, int n_partials,
+            float* __restrict__ scal,           // s_x, 1/s_x
+            int8_t* __restrict__ w_img, float* __restrict__ ws,
+            int8_t* __restrict__ xq, int8_t* __restrict__ hq, int64_t npix,
+            int CX, int CH, int w_blocks) {
+  __shared__ float red[kPrepThreads / 32];
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n_partials; i += kPrepThreads)
+    m = fmaxf(m, partials[i]);
+  const float amax = block_max(m, red);
+  const float s_x = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  const float inv_sx = __fdiv_rn(1.f, s_x);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    scal[0] = s_x;
+    scal[1] = inv_sx;
   }
-  cp_async_wait<0>();
-
-  // epilogue: n-tile nt of this warp is gate nt of channels ch0 .. ch0+7
-  const int ch = (n0 + wn * 32) / 4 + (lane & 3) * 2;
-  float sc[4][2], bi[4][2];
+  const int cxp = (CX + 63) / 64 * 64, chp = (CH + 63) / 64 * 64;
+  if ((int)blockIdx.x < w_blocks) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n = blockIdx.x * (kPrepThreads / 32) + warp;
+    if (n >= 4 * CH) return;
+    const int CIN = CX + CH, K = 9 * CIN;
+    const float* row = w + (int64_t)n * K;
+    const float rh = (float)(1.0 / 127.0);
+    float am = 0.f;
+    for (int k = lane; k < K; k += 32)
+      am = fmaxf(am, fabsf(__fmul_rn(row[k], k % CIN < CX ? s_x : rh)));
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    sc[g][0] = ws[g * CH + ch];
-    sc[g][1] = ws[g * CH + ch + 1];
-    bi[g][0] = bias[g * CH + ch];
-    bi[g][1] = bias[g * CH + ch + 1];
-  }
+    for (int o = 16; o; o >>= 1) am = fmaxf(am, __shfl_xor_sync(~0u, am, o));
+    const float s = __fdiv_rn(fmaxf(am, 1e-20f), 127.f);
+    // prepared row n holds gate (n % 32) / 8 of channel (n / 32) * 8 + n % 8
+    if (lane == 0) ws[((n & 31) >> 3) * CH + (n >> 5) * 8 + (n & 7)] = s;
+    const int chunks_x = cxp / 64, chunks = chunks_x + chp / 64;
+    const int nt = n / kCellBN, nn = n % kCellBN;
+    // 4 channels a step: (chunk, tap, 4-channel quad of the 64)
+    for (int u = lane; u < chunks * 9 * 16; u += 32) {
+      const int quad = u & 15, kt = u >> 4, tap = kt % 9, kk = kt / 9;
+      const int within = quad * 4;
+      const int hc = (kk - chunks_x) * 64 + within;
+      const bool from_x = kk < chunks_x;
+      const int cin0 = from_x ? kk * 64 + within : CX + hc;
+      const bool ok = from_x ? cin0 < CX : hc < CH;
+      unsigned packed = 0;
+      if (ok) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + mt * 16 + (lane >> 2) + half * 8;
-      if (m >= M) continue;
-      const int64_t off = (int64_t)m * CH + ch;
-      const __nv_bfloat162 cp2 =
-          *reinterpret_cast<const __nv_bfloat162*>(c + off);
-      const float cp[2] = {__bfloat162float(cp2.x), __bfloat162float(cp2.y)};
-      float hn[2], cn[2], gt[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = half * 2 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          gt[g] = __fadd_rn(
-              __fmul_rn(__int2float_rn(acc[mt][g][r]), sc[g][j]), bi[g][j]);
-        if constexpr (MODE == kFull) {
-          // one rounding per operation, no fused multiply-add: the plain
-          // version's elementwise ops, so both round alike
-          cn[j] = __fadd_rn(__fmul_rn(sigmoidf_(gt[1]), cp[j]),
-                            __fmul_rn(sigmoidf_(gt[0]), tanhf(gt[3])));
-          hn[j] = __fmul_rn(sigmoidf_(gt[2]), tanhf(cn[j]));
-        } else {
-          variant_pointwise<MODE>(gt, cp[j], hn[j], cn[j]);
+        for (int e = 0; e < 4; ++e) {
+          const float v = __fmul_rn(row[tap * CIN + cin0 + e],
+                                    from_x ? s_x : rh);
+          const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+          packed |= ((unsigned)(int)q & 0xffu) << (8 * e);
         }
       }
-      *reinterpret_cast<__nv_bfloat162*>(c + off) =
-          __floats2bfloat162_rn(cn[0], cn[1]);
-      *reinterpret_cast<__nv_bfloat162*>(h_out + off) =
-          __floats2bfloat162_rn(hn[0], hn[1]);
+      *reinterpret_cast<unsigned*>(
+          w_img +
+          ((((int64_t)nt * chunks + kk) * 36 + tap * 4 + (within >> 4)) *
+               kCellBN +
+           nn) *
+              16 +
+          (within & 15)) = packed;
     }
+    return;
+  }
+  // 8 channels a thread: x then h of each pixel, zeros past CX or CH
+  const int gx = cxp / 8, gh = chp / 8;
+  const int64_t total = npix * (gx + gh);
+  for (int64_t i = (int64_t)(blockIdx.x - w_blocks) * kPrepThreads +
+                   threadIdx.x;
+       i < total; i += (int64_t)(gridDim.x - w_blocks) * kPrepThreads) {
+    const int64_t pix = i / (gx + gh);
+    const int gq = (int)(i - pix * (gx + gh));
+    const bool is_x = gq < gx;
+    const int grp = is_x ? gq : gq - gx, C = is_x ? CX : CH;
+    uint2 q = make_uint2(0u, 0u);
+    if (grp * 8 < C) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          (is_x ? x : h) + pix * C + grp * 8);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+      const float s = is_x ? inv_sx : 127.f;
+      q.x = quant4(e, s);
+      q.y = quant4(e + 4, s);
+    }
+    *reinterpret_cast<uint2*>((is_x ? xq + pix * cxp : hq + pix * chp) +
+                              grp * 8) = q;
   }
 }
 
 template <int MODE>
 int launch(const void* xq, const void* hq, void* c, const void* w,
-           const void* ws, const void* bias, void* h_out, int B, int H, int W,
-           int CX, int CH, void* stream) {
-  const int M = B * H * W;
-  if (M == 0) return 0;
-  const int smem = STAGES * kStageBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_lstm_int8_kernel<MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 blocks((M + BM - 1) / BM, 4 * CH / BN);
-  conv_lstm_int8_kernel<MODE>
-      <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-          (const int8_t*)xq, (const int8_t*)hq, (__nv_bfloat16*)c,
-          (const int8_t*)w, (const float*)ws, (const float*)bias,
-          (__nv_bfloat16*)h_out, B, H, W, CX, CH);
-  return (int)cudaGetLastError();
+           const void* ws, const void* bias, void* h_out, int B, int H,
+           int W, int CX, int CH, int th, int tw, int grid, int smem,
+           void* stream) {
+  return cell_launch<true, MODE>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX,
+                                 CH, th, tw, grid, smem, stream);
 }
 
 }  // namespace
 
-// x, h: bf16 NHWC with nx, nh elements (multiples of 8); inv_sx: one f32 on
-// the device; xq, hq: int8 outputs of the same sizes.
-extern "C" int ess_conv_lstm_quant(const void* x, const void* h,
-                                   const void* inv_sx, void* xq, void* hq,
-                                   int64_t nx, int64_t nh, void* stream) {
-  const int64_t n8 = nx / 8 + nh / 8;
-  if (n8 == 0) return 0;
-  const int64_t blocks = (n8 + kQuantThreads - 1) / kQuantThreads;
-  quantize_kernel<<<(unsigned)blocks, kQuantThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, nx / 8, (const __nv_bfloat16*)h, nh / 8,
-      (const float*)inv_sx, (int8_t*)xq, (int8_t*)hq);
+// The prep of one int8 cell, two launches. x: bf16 NHWC (B, H, W, CX), h:
+// (B, H, W, CH), CX and CH multiples of 32; w: the f32 prepared gate matrix
+// (4*CH, 9*(CX+CH)) (ops/conv_lstm.py::prepare_gate_weights); partials:
+// f32 scratch of kMaxPartials; scal: 2 f32 (s_x, 1/s_x); w_img: int8
+// (4*CH/128, chunks, 36, 128, 16); ws: f32 (4*CH,); xq, hq: int8 NHWC with
+// CX, CH rounded up to 64 channels. All 16-byte aligned.
+extern "C" int ess_conv_lstm_int8_prep(const void* x, const void* h,
+                                       const void* w, void* partials,
+                                       void* scal, void* w_img, void* ws,
+                                       void* xq, void* hq, int B, int H,
+                                       int W, int CX, int CH, void* stream) {
+  const int64_t npix = (int64_t)B * H * W;
+  if (npix == 0) return 0;
+  if (CX <= 0 || CH <= 0 || CX % 32 || CH % 32)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n16 = npix * CX / 8;
+  const int na = (int)std::min<int64_t>(
+      kMaxPartials, (n16 + kPrepThreads - 1) / kPrepThreads);
+  absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)x, n16, (float*)partials);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int w_blocks = (4 * CH + kPrepThreads / 32 - 1) / (kPrepThreads / 32);
+  const int64_t groups =
+      npix * ((CX + 63) / 64 * 64 + (CH + 63) / 64 * 64) / 8;
+  const int qb = (int)std::min<int64_t>(
+      kMaxQuantBlocks, (groups + kPrepThreads - 1) / kPrepThreads);
+  prep_kernel<<<w_blocks + qb, kPrepThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (const float*)w,
+      (const float*)partials, na, (float*)scal, (int8_t*)w_img, (float*)ws,
+      (int8_t*)xq, (int8_t*)hq, npix, CX, CH, w_blocks);
   return (int)cudaGetLastError();
 }
 
+// xq, hq: the int8 copies of ess_conv_lstm_int8_prep; c: bf16 NHWC
+// (B, H, W, CH), updated in place; w, ws: the prep's weight image and
+// column scales; bias: f32 (4*CH,) in i, f, o, g order; h_out: bf16 NHWC.
+// The plan (th, tw, grid, smem) is ops/conv_halo.py::cell_plan's with
+// int8=True.
 extern "C" int ess_conv_lstm_int8(const void* xq, const void* hq, void* c,
                                   const void* w, const void* ws,
                                   const void* bias, void* h_out, int B, int H,
-                                  int W, int CX, int CH, void* stream) {
-  return launch<kFull>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
-                       stream);
+                                  int W, int CX, int CH, int th, int tw,
+                                  int grid, int smem, void* stream) {
+  return launch<kFull>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH, th,
+                       tw, grid, smem, stream);
 }
 
-// The same GEMM in the attribution variant `mode`: a CellMode other than
+// The same cell in the attribution variant `mode`: a CellMode other than
 // kFull, which is ess_conv_lstm_int8 and is refused here.
 extern "C" int ess_conv_lstm_int8_mode(const void* xq, const void* hq,
                                        void* c, const void* w, const void* ws,
                                        const void* bias, void* h_out, int B,
-                                       int H, int W, int CX, int CH, int mode,
+                                       int H, int W, int CX, int CH, int th,
+                                       int tw, int grid, int smem, int mode,
                                        void* stream) {
+#define ESS_CELL_MODE(M)                                                    \
+  case M:                                                                   \
+    return launch<M>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH, th,    \
+                     tw, grid, smem, stream);
   switch (mode) {
-    case kPtwBf16:
-      return launch<kPtwBf16>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
-                              stream);
-    case kPtwMul:
-      return launch<kPtwMul>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
-                             stream);
-    case kNoPtw:
-      return launch<kNoPtw>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
-                            stream);
-    case kNoBuild:
-      return launch<kNoBuild>(xq, hq, c, w, ws, bias, h_out, B, H, W, CX, CH,
-                              stream);
+    ESS_CELL_MODE(kPtwBf16)
+    ESS_CELL_MODE(kPtwMul)
+    ESS_CELL_MODE(kNoPtw)
+    ESS_CELL_MODE(kNoBuild)
   }
+#undef ESS_CELL_MODE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
-// Device helpers shared by the ConvLSTM kernels (conv_lstm.cu,
-// conv_lstm_int8.cu), the fused encoder level (level_int8.cu) and the 3x3
-// conv kernels (conv_halo.cuh, conv3x3_common.cuh): cp.async copies into
-// shared memory, ldmatrix, the f32 sigmoid of the LSTM epilogue, and the
-// epilogues of the cell kernels' attribution variants.
+// Device helpers shared by the halo-tile core (conv_halo.cuh: the 3x3 conv
+// kernels and the ConvLSTM cell kernels), the fused encoder level
+// (level_int8.cu) and the int8 3x3 conv (conv3x3_common.cuh): cp.async
+// copies into shared memory, ldmatrix, the f32 sigmoid of the LSTM
+// epilogue, and the epilogues of the cell kernels' attribution variants.
 
 #pragma once
 
@@ -48,11 +48,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+// ldmatrix at a shared-memory address
+__device__ __forceinline__ void ldmatrix_x4_at(unsigned (&r)[4],
+                                               unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  ldmatrix_x4_at(r, smem_u32(p));
 }
 
 // 1 / (1 + exp(-v)) rounded per operation, as torch.sigmoid computes it

@@ -99,22 +99,22 @@ def _build() -> ctypes.CDLL:
     lib.ess_voxel_folded_band.restype = ci
     lib.ess_voxel_tiled.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.ess_voxel_tiled.restype = ci
-    lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    # the cells: shape (B, H, W, CX, CH), then the plan (th, tw, grid, smem)
+    lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_conv_lstm.restype = ci
-    i64 = ctypes.c_int64
-    lib.ess_conv_lstm_quant.argtypes = [vp] * 5 + [i64] * 2 + [vp]
-    lib.ess_conv_lstm_quant.restype = ci
-    lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.ess_conv_lstm_int8_prep.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+    lib.ess_conv_lstm_int8_prep.restype = ci
+    lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.ess_conv_lstm_int8.restype = ci
-    lib.ess_conv_lstm_mode.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.ess_conv_lstm_mode.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     lib.ess_conv_lstm_mode.restype = ci
-    lib.ess_conv_lstm_int8_mode.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ess_conv_lstm_int8_mode.argtypes = [vp] * 7 + [ci] * 10 + [vp]
     lib.ess_conv_lstm_int8_mode.restype = ci
     lib.ess_level_int8.argtypes = [vp] * 14 + [ci] * 7 + [vp]
     lib.ess_level_int8.restype = ci
     lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 11 + [vp]
     lib.ess_conv3x3.restype = ci
-    lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [i64] + [vp]
+    lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [ctypes.c_int64] + [vp]
     lib.ess_conv3x3_quant.restype = ci
     lib.ess_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.ess_conv3x3_int8.restype = ci

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ess_tpu_torch.ops.conv3x3 import (
     IMPLS as BLOCK_CONV_IMPLS, conv3x3_fused, prepare_conv_weights)
-from ess_tpu_torch.ops.conv_lstm import conv_lstm_cell, prepare_gate_weights
+from ess_tpu_torch.ops.conv_lstm import conv_lstm_cell, prepare_cell_weights
 from ess_tpu_torch.ops.conv_s2d import block_bias, block_kernel
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -193,21 +193,21 @@ class ConvLSTMCell(nn.Module):
         super().__init__()
         self.Gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size, 3,
                                padding=1, device=device)
-        self._prepared: Dict[torch.dtype, Tuple[tuple, torch.Tensor]] = {}
+        self._prepared: Dict[str, Tuple[tuple, torch.Tensor]] = {}
 
     def _prepared_weight(self, impl: str) -> Optional[torch.Tensor]:
-        """The kernel's gate matrix (bf16 for the exact kernel, f32 for the
-        int8 one, which re-quantizes it per call), rebuilt only when the
-        weight changes."""
+        """What the cell kernel reads of the gate weight
+        (``prepare_cell_weights``: the exact kernel's bf16 weight image, or
+        the f32 gate matrix the int8 prep re-quantizes per call), rebuilt
+        only when the weight changes."""
         w = self.Gates.weight
         if w.device.type != "cuda" or impl == "xla":
             return None
-        dtype = torch.float32 if impl == "pallas_int8" else torch.bfloat16
         key = (w.data_ptr(), w._version, w.device)
-        hit = self._prepared.get(dtype)
+        hit = self._prepared.get(impl)
         if hit is None or hit[0] != key:
-            hit = (key, prepare_gate_weights(w.detach(), dtype))
-            self._prepared[dtype] = hit
+            hit = (key, prepare_cell_weights(w.detach(), impl))
+            self._prepared[impl] = hit
         return hit[1]
 
     def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],

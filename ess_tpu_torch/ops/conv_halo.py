@@ -1,7 +1,9 @@
 """Tile plans of the halo-tile 3x3 conv core (``csrc/conv_halo.cuh``).
 
-The exact fused conv (B4, :mod:`ess_tpu_torch.ops.conv3x3`) and the C-major
-head conv (T1, :mod:`ess_tpu_torch.ops.head_cmajor`) run on one CUDA core:
+The exact fused conv (B4, :mod:`ess_tpu_torch.ops.conv3x3`), the C-major
+head conv (T1, :mod:`ess_tpu_torch.ops.head_cmajor`) and the ConvLSTM cell
+kernels (B2, B2-int8, :mod:`ess_tpu_torch.ops.conv_lstm`; their plan is
+:func:`cell_plan`) run on one CUDA core:
 a block owns a ``th x tw`` patch of output pixels of one image and ``bn``
 output channels, stages the ``(th + 2) x (tw + 2)`` input halo in shared
 memory one 32-channel chunk at a time, and reads every tap as a shifted
@@ -170,3 +172,108 @@ def sm_count(device) -> int:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _SM_COUNT[idx]
+
+
+# The ConvLSTM cell kernels (B2, ``csrc/conv_lstm.cu``; B2-int8,
+# ``csrc/conv_lstm_int8.cu``) on the same core, with a producer warpgroup.
+CELL_THREADS = 384           # two consumer warpgroups + one producer
+CELL_CONSUMER_WARPS = 8
+CELL_BM = 256                # pixels per block tile: 2 warpgroups x 2 m64
+CELL_BN = 128                # gate columns per N tile: 32 channels x 4 gates
+CELL_PIX_BYTES = 64          # one staged halo pixel (TMA, 64-byte swizzle)
+CELL_W_STAGE = 36 * CELL_BN * 16   # 73,728: one chunk of an N tile's weights
+CELL_SLOT = 2 * 16 * 40 * 2  # per consumer warp: c/c' and h' rows staged
+CELL_BARRIERS = 64           # full and empty mbarriers of the ring
+CELL_ALIGN = 1024            # halo stages: the 64-byte swizzle's alignment
+CELL_STAGES = 2              # ring depth (conv_halo.cuh::kCellStages)
+CELL_PATCHES = ((16, 16), (8, 32))
+
+
+@dataclass(frozen=True)
+class CellPlan:
+    th: int               # output patch rows
+    tw: int               # output patch columns (a multiple of 16)
+    bm: int               # th * tw = 256 pixels per block tile
+    bn: int               # 128 gate columns per N tile
+    tiles_y: int
+    tiles_x: int
+    n_tiles: int          # B * tiles_y * tiles_x pixel tiles
+    n_tiles_n: int        # N tiles: 4 * CH / 128
+    kc: int               # channels per chunk: 32 bf16 or 64 int8 (64 bytes)
+    chunks_x: int         # chunks staged from x; the rest from h
+    chunks: int
+    smem: int             # dynamic shared memory per block, bytes
+    grid: int             # persistent blocks
+
+
+def cell_halo_bytes(th: int, tw: int) -> int:
+    """One halo stage: (th+2) x (tw+2) pixels of 64 bytes, padded to the
+    swizzle's 1,024-byte alignment."""
+    raw = (th + 2) * (tw + 2) * CELL_PIX_BYTES
+    return -(-raw // CELL_ALIGN) * CELL_ALIGN
+
+
+def cell_smem(th: int, tw: int, stages: int = CELL_STAGES) -> int:
+    """The cell kernels' shared memory: the alignment slack of the dynamic
+    base, ``stages`` x (weight chunk + halo), the consumer warps' epilogue
+    slots and the barriers (``conv_halo.cuh::cell_smem``)."""
+    return (CELL_ALIGN + stages * (CELL_W_STAGE + cell_halo_bytes(th, tw))
+            + CELL_CONSUMER_WARPS * CELL_SLOT + CELL_BARRIERS)
+
+
+def cell_patch(h: int, w: int) -> Tuple[int, int]:
+    """The 256-pixel patch that pads an h x w image least: 16 x 16 or
+    8 x 32 (a tie keeps 16 x 16, whose halo is smaller)."""
+    def padded(p):
+        th, tw = p
+        return -(-h // th) * th * (-(-w // tw) * tw)
+    return min(CELL_PATCHES, key=padded)
+
+
+def cell_plan(b: int, h: int, w: int, cx: int, ch: int, *, int8: bool,
+              sm_count: int = H100_SMS) -> CellPlan:
+    """The plan of the cell kernels for x (b, h, w, cx) and h (b, h, w, ch)
+    in channels-last memory.
+
+    A block owns a 256-pixel patch (:func:`cell_patch`) of one image and
+    one N tile of 128 gate columns: 32 hidden channels x the 4 gates, in
+    the order of ``conv_lstm.gate_column_order``. K runs over chunks of 64
+    bytes a pixel (32 bf16 or 64 int8 channels), first ``chunks_x`` from x,
+    then the rest from h. One ring stage holds a chunk's halo and the N
+    tile's weights of that chunk (73,728 bytes, streamed: an N tile's whole
+    weights, 295 KB to 1.18 MB, never fit). The ring has ``CELL_STAGES``
+    = 2 stages, which fit the budget at every shape; a third would need
+    285 KB.
+
+    Work: ``n_tiles * n_tiles_n`` items, N tile fastest (the blocks
+    running at once share halos in L2), dealt round-robin to ``grid``
+    persistent blocks, one block per SM (the ring takes ~211 KB).
+    Ragged images: the last patch row and column run past the image; the
+    tensor map zero-fills the halo there and the epilogue stores no pixel
+    outside it (DSEC level 2's 55 rows: 4 patch rows of 16, 9 rows
+    masked; with 8 x 32 patches it would be 7 rows of 8, but 80 columns
+    then pad to 96, more than 16 x 16 pads). Few tiles (level 2 at B=1:
+    20 patches x 8 N tiles = 160 block tiles on 132 SMs): the grid is the
+    whole card and the last wave is partly idle; the plan accepts that
+    quantisation (2 tile times where 1.21 would be ideal).
+    """
+    if cx <= 0 or ch <= 0 or cx % 32 or ch % 32:
+        raise ValueError(f"cell_plan: CX={cx} and CH={ch} must be positive "
+                         "multiples of 32")
+    th, tw = cell_patch(h, w)
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    n_tiles = b * tiles_y * tiles_x
+    kc = 64 if int8 else 32
+    chunks_x = -(-cx // kc)
+    chunks = chunks_x + -(-ch // kc)
+    n_tiles_n = 4 * ch // CELL_BN
+    grid = max(1, min(n_tiles * n_tiles_n, sm_count))
+    return CellPlan(th, tw, CELL_BM, CELL_BN, tiles_y, tiles_x, n_tiles,
+                    n_tiles_n, kc, chunks_x, chunks, cell_smem(th, tw), grid)
+
+
+def cell_items(plan: CellPlan, block: int):
+    """The (N tile, pixel tile) pairs block ``block`` walks, in order."""
+    items = plan.n_tiles * plan.n_tiles_n
+    return [(wc % plan.n_tiles_n, wc // plan.n_tiles_n)
+            for wc in range(block, items, plan.grid)]

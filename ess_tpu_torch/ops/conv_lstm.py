@@ -14,16 +14,20 @@ Cells, by resolved ``impl`` name (:func:`resolve_lstm_impl`):
 - ``'pallas'``: the exact cell; on CUDA the kernel of ``csrc/conv_lstm.cu``;
 - ``'pallas_int8'``: the int8 cell (per-call absmax scale for x, static
   1/127 for h, per-output-channel weight scales); on CUDA the kernels of
-  ``csrc/conv_lstm_int8.cu``;
+  ``csrc/conv_lstm_int8.cu``: two prep launches (x's absmax; the weight
+  re-quantization and the x/h quantize), then the cell;
 - ``'xla'``: the plain exact cell on every device (an explicit choice, as
   in the JAX package).
 
 Tensors are NCHW. On CPU a cell runs its plain version. On CUDA a kernel
 reads x, h and c in channels-last memory (``torch.channels_last``) and
 bf16, writes h' to a new tensor and updates c in place; under autograd the
-kernel runs on a copy of c. The backward of a kernel and of the plain int8
-cell recomputes :func:`conv_lstm_ref`, as the JAX package's ``custom_vjp``
-does.
+kernel runs on a copy of c. Both cell kernels run on the halo-tile core
+(``csrc/conv_halo.cuh``) with the plan of ``ops/conv_halo.py::cell_plan``
+and read the gate weights as the kernel's own image
+(:func:`gate_weight_image`, or the int8 prep's). The backward of a kernel
+and of the plain int8 cell recomputes :func:`conv_lstm_ref`, as the JAX
+package's ``custom_vjp`` does.
 
 The kernels also exist with their epilogue or their operand gather replaced
 at compile time (``MODES``, :func:`launch_variant`): the attribution
@@ -38,9 +42,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ess_tpu_torch.ops import conv_halo
+
 launches = 0        # exact-cell kernel launches (CUDA tensors only)
-launches_int8 = 0   # int8-cell launches, quantize pre-pass + GEMM (CUDA only)
+launches_int8 = 0   # int8-cell kernel launches (CUDA only)
+launches_int8_prep = 0   # the int8 cells' prep kernel launches (2 a cell)
 launches_variant = 0   # launches of a kernel in a mode other than 'full'
+
+PREP_PARTIALS = 512   # absmax partials of the int8 prep (its kMaxPartials)
+INT8_KC = 64          # int8 channels per chunk (64 bytes a halo pixel)
 
 # Compile-time variants of the two cell kernels, by the index the CUDA entry
 # points take: 'full' is the cell itself.
@@ -108,10 +118,58 @@ def prepare_gate_weights(weight: torch.Tensor,
     return w2[order].to(dtype).contiguous()
 
 
+def _weight_image(p: torch.Tensor, cx: int, kc: int) -> torch.Tensor:
+    """A prepared (4*CH, 9*CIN) matrix -> the cell kernels' weight image
+    ``(4*CH/128, chunks, 36, 128, kc/4)``: per N tile of 128 prepared
+    columns and chunk of ``kc`` channels (x's channels padded with zeros to
+    a multiple of ``kc``, then h's), the 36 k groups (tap x 4 pieces of
+    ``kc/4`` channels) of wgmma's K-major core matrices, each 128 rows of
+    16 bytes: one contiguous stage a bulk copy moves as it is."""
+    n, cin = p.shape[0], p.shape[1] // 9
+    ch = cin - cx
+    cxp, chp = -(-cx // kc) * kc, -(-ch // kc) * kc
+    w = p.reshape(n, 9, cin)
+    if (cxp, chp) != (cx, ch):
+        pad = w.new_zeros(n, 9, cxp + chp)
+        pad[:, :, :cx] = w[:, :, :cx]
+        pad[:, :, cxp:cxp + ch] = w[:, :, cx:]
+        w = pad
+    chunks = (cxp + chp) // kc
+    nb = conv_halo.CELL_BN
+    return (w.reshape(n // nb, nb, 9, chunks, 4, kc // 4)
+            .permute(0, 3, 2, 4, 1, 5)
+            .reshape(n // nb, chunks, 36, nb, kc // 4).contiguous())
+
+
+def gate_weight_image(prepared: torch.Tensor) -> torch.Tensor:
+    """The exact cell kernel's weight image from
+    ``prepare_gate_weights(weight)``: ``(4*CH/128, (CX+CH)/32, 36, 128, 8)``
+    bf16 (CX and CH multiples of 32, so x's and h's 32-channel chunks are
+    those of concat(x, h))."""
+    return _weight_image(prepared, 0, 32)
+
+
+def prepare_cell_weights(weight: torch.Tensor, impl: str) -> torch.Tensor:
+    """What a cell kernel reads of a gate conv weight, computed once per
+    weight: the exact kernel's bf16 image (:func:`gate_weight_image`) for
+    ``'pallas'``, the f32 prepared matrix the int8 prep re-quantizes per
+    call for ``'pallas_int8'``."""
+    if impl == "pallas_int8":
+        return prepare_gate_weights(weight, torch.float32)
+    return gate_weight_image(prepare_gate_weights(weight))
+
+
+def _div127(v: torch.Tensor) -> torch.Tensor:
+    """``v / 127`` rounded once (IEEE division) on every device: a CUDA
+    division by a Python scalar multiplies by its reciprocal instead, which
+    differs in the last bit for some ``v``."""
+    return torch.div(v, torch.full((), 127.0, device=v.device))
+
+
 def input_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-call x scale ``max(absmax(x), 1e-8) / 127`` as an f32 device
     scalar (no host sync)."""
-    return torch.clamp(x.abs().amax().float(), min=1e-8) / 127.0
+    return _div127(torch.clamp(x.abs().amax().float(), min=1e-8))
 
 
 def quantize_gate_weights(weight: torch.Tensor, s_x: torch.Tensor, cx: int,
@@ -133,7 +191,7 @@ def quantize_gate_weights(weight: torch.Tensor, s_x: torch.Tensor, cx: int,
     is_x = (torch.arange(cin, device=w.device) < cx).repeat(9)
     row_scale = torch.where(is_x, s_x.float(), 1.0 / 127.0)
     wt = w * row_scale
-    ws_perm = torch.clamp(wt.abs().amax(dim=1), min=1e-20) / 127.0
+    ws_perm = _div127(torch.clamp(wt.abs().amax(dim=1), min=1e-20))
     wq = torch.clamp(torch.round(wt / ws_perm[:, None]), -127, 127)
     ws = torch.empty_like(ws_perm)
     ws[gate_column_order(w.shape[0] // 4, w.device)] = ws_perm
@@ -145,6 +203,43 @@ def quantize(v: torch.Tensor, inv_scale) -> torch.Tensor:
     to even (``jnp.round``, ``__float2int_rn``)."""
     return torch.clamp(torch.round(v.float() * inv_scale), -127, 127).to(
         torch.int8)
+
+
+def int8_prep_ref(x: torch.Tensor, h_prev: torch.Tensor,
+                  prepared: torch.Tensor, cx: int) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the int8 cell's prep kernels, step by step as they
+    compute: ``(scal, w_img, ws, xq, hq)`` with ``scal = (s_x, 1/s_x)``
+    (the absmax over bf16 bits, then ``max(., 1e-8) / 127`` and the
+    reciprocal, in f32), ``w_img`` the int8 weight image (64-channel
+    chunks, zeros past CX and CH), ``ws`` (4*CH,) in i, f, o, g order and
+    ``xq``, ``hq`` int8 NHWC with channels padded with zeros to a multiple
+    of 64. ``prepared`` is the f32 prepared matrix; x and h_prev bf16."""
+    ch = h_prev.shape[1]
+    bits = x.contiguous().view(torch.int16).to(torch.int32) & 0x7FFF
+    amax = (bits.max() << 16).view(torch.float32)
+    s_x = _div127(torch.clamp(amax, min=1e-8))
+    inv_sx = torch.reciprocal(s_x)
+    cin = cx + ch
+    is_x = (torch.arange(cin, device=x.device) < cx).repeat(9)
+    rs = torch.where(is_x, s_x, torch.full_like(s_x, 1.0 / 127.0))
+    wt = prepared.float() * rs
+    s_row = _div127(torch.clamp(wt.abs().amax(dim=1), min=1e-20))
+    wq = torch.clamp(torch.round(wt / s_row[:, None]), -127, 127).to(
+        torch.int8)
+    ws = torch.empty_like(s_row)
+    n = torch.arange(4 * ch, device=x.device)
+    ws[((n % 32) // 8) * ch + (n // 32) * 8 + n % 8] = s_row
+
+    def padded(v, scale):
+        c = v.shape[1]
+        out = torch.zeros(v.shape[0], v.shape[2], v.shape[3],
+                          -(-c // INT8_KC) * INT8_KC, dtype=torch.int8,
+                          device=v.device)
+        out[..., :c] = quantize(v, scale).permute(0, 2, 3, 1)
+        return out
+
+    return (torch.stack([s_x, inv_sx]), _weight_image(wq, cx, INT8_KC), ws,
+            padded(x, inv_sx), padded(h_prev.to(x.dtype), 127.0))
 
 
 def _pointwise(gates: torch.Tensor, c_prev: torch.Tensor
@@ -213,10 +308,13 @@ def gates_int8_ref(x: torch.Tensor, h_prev: torch.Tensor,
 
 
 def _check_operands(name: str, x, h_prev, c_prev) -> Tuple[int, ...]:
+    """Shapes of a cell's operands (``c_prev`` None: x and h_prev only)."""
     b, cx, hh, ww = x.shape
     ch = h_prev.shape[1]
     for what, t, cc in (("x", x, cx), ("h_prev", h_prev, ch),
                         ("c_prev", c_prev, ch)):
+        if t is None:
+            continue
         if (t.dtype != torch.bfloat16 or tuple(t.shape) != (b, cc, hh, ww)
                 or not t.is_contiguous(memory_format=torch.channels_last)
                 or t.device != x.device):
@@ -224,7 +322,7 @@ def _check_operands(name: str, x, h_prev, c_prev) -> Tuple[int, ...]:
                 f"{name}: {what} must be a channels-last bfloat16 "
                 f"{(b, cc, hh, ww)} tensor on {x.device}, got {t.dtype} "
                 f"{tuple(t.shape)}")
-    if c_prev.data_ptr() == h_prev.data_ptr():
+    if c_prev is not None and c_prev.data_ptr() == h_prev.data_ptr():
         raise ValueError(f"{name}: h_prev and c_prev share storage "
                          "(c is updated in place while h is read)")
     if cx % 32 or ch % 32:
@@ -264,24 +362,40 @@ def _count_launch(int8: bool, mode: int) -> None:
         launches += 1
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(b, hh, ww, cx, ch, int8, sms) -> conv_halo.CellPlan:
+    return conv_halo.cell_plan(b, hh, ww, cx, ch, int8=int8, sm_count=sms)
+
+
+def _cell_plan(b, hh, ww, cx, ch, int8, device) -> conv_halo.CellPlan:
+    return _plan(b, hh, ww, cx, ch, int8, conv_halo.sm_count(device))
+
+
+def _plan_args(plan: conv_halo.CellPlan) -> Tuple[int, ...]:
+    return (plan.th, plan.tw, plan.grid, plan.smem)
+
+
 def _launch_exact(x, h_prev, c_prev, weight, bias, prepared, mode=0):
     """Exact kernel (in variant ``MODES[mode]``); returns (h', c_prev
-    updated in place)."""
-    b, cx, hh, ww, ch = _check_operands("conv_lstm_cell", x, h_prev, c_prev)
+    updated in place). ``prepared`` is :func:`gate_weight_image`'s."""
+    name = "conv_lstm_cell"
+    b, cx, hh, ww, ch = _check_operands(name, x, h_prev, c_prev)
     if prepared is None:
-        prepared = prepare_gate_weights(weight)
-    _check_matrix("conv_lstm_cell", prepared, torch.bfloat16,
-                  (4 * ch, 9 * (cx + ch)), x.device)
-    _check_aligned("conv_lstm_cell", x, h_prev, c_prev, prepared)
-    bias = _f32_vector("conv_lstm_cell bias", bias, 4 * ch, x.device)
+        prepared = gate_weight_image(prepare_gate_weights(weight))
+    _check_matrix(name, prepared, torch.bfloat16,
+                  (4 * ch // conv_halo.CELL_BN, (cx + ch) // 32, 36,
+                   conv_halo.CELL_BN, 8), x.device)
+    _check_aligned(name, x, h_prev, c_prev, prepared)
+    bias = _f32_vector(f"{name} bias", bias, 4 * ch, x.device)
     from ess_tpu_torch import kernels
 
     lib = kernels.get_lib()
+    plan = _cell_plan(b, hh, ww, cx, ch, False, x.device)
     h_new = torch.empty_like(h_prev, memory_format=torch.channels_last)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
             prepared.data_ptr(), bias.data_ptr(), h_new.data_ptr(), b, hh, ww,
-            cx, ch)
+            cx, ch, *_plan_args(plan))
     err = (lib.ess_conv_lstm_mode(*args, mode, stream) if mode
            else lib.ess_conv_lstm(*args, stream))
     kernels.check(err, f"conv_lstm kernel ({MODES[mode]})")
@@ -289,36 +403,63 @@ def _launch_exact(x, h_prev, c_prev, weight, bias, prepared, mode=0):
     return h_new, c_prev
 
 
+def int8_prep(x: torch.Tensor, h_prev: torch.Tensor, prepared: torch.Tensor
+              ) -> Tuple[torch.Tensor, ...]:
+    """The int8 cell's prep on CUDA tensors, two kernel launches (counted in
+    ``launches_int8_prep``), no host sync: ``(scal, w_img, ws, xq, hq)`` as
+    :func:`int8_prep_ref` returns them. x, h_prev: channels-last bf16;
+    ``prepared``: the f32 prepared gate matrix."""
+    global launches_int8_prep
+    name = "conv_lstm_int8_cell"
+    b, cx, hh, ww, ch = _check_operands(name, x, h_prev, None)
+    _check_matrix(name, prepared, torch.float32, (4 * ch, 9 * (cx + ch)),
+                  x.device)
+    dev = x.device
+    kc = INT8_KC
+    cxp, chp = -(-cx // kc) * kc, -(-ch // kc) * kc
+    f32 = dict(dtype=torch.float32, device=dev)
+    i8 = dict(dtype=torch.int8, device=dev)
+    partials = torch.empty(PREP_PARTIALS, **f32)
+    scal = torch.empty(2, **f32)
+    w_img = torch.empty(4 * ch // conv_halo.CELL_BN, (cxp + chp) // kc, 36,
+                        conv_halo.CELL_BN, 16, **i8)
+    ws = torch.empty(4 * ch, **f32)
+    xq = torch.empty(b, hh, ww, cxp, **i8)
+    hq = torch.empty(b, hh, ww, chp, **i8)
+    _check_aligned(name, x, h_prev, prepared, w_img, xq, hq)
+    from ess_tpu_torch import kernels
+
+    lib = kernels.get_lib()
+    err = lib.ess_conv_lstm_int8_prep(
+        x.data_ptr(), h_prev.data_ptr(), prepared.data_ptr(),
+        partials.data_ptr(), scal.data_ptr(), w_img.data_ptr(),
+        ws.data_ptr(), xq.data_ptr(), hq.data_ptr(), b, hh, ww, cx, ch,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "conv_lstm int8 prep kernels")
+    launches_int8_prep += 2
+    return scal, w_img, ws, xq, hq
+
+
 def _launch_int8(x, h_prev, c_prev, weight, bias, prepared, mode=0):
-    """Int8 kernels (quantize pre-pass + GEMM, the GEMM in variant
+    """Int8 kernels (two prep launches + the cell, the cell in variant
     ``MODES[mode]``); returns (h', c_prev updated in place). ``prepared``
     is the f32 prepared gate matrix."""
     name = "conv_lstm_int8_cell"
     b, cx, hh, ww, ch = _check_operands(name, x, h_prev, c_prev)
     if prepared is None:
         prepared = prepare_gate_weights(weight, torch.float32)
-    _check_matrix(name, prepared, torch.float32, (4 * ch, 9 * (cx + ch)),
-                  x.device)
-    s_x = input_scale(x)
-    inv_sx = torch.reciprocal(s_x)
-    wq, ws = quantize_gate_weights(weight, s_x, cx, prepared=prepared)
     bias = _f32_vector(f"{name} bias", bias, 4 * ch, x.device)
-    xq = torch.empty((b, hh, ww, cx), dtype=torch.int8, device=x.device)
-    hq = torch.empty((b, hh, ww, ch), dtype=torch.int8, device=x.device)
-    _check_aligned(name, x, h_prev, c_prev, wq, xq, hq)
+    _, w_img, ws, xq, hq = int8_prep(x, h_prev, prepared)
+    _check_aligned(name, c_prev)
     from ess_tpu_torch import kernels
 
     lib = kernels.get_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ess_conv_lstm_quant(x.data_ptr(), h_prev.data_ptr(),
-                                  inv_sx.data_ptr(), xq.data_ptr(),
-                                  hq.data_ptr(), xq.numel(), hq.numel(),
-                                  stream)
-    kernels.check(err, "conv_lstm int8 quantize kernel")
+    plan = _cell_plan(b, hh, ww, cx, ch, True, x.device)
     h_new = torch.empty_like(h_prev, memory_format=torch.channels_last)
-    args = (xq.data_ptr(), hq.data_ptr(), c_prev.data_ptr(), wq.data_ptr(),
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (xq.data_ptr(), hq.data_ptr(), c_prev.data_ptr(), w_img.data_ptr(),
             ws.data_ptr(), bias.data_ptr(), h_new.data_ptr(), b, hh, ww, cx,
-            ch)
+            ch, *_plan_args(plan))
     err = (lib.ess_conv_lstm_int8_mode(*args, mode, stream) if mode
            else lib.ess_conv_lstm_int8(*args, stream))
     kernels.check(err, f"conv_lstm int8 kernel ({MODES[mode]})")
@@ -385,10 +526,12 @@ def conv_lstm_cell(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
     tensors: the cell's kernel, which needs bf16 channels-last x
     (B, CX, H, W), h and c (B, CH, H, W) with CX and CH multiples of 32,
     and returns c' in ``c_prev``'s storage (outside autograd). ``prepared``
-    is ``prepare_gate_weights(weight)`` for the exact kernel and
-    ``prepare_gate_weights(weight, torch.float32)`` for the int8 one,
-    computed here when not given. Gradients of the kernels and of the
-    plain int8 cell are those of :func:`conv_lstm_ref`.
+    is ``prepare_cell_weights(weight, impl)``: the exact kernel's bf16
+    weight image (:func:`gate_weight_image`, 5-D) for ``'pallas'``, the
+    f32 prepared gate matrix for ``'pallas_int8'``; it is computed here
+    when not given, and one of another form is refused with a
+    ``ValueError``. Gradients of the kernels and of the plain int8 cell are
+    those of :func:`conv_lstm_ref`.
     """
     if impl not in ("xla", "pallas", "pallas_int8"):
         raise ValueError(f"conv_lstm_cell: impl {impl!r} is not a resolved "

@@ -12,12 +12,12 @@ carried chain each:
   ptw_mul   - transcendentals replaced by multiplies on the raw gates:
               c' = f*c + i*g, h' = o*c'
   no_ptw    - h' = gate i, c' = gate f (product + gather only)
-  no_build  - as no_ptw with the gather of the A operand skipped: the
-              kernels are implicit GEMMs with no im2row buffer, so what is
-              skipped is the cp.async gather of the pixel tile (the weight
-              tile still loads) and the product runs on whatever the shared
-              memory holds. Its output is undefined; it is timed and never
-              compared.
+  no_build  - as no_ptw with the A operand's copies skipped: the kernels
+              stage a halo per chunk and read every tap from it, with no
+              im2row buffer, so what is skipped is the TMA copy of the halo
+              (the weight stages still stream) and the product runs on
+              whatever the shared memory holds. Its output is undefined;
+              it is timed and never compared.
 
 The differences between the variants measure each stage: full - no_ptw the
 pointwise, full - ptw_mul the transcendentals, no_ptw - no_build the
@@ -131,8 +131,9 @@ def main(argv: Optional[List[str]] = None, *, device=None,
     for li in layers:
         b, c, hh, ww = shapes[li]
         x, h0, c0, weight, bias = make_inputs(li, shapes[li], device)
-        prepared = conv_lstm.prepare_gate_weights(
-            weight, torch.float32 if int8 else torch.bfloat16)
+        prepared = (conv_lstm.prepare_cell_weights(
+            weight, "pallas_int8" if int8 else "pallas")
+            if device.type == "cuda" else None)
         print(f"L{li} (B{b} {hh}x{ww}x{c}) int8={int8}", flush=True)
         per_step = results[li] = {}
         for mode in MODES:

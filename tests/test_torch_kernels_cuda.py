@@ -14,7 +14,11 @@ Bounds:
 - int8 ConvLSTM cell against the plain int8 cell: the integer accumulators
   are exact in both and the epilogue rounds each f32 operation as the plain
   version does, so h' and c' can differ only where the kernel's expf/tanhf
-  and torch's round differently: at most one bf16 ulp (+1e-6);
+  and torch's round differently: at most one bf16 ulp (+1e-6); its two prep
+  kernels against the plain prep (``int8_prep_ref``): bit-identical (the
+  same f32 operations); both cells' launchers refuse a plan whose layout
+  disagrees, and the exact cell's wrapper a prepared weight that is not
+  its weight image;
 - fused 3x3 conv (bf16) and the C-major head conv with its normalize fused
   (T1, both output layouts): at most one bf16 ulp off the plain conv on at
   least 99.9 % of the values and max |d| within 2^-7 of the plain output's
@@ -237,8 +241,16 @@ def cell_inputs(dev, b, h, w, cx, ch, seed=0):
     return x, hp, cp, wgt, bias
 
 
-@pytest.mark.parametrize("shape", [(2, 10, 13, 32, 32), (1, 22, 40, 64, 64),
-                                   (2, 9, 11, 256, 256), (1, 5, 7, 64, 32)])
+# cells (B, H, W, CX, CH): small ragged ones, CX != CH both ways, B = 1
+# and 3, W not a multiple of the 16- or 32-pixel patch, and DSEC level 2's
+# 55 rows (a ragged last patch row) at B = 1, 2 and 3
+CELL_SHAPES = [(2, 10, 13, 32, 32), (1, 22, 40, 64, 64), (2, 9, 11, 256, 256),
+               (1, 5, 7, 64, 32), (3, 37, 50, 32, 64), (1, 37, 50, 96, 32),
+               (1, 55, 80, 256, 256), (2, 55, 80, 256, 256),
+               (3, 55, 80, 256, 256)]
+
+
+@pytest.mark.parametrize("shape", CELL_SHAPES)
 def test_conv_lstm_kernel_matches_plain(dev, shape):
     x, hp, cp, wgt, bias = cell_inputs(dev, *shape)
     h_ref, c_ref = cl.conv_lstm_ref(x, hp, cp, wgt, bias)
@@ -268,17 +280,34 @@ def test_conv_lstm_wrapper_rejects(dev):
         cl.conv_lstm_cell(x16, h16, c16, w16, b16)
 
 
+def test_conv_lstm_wrapper_refuses_the_gate_matrix(dev):
+    """The exact kernel reads its weight image
+    (``prepare_cell_weights(w, 'pallas')``); the prepared 2-D gate matrix
+    (``prepare_gate_weights(w)``), which the earlier kernel read, is refused
+    before any launch. The image itself runs."""
+    x, hp, cp, wgt, bias = cell_inputs(dev, 1, 12, 14, 32, 64)
+    n0 = cl.launches
+    with pytest.raises(ValueError):
+        cl.conv_lstm_cell(x, hp, cp, wgt, bias,
+                          prepared=cl.prepare_gate_weights(wgt))
+    assert cl.launches == n0
+    img = cl.prepare_cell_weights(wgt, "pallas")
+    assert img.dim() == 5
+    h_img, c_img = cl.conv_lstm_cell(x, hp, cp.clone(), wgt, bias,
+                                     prepared=img)
+    h_own, c_own = cl.conv_lstm_cell(x, hp, cp.clone(), wgt, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(h_img, h_own) and torch.equal(c_img, c_own)
+
+
 def bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at max(|a|, |b|): 2^(e - 8) for values in [2^(e-1), 2^e)."""
     _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
     return torch.ldexp(torch.ones_like(a, dtype=torch.float32), e - 8)
 
 
-@pytest.mark.parametrize("shape", [(2, 10, 13, 32, 32), (1, 22, 40, 64, 64),
-                                   (1, 5, 7, 64, 32), (1, 9, 11, 256, 256),
-                                   (2, 220, 320, 64, 64),
-                                   (2, 110, 160, 128, 128),
-                                   (2, 55, 80, 256, 256)])
+@pytest.mark.parametrize("shape", CELL_SHAPES + [
+    (1, 9, 11, 256, 256), (2, 220, 320, 64, 64), (2, 110, 160, 128, 128)])
 def test_conv_lstm_int8_kernel_matches_plain(dev, shape):
     b, h, w, cx, ch = shape
     x, hp, cp, wgt, bias = cell_inputs(dev, *shape)
@@ -286,10 +315,11 @@ def test_conv_lstm_int8_kernel_matches_plain(dev, shape):
     wgt = wgt * (0.05 * (9 * (cx + ch)) ** 0.5) ** -1
     h_ref, c_ref = cl.conv_lstm_int8_ref(x, hp, cp, wgt, bias)
     hp0 = hp.clone()
-    n0, e0 = cl.launches_int8, cl.launches
+    n0, e0, p0 = cl.launches_int8, cl.launches, cl.launches_int8_prep
     h_new, c_new = cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8")
     torch.cuda.synchronize()
     assert cl.launches_int8 == n0 + 1 and cl.launches == e0
+    assert cl.launches_int8_prep == p0 + 2
     assert c_new.data_ptr() == cp.data_ptr()          # c updated in place
     assert torch.equal(hp, hp0)                       # h_prev untouched
     for got, want in ((h_new, h_ref), (c_new, c_ref)):
@@ -324,6 +354,64 @@ def test_kernel_cells_backward(dev, impl):
     for a, b in zip(g_k, g_r):
         torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
                                    rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 32, 64), (1, 37, 50, 96, 32),
+                                   (2, 55, 80, 256, 256)])
+def test_int8_prep_kernels_match_plain(dev, shape):
+    """The two prep kernels give the plain prep's scales, weight image,
+    column scales and padded int8 copies bit for bit (no host sync)."""
+    b, h, w, cx, ch = shape
+    x, hp, _, wgt, _ = cell_inputs(dev, *shape, seed=8)
+    x = x * 3
+    prep = cl.prepare_gate_weights(wgt, torch.float32)
+    got = cl.int8_prep(x, hp, prep)
+    want = cl.int8_prep_ref(x, hp, prep, cx)
+    for name, a, b_ in zip(("scal", "w_img", "ws", "xq", "hq"), got, want):
+        assert a.shape == b_.shape and torch.equal(a, b_), name
+
+
+def test_cell_launchers_refuse_a_plan_that_disagrees(dev):
+    """The cell launchers rebuild the plan's layout and refuse (an error,
+    no launch) a patch of other than 256 pixels, a patch width that is not
+    a multiple of 16, a shared-memory size that disagrees (among them that
+    of a ring of three stages) and an empty grid; the plan's own runs, in
+    both cells."""
+    from ess_tpu_torch import kernels
+    from ess_tpu_torch.ops import conv_halo
+
+    lib = kernels.get_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    b, h, w, cx, ch = 1, 12, 14, 32, 64
+    x, hp, cp, wgt, bias = cell_inputs(dev, b, h, w, cx, ch)
+    bias = bias.float().contiguous()
+    hn = torch.empty_like(hp, memory_format=torch.channels_last)
+    smem_of = conv_halo.cell_smem
+    for int8 in (False, True):
+        plan = conv_halo.cell_plan(b, h, w, cx, ch, int8=int8)
+        if int8:
+            _, img, ws, xq, hq = cl.int8_prep(
+                x, hp, cl.prepare_gate_weights(wgt, torch.float32))
+            entry = lib.ess_conv_lstm_int8
+            head = (xq.data_ptr(), hq.data_ptr(), cp.data_ptr(),
+                    img.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+                    hn.data_ptr(), b, h, w, cx, ch)
+        else:
+            img = cl.prepare_cell_weights(wgt, "pallas")
+            entry = lib.ess_conv_lstm
+            head = (x.data_ptr(), hp.data_ptr(), cp.data_ptr(),
+                    img.data_ptr(), bias.data_ptr(), hn.data_ptr(), b, h, w,
+                    cx, ch)
+        good = dict(th=plan.th, tw=plan.tw, grid=plan.grid, smem=plan.smem)
+        for bad in (dict(th=2 * plan.th, smem=smem_of(2 * plan.th, plan.tw)),
+                    dict(th=32, tw=8, smem=smem_of(32, 8)),
+                    dict(smem=plan.smem + 16),
+                    dict(smem=smem_of(plan.th, plan.tw, 3)),
+                    dict(grid=0)):
+            args = {**good, **bad}
+            assert entry(*head, *args.values(), stream) != 0, (int8, bad)
+        assert entry(*head, *good.values(), stream) == 0
+        torch.cuda.synchronize()
 
 
 def test_conv_lstm_int8_wrapper_rejects(dev):
@@ -647,7 +735,7 @@ def test_level_kernel_backward(dev):
 @pytest.mark.parametrize("mode", bd.COMPARED)
 @pytest.mark.parametrize("shape", [(2, 32, 10, 13), (1, 64, 22, 40),
                                    (2, 64, 220, 320), (2, 256, 55, 80),
-                                   *bd.SHAPES])
+                                   (1, 256, 55, 80), *bd.SHAPES])
 def test_cell_variant_kernel_matches_plain(dev, shape, mode, int8):
     x, h0, c0, wgt, bias = bd.make_inputs(6, shape, dev)
     want_h, want_c = bd.cell_variant_ref(x, h0, c0, wgt, bias, mode=mode,
@@ -688,11 +776,16 @@ def test_full_mode_is_the_cells_own_entry_point(dev, int8):
     assert (cl.launches, cl.launches_int8, cl.launches_variant) == tuple(
         n + (i == int(int8)) for i, n in enumerate(counts))
     assert torch.equal(h1, h2) and torch.equal(c1, c2)
+    from ess_tpu_torch.ops import conv_halo
+
     lib = kernels.get_lib()
     entry = lib.ess_conv_lstm_int8_mode if int8 else lib.ess_conv_lstm_mode
     n_ptr = 7 if int8 else 6
+    plan = conv_halo.cell_plan(2, 22, 40, 64, 64, int8=int8)
+    pa = (plan.th, plan.tw, plan.grid, plan.smem)
     for mode in (0, len(cl.MODES)):
-        assert entry(*[None] * n_ptr, 2, 22, 40, 64, 64, mode, None) != 0
+        assert entry(*[None] * n_ptr, 2, 22, 40, 64, 64, *pa, mode,
+                     None) != 0
     # no_build runs and writes finite-or-not values of the right shape
     h3, _ = cl.launch_variant(x, h0, c0.clone(), wgt, bias, mode="no_build",
                               int8=int8)
