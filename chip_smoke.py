@@ -24,9 +24,11 @@ exits non-zero, with no result line):
    B3 also with device-side binning, at 10 bins with integer coordinates,
    and on border and tile-edge events; B4 and B4-int8 at the head and
    first-encoder block shapes (B=2) and at an odd one, with and without
-   ReLU and bias, B4 also at the main path's B=8, where its row's times are
-   taken, beside the library's conv + bias + ReLU, with what ``ptxas -v``
-   said of the halo-tile kernels; B2 and B2-int8 at the three encoder cells
+   ReLU and bias, both also at the main path's B=8, where their rows' times
+   are taken (B4-int8 with its two prep launches, TOP/s and launches per
+   conv), beside the library's conv + bias + ReLU (for B4-int8 not the
+   same function), with the plans and what ``ptxas -v`` said of the
+   halo-tile kernels; B2 and B2-int8 at the three encoder cells
    at B=2 and at the main path's B=8, where their rows' times are taken
    (TFLOP/s or TOP/s, share of bound, the int8 prep's launches per cell,
    and the library's gate conv alone, which is not the same function),
@@ -249,11 +251,18 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
+SPIN_CYCLES = 50_000_000   # ~25 ms of a spin kernel at the H100's clocks
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events). A spin
+    kernel holds the stream while the host enqueues the calls, so that a
+    call whose host work outlasts its device work is still timed on the
+    device alone."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -301,6 +310,7 @@ def reset_counts() -> None:
     voxel_tiled.launches = 0
     conv3x3.launches = 0
     conv3x3.launches_int8 = 0
+    conv3x3.launches_int8_prep = 0
     level.launches = 0
     conv_lstm.launches_variant = 0
     voxel_folded.launches_legacy = 0
@@ -788,12 +798,14 @@ def log_ptxas(what: str, entry: str) -> None:
 
 def log_plan(what: str, plan) -> None:
     """The halo-tile core's plan of a launch: patch, N tile, dynamic shared
-    memory (``ptxas -v`` reports static shared memory only) and grid."""
+    memory (``ptxas -v`` reports static shared memory only), grid and, for
+    B4-int8, its s8 halo tiles (2: the producer kernel)."""
     log(f"  plan {what}: {plan.th}x{plan.tw} pixels x {plan.bn} channels a "
         f"block, {plan.smem} B dynamic shared memory, weights "
         f"{'resident' if plan.resident else 'streamed'} ({plan.chunks} "
         f"chunks), grid {plan.grid_x} x {plan.n_tiles_n} persistent blocks "
-        f"over {plan.n_tiles} pixel tiles")
+        f"over {plan.n_tiles} pixel tiles"
+        + (f", {plan.q_stages} s8 halo tiles" if plan.q_stages else ""))
 
 
 def check_conv3x3(dev):
@@ -882,9 +894,9 @@ def check_conv3x3(dev):
         f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({'/'.join(sorted(bound_by))}), share of bound "
         f"{100.0 * bound_ms / ms:.1f}%")
-    log_ptxas("B4", "conv3x3_halo_kernel")
+    log_ptxas("B4", "conv3x3_halo_kernelILb0E")
     return {"name": "conv3x3", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/conv3x3.cu",
+            "source": "ess_tpu_torch/csrc/conv3x3.cu + conv_halo.cuh",
             "replaces": "ess_tpu/ops/conv3x3_pallas.py:53",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -893,70 +905,104 @@ def check_conv3x3(dev):
 
 
 def check_conv3x3_int8(dev):
+    """B4-int8 against its plain version at CONV_SHAPES (B=2), bit for bit,
+    and at the main path's B=8 for the head and encoder-0 block convs, where
+    the row's times and bound are taken: the two prep launches included,
+    TOP/s, share of bound, launches per conv, the plan and what ``ptxas
+    -v`` said; cuDNN's bf16 conv + bias + ReLU on the same shapes beside it
+    (not the same function: ``library_ms`` stays None)."""
     g = torch.Generator().manual_seed(10)
     err = ms = plain_ms = bound_ms = 0.0
     bound_by = set()
+
+    def compare(what, got, want, exact=None, enforced=False):
+        unequal = int((got != want).sum())
+        e = (got.float() - want.float()).abs().max().item()
+        line = (f"B4-int8 conv3x3_int8 {what}: vs plain int8 {unequal} of "
+                f"{got.numel()} values not bit-identical (bound 0), max|d| "
+                f"{e:.3e}")
+        if exact is not None:
+            de = (got.float() - exact).abs()
+            scale = exact.abs().max().item()
+            e_max, e_mean = de.max().item() / scale, de.mean().item() / scale
+            line += (f"; vs exact plain max error {e_max:.3e} and mean error "
+                     f"{e_mean:.3e} of absmax (JAX bounds {JAX_CONV_INT8_MAX}"
+                     f", {JAX_CONV_INT8_MEAN}: "
+                     f"{'enforced' if enforced else 'reported'})")
+            if enforced and not (e_max < JAX_CONV_INT8_MAX
+                                 and e_mean < JAX_CONV_INT8_MEAN):
+                raise AssertionError(f"B4-int8 ({what}) is beyond the int8 "
+                                     f"bounds: {e_max}, {e_mean}")
+        log(line)
+        if unequal:
+            raise AssertionError(f"B4-int8 ({what}) disagrees with its plain "
+                                 f"version at {unequal} values")
+        return e
+
+    def launch(x, w, bb, relu, prep):
+        n0, p0 = conv3x3.launches_int8, conv3x3.launches_int8_prep
+        got = conv3x3.conv3x3_fused(x, w, bb, relu=relu, impl="pallas_int8",
+                                    prepared=prep)
+        torch.cuda.synchronize()
+        if (conv3x3.launches_int8, conv3x3.launches_int8_prep) != (
+                n0 + 1, p0 + 2):
+            raise AssertionError("conv3x3_fused did not launch B4-int8 and "
+                                 "its two prep kernels once")
+        return got
+
     for name, b, cin, cout, hh, ww in CONV_SHAPES:
         x, w, bias = conv_inputs(g, dev, b, cin, cout, hh, ww)
         prep = conv3x3.prepare_conv_weights(w, int8=True)
         for relu, use_bias in CONV_CASES:
             bb = bias if use_bias else None
-            want = conv3x3.conv3x3_int8_ref(x, w, bb, relu=relu)
-            n0 = conv3x3.launches_int8
-            got = conv3x3.conv3x3_fused(x, w, bb, relu=relu,
-                                        impl="pallas_int8", prepared=prep)
-            torch.cuda.synchronize()
-            if conv3x3.launches_int8 != n0 + 1:
-                raise AssertionError("conv3x3_fused did not launch B4-int8")
-            unequal = int((got != want).sum())
-            e = (got.float() - want.float()).abs().max().item()
-            err = max(err, e)
-            exact = conv3x3.conv3x3_ref(x, w, bb, relu=relu).float()
-            de = (got.float() - exact).abs()
-            scale = exact.abs().max().item()
-            e_max, e_mean = de.max().item() / scale, de.mean().item() / scale
-            enforced = name == "odd" and relu
-            log(f"B4-int8 conv3x3_int8 {name} B={b} {cin}->{cout} {hh}x{ww} "
-                f"relu={relu} bias={use_bias}: vs plain int8 {unequal} of "
-                f"{got.numel()} values not bit-identical (bound 0), max|d| "
-                f"{e:.3e}; vs exact plain max error {e_max:.3e} and mean "
-                f"error {e_mean:.3e} of absmax (JAX bounds "
-                f"{JAX_CONV_INT8_MAX}, {JAX_CONV_INT8_MEAN}: "
-                f"{'enforced' if enforced else 'reported'})")
-            if unequal:
-                raise AssertionError(f"B4-int8 ({name}) disagrees with its "
-                                     f"plain version at {unequal} values")
-            if enforced and not (e_max < JAX_CONV_INT8_MAX
-                                 and e_mean < JAX_CONV_INT8_MEAN):
-                raise AssertionError(f"B4-int8 ({name}) is beyond the int8 "
-                                     f"bounds: {e_max}, {e_mean}")
+            got = launch(x, w, bb, relu, prep)
+            err = max(err, compare(
+                f"{name} B={b} {cin}->{cout} {hh}x{ww} relu={relu} "
+                f"bias={use_bias}", got,
+                conv3x3.conv3x3_int8_ref(x, w, bb, relu=relu),
+                conv3x3.conv3x3_ref(x, w, bb, relu=relu).float(),
+                enforced=name == "odd" and relu))
         if name == "odd":
             continue
-        t_k = cuda_ms(lambda: conv3x3.conv3x3_fused(
-            x, w, bias, relu=True, impl="pallas_int8", prepared=prep), 20)
-        t_p = cuda_ms(lambda: conv3x3.conv3x3_int8_ref(x, w, bias, relu=True),
-                      3)
-        t_b, by = conv_bound(x, w, bias, "int8")
-        ops = 2.0 * b * hh * ww * 9 * cin * cout
-        ms, plain_ms, bound_ms = ms + t_k, plain_ms + t_p, bound_ms + t_b
-        bound_by.add(by)
-        x8 = x.repeat(4, 1, 1, 1).contiguous(memory_format=torch.channels_last)
+        del x
+        # the main path's B=8 (the train rollout's block convs)
+        x8, w, bias = conv_inputs(g, dev, 8, cin, cout, hh, ww)
+        prep = conv3x3.prepare_conv_weights(w, int8=True)
+        err = max(err, compare(
+            f"{name} B=8 {cin}->{cout} {hh}x{ww} relu=True bias=True",
+            launch(x8, w, bias, True, prep),
+            conv3x3.conv3x3_int8_ref(x8, w, bias, relu=True)))
+        lib8, lib_what = library_conv_fn(x8, w, bias)
         t_k8 = cuda_ms(lambda: conv3x3.conv3x3_fused(
-            x8, w, bias, relu=True, impl="pallas_int8", prepared=prep), 10)
+            x8, w, bias, relu=True, impl="pallas_int8", prepared=prep), 20)
+        t_prep = cuda_ms(lambda: conv3x3.int8_prep(x8, prep), 20)
+        t_p8 = cuda_ms(lambda: conv3x3.conv3x3_int8_ref(x8, w, bias,
+                                                        relu=True), 3)
+        t_l8 = cuda_ms(lib8, 20)
         t_b8, by8 = conv_bound(x8, w, bias, "int8")
-        log(f"B4-int8 conv3x3_int8 {name}: kernel {t_k:.3f} ms "
-            f"({ops / t_k / 1e9:.1f} TOP/s, absmax, weight quantization and "
-            f"quantize pre-pass included), plain {t_p:.3f} ms, bound "
-            f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%; "
-            f"at B=8: kernel {t_k8:.3f} ms, bound {t_b8:.4f} ms ({by8}), "
-            f"share {100.0 * t_b8 / t_k8:.1f}%")
-        del x8
+        ops8 = 2.0 * 8 * hh * ww * 9 * cin * cout
+        log(f"B4-int8 conv3x3_int8 {name} B=8 {cin}->{cout} {hh}x{ww}: "
+            f"kernels {t_k8:.3f} ms, 3 launches (prep alone {t_prep:.3f} "
+            f"ms; {ops8 / t_k8 / 1e9:.1f} TOP/s), plain {t_p8:.3f} ms, "
+            f"bound {t_b8:.4f} ms ({by8}), share of bound "
+            f"{100.0 * t_b8 / t_k8:.1f}%; cuDNN bf16 conv + bias + ReLU "
+            f"{t_l8:.3f} ms [{lib_what}; not the same function]")
+        log_plan("B4-int8", conv_halo.conv_plan(
+            8, hh, ww, cin, cout, int8=True,
+            sm_count=conv_halo.sm_count(dev)))
+        ms, plain_ms, bound_ms = ms + t_k8, plain_ms + t_p8, bound_ms + t_b8
+        bound_by.add(by8)
+        del x8, lib8
     log(f"B4-int8 time for the head and encoder-0 block convs (one window, "
-        f"B=2): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({'/'.join(sorted(bound_by))}), share of bound "
-        f"{100.0 * bound_ms / ms:.1f}%")
+        f"B=8, prep included): kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({'/'.join(sorted(bound_by))}), share of "
+        f"bound {100.0 * bound_ms / ms:.1f}%")
+    log_ptxas("B4-int8", "conv3x3_halo_kernelILb1E")
+    log_ptxas("B4-int8 producer kernel", "conv3x3_int8_ws_kernel")
+    log_ptxas("B4-int8 prep", "weight_prep_kernel")
+    log_ptxas("int8 prep absmax", "absmax_kernel")
     return {"name": "conv3x3_int8", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/conv3x3_int8.cu",
+            "source": "ess_tpu_torch/csrc/conv3x3_int8.cu + conv_halo.cuh",
             "replaces": "ess_tpu/ops/conv3x3_pallas.py:55",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -1513,9 +1559,12 @@ def phase_train(dev, kern_rows):
         f"losses {[round(v, 6) for v in losses]}")
     need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
     prep = conv_lstm.launches_int8_prep / counts[2]
-    log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3)")
-    if prep > 3:
-        raise AssertionError(f"{prep} int8 prep launches per cell")
+    log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3); int8 "
+        f"conv prep launches {conv3x3.launches_int8_prep} (no int8 conv on "
+        "this form)")
+    if prep > 3 or conv3x3.launches_int8_prep:
+        raise AssertionError(f"{prep} int8 prep launches per cell, "
+                             f"{conv3x3.launches_int8_prep} conv prep")
     add_launches(kern_rows, "train", counts)
     changed = sum(not torch.equal(v, head0[k])
                   for k, v in mods.head.state_dict().items())
@@ -1990,6 +2039,12 @@ def phase_block(dev, kern_rows):
             f"({FORM_TEXT[form]}): launches {show_counts(counts)}, loss "
             f"{first[form]:.6f}")
         need_counts(counts, (1, 0, 3 * WINDOWS, 0, 0, 2 * WINDOWS * kern))
+        prep = conv3x3.launches_int8_prep
+        log(f"  int8 conv prep kernel launches: {prep} for {counts[5]} "
+            f"convs (2 a conv: 3 launches a conv in all, bound 3)")
+        if prep != 2 * counts[5]:
+            raise AssertionError(f"{prep} int8 conv prep launches for "
+                                 f"{counts[5]} convs")
         if kern:
             add_launches(kern_rows, "train_block_conv", counts)
     mods_p, state_p, step_p = bench.build_train(bench.make_cfg(8), dev,

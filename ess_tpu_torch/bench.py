@@ -29,7 +29,8 @@ block convs on the fused conv kernel (``block_conv_impl='pallas'``, the
 train rollout ``'pallas_int8'`` beside its int8 ConvLSTM cell), its metric
 name extended by ``_block_conv_pallas``. ``--profile DIR`` traces 20
 streaming windows at each batch size, one eval step and one headline train
-step (each in the builder's form) with
+step (each in the builder's form), and one train step with the block
+convs on the int8 fused conv kernel, with
 ``torch.profiler`` and prints device time by kernel and the device's idle
 share for each, with the traces in ``DIR``. It needs a CUDA device and
 raises without one; there is no fallback configuration.
@@ -397,6 +398,10 @@ def main(argv=None) -> None:
                       "unit": "windows/s",
                       "vs_baseline": round(wps / BASELINE_WINDOWS_PER_SEC, 3),
                       "device": name})
+        if args.profile and form == "block_pallas":
+            print(json.dumps({"profile": profile_call(
+                lambda: float(step(state, batch)["loss"]), args.profile,
+                "train_step" + PALLAS_SUFFIX), "device": name}), flush=True)
         del mods
     for line in lines[:-1]:
         print(json.dumps(line), flush=True)

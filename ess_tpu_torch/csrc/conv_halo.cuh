@@ -1,9 +1,10 @@
 // Halo-tile implicit-GEMM 3x3 SAME conv core for Hopper, shared by the
-// exact fused conv B4 (conv3x3.cu, NHWC input), the C-major head conv T1
-// (head_cmajor.cu, NCHW input with the normalize fused) and the ConvLSTM
-// cell kernels B2 and B2-int8 (conv_lstm.cu, conv_lstm_int8.cu; their
-// kernel, with a producer warpgroup, TMA halos and streamed weight stages,
-// is the last section of this file).
+// fused 3x3 conv over NHWC in its exact (B4, conv3x3.cu) and int8 (B4-int8,
+// conv3x3_int8.cu) instantiations, the C-major head conv T1 (head_cmajor.cu,
+// NCHW input with the normalize fused) and the ConvLSTM cell kernels B2 and
+// B2-int8 (conv_lstm.cu, conv_lstm_int8.cu; their kernel, with a producer
+// warpgroup, TMA halos and streamed weight stages, is the last section of
+// this file).
 //
 // Output tile: a block of two warpgroups owns TH x TW output pixels of one
 // image (8 x 16 when the block is 128 channels wide, 8 x 32 or 16 x 16 when
@@ -14,33 +15,38 @@
 // loads overlap this tile's products and epilogue.
 //
 // Halo tile: the (TH+2) x (TW+2) input pixels around the patch, one channel
-// chunk of kKC = 32 channels at a time, are staged into shared memory
-// pixel-major ([pixel][channel], kPixBytes = 80 bytes a pixel: an odd
-// multiple of 16, so the 8 row addresses of an ldmatrix fall on 8 distinct
-// 16-byte bank groups). Every input value is loaded from device memory once
-// per halo, not once per tap; zeros outside the image are the conv's
-// padding, zeros past C_in the K padding (their weight columns are zero).
-// The loaders are the callers': cp.async straight from NHWC (B4), or
-// aligned cp.async of C-major rows and one normalize pass (T1).
+// chunk of 64 bytes a pixel at a time (kKC = 32 bf16 channels, or 64 s8),
+// are staged into shared memory pixel-major ([pixel][channel], kPixBytes = 80
+// bytes a pixel: an odd multiple of 16, so the 8 row addresses of an
+// ldmatrix fall on 8 distinct 16-byte bank groups). Every input value is
+// loaded from device memory once per halo, not once per tap; zeros outside
+// the image are the conv's padding, zeros past C_in the K padding (their
+// weight columns are zero). The loaders are the callers': cp.async straight
+// from NHWC (B4), the same copies of the chunk's bf16 pixels into a raw
+// stage and one quantizing pass into the s8 halo tile (B4-int8), or aligned
+// cp.async of C-major rows and one normalize pass (T1).
 //
 // Taps: every tap's A fragment is an ldmatrix from the halo tile shifted by
 // (dy, dx) pixels: one uniform offset added to per-lane row addresses
 // computed once.
 //
-// MMA: wgmma in its register-A form, m64 x BN x k16 per instruction, f32
-// accumulators. Each warpgroup owns MT m64 row tiles of the block and all
-// BN columns; each warp loads the A fragment of its 16 rows with ldmatrix
-// (the register form shares the m16n8k16 fragment layout), and the tensor
-// cores read B from shared memory in the no-swizzle K-major layout of 8 x
-// 16-byte core matrices, [k group of 8 channels][n][8 channels]: the
-// descriptor's core-matrix strides are BN * 16 bytes along K and 128 bytes
-// along N. The register form keeps the shifted-row addressing of the taps
-// (a shared-memory A operand would need a canonical copy per tap). The 18
+// MMA: wgmma in its register-A form, m64 x BN x k16 (bf16, f32
+// accumulators) or m64 x BN x k32 (s8, s32 accumulators) per instruction:
+// 32 bytes of K either way. Each warpgroup owns MT m64 row tiles of the
+// block and all BN columns; each warp loads the A fragment of its 16 rows
+// with ldmatrix (the register form shares the m16n8k16 fragment layout, and
+// the s8 m16n8k32 fragment is byte for byte the same), and the tensor cores
+// read B from shared memory in the no-swizzle K-major layout of 8 x 16-byte
+// core matrices, [k group of 16 bytes][n][16 bytes]: the descriptor's
+// core-matrix strides are BN * 16 bytes along K and 128 bytes along N. The
+// register form keeps the shifted-row addressing of the taps (a
+// shared-memory A operand would need a canonical copy per tap). The 18
 // k-steps of a chunk are issued in batches, the next batch's fragments
 // loaded while one batch of wgmma groups is in flight.
 //
-// Epilogue: bias, optional ReLU, one rounding to bf16; each warp stages its
-// 16 rows 32 columns at a time in its own shared-memory slot (no block
+// Epilogue: bias (int8: float(acc) * ws first, each f32 operation rounded
+// on its own), optional ReLU, one rounding to bf16; each warp stages its 16
+// rows 32 columns at a time in its own shared-memory slot (no block
 // barrier) and writes 16-byte chunks: NHWC rows of 64 bytes, or NCHW runs
 // of 16 pixels along W.
 //
@@ -77,6 +83,7 @@ struct Plan {
   int tiles_y, tiles_x;     // patches per image
   int n_tiles;              // B * tiles_y * tiles_x
   int resident;             // every weight chunk of the N tile held at once
+  int q_stages;             // B4-int8: s8 halo tiles (1 or 2)
 };
 
 // MT m64 row tiles per warpgroup, BN output channels: BM = 2 * MT * 64
@@ -106,6 +113,16 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // cp.async writes shared memory through the generic proxy; wgmma reads its
 // shared-memory operand through the async proxy
 __device__ __forceinline__ void fence_proxy_async() {
@@ -121,6 +138,17 @@ __device__ __forceinline__ void fence_acc(float (&acc)[MT][NT][4]) {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         asm volatile("" : "+f"(acc[i][j][r])::"memory");
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void fence_acc(int (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        asm volatile("" : "+r"(acc[i][j][r])::"memory");
 }
 
 // Shared-memory matrix descriptor, no swizzle: start address, the byte
@@ -225,6 +253,103 @@ struct Wgmma<128> {
   }
 };
 
+// The same with s8 operands and s32 accumulators: a (16 rows x k32 s8, the
+// m16n8k32 fragment, byte for byte the bf16 m16n8k16 one), B k32 x N s8
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<32> {
+  __device__ static __forceinline__ void mma(int (&d)[4][4],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  __device__ static __forceinline__ void mma(int (&d)[8][4],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  __device__ static __forceinline__ void mma(int (&d)[16][4],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+          "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+          "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+          "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+          "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+          "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+          "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+          "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+          "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// The product of an accumulator type: bf16 operands into f32, s8 into s32
+template <typename Acc, int N>
+using WgmmaOf = std::conditional_t<std::is_same_v<Acc, int>, WgmmaS8<N>,
+                                   Wgmma<N>>;
+
 struct TilePos {
   int b, y0, x0;
 };
@@ -270,14 +395,14 @@ struct Frag {
   }
 };
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+template <int MT, int NT, typename Acc>
+__device__ __forceinline__ void zero(Acc (&acc)[MT][NT][4]) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = Acc(0);
 }
 
 // The A fragments of k-step s (tap s / 2, channel half s % 2) of a chunk.
@@ -293,15 +418,16 @@ __device__ __forceinline__ void load_a(unsigned (&a)[MT][4],
 }
 
 // acc += the nine taps of one channel chunk: halo tile x weight chunk, 18
-// k-steps of wgmma in batches of KB = kBatch<BN> steps between one fence
-// and one commit; the fragments of batch i + 1 are loaded once batch i - 1
-// has retired (one batch stays in flight).
-template <int MT, int BN>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MT][BN / 8][4],
+// k-steps of wgmma (32 bytes of K each: 16 bf16 or 32 s8 channels) in
+// batches of KB = kBatch<BN> steps between one fence and one commit; the
+// fragments of batch i + 1 are loaded once batch i - 1 has retired (one
+// batch stays in flight).
+template <int MT, int BN, typename Acc>
+__device__ __forceinline__ void mma_chunk(Acc (&acc)[MT][BN / 8][4],
                                           const unsigned char* halo,
                                           const unsigned char* wts,
                                           const Frag<MT>& f) {
-  constexpr int kSteps = 9 * kKC / 16;
+  constexpr int kSteps = 18;
   constexpr int KB = kBatch<BN>, NB = kSteps / KB;
   static_assert(kSteps % KB == 0, "batches must tile the chunk's k-steps");
   unsigned a[2][KB][MT][4];
@@ -315,12 +441,12 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MT][BN / 8][4],
 #pragma unroll
     for (int j = 0; j < KB; ++j) {
       const int s = bt * KB + j;
-      // k groups 2s, 2s + 1 of the chunk: channels 16 s .. 16 s + 15 of the
+      // k groups 2s, 2s + 1 of the chunk: bytes 32 s .. 32 s + 31 of the
       // chunk's [tap][channel] columns
       const uint64_t desc = make_desc(wbase + s * 2 * BN * 16, BN * 16, 128);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        Wgmma<BN>::mma(acc[mt], a[bt & 1][j][mt], desc);
+        WgmmaOf<Acc, BN>::mma(acc[mt], a[bt & 1][j][mt], desc);
     }
     wgmma_commit();
     if (bt + 1 < NB) {
@@ -335,10 +461,10 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MT][BN / 8][4],
 }
 
 // One chunk of weights for output channels n0 .. n0+BN-1 into shared memory
-// as wgmma's K-major core matrices: [k group (tap*4 + 8-channel part)][n][8
-// channels], BN * 576 bytes; rows past COUT are zero. w: (COUT, 9*CP) bf16,
-// column tap*CP + cin.
-template <int BN>
+// as wgmma's K-major core matrices: [k group (tap*4 + 16-byte part)][n][16
+// bytes], BN * 576 bytes; rows past COUT are zero. w: (COUT, 9*CP) of ES-byte
+// values (bf16 or s8), column tap*CP + cin; a chunk is 64 / ES channels.
+template <int BN, int ES = 2>
 __device__ __forceinline__ void load_weights(unsigned char* dst,
                                              const unsigned char* w, int n0,
                                              int COUT, int CP, int chunk) {
@@ -347,22 +473,36 @@ __device__ __forceinline__ void load_weights(unsigned char* dst,
     const int tap = kg >> 2, part = (kg & 3) * 16;
     const bool ok = n0 + row < COUT;
     const unsigned char* src =
-        w + ((int64_t)(n0 + row) * 9 * CP + tap * CP + chunk * kKC) * 2 + part;
+        w + ((int64_t)(n0 + row) * 9 * CP + tap * CP + chunk * (64 / ES)) *
+                ES +
+        part;
     cp_async_zfill<16>(dst + (kg * BN + row) * 16, ok ? src : w, ok);
   }
 }
 
-// Epilogue of one warp: + bias, ReLU, one rounding to bf16, staged per m16
-// row tile and 32 columns in this warp's slot, then 16-byte stores. NHWC:
-// 16 pixels x 32 channels, two chunks a lane along the channel rows. NCHW:
-// 32 channels x 16 pixels, two 8-pixel runs a lane along W (element stores
-// where W is not a multiple of 8).
-template <int MT, int NT>
+// The value before the activation: acc + bias (f32 accumulators), or
+// float(acc) * ws + bias with each f32 operation rounded on its own (s32
+// accumulators): the plain int8 conv's elementwise operations in its order.
+__device__ __forceinline__ float pre_act(float acc, float, float b) {
+  return acc + b;
+}
+
+__device__ __forceinline__ float pre_act(int acc, float s, float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
+}
+
+// Epilogue of one warp: pre_act (ws: the s32 accumulators' column scales,
+// unused for f32), ReLU, one rounding to bf16, staged per m16 row tile and
+// 32 columns in this warp's slot, then 16-byte stores. NHWC: 16 pixels x 32
+// channels, two chunks a lane along the channel rows. NCHW: 32 channels x
+// 16 pixels, two 8-pixel runs a lane along W (element stores where W is not
+// a multiple of 8).
+template <int MT, int NT, typename Acc>
 __device__ __forceinline__ void store_tile(
-    const float (&acc)[MT][NT][4], const float* __restrict__ bias, int relu,
-    int nchw, unsigned char* slot, __nv_bfloat16* __restrict__ out,
-    const TilePos& tp, int tw, int H, int W, int COUT, int n0, int warp,
-    int lane) {
+    const Acc (&acc)[MT][NT][4], const float* __restrict__ ws,
+    const float* __restrict__ bias, int relu, int nchw, unsigned char* slot,
+    __nv_bfloat16* __restrict__ out, const TilePos& tp, int tw, int H, int W,
+    int COUT, int n0, int warp, int lane) {
   __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(slot);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -377,11 +517,16 @@ __device__ __forceinline__ void store_tile(
         const int col = nt * 8 + (lane & 3) * 2;
         const float b0 = n_grp + col < COUT ? bias[n_grp + col] : 0.f;
         const float b1 = n_grp + col + 1 < COUT ? bias[n_grp + col + 1] : 0.f;
+        float s0 = 0.f, s1 = 0.f;
+        if constexpr (std::is_same_v<Acc, int>) {
+          s0 = n_grp + col < COUT ? ws[n_grp + col] : 0.f;
+          s1 = n_grp + col + 1 < COUT ? ws[n_grp + col + 1] : 0.f;
+        }
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = (lane >> 2) + half * 8;
-          float v0 = acc[mt][cg * 4 + nt][half * 2] + b0;
-          float v1 = acc[mt][cg * 4 + nt][half * 2 + 1] + b1;
+          float v0 = pre_act(acc[mt][cg * 4 + nt][half * 2], s0, b0);
+          float v1 = pre_act(acc[mt][cg * 4 + nt][half * 2 + 1], s1, b1);
           if (relu) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
@@ -435,6 +580,478 @@ __host__ int prepare_launch(Kernel kern, int smem) {
   if (smem <= 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// ---------------------------------------------------------------------------
+// The fused 3x3 conv over NHWC on the core: B4 (conv3x3.cu, bf16 operands,
+// f32 accumulators) and B4-int8 (conv3x3_int8.cu, s8 x s8 -> s32).
+//
+// B4 copies each chunk's halo pixels with cp.async straight into the halo
+// tile (VECB = 16 or 8 bytes, the largest that divides a pixel's CIN*2
+// bytes: the head's 20 channels are 40 bytes, which also rules out TMA).
+// B4-int8 copies the same bf16 pixels, 64 channels a chunk, into a raw stage
+// of conv_raw_pitch bytes a pixel, then quantizes it into an s8 halo tile
+// (x * (1/s_x) rounded half to even, as the plain version's quantize), so
+// no int8 copy of x exists in device memory. Two kernels:
+//  - conv3x3_halo_kernel (256 threads: two warpgroups that each copy,
+//    quantize, multiply and store): B4, and B4-int8 with one s8 halo tile
+//    (the plan's q_stages = 1), which it quantizes between two block
+//    barriers. Stage g + 1 is copied while stage g is multiplied.
+//  - conv3x3_int8_ws_kernel (384 threads, q_stages = 2, every weight chunk
+//    resident): a producer warpgroup copies stage g + 1 and quantizes
+//    stage g into one of two s8 halo tiles while the two consumer
+//    warpgroups multiply stage g - 1 and store; named barriers hand the s8
+//    halos over. The copies, the quantize pass and the products then run
+//    side by side, where one block's warps would otherwise run them one
+//    after the other.
+//
+// Shared memory, as ops/conv_halo.py::conv_smem lays it out:
+//   [weights: every chunk (resident) or two stages][in 0][in 1]
+//   [s8 halo x q_stages (int8)][epilogue slots of the 8 multiplying warps]
+// with "in" the halo tile (B4) or the raw stage (B4-int8).
+
+// bytes of one raw-stage pixel: the chunk's bf16 channels, at most 64
+__host__ __device__ inline int conv_raw_pitch(int CIN) {
+  return (CIN < 64 ? CIN : 64) * 2;
+}
+
+__host__ __device__ inline int conv_smem(bool int8, int th, int tw, int BN,
+                                         int chunks, bool resident, int CIN,
+                                         int q_stages) {
+  const int npix = (th + 2) * (tw + 2);
+  const int halo = npix * kPixBytes;
+  const int in = int8 ? npix * conv_raw_pitch(CIN) : halo;
+  return (resident ? chunks : 2) * BN * kWRowBytes + 2 * in +
+         (int8 ? q_stages * halo : 0) + kWarps * kStageNhwc;
+}
+
+// 4 bf16 values (lo, hi: two packed pairs) times s = 1/s_x, each rounded
+// half to even, as 4 s8 bytes: the plain version's quantize, whose clip to
+// [-127, 127] cannot bind here. |x| <= absmax(x) and s_x = absmax / 127
+// and 1/s_x are each rounded once, so |x * s| <= 127 (1 + 2^-22) < 127.5.
+// Rounding is one add of 1.5 * 2^23, which leaves the integer in the low
+// mantissa bits (exact for |v| < 2^22) without the conversion unit.
+__device__ __forceinline__ unsigned quant_bf16x4(unsigned lo, unsigned hi,
+                                                 float s) {
+  auto q = [s](unsigned bits) {
+    return __float_as_uint(
+        __fadd_rn(__fmul_rn(__uint_as_float(bits), s), 12582912.f));
+  };
+  return __byte_perm(__byte_perm(q(lo << 16), q(lo & 0xffff0000u), 0x0040),
+                     __byte_perm(q(hi << 16), q(hi & 0xffff0000u), 0x0040),
+                     0x5410);
+}
+
+// n / d for the small n of a halo tile (n * d < 2^32): one multiply-high
+// by a constant computed once
+struct Div {
+  unsigned d, m;
+  __device__ __forceinline__ explicit Div(unsigned d_)
+      : d(d_), m(d_ > 1 ? 0xffffffffu / d_ + 1 : 0) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    return d > 1 ? (int)__umulhi((unsigned)n, m) : n;
+  }
+};
+
+// The input side of the NHWC conv for one launch: copying a stage's input
+// pixels (the halo of one pixel tile and one chunk) and, for B4-int8,
+// quantizing the raw stage into an s8 halo tile. Threads t of nt share the
+// work.
+template <bool INT8, int VECB>
+struct Stager {
+  static constexpr int kChunkIn = INT8 ? 128 : 64;   // x bytes a pixel+chunk
+  const unsigned char* x;
+  int H, W, CINB, hw, npix, in_pitch, per;
+  Div by_hw, by_per;
+
+  __device__ __forceinline__ Stager(const unsigned char* x_, int H_, int W_,
+                                    int CINB_, const Plan& p)
+      : x(x_), H(H_), W(W_), CINB(CINB_), hw(p.tw + 2),
+        npix((p.th + 2) * (p.tw + 2)),
+        in_pitch(INT8 ? conv_raw_pitch(CINB_ / 2) : kPixBytes),
+        per((INT8 ? conv_raw_pitch(CINB_ / 2) : 64) / VECB), by_hw(p.tw + 2),
+        by_per((INT8 ? conv_raw_pitch(CINB_ / 2) : 64) / VECB) {}
+
+  // chunk k of the halo of tile tp into dst, zero outside the image and
+  // past CIN (cp.async, VECB bytes a copy)
+  __device__ __forceinline__ void copy(unsigned char* dst, const TilePos& tp,
+                                       int k, int t, int nt) const {
+    for (int c = t; c < npix * per; c += nt) {
+      const int px = by_per(c), j = c - px * per;
+      const int hr = by_hw(px), hc = px - hr * hw;
+      const int y = tp.y0 - 1 + hr, xx = tp.x0 - 1 + hc;
+      const int cb = k * kChunkIn + j * VECB;
+      const bool ok = y >= 0 && y < H && xx >= 0 && xx < W && cb < CINB;
+      const unsigned char* src =
+          x + (((int64_t)tp.b * H + y) * W + xx) * CINB + cb;
+      ess::cp_async_zfill<VECB>(dst + px * in_pitch + j * VECB,
+                                ok ? src : x, ok);
+    }
+  }
+
+  // the raw stage in quantized by inv_sx into the s8 halo hq: VECB raw
+  // bytes (VECB / 2 channels) into VECB / 2 s8 bytes a step
+  __device__ __forceinline__ void quantize(unsigned char* hq,
+                                           const unsigned char* in,
+                                           float inv_sx, int t,
+                                           int nt) const {
+    for (int c = t; c < npix * per; c += nt) {
+      const int px = by_per(c), j = c - px * per;
+      const unsigned char* src = in + px * in_pitch + j * VECB;
+      unsigned char* dst = hq + px * kPixBytes + j * (VECB / 2);
+      if constexpr (VECB == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(
+            quant_bf16x4(v.x, v.y, inv_sx), quant_bf16x4(v.z, v.w, inv_sx));
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        *reinterpret_cast<unsigned*>(dst) = quant_bf16x4(v.x, v.y, inv_sx);
+      }
+    }
+  }
+};
+
+template <bool INT8, int MT, int BN, int VECB>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<BN>)
+conv3x3_halo_kernel(const unsigned char* __restrict__ x,   // NHWC bf16
+                    const unsigned char* __restrict__ w,   // (COUT, 9*CP)
+                    const float* __restrict__ ws,          // int8: (COUT,)
+                    const float* __restrict__ scal,        // int8: s_x, 1/s_x
+                    const float* __restrict__ bias,        // (COUT,)
+                    __nv_bfloat16* __restrict__ out,       // NHWC
+                    int H, int W, int CINB, int COUT, int CP, int relu,
+                    Plan p) {
+  using Acc = std::conditional_t<INT8, int, float>;
+  constexpr int ES = INT8 ? 1 : 2;            // bytes of an operand value
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunks = CP * ES / 64;
+  const Stager<INT8, VECB> st(x, H, W, CINB, p);
+  const int halo_bytes = st.npix * kPixBytes;
+  const int in_bytes = st.npix * st.in_pitch;
+  constexpr int wchunk = BN * kWRowBytes;
+  const int n0 = blockIdx.y * BN;
+  unsigned char* in_ring = smem + (p.resident ? chunks : 2) * wchunk;
+  unsigned char* halo_q = in_ring + 2 * in_bytes;   // int8: the s8 halo
+  unsigned char* slot =
+      halo_q + (INT8 ? halo_bytes : 0) + warp * kStageNhwc;
+
+  const int G = my_tiles(p) * chunks;
+  if (G == 0) return;
+  // stage g: pixel tile g / chunks of this block, chunk g % chunks
+  auto tile_of = [&](int g) {
+    return tile_pos(p, blockIdx.x + (g / chunks) * gridDim.x);
+  };
+  // the input pixels of stage g into in stage g & 1, its weights into
+  // weight stage g & 1 where they are streamed
+  auto issue = [&](int g) {
+    st.copy(in_ring + (g & 1) * in_bytes, tile_of(g), g % chunks, tid,
+            kThreads);
+    if (!p.resident)
+      load_weights<BN, ES>(smem + (g & 1) * wchunk, w, n0, COUT, CP,
+                           g % chunks);
+  };
+
+  float inv_sx = 0.f;
+  if constexpr (INT8) {
+    inv_sx = scal[1];
+    // channels past the raw stage's (CIN < 64) stay zero: the K padding
+    for (int c = tid; c < halo_bytes / 16; c += kThreads)
+      reinterpret_cast<uint4*>(halo_q)[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (p.resident)
+    for (int k = 0; k < chunks; ++k)
+      load_weights<BN, ES>(smem + k * wchunk, w, n0, COUT, CP, k);
+  issue(0);
+  ess::cp_async_commit();
+
+  const Frag<MT> f(p.tw, warp, lane);
+  Acc acc[MT][BN / 8][4];
+
+  for (int g = 0; g < G; ++g) {
+    const int k = g % chunks;
+    ess::cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();          // stage g landed; stage g+1's buffers are free
+    if (g + 1 < G) issue(g + 1);
+    ess::cp_async_commit();
+    if (k == 0) zero(acc);
+    const unsigned char* in = in_ring + (g & 1) * in_bytes;
+    const unsigned char* wts = smem + (p.resident ? k : g & 1) * wchunk;
+    if constexpr (INT8) {
+      st.quantize(halo_q, in, inv_sx, tid, kThreads);
+      __syncthreads();        // the s8 halo is ready
+      mma_chunk<MT, BN>(acc, halo_q, wts, f);
+    } else {
+      mma_chunk<MT, BN>(acc, in, wts, f);
+    }
+    if (k == chunks - 1)
+      store_tile(acc, ws, bias, relu, 0, slot, out, tile_of(g), p.tw, H, W,
+                 COUT, n0, warp, lane);
+  }
+  ess::cp_async_wait<0>();
+}
+
+constexpr int kWsThreads = 384;   // two consumer warpgroups + a producer
+constexpr int kProducers = 128;
+// registers a thread after setmaxnreg: the launch holds 168 a thread (the
+// launch bound), and an increase waits for registers that a decrease freed,
+// so the two must sum to the launch's: else the consumers wait forever
+constexpr int kWsProducerRegs = 56, kWsConsumerRegs = 224;
+static_assert(kThreads * kWsConsumerRegs + kProducers * kWsProducerRegs ==
+                  kWsThreads * 168,
+              "setmaxnreg must hand over exactly the launch's registers");
+// named barriers (0 is __syncthreads'): s8 halo s full, s8 halo s empty,
+// and the producer warpgroup's own
+constexpr int kBarFull = 1, kBarEmpty = 3, kBarProducer = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int MT, int BN, int VECB>
+__global__ void __launch_bounds__(kWsThreads, 1)
+conv3x3_int8_ws_kernel(const unsigned char* __restrict__ x,   // NHWC bf16
+                       const unsigned char* __restrict__ w,   // (COUT, 9*CP)
+                       const float* __restrict__ ws,          // (COUT,)
+                       const float* __restrict__ scal,        // s_x, 1/s_x
+                       const float* __restrict__ bias,        // (COUT,)
+                       __nv_bfloat16* __restrict__ out,       // NHWC
+                       int H, int W, int CINB, int COUT, int CP, int relu,
+                       Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunks = CP / 64;
+  const Stager<true, VECB> st(x, H, W, CINB, p);
+  const int halo_bytes = st.npix * kPixBytes;
+  const int in_bytes = st.npix * st.in_pitch;
+  constexpr int wchunk = BN * kWRowBytes;
+  const int n0 = blockIdx.y * BN;
+  unsigned char* in_ring = smem + chunks * wchunk;   // weights resident
+  unsigned char* halo_q = in_ring + 2 * in_bytes;   // two s8 halos
+
+  const int G = my_tiles(p) * chunks;
+  if (G == 0) return;
+  auto tile_of = [&](int g) {
+    return tile_pos(p, blockIdx.x + (g / chunks) * gridDim.x);
+  };
+  // channels past the raw stage's (CIN < 64) stay zero: the K padding
+  for (int c = tid; c < 2 * halo_bytes / 16; c += kWsThreads)
+    reinterpret_cast<uint4*>(halo_q)[c] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid < kThreads)
+    for (int k = 0; k < chunks; ++k)
+      load_weights<BN, 1>(smem + k * wchunk, w, n0, COUT, CP, k);
+  ess::cp_async_commit();
+  ess::cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  if (warp >= kWarps) {
+    // producer: stage g + 1's copies in flight while stage g is quantized
+    setmaxnreg_dec<kWsProducerRegs>();
+    const int t = tid - kThreads;
+    const float inv_sx = scal[1];
+    auto issue = [&](int g) {
+      st.copy(in_ring + (g & 1) * in_bytes, tile_of(g), g % chunks, t,
+              kProducers);
+    };
+    issue(0);
+    ess::cp_async_commit();
+    for (int g = 0; g < G; ++g) {
+      const int s = g & 1;
+      if (g + 1 < G) issue(g + 1);
+      ess::cp_async_commit();
+      ess::cp_async_wait<1>();
+      bar_sync(kBarProducer, kProducers);       // stage g landed
+      // s8 halo s held stage g - 2 until the consumers released it
+      if (g >= 2) bar_sync(kBarEmpty + s, kWsThreads);
+      st.quantize(halo_q + s * halo_bytes, in_ring + s * in_bytes, inv_sx,
+                  t, kProducers);
+      __threadfence_block();
+      bar_arrive(kBarFull + s, kWsThreads);
+      // raw stage s is free for stage g + 2 once every producer is done
+      bar_sync(kBarProducer, kProducers);
+    }
+    ess::cp_async_wait<0>();
+  } else {
+    setmaxnreg_inc<kWsConsumerRegs>();
+    const Frag<MT> f(p.tw, warp, lane);
+    unsigned char* slot = halo_q + 2 * halo_bytes + warp * kStageNhwc;
+    int acc[MT][BN / 8][4];
+    for (int g = 0; g < G; ++g) {
+      const int s = g & 1, k = g % chunks;
+      bar_sync(kBarFull + s, kWsThreads);       // stage g quantized
+      if (k == 0) zero(acc);
+      mma_chunk<MT, BN>(acc, halo_q + s * halo_bytes, smem + k * wchunk, f);
+      // every wait of the producer on a release is matched by one
+      if (g + 2 < G) bar_arrive(kBarEmpty + s, kWsThreads);
+      if (k == chunks - 1)
+        store_tile(acc, ws, bias, relu, 0, slot, out, tile_of(g), p.tw, H, W,
+                   COUT, n0, warp, lane);
+    }
+  }
+}
+
+template <bool INT8, int MT, int BN, int VECB>
+int conv_launch_shape(const void* x, const void* w, const void* ws,
+                      const void* scal, const void* bias, void* out, int H,
+                      int W, int CIN, int COUT, int CP, int relu,
+                      const Plan& p, int grid_x, int smem, void* stream) {
+  if (p.th * p.tw != Cfg<MT, BN>::BM || p.tw % 16 != 0 ||
+      (p.q_stages == 2 && !p.resident))
+    return (int)cudaErrorInvalidValue;
+  const int chunks = CP * (INT8 ? 1 : 2) / 64;
+  if (smem != conv_smem(INT8, p.th, p.tw, BN, chunks, p.resident, CIN,
+                        p.q_stages))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kern, int threads) {
+    int err = prepare_launch(kern, smem);
+    if (err) return err;
+    dim3 grid(grid_x, (COUT + BN - 1) / BN);
+    kern<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const unsigned char*)x, (const unsigned char*)w, (const float*)ws,
+        (const float*)scal, (const float*)bias, (__nv_bfloat16*)out, H, W,
+        CIN * 2, COUT, CP, relu, p);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (INT8)
+    if (p.q_stages == 2)
+      return run(conv3x3_int8_ws_kernel<MT, BN, VECB>, kWsThreads);
+  return run(conv3x3_halo_kernel<INT8, MT, BN, VECB>, kThreads);
+}
+
+template <bool INT8, int MT, int BN>
+int conv_launch_vec(const void* x, const void* w, const void* ws,
+                    const void* scal, const void* bias, void* out, int H,
+                    int W, int CIN, int COUT, int CP, int relu,
+                    const Plan& p, int grid_x, int smem, void* stream) {
+  // CIN is a multiple of 4: a pixel's CIN * 2 bytes are a multiple of 8
+  if (CIN % 8 == 0)
+    return conv_launch_shape<INT8, MT, BN, 16>(x, w, ws, scal, bias, out, H,
+                                               W, CIN, COUT, CP, relu, p,
+                                               grid_x, smem, stream);
+  return conv_launch_shape<INT8, MT, BN, 8>(x, w, ws, scal, bias, out, H, W,
+                                            CIN, COUT, CP, relu, p, grid_x,
+                                            smem, stream);
+}
+
+// Launch the NHWC conv with the plan of ops/conv_halo.py::conv_plan; the
+// layout is recomputed here and a plan that disagrees is refused. x: bf16
+// NHWC (B, H, W, CIN), CIN a multiple of 4; w: (COUT, 9*CP) bf16 with CP =
+// CIN rounded up to 32, or s8 with CP = CIN rounded up to 64 (INT8); ws:
+// f32 (COUT,) and scal: f32 (s_x, 1/s_x) on the device (INT8 only); bias:
+// f32 (COUT,); out: bf16 NHWC (B, H, W, COUT), COUT a multiple of 8. All
+// 16-byte aligned. Returns a cudaError_t.
+template <bool INT8>
+int conv_launch(const void* x, const void* w, const void* ws,
+                const void* scal, const void* bias, void* out, int B, int H,
+                int W, int CIN, int COUT, int relu, int th, int tw,
+                int resident, int q_stages, int grid_x, int smem,
+                void* stream) {
+  if ((int64_t)B * H * W == 0 || COUT == 0) return 0;
+  if (CIN <= 0 || CIN % 4 != 0 || COUT % 8 != 0 || th <= 0 || tw <= 0 ||
+      grid_x <= 0 ||
+      (INT8 && (ws == nullptr || scal == nullptr || q_stages < 1 ||
+                q_stages > 2)))
+    return (int)cudaErrorInvalidValue;
+  const int kc = INT8 ? 64 : kKC;
+  const int CP = (CIN + kc - 1) / kc * kc;
+  Plan p;
+  p.th = th;
+  p.tw = tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.n_tiles = B * p.tiles_y * p.tiles_x;
+  p.resident = resident;
+  p.q_stages = INT8 ? q_stages : 0;
+  if (COUT > 64)
+    return conv_launch_vec<INT8, 1, 128>(x, w, ws, scal, bias, out, H, W, CIN,
+                                         COUT, CP, relu, p, grid_x, smem,
+                                         stream);
+  if (COUT > 32)
+    return conv_launch_vec<INT8, 2, 64>(x, w, ws, scal, bias, out, H, W, CIN,
+                                        COUT, CP, relu, p, grid_x, smem,
+                                        stream);
+  return conv_launch_vec<INT8, 2, 32>(x, w, ws, scal, bias, out, H, W, CIN,
+                                      COUT, CP, relu, p, grid_x, smem, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 preps' first kernel, shared by B2-int8 and B4-int8: the per-call
+// x scale s_x = max(absmax(x), 1e-8) / 127 is reduced in two steps, per
+// block maxima here, then in every block of the prep kernel that follows
+// (x_scales). No host sync: the scales stay on the device.
+
+constexpr int kPrepThreads = 256;
+constexpr int kMaxPartials = 512;   // ops/conv_lstm.py::PREP_PARTIALS
+
+// max over the block of v (every thread gets it)
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < kPrepThreads / 32; ++w) v = fmaxf(v, red[w]);
+  return v;
+}
+
+// max |x| of n bf16 values over their bits (non-negative bf16 values order
+// as their bits), one partial a block; x 16-byte aligned
+static __global__ void __launch_bounds__(kPrepThreads)
+absmax_kernel(const __nv_bfloat16* __restrict__ x, int64_t n,
+              float* __restrict__ partials) {
+  __shared__ float red[kPrepThreads / 32];
+  const uint4* x16 = reinterpret_cast<const uint4*>(x);
+  const int64_t n16 = n / 8;
+  const int64_t stride = (int64_t)gridDim.x * kPrepThreads;
+  unsigned m = 0;
+  auto take = [&m](const uint4& v) {
+    const unsigned w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      m = max(m, max(w4[j] & 0x7fffu, (w4[j] >> 16) & 0x7fffu));
+  };
+  int64_t i = (int64_t)blockIdx.x * kPrepThreads + threadIdx.x;
+  for (; i + 3 * stride < n16; i += 4 * stride) {   // 4 loads in flight
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = x16[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) take(v[u]);
+  }
+  for (; i < n16; i += stride) take(x16[i]);
+  if (blockIdx.x == 0 && threadIdx.x < n - n16 * 8)   // the last n % 8
+    m = max(m, (unsigned)__bfloat16_as_ushort(x[n16 * 8 + threadIdx.x]) &
+                   0x7fffu);
+  const float amax = block_max(__uint_as_float(m << 16), red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = amax;
+}
+
+// Blocks of absmax_kernel over n values: one per kPrepThreads x 4 loads of
+// 16 bytes, at most kMaxPartials
+inline int absmax_blocks(int64_t n) {
+  const int64_t per = (int64_t)kPrepThreads * 4 * 8;
+  const int64_t nb = (n + per - 1) / per;
+  return (int)(nb < 1 ? 1 : nb < kMaxPartials ? nb : kMaxPartials);
+}
+
+// (s_x, 1/s_x) from the partials, as input_scale and torch.reciprocal
+// compute them (every thread of the block gets both)
+__device__ __forceinline__ float2 x_scales(const float* __restrict__ partials,
+                                           int n_partials, float* red) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n_partials; i += kPrepThreads)
+    m = fmaxf(m, partials[i]);
+  const float amax = block_max(m, red);
+  const float s_x = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  return make_float2(s_x, __fdiv_rn(1.f, s_x));
 }
 
 
@@ -582,77 +1199,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void fence_acc(int (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        asm volatile("" : "+r"(acc[i][j][r])::"memory");
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(int (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-}
-
-// d (m64 x 128 s32) += a (this warp's 16 rows x k32 s8, registers: the
-// m16n8k32 fragment) * B (k32 x 128 s8 at desc)
-struct WgmmaS8 {
-  __device__ static __forceinline__ void mma(int (&d)[16][4],
-                                              const unsigned (&a)[4],
-                                              uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, "
-        "{%64, %65, %66, %67}, %68, p;\n}\n"
-        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
-          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
-          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
-          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
-          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
-          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
-          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
-          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
-          "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
-          "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
-          "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
-          "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
-          "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
-          "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
-          "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
-          "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
 // Per-lane halo pixel, for tap (0, 0), of this lane's ldmatrix row in each
 // of its m16 row tiles (the rows of an m16 tile lie in one patch row).
 template <int MT>
@@ -730,7 +1276,7 @@ __device__ __forceinline__ void cell_chunk(Acc (&acc)[MT][kCellBN / 8][4],
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         if constexpr (INT8)
-          WgmmaS8::mma(acc[mt], a[bt & 1][j][mt], desc);
+          WgmmaS8<kCellBN>::mma(acc[mt], a[bt & 1][j][mt], desc);
         else
           Wgmma<kCellBN>::mma(acc[mt], a[bt & 1][j][mt], desc);
       }

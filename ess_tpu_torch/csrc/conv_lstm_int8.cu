@@ -11,11 +11,12 @@
 // dequantizes the i32 accumulator with one multiply per column.
 //
 // Three launches per cell:
-// 1. absmax_kernel: per-block maxima of |x| over bf16 bits (non-negative
-//    bf16 values order as their bits), written to `partials`.
+// 1. absmax_kernel (conv_halo.cuh, shared with B4-int8): per-block maxima
+//    of |x| over bf16 bits, written to `partials`.
 // 2. prep_kernel: every block reduces the partials to
-//    s_x = max(amax, 1e-8) / 127 and 1/s_x (as input_scale and
-//    torch.reciprocal compute them; block 0 stores both); then
+//    s_x = max(amax, 1e-8) / 127 and 1/s_x (conv_halo.cuh::x_scales, as
+//    input_scale and torch.reciprocal compute them; block 0 stores both);
+//    then
 //    - weight blocks, one warp per prepared gate row: the row scale (s_x on
 //      x columns, 1/127 on h columns) folded in with __fmul_rn,
 //      ws = max(absmax, 1e-20) / 127, wq = clip(rint(w~ / ws)) with
@@ -53,8 +54,6 @@ namespace {
 using namespace ess;
 using namespace ess::halo;
 
-constexpr int kPrepThreads = 256;
-constexpr int kMaxPartials = 512;
 constexpr int kMaxQuantBlocks = 2048;
 
 __device__ __forceinline__ unsigned quant4(const __nv_bfloat16* v, float s) {
@@ -68,36 +67,6 @@ __device__ __forceinline__ unsigned quant4(const __nv_bfloat16* v, float s) {
   return out;
 }
 
-// max over the block of v (every thread gets it)
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-#pragma unroll
-  for (int w = 1; w < kPrepThreads / 32; ++w) v = fmaxf(v, red[w]);
-  return v;
-}
-
-__global__ void __launch_bounds__(kPrepThreads)
-absmax_kernel(const uint4* __restrict__ x, int64_t n16,
-              float* __restrict__ partials) {
-  __shared__ float red[kPrepThreads / 32];
-  unsigned m = 0;
-  for (int64_t i = (int64_t)blockIdx.x * kPrepThreads + threadIdx.x; i < n16;
-       i += (int64_t)gridDim.x * kPrepThreads) {
-    const uint4 v = x[i];
-    const unsigned w4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      m = max(m, max(w4[j] & 0x7fffu, (w4[j] >> 16) & 0x7fffu));
-  }
-  const float amax = block_max(__uint_as_float(m << 16), red);
-  if (threadIdx.x == 0) partials[blockIdx.x] = amax;
-}
-
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const __nv_bfloat16* __restrict__ x,
             const __nv_bfloat16* __restrict__ h,
@@ -108,12 +77,8 @@ prep_kernel(const __nv_bfloat16* __restrict__ x,
             int8_t* __restrict__ xq, int8_t* __restrict__ hq, int64_t npix,
             int CX, int CH, int w_blocks) {
   __shared__ float red[kPrepThreads / 32];
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n_partials; i += kPrepThreads)
-    m = fmaxf(m, partials[i]);
-  const float amax = block_max(m, red);
-  const float s_x = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
-  const float inv_sx = __fdiv_rn(1.f, s_x);
+  const float2 sc = x_scales(partials, n_partials, red);
+  const float s_x = sc.x, inv_sx = sc.y;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     scal[0] = s_x;
     scal[1] = inv_sx;
@@ -214,11 +179,9 @@ extern "C" int ess_conv_lstm_int8_prep(const void* x, const void* h,
   if (npix == 0) return 0;
   if (CX <= 0 || CH <= 0 || CX % 32 || CH % 32)
     return (int)cudaErrorInvalidValue;
-  const int64_t n16 = npix * CX / 8;
-  const int na = (int)std::min<int64_t>(
-      kMaxPartials, (n16 + kPrepThreads - 1) / kPrepThreads);
+  const int na = absmax_blocks(npix * CX);
   absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, n16, (float*)partials);
+      (const __nv_bfloat16*)x, npix * CX, (float*)partials);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int w_blocks = (4 * CH + kPrepThreads / 32 - 1) / (kPrepThreads / 32);

@@ -128,8 +128,8 @@ head_halo_kernel(const __nv_bfloat16* __restrict__ x,   // (B, CIN, H, W)
     ess::cp_async_commit();
     zero(acc);
     mma_chunk<MT, BN>(acc, halo, smem, f);
-    store_tile(acc, bias, 1, nchw_out, slot, out, tile_pos(p, t), p.tw, H, W,
-               COUT, n0, warp, lane);
+    store_tile(acc, nullptr, bias, 1, nchw_out, slot, out, tile_pos(p, t),
+               p.tw, H, W, COUT, n0, warp, lane);
   }
   ess::cp_async_wait<0>();
 }

@@ -1,8 +1,8 @@
 // Device helpers shared by the halo-tile core (conv_halo.cuh: the 3x3 conv
-// kernels and the ConvLSTM cell kernels), the fused encoder level
-// (level_int8.cu) and the int8 3x3 conv (conv3x3_common.cuh): cp.async
-// copies into shared memory, ldmatrix, the f32 sigmoid of the LSTM
-// epilogue, and the epilogues of the cell kernels' attribution variants.
+// kernels and the ConvLSTM cell kernels) and the fused encoder level
+// (level_int8.cu): cp.async copies into shared memory, ldmatrix, the f32
+// sigmoid of the LSTM epilogue, and the epilogues of the cell kernels'
+// attribution variants.
 
 #pragma once
 

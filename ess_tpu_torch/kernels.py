@@ -114,9 +114,9 @@ def _build() -> ctypes.CDLL:
     lib.ess_level_int8.restype = ci
     lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 11 + [vp]
     lib.ess_conv3x3.restype = ci
-    lib.ess_conv3x3_quant.argtypes = [vp] * 3 + [ctypes.c_int64] + [vp]
-    lib.ess_conv3x3_quant.restype = ci
-    lib.ess_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    lib.ess_conv3x3_int8_prep.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.ess_conv3x3_int8_prep.restype = ci
+    lib.ess_conv3x3_int8.argtypes = [vp] * 6 + [ci] * 12 + [vp]
     lib.ess_conv3x3_int8.restype = ci
     cf = ctypes.c_float
     lib.ess_head_cmajor.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 2 + [ci] * 6 + [

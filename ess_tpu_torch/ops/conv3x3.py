@@ -13,8 +13,11 @@ By ``impl`` name:
   on the halo-tile core (tile plan: :func:`conv_halo.conv_plan`);
 - ``'pallas_int8'``: per-call absmax scale ``s_x`` for x, x quantized to s8,
   the weights ``W * s_x`` quantized per output channel, i32 accumulation,
-  ``acc * ws + bias``; on CUDA the kernels of ``csrc/conv3x3_int8.cu``
-  (a quantize pre-pass and the GEMM);
+  ``acc * ws + bias``; on CUDA the kernels of ``csrc/conv3x3_int8.cu``:
+  two prep launches (x's absmax; the scales and the weight
+  re-quantization, :func:`int8_prep`), then the same halo-tile conv with
+  s8 operands, which quantizes x as it stages it (tile plan:
+  :func:`conv_halo.conv_plan` with ``int8=True``);
 - ``'xla'``: the plain exact conv on every device (an explicit choice, as
   in the JAX package).
 
@@ -36,10 +39,12 @@ import torch.nn.functional as F
 
 from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv_lstm import (
-    _check_aligned, _check_matrix, input_scale, quantize)
+    PREP_PARTIALS, _check_aligned, _check_matrix, _div127, input_scale,
+    quantize)
 
 launches = 0        # exact-conv kernel launches (CUDA tensors only)
-launches_int8 = 0   # int8-conv launches, quantize pre-pass + GEMM (CUDA only)
+launches_int8 = 0   # int8-conv kernel launches (CUDA only)
+launches_int8_prep = 0   # the int8 convs' prep kernel launches (2 a conv)
 
 IMPLS = ("xla", "pallas", "pallas_int8")
 STAGE_ROW_BYTES = 64   # bytes of one input-channel chunk in the kernels
@@ -81,9 +86,24 @@ def quantize_conv_weights(w2: torch.Tensor, s_x: torch.Tensor
     ``wq = clip(round(W~ / ws), -127, 127)``. Returns ``wq`` int8 and ``ws``
     (C_out,) f32."""
     wt = w2.float() * s_x.float()
-    ws = torch.clamp(wt.abs().amax(dim=1), min=1e-20) / 127.0
+    ws = _div127(torch.clamp(wt.abs().amax(dim=1), min=1e-20))
     wq = torch.clamp(torch.round(wt / ws[:, None]), -127, 127)
     return wq.to(torch.int8), ws
+
+
+def int8_prep_ref(x: torch.Tensor, prepared: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the int8 conv's prep kernels, step by step as they
+    compute: ``(scal, wq, ws)`` with ``scal = (s_x, 1/s_x)`` (the absmax
+    over bf16 bits, then ``max(., 1e-8) / 127`` and the reciprocal, in
+    f32) and ``wq`` (C_out, 9*CP) int8, ``ws`` (C_out,) f32 of
+    :func:`quantize_conv_weights`. x bf16; ``prepared`` the f32 tap matrix
+    of ``prepare_conv_weights(w, int8=True)``."""
+    bits = x.contiguous().view(torch.int16).to(torch.int32) & 0x7FFF
+    amax = (bits.max() << 16).view(torch.float32)
+    s_x = _div127(torch.clamp(amax, min=1e-8))
+    return (torch.stack([s_x, torch.reciprocal(s_x)]),
+            *quantize_conv_weights(prepared, s_x))
 
 
 def _finish(out: torch.Tensor, relu: bool, dtype: torch.dtype) -> torch.Tensor:
@@ -123,15 +143,19 @@ def conv3x3_int8_ref(x: torch.Tensor, weight: torch.Tensor,
     return _finish(out, relu, x.dtype)
 
 
-def _check_operands(name: str, x: torch.Tensor, weight: torch.Tensor
-                    ) -> Tuple[int, ...]:
-    b, cin, hh, ww = x.shape
-    cout = weight.shape[0]
+def _check_x(name: str, x: torch.Tensor) -> None:
     if (x.dtype != torch.bfloat16
             or not x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError(f"{name}: x must be a channels-last bfloat16 tensor,"
                          f" got {x.dtype} {tuple(x.shape)} with strides "
                          f"{x.stride()}")
+
+
+def _check_operands(name: str, x: torch.Tensor, weight: torch.Tensor
+                    ) -> Tuple[int, ...]:
+    b, cin, hh, ww = x.shape
+    cout = weight.shape[0]
+    _check_x(name, x)
     if weight.shape[1] != cin:
         raise ValueError(f"{name}: weight {tuple(weight.shape)} does not "
                          f"take {cin} input channels")
@@ -178,6 +202,36 @@ def _launch_exact(x, weight, bias, relu, prepared):
     return out
 
 
+def int8_prep(x: torch.Tensor, prepared: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 conv's prep on CUDA tensors, two kernel launches (counted
+    in ``launches_int8_prep``), no host sync: ``(scal, wq, ws)`` as
+    :func:`int8_prep_ref` returns them. x: channels-last bf16;
+    ``prepared``: ``prepare_conv_weights(w, int8=True)``."""
+    global launches_int8_prep
+    name = "conv3x3_fused int8 prep"
+    _check_x(name, x)
+    b, cin, hh, ww = x.shape
+    cout = prepared.shape[0]
+    _check_matrix(name, prepared, torch.float32,
+                  (cout, 9 * tap_channels(cin, int8=True)), x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partials = torch.empty(PREP_PARTIALS, **f32)
+    scal = torch.empty(2, **f32)
+    wq = torch.empty(prepared.shape, dtype=torch.int8, device=x.device)
+    ws = torch.empty(cout, **f32)
+    _check_aligned(name, x, prepared, wq)
+    from ess_tpu_torch import kernels
+
+    err = kernels.get_lib().ess_conv3x3_int8_prep(
+        x.data_ptr(), prepared.data_ptr(), partials.data_ptr(),
+        scal.data_ptr(), wq.data_ptr(), ws.data_ptr(), b, hh, ww, cin, cout,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "conv3x3 int8 prep kernels")
+    launches_int8_prep += 2
+    return scal, wq, ws
+
+
 def _launch_int8(x, weight, bias, relu, prepared):
     name = "conv3x3_fused int8"
     b, cin, hh, ww, cout = _check_operands(name, x, weight)
@@ -185,25 +239,21 @@ def _launch_int8(x, weight, bias, relu, prepared):
         prepared = prepare_conv_weights(weight.detach(), int8=True)
     _check_matrix(name, prepared, torch.float32,
                   (cout, 9 * tap_channels(cin, int8=True)), x.device)
-    s_x = input_scale(x.detach())
-    inv_sx = torch.reciprocal(s_x)
-    wq, ws = quantize_conv_weights(prepared, s_x)
     bias = _bias_vector(name, bias, cout, x.device)
-    xq = torch.empty((b, hh, ww, cin), dtype=torch.int8, device=x.device)
     out = torch.empty((b, cout, hh, ww), dtype=torch.bfloat16,
                       device=x.device, memory_format=torch.channels_last)
-    _check_aligned(name, x, xq, wq, out)
+    _check_aligned(name, out)
+    scal, wq, ws = int8_prep(x, prepared)
     from ess_tpu_torch import kernels
 
     global launches_int8
-    lib = kernels.get_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ess_conv3x3_quant(x.data_ptr(), inv_sx.data_ptr(),
-                                xq.data_ptr(), xq.numel(), stream)
-    kernels.check(err, "conv3x3 int8 quantize kernel")
-    err = lib.ess_conv3x3_int8(xq.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                               bias.data_ptr(), out.data_ptr(), b, hh, ww,
-                               cin, cout, int(relu), stream)
+    plan = conv_halo.conv_plan(b, hh, ww, cin, cout, int8=True,
+                               sm_count=conv_halo.sm_count(x.device))
+    err = kernels.get_lib().ess_conv3x3_int8(
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), scal.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, hh, ww, cin, cout, int(relu),
+        plan.th, plan.tw, int(plan.resident), plan.q_stages, plan.grid_x,
+        plan.smem, torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "conv3x3 int8 kernel")
     launches_int8 += 1
     return out

@@ -1,14 +1,16 @@
 """Tile plans of the halo-tile 3x3 conv core (``csrc/conv_halo.cuh``).
 
-The exact fused conv (B4, :mod:`ess_tpu_torch.ops.conv3x3`), the C-major
-head conv (T1, :mod:`ess_tpu_torch.ops.head_cmajor`) and the ConvLSTM cell
-kernels (B2, B2-int8, :mod:`ess_tpu_torch.ops.conv_lstm`; their plan is
+The fused conv (B4 exact and B4-int8, :mod:`ess_tpu_torch.ops.conv3x3`;
+their plan is :func:`conv_plan`), the C-major head conv (T1,
+:mod:`ess_tpu_torch.ops.head_cmajor`) and the ConvLSTM cell kernels (B2,
+B2-int8, :mod:`ess_tpu_torch.ops.conv_lstm`; their plan is
 :func:`cell_plan`) run on one CUDA core:
 a block owns a ``th x tw`` patch of output pixels of one image and ``bn``
 output channels, stages the ``(th + 2) x (tw + 2)`` input halo in shared
-memory one 32-channel chunk at a time, and reads every tap as a shifted
-view of it. Blocks are persistent: block ``(bx, nt)`` of a ``(grid_x,
-n_tiles_n)`` grid walks the pixel tiles ``bx, bx + grid_x, ...`` (in
+memory one 64-byte chunk of channels a pixel at a time (32 bf16 or 64 s8
+channels), and reads every tap as a shifted view of it. Blocks are
+persistent: block ``(bx, nt)`` of a ``(grid_x, n_tiles_n)`` grid walks the
+pixel tiles ``bx, bx + grid_x, ...`` (in
 :func:`tile_origin` order) for its N tile ``nt``. The plan is computed
 here, where the CPU tests reach it, and passed to the kernels as
 arguments; the CUDA launchers recompute the shared-memory layout and
@@ -16,11 +18,15 @@ refuse a plan that disagrees.
 
 Shared memory of a block, in bytes (the layout of ``conv_halo.cuh``):
 
-- one staged halo pixel: ``PIX_BYTES`` = 32 channels x 2 + 16 of padding;
-- one output channel of a weight chunk (nine taps of 32 channels, held as
-  wgmma's K-major core matrices): ``W_ROW_BYTES`` = 9 x 32 x 2;
+- one staged halo pixel: ``PIX_BYTES`` = 64 bytes of channels + 16 of
+  padding;
+- one output channel of a weight chunk (nine taps of 64 bytes, held as
+  wgmma's K-major core matrices): ``W_ROW_BYTES`` = 9 x 64;
 - B4: every weight chunk of the N tile resident plus two halo stages where
-  that fits, else two stages of (halo + one weight chunk); T1: its one
+  that fits, else two stages of (halo + one weight chunk); B4-int8 the
+  same with two raw stages of the chunk's bf16 pixels (:func:`raw_pitch`
+  bytes a pixel) in place of the halo stages, and the one or two s8 halo
+  tiles (``q_stages``) that the raw stages are quantized into; T1: its one
   weight chunk, one halo tile and, where W is a multiple of 8, the raw
   C-major rows of the halo, ``tw + 16`` pixels wide from an 8-pixel
   boundary;
@@ -34,7 +40,8 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
-KC = 32                      # input channels per chunk
+KC = 32                      # input channels per chunk (bf16)
+KC_INT8 = 64                 # input channels per chunk (s8)
 PIX_BYTES = KC * 2 + 16      # 80: odd multiple of 16 (no ldmatrix conflict)
 W_ROW_BYTES = 9 * KC * 2     # 576: one output channel of a weight chunk
 THREADS = 256
@@ -57,10 +64,11 @@ class HaloPlan:
     tiles_x: int
     n_tiles: int          # B * tiles_y * tiles_x pixel tiles
     n_tiles_n: int        # N tiles: ceil(C_out / bn), grid dimension y
-    chunks: int           # 32-channel chunks of C_in
+    chunks: int           # chunks of C_in: 32 bf16 or 64 s8 channels
     resident: bool        # every weight chunk held in shared memory
     smem: int             # dynamic shared memory per block, bytes
     grid_x: int           # persistent blocks per N tile
+    q_stages: int = 0     # B4-int8: s8 halo tiles, 1 or 2 (0: none)
 
 
 def block_shape(cout: int) -> Tuple[int, int]:
@@ -98,13 +106,21 @@ def _grid_x(n_tiles: int, n_tiles_n: int, bn: int, smem: int,
     return min(n_tiles, max(1, math.ceil(sm_count * per_sm / n_tiles_n)))
 
 
-def conv_smem(th: int, tw: int, bn: int, chunks: int, resident: bool) -> int:
-    """B4's shared memory: resident weights and two halo stages, or two
-    stages of (one weight chunk + halo); the epilogue slots."""
-    wchunk = bn * W_ROW_BYTES
-    ring = (chunks * wchunk + 2 * halo_bytes(th, tw) if resident
-            else 2 * (halo_bytes(th, tw) + wchunk))
-    return ring + WARPS * SLOT_NHWC
+def raw_pitch(cin: int) -> int:
+    """Bytes of one pixel in B4-int8's raw stage: the chunk's bf16
+    channels, at most 64 (``conv_halo.cuh::conv_raw_pitch``)."""
+    return min(cin, KC_INT8) * 2
+
+
+def conv_smem(th: int, tw: int, bn: int, chunks: int, resident: bool,
+              raw: int = 0, q_stages: int = 0) -> int:
+    """B4's shared memory: every weight chunk (resident) or two weight
+    stages, two halo stages, the epilogue slots. B4-int8 (``raw``: the raw
+    stage's bytes a pixel): two raw stages in place of the halo stages,
+    plus ``q_stages`` s8 halo tiles."""
+    stage = (th + 2) * (tw + 2) * raw if raw else halo_bytes(th, tw)
+    return ((chunks if resident else 2) * bn * W_ROW_BYTES + 2 * stage
+            + q_stages * halo_bytes(th, tw) + WARPS * SLOT_NHWC)
 
 
 def _tiles(b: int, h: int, w: int, cout: int):
@@ -115,18 +131,46 @@ def _tiles(b: int, h: int, w: int, cout: int):
 
 
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int, *,
-              sm_count: int = H100_SMS) -> HaloPlan:
-    """The plan of B4 (``ess_conv3x3``) for an NHWC (b, h, w, cin) input:
-    every weight chunk resident where that fits beside the two halo stages,
-    else the weights streamed chunk by chunk with the halo."""
+              int8: bool = False, sm_count: int = H100_SMS) -> HaloPlan:
+    """The plan of B4 (``ess_conv3x3``) or, with ``int8``, B4-int8
+    (``ess_conv3x3_int8``) for an NHWC (b, h, w, cin) input: every weight
+    chunk resident where that fits beside the stages, else the weights
+    streamed chunk by chunk with the halo.
+
+    The s8 weights of a chunk take the bytes of a bf16 chunk and cover
+    twice the channels, so both DSEC convs hold theirs in 73.7 KB, and
+    B4-int8 spends the room on its bf16 raw stages. It runs the producer
+    kernel with two s8 halo tiles (``q_stages`` = 2: a producer warpgroup
+    copies and quantizes while two warpgroups multiply) where they fit
+    beside every weight chunk without costing a block an SM, else the
+    256-thread kernel with one (quantized between two block barriers):
+    encoder 0 (128 -> 64) runs one block an SM either way and takes the
+    producer kernel; the head (20 -> 128) keeps two blocks an SM with one
+    s8 halo, which overlap one block's epilogue with the other's
+    products."""
     bm, bn, th, tw, tiles_y, tiles_x, n_tiles = _tiles(b, h, w, cout)
-    chunks = -(-cin // KC)
+    chunks = -(-cin // (KC_INT8 if int8 else KC))
     n_tiles_n = -(-cout // bn)
-    resident = conv_smem(th, tw, bn, chunks, True) <= MAX_SMEM
-    smem = conv_smem(th, tw, bn, chunks, resident)
+    raw = raw_pitch(cin) if int8 else 0
+
+    def layout(q_stages):
+        # the producer kernel (two s8 halos) holds every weight chunk
+        for resident in (True, False) if q_stages < 2 else (True,):
+            smem = conv_smem(th, tw, bn, chunks, resident, raw, q_stages)
+            if smem <= MAX_SMEM:
+                return resident, smem
+        return None
+
+    q_stages = 0
+    if int8:
+        one, two = layout(1), layout(2)
+        q_stages = 2 if two and blocks_per_sm(bn, two[1]) == blocks_per_sm(
+            bn, one[1]) else 1
+    resident, smem = layout(q_stages)
     return HaloPlan(th, tw, bm, bn, tiles_y, tiles_x, n_tiles, n_tiles_n,
                     chunks, resident, smem,
-                    _grid_x(n_tiles, n_tiles_n, bn, smem, sm_count))
+                    _grid_x(n_tiles, n_tiles_n, bn, smem, sm_count),
+                    q_stages)
 
 
 def head_plan(b: int, h: int, w: int, cin: int, cout: int, *,

@@ -25,7 +25,11 @@ Bounds:
   absmax (both accumulate bf16 products in f32, in other orders, and round
   once; a sum next to a rounding boundary may land one step further);
 - int8 3x3 conv against the plain int8 conv: bit-identical (exact integer
-  accumulators, the same f32 operations in the same order);
+  accumulators, the same f32 operations in the same order), at every conv
+  shape and at the two DSEC convs at B=8; its two prep kernels against the
+  plain prep (``conv3x3.int8_prep_ref``): bit-identical; the plain int8
+  conv's weight scales and weights on the card equal to the CPU's (both
+  divide, never multiply by a reciprocal);
 - both convs never reach ``F.conv2d`` or the plain version on a CUDA tensor,
   raise on shapes the kernel does not take, and under autograd give
   ``conv3x3_ref``'s gradients (atol 1e-2 / rtol 1e-2 in bf16);
@@ -58,6 +62,7 @@ from ess_tpu_torch.ops import head_cmajor as hc
 from ess_tpu_torch.ops import level as lv
 from ess_tpu_torch.ops import voxel_folded as vf
 from ess_tpu_torch.ops import voxel_tiled as vt
+from ess_tpu_torch.ops.conv_lstm import input_scale
 from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
 from ess_tpu_torch.ops.voxel import (
     masked_time_norm, normalize_from_stats, normalize_nonzero,
@@ -470,20 +475,57 @@ def test_conv3x3_kernel_matches_plain(dev, shape, relu, bias):
 
 @pytest.mark.parametrize("relu,bias", [(True, True), (False, True),
                                        (True, False)])
-@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("shape", CONV_SHAPES + [(8, 220, 320, 20, 128),
+                                                 (8, 220, 320, 128, 64)])
 def test_conv3x3_int8_kernel_matches_plain(dev, shape, relu, bias):
+    """Bit for bit; three launches a conv: two prep kernels, the conv."""
     x, wgt, bia = conv_inputs(dev, *shape, seed=1, bias=bias)
     want = c3.conv3x3_int8_ref(x, wgt, bia, relu=relu)
-    n0, i0 = c3.launches, c3.launches_int8
+    n0, i0, p0 = c3.launches, c3.launches_int8, c3.launches_int8_prep
     got = c3.conv3x3_fused(x, wgt, bia, relu=relu, impl="pallas_int8")
     torch.cuda.synchronize()
     assert c3.launches == n0 and c3.launches_int8 == i0 + 1
+    assert c3.launches_int8_prep == p0 + 2
+    assert got.is_contiguous(memory_format=torch.channels_last)
     assert int((got != want).sum()) == 0
     # within the JAX package's int8 bounds of the exact conv at its shape
     if shape == CONV_SHAPES[0]:
         ref = c3.conv3x3_ref(x, wgt, bia, relu=relu).float()
         err = (got.float() - ref).abs() / ref.abs().max()
         assert err.max().item() < 0.02 and err.mean().item() < 2e-3
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 5, 4, 8), (2, 13, 40, 24, 16),
+                                   (2, 22, 32, 128, 64), (1, 8, 16, 512, 136),
+                                   (8, 220, 320, 128, 64)])
+def test_conv3x3_int8_prep_kernels_match_plain(dev, shape):
+    """The two prep kernels give the plain prep's scales, s8 weights and
+    column scales bit for bit, also where the element count is not a
+    multiple of 8 (the absmax's tail) and where the absmax is negative."""
+    b, h, w, cin, cout = shape
+    x, wgt, _ = conv_inputs(dev, *shape, seed=6)
+    x = (x - 0.75).contiguous(memory_format=torch.channels_last)
+    prep = c3.prepare_conv_weights(wgt, int8=True)
+    p0 = c3.launches_int8_prep
+    got = c3.int8_prep(x, prep)
+    assert c3.launches_int8_prep == p0 + 2
+    want = c3.int8_prep_ref(x, prep)
+    for name, a, b_ in zip(("scal", "wq", "ws"), got, want):
+        assert a.shape == b_.shape and torch.equal(a, b_), name
+
+
+def test_plain_int8_conv_weights_on_the_card_are_the_cpus(dev):
+    """``quantize_conv_weights`` and ``input_scale`` on CUDA tensors give
+    the CPU's bits: both divide by 127 (a division by a Python scalar on
+    CUDA multiplies by its reciprocal)."""
+    for seed in range(4):
+        x, wgt, _ = conv_inputs(dev, 2, 22, 32, 128, 64, seed=seed)
+        prep = c3.prepare_conv_weights(wgt, int8=True)
+        s_x = input_scale(x)
+        assert torch.equal(s_x.cpu(), input_scale(x.cpu()))
+        wq, ws = c3.quantize_conv_weights(prep, s_x)
+        wq_c, ws_c = c3.quantize_conv_weights(prep.cpu(), s_x.cpu())
+        assert torch.equal(ws.cpu(), ws_c) and torch.equal(wq.cpu(), wq_c)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
@@ -529,9 +571,10 @@ def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
 
 
 def test_halo_launchers_refuse_a_plan_that_disagrees(dev):
-    """B4's and T1's launchers recompute the shared-memory layout of the
-    plan they are given and refuse (an error, no launch) one that disagrees
-    with it or with the block's warp layout; the wrappers' own plans run."""
+    """B4's, B4-int8's and T1's launchers recompute the shared-memory
+    layout of the plan they are given and refuse (an error, no launch) one
+    that disagrees with it or with the block's warp layout; the wrappers'
+    own plans run."""
     from ess_tpu_torch import kernels
     from ess_tpu_torch.ops import conv_halo
 
@@ -552,6 +595,26 @@ def test_halo_launchers_refuse_a_plan_that_disagrees(dev):
                                plan.grid_x, smem, stream) != 0
     assert lib.ess_conv3x3(*head, plan.th, plan.tw, int(plan.resident),
                            plan.grid_x, plan.smem, stream) == 0
+    torch.cuda.synchronize()
+
+    # B4-int8: shared memory off by a 16-byte piece, residency flipped, one
+    # s8 halo tile with the layout of two, three, a patch of other than 256
+    # pixels, no scales
+    scal, wq, ws = c3.int8_prep(x, c3.prepare_conv_weights(wgt, int8=True))
+    plan8 = conv_halo.conv_plan(1, 12, 14, 20, 32, int8=True)
+    assert plan8.q_stages == 2
+    args8 = (x.data_ptr(), wq.data_ptr(), ws.data_ptr(), scal.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), 1, 12, 14, 20, 32, 1)
+    good = (plan8.th, plan8.tw, 1, 2, plan8.grid_x, plan8.smem)
+    for bad in ((plan8.th, plan8.tw, 1, 2, plan8.grid_x, plan8.smem + 16),
+                (plan8.th, plan8.tw, 0, 2, plan8.grid_x, plan8.smem),
+                (plan8.th, plan8.tw, 1, 1, plan8.grid_x, plan8.smem),
+                (plan8.th, plan8.tw, 1, 3, plan8.grid_x, plan8.smem),
+                (2 * plan8.th, plan8.tw, 1, 2, plan8.grid_x, plan8.smem)):
+        assert lib.ess_conv3x3_int8(*args8, *bad, stream) != 0, bad
+    assert lib.ess_conv3x3_int8(*args8[:3], None, *args8[4:], *good,
+                                stream) != 0
+    assert lib.ess_conv3x3_int8(*args8, *good, stream) == 0
     torch.cuda.synchronize()
 
     xc, w2, b4 = bench_head.make_inputs(12, (1, 20, 8, 16, 128), dev)
