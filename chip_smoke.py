@@ -20,9 +20,12 @@ exits non-zero, with no result line):
    the C-major head conv with its normalize fused) against its plain
    PyTorch version on the card at the DSEC shapes of the paths, with
    kernel and plain times (CUDA events) and the kernel's bound on this card
-   (the larger of bytes over memory rate and operations over peak rate); B1 also at a 128-wide sensor (one x-slot),
-   B3 also with device-side binning, at 10 bins with integer coordinates,
-   and on border and tile-edge events; B4 and B4-int8 at the head and
+   (the larger of bytes over memory rate and operations over peak rate);
+   B1 over one step's 160 windows (its row's times) and over 40, also at a
+   128-wide sensor (one x-slot); B3 at the streaming B=8 (its row's times)
+   and B=1, also with device-side binning, at 10 bins with integer
+   coordinates, and on border and tile-edge events; both with the scatter
+   core's plan and what ``ptxas -v`` said of it; B4 and B4-int8 at the head and
    first-encoder block shapes (B=2) and at an odd one, with and without
    ReLU and bias, both also at the main path's B=8, where their rows' times
    are taken (B4-int8 with its two prep launches, TOP/s and launches per
@@ -117,7 +120,7 @@ from ess_tpu_torch.data.slicer import ArrayEventStore  # noqa: E402
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
     batch_voxel, conv3x3, conv_halo, conv_lstm, head_cmajor, level,
-    voxel_folded, voxel_tiled)
+    voxel_folded, voxel_scatter, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.tools import (  # noqa: E402
@@ -384,10 +387,22 @@ def phase_build():
     log(f"built host binning in {time.perf_counter() - t0:.1f} s total")
 
 
+def log_scatter_plan(what: str, plan) -> None:
+    """The scatter core's plan of a launch (``ptxas -v`` reports static
+    shared memory only)."""
+    log(f"  plan {what}: {plan.n_items} items ({plan.n_windows} windows x "
+        f"{plan.n_tiles} tiles of {plan.tile_h}x128), {plan.bufs} "
+        f"accumulator(s) of {plan.acc_bytes} B a block, {plan.threads} "
+        f"threads, {plan.blocks_per_sm} blocks an SM, grid {plan.grid} "
+        f"persistent blocks ({plan.order})")
+
+
 def check_voxelizer(dev):
-    n_win = 2 * WINDOWS
+    """B1 against its plain version over one step's B x T = 160 windows,
+    where its row's times are taken, and timed over 40 windows too."""
+    n_win = 8 * WINDOWS
     rng = np.random.default_rng(1)
-    raw, valid = make_raw(rng, 2)
+    raw, valid = make_raw(rng, 8)
     raw, valid = raw.reshape(n_win, EVENTS, 4), valid.reshape(n_win, EVENTS)
     r, v, o = voxel_folded.host_band_bin_folded(
         raw, valid, height=SENSOR_H, width=SENSOR_W, bins=BINS)
@@ -401,26 +416,41 @@ def check_voxelizer(dev):
     pol = torch.where(vd, p, torch.zeros_like(p)).contiguous()
     th = voxel_folded.tile_h_for_bins(BINS)
     kw = dict(bins=BINS, height=-(-SENSOR_H // th) * th, width=SENSOR_W)
+    n0 = voxel_folded.launches
     grid_k, stats_k = voxel_folded.voxelize_folded(x, y, ts, pol, offs, **kw)
+    torch.cuda.synchronize()
+    if voxel_folded.launches != n0 + 1:
+        raise AssertionError("voxelize_folded did not launch B1 once")
     grid_p, stats_p = voxel_folded.voxelize_folded_ref(x, y, ts, pol, offs,
                                                        **kw)
     err_raw = (grid_k - grid_p).abs().max().item()
     err = (normalize_from_stats(grid_k, stats_k)
            - normalize_from_stats(grid_p, stats_p)).abs().max().item()
-    log(f"B1 voxel_folded: max|d| raw grid {err_raw:.3e}, normalized grid "
-        f"{err:.3e} (bound {VOXEL_ATOL})")
+    log(f"B1 voxel_folded ({n_win} windows): max|d| raw grid "
+        f"{err_raw:.3e}, normalized grid {err:.3e} (bound {VOXEL_ATOL})")
     if not err <= VOXEL_ATOL:
         raise AssertionError(f"B1 disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: voxel_folded.voxelize_folded(x, y, ts, pol, offs,
-                                                      **kw), 20)
-    plain_ms = cuda_ms(lambda: voxel_folded.voxelize_folded_ref(
-        x, y, ts, pol, offs, **kw), 5)
-    bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
-                                     grid_k.numel() + stats_k.numel())
-    log(f"B1 time for {n_win} windows: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
-        f"bound {100.0 * bound_ms / ms:.1f}%")
+    del grid_p
+    log_ptxas("B1", "scatter_kernelILb0E")
+    row = None
+    for n in (n_win, 2 * WINDOWS):
+        cols = [a[:n] for a in (x, y, ts, pol, offs)]
+        log_scatter_plan(f"B1 at {n} windows", voxel_scatter.scatter_plan(
+            BINS, kw["height"], kw["width"], n,
+            conv_halo.sm_count(x.device)))
+        ms = cuda_ms(lambda: voxel_folded.voxelize_folded(*cols, **kw), 20)
+        plain_ms = cuda_ms(lambda: voxel_folded.voxelize_folded_ref(
+            *cols, **kw), 3)
+        bound_ms, bound_by = voxel_bound(int(o[:n, -1].sum()), o[:n].size,
+                                         grid_k[:n].numel() + 3 * n)
+        log(f"B1 time for {n} windows: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
+            f"of bound {100.0 * bound_ms / ms:.1f}%")
+        row = row or (ms, plain_ms, bound_ms, bound_by)
+    del grid_k, x, y, t, p, vd, ts, pol
+    torch.cuda.empty_cache()
     err = max(err, check_voxelizer_one_slot(dev))
+    ms, plain_ms, bound_ms, bound_by = row
     return {"name": "voxel_folded", "route": "cuda",
             "source": "ess_tpu_torch/csrc/voxel_folded.cu",
             "replaces": "ess_tpu/ops/voxel_pallas.py:334",
@@ -566,17 +596,27 @@ def check_voxel_tiled(dev):
         "events in (-1, 0), on tile edges and on the last row and column",
         edge_raw, edge_valid, trilinear=True))
 
-    ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled(*host_args, **kw), 20)
-    plain_ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled_ref(*host_args,
-                                                              **kw), 5)
+    log_ptxas("B3", "scatter_kernelILb1E")
     sort_ms = cuda_ms(lambda: voxel_tiled.bin_events_device(
         x, y, ts, pol, ok, **kw), 10)
-    bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
-                                     grid_host.numel())
-    log(f"B3 time for {n_win} windows: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
-        f"bound {100.0 * bound_ms / ms:.1f}%; bin_events_device (torch.sort "
-        f"+ searchsorted, outside the kernel) {sort_ms:.3f} ms")
+    log(f"B3: bin_events_device (torch.sort + searchsorted, outside the "
+        f"kernel) {sort_ms:.3f} ms for {n_win} windows")
+    row = None
+    for n in (n_win, 1):               # streaming at B=8 and at B=1
+        cols = [a[:n] for a in host_args]
+        log_scatter_plan(f"B3 at {n} windows", voxel_scatter.scatter_plan(
+            BINS, kw["height"], kw["width"], n,
+            conv_halo.sm_count(x.device)))
+        ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled(*cols, **kw), 20)
+        plain_ms = cuda_ms(lambda: voxel_tiled.voxelize_tiled_ref(
+            *cols, **kw), 5)
+        bound_ms, bound_by = voxel_bound(int(o[:n, -1].sum()), o[:n].size,
+                                         grid_host[:n].numel())
+        log(f"B3 time for {n} windows: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"share of bound {100.0 * bound_ms / ms:.1f}%")
+        row = row or (ms, plain_ms, bound_ms, bound_by)
+    ms, plain_ms, bound_ms, bound_by = row
     return {"name": "voxel_tiled", "route": "cuda",
             "source": "ess_tpu_torch/csrc/voxel_tiled.cu",
             "replaces": "ess_tpu/ops/voxel_pallas.py:205",

@@ -64,6 +64,7 @@
 #include <type_traits>
 
 #include "mma_common.cuh"
+#include "tma.cuh"
 
 namespace ess {
 namespace halo {
@@ -121,12 +122,6 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// cp.async writes shared memory through the generic proxy; wgmma reads its
-// shared-memory operand through the async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int MT, int NT>
@@ -1519,32 +1514,6 @@ cell_kernel(const __grid_constant__ CUtensorMap map_x,
                                         nt, warp, lane);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (the library is not
-// linked against libcuda)
-typedef CUresult (*TensorMapEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline TensorMapEncodeTiled tensor_map_encoder() {
-  static TensorMapEncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<TensorMapEncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // The halo map of an NHWC tensor (B, H, W, C) of bf16 (int8 = false) or

@@ -6,27 +6,27 @@
 // scatter into dense matrix work on a TPU; an H100 has fast shared-memory
 // atomics, so here each record deposits its 8 corners directly.
 //
-// Design: one block per (window, group), where a group is one band of
-// tile_h rows by one 128-column x-slot. The host sort and the offsets give
-// each group a contiguous record range, and the host folding guarantees that
-// no nonzero corner leaves the group's tile, so the block
-//   1. zeroes a bins x tile_h x 128 f32 accumulator in shared memory
-//      (5 x 24 x 128 x 4 B = 60 KB at 5 bins: dynamic shared memory),
-//   2. walks its records, computing band-local row, slot-local column, time
-//      bin and the three fractions in registers, and adds each in-range,
-//      nonzero corner with a shared-memory atomic,
-//   3. writes the tile to the (windows, bins, H, W) grid with coalesced
-//      128-float rows and reduces the tile's (sum, sum of squares, nonzero
-//      count) into one partial per group; the caller sums partials per
-//      window.
-// Every grid element is written by exactly one block, so the grid needs no
-// zero fill.
+// Design: the persistent scatter core of voxel_scatter.cuh. A work item is
+// one (window, group), a group being one band of tile_h rows by one
+// 128-column x-slot; the host sort and the offsets give each group a
+// contiguous record range, and the host folding guarantees that no nonzero
+// corner leaves the group's tile, so an item walks its own range only. Each
+// item's tile leaves by one TMA tensor store, and the pass that zeroes its
+// accumulator afterwards also reduces the tile's (sum, sum of squares,
+// nonzero count) into one partial per (window, group); the caller sums the
+// partials per window in group order. One launch a call.
 //
-// Bounds on the H100: per 100k-event DSEC window it reads ~114k records x
-// 16 B and writes a 6 MB f32 grid; shared-atomic throughput and the grid
-// write bound it, not arithmetic. Corners that fall outside the tile
-// (x exactly 127.0 in a slot, row exactly tile_h - 1, time exactly bins - 1)
-// carry zero weight and are skipped by explicit bounds checks.
+// Bound on the H100: per 100k-event DSEC window it reads ~104.6k records x
+// 16 B and writes a 6.1 MB f32 grid, so bytes bound it: at one step's 160
+// windows 268 MB + 983 MB over 3.35 TB/s = 0.373 ms. The old design (one
+// block per item, zero, scatter with one compare-and-swap loop per corner,
+// then 4-byte stores) wrote the grid only in each block's last phase and
+// reached a third of that rate; here the TMA stores one block's tile while
+// the SM's other blocks scatter, a record's corners go to shared memory in
+// one batch of swaps, and the next item's records are in registers before
+// its accumulator is free. Corners that fall outside the tile (x exactly
+// 127.0 in a slot, row exactly tile_h - 1, time exactly bins - 1) carry zero
+// weight and are skipped by explicit bounds checks.
 //
 // Second entry, ess_voxel_folded_band: the legacy full-width band wire
 // (voxel_pallas.py::_kernel with k_tiles=1, col_slot=width under
@@ -43,129 +43,25 @@
 // block (no zero fill), the partial stats count each element once, and
 // the records are read once per slab, which the byte bound does not count.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "voxel_scatter.cuh"
 
-namespace {
-
-constexpr int kSlotW = 128;
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-voxel_folded_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
-                    const float* __restrict__ tss,
-                    const float* __restrict__ pols,
-                    const int32_t* __restrict__ offsets,
-                    float* __restrict__ grid, float* __restrict__ partials,
-                    int n_records, int bins, int tile_h, int n_slots,
-                    int width) {
-  extern __shared__ float acc[];
-  __shared__ float red[3][kThreads / 32];
-
-  const int g = blockIdx.x;                 // group = band * n_slots + slot
-  const int w = blockIdx.y;                 // window
-  const int n_groups = gridDim.x;
-  const int band = g / n_slots;
-  const int slot = g - band * n_slots;
-  const int tile = bins * tile_h * kSlotW;
-
-  for (int i = threadIdx.x; i < tile; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-
-  const int32_t* offs = offsets + (int64_t)w * (n_groups + 1);
-  // clamp to the window's records: offsets are host data
-  const int start = min(max(offs[g], 0), n_records);
-  const int end = min(max(offs[g + 1], start), n_records);
-  const int64_t base = (int64_t)w * n_records;
-  const float row0 = (float)(band * tile_h);
-  const float col0 = (float)(slot * kSlotW);
-
-  for (int i = start + threadIdx.x; i < end; i += kThreads) {
-    const float yl = ys[base + i] - row0;
-    const float xl = xs[base + i] - col0;
-    const float ts = tss[base + i];
-    const float p = pols[base + i];
-    const float yf = floorf(yl), xf = floorf(xl), cf = floorf(ts);
-    const float fy = yl - yf, fx = xl - xf, wt = ts - cf;
-    const int r0 = (int)yf, q0 = (int)xf, c0 = (int)cf;
-    const float sc[2] = {p * (1.f - wt), p * wt};
-    const float wy[2] = {1.f - fy, fy};
-    const float wx[2] = {1.f - fx, fx};
-#pragma unroll
-    for (int dc = 0; dc < 2; ++dc) {
-      const int c = c0 + dc;
-      if (c < 0 || c >= bins) continue;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int r = r0 + dy;
-        if (r < 0 || r >= tile_h) continue;
-        const float swy = sc[dc] * wy[dy];
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int q = q0 + dx;
-          const float v = swy * wx[dx];
-          if (q < 0 || q >= kSlotW || v == 0.f) continue;
-          atomicAdd(&acc[(c * tile_h + r) * kSlotW + q], v);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // tile -> grid (one 128-float row per (bin, row)), plus partial stats
-  const int height = gridDim.x / n_slots * tile_h;
-  float s = 0.f, sq = 0.f, nz = 0.f;
-  for (int i = threadIdx.x; i < tile; i += kThreads) {
-    const int q = i % kSlotW;
-    const int cr = i / kSlotW;
-    const int c = cr / tile_h;
-    const int r = cr - c * tile_h;
-    const float v = acc[i];
-    grid[(((int64_t)w * bins + c) * height + band * tile_h + r) * width
-         + slot * kSlotW + q] = v;
-    s += v;
-    sq += v * v;
-    nz += v != 0.f ? 1.f : 0.f;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, o);
-    sq += __shfl_down_sync(0xffffffffu, sq, o);
-    nz += __shfl_down_sync(0xffffffffu, nz, o);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = sq;
-    red[2][warp] = nz;
-  }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    float t = 0.f;
-    for (int k = 0; k < kThreads / 32; ++k) t += red[threadIdx.x][k];
-    partials[((int64_t)w * n_groups + g) * 3 + threadIdx.x] = t;
-  }
-}
-
-}  // namespace
-
+// offsets (n_windows, n_bands * n_slots + 1); grid (n_windows, bins,
+// n_bands * tile_h, width); partials (n_windows, n_bands * n_slots, 3). The
+// plan (threads, grid_blocks, smem) is ops/voxel_scatter.py's.
 extern "C" int ess_voxel_folded(const void* x, const void* y, const void* ts,
                                 const void* pol, const void* offsets,
                                 void* grid, void* partials, int n_windows,
                                 int n_records, int bins, int tile_h,
                                 int n_bands, int n_slots, int width,
+                                int threads, int grid_blocks, int smem,
                                 void* stream) {
-  if (n_windows == 0) return 0;
-  const int smem = bins * tile_h * kSlotW * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      voxel_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 blocks(n_bands * n_slots, n_windows);
-  voxel_folded_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (const float*)ts, (const float*)pol,
-      (const int32_t*)offsets, (float*)grid, (float*)partials, n_records,
-      bins, tile_h, n_slots, width);
-  return (int)cudaGetLastError();
+  const scatter::Args a{(const float*)x,  (const float*)y,
+                        (const float*)ts, (const float*)pol,
+                        (const int32_t*)offsets, (float*)grid,
+                        (float*)partials, n_records, bins, tile_h, n_slots,
+                        n_bands * n_slots, n_bands * tile_h, width,
+                        n_windows * n_bands * n_slots};
+  return scatter::launch<false>(a, threads, grid_blocks, smem, stream);
 }
 
 namespace {

@@ -93,11 +93,12 @@ def _build() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(lib_path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    # the voxelizers: shape, then the scatter plan (threads, grid, smem)
+    lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
     lib.ess_voxel_folded.restype = ci
     lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.ess_voxel_folded_band.restype = ci
-    lib.ess_voxel_tiled.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_voxel_tiled.restype = ci
     # the cells: shape (B, H, W, CX, CH), then the plan (th, tw, grid, smem)
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 9 + [vp]

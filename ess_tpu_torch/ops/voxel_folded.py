@@ -9,10 +9,13 @@ The host pass rewrites every event whose bilinear footprint crosses a frame
 edge, a band of ``tile_h`` rows or a 128-column x-slot into single-corner
 records with the crossing weight folded into a pre-weighted polarity, and
 sorts the records by (band, x-slot) group. Each group then deposits only
-into its own ``bins x tile_h x 128`` tile of the grid, so one CUDA block
-per (window, group) accumulates the tile in shared memory and writes it
-out whole (``csrc/voxel_folded.cu``), together with the tile's
-normalization partials (sum, sum of squares, nonzero count).
+into its own ``bins x tile_h x 128`` tile of the grid, so the x-slot kernel
+(``csrc/voxel_folded.cu`` on the persistent scatter core
+``csrc/voxel_scatter.cuh``, plan :func:`voxel_scatter.scatter_plan`) takes
+each (window, group) as one work item: its persistent blocks accumulate a
+tile in shared memory, store it by one TMA tensor store and reduce its
+normalization partials (sum, sum of squares, nonzero count), one launch a
+call; the partials are summed per window in group order.
 
 Without x-slots (``x_slots=False``, the legacy wire) the host folds across
 band rows and frame edges only, groups are whole bands and columns stay
@@ -36,21 +39,13 @@ import numpy as np
 import torch
 
 from ess_tpu_torch.data import native
-
-TILE_W = 128
+from ess_tpu_torch.ops import voxel_scatter
+from ess_tpu_torch.ops.conv_halo import sm_count
+from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
 launches = 0          # x-slot kernel launches (CUDA tensors only)
 launches_legacy = 0   # full-width band kernel launches (CUDA tensors only)
 SLAB_BYTES = 160 * 1024   # shared memory of one band slab, legacy kernel
-
-
-def tile_h_for_bins(bins: int) -> int:
-    """Band height of the folded layout: the largest even ``th`` with
-    ``bins * (th + 1) <= 128``, clamped to [4, 64]. The host binning and
-    the device kernel must agree on it (24 for 5 bins)."""
-    th = 128 // bins - 1
-    th -= th % 2
-    return max(4, min(th, 64))
 
 
 def _geometry(height: int, width: int, bins: int) -> tuple[int, int, int]:
@@ -285,11 +280,13 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
         kernels.check(err, "voxel_folded band kernel")
         launches_legacy += 1
     else:
+        plan = voxel_scatter.scatter_plan(bins, height, width, b,
+                                          sm_count(x.device))
         partials = torch.empty((b, n_bands * n_slots, 3),
                                dtype=torch.float32, device=x.device)
         err = lib.ess_voxel_folded(
             *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slots,
-            width, stream)
+            width, plan.threads, plan.grid, plan.smem, stream)
         kernels.check(err, "voxel_folded kernel")
         launches += 1
     return grid, partials.sum(dim=1)

@@ -1,0 +1,151 @@
+"""Work plan of the persistent scatter core (``csrc/voxel_scatter.cuh``).
+
+The fold-free voxelizer (B1, :mod:`ess_tpu_torch.ops.voxel_folded`) and the
+halo-tiled voxelizer (B3, :mod:`ess_tpu_torch.ops.voxel_tiled`) run on one
+CUDA core. A work item is one (window, tile) of the grid, a tile being
+``tile_h`` rows by 128 columns (a B1 group: one band by one x-slot). Items
+are numbered window-major, ``item = window * n_tiles + ty * n_tx + tx``,
+and the persistent blocks walk them grid-strided: block ``b`` takes items
+``b, b + grid, b + 2 * grid, ...``, so the items in flight at any moment
+are a contiguous run of one or two windows, whose events stay in L2.
+
+Per item a block scatters the item's records into a dense ``bins x tile_h
+x 128`` f32 accumulator in shared memory (row pitch 128 floats, 512 bytes),
+then stores the tile by one TMA tensor store of a ``128 x tile_h x bins x
+1`` box of the ``(W, H, bins, windows)`` grid, whose shared-memory image
+is the accumulator: :func:`box_rows` lists the rows it writes. A block
+holds one accumulator (:data:`BUFS`), so several blocks share an SM and the
+TMA stores one block's tile while the others scatter. Every grid element is
+stored by exactly one box, empty tiles as zeros, so the grid needs no zero
+fill.
+
+The plan is computed here, where the CPU tests reach it, and passed to the
+kernels as arguments; the CUDA launchers recompute the layout and refuse a
+plan that disagrees: change both sides together.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
+
+TILE_W = 128                 # tile columns = accumulator row pitch, floats
+ROW_BYTES = TILE_W * 4       # one 128-float accumulator row, bytes
+MAX_SMEM = 232_448           # dynamic shared memory a block may use (H100)
+SM_SMEM = 233_472            # shared memory of one SM
+BLOCK_RESERVED = 1_024       # the runtime's share per resident block
+SM_THREADS = 2_048           # resident threads per SM
+H100_SMS = 132
+THREADS = (256, 512)         # block sizes the kernels are built for
+# Resident blocks an SM that the kernels' registers allow at least
+# (``__launch_bounds__`` of voxel_scatter.cuh::scatter_kernel).
+REG_BLOCKS = {256: 3, 512: 2}
+# Accumulators per block: one (three 256-thread blocks an SM at 5 bins);
+# two in one block an SM were slower at every main-path shape on the H100
+# (PERF.md).
+BUFS = 1
+# 512 threads a block where there is at most one item for each resident
+# 256-thread block (B3 at streaming B=1: 100 items), else 256 (B3 at B=8:
+# 800 items; B1: 4,000-16,000), as measured on the H100 (PERF.md).
+FEW_ITEMS_PER_SLOT = 1
+
+
+def tile_h_for_bins(bins: int) -> int:
+    """Tile (band) height: the largest even ``th`` with ``bins * (th + 1)
+    <= 128``, clamped to [4, 64]. The host binnings and the device kernels
+    must agree on it (24 for 5 bins, 10 for 10)."""
+    th = 128 // bins - 1
+    th -= th % 2
+    return max(4, min(th, 64))
+
+
+def static_smem(threads: int) -> int:
+    """Static shared memory of a block: the stats reduction, (sum, sum of
+    squares, nonzero count) per warp."""
+    return (threads // 32) * 3 * 4
+
+
+@dataclass(frozen=True)
+class ScatterPlan:
+    bins: int
+    tile_h: int           # tile rows (tile_h_for_bins)
+    n_ty: int             # tile rows of the grid
+    n_tx: int             # tile columns of the grid (width // 128)
+    n_tiles: int          # n_ty * n_tx: items per window
+    n_windows: int
+    n_items: int          # n_windows * n_tiles, window-major
+    acc_bytes: int        # one accumulator: bins * tile_h * 512
+    bufs: int             # accumulators per block (BUFS)
+    threads: int          # threads per block
+    smem: int             # dynamic shared memory per block: bufs * acc_bytes
+    blocks_per_sm: int    # resident blocks an SM: shared memory, threads,
+                          # registers (REG_BLOCKS)
+    grid: int             # persistent blocks: min(n_items, SMs x blocks/SM)
+    order: str = "window-major"
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_plan(bins: int, height: int, width: int, n_windows: int,
+                 n_sm: int = H100_SMS, *, threads: int = 0) -> ScatterPlan:
+    """The plan of B1 (``ess_voxel_folded``) or B3 (``ess_voxel_tiled``)
+    for ``n_windows`` grids of ``(bins, height, width)``; ``height`` a
+    multiple of ``tile_h_for_bins(bins)``, ``width`` of 128. ``threads``
+    0 takes 512 where there are at most :data:`FEW_ITEMS_PER_SLOT` items
+    for each resident 256-thread block, else 256."""
+    th = tile_h_for_bins(bins)
+    if height % th or width % TILE_W or height <= 0 or width <= 0:
+        raise ValueError(f"scatter_plan: grid {height}x{width} is not a "
+                         f"multiple of the {th}x{TILE_W} tile")
+    acc = bins * th * ROW_BYTES
+    if acc > MAX_SMEM or bins > 256:       # 256: a TMA box dimension
+        raise ValueError(f"scatter_plan: a {bins} x {th} x {TILE_W} f32 "
+                         f"accumulator ({acc} B) exceeds a block's shared "
+                         "memory")
+    n_ty, n_tx = height // th, width // TILE_W
+    n_tiles = n_ty * n_tx
+    n_items = n_windows * n_tiles
+    smem = BUFS * acc
+
+    def blocks_per_sm(t: int) -> int:
+        per_block = smem + static_smem(t) + BLOCK_RESERVED
+        return max(1, min(SM_SMEM // per_block, SM_THREADS // t,
+                          REG_BLOCKS[t]))
+
+    if not threads:
+        few = n_items <= FEW_ITEMS_PER_SLOT * n_sm * blocks_per_sm(256)
+        threads = 512 if few else 256
+    if threads not in THREADS:
+        raise ValueError(f"scatter_plan: threads={threads} not in {THREADS}")
+    bpsm = blocks_per_sm(threads)
+    grid = max(1, min(n_items, n_sm * bpsm))
+    return ScatterPlan(bins, th, n_ty, n_tx, n_tiles, n_windows, n_items,
+                       acc, BUFS, threads, smem, bpsm, grid)
+
+
+def block_items(plan: ScatterPlan, block: int) -> range:
+    """The work items block ``block`` walks, in order."""
+    return range(block, plan.n_items, plan.grid)
+
+
+def item_tile(plan: ScatterPlan, item: int) -> Tuple[int, int, int]:
+    """(window, tile row, tile column) of work item ``item``."""
+    w, tile = divmod(item, plan.n_tiles)
+    ty, tx = divmod(tile, plan.n_tx)
+    return w, ty, tx
+
+
+def box_rows(plan: ScatterPlan, item: int) -> List[Tuple[int, int]]:
+    """The rows the tile store of item ``item`` writes: (element offset in
+    the (n_windows, bins, height, width) f32 grid, element offset in the
+    accumulator) of each 128-float row of its box, in the box's order
+    (bin-major, then row)."""
+    w, ty, tx = item_tile(plan, item)
+    th, height, width = plan.tile_h, plan.n_ty * plan.tile_h, \
+        plan.n_tx * TILE_W
+    out = []
+    for row in range(plan.bins * th):
+        c, r = divmod(row, th)
+        out.append((((w * plan.bins + c) * height + ty * th + r) * width
+                    + tx * TILE_W, row * TILE_W))
+    return out

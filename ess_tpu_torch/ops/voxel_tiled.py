@@ -8,13 +8,17 @@ Counterpart of the halo half of ``ess_tpu/ops/voxel_pallas.py``:
 Events keep their raw coordinates and +-1 polarity; they are only sorted by
 spatial tile (``tile_h`` rows by 128 columns), on the host
 (:func:`host_tile_bin`) or on the device (:func:`bin_events_device`). A
-corner that crosses a tile edge lands in the depositing tile's +1 halo row
-or column and is folded into the neighbouring tile afterwards. Output is
-NCHW ``(B, bins, height, width)`` f32.
+corner that crosses a tile edge belongs to the tile below, to the right or
+below-right; the TPU kernel deposits it into a +1 halo row or column and
+folds the halos afterwards. Output is NCHW ``(B, bins, height, width)`` f32.
 
-On a CUDA tensor :func:`voxelize_tiled` launches ``csrc/voxel_tiled.cu``; on
-a CPU tensor it runs :func:`voxelize_tiled_ref`, the plain PyTorch scatter of
-the same events.
+On a CUDA tensor :func:`voxelize_tiled` launches ``csrc/voxel_tiled.cu``, one
+launch a call on the persistent scatter core ``csrc/voxel_scatter.cuh``
+(plan :func:`voxel_scatter.scatter_plan`): each (window, tile) gathers its
+corners from its own event range and those of its upper, left and
+upper-left neighbours, so no halo leaves the tile and nothing is folded. On
+a CPU tensor it runs :func:`voxelize_tiled_ref`, the plain PyTorch scatter
+of the same events.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import numpy as np
 import torch
 
 from ess_tpu_torch.data import native
+from ess_tpu_torch.ops import voxel_scatter
+from ess_tpu_torch.ops.conv_halo import sm_count
 from ess_tpu_torch.ops.voxel import masked_time_norm
-from ess_tpu_torch.ops.voxel_folded import TILE_W, tile_h_for_bins
+from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
 launches = 0   # kernel launches of voxelize_tiled (CUDA tensors only)
 
@@ -156,7 +162,7 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                    pol: torch.Tensor, offsets: torch.Tensor, *, bins: int,
                    height: int, width: int) -> torch.Tensor:
     """(B, N) tile-sorted events + (B, n_tiles + 1) offsets -> voxel grids
-    (B, bins, height, width) f32, halos folded.
+    (B, bins, height, width) f32.
 
     ``x, y`` are sensor coordinates, ``ts`` the time normalized to
     [0, bins - 1], ``pol`` the signed value (+-1, zero for dropped events);
@@ -194,16 +200,15 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
 
     global launches
     lib = kernels.get_lib()
+    plan = voxel_scatter.scatter_plan(bins, height, width, b,
+                                      sm_count(x.device))
     grid = torch.empty((b, bins, height, width), dtype=torch.float32,
                        device=x.device)
-    # per (window, tile, bin): halo row with its corner, then halo column
-    halo = torch.empty((b, n_tiles, bins, TILE_W + 1 + th),
-                       dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ess_voxel_tiled(
         x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
-        offsets.data_ptr(), grid.data_ptr(), halo.data_ptr(), b, n, bins, th,
-        n_ty, n_tx, stream)
+        offsets.data_ptr(), grid.data_ptr(), b, n, bins, th, n_ty, n_tx,
+        plan.threads, plan.grid, plan.smem, stream)
     kernels.check(err, "voxel_tiled kernel")
     launches += 1
     return grid

@@ -7,7 +7,14 @@ Bounds:
   atol/rtol 1e-5 on the grid and the stats, 1e-4 on normalized grids at
   100k events per window: both sum the same f32 corner weights, the kernel
   with shared-memory atomics in run-dependent order; the band wire also
-  against the x-slot wire on the same events (normalized grids, 1e-4);
+  against the x-slot wire on the same events (normalized grids, 1e-4); B1
+  and B3 on the persistent scatter core also at one step's 160 windows,
+  at the streaming B=1 and B=8, at grid widths of one, two and three
+  tiles, and with a window whose 100k events fall in one tile (raw grid
+  atol 1e-4: tens of thousands of deposits a cell in run-dependent
+  order); a direct launch into a NaN-filled grid leaves no NaN (every
+  element stored once); B3 allocates nothing but its grid; both launchers
+  refuse a plan that disagrees with their layout;
 - ConvLSTM cell (bf16): h atol 2e-2, c atol 3e-2, the bounds of
   tests/test_conv_lstm_pallas.py: both accumulate bf16 products in f32,
   in other orders, and round the state to bf16 once;
@@ -1005,3 +1012,241 @@ def test_prefetch_to_device_onto_cuda_with_a_recycled_ring(dev, pin):
             assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
         n += 1
     assert n == len(want) == 12
+
+
+# The persistent scatter core (B1 and B3, csrc/voxel_scatter.cuh).
+
+def scatter_lib_args(grid):
+    """(library, plan) of a direct voxelizer launch on ``grid``'s shape."""
+    from ess_tpu_torch import kernels
+    from ess_tpu_torch.ops import voxel_scatter
+
+    b, bins, h, w = grid.shape
+    return kernels.get_lib(), voxel_scatter.scatter_plan(bins, h, w, b)
+
+
+def tiled_inputs(rng, b, n, h, w, bins=5, edges=True):
+    """Tile-sorted kernel inputs on the CPU: (x, y, ts, pol, offsets)."""
+    raw, valid = raw_windows(rng, b, n, h, w, edges=edges)
+    raw, valid, o = vt.host_tile_bin(raw, valid, height=h, width=w,
+                                     bins=bins)
+    x, y, t = (torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+               for i in range(3))
+    vd = torch.from_numpy(valid)
+    ts = masked_time_norm(t, vd, bins).contiguous()
+    pol = torch.where(vd, torch.where(torch.from_numpy(raw[..., 3]) > 0,
+                                      1.0, -1.0), 0.0).contiguous()
+    return x, y, ts, pol, torch.from_numpy(o)
+
+
+def test_voxel_folded_kernel_160_windows(dev):
+    """B1 at one step's 160 windows (B=8 x T=20) of 100k events on 480x640
+    against its plain version: raw grid and stats atol/rtol 1e-5 / 1e-3,
+    normalized grid 1e-4; one launch."""
+    _, _, (x, y, t, p, valid), offs = folded(np.random.default_rng(10), 160,
+                                             100_000, 480, 640)
+    x, y, t, p, valid, offs = (a.to(dev) for a in (x, y, t, p, valid, offs))
+    ts = masked_time_norm(t, valid, 5).contiguous()
+    pol = torch.where(valid, p, torch.zeros_like(p)).contiguous()
+    kw = dict(bins=5, height=480, width=640)
+    n0 = vf.launches
+    grid, stats = vf.voxelize_folded(x, y, ts, pol, offs, **kw)
+    torch.cuda.synchronize()
+    assert vf.launches == n0 + 1
+    grid_r, stats_r = vf.voxelize_folded_ref(x, y, ts, pol, offs, **kw)
+    torch.testing.assert_close(grid, grid_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats, stats_r, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(normalize_from_stats(grid, stats),
+                               normalize_from_stats(grid_r, stats_r),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("host", [True, False])
+def test_voxel_tiled_kernel_one_window(dev, host):
+    """B3 at streaming B=1 (one window of 100k events on 480x640 with
+    border and tile-edge events: 100 items, one a block), on host and
+    device offsets, through ``voxelize_tile``: one launch, raw grid
+    atol/rtol 1e-5, normalized 1e-4 (B=8: the test above)."""
+    raw, valid = raw_windows(np.random.default_rng(11), 1, 100_000, 480,
+                             640, edges=True)
+    offs = None
+    if host:
+        raw, valid, o = vt.host_tile_bin(raw, valid, height=480, width=640)
+        offs = torch.from_numpy(o)
+    cols = [torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+            for i in range(4)] + [torch.from_numpy(valid)]
+    kw = dict(num_bins=5, height=480, width=640, trilinear=True)
+    n0 = vt.launches
+    got = voxelize_tile(*[c.to(dev) for c in cols],
+                        None if offs is None else offs.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert vt.launches == n0 + 1
+    want = voxelize_tile(*cols, offs, **kw)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(normalize_nonzero(got).cpu(),
+                               normalize_nonzero(want), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("w", [128, 256, 384])
+@pytest.mark.parametrize("kernel", ["B1", "B3"])
+def test_voxel_scatter_grid_widths(dev, w, kernel):
+    """One, two and three tiles across (h 72): both kernels against their
+    plain versions (atol/rtol 1e-5; B1's stats 1e-3 / 1e-5)."""
+    rng = np.random.default_rng(w)
+    if kernel == "B1":
+        _, _, (x, y, t, p, valid), offs = folded(rng, 3, 20000, 72, w)
+        ts = masked_time_norm(t, valid, 5)
+        args = [a.contiguous() for a in
+                (x, y, ts, torch.where(valid, p, torch.zeros_like(p)))]
+        args.append(offs)
+        grid, stats = vf.voxelize_folded(*[a.to(dev) for a in args], bins=5,
+                                         height=72, width=w)
+        grid_r, stats_r = vf.voxelize_folded_ref(*args, bins=5, height=72,
+                                                 width=w)
+        torch.testing.assert_close(stats.cpu(), stats_r, atol=1e-3,
+                                   rtol=1e-5)
+    else:
+        args = tiled_inputs(rng, 3, 20000, 72, w)
+        grid = vt.voxelize_tiled(*[a.to(dev) for a in args], bins=5,
+                                 height=72, width=w)
+        grid_r = vt.voxelize_tiled_ref(*args, bins=5, height=72, width=w)
+    torch.testing.assert_close(grid.cpu(), grid_r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B3"])
+def test_voxel_scatter_one_tile_window(dev, kernel):
+    """A window whose 100k events all fall in one tile (one long range,
+    heavy atomic contention) beside an ordinary one: the kernel against its
+    plain version (raw grid atol 1e-4 / rtol 1e-5: tens of thousands of
+    f32 deposits a cell in run-dependent order), normalized 1e-4."""
+    rng = np.random.default_rng(12)
+    raw, valid = raw_windows(rng, 2, 100_000, 480, 640)
+    raw[0, :, 0] = rng.uniform(260.0, 380.0, 100_000)     # tile column 2
+    raw[0, :, 1] = rng.uniform(50.0, 70.0, 100_000)       # tile row 2
+    if kernel == "B1":
+        r, v, o = vf.host_band_bin_folded(raw, valid, height=480, width=640,
+                                          bins=5)
+        x, y, t, p = (torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                      for i in range(4))
+        vd = torch.from_numpy(v)
+        args = [x, y, masked_time_norm(t, vd, 5).contiguous(),
+                torch.where(vd, p, torch.zeros_like(p)).contiguous(),
+                torch.from_numpy(o)]
+        got, stats = vf.voxelize_folded(*[a.to(dev) for a in args], bins=5,
+                                        height=480, width=640)
+        want, stats_r = vf.voxelize_folded_ref(*args, bins=5, height=480,
+                                               width=640)
+        got_n = normalize_from_stats(got, stats).cpu()
+        want_n = normalize_from_stats(want, stats_r)
+    else:
+        raw, valid, o = vt.host_tile_bin(raw, valid, height=480, width=640)
+        assert np.diff(o[0]).max() == 100_000 - 100_000 // 10
+        x, y, t = (torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+                   for i in range(3))
+        vd = torch.from_numpy(valid)
+        args = [x, y, masked_time_norm(t, vd, 5).contiguous(),
+                torch.where(vd, torch.where(torch.from_numpy(raw[..., 3]) > 0,
+                                            1.0, -1.0), 0.0).contiguous(),
+                torch.from_numpy(o)]
+        got = vt.voxelize_tiled(*[a.to(dev) for a in args], bins=5,
+                                height=480, width=640)
+        want = vt.voxelize_tiled_ref(*args, bins=5, height=480, width=640)
+        got_n, want_n = normalize_nonzero(got).cpu(), normalize_nonzero(want)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(got_n, want_n, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B3"])
+def test_voxel_scatter_stores_every_element(dev, kernel):
+    """Empty tiles, a tile with one event and an empty window: a direct
+    launch into a grid filled with NaN leaves no NaN (every element is
+    stored once, zeros where nothing lands) and equals the plain version."""
+    h, w = 48, 384
+    x = torch.tensor([[3.5, 200.25, 0.0], [0.0, 0.0, 0.0]])
+    y = torch.tensor([[2.0, 47.5, 0.0], [0.0, 0.0, 0.0]])
+    ts = torch.tensor([[0.5, 4.0, 0.0], [0.0, 0.0, 0.0]])
+    pol = torch.tensor([[1.0, -1.0, 0.0], [0.0, 0.0, 0.0]])
+    # tiles 0 and 4 (row 1, column 1) hold one event each; window 1 is empty
+    offs = torch.tensor([[0, 1, 1, 1, 1, 2, 2], [0] * 7], dtype=torch.int32)
+    args = [a.to(dev).contiguous() for a in (x, y, ts, pol, offs)]
+    grid = torch.full((2, 5, h, w), float("nan"), device=dev)
+    lib, plan = scatter_lib_args(grid)
+    if kernel == "B1":
+        partials = torch.full((2, 6, 3), float("nan"), device=dev)
+        err = lib.ess_voxel_folded(
+            *[a.data_ptr() for a in args], grid.data_ptr(),
+            partials.data_ptr(), 2, 3, 5, 24, 2, 3, w, plan.threads,
+            plan.grid, plan.smem, torch.cuda.current_stream().cuda_stream)
+        want, stats_r = vf.voxelize_folded_ref(x, y, ts, pol, offs, bins=5,
+                                               height=h, width=w)
+        torch.cuda.synchronize()
+        assert err == 0
+        torch.testing.assert_close(partials.sum(1).cpu(), stats_r,
+                                   atol=1e-6, rtol=1e-6)
+    else:
+        err = lib.ess_voxel_tiled(
+            *[a.data_ptr() for a in args], grid.data_ptr(), 2, 3, 5, 24, 2,
+            3, plan.threads, plan.grid, plan.smem,
+            torch.cuda.current_stream().cuda_stream)
+        want = vt.voxelize_tiled_ref(x, y, ts, pol, offs, bins=5, height=h,
+                                     width=w)
+        torch.cuda.synchronize()
+        assert err == 0
+    assert not grid.isnan().any()
+    torch.testing.assert_close(grid.cpu(), want, atol=1e-6, rtol=0)
+    assert grid[1].abs().sum().item() == 0                    # empty window
+
+
+def test_voxel_tiled_allocates_only_its_grid(dev):
+    """B3 allocates its output and nothing else (no halo scratch): device
+    memory after a call less before is the grid's bytes."""
+    args = [a.to(dev) for a in tiled_inputs(np.random.default_rng(13), 8,
+                                            20000, 480, 640)]
+    kw = dict(bins=5, height=480, width=640)
+    vt.voxelize_tiled(*args, **kw)                 # build, warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = vt.launches
+    grid = vt.voxelize_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    assert vt.launches == n0 + 1
+    grid_bytes = grid.numel() * 4
+    assert torch.cuda.memory_allocated() - before == grid_bytes
+    assert torch.cuda.max_memory_allocated() - before == grid_bytes
+
+
+def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
+    """Both launchers recompute the accumulator layout and refuse (an
+    error, no launch) a plan that disagrees with it: shared memory off by a
+    row or of two accumulators, threads the kernel is not built for, no
+    blocks, more blocks than items, another tile height; the wrappers' own
+    plans run."""
+    args = [a.to(dev) for a in tiled_inputs(np.random.default_rng(14), 2,
+                                            2000, 48, 256)]
+    grid = torch.empty((2, 5, 48, 256), device=dev)
+    lib, plan = scatter_lib_args(grid)
+    stream = torch.cuda.current_stream().cuda_stream
+    head = [a.data_ptr() for a in args] + [grid.data_ptr(), 2, 2000, 5]
+    row = 128 * 4
+    good = (24, 2, 2, plan.threads, plan.grid, plan.smem)
+    bads = [(24, 2, 2, plan.threads, plan.grid, plan.smem + row),
+            (24, 2, 2, plan.threads, plan.grid, 2 * plan.smem),
+            (24, 2, 2, 128, plan.grid, plan.smem),
+            (24, 2, 2, plan.threads, 0, plan.smem),
+            (24, 2, 2, plan.threads, 9, plan.smem),
+            (12, 4, 2, plan.threads, plan.grid, 5 * 12 * row)]
+    for bad in bads:
+        assert lib.ess_voxel_tiled(*head, *bad, stream) != 0, bad
+    assert lib.ess_voxel_tiled(*head, *good, stream) == 0
+    partials = torch.empty((2, 4, 3), device=dev)
+    fhead = [a.data_ptr() for a in args] + [grid.data_ptr(),
+                                            partials.data_ptr(), 2, 2000, 5]
+    for bad in bads:
+        t_h, n_b, n_s = bad[:3]
+        assert lib.ess_voxel_folded(*fhead, t_h, n_b, n_s, 256, *bad[3:],
+                                    stream) != 0, bad
+    assert lib.ess_voxel_folded(*fhead, 24, 2, 2, 256, *good[3:],
+                                stream) == 0
+    torch.cuda.synchronize()
