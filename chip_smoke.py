@@ -36,13 +36,16 @@ exits non-zero, with no result line):
    (TFLOP/s or TOP/s, share of bound, the int8 prep's launches per cell,
    and the library's gate conv alone, which is not the same function),
    with their plan and what ``ptxas -v``
-   said of them; B5 at the three
-   encoder levels at the tools' B=8, in the input form each uses, and from
-   a full-resolution input at a small shape with three row tiles (group
+   said of them; B5 (three kernels: the group absmax of u, the conv and
+   the gates on the halo-tile core) at the three encoder levels at the
+   tools' B=8, in the input form each uses, and from a full-resolution
+   input at a small shape with three row tiles (the conv's x and the group
    scales identical, h' and c' within one bf16 ulp, the same bits through
-   ``encoder_level_int8``); T2's four compared modes on both cell bodies at
-   the tools' B=8; B3-legacy at B=8 x T=20 windows of 100k events on
-   480x640, also against the x-slot wire (B1) on the same events; T1 in both
+   ``encoder_level_int8``), with its plan and what ``ptxas -v`` said of
+   its kernels; T2's four compared modes on both cell bodies at the tools'
+   B=8; B3-legacy (the scatter core's band items) at B=8 x T=20 windows of
+   100k events on 480x640, also against the x-slot wire (B1) on the same
+   events, with its plan and ``ptxas -v``; T1 in both
    output layouts at the tool's B=8, beside the library's conv + bias + ReLU
    on the same normalized window;
 4. eval slice: the supervised eval step at full width (E2VID base 32,
@@ -394,7 +397,8 @@ def log_scatter_plan(what: str, plan) -> None:
         f"{plan.n_tiles} tiles of {plan.tile_h}x128), {plan.bufs} "
         f"accumulator(s) of {plan.acc_bytes} B a block, {plan.threads} "
         f"threads, {plan.blocks_per_sm} blocks an SM, grid {plan.grid} "
-        f"persistent blocks ({plan.order})")
+        f"persistent blocks ({plan.order}; records a {plan.mode}, "
+        f"{plan.n_groups} groups a window)")
 
 
 def check_voxelizer(dev):
@@ -431,7 +435,7 @@ def check_voxelizer(dev):
     if not err <= VOXEL_ATOL:
         raise AssertionError(f"B1 disagrees with its plain version: {err}")
     del grid_p
-    log_ptxas("B1", "scatter_kernelILb0E")
+    log_ptxas("B1", "scatter_kernelILi0E")
     row = None
     for n in (n_win, 2 * WINDOWS):
         cols = [a[:n] for a in (x, y, ts, pol, offs)]
@@ -596,7 +600,7 @@ def check_voxel_tiled(dev):
         "events in (-1, 0), on tile edges and on the last row and column",
         edge_raw, edge_valid, trilinear=True))
 
-    log_ptxas("B3", "scatter_kernelILb1E")
+    log_ptxas("B3", "scatter_kernelILi1E")
     sort_ms = cuda_ms(lambda: voxel_tiled.bin_events_device(
         x, y, ts, pol, ok, **kw), 10)
     log(f"B3: bin_events_device (torch.sort + searchsorted, outside the "
@@ -1090,10 +1094,15 @@ def check_level(dev):
         th = conv_lstm.pick_row_tile(h0.shape[2])
         kw = dict(u_s2d=u_s2d, th=th)
         h_p, c_p, au_p, ax_p = level.level_int8_ref(u, h0, c0, prep, **kw)
+        x_p = level.level_x_ref(u, prep, **kw)[0].permute(0, 2, 3, 1)
+        x_k = torch.full_like(x_p, float("nan")).contiguous()
         n0 = level.launches
         h_k, c_k, au_k, ax_k = level.level_int8_cuda(
-            u, h0, c0.clone(memory_format=torch.channels_last), prep, **kw)
+            u, h0, c0.clone(memory_format=torch.channels_last), prep, **kw,
+            x_out=x_k)
         torch.cuda.synchronize()
+        x_equal = torch.equal(x_k, x_p)
+        del x_k, x_p
         h_e, (_, c_e) = level.encoder_level_int8(
             u, (h0, c0.clone(memory_format=torch.channels_last)), ek, eb, gk,
             gb, u_s2d=u_s2d, prepared=prep)
@@ -1103,7 +1112,7 @@ def check_level(dev):
         if not (torch.equal(h_e, h_k) and torch.equal(c_e, c_k)):
             raise AssertionError(f"B5 ({tuple(ushape)}): encoder_level_int8 "
                                  "and level_int8_cuda give different bits")
-        scales_equal = all(
+        scales_equal = x_equal and all(
             torch.equal(k.clamp(min=level.AMAX_FLOOR), p)
             for k, p in ((au_k, au_p), (ax_k, ax_p)))
         bad = unequal = 0
@@ -1116,15 +1125,26 @@ def check_level(dev):
         log(f"B5 level_int8 {'odd' if odd else f'L{li}'} u "
             f"{tuple(ushape)} ({form}) -> CH {ch} at "
             f"{h0.shape[2]}x{h0.shape[3]}, th={th}, {au_k.numel()} groups: "
-            f"group scales identical {scales_equal} (bound: identical); "
+            f"x and the group scales identical {scales_equal} (bound: "
+            f"identical; the quantized operands follow from them); "
             f"encoder_level_int8 gives the same bits; "
             f"{unequal} of {2 * h_k.numel()} values of h', c' not "
             f"bit-identical, {bad} beyond one bf16 ulp (bound 0), max|d| "
             f"{e:.3e}")
         if bad or not scales_equal:
             raise AssertionError(f"B5 ({tuple(ushape)}) disagrees with its "
-                                 f"plain version: {bad} values, scales "
-                                 f"{scales_equal}")
+                                 f"plain version: {bad} values, x and "
+                                 f"scales identical {scales_equal}")
+        b_, cu_ = h0.shape[0], u.shape[1] * (1 if u_s2d else 4)
+        lp = conv_halo.level_plan(b_, h0.shape[2], h0.shape[3], cu_, ch, th,
+                                  sm_count=conv_halo.sm_count(dev))
+        log(f"  plan B5: {lp.groups} groups of {th} rows, amax_u "
+            f"{lp.amax_blocks} blocks a group; gates {lp.gates.th}x"
+            f"{lp.gates.tw} pixels x {lp.gates.bn} gate columns a block, "
+            f"{lp.gates.chunks} chunks ({lp.gates.chunks_x} of x), "
+            f"{lp.gates.smem} B dynamic shared memory, grid {lp.gates.grid} "
+            f"over {lp.gates.n_tiles} x {lp.gates.n_tiles_n} items")
+        log_plan("B5 conv", lp.conv)
         if odd:
             continue
         del h_p, c_p, h_k, c_k, h_e, c_e
@@ -1138,12 +1158,15 @@ def check_level(dev):
         log(f"B5 level_int8 L{li}: kernels {t_k:.3f} ms "
             f"({ops / t_k / 1e9:.1f} TOP/s), plain {t_p:.3f} ms, bound "
             f"{t_b:.4f} ms ({by}), share of bound {100.0 * t_b / t_k:.1f}%")
+    log_ptxas("B5 amax_u", "amax_u_kernel")
+    log_ptxas("B5 conv", "level_conv_kernel")
+    log_ptxas("B5 gates", "level_cell_kernel")
     log(f"B5 time for the three encoder levels (one window, B=8): kernels "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({'/'.join(sorted(bound_by))}), share of bound "
         f"{100.0 * bound_ms / ms:.1f}%")
     return {"name": "level_int8", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/level_int8.cu",
+            "source": "ess_tpu_torch/csrc/level_int8.cu + conv_halo.cuh",
             "replaces": "ess_tpu/ops/level_pallas.py:68",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -1312,16 +1335,21 @@ def check_voxel_folded_legacy(dev):
         x, y, ts, pol, offs, **kw), 3)
     bound_ms, bound_by = voxel_bound(int(o[:, -1].sum()), o.size,
                                      grid_k.numel() + stats_k.numel())
-    n_slabs, slab_w = voxel_folded.band_slabs(BINS, SENSOR_W)
-    log(f"B3-legacy time for {n_win} windows ({hp // th} bands x {n_slabs} "
-        f"column slabs of {slab_w}): kernel {ms:.3f} ms, plain "
+    log_scatter_plan(f"B3-legacy at {n_win} windows",
+                     voxel_scatter.scatter_plan(
+                         BINS, hp, SENSOR_W, n_win,
+                         conv_halo.sm_count(x.device), mode="band"))
+    log_ptxas("B3-legacy", "scatter_kernelILi2E")
+    log(f"B3-legacy time for {n_win} windows ({hp // th} bands x "
+        f"{SENSOR_W // 128} tiles, each walking its band): kernel "
+        f"{ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share of "
         f"bound {100.0 * bound_ms / ms:.1f}%; the x-slot wire (B1) on the "
         f"same events {slot_ms:.3f} ms")
     del grid_k, x, y, t, p, vd, ts, pol
     torch.cuda.empty_cache()
     return {"name": "voxel_folded_legacy", "route": "cuda",
-            "source": "ess_tpu_torch/csrc/voxel_folded.cu",
+            "source": "ess_tpu_torch/csrc/voxel_folded.cu + voxel_scatter.cuh",
             "replaces": "ess_tpu/ops/voxel_pallas.py:1177",
             "max_abs_err": max(err, err_wire), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -1,14 +1,19 @@
 // Persistent scatter core of the trilinear voxelizers for Hopper, shared by
-// the fold-free x-slot voxelizer (B1, voxel_folded.cu::ess_voxel_folded)
-// and the halo-tiled voxelizer (B3, voxel_tiled.cu::ess_voxel_tiled).
+// the fold-free x-slot voxelizer (B1, voxel_folded.cu::ess_voxel_folded),
+// its full-width band wire (B3-legacy, voxel_folded.cu::
+// ess_voxel_folded_band) and the halo-tiled voxelizer (B3,
+// voxel_tiled.cu::ess_voxel_tiled): three kinds of work item (Kind).
 //
 // Work items. A tile is tile_h rows by 128 columns of one window's
 // (bins, H, W) f32 grid (a B1 group: one band by one x-slot); a work item is
-// one (window, tile), numbered window-major. The grid holds as many blocks
-// as fit on the SMs (at most one per item), and block b walks the items
-// b, b + gridDim.x, ...: the items in flight are a contiguous run of one or
-// two windows, so a window's events stay in L2 while its tiles run (B3's
-// tiles read their neighbours' ranges again, from there).
+// one (window, tile), numbered window-major. The records an item reads are
+// one group of the window's sorted records (offsets, n_groups + 1 a
+// window): its own tile's (B1, B3) or its whole band's (B3-legacy). The
+// grid holds as many blocks as fit on the SMs (at most one per item), and
+// block b walks the items b, b + gridDim.x, ...: the items in flight are a
+// contiguous run of one or two windows, so a window's events stay in L2
+// while its tiles run (B3's tiles read their neighbours' ranges again, and
+// B3-legacy's tiles their band's, from there).
 //
 // Accumulator. Each item deposits into a dense bins x tile_h x 128 f32
 // accumulator in shared memory (row pitch 128 floats; bins * (tile_h + 1)
@@ -43,6 +48,16 @@
 // into registers right after the current item's store is issued, so they
 // arrive while the block waits for and zeroes the accumulator; records past
 // the first kAhead are loaded on demand.
+//
+// Band rule (B3-legacy). The host folds ghosts across band rows and frame
+// edges only, so a band's records keep global columns and a record's x + 1
+// corners may cross into the next tile. The five (at DSEC width) tiles of a
+// band are consecutive items and run side by side on neighbouring blocks;
+// each walks the band's whole range (from L2 after the first) and keeps a
+// record only if floor(x) lies in [128 tx - 1, 128 tx + 127] (the -1: a
+// record just left of the tile still puts its x + 1 corners into it); rows
+// need no check. A warp queues its kept records in shared memory and
+// deposits them 32 at a time, one a lane. Partials as B1's.
 //
 // B3 gather rule. An event of tile (ty, tx) deposits only into its own
 // tile, the row below and the column to the right, so tile (ty, tx)
@@ -80,14 +95,18 @@ constexpr int kRowBytes = kTileW * 4;
 constexpr int kAhead = 1024;    // records of the next item loaded ahead
 constexpr int kMaxSmem = 232448;
 
+// What a work item reads and reduces: B1 (own group, stats), B3 (own tile
+// and its neighbours' ranges, no stats), B3-legacy (its band, stats).
+enum Kind { kFolded = 0, kTiled = 1, kBand = 2 };
+
 struct Args {
   const float* xs;
   const float* ys;
   const float* tss;
   const float* pols;
-  const int32_t* offsets;       // (windows, n_tiles + 1)
+  const int32_t* offsets;       // (windows, n_groups + 1)
   float* grid;                  // (windows, bins, height, width)
-  float* partials;              // (windows, n_tiles, 3), B1 only
+  float* partials;              // (windows, n_tiles, 3), B1 and B3-legacy
   int n_records;                // records per window
   int bins;
   int tile_h;
@@ -96,6 +115,8 @@ struct Args {
   int height;
   int width;
   int n_items;                  // windows * n_tiles
+  int n_groups;                 // record groups a window: n_tiles, or the
+                                // bands (B3-legacy)
 };
 
 // The band height both host binnings use (ops/voxel_scatter.py).
@@ -173,21 +194,23 @@ struct Item {
   int64_t base;                 // first record of the window
 };
 
-__device__ __forceinline__ int2 record_range(const Args& a, int w, int tile) {
-  const int32_t* offs = a.offsets + (int64_t)w * (a.n_tiles + 1);
+__device__ __forceinline__ int2 record_range(const Args& a, int w,
+                                             int group) {
+  const int32_t* offs = a.offsets + (int64_t)w * (a.n_groups + 1);
   // clamp to the window's records: offsets may come from the host
-  const int start = min(max(offs[tile], 0), a.n_records);
-  const int end = min(max(offs[tile + 1], start), a.n_records);
+  const int start = min(max(offs[group], 0), a.n_records);
+  const int end = min(max(offs[group + 1], start), a.n_records);
   return make_int2(start, end);
 }
 
+template <int KIND>
 __device__ __forceinline__ Item locate(const Args& a, int item) {
   Item it;
   it.w = item / a.n_tiles;
   const int tile = item - it.w * a.n_tiles;
   it.ty = tile / a.n_tx;
   it.tx = tile - it.ty * a.n_tx;
-  const int2 r = record_range(a, it.w, tile);
+  const int2 r = record_range(a, it.w, KIND == kBand ? it.ty : tile);
   it.start = r.x;
   it.end = r.y;
   it.base = (int64_t)it.w * a.n_records;
@@ -253,6 +276,92 @@ __device__ __forceinline__ void gather(const Args& a, float* acc,
   }
 }
 
+// B3-legacy: whether a record at column xl of the tile's frame (exact: x
+// and the tile's origin are within a factor of two of each other, or the
+// origin is 0) reaches the tile, floor(xl) in [-1, 127]
+__device__ __forceinline__ bool in_band_tile(float xl) {
+  return xl >= -1.f && xl < (float)kTileW;
+}
+
+// B3-legacy: a warp's queue of the records that reach its item's tile, in
+// shared memory (64 slots: fewer than 32 wait between flushes, and one
+// round adds at most 32). About one record in five of a band reaches a
+// given tile, so depositing straight from the records a lane loaded would
+// leave four lanes in five idle in every deposit; the queue hands the warp
+// 32 kept records at a time instead.
+constexpr int kQueue = 64;
+
+struct BandQueue {
+  float4* q;                    // this warp's kQueue slots: (yl, xl, t, p)
+  int n;                        // records waiting (the same in every lane)
+};
+
+// Every lane offers one record (keep: it reaches the tile); once 32 wait,
+// each lane deposits one. Called by the whole warp.
+__device__ __forceinline__ void band_offer(BandQueue& bq, float* acc,
+                                           bool keep, float yl, float xl,
+                                           float t, float p, int bins,
+                                           int th) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m = __ballot_sync(0xffffffffu, keep);
+  if (keep)
+    bq.q[bq.n + __popc(m & ((1u << lane) - 1u))] = make_float4(yl, xl, t, p);
+  bq.n += __popc(m);
+  if (bq.n >= 32) {
+    __syncwarp();
+    const float4 r = bq.q[lane];
+    const float4 rest = bq.q[32 + lane];
+    __syncwarp();
+    if (lane < bq.n - 32) bq.q[lane] = rest;
+    bq.n -= 32;
+    deposit(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0);
+    __syncwarp();
+  }
+}
+
+// The records still waiting, one a lane.
+__device__ __forceinline__ void band_flush(BandQueue& bq, float* acc,
+                                           int bins, int th) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (lane < bq.n) {
+    const float4 r = bq.q[lane];
+    deposit(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0);
+  }
+  bq.n = 0;
+  __syncwarp();
+}
+
+// B3-legacy: the records of the item's band past those loaded ahead, U a
+// lane at a time with all four fields' loads in flight together (from L2
+// after the band's first tile; loading y, ts and pol only after x passed
+// put two dependent load latencies on every kept record), offered to the
+// warp's queue. The loop runs warp-uniform rounds (the queue's ballots).
+template <int THREADS>
+__device__ __forceinline__ void band_rest(const Args& a, float* acc,
+                                          BandQueue& bq, const Item& it,
+                                          float row0, float col0) {
+  constexpr int U = 4;
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x - lane;
+  for (int r0 = it.start + kAhead + w0; r0 < it.end; r0 += U * THREADS) {
+    float xl[U], yl[U], t[U], p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = r0 + lane + u * THREADS;
+      const int64_t k = it.base + (i < it.end ? i : it.start);
+      xl[u] = a.xs[k] - col0;
+      yl[u] = a.ys[k] - row0;
+      t[u] = a.tss[k];
+      p[u] = i < it.end ? a.pols[k] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      band_offer(bq, acc, p[u] != 0.f && in_band_tile(xl[u]), yl[u], xl[u],
+                 t[u], p[u], a.bins, a.tile_h);
+  }
+  band_flush(bq, acc, a.bins, a.tile_h);
+}
+
 // One pass over an accumulator whose store has read it: 16-byte loads for
 // the stats (STATS), 16-byte zero stores (zero). Each warp leaves its sums
 // in red[warp].
@@ -291,7 +400,8 @@ __device__ __forceinline__ void drain(float* acc, int n4, bool zero,
   }
 }
 
-// Threads 0..2 sum the warps' stats of one item into its partial (B1).
+// Threads 0..2 sum the warps' stats of one item into its partial (B1,
+// B3-legacy).
 template <int THREADS>
 __device__ __forceinline__ void write_partial(const Args& a,
                                               float (*red)[3], int item) {
@@ -302,12 +412,14 @@ __device__ __forceinline__ void write_partial(const Args& a,
   }
 }
 
-// TILED: B3 (gather from the neighbours' ranges, no stats); else B1 (own
-// range only, one stats partial per item). map: the grid as a
-// (W, H, bins, windows) f32 tensor, box 128 x tile_h x bins x 1.
-template <bool TILED, int THREADS>
+// KIND: B1 (own range only, one stats partial per item), B3 (gather from
+// the neighbours' ranges, no stats) or B3-legacy (the band's range with the
+// band rule and the warps' queues, one stats partial per item). map: the
+// grid as a (W, H, bins, windows) f32 tensor, box 128 x tile_h x bins x 1.
+template <int KIND, int THREADS>
 __global__ void __launch_bounds__(THREADS, THREADS == 256 ? 3 : 2)
 scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
+  constexpr bool TILED = KIND == kTiled;
   extern __shared__ __align__(128) float acc[];
   __shared__ float red[THREADS / 32][3];
   const int tid = threadIdx.x;
@@ -320,7 +432,7 @@ scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
   int item = blockIdx.x;
   Item it;
   if (item < a.n_items) {
-    it = locate(a, item);
+    it = locate<KIND>(a, item);
     ahead.load(a, it);
   }
   __syncthreads();
@@ -337,16 +449,28 @@ scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
 
     // own range: the records loaded ahead, then the rest
     const float row0 = (float)(it.ty * th), col0 = (float)(it.tx * kTileW);
+    if constexpr (KIND == kBand) {
+      __shared__ float4 queue[THREADS / 32][kQueue];
+      BandQueue bq{queue[tid / 32], 0};
 #pragma unroll
-    for (int j = 0; j < Ahead<THREADS>::R; ++j)
-      if (ahead.p[j] != 0.f)
-        deposit(acc, ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
-                ahead.p[j], a.bins, th, 0, 0);
-    for (int i = it.start + kAhead + tid; i < it.end; i += THREADS) {
-      const float p = a.pols[it.base + i];
-      if (p == 0.f) continue;
-      deposit(acc, a.ys[it.base + i] - row0, a.xs[it.base + i] - col0,
-              a.tss[it.base + i], p, a.bins, th, 0, 0);
+      for (int j = 0; j < Ahead<THREADS>::R; ++j)
+        band_offer(bq, acc,
+                   ahead.p[j] != 0.f && in_band_tile(ahead.x[j] - col0),
+                   ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
+                   ahead.p[j], a.bins, th);
+      band_rest<THREADS>(a, acc, bq, it, row0, col0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < Ahead<THREADS>::R; ++j)
+        if (ahead.p[j] != 0.f)
+          deposit(acc, ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
+                  ahead.p[j], a.bins, th, 0, 0);
+      for (int i = it.start + kAhead + tid; i < it.end; i += THREADS) {
+        const float p = a.pols[it.base + i];
+        if (p == 0.f) continue;
+        deposit(acc, a.ys[it.base + i] - row0, a.xs[it.base + i] - col0,
+                a.tss[it.base + i], p, a.bins, th, 0, 0);
+      }
     }
     if constexpr (TILED && !(VOXEL_SCATTER_SKIP & 1)) {
       const int tile = it.ty * a.n_tx + it.tx;
@@ -369,7 +493,7 @@ scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
     held = item;
     item += gridDim.x;
     if (item < a.n_items) {
-      it = locate(a, item);
+      it = locate<KIND>(a, item);
       ahead.load(a, it);
     }
   }
@@ -408,12 +532,13 @@ inline int grid_map(CUtensorMap* map, const Args& a) {
 
 // Checks the plan against the layout and launches one kernel over every
 // (window, tile). Returns a cudaError_t.
-template <bool TILED>
+template <int KIND>
 int launch(const Args& a, int threads, int grid, int smem, void* stream) {
   if (a.n_items == 0) return 0;
   if (a.tile_h != tile_h_for_bins(a.bins) || a.width % kTileW ||
       a.n_tx * kTileW != a.width || a.height % a.tile_h ||
       (a.height / a.tile_h) * a.n_tx != a.n_tiles || a.bins > 256 ||
+      a.n_groups != (KIND == kBand ? a.height / a.tile_h : a.n_tiles) ||
       (threads != 256 && threads != 512) ||
       smem != a.bins * a.tile_h * kRowBytes || smem > kMaxSmem ||
       grid < 1 || grid > a.n_items)
@@ -422,8 +547,8 @@ int launch(const Args& a, int threads, int grid, int smem, void* stream) {
   int err = grid_map(&map, a);
   if (err) return err;
   void (*kern)(const Args, const CUtensorMap) =
-      threads == 256 ? scatter_kernel<TILED, 256>
-                     : scatter_kernel<TILED, 512>;
+      threads == 256 ? scatter_kernel<KIND, 256>
+                     : scatter_kernel<KIND, 512>;
   err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;

@@ -47,6 +47,7 @@ extern "C" int ess_voxel_tiled(const void* x, const void* y, const void* ts,
                         (const int32_t*)offsets, (float*)grid,
                         nullptr, n_events, bins, tile_h, n_tx,
                         n_ty * n_tx, n_ty * tile_h, n_tx * scatter::kTileW,
-                        n_windows * n_ty * n_tx};
-  return scatter::launch<true>(a, threads, grid_blocks, smem, stream);
+                        n_windows * n_ty * n_tx, n_ty * n_tx};
+  return scatter::launch<scatter::kTiled>(a, threads, grid_blocks, smem,
+                                          stream);
 }

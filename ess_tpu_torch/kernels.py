@@ -96,7 +96,7 @@ def _build() -> ctypes.CDLL:
     # the voxelizers: shape, then the scatter plan (threads, grid, smem)
     lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
     lib.ess_voxel_folded.restype = ci
-    lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+    lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.ess_voxel_folded_band.restype = ci
     lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_voxel_tiled.restype = ci
@@ -111,7 +111,7 @@ def _build() -> ctypes.CDLL:
     lib.ess_conv_lstm_mode.restype = ci
     lib.ess_conv_lstm_int8_mode.argtypes = [vp] * 7 + [ci] * 10 + [vp]
     lib.ess_conv_lstm_int8_mode.restype = ci
-    lib.ess_level_int8.argtypes = [vp] * 14 + [ci] * 7 + [vp]
+    lib.ess_level_int8.argtypes = [vp] * 10 + [ci] * 18 + [vp]
     lib.ess_level_int8.restype = ci
     lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 11 + [vp]
     lib.ess_conv3x3.restype = ci

@@ -321,3 +321,107 @@ def cell_items(plan: CellPlan, block: int):
     items = plan.n_tiles * plan.n_tiles_n
     return [(wc % plan.n_tiles_n, wc // plan.n_tiles_n)
             for wc in range(block, items, plan.grid)]
+
+
+# The fused encoder level (B5, ``csrc/level_int8.cu``): its conv and its
+# gate kernel on the same core, over quantization groups.
+AMAX_THREADS = 256           # level_int8.cu::kAmaxThreads
+AMAX_BLOCKS = 64             # partials a group at most (kMaxAmaxBlocks)
+LEVEL_GATE_PATCHES = ((8, 16), (4, 32))   # 128 pixels: one m64 a warpgroup
+LEVEL_W_STAGE = 9 * 2 * CELL_BN * 16   # 36,864: a half chunk's weights
+
+
+def level_gate_smem(th: int, tw: int, chunks: int, halves: int) -> int:
+    """The gate kernel's shared memory (``level_int8.cu::level_cell_smem``):
+    the alignment slack, two weight stages of ``halves`` half chunks,
+    every chunk's s8 halo (each padded to 1,024 bytes), the consumer warps'
+    epilogue slots and the barriers."""
+    return (CELL_ALIGN + CELL_STAGES * halves * LEVEL_W_STAGE
+            + chunks * cell_halo_bytes(th, tw)
+            + CELL_CONSUMER_WARPS * CELL_SLOT + CELL_BARRIERS)
+
+
+@dataclass(frozen=True)
+class LevelPlan:
+    groups: int           # G = B * NT quantization groups
+    nt: int               # row tiles (groups) a sample
+    th: int               # output rows a group (pick_row_tile)
+    amax_blocks: int      # P: amax_u partials a group, one a block
+    conv: HaloPlan        # the conv over the groups' th + 2 x rows
+    gates: CellPlan       # the gate kernel over the groups' th rows
+    gate_halves: int      # weight halves a gate stage: 2 (a chunk) or 1
+
+
+def _group_patch(rows: int, w: int, cands) -> Tuple[int, int]:
+    """The patch of ``cands`` that pads ``rows`` x ``w`` least (a tie keeps
+    the first, whose halo is smaller)."""
+    def padded(p):
+        return -(-rows // p[0]) * p[0] * (-(-w // p[1]) * p[1])
+    return min(cands, key=padded)
+
+
+def level_plan(b: int, ho: int, wo: int, cu: int, ch: int, th: int, *,
+               sm_count: int = H100_SMS) -> LevelPlan:
+    """The plan of the fused level for a space-to-depth input of ``cu``
+    channels at ``ho x wo`` and ``ch`` hidden channels, in groups of ``th``
+    output rows (``ho`` a multiple of ``th``).
+
+    - amax_u: ``amax_blocks`` blocks a group, each a share of the group's
+      ``(th + 4) x wo x cu`` values (at most :data:`AMAX_BLOCKS`).
+    - The conv (``level_conv_kernel``): the s8 NHWC conv's block shape
+      (:func:`block_shape` of ``ch``), a group is an image of ``th + 2``
+      rows, so a pixel tile (``tile_origin``: group, first x row of the
+      group, first column) never straddles two groups; the patch that pads
+      those rows least (8 x 32 or 16 x 16 at 256 pixels, 8 x 16 or 4 x 32
+      at 128); every weight chunk resident where that fits beside two raw
+      stages and one s8 halo, else two streamed stages.
+    - The gate kernel (``level_cell_kernel``): 128-pixel patches
+      (:data:`LEVEL_GATE_PATCHES`, the one that pads a group's ``th`` rows
+      least), N tiles of 128 gate columns, ``chunks_x`` 64-channel chunks
+      of x then as many of h; an item is a pixel tile with all its N tiles
+      (``n_tiles`` items), whose chunks' s8 halos stay in shared memory
+      (:func:`level_gate_smem`), weight stages of a whole chunk where they
+      fit beside them (``gate_halves`` 2), else of half a chunk, one
+      persistent block an SM. A level whose halos do not fit (CH above
+      320) raises.
+    """
+    if ho % th or ch % 32 or cu % 16 or min(b, ho, wo, cu, ch) <= 0:
+        raise ValueError(f"level_plan: th={th} must divide {ho} rows, "
+                         f"CH={ch} be a multiple of 32 and CU={cu} of 16")
+    nt = ho // th
+    groups = b * nt
+    want = -(-((th + 4) * wo * cu // 8) // AMAX_THREADS)
+    amax_blocks = max(1, min(AMAX_BLOCKS, want))
+
+    bm, bn = block_shape(ch)
+    cands = ((8, 32), (16, 16)) if bm == 256 else ((8, 16), (4, 32))
+    cth, ctw = _group_patch(th + 2, wo, cands)
+    ty, tx = -(-(th + 2) // cth), -(-wo // ctw)
+    n_tiles = groups * ty * tx
+    chunks = -(-cu // KC_INT8)
+    n_tiles_n = -(-ch // bn)
+    raw = raw_pitch(cu)
+    for resident in (True, False):
+        smem = conv_smem(cth, ctw, bn, chunks, resident, raw, 1)
+        if smem <= MAX_SMEM:
+            break
+    conv = HaloPlan(cth, ctw, bm, bn, ty, tx, n_tiles, n_tiles_n, chunks,
+                    resident, smem,
+                    _grid_x(n_tiles, n_tiles_n, bn, smem, sm_count), 1)
+
+    gth, gtw = _group_patch(th, wo, LEVEL_GATE_PATCHES)
+    gty, gtx = -(-th // gth), -(-wo // gtw)
+    g_tiles = groups * gty * gtx
+    chunks_x = -(-ch // KC_INT8)
+    g_n = 4 * ch // CELL_BN
+    halves = 2 if level_gate_smem(gth, gtw, 2 * chunks_x, 2) <= MAX_SMEM else 1
+    g_smem = level_gate_smem(gth, gtw, 2 * chunks_x, halves)
+    if g_smem > MAX_SMEM:
+        raise ValueError(f"level_plan: the s8 halos of CH={ch} "
+                         f"({2 * chunks_x} "
+                         f"chunks) and the weight stages take {g_smem} B, "
+                         f"more than a block's {MAX_SMEM}")
+    gates = CellPlan(gth, gtw, gth * gtw, CELL_BN, gty, gtx, g_tiles, g_n,
+                     KC_INT8, chunks_x, 2 * chunks_x, g_smem,
+                     max(1, min(g_tiles, sm_count)))
+    return LevelPlan(groups, nt, th, amax_blocks, conv, gates, halves)

@@ -84,8 +84,9 @@ def pick_row_tile(height: int, lo: int = 2, hi: int = 24) -> Optional[int]:
 def quant_cols(w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(K, N) f32 -> int8 weights quantized per column (output channel) and
     the (N,) f32 column scales ``max(absmax_k, 1e-20) / 127``; the weights
-    are divided by the scale, then rounded half to even and clipped."""
-    ws = torch.clamp(w2.abs().amax(dim=0), min=1e-20) / 127.0
+    are divided by the scale, then rounded half to even and clipped. The
+    scale is one IEEE division on every device (:func:`_div127`)."""
+    ws = _div127(torch.clamp(w2.abs().amax(dim=0), min=1e-20))
     wq = torch.clamp(torch.round(w2 / ws), -127, 127).to(torch.int8)
     return wq, ws
 

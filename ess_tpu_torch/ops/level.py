@@ -30,12 +30,16 @@ port keeps the JAX package's, whatever its thread blocks cover. Per group:
 Tensors are NCHW; u is the full-resolution level input (B, C_in, 2*HO,
 2*WO) or, with ``u_s2d=True``, its space-to-depth form (B, 4*C_in, HO, WO)
 (:func:`ess_tpu_torch.ops.conv_s2d.space_to_depth`). On CPU the level runs
-its plain version :func:`encoder_level_int8_ref`. On CUDA it runs the
-kernels of ``csrc/level_int8.cu`` on bf16 channels-last tensors, writes h'
-to a new tensor and updates c in place (outside autograd); there is no size
-gate and no route to the plain version: a shape the kernels do not take
-raises. No model or rollout uses the level, as in the JAX package:
-``ess_tpu_torch/tools/bench_level.py`` drives it.
+its plain version :func:`encoder_level_int8_ref`. On CUDA it runs the three
+kernels of ``csrc/level_int8.cu`` on bf16 channels-last tensors (the group
+absmax of u; the conv on the halo-tile core, u quantized as it is staged;
+the gate conv and the pointwise on the int8 cell kernel's machinery, x and
+h quantized as they are staged), with the plan of
+``ops/conv_halo.py::level_plan``, writes h' to a new tensor and updates c
+in place (outside autograd); there is no size gate and no route to the
+plain version: a shape the kernels do not take raises. No model or rollout
+uses the level, as in the JAX package: ``ess_tpu_torch/tools/bench_level.py``
+drives it.
 """
 
 from __future__ import annotations
@@ -45,14 +49,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv_lstm import (
-    _check_aligned, _check_matrix, _pointwise, conv_lstm_ref,
-    gate_column_order, pick_row_tile, quant_cols, quantize,
+    _check_aligned, _check_matrix, _div127, _pointwise, _weight_image,
+    conv_lstm_ref, gate_column_order, pick_row_tile, quant_cols, quantize,
     unpermute_gate_rows)
 from ess_tpu_torch.ops.conv_s2d import (
     conv5x5_s2d_stride2, s2d_kernel_stride2, space_to_depth)
 
-launches = 0   # fused-level launches, the whole kernel sequence (CUDA only)
+launches = 0   # fused-level calls on CUDA, each the three kernels
 
 AMAX_FLOOR = 1e-6
 
@@ -66,6 +71,11 @@ class LevelWeights(NamedTuple):
     wh_q: torch.Tensor   # (4*CH, 9*CH) int8, gate_column_order row order
     sbe: torch.Tensor    # (2, CH) f32: wse, enc_bias
     sbg: torch.Tensor    # (3, 4*CH) f32: wsx, wsh / 127, gate_bias (i,f,o,g)
+    # what the CUDA kernels load, where CH is a multiple of 32 (else None):
+    we_k: Optional[torch.Tensor]     # (CH, 9*CUP) int8, CU padded to 64s
+    wg_img: Optional[torch.Tensor]   # int8 gate weight image (4*CH/128,
+                                     # 2*CHP/64, 2, 9, 2, 128, 16): wx's
+                                     # chunks, then wh's, in half chunks
 
 
 def prepare_level_weights(enc_weight: torch.Tensor, enc_bias: torch.Tensor,
@@ -74,8 +84,14 @@ def prepare_level_weights(enc_weight: torch.Tensor, enc_bias: torch.Tensor,
     """Quantize a level's weights per output channel: the encoder conv in
     its space-to-depth 3x3 form and the x and h halves of the gate conv
     (three :func:`quant_cols`), with their scales and the biases stacked as
-    the kernels read them. The JAX package does this on every call; here it
-    may be computed once for frozen parameters and passed as ``prepared``.
+    the kernels read them, and the two layouts the CUDA kernels load: the
+    conv's matrix with its input channels padded to a multiple of 64
+    (``we_k``) and the gate kernel's weight image (``wg_img``: the cell
+    kernel's layout of ``conv_lstm._weight_image`` with each chunk's 36 k
+    groups cut in two halves of 32 channels, [half][tap][2 k groups], one
+    bulk copy a half), where CH is a multiple of 32 as the kernels need
+    (else None). The JAX package does this on every call; here it may be
+    computed once for frozen parameters and passed as ``prepared``.
     """
     ch = enc_weight.shape[0]
     if tuple(gate_weight.shape) != (4 * ch, 2 * ch, 3, 3):
@@ -88,11 +104,24 @@ def prepare_level_weights(enc_weight: torch.Tensor, enc_bias: torch.Tensor,
     wx_q, wsx = quant_cols(gk[:, :, :ch].reshape(9 * ch, 4 * ch))
     wh_q, wsh = quant_cols(gk[:, :, ch:].reshape(9 * ch, 4 * ch))
     order = gate_column_order(ch, gate_weight.device)
+    we_t = we_q.t().contiguous()
+    wx_t, wh_t = wx_q.t()[order].contiguous(), wh_q.t()[order].contiguous()
+    we_k = wg_img = None
+    if ch % 32 == 0:
+        cup = -(-cu // 64) * 64
+        we_k = we_t.new_zeros(ch, 9, cup)
+        we_k[:, :, :cu] = we_t.view(ch, 9, cu)
+        we_k = we_k.view(ch, 9 * cup)
+        wg = torch.cat([wx_t.view(4 * ch, 9, ch), wh_t.view(4 * ch, 9, ch)],
+                       2)
+        img = _weight_image(wg.view(4 * ch, 18 * ch), ch, 64)
+        nn, chunks = img.shape[:2]
+        wg_img = (img.view(nn, chunks, 9, 2, 2, 128, 16)
+                  .permute(0, 1, 3, 2, 4, 5, 6).contiguous())
     return LevelWeights(
-        we_q.t().contiguous(), wx_q.t()[order].contiguous(),
-        wh_q.t()[order].contiguous(),
-        torch.stack([wse, enc_bias.detach().float()]),
-        torch.stack([wsx, wsh / 127.0, gate_bias.detach().float()]))
+        we_t, wx_t, wh_t, torch.stack([wse, enc_bias.detach().float()]),
+        torch.stack([wsx, _div127(wsh), gate_bias.detach().float()]),
+        we_k, wg_img)
 
 
 def encoder_level_ref(u: torch.Tensor, h_prev: torch.Tensor,
@@ -118,23 +147,16 @@ def _row_tiles(a: torch.Tensor, th: int, d: int) -> torch.Tensor:
     return t.permute(0, 2, 1, 4, 3).reshape(b * (h // th), c, th + 2 * d, w)
 
 
-def level_int8_ref(u: torch.Tensor, h_prev: torch.Tensor,
-                   c_prev: torch.Tensor, prepared: LevelWeights, *,
-                   u_s2d: bool, th: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                              torch.Tensor]:
-    """The plain version of the fused level, step by step on tensors (module
-    docstring), with the row tiles unfolded into the batch axis. The
-    integer convs run in float64, where every partial sum is exact
-    (9*512*127^2 exceeds f32's integers). Every scale is built from IEEE
-    f32 divisions and products in the kernels' order (a tensor divided by a
-    tensor: dividing by a Python number multiplies by its reciprocal on
-    CUDA). Returns (h', c', amax_u, amax_x), the scales per group
-    (B*NT,)."""
-    b, ch, ho, wo = h_prev.shape
-    nt = ho // th
+def level_x_ref(u: torch.Tensor, prepared: LevelWeights, *, u_s2d: bool,
+                th: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first half of :func:`level_int8_ref`: the conv's output x of
+    every group, (G, CH, th+2, WO) f32 on the group's rows ``r0-1 ..
+    r0+th`` with its u scale (rows outside the image 0), and the floored
+    ``amax_u`` (G,)."""
+    ch = prepared.sbe.shape[1]
     us = (u if u_s2d else space_to_depth(u)).float()
-    cu = us.shape[1]
+    cu, ho = us.shape[1], us.shape[2]
+    nt = ho // th
     c127 = torch.full((), 127.0, device=u.device)
     col = lambda v: v[None, :, None, None]
     grp = lambda v: v[:, None, None, None]
@@ -152,6 +174,28 @@ def level_int8_ref(u: torch.Tensor, h_prev: torch.Tensor,
     # relu(bias)
     x[0::nt, :, 0] = 0.0
     x[nt - 1::nt, :, th + 1] = 0.0
+    return x, amax_u
+
+
+def level_int8_ref(u: torch.Tensor, h_prev: torch.Tensor,
+                   c_prev: torch.Tensor, prepared: LevelWeights, *,
+                   u_s2d: bool, th: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The plain version of the fused level, step by step on tensors (module
+    docstring), with the row tiles unfolded into the batch axis. The
+    integer convs run in float64, where every partial sum is exact
+    (9*512*127^2 exceeds f32's integers). Every scale is built from IEEE
+    f32 divisions and products in the kernels' order (a tensor divided by a
+    tensor: dividing by a Python number multiplies by its reciprocal on
+    CUDA). Returns (h', c', amax_u, amax_x), the scales per group
+    (B*NT,)."""
+    b, ch, ho, wo = h_prev.shape
+    nt = ho // th
+    c127 = torch.full((), 127.0, device=u.device)
+    col = lambda v: v[None, :, None, None]
+    grp = lambda v: v[:, None, None, None]
+    x, amax_u = level_x_ref(u, prepared, u_s2d=u_s2d, th=th)
     amax_x = torch.clamp(x.amax(dim=(1, 2, 3)), min=AMAX_FLOOR)
     xq = quantize(x, grp(torch.div(c127, amax_x)))
     hq = quantize(_row_tiles(h_prev.to(u.dtype), th, 1), 127.0)
@@ -188,15 +232,19 @@ def encoder_level_int8_ref(u: torch.Tensor, h_prev: torch.Tensor,
 
 def level_int8_cuda(u: torch.Tensor, h_prev: torch.Tensor,
                     c_prev: torch.Tensor, prepared: LevelWeights, *,
-                    u_s2d: bool, th: int
+                    u_s2d: bool, th: int,
+                    x_out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
-    """The kernels of ``csrc/level_int8.cu`` on CUDA tensors: returns
+    """The three kernels of ``csrc/level_int8.cu`` on CUDA tensors: returns
     (h', c_prev updated in place, amax_u, amax_x) as
     :func:`level_int8_ref`, the scales as the kernels found them, before
     the floor they apply where they use them (no torch operation runs here
     beyond allocating the outputs and the scratch). Checks what the kernels
-    need and raises otherwise."""
+    need and raises otherwise; the plan is
+    ``conv_halo.level_plan``'s. ``x_out``: a contiguous f32 (G, th+2, WO,
+    CH) tensor that receives the conv's output x in the group layout
+    (:func:`level_x_ref`'s, channels last), else scratch."""
     name = "encoder_level_int8"
     b, ch, ho, wo = h_prev.shape
     cu = u.shape[1] if u_s2d else 4 * u.shape[1]
@@ -222,32 +270,42 @@ def level_int8_cuda(u: torch.Tensor, h_prev: torch.Tensor,
     _check_matrix(name, prepared.wh_q, torch.int8, (4 * ch, 9 * ch), u.device)
     _check_matrix(name, prepared.sbe, torch.float32, (2, ch), u.device)
     _check_matrix(name, prepared.sbg, torch.float32, (3, 4 * ch), u.device)
-    groups = b * (ho // th)
-    i8 = dict(dtype=torch.int8, device=u.device)
-    uq = torch.empty((groups, th + 4, wo, cu), **i8)
-    xq = torch.empty((groups, th + 2, wo, ch), **i8)
-    hq = torch.empty((groups, th + 2, wo, ch), **i8)
-    xs = torch.empty((groups, th + 2, wo, ch), dtype=torch.float32,
-                     device=u.device)
-    amax = torch.empty((2, groups), dtype=torch.float32, device=u.device)
+    cup, chp = -(-cu // 64) * 64, -(-ch // 64) * 64
+    _check_matrix(name, prepared.we_k, torch.int8, (ch, 9 * cup), u.device)
+    _check_matrix(name, prepared.wg_img, torch.int8,
+                  (4 * ch // 128, 2 * chp // 64, 2, 9, 2, 128, 16), u.device)
+    plan = conv_halo.level_plan(b, ho, wo, cu, ch, th,
+                                sm_count=conv_halo.sm_count(u.device))
+    g = plan.groups
+    scratch = torch.empty((2 + plan.amax_blocks) * g, dtype=torch.float32,
+                          device=u.device)
+    xs = x_out
+    if xs is None:
+        xs = torch.empty((g, th + 2, wo, ch), dtype=torch.float32,
+                         device=u.device)
+    if (xs.dtype != torch.float32 or tuple(xs.shape) != (g, th + 2, wo, ch)
+            or not xs.is_contiguous() or xs.device != u.device):
+        raise ValueError(f"{name}: x_out must be a contiguous float32 "
+                         f"{(g, th + 2, wo, ch)} tensor on {u.device}")
     h_new = torch.empty_like(h_prev, memory_format=torch.channels_last)
-    _check_aligned(name, u, h_prev, c_prev, *prepared[:3], uq, xq, hq, xs,
-                   h_new)
+    _check_aligned(name, u, h_prev, c_prev, prepared.we_k, prepared.wg_img,
+                   scratch, xs, h_new)
     from ess_tpu_torch import kernels
 
     global launches
     lib = kernels.get_lib()
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    cp, gp = plan.conv, plan.gates
     err = lib.ess_level_int8(
         u.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
-        prepared.we_q.data_ptr(), prepared.wx_q.data_ptr(),
-        prepared.wh_q.data_ptr(), prepared.sbe.data_ptr(),
-        prepared.sbg.data_ptr(), uq.data_ptr(), xs.data_ptr(), xq.data_ptr(),
-        hq.data_ptr(), amax.data_ptr(), h_new.data_ptr(), b, ho, wo, cu, ch,
-        th, int(u_s2d), stream)
+        prepared.we_k.data_ptr(), prepared.wg_img.data_ptr(),
+        prepared.sbe.data_ptr(), prepared.sbg.data_ptr(), scratch.data_ptr(),
+        xs.data_ptr(), h_new.data_ptr(), b, ho, wo, cu, ch, th, int(u_s2d),
+        plan.amax_blocks, cp.th, cp.tw, int(cp.resident), cp.grid_x, cp.smem,
+        gp.th, gp.tw, plan.gate_halves, gp.grid, gp.smem, stream)
     kernels.check(err, "level_int8 kernels")
     launches += 1
-    return h_new, c_prev, amax[0], amax[1]
+    return h_new, c_prev, scratch[:g], scratch[g:2 * g]
 
 
 class _RecomputeBackward(torch.autograd.Function):

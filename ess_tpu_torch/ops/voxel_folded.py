@@ -20,8 +20,10 @@ call; the partials are summed per window in group order.
 Without x-slots (``x_slots=False``, the legacy wire) the host folds across
 band rows and frame edges only, groups are whole bands and columns stay
 global; the offsets then have ``n_bands + 1`` columns and the kernel's
-second entry splits each band into column slabs of at most
-:data:`SLAB_BYTES` of shared memory (``ess_voxel_folded_band``).
+second entry (``ess_voxel_folded_band``) runs the same core with the plan's
+``mode='band'``: each (window, band, 128-column tile) is a work item that
+walks its band's range and keeps the records that reach its tile, with the
+same tile stores and partials, one launch a call.
 :func:`voxelize_folded` picks the wire by the width of the offsets, as the
 JAX function does; at a 128-wide grid the two wires are the same and run the
 x-slot kernel.
@@ -45,7 +47,6 @@ from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
 launches = 0          # x-slot kernel launches (CUDA tensors only)
 launches_legacy = 0   # full-width band kernel launches (CUDA tensors only)
-SLAB_BYTES = 160 * 1024   # shared memory of one band slab, legacy kernel
 
 
 def _geometry(height: int, width: int, bins: int) -> tuple[int, int, int]:
@@ -207,17 +208,6 @@ def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     return grid, stats
 
 
-def band_slabs(bins: int, width: int) -> tuple[int, int]:
-    """(n_slabs, slab_w) of the legacy kernel: the fewest column slabs
-    whose ``bins x tile_h x slab_w`` f32 accumulator fits in
-    :data:`SLAB_BYTES`, each a multiple of 32 columns wide (320 at DSEC's
-    640 columns and 5 bins)."""
-    row_bytes = 4 * bins * tile_h_for_bins(bins)
-    n_slabs = -(-row_bytes * width // SLAB_BYTES)
-    slab_w = -(-width // (32 * n_slabs)) * 32
-    return -(-width // slab_w), slab_w
-
-
 def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                     pol: torch.Tensor, offsets: torch.Tensor, *,
                     bins: int, height: int, width: int):
@@ -270,20 +260,18 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cols = (x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
             offsets.data_ptr(), grid.data_ptr())
+    plan = voxel_scatter.scatter_plan(bins, height, width, b,
+                                      sm_count(x.device),
+                                      mode="band" if legacy else "tile")
+    partials = torch.empty((b, n_bands * n_slots, 3), dtype=torch.float32,
+                           device=x.device)
     if legacy:
-        n_slabs, slab_w = band_slabs(bins, width)
-        partials = torch.empty((b, n_bands * n_slabs, 3),
-                               dtype=torch.float32, device=x.device)
         err = lib.ess_voxel_folded_band(
-            *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slabs,
-            slab_w, width, stream)
+            *cols, partials.data_ptr(), b, n, bins, th, n_bands, width,
+            plan.threads, plan.grid, plan.smem, stream)
         kernels.check(err, "voxel_folded band kernel")
         launches_legacy += 1
     else:
-        plan = voxel_scatter.scatter_plan(bins, height, width, b,
-                                          sm_count(x.device))
-        partials = torch.empty((b, n_bands * n_slots, 3),
-                               dtype=torch.float32, device=x.device)
         err = lib.ess_voxel_folded(
             *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slots,
             width, plan.threads, plan.grid, plan.smem, stream)

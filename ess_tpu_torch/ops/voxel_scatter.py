@@ -1,13 +1,21 @@
 """Work plan of the persistent scatter core (``csrc/voxel_scatter.cuh``).
 
-The fold-free voxelizer (B1, :mod:`ess_tpu_torch.ops.voxel_folded`) and the
-halo-tiled voxelizer (B3, :mod:`ess_tpu_torch.ops.voxel_tiled`) run on one
-CUDA core. A work item is one (window, tile) of the grid, a tile being
-``tile_h`` rows by 128 columns (a B1 group: one band by one x-slot). Items
-are numbered window-major, ``item = window * n_tiles + ty * n_tx + tx``,
-and the persistent blocks walk them grid-strided: block ``b`` takes items
-``b, b + grid, b + 2 * grid, ...``, so the items in flight at any moment
-are a contiguous run of one or two windows, whose events stay in L2.
+The fold-free voxelizer (B1, :mod:`ess_tpu_torch.ops.voxel_folded`), its
+full-width band wire (B3-legacy, the same module) and the halo-tiled
+voxelizer (B3, :mod:`ess_tpu_torch.ops.voxel_tiled`) run on one CUDA core.
+A work item is one (window, tile) of the grid, a tile being ``tile_h`` rows
+by 128 columns (a B1 group: one band by one x-slot). Items are numbered
+window-major, ``item = window * n_tiles + ty * n_tx + tx``, and the
+persistent blocks walk them grid-strided: block ``b`` takes items ``b, b +
+grid, b + 2 * grid, ...``, so the items in flight at any moment are a
+contiguous run of one or two windows, whose events stay in L2.
+
+The plan's ``mode`` says which records an item reads (:func:`item_group`):
+``'tile'`` (B1 and B3) the group of its own tile, the offsets having
+``n_tiles + 1`` columns; ``'band'`` (B3-legacy) its whole band, the offsets
+having ``n_ty + 1`` columns: the band's tiles are consecutive items, each
+walks the band's range and keeps the records whose ``floor(x)`` lies in
+``[128 tx - 1, 128 tx + 127]`` (:func:`band_keeps`).
 
 Per item a block scatters the item's records into a dense ``bins x tile_h
 x 128`` f32 accumulator in shared memory (row pitch 128 floats, 512 bytes),
@@ -49,6 +57,7 @@ BUFS = 1
 # 256-thread block (B3 at streaming B=1: 100 items), else 256 (B3 at B=8:
 # 800 items; B1: 4,000-16,000), as measured on the H100 (PERF.md).
 FEW_ITEMS_PER_SLOT = 1
+MODES = ("tile", "band")
 
 
 def tile_h_for_bins(bins: int) -> int:
@@ -60,10 +69,14 @@ def tile_h_for_bins(bins: int) -> int:
     return max(4, min(th, 64))
 
 
-def static_smem(threads: int) -> int:
+QUEUE = 64                   # B3-legacy: a warp's queue of kept records
+
+
+def static_smem(threads: int, mode: str = "tile") -> int:
     """Static shared memory of a block: the stats reduction, (sum, sum of
-    squares, nonzero count) per warp."""
-    return (threads // 32) * 3 * 4
+    squares, nonzero count) per warp, and in mode ``'band'`` each warp's
+    queue of :data:`QUEUE` 16-byte records."""
+    return (threads // 32) * (3 * 4 + (QUEUE * 16 if mode == "band" else 0))
 
 
 @dataclass(frozen=True)
@@ -82,17 +95,24 @@ class ScatterPlan:
     blocks_per_sm: int    # resident blocks an SM: shared memory, threads,
                           # registers (REG_BLOCKS)
     grid: int             # persistent blocks: min(n_items, SMs x blocks/SM)
+    mode: str = "tile"    # records an item reads: its tile's or its band's
+    n_groups: int = 0     # record groups a window (offsets: n_groups + 1)
     order: str = "window-major"
 
 
 @functools.lru_cache(maxsize=256)
 def scatter_plan(bins: int, height: int, width: int, n_windows: int,
-                 n_sm: int = H100_SMS, *, threads: int = 0) -> ScatterPlan:
-    """The plan of B1 (``ess_voxel_folded``) or B3 (``ess_voxel_tiled``)
-    for ``n_windows`` grids of ``(bins, height, width)``; ``height`` a
-    multiple of ``tile_h_for_bins(bins)``, ``width`` of 128. ``threads``
-    0 takes 512 where there are at most :data:`FEW_ITEMS_PER_SLOT` items
-    for each resident 256-thread block, else 256."""
+                 n_sm: int = H100_SMS, *, threads: int = 0,
+                 mode: str = "tile") -> ScatterPlan:
+    """The plan of B1 (``ess_voxel_folded``) or B3 (``ess_voxel_tiled``),
+    ``mode='tile'``, or of B3-legacy (``ess_voxel_folded_band``),
+    ``mode='band'``, for ``n_windows`` grids of ``(bins, height, width)``;
+    ``height`` a multiple of ``tile_h_for_bins(bins)``, ``width`` of 128.
+    ``threads`` 0 takes 512 where there are at most
+    :data:`FEW_ITEMS_PER_SLOT` items for each resident 256-thread block,
+    else 256."""
+    if mode not in MODES:
+        raise ValueError(f"scatter_plan: mode {mode!r} not in {MODES}")
     th = tile_h_for_bins(bins)
     if height % th or width % TILE_W or height <= 0 or width <= 0:
         raise ValueError(f"scatter_plan: grid {height}x{width} is not a "
@@ -108,7 +128,7 @@ def scatter_plan(bins: int, height: int, width: int, n_windows: int,
     smem = BUFS * acc
 
     def blocks_per_sm(t: int) -> int:
-        per_block = smem + static_smem(t) + BLOCK_RESERVED
+        per_block = smem + static_smem(t, mode) + BLOCK_RESERVED
         return max(1, min(SM_SMEM // per_block, SM_THREADS // t,
                           REG_BLOCKS[t]))
 
@@ -120,7 +140,8 @@ def scatter_plan(bins: int, height: int, width: int, n_windows: int,
     bpsm = blocks_per_sm(threads)
     grid = max(1, min(n_items, n_sm * bpsm))
     return ScatterPlan(bins, th, n_ty, n_tx, n_tiles, n_windows, n_items,
-                       acc, BUFS, threads, smem, bpsm, grid)
+                       acc, BUFS, threads, smem, bpsm, grid, mode,
+                       n_ty if mode == "band" else n_tiles)
 
 
 def block_items(plan: ScatterPlan, block: int) -> range:
@@ -133,6 +154,21 @@ def item_tile(plan: ScatterPlan, item: int) -> Tuple[int, int, int]:
     w, tile = divmod(item, plan.n_tiles)
     ty, tx = divmod(tile, plan.n_tx)
     return w, ty, tx
+
+
+def item_group(plan: ScatterPlan, item: int) -> int:
+    """The record group (offsets column) item ``item`` walks: its tile, or
+    its band in mode ``'band'``."""
+    _, ty, tx = item_tile(plan, item)
+    return ty if plan.mode == "band" else ty * plan.n_tx + tx
+
+
+def band_keeps(x, tx: int):
+    """Mode ``'band'``: whether records at global columns ``x`` reach tile
+    column ``tx``: ``floor(x)`` in ``[128 tx - 1, 128 tx + 127]``, tested
+    as the kernel does on ``x - 128 tx`` (exact)."""
+    xl = x - float(tx * TILE_W)
+    return (xl >= -1.0) & (xl < float(TILE_W))
 
 
 def box_rows(plan: ScatterPlan, item: int) -> List[Tuple[int, int]]:

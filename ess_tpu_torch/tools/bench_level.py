@@ -7,7 +7,7 @@ input), at B=8 in bf16:
   split: the library's stride-2 5x5 conv + ReLU, then the int8 ConvLSTM
          cell (``conv_lstm_cell(impl='pallas_int8')``: absmax reduce,
          weight re-quantization, quantize pre-pass, int8 GEMM)
-  fused: ``ops/level.py::encoder_level_int8``, the kernels of
+  fused: ``ops/level.py::encoder_level_int8``, the three kernels of
          ``csrc/level_int8.cu`` with the weights prepared once
 
 First the single-step error of each against the f32 reference chain
@@ -15,15 +15,23 @@ First the single-step error of each against the f32 reference chain
 20-step carried chain of each (CUDA events, best of three). With
 ``--profile=DIR`` each chain is also traced once with ``torch.profiler``
 (traces in ``DIR``) and its device time is printed by kernel: the fused
-level's five kernels, and the split path's conv, elementwise and prep
-launches beside its GEMM.
+level's three kernels (the group absmax of u, the conv, the gates), and
+the split path's conv, elementwise and prep launches beside its cell. With
+``--attribute=1`` the fused chain is timed again on builds of the level's
+source with parts left out (``LEVEL_SKIP`` of ``csrc/level_int8.cu``: the
+gate kernel's halo staging, its weight copies, its epilogue, the conv's
+input copies and quantize, its streamed weight copies, its epilogue;
+their outputs are undefined).
 
 Usage: python -m ess_tpu_torch.tools.bench_level [--layers=0,1,2]
-       [--profile=DIR]
+       [--profile=DIR] [--attribute=1]
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import subprocess
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +52,44 @@ from ess_tpu_torch.tools import (
 LAYERS = [((8, 128, 220, 320), 64, True),     # L0: the block-space head's out
           ((8, 64, 220, 320), 128, False),    # L1: h of L0
           ((8, 128, 110, 160), 256, False)]   # L2: h of L1
+
+
+# LEVEL_SKIP values of the attribution builds
+ATTRIBUTION = {0: "full", 1: "gates without halo staging",
+               2: "gates without weight copies", 3: "gates without either",
+               4: "gates without epilogue", 8: "conv without input staging",
+               16: "conv without weight copies", 32: "conv without epilogue"}
+
+
+def attribution_libs() -> Dict[int, ctypes.CDLL]:
+    """The level's source (with ``voxel_folded.cu`` for the error strings)
+    built once per ``ATTRIBUTION`` value, all at once, into the build
+    directory; ctypes libraries by value."""
+    from ess_tpu_torch import kernels
+
+    srcs = [os.path.join(kernels.CSRC, f) for f in ("level_int8.cu",
+                                                    "voxel_folded.cu")]
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    paths = {k: os.path.join(kernels.BUILD_DIR, f"attr_level_{k}.so")
+             for k in ATTRIBUTION}
+    procs = {k: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+         f"-DLEVEL_SKIP={k}", *srcs, "-o", path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, path in paths.items()}
+    libs = {}
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for k, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for LEVEL_SKIP={k}:\n" + err)
+        lib = ctypes.CDLL(paths[k])
+        lib.ess_level_int8.argtypes = [vp] * 10 + [ci] * 18 + [vp]
+        lib.ess_level_int8.restype = ci
+        lib.ess_error_string.argtypes = [ci]
+        lib.ess_error_string.restype = ctypes.c_char_p
+        libs[k] = lib
+    return libs
 
 
 def state_shape(ushape: Sequence[int], ch: int, u_s2d: bool
@@ -112,6 +158,7 @@ def main(argv: Optional[List[str]] = None, *, device=None,
     which = parse_layers(args, len(layers))
     device = resolve_device(device)
     print(device_line(device), flush=True)
+    libs = attribution_libs() if args.get("--attribute") == "1" else {}
     results: Dict[int, Dict[str, Dict[str, float]]] = {}
     for li in which:
         ushape, ch, u_s2d = layers[li]
@@ -140,6 +187,20 @@ def main(argv: Optional[List[str]] = None, *, device=None,
             for name, step in step_fns.items():
                 print_profile(args["--profile"], f"L{li}_{name}",
                               lambda: chain(step, h0, c0, steps))
+        if libs:
+            from ess_tpu_torch import kernels
+
+            own = kernels.get_lib
+            try:
+                for k, lib in libs.items():
+                    kernels.get_lib = lambda lib=lib: lib
+                    ms = time_chain(step_fns["fused"], h0, c0, steps)
+                    res[f"fused [{ATTRIBUTION[k]}]"] = {
+                        "ms_per_step": ms / steps}
+                    print(chain_line("fused", ms, steps,
+                                     f"  [{ATTRIBUTION[k]}]"), flush=True)
+            finally:
+                kernels.get_lib = own
     return results
 
 

@@ -1,11 +1,14 @@
-"""Device time of the two main-path voxelizers at the main path's shapes.
+"""Device time of the voxelizers at their paths' shapes.
 
 B1 (the fold-free x-slot voxelizer, ``ops.voxel_folded.voxelize_folded``)
-over one eval or train step's 160 windows (B=8 x T=20) and over 40; B3 (the
-halo-tiled voxelizer, ``ops.voxel_tiled.voxelize_tiled``) over one
-streaming call's 8 windows (B=8) and 1 window (B=1). Inputs are seeded DSEC
-windows of 100k events on 480x640 (``bench.make_raw``), binned on the host
-as the paths bin them, so that two trees can be compared in one call:
+over one eval or train step's 160 windows (B=8 x T=20) and over 40;
+B3-legacy (the same entry on the full-width band wire, records of
+``host_band_bin_folded(x_slots=False)``) over the same 160 and 40
+windows; B3 (the halo-tiled voxelizer, ``ops.voxel_tiled.voxelize_tiled``)
+over one streaming call's 8 windows (B=8) and 1 window (B=1). Inputs are
+seeded DSEC windows of 100k events on 480x640 (``bench.make_raw``), binned
+on the host as the paths bin them, so that two trees can be compared in one
+call:
 
     python ess_tpu_torch/tools/bench_voxel.py [--root DIR] [--calls N]
         [--variants] [--attribute]
@@ -72,6 +75,7 @@ def attribution_libs(kernels) -> dict:
                                + err)
         lib = ctypes.CDLL(paths[k])
         lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
+        lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
         libs[k] = lib
     return libs
@@ -118,6 +122,9 @@ def main(argv=None) -> None:
     valid = valid.reshape(-1, valid.shape[-1])
     folded = voxel_folded.host_band_bin_folded(raw, valid, height=h,
                                                width=w, bins=bins)
+    bands = voxel_folded.host_band_bin_folded(raw, valid, height=h,
+                                              width=w, bins=bins,
+                                              x_slots=False)
     tiled = voxel_tiled.host_tile_bin(raw[:8], valid[:8], height=h,
                                       width=w, bins=bins)
     kw = dict(bins=bins, height=hp, width=w)
@@ -125,6 +132,10 @@ def main(argv=None) -> None:
     for n_win in (160, 40):
         r, v, o = (a[:n_win] for a in folded)
         cases.append(("B1", n_win, voxel_folded.voxelize_folded,
+                      columns(r, v, o, False), o, 3))
+    for n_win in (160, 40):
+        r, v, o = (a[:n_win] for a in bands)
+        cases.append(("B3-legacy", n_win, voxel_folded.voxelize_folded,
                       columns(r, v, o, False), o, 3))
     for n_win in (8, 1):
         r, v, o = (a[:n_win] for a in tiled)

@@ -33,6 +33,11 @@ from ess_tpu.data import synthetic as jsynthetic
 
 from ess_tpu_torch.data import dsec, loader, native, slicer, synthetic
 from tests.test_datasets_integration import make_dsec_seq
+from tests.test_torch_host_bin import use_private_jax_native
+
+# the JAX side loads its own copy of the native library (test_torch_host_bin)
+_private_jax_native = pytest.fixture(scope="module", autouse=True)(
+    use_private_jax_native)
 
 SHIFT = (0.25, 0.5)   # sub-pixel rectify offsets (x, y)
 

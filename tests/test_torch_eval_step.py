@@ -46,6 +46,11 @@ from ess_tpu_torch.train.losses import task_loss
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.supervised import make_eval_step
 from tests.test_train_steps import tiny_config
+from tests.test_torch_host_bin import use_private_jax_native
+
+# the JAX side loads its own copy of the native library (test_torch_host_bin)
+_private_jax_native = pytest.fixture(scope="module", autouse=True)(
+    use_private_jax_native)
 
 B, T, N, H, W, CLASSES = 2, 3, 1500, 48, 256, 6
 

@@ -6,7 +6,18 @@ host_band_bin_folded(..., x_slots=True)`` byte for byte: the native paths
 run the same C++ (each package builds its own copy), and the numpy paths the
 same float64 folds and stable sort. Inputs cover frame-edge, band-boundary
 and slot-boundary events and a capacity overflow.
+
+The JAX package builds its library in place, next to the source, with no
+private name and no rename, so two test processes can race on it. The
+port's tests that call the JAX side load their own copy instead
+(:func:`use_private_jax_native`).
 """
+
+import fcntl
+import hashlib
+import os
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -16,6 +27,55 @@ from ess_tpu.ops.voxel_pallas import host_band_bin_folded as jax_bin
 
 from ess_tpu_torch.ops.voxel_folded import (
     host_band_bin_folded, host_band_bin_folded_ref)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX_SRC = os.path.join(_REPO, "native", "ess_host.cpp")
+_PRIVATE_DIR = os.path.join(_REPO, "build", "ess_tpu_torch")
+
+
+def private_jax_native_lib() -> str:
+    """The JAX package's native library built from ``native/ess_host.cpp``
+    to a private path under ``build/ess_tpu_torch/`` (keyed by a hash of
+    the source): one builder at a time under an ``fcntl`` lock, ``g++`` to
+    a temporary name, then ``os.replace``, so no process ever loads a
+    half-written file."""
+    with open(_JAX_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(_PRIVATE_DIR, f"libess_host_jax_{digest}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(_PRIVATE_DIR, exist_ok=True)
+    with open(os.path.join(_PRIVATE_DIR, "libess_host_jax.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_PRIVATE_DIR)
+            os.close(fd)
+            try:
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
+                                _JAX_SRC], check=True, capture_output=True)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    return path
+
+
+def use_private_jax_native():
+    """A generator for a module-scoped autouse fixture: for the module's
+    tests ``ess_tpu.data.native`` points at :func:`private_jax_native_lib`
+    (its ``_build`` then finds an up-to-date file and only loads it), so
+    ``native/libess_host.so`` is neither read nor written; the module's
+    state is restored afterwards."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", private_jax_native_lib())
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        yield
+
+
+_private_jax_native = pytest.fixture(scope="module", autouse=True)(
+    use_private_jax_native)
 
 
 def raw_events(rng, t_dim, n, h, w, *, edges=True):

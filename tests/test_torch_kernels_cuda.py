@@ -43,13 +43,18 @@ Bounds:
 - both cells under autograd: the backward is conv_lstm_ref's at the saved
   inputs, so gradients match conv_lstm_ref's with the same cotangents
   (atol 1e-2 / rtol 1e-2 in bf16: cuDNN may pick other algorithms);
-- fused encoder level against its plain version: the group scales amax_u
-  and amax_x identical (max of the same values; x is the same f32
-  operations on exact integers), h' and c' within one bf16 ulp (+1e-6), as
-  the int8 cell; after a 20-step carried chain, each on its own state, at
-  least 99.9 % of the values within one bf16 ulp and max |d| <= 0.05 (a
-  state value that differs by an ulp can move an int8 code of h at the next
-  step);
+- fused encoder level against its plain version: the conv's output x
+  (its group layout, written into a caller's buffer) and the group scales
+  amax_u and amax_x identical (x is the same f32 operations on exact
+  integers, the scales maxima of the same values; the quantized operands,
+  rounded from them by the same f32 product, are then identical too), h'
+  and c' within one bf16 ulp (+1e-6), as the int8 cell; after a 20-step
+  carried chain, each on its own state, at least 99.9 % of the values
+  within one bf16 ulp and max |d| <= 0.05 (a state value that differs by
+  an ulp can move an int8 code of h at the next step); its launcher refuses
+  a plan that disagrees with its layout; its weight prep
+  (``prepare_level_weights``, ``quant_cols``) on the card equals the CPU's
+  bits;
 - cell variants against their plain versions: int8 body within one bf16 ulp
   (+1e-6) for ``ptw_mul`` and ``no_ptw`` (the same f32 operations on exact
   integers) and on at least 99.9 % of the values for ``ptw_bf16`` (a tanhf
@@ -64,10 +69,12 @@ import pytest
 import torch
 
 from ess_tpu_torch.ops import conv3x3 as c3
+from ess_tpu_torch.ops import conv_halo as chp
 from ess_tpu_torch.ops import conv_lstm as cl
 from ess_tpu_torch.ops import head_cmajor as hc
 from ess_tpu_torch.ops import level as lv
 from ess_tpu_torch.ops import voxel_folded as vf
+from ess_tpu_torch.ops import voxel_scatter as vs
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.conv_lstm import input_scale
 from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
@@ -702,6 +709,15 @@ def test_level_kernel_matches_plain(dev, case):
     assert got[1].data_ptr() == c.data_ptr()          # c updated in place
     assert torch.equal(h0, h_before)                  # h_prev untouched
     floor = lambda a: a.clamp(min=lv.AMAX_FLOOR)
+    x_ref, _ = lv.level_x_ref(u, prep, u_s2d=u_s2d, th=th)
+    x_k = torch.full((x_ref.shape[0], th + 2, h0.shape[3], ch), float("nan"),
+                     device=dev)
+    c3_ = c0.clone(memory_format=torch.channels_last)
+    got3 = lv.level_int8_cuda(u, h0, c3_, prep, u_s2d=u_s2d, th=th,
+                              x_out=x_k)
+    torch.cuda.synchronize()
+    assert torch.equal(x_k, x_ref.permute(0, 2, 3, 1)), "x differs"
+    assert torch.equal(got3[0], got[0]) and torch.equal(c3_, got[1])
     assert torch.equal(floor(got[2]), want[2]), "amax_u differs"
     assert torch.equal(floor(got[3]), want[3]), "amax_x differs"
     assert_within_ulp(got[0], want[0])
@@ -768,6 +784,72 @@ def test_level_kernel_is_the_only_route_on_cuda(dev, monkeypatch):
                                                   dev)
     with pytest.raises(ValueError):
         lv.encoder_level_int8(u16, (h16, c16), *w16, u_s2d=True)
+
+
+def test_level_weight_prep_on_the_card_is_the_cpus(dev):
+    """``prepare_level_weights`` and ``quant_cols`` on CUDA tensors give the
+    CPU's bits, int8 weights and scales both: every scale divides by 127
+    once (a division by a Python scalar on CUDA multiplies by its
+    reciprocal instead)."""
+    for seed, (ushape, ch, u_s2d) in enumerate(LEVEL_CASES[:6]):
+        _, _, _, ek, eb, gk, gb = bench_level.make_inputs(seed, ushape, ch,
+                                                          u_s2d, dev)
+        got = lv.prepare_level_weights(ek, eb, gk, gb)
+        want = lv.prepare_level_weights(ek.cpu(), eb.cpu(), gk.cpu(),
+                                        gb.cpu())
+        for name, a, b_ in zip(lv.LevelWeights._fields, got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b_), name
+    g = torch.Generator().manual_seed(7)
+    for k, n in ((1152, 64), (2304, 512), (4608, 1024)):
+        w2 = torch.randn(k, n, generator=g) * torch.rand(n, generator=g)
+        wq, ws = cl.quant_cols(w2.to(dev))
+        wq_c, ws_c = cl.quant_cols(w2)
+        assert torch.equal(ws.cpu(), ws_c) and torch.equal(wq.cpu(), wq_c)
+
+
+def test_level_launcher_refuses_a_plan_that_disagrees(dev):
+    """The level's launcher recomputes the layout of its three kernels and
+    refuses (an error, no launch) a plan that disagrees: another number of
+    amax partials, a conv patch that is not its block's pixels, conv or
+    gate shared memory off, no conv blocks, a gate patch of the wrong size,
+    gate weight stages of another size, more gate blocks than items; the
+    wrapper's own plan runs."""
+    ushape, ch, u_s2d = LEVEL_CASES[3]
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(6, ushape, ch, u_s2d,
+                                                        dev)
+    prep = lv.prepare_level_weights(ek, eb, gk, gb)
+    b, _, ho, wo = h0.shape
+    cu = 4 * ushape[1]
+    th = cl.pick_row_tile(ho)
+    plan = chp.level_plan(b, ho, wo, cu, ch, th,
+                          sm_count=chp.sm_count(dev))
+    g = plan.groups
+    scratch = torch.empty((2 + plan.amax_blocks) * g, device=dev)
+    xs = torch.empty((g, th + 2, wo, ch), device=dev)
+    h_new = torch.empty_like(h0)
+    c = c0.clone(memory_format=torch.channels_last)
+    from ess_tpu_torch import kernels
+
+    lib = kernels.get_lib()
+    head = [u.data_ptr(), h0.data_ptr(), c.data_ptr(), prep.we_k.data_ptr(),
+            prep.wg_img.data_ptr(), prep.sbe.data_ptr(), prep.sbg.data_ptr(),
+            scratch.data_ptr(), xs.data_ptr(), h_new.data_ptr(), b, ho, wo,
+            cu, ch, th, int(u_s2d)]
+    cp, gp = plan.conv, plan.gates
+    good = [plan.amax_blocks, cp.th, cp.tw, int(cp.resident), cp.grid_x,
+            cp.smem, gp.th, gp.tw, plan.gate_halves, gp.grid, gp.smem]
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, v in ((0, plan.amax_blocks + 1), (1, cp.th * 2), (5, cp.smem + 16),
+                 (4, 0), (6, gp.th + 1), (7, gp.tw * 2), (8, 3),
+                 (8, 3 - plan.gate_halves), (10, gp.smem + 1024),
+                 (9, gp.n_tiles + 1)):
+        bad = list(good)
+        bad[i] = v
+        assert lib.ess_level_int8(*head, *bad, stream) != 0, (i, v)
+    assert lib.ess_level_int8(*head, *good, stream) == 0
+    torch.cuda.synchronize()
+    want = lv.level_int8_ref(u, h0, c0, prep, u_s2d=u_s2d, th=th)
+    assert_within_ulp(h_new, want[0])
 
 
 def test_level_kernel_backward(dev):
@@ -983,6 +1065,68 @@ def test_voxel_legacy_kernel_matches_plain(dev, h, w, b, n):
     torch.testing.assert_close(
         got, normalize_from_stats(grid, stats)[:, :, :h, :w], atol=1e-4,
         rtol=0)
+
+
+def legacy_edge_windows(rng, case):
+    """Two DSEC windows of 100k raw events on 480x640 holding one of
+    B3-legacy's edge cases."""
+    n = 100_000
+    raw, valid = raw_windows(rng, 2, n, 480, 640)
+    k = n // 8
+    if case == "edges":
+        # x = 127.0 .. 511.0 exactly (their x + 1 corner carries no weight),
+        # just below a 128-column boundary (it crosses into the next tile),
+        # on the last column and just past it
+        raw[:, :k, 0] = rng.choice([127.0, 255.0, 383.0, 511.0], (2, k))
+        raw[:, k:2 * k, 0] = rng.choice([128.0, 256.0, 384.0, 512.0], (
+            2, k)) - rng.choice([2.0 ** -16, 2.0 ** -8, 0.25], (2, k))
+        raw[:, 2 * k:3 * k, 0] = 639.0 + rng.uniform(0, 0.9, (2, k))
+        raw[:, 3 * k:4 * k, 0] = np.floor(raw[:, 3 * k:4 * k, 0])
+    elif case == "empty_bands":
+        # window 0 in bands 0-4 only, window 1 empty
+        raw[0, :, 1] = rng.uniform(0.0, 4 * 24 + 22.9, n)
+        valid[1] = False
+    elif case == "one_band":
+        # 90 % of window 0 in band 7, some on its edge rows
+        m = n * 9 // 10
+        raw[0, :m, 1] = rng.uniform(168.0, 191.99, m)
+        raw[0, :k, 1] = rng.choice([167.5, 191.5], k)
+    return raw, valid
+
+
+@pytest.mark.parametrize("case", ["edges", "empty_bands", "one_band"])
+def test_voxel_legacy_kernel_edge_records(dev, case):
+    """B3-legacy on the scatter core (band rule: each (window, band, tile)
+    item walks its band and keeps the records whose floor(x) lies in
+    [128 tx - 1, 128 tx + 127]) against its plain version at the DSEC
+    shape: records on and next to the 128-column boundaries and on the last
+    column, empty bands and an empty window, a band holding 90 % of a
+    window (raw grid atol/rtol 1e-5, stats 1e-3 / 1e-5, normalized 1e-4;
+    the B1 bounds)."""
+    raw, valid = legacy_edge_windows(np.random.default_rng(31), case)
+    r, v, o = vf.host_band_bin_folded(raw, valid, height=480, width=640,
+                                      bins=5, x_slots=False)
+    assert o.shape == (2, 21)
+    x, y, t, p = (torch.from_numpy(np.ascontiguousarray(r[..., i])).to(dev)
+                  for i in range(4))
+    vd = torch.from_numpy(v).to(dev)
+    ts = masked_time_norm(t, vd, 5).contiguous()
+    pol = torch.where(vd, p, torch.zeros_like(p)).contiguous()
+    offs = torch.from_numpy(o).to(dev)
+    kw = dict(bins=5, height=480, width=640)
+    l0 = vf.launches_legacy
+    grid, stats = vf.voxelize_folded(x, y, ts, pol, offs, **kw)
+    torch.cuda.synchronize()
+    assert vf.launches_legacy == l0 + 1
+    grid_r, stats_r = vf.voxelize_folded_ref(x, y, ts, pol, offs, **kw)
+    torch.testing.assert_close(grid, grid_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats, stats_r, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(normalize_from_stats(grid, stats),
+                               normalize_from_stats(grid_r, stats_r),
+                               atol=1e-4, rtol=0)
+    if case == "empty_bands":
+        assert grid[1].abs().sum().item() == 0
+        assert grid[0, :, 120:].abs().sum().item() == 0
 
 
 @pytest.mark.parametrize("pin", [False, True])
@@ -1218,8 +1362,8 @@ def test_voxel_tiled_allocates_only_its_grid(dev):
 
 
 def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
-    """Both launchers recompute the accumulator layout and refuse (an
-    error, no launch) a plan that disagrees with it: shared memory off by a
+    """The three launchers (B3, B1, B3-legacy) recompute the accumulator
+    layout and refuse (an error, no launch) a plan that disagrees with it: shared memory off by a
     row or of two accumulators, threads the kernel is not built for, no
     blocks, more blocks than items, another tile height; the wrappers' own
     plans run."""
@@ -1249,4 +1393,13 @@ def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
                                     stream) != 0, bad
     assert lib.ess_voxel_folded(*fhead, 24, 2, 2, 256, *good[3:],
                                 stream) == 0
+    # B3-legacy: offsets of n_bands + 1 columns, the band mode's plan
+    band = vs.scatter_plan(5, 48, 256, 2, mode="band")
+    assert (band.threads, band.grid, band.smem) == good[3:]
+    for bad in bads:
+        t_h, n_b = bad[:2]
+        assert lib.ess_voxel_folded_band(*fhead, t_h, n_b, 256, *bad[3:],
+                                         stream) != 0, bad
+    assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:],
+                                     stream) == 0
     torch.cuda.synchronize()

@@ -53,6 +53,11 @@ from ess_tpu_torch.train import streaming as port_streaming
 from ess_tpu_torch.train.streaming import make_streaming_steps
 from tests.test_torch_eval_step import jax_with_block_conv, port_config
 from tests.test_train_steps import tiny_config
+from tests.test_torch_host_bin import use_private_jax_native
+
+# the JAX side loads its own copy of the native library (test_torch_host_bin)
+_private_jax_native = pytest.fixture(scope="module", autouse=True)(
+    use_private_jax_native)
 
 CLASSES = 6
 WIRES = ("raw", "tile", "band")

@@ -1,4 +1,4 @@
-"""The persistent scatter core of the voxelizers B1 and B3 (CPU).
+"""The persistent scatter core of the voxelizers B1, B3-legacy and B3 (CPU).
 
 ``csrc/voxel_scatter.cuh`` runs only on the card; what surrounds it is
 checked here:
@@ -24,7 +24,21 @@ checked here:
   rtol 1e-4: same weights, other summation order);
 - cases: events in (-1, 0), on tile-row and tile-column edges, on the last
   row and column, ``ts == bins - 1``, a tile whose neighbours are empty,
-  an empty tile beside full ones and an empty window.
+  an empty tile beside full ones and an empty window;
+- B3-legacy (the plan's ``mode='band'``): the plan (items, the boxes, the
+  offsets' columns, the band each item walks), a transcription of the
+  launcher's layout check (``voxel_scatter.cuh::launch``) that accepts the
+  plan and refuses one that disagrees, and the emulation of its band rule
+  (each (window, band, tile) item walks its band's records, rejects those
+  whose ``floor(x)`` is not in ``[128 tx - 1, 128 tx + 127]`` and deposits
+  the rest in its tile's frame) on records of
+  ``host_band_bin_folded(x_slots=False)``: bit for bit against
+  ``voxelize_folded_ref`` (a cell receives the same weights in the same
+  order: corner by corner, records in order) and against itself without the
+  reject, the partials summed per window within the stats bound of B1's
+  test; edge records at x = 127.0, just below a 128-column boundary and on
+  the last column, empty bands, a band holding most of the events, and the
+  DSEC shape.
 """
 
 import jax.numpy as jnp
@@ -77,7 +91,8 @@ def check_plan(plan, n_sm=vs.H100_SMS):
     assert (rows == 1).all()
     assert plan.acc_bytes == plan.bins * plan.tile_h * vs.ROW_BYTES
     assert plan.smem == plan.bufs * plan.acc_bytes <= vs.MAX_SMEM
-    per_block = plan.smem + vs.static_smem(plan.threads) + vs.BLOCK_RESERVED
+    per_block = (plan.smem + vs.static_smem(plan.threads, plan.mode)
+                 + vs.BLOCK_RESERVED)
     assert 1 <= plan.blocks_per_sm and \
         plan.blocks_per_sm * per_block <= vs.SM_SMEM
     assert plan.blocks_per_sm * plan.threads <= vs.SM_THREADS
@@ -165,7 +180,9 @@ def deposit(acc, yl, xl, ts, p, th, dr, dq):
 
 def emulate(plan, x, y, ts, pol, offsets, *, tiled, early_reject=True):
     """The kernel's work, block by block and item by item: the grid (every
-    element counted as it is stored) and, B1, the per-item partials."""
+    element counted as it is stored) and, B1 and B3-legacy, the per-item
+    partials. A plan in mode ``'band'`` walks each item's band (B3-legacy's
+    band rule, all the band's records in one pass)."""
     th, n = plan.tile_h, x.shape[1]
     grid = torch.full((plan.n_windows * plan.bins * plan.n_ty * th
                        * plan.n_tx * vs.TILE_W,), float("nan"))
@@ -182,9 +199,18 @@ def emulate(plan, x, y, ts, pol, offsets, *, tiled, early_reject=True):
             tile = ty * plan.n_tx + tx
             acc = torch.zeros(plan.bins, th, vs.TILE_W)
             row0, col0 = float(ty * th), float(tx * vs.TILE_W)
-            s, e = rng_of(w, tile)
+            s, e = rng_of(w, vs.item_group(plan, item))
+            if plan.mode == "band":
+                keep = pol[w, s:e] != 0
+                if early_reject:
+                    keep &= vs.band_keeps(x[w, s:e], tx)
+                deposit(acc, (y[w, s:e] - row0)[keep],
+                        (x[w, s:e] - col0)[keep], ts[w, s:e][keep],
+                        pol[w, s:e][keep], th, 0, 0)
             # the records loaded ahead, then the rest: one range either way
-            for lo, hi in ((s, min(e, s + KAHEAD)), (min(e, s + KAHEAD), e)):
+            for lo, hi in (() if plan.mode == "band" else
+                           ((s, min(e, s + KAHEAD)),
+                            (min(e, s + KAHEAD), e))):
                 sl = slice(lo, hi)
                 live = pol[w, sl] != 0
                 deposit(acc, (y[w, sl] - row0)[live],
@@ -361,3 +387,177 @@ def test_folded_items_match_the_plain_version(h, w):
     torch.testing.assert_close(partials.sum(dim=1), stats, atol=1e-4,
                                rtol=1e-5)
     assert stats[-1].abs().sum() == 0
+
+
+# --- B3-legacy: the plan's band mode ---------------------------------------
+
+BAND_SHAPES = [(5, 480, 640, n) for n in (1, 2, 8, 160)] + [
+    (5, 48, 256, 3), (5, 72, 384, 2), (5, 24, 128, 8), (10, 480, 640, 2)]
+
+
+@pytest.mark.parametrize("shape", BAND_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_band_plan(shape):
+    """Mode 'band': one item a (window, band, 128-column tile), a band's
+    tiles consecutive, each walking its band's records (offsets with
+    n_bands + 1 columns); the boxes store every grid element once."""
+    bins, h, w, n = shape
+    plan = vs.scatter_plan(bins, h, w, n, mode="band")
+    tile = vs.scatter_plan(bins, h, w, n)
+    assert plan.mode == "band" and tile.mode == "tile"
+    assert (plan.n_groups, tile.n_groups) == (plan.n_ty, plan.n_tiles)
+    assert plan.n_items == n * (h // plan.tile_h) * (w // vs.TILE_W)
+    assert (plan.threads, plan.grid, plan.smem) == (tile.threads, tile.grid,
+                                                    tile.smem)
+    for item in range(0, plan.n_items, max(1, plan.n_items // 997)):
+        wi, ty, tx = vs.item_tile(plan, item)
+        assert vs.item_group(plan, item) == ty
+        assert vs.item_group(tile, item) == ty * plan.n_tx + tx
+        assert item == (wi * plan.n_ty + ty) * plan.n_tx + tx
+    check_plan(plan)
+    with pytest.raises(ValueError):
+        vs.scatter_plan(bins, h, w, n, mode="slab")
+
+
+def launcher_refuses(kind, *, bins, tile_h, height, width, n_tx, n_tiles,
+                     n_items, n_groups, threads, grid, smem):
+    """``voxel_scatter.cuh::launch``'s layout check, transcribed: True
+    where the launcher returns cudaErrorInvalidValue before launching."""
+    return (tile_h != vs.tile_h_for_bins(bins) or width % vs.TILE_W != 0
+            or n_tx * vs.TILE_W != width or height % tile_h != 0
+            or (height // tile_h) * n_tx != n_tiles or bins > 256
+            or n_groups != (height // tile_h if kind == "band" else n_tiles)
+            or threads not in (256, 512)
+            or smem != bins * tile_h * vs.ROW_BYTES or smem > vs.MAX_SMEM
+            or grid < 1 or grid > n_items)
+
+
+@pytest.mark.parametrize("shape", BAND_SHAPES + CUDA_SHAPES[6:],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_launcher_layout_check(shape):
+    """The launchers accept what the plan computes, in each mode with the
+    arguments its entry point passes (``ess_voxel_folded_band`` derives
+    n_tx, n_tiles and n_items from the width and the bands), and refuse a
+    plan that disagrees: the other mode's offsets, another accumulator, a
+    grid with more blocks than items, a block size they are not built
+    for."""
+    bins, h, w, n = shape
+    for mode in vs.MODES:
+        plan = vs.scatter_plan(bins, h, w, n, mode=mode)
+        args = dict(bins=bins, tile_h=plan.tile_h, height=h, width=w,
+                    n_tx=w // vs.TILE_W, n_tiles=plan.n_tiles,
+                    n_items=plan.n_items, n_groups=plan.n_groups,
+                    threads=plan.threads, grid=plan.grid, smem=plan.smem)
+        assert not launcher_refuses(mode, **args)
+        other = plan.n_tiles if mode == "band" else plan.n_ty
+        bad = [dict(smem=plan.smem + vs.ROW_BYTES),
+               dict(grid=plan.n_items + 1), dict(grid=0),
+               dict(threads=128), dict(tile_h=plan.tile_h + 2)]
+        if other != plan.n_groups:
+            bad.append(dict(n_groups=other))
+        for change in bad:
+            assert launcher_refuses(mode, **{**args, **change}), change
+
+
+def band_records(raw, valid, h, w):
+    """Legacy-wire records (x, y, ts, pol, offsets) of raw windows, as the
+    route feeds the kernel: ``host_band_bin_folded(x_slots=False)``, the
+    time normalized over the valid records, padded height."""
+    r, v, o = vf.host_band_bin_folded(raw, valid, height=h, width=w, bins=5,
+                                      x_slots=False)
+    x, y, t, p = (torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                  for i in range(4))
+    vd = torch.from_numpy(v)
+    from ess_tpu_torch.ops.voxel import masked_time_norm
+
+    ts = masked_time_norm(t, vd, 5).contiguous()
+    pol = torch.where(vd, p, torch.zeros_like(p)).contiguous()
+    return x, y, ts, pol, torch.from_numpy(o)
+
+
+def band_raw(case, rng):
+    """(raw windows, valid, h, w) of one band-rule case."""
+    h, w, b, n = {"dsec": (480, 640, 2, 6000)}.get(case, (72, 384, 3, 3000))
+    raw = np.zeros((b, n, 4), np.float32)
+    raw[..., 0] = rng.uniform(-0.9, w - 0.1, (b, n))
+    raw[..., 1] = rng.uniform(-0.9, h - 0.1, (b, n))
+    raw[..., 2] = np.sort(rng.uniform(0, 1e4, (b, n)), axis=-1)
+    raw[..., 3] = rng.integers(0, 2, (b, n))
+    valid = np.ones((b, n), bool)
+    valid[:, -n // 10:] = False
+    k = n // 8
+    if case == "edges":
+        # x = 127.0 and 255.0 exactly (their x + 1 corner carries no
+        # weight), just below a 128-column boundary (that corner crosses
+        # into the next tile), on the last column and just past it
+        raw[:, :k, 0] = rng.choice([127.0, 255.0], (b, k))
+        raw[:, k:2 * k, 0] = rng.choice([128.0, 256.0, 384.0], (b, k)) \
+            - rng.choice([2.0 ** -16, 2.0 ** -8, 0.25], (b, k))
+        raw[:, 2 * k:3 * k, 0] = w - 1 + rng.uniform(0, 0.9, (b, k))
+        raw[:, 3 * k:4 * k, 0] = np.floor(raw[:, 3 * k:4 * k, 0])
+    elif case == "empty_bands":
+        # window 0: bands 0 and 2 only; the last window empty
+        raw[0, :, 1] = np.where(rng.integers(0, 2, n) == 0,
+                                rng.uniform(0, 22.9, n),
+                                rng.uniform(48, 71.9, n))
+        valid[-1] = False
+    elif case == "one_band":
+        # 90 % of every window in band 1, some on its edge rows
+        m = n * 9 // 10
+        raw[:, :m, 1] = rng.uniform(24.0, 47.99, (b, m))
+        raw[:, :k, 1] = rng.choice([23.5, 47.5], (b, k))
+    return raw, valid, h, w
+
+
+@pytest.mark.parametrize("case", ["plain", "edges", "empty_bands",
+                                  "one_band", "dsec"])
+def test_band_rule_matches_the_plain_version(case):
+    """B3-legacy's band rule, emulated in the plan's order: bit for bit
+    against ``voxelize_folded_ref`` on the legacy wire and against itself
+    without the reject; its partials summed per window against the stats
+    (atol 1e-4 / rtol 1e-5, sums of the grid in another order)."""
+    raw, valid, h, w = band_raw(case, np.random.default_rng(11))
+    x, y, ts, pol, offs = band_records(raw, valid, h, w)
+    hp = -(-h // 24) * 24
+    assert offs.shape[1] == hp // 24 + 1
+    kw = dict(bins=5, height=hp, width=w)
+    plan = vs.scatter_plan(5, hp, w, x.shape[0], 3, mode="band")
+    got, partials = emulate(plan, x, y, ts, pol, offs, tiled=False)
+    want, stats = vf.voxelize_folded_ref(x, y, ts, pol, offs, **kw)
+    assert torch.equal(got, want)
+    full, _ = emulate(plan, x, y, ts, pol, offs, tiled=False,
+                      early_reject=False)
+    assert torch.equal(got, full)
+    torch.testing.assert_close(partials.sum(dim=1), stats, atol=1e-4,
+                               rtol=1e-5)
+    live = pol != 0
+    if case == "edges":
+        assert ((x == 127.0) & live).any() and ((x == w - 1) & live).any()
+        fx = x - torch.floor(x)
+        assert ((torch.floor(x) % 128 == 127) & (fx > 0) & live).any()
+    if case == "empty_bands":
+        n_live = torch.diff(offs.long(), dim=1)
+        assert (n_live[0, 1] == 0) and (n_live[0, 0] > 0)
+        assert int(offs[-1, -1]) == 0 and stats[-1].abs().sum() == 0
+    if case == "one_band":
+        n_live = torch.diff(offs.long(), dim=1)
+        assert (n_live[:, 1] > 0.8 * n_live.sum(dim=1)).all()
+
+
+def test_band_rule_single_records():
+    """One record at a time on the legacy wire: a record at x = 127.0,
+    just below 128, at 128.0, on the last column or at x = 0 deposits each
+    corner in exactly one tile (the emulation equals the plain version)."""
+    h, w = 48, 256
+    plan = vs.scatter_plan(5, h, w, 1, mode="band")
+    for xv in (127.0, 128.0 - 2.0 ** -16, 127.5, 128.0, 255.0, 254.75, 0.0):
+        for yv in (3.25, 23.0, 24.5):
+            x, y = torch.tensor([[xv]]), torch.tensor([[yv]])
+            ts, pol = torch.tensor([[2.25]]), torch.tensor([[1.0]])
+            offs = torch.zeros(1, 3, dtype=torch.int32)
+            offs[0, int(yv // 24) + 1:] = 1
+            got, _ = emulate(plan, x, y, ts, pol, offs, tiled=False)
+            want, _ = vf.voxelize_folded_ref(x, y, ts, pol, offs, bins=5,
+                                             height=h, width=w)
+            assert torch.equal(got, want), (xv, yv)
+            assert float(got.sum()) == pytest.approx(1.0)

@@ -42,6 +42,11 @@ from ess_tpu_torch.data.pipeline import (
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.batch_voxel import (
     effective_bins, voxelize_tile, voxelize_window_soa)
+from tests.test_torch_host_bin import use_private_jax_native
+
+# the JAX side loads its own copy of the native library (test_torch_host_bin)
+_private_jax_native = pytest.fixture(scope="module", autouse=True)(
+    use_private_jax_native)
 
 F32 = dict(atol=2e-3, rtol=1e-4)
 BF16 = dict(atol=0.02, rtol=0.03)
