@@ -1,7 +1,8 @@
-"""Drive the PyTorch + CUDA port's DSEC eval, train and streaming-eval paths
-once on one NVIDIA GPU, in the builder's rollout form and with the block
-convs on the fused conv kernel, then its three kernel tools, then the host
-event path from an in-memory recording to the eval and streaming steps.
+"""Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
+streaming-eval paths once on one NVIDIA GPU, in the rollout form of
+``build_modules`` and with the block convs on the fused conv kernel, then
+its three kernel tools, then the host event path from an in-memory
+recording to the eval and streaming steps.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -60,6 +61,15 @@ exits non-zero, with no result line):
    B=2, agreement of the first step with the plain versions, and train-step
    throughput at B=8 with int8 kernels, with exact-bf16 kernels and with
    plain versions, and its peak device memory;
+5b. UDA slice: the ESS UDA train step at the same width (``bench.py``'s
+   DSEC UDA configuration: 440x640 grayscale sensor-A images through the
+   ResNet18 front, the train rollout on the int8 cell with its decoder,
+   cycle losses, two RAdams) -- launch counts, finite losses, updated
+   front, head and batch-norm statistics and an untouched E2VID over 3
+   steps at B=2, agreement of the first step with the plain versions, the
+   two UDA eval steps once (eval B on the exact cell), and UDA train-step
+   throughput at B=8 with int8 kernels and with plain versions, alternated,
+   and its peak device memory;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -129,6 +139,7 @@ from ess_tpu_torch.ops.voxel import (  # noqa: E402
 from ess_tpu_torch.tools import (  # noqa: E402
     REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head, bench_level,
     bench_lstm_breakdown)
+from ess_tpu_torch.train import uda  # noqa: E402
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.streaming import run_streaming_eval  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
@@ -215,6 +226,12 @@ VARIANT_BF16_MAX = 2.0 ** -4
 # Train slice, int8-kernel path vs plain path on the first step.
 TRAIN_LATENT_REL = 0.05    # latent8 relative max |d|
 TRAIN_LOSS_REL = 0.02      # loss relative difference
+# UDA slice (phase 5b): keys of the train step's losses on DSEC without
+# event labels.
+UDA_LOSS_KEYS = sorted(
+    ["semseg_sensor_a_loss", "loss"]
+    + [f"cycle_latent_{s}x_sensor_b_to_sensor_a_loss" for s in (2, 4, 8)]
+    + [f"cycle_pred_{s}x_sensor_b_to_sensor_a_loss" for s in (1, 2, 4)])
 # Streaming slice: kernel path vs plain path and wire vs wire, per batch
 # size, on the final latent and on the last scored window's argmax, under
 # the eval slice's bounds (SLICE_*): 40 carried windows reorder as many sums
@@ -1611,6 +1628,26 @@ def phase_slice(dev, kern_rows):
         " GiB")
 
 
+def timed_steps(runs: dict, order, batch) -> dict:
+    """Wall seconds of train steps, one run after another in ``order``
+    ((name, reps) pairs; name ``'plain versions'`` runs under
+    :func:`plain_versions`), each synchronized and ended by fetching the
+    loss: {name: [seconds, ...]}."""
+    samples = {name: [] for name in runs}
+    for name, reps in order:
+        state, step = runs[name]
+        ctx = (plain_versions() if name == "plain versions"
+               else contextlib.nullcontext())
+        with ctx:
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step(state, batch)["loss"])
+                torch.cuda.synchronize()
+                samples[name].append(time.perf_counter() - t0)
+    return samples
+
+
 def phase_train(dev, kern_rows):
     steps, b = 3, 2
     mods, state, step = bench.build_train(bench.make_cfg(b), dev)
@@ -1675,36 +1712,139 @@ def phase_train(dev, kern_rows):
                        ("plain versions", "pallas_int8")):
         runs[name] = bench.build_train(bench.make_cfg(8, impl), dev)[1:]
 
-    def timed(name: str, reps: int) -> list[float]:
-        state8, step8 = runs[name]
-        ctx = (plain_versions() if name == "plain versions"
-               else contextlib.nullcontext())
-        times = []
-        with ctx:
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                float(step8(state8, batch8)["loss"])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-        return times
-
     torch.cuda.reset_peak_memory_stats()
-    timed("int8 kernels", 1)
+    timed_steps(runs, (("int8 kernels", 1),), batch8)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    timed("exact-bf16 kernels", 1)
-    timed("plain versions", 1)
-    samples = {name: [] for name in runs}
-    for name, reps in (("plain versions", 1), ("int8 kernels", 2),
-                       ("exact-bf16 kernels", 2), ("exact-bf16 kernels", 2),
-                       ("int8 kernels", 2), ("plain versions", 1)):
-        samples[name] += timed(name, reps)
+    timed_steps(runs, (("exact-bf16 kernels", 1), ("plain versions", 1)),
+                batch8)
+    samples = timed_steps(runs, (
+        ("plain versions", 1), ("int8 kernels", 2), ("exact-bf16 kernels", 2),
+        ("exact-bf16 kernels", 2), ("int8 kernels", 2),
+        ("plain versions", 1)), batch8)
     for name, ts in samples.items():
         med = statistics.median(ts)
         log(f"train step B=8 T={WINDOWS} ({name}): "
             f"{8 * WINDOWS / med:.2f} windows/s, median {1e3 * med:.1f} ms "
             f"over {len(ts)} steps {[round(1e3 * t, 1) for t in ts]}")
     log(f"peak device memory of the int8-kernel train step at B=8: "
+        f"{peak:.2f} GiB")
+
+
+def phase_uda(dev, kern_rows):
+    steps, b = 3, 2
+    cfg = bench.make_uda_cfg(b)
+    mods, state, step = bench.build_uda(cfg, dev)
+    batch = bench.make_uda_batch(3, b, dev, ignore_rows=20)
+    front0 = {k: v.clone() for k, v in mods.front_a.state_dict().items()}
+    head0 = {k: v.clone() for k, v in mods.head.state_dict().items()}
+    e2vid0 = {k: v.clone() for k, v in mods.e2vid.state_dict().items()}
+
+    reset_counts()
+    outs = [step(state, batch) for _ in range(steps)]
+    counts = read_counts()
+    outs = [{k: float(v) for k, v in o.items()} for o in outs]
+    log(f"UDA slice B={b} T={WINDOWS}, sensor A {SENSOR_H - CROP}x{SENSOR_W}"
+        f", {steps} UDA train steps (train rollout on the int8 cell, "
+        f"decoded): launches {show_counts(counts)}; total losses "
+        f"{[round(o['loss'], 6) for o in outs]}")
+    need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
+    prep = conv_lstm.launches_int8_prep / counts[2]
+    log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3)")
+    if prep > 3:
+        raise AssertionError(f"{prep} int8 prep launches per cell")
+    add_launches(kern_rows, "uda_train", counts)
+    log("step 1 losses: " + ", ".join(f"{k} {v:.6f}"
+                                      for k, v in sorted(outs[0].items())))
+    front = mods.front_a.state_dict()
+    front_changed = sum(not torch.equal(front[k], front0[k])
+                        for k in front0 if "running" not in k
+                        and not k.endswith("num_batches_tracked"))
+    stats_changed = sum(not torch.equal(front[k], front0[k])
+                        for k in front0 if "running" in k)
+    n_front = sum(1 for k in front0 if "running" not in k
+                  and not k.endswith("num_batches_tracked"))
+    n_stats = sum(1 for k in front0 if "running" in k)
+    head_changed = sum(not torch.equal(v, head0[k])
+                       for k, v in mods.head.state_dict().items())
+    frozen = all(torch.equal(v, e2vid0[k])
+                 for k, v in mods.e2vid.state_dict().items())
+    log(f"front tensors changed {front_changed} of {n_front}, batch-norm "
+        f"statistics changed {stats_changed} of {n_stats}, head tensors "
+        f"changed {head_changed} of {len(head0)}; E2VID unchanged {frozen}; "
+        f"RAdam steps front {mods.opt_front.step_count}, head "
+        f"{mods.opt_back.step_count}")
+    if not (all(sorted(o) == UDA_LOSS_KEYS for o in outs)
+            and all(np.isfinite(v) for o in outs for v in o.values())
+            and front_changed and stats_changed == n_stats and head_changed
+            and frozen and state.step == steps):
+        raise AssertionError("bad UDA train step: losses, front, statistics,"
+                             " head or frozen E2VID")
+
+    # first step, kernel path vs plain path, from the same seeded state
+    _, state_p, step_p = bench.build_uda(cfg, dev)
+    with plain_versions():
+        out_p = {k: float(v) for k, v in step_p(state_p, batch).items()}
+    rels = {k: abs(outs[0][k] - v) / max(abs(v), 1e-12)
+            for k, v in out_p.items()}
+    log("UDA step 1, kernel path vs plain path, relative difference: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rels.items()))
+        + f" (bound on loss {TRAIN_LOSS_REL})")
+    if not rels["loss"] <= TRAIN_LOSS_REL:
+        raise AssertionError("UDA kernel path disagrees with the plain path")
+    del state_p, step_p
+
+    # the two UDA eval steps once, on the trained state
+    label_px = b * (SENSOR_H - CROP) * SENSOR_W
+    reset_counts()
+    out_a = uda.make_eval_step_a(mods)(
+        {"image": batch["image_a"], "label": batch["label_a"]})
+    counts_a = read_counts()
+    need_counts(counts_a, ())
+    batch_b = make_batch(5, b, dev, ignore_rows=20)
+    reset_counts()
+    out_b = uda.make_eval_step_b(mods, bench.make_pipeline())(batch_b)
+    counts = read_counts()
+    log(f"UDA eval A (front + head) launches {show_counts(counts_a)}"
+        f"; eval B (rollout on the exact cell, cycle branch) launches "
+        f"{show_counts(counts)}")
+    need_counts(counts, (1, 3 * WINDOWS, 0, 0, 0, 0))
+    add_launches(kern_rows, "uda_eval_b", counts)
+    valid_a = int((batch["label_a"] != 255).sum())
+    valid_b = int((batch_b["label"] != 255).sum())
+    scal = {k: float(v) for o in (out_a, out_b) for k, v in o.items()
+            if k.endswith("_loss")}
+    log("UDA eval losses: " + ", ".join(f"{k} {v:.6f}"
+                                        for k, v in sorted(scal.items()))
+        + f"; cm_a.sum {float(out_a['cm_a'].sum()):.0f} (valid "
+        f"{valid_a}), cm_b.sum {float(out_b['cm_b'].sum()):.0f}, "
+        f"cm_cycle.sum {float(out_b['cm_cycle'].sum()):.0f} (valid "
+        f"{valid_b} of {label_px}), img_fake {tuple(out_b['img_fake'].shape)}")
+    if not (all(np.isfinite(v) for v in scal.values()) and len(scal) == 9
+            and float(out_a["cm_a"].sum()) == valid_a
+            and float(out_b["cm_b"].sum()) == valid_b
+            and float(out_b["cm_cycle"].sum()) == valid_b
+            and out_b["img_fake"].shape == (b, 1, SENSOR_H - CROP, SENSOR_W)
+            and bool(torch.isfinite(out_b["img_fake"]).all())):
+        raise AssertionError("bad UDA eval outputs")
+    del mods, state, step, outs, out_a, out_b, batch, batch_b
+    torch.cuda.empty_cache()
+
+    batch8 = bench.make_uda_batch(4, 8, dev)
+    runs = {name: bench.build_uda(bench.make_uda_cfg(8), dev)[1:]
+            for name in ("int8 kernels", "plain versions")}
+    torch.cuda.reset_peak_memory_stats()
+    timed_steps(runs, (("int8 kernels", 1),), batch8)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed_steps(runs, (("plain versions", 1),), batch8)
+    samples = timed_steps(runs, (
+        ("plain versions", 1), ("int8 kernels", 3), ("int8 kernels", 3),
+        ("plain versions", 1)), batch8)
+    for name, ts in samples.items():
+        med = statistics.median(ts)
+        log(f"UDA train step B=8 T={WINDOWS} ({name}): "
+            f"{8 * WINDOWS / med:.2f} windows/s, median {1e3 * med:.1f} ms "
+            f"over {len(ts)} steps {[round(1e3 * t, 1) for t in ts]}")
+    log(f"peak device memory of the int8-kernel UDA train step at B=8: "
         f"{peak:.2f} GiB")
 
 
@@ -2226,6 +2366,7 @@ def main() -> None:
             check_head_cmajor(dev)]
     phase_slice(dev, rows)
     phase_train(dev, rows)
+    phase_uda(dev, rows)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

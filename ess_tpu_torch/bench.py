@@ -15,22 +15,30 @@ encoder-only windows and one scored window (decoder, head, confusion
 matrix) per 20, on the tile wire: host tile-sorted events through the
 halo-tiled voxelizer (kernel B3) and the exact ConvLSTM kernel (B2).
 
+ESS UDA (``bench_extra.py::bench_uda_dsec``'s shape): the same B=8 x T=20
+event batch with 440x640 grayscale sensor-A images and labels, the train
+rollout on the int8 cell with its decoder, the ResNet18 image front twice
+(forward and backward), the head three times, the cycle losses and both
+RAdams (``dsec_uda_train_event_windows_per_sec_per_chip``; a reading, not
+a claim).
+
 Run from the repository root::
 
     python -m ess_tpu_torch.bench [--iters N] [--profile DIR]
 
 It prints JSON lines under ``bench.py``'s and ``bench_extra.py``'s metric
 names: the two streaming readings, the eval step, the exact-bf16 train
-companion (``lstm_impl_train=None``, the exact kernel), and the train
-headline last; each names the card and its power limit. Every rollout runs
+companion (``lstm_impl_train=None``, the exact kernel), the UDA train
+step, and the train headline last; each names the card and its power
+limit. Every rollout runs
 in block space with the block convs (head, first encoder) on the library
 conv, the builder's form; beside each reading stands the same one with the
 block convs on the fused conv kernel (``block_conv_impl='pallas'``, the
 train rollout ``'pallas_int8'`` beside its int8 ConvLSTM cell), its metric
 name extended by ``_block_conv_pallas``. ``--profile DIR`` traces 20
 streaming windows at each batch size, one eval step and one headline train
-step (each in the builder's form), and one train step with the block
-convs on the int8 fused conv kernel, with
+step (each in ``build_modules``' form), one train step with the block
+convs on the int8 fused conv kernel and one UDA train step, with
 ``torch.profiler`` and prints device time by kernel and the device's idle
 share for each, with the traces in ``DIR``. It needs a CUDA device and
 raises without one; there is no fallback configuration.
@@ -55,12 +63,14 @@ from ess_tpu_torch.core.config import (
     ModelConfig, OptimConfig, TaskConfig)
 from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
+from ess_tpu_torch.train import uda
 from ess_tpu_torch.train.builder import (
     ESSModules, build_modules, init_params, init_state, with_block_conv_impl)
 from ess_tpu_torch.train.streaming import make_streaming_steps
 from ess_tpu_torch.train.supervised import make_eval_step, make_train_step
 
 BASELINE_WINDOWS_PER_SEC = 160.0   # bench.py's estimate for the reference
+UDA_BASELINE_WINDOWS_PER_SEC = 126.0   # bench_extra.py's, for ESS UDA
 BATCH = 8
 WINDOWS = 20
 SENSOR_H, SENSOR_W, CROP = 480, 640, 40
@@ -69,6 +79,7 @@ BINS = 5
 NUM_CLASSES = 11
 METRIC = "dsec_supervised_train_event_windows_per_sec_per_chip"
 EVAL_METRIC = "dsec_supervised_eval_event_windows_per_sec_per_chip"
+UDA_METRIC = "dsec_uda_train_event_windows_per_sec_per_chip"
 PALLAS_SUFFIX = "_block_conv_pallas"
 FORMS = ("standard", "block_xla", "block_pallas")
 STREAM_METRIC = "dsec_streaming_eval{}_windows_per_sec_per_chip"
@@ -91,6 +102,21 @@ def make_cfg(batch: int = BATCH,
                           lstm_impl_train=lstm_impl_train),
         task=TaskConfig(semseg_num_classes=NUM_CLASSES),
         optim=OptimConfig(batch_size_b=batch))
+
+
+def make_uda_cfg(batch: int = BATCH,
+                 lstm_impl_train: Optional[str] = "pallas_int8") -> Config:
+    """``bench_extra.py::make_uda_dsec_cfg`` at ``batch``: ESS UDA, 440x640
+    grayscale sensor A, no augmentation, the train rollout on the int8
+    cell."""
+    cfg = make_cfg(batch, lstm_impl_train)
+    return cfg.replace(
+        dataset=dataclasses.replace(
+            cfg.dataset, sensor_a=ImageDatasetConfig(
+                shape=(SENSOR_H - CROP, SENSOR_W), random_crop=False)),
+        model=dataclasses.replace(cfg.model, model_name="ess",
+                                  data_augmentation_train=False),
+        optim=dataclasses.replace(cfg.optim, batch_size_a=batch))
 
 
 def make_pipeline() -> EventPipeline:
@@ -139,6 +165,25 @@ def make_batch(seed: int, batch: int, device,
             "ev_band_offsets": np.stack(offs), "label": label}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}
+
+
+def make_uda_batch(seed: int, batch: int, device,
+                   ignore_rows: int = 0) -> Dict[str, torch.Tensor]:
+    """:func:`make_batch`'s events (without event labels) and
+    ``bench_extra.py::make_uda_dsec_inputs``'s sensor-A images, N(0, 1) of
+    shape (B, 1, 440, 640), with uniform labels (the bottom
+    ``ignore_rows`` rows ignored)."""
+    out = make_batch(seed, batch, device)
+    del out["label"]
+    rng = np.random.default_rng(seed + 1)
+    shape = (batch, SENSOR_H - CROP, SENSOR_W)
+    label = rng.integers(0, NUM_CLASSES, shape)
+    if ignore_rows:
+        label[:, -ignore_rows:] = 255
+    out["image_a"] = torch.from_numpy(
+        rng.normal(size=(batch, 1) + shape[1:]).astype(np.float32)).to(device)
+    out["label_a"] = torch.from_numpy(label).to(device)
+    return out
 
 
 def make_stream(seed: int, batch: int, device, wire: str = "tile",
@@ -261,6 +306,13 @@ def build_train(cfg: Config, device, seed: int = 0,
     init_params(mods, torch.Generator().manual_seed(seed))
     mods = apply_form(mods, form)
     return mods, init_state(mods), make_train_step(mods, make_pipeline())
+
+
+def build_uda(cfg: Config, device, seed: int = 0):
+    """Seeded modules, train state and UDA train step of ``cfg``."""
+    mods = build_modules(cfg, device=device)
+    init_params(mods, torch.Generator().manual_seed(seed))
+    return mods, init_state(mods), uda.make_train_step(mods, make_pipeline())
 
 
 def windows_per_sec(step: Callable, state, batch: Dict[str, torch.Tensor],
@@ -409,6 +461,19 @@ def main(argv=None) -> None:
         print(json.dumps({"profile": profile_call(
             lambda: float(step(state, batch)["loss"]), args.profile,
             "train_step"), "device": name}), flush=True)
+    del state, step
+    uda_batch = make_uda_batch(0, BATCH, dev)
+    mods, uda_state, uda_step = build_uda(make_uda_cfg(BATCH), dev)
+    wps = windows_per_sec(uda_step, uda_state, uda_batch, args.iters)
+    print(json.dumps({
+        "metric": UDA_METRIC, "value": round(wps, 2), "unit": "windows/s",
+        "vs_baseline": round(wps / UDA_BASELINE_WINDOWS_PER_SEC, 3),
+        "device": name}), flush=True)
+    if args.profile:
+        print(json.dumps({"profile": profile_call(
+            lambda: float(uda_step(uda_state, uda_batch)["loss"]),
+            args.profile, "uda_train_step"), "device": name}), flush=True)
+    del mods, uda_state, uda_step, uda_batch
     print(json.dumps(lines[-1]), flush=True)
 
 

@@ -1,8 +1,10 @@
 """JAX parameter pytrees -> the port's state dicts.
 
 The JAX package keeps flax pytrees (``e2vid_params`` of ``RecurrentUNet``,
-``back_params`` of ``SegmentationHead``) with HWIO conv kernels; the port's
-modules carry upstream ESS/E2VID names with OIHW weights. The ConvLSTM gate
+``back_params`` of ``SegmentationHead``, ``front_params`` and
+``front_batch_stats`` of ``ResNet18Encoder``) with HWIO conv kernels; the
+port's modules carry upstream ESS/E2VID and torchvision names with OIHW
+weights. The ConvLSTM gate
 columns keep their (i, f, o, g) order over ``concat([x, h])`` inputs, so
 the mapping is a rename plus a transpose. Inputs are numpy arrays (or
 anything ``np.asarray`` takes); no JAX import is needed.
@@ -68,3 +70,39 @@ def params_from_jax(e2vid_params: Mapping[str, Any],
         head.update(_conv(back_params[name]["Conv_0"], f"{prefix}.model.0"))
     head.update(_conv(back_params["logits"], "decoder_scale_5.0"))
     return e2vid, head
+
+
+def front_from_jax(front_params: Mapping[str, Any],
+                   front_batch_stats: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """(JAX ``ResNet18Encoder`` params, its batch stats) -> the port's
+    ``ResNet18Encoder`` state dict: ``stem_conv`` / ``stem_bn`` ->
+    ``conv1`` / ``bn1``, ``layerN_i`` -> ``layerN.i``, ``proj_conv`` /
+    ``proj_bn`` -> ``downsample.0`` / ``.1``; batch-norm ``scale``,
+    ``bias``, ``mean``, ``var`` -> ``weight``, ``bias``, ``running_mean``,
+    ``running_var`` (``num_batches_tracked`` 0)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(p, stats, prefix):
+        for src, dst, tree in (("scale", "weight", p), ("bias", "bias", p),
+                               ("mean", "running_mean", stats),
+                               ("var", "running_var", stats)):
+            out[f"{prefix}.{dst}"] = torch.tensor(
+                np.asarray(tree[src], np.float32))
+        out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    out.update(_conv(front_params["stem_conv"], "conv1"))
+    bn(front_params["stem_bn"], front_batch_stats["stem_bn"], "bn1")
+    for name, p in front_params.items():
+        if not name.startswith("layer"):
+            continue
+        prefix = name.replace("_", ".")
+        stats = front_batch_stats[name]
+        for conv, norm, dst in (("conv1", "bn1", ("conv1", "bn1")),
+                                ("conv2", "bn2", ("conv2", "bn2")),
+                                ("proj_conv", "proj_bn",
+                                 ("downsample.0", "downsample.1"))):
+            if conv in p:
+                out.update(_conv(p[conv], f"{prefix}.{dst[0]}"))
+                bn(p[norm], stats[norm], f"{prefix}.{dst[1]}")
+    return out

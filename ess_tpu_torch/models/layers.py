@@ -3,8 +3,9 @@
 Counterpart of ``ess_tpu/models/layers.py`` (``ConvLayer`` with its
 block-space form ``_BlockConv`` at ``in_block=2``, ``ResidualBlock``,
 ``UpsampleConvLayer``, ``ConvLSTMCell``, ``RecurrentConvLayer``,
-``ReLUINSConv2d``, ``INSResBlock``, ``upsample2x_nearest``, ``skip_merge``;
-``instance_norm`` is ``nn.InstanceNorm2d(affine=False)``). The JAX
+``ReLUINSConv2d``, ``INSResBlock``, ``upsample2x_nearest``, ``skip_merge``,
+``TorchBatchNorm`` as :class:`BatchNorm2d`; ``instance_norm`` is
+``nn.InstanceNorm2d(affine=False)``). The JAX
 package's im2col, decoder and quad-block space-to-depth variants compute
 the same functions with remapped weights; a plain convolution is the same
 function here.
@@ -39,6 +40,26 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch norm of the image front, the counterpart of JAX
+    ``TorchBatchNorm``: eps 1e-5, momentum 0.1 (flax's 0.9), batch
+    statistics with the biased variance and ``running_var`` updated with
+    the unbiased one, as torch does. It normalizes in f32 with its f32
+    parameters and casts back to the input's dtype; ``train`` picks batch
+    statistics (and updates the running ones) or the running ones."""
+
+    def __init__(self, num_features: int, *, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, train, self.momentum,
+                         self.eps)
+        return y.to(x.dtype)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Model construction for the supervised eval and train steps from a Config.
+"""Model construction for the supervised and UDA steps from a Config.
 
-Counterpart of the supervised subset of ``ess_tpu/train/builder.py``
-(``build_modules``, ``init_state``): the frozen E2VID backbone, the
-segmentation head, the train and validation rollouts (each with its
-ConvLSTM cell, ``model.lstm_impl`` / ``model.lstm_impl_train``, over one
-parameter set) and the head's RAdam. Both rollouts run in block space with
-the block convs on the library conv (``'xla'``), the JAX builder's choice;
+Counterpart of ``ess_tpu/train/builder.py`` (``build_modules``,
+``init_state``): the frozen E2VID backbone, the segmentation head, the
+train and validation rollouts (each with its ConvLSTM cell,
+``model.lstm_impl`` / ``model.lstm_impl_train``, over one parameter set)
+and the head's RAdam; for ESS UDA (``model_name='ess'``) also the ResNet18
+image front and its RAdam. Both rollouts run in block space with the block
+convs on the library conv (``'xla'``), the choice of JAX ``build_modules``;
 :func:`with_block_conv_impl` puts them on the fused conv kernel.
 """
 
@@ -23,7 +24,8 @@ from ess_tpu_torch import resolve_device
 from ess_tpu_torch.core.config import Config
 from ess_tpu_torch.models.e2vid import RecurrentUNet
 from ess_tpu_torch.models.layers import (
-    BLOCK_CONV_IMPLS, INSResBlock, ReLUINSConv2d)
+    BLOCK_CONV_IMPLS, BatchNorm2d, INSResBlock, ReLUINSConv2d)
+from ess_tpu_torch.models.resnet import ResNet18Encoder
 from ess_tpu_torch.models.seghead import SegmentationHead
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
 from ess_tpu_torch.recon.reconstructor import Reconstructor
@@ -37,7 +39,8 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 @dataclass(frozen=True)
 class ESSModules:
-    """Modules, rollouts and the head's optimizer of one config."""
+    """Modules, rollouts and optimizers of one config; ``front_a`` and
+    ``opt_front`` are None for supervised ESS."""
 
     cfg: Config
     e2vid: RecurrentUNet
@@ -45,20 +48,24 @@ class ESSModules:
     recon_train: Reconstructor
     recon_val: Reconstructor
     opt_back: RAdam
+    front_a: Optional[ResNet18Encoder] = None
+    opt_front: Optional[RAdam] = None
 
 
 def build_modules(cfg: Config, *, device=None,
                   steps_per_epoch: int = 1) -> ESSModules:
-    """Supervised ESS modules on ``device`` (None: the first CUDA device;
-    raises where there is none), parameters uninitialized beyond torch's
-    defaults: call :func:`init_params` or load weights. The E2VID
-    parameters are frozen (``requires_grad=False``); ``opt_back`` updates
-    the head's."""
+    """ESS modules (``model_name`` 'ess_supervised' or 'ess', UDA) on
+    ``device`` (None: the first CUDA device; raises where there is none),
+    parameters uninitialized beyond torch's defaults: call
+    :func:`init_params` or load weights. The E2VID parameters are frozen
+    (``requires_grad=False``); ``opt_back`` updates the head's and, for
+    UDA, ``opt_front`` the image front's."""
     device = resolve_device(device)
     m = cfg.model
-    if m.model_name != "ess_supervised":
-        raise ValueError(f"the port builds 'ess_supervised' only, got "
+    if m.model_name not in ("ess_supervised", "ess"):
+        raise ValueError(f"the port builds 'ess_supervised' and 'ess', got "
                          f"{m.model_name!r}")
+    is_uda = m.model_name == "ess"
     if m.e2vid_num_encoders != 3 or m.e2vid_recurrent_block != "convlstm" \
             or m.e2vid_norm is not None or not m.skip_connect_task:
         raise ValueError("the port builds the E2VID-lightweight backbone "
@@ -77,22 +84,37 @@ def build_modules(cfg: Config, *, device=None,
         cfg.task.semseg_num_classes,
         input_features=m.e2vid_base_channels * 2 ** m.e2vid_num_encoders,
         skip_type=m.skip_connect_task_type, dtype=dtype, device=device)
-    # supervised ESS trains and validates at ceil(shape / 8) * 8; the train
-    # rollout may run another ConvLSTM cell (the int8 one) over the same
-    # parameters
-    h, w = cfg.dataset.sensor_b.shape
-    h8, w8 = math.ceil(h / 8) * 8, math.ceil(w / 8) * 8
+    # UDA trains at the (possibly cropped) train size and validates at the
+    # val size; supervised ESS trains and validates at ceil(shape / 8) * 8.
+    # The train rollout may run another ConvLSTM cell (the int8 one) over
+    # the same parameters.
+    if is_uda:
+        (th, tw), (vh, vw) = cfg.train_input_size_b, cfg.val_input_size_b
+    else:
+        h, w = cfg.dataset.sensor_b.shape
+        th = vh = math.ceil(h / 8) * 8
+        tw = vw = math.ceil(w / 8) * 8
     train_impl = (e2vid.lstm_impl if m.lstm_impl_train is None
                   else resolve_lstm_impl(m.lstm_impl_train))
-    recon_train = Reconstructor(model=e2vid, height=h8, width=w8,
+    recon_train = Reconstructor(model=e2vid, height=th, width=tw,
                                 lstm_impl=train_impl)
-    recon_val = Reconstructor(model=e2vid, height=h8, width=w8)
+    recon_val = Reconstructor(model=e2vid, height=vh, width=vw)
     opt_back = make_radam(head.parameters(), cfg.optim.lr_back,
                           lr_decay=cfg.optim.lr_decay,
                           steps_per_epoch=steps_per_epoch)
+    front_a = opt_front = None
+    if is_uda:
+        # layer widths 2b, 4b, 8b match the E2VID latent at scales 2, 4, 8
+        front_a = ResNet18Encoder(base_width=2 * m.e2vid_base_channels,
+                                  skip_connect=m.skip_connect_encoder,
+                                  dtype=dtype, device=device)
+        opt_front = make_radam(front_a.parameters(), cfg.optim.lr_front,
+                               lr_decay=cfg.optim.lr_decay,
+                               steps_per_epoch=steps_per_epoch)
     return ESSModules(cfg=cfg, e2vid=e2vid, head=head,
                       recon_train=recon_train, recon_val=recon_val,
-                      opt_back=opt_back)
+                      opt_back=opt_back, front_a=front_a,
+                      opt_front=opt_front)
 
 
 def with_block_conv_impl(mods: ESSModules, impl: str,
@@ -118,21 +140,30 @@ def with_block_conv_impl(mods: ESSModules, impl: str,
 
 
 def init_state(mods: ESSModules) -> TrainState:
-    """The train state at step 0 over the modules' head and optimizer."""
-    return TrainState(step=0, head=mods.head, opt_back=mods.opt_back)
+    """The train state at step 0 over the modules' trainable parts (head,
+    and for UDA the image front) and their optimizers."""
+    return TrainState(step=0, head=mods.head, opt_back=mods.opt_back,
+                      front=mods.front_a, opt_front=mods.opt_front)
 
 
 @torch.no_grad()
 def init_params(mods: ESSModules, generator: torch.Generator) -> None:
     """Seeded initialization at the JAX package's scales: normal conv kernels
     with variance 1/fan_in and zero biases, N(0, 0.02) kernels in the head's
-    instance-norm blocks."""
+    instance-norm blocks; the image front's batch norms at scale 1, bias 0,
+    running mean 0 and running variance 1."""
     gaussian = set()
     for mod in mods.head.modules():
         if isinstance(mod, (INSResBlock, ReLUINSConv2d)):
             gaussian.update(id(c) for c in mod.model
                             if isinstance(c, nn.Conv2d))
-    for root in (mods.e2vid, mods.head):
+    roots = [mods.e2vid, mods.head]
+    if mods.front_a is not None:
+        roots.append(mods.front_a)
+        for mod in mods.front_a.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.reset_parameters()
+    for root in roots:
         for mod in root.modules():
             if not isinstance(mod, nn.Conv2d):
                 continue

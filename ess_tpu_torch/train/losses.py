@@ -1,8 +1,11 @@
-"""Segmentation task loss: dice + cross-entropy with ignore label.
+"""Segmentation and domain-adaptation losses.
 
-Counterpart of ``ess_tpu/train/losses.py::task_loss`` on NCHW logits
-(B, C, H, W) and NHW integer labels; the loss math runs in f32 and is
-differentiable in the logits (the train step's head backward).
+Counterpart of ``ess_tpu/train/losses.py`` on NCHW logits (B, C, H, W) and
+NHW integer labels: ``cross_entropy_loss``, ``dice_loss`` and their sum
+``task_loss`` (with ignore label), ``symmetric_js_divergence`` and
+``l1_loss``, the cycle losses of ESS UDA. The math runs in f32 and is
+differentiable in the logits. The JAX package's class-on-sublane
+transposes and label folds are TPU layouts of the same sums.
 """
 
 from __future__ import annotations
@@ -10,35 +13,82 @@ from __future__ import annotations
 import torch
 
 
+def _check_classes(logits: torch.Tensor, num_classes: int) -> None:
+    if logits.shape[1] != num_classes:
+        raise ValueError(f"logits have {logits.shape[1]} classes, "
+                         f"expected {num_classes}")
+
+
+def _valid_labels(labels: torch.Tensor, ignore_label: int):
+    valid = labels != ignore_label
+    return valid, torch.where(valid, labels, torch.zeros_like(labels)).long()
+
+
+def _cross_entropy(log_probs, valid, safe) -> torch.Tensor:
+    picked = log_probs.gather(1, safe[:, None])[:, 0]
+    nll = torch.where(valid, -picked, torch.zeros_like(picked))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _dice(log_probs, valid, safe, smooth: float = 1.0) -> torch.Tensor:
+    vmask = valid[:, None].float()
+    probs = torch.exp(log_probs) * vmask
+    one_hot = torch.zeros_like(probs).scatter_(1, safe[:, None], 1.0) * vmask
+    axes = (0, 2, 3)
+    num = 2.0 * (probs * one_hot).sum(axes) + smooth
+    den = (probs * probs).sum(axes) + one_hot.sum(axes) + smooth
+    return (1.0 - num / den).mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_label: int = 255) -> torch.Tensor:
+    """Mean negative log-likelihood over non-ignored pixels
+    (``nn.CrossEntropyLoss(ignore_index)``)."""
+    return _cross_entropy(torch.log_softmax(logits.float(), dim=1),
+                          *_valid_labels(labels, ignore_label))
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+              num_classes: int, ignore_label: int = 255,
+              smooth: float = 1.0) -> torch.Tensor:
+    """Per class ``1 - (2*sum(p*t) + s) / (sum(p^2) + sum(t^2) + s)`` over
+    every pixel of the batch, with probabilities and one-hot targets zeroed
+    at ignored pixels, averaged over classes."""
+    _check_classes(logits, num_classes)
+    return _dice(torch.log_softmax(logits.float(), dim=1),
+                 *_valid_labels(labels, ignore_label), smooth)
+
+
 def task_loss(logits: torch.Tensor, labels: torch.Tensor, *,
               num_classes: int, ignore_label: int = 255,
               losses: tuple[str, ...] = ("dice", "cross_entropy")
               ) -> torch.Tensor:
-    """Sum of the selected terms:
-
-    - cross_entropy: mean negative log-likelihood over non-ignored pixels;
-    - dice: per class ``1 - (2*sum(p*t) + 1) / (sum(p^2) + sum(t^2) + 1)``
-      over every pixel of the batch, with probabilities and one-hot targets
-      zeroed at ignored pixels, averaged over classes.
-    """
-    if logits.shape[1] != num_classes:
-        raise ValueError(f"logits have {logits.shape[1]} classes, "
-                         f"expected {num_classes}")
+    """Sum of the selected terms (:func:`dice_loss`,
+    :func:`cross_entropy_loss`) over one shared log-softmax."""
+    _check_classes(logits, num_classes)
     log_probs = torch.log_softmax(logits.float(), dim=1)
-    valid = labels != ignore_label
-    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    valid, safe = _valid_labels(labels, ignore_label)
     total = torch.zeros((), dtype=torch.float32, device=logits.device)
     if "cross_entropy" in losses:
-        picked = log_probs.gather(1, safe[:, None])[:, 0]
-        nll = torch.where(valid, -picked, torch.zeros_like(picked))
-        total = total + nll.sum() / torch.clamp(valid.sum(), min=1)
+        total = total + _cross_entropy(log_probs, valid, safe)
     if "dice" in losses:
-        vmask = valid[:, None].float()
-        probs = torch.exp(log_probs) * vmask
-        one_hot = torch.zeros_like(probs).scatter_(1, safe[:, None], 1.0)
-        one_hot = one_hot * vmask
-        axes = (0, 2, 3)
-        num = 2.0 * (probs * one_hot).sum(axes) + 1.0
-        den = (probs * probs).sum(axes) + one_hot.sum(axes) + 1.0
-        total = total + (1.0 - num / den).mean()
+        total = total + _dice(log_probs, valid, safe)
     return total
+
+
+def symmetric_js_divergence(p_logits: torch.Tensor,
+                            q_logits: torch.Tensor) -> torch.Tensor:
+    """``0.5 KL(q||p) + 0.5 KL(p||q)`` of the class softmaxes, each clamped
+    at 1e-10, with the mean over every element (torch's legacy
+    ``KLDivLoss`` 'mean' reduction)."""
+    p = torch.clamp(torch.softmax(p_logits.float(), dim=1), min=1e-10)
+    q = torch.clamp(torch.softmax(q_logits.float(), dim=1), min=1e-10)
+    log_p, log_q = torch.log(p), torch.log(q)
+    kl_qp = (q * (log_q - log_p)).mean()
+    kl_pq = (p * (log_p - log_q)).mean()
+    return 0.5 * kl_qp + 0.5 * kl_pq
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error in f32 (the cycle-content loss)."""
+    return (a.float() - b.float()).abs().mean()

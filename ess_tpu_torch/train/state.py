@@ -1,4 +1,4 @@
-"""Train state and optimizer of the supervised train step.
+"""Train state and optimizer of the train steps.
 
 Counterpart of ``ess_tpu/train/state.py``: ``make_radam`` is
 ``optax.radam(b1=0, b2=0.999, eps=1e-8, threshold=5)`` with an optional
@@ -21,7 +21,7 @@ optax's update at step t (1-based), per parameter, in f32:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -102,13 +102,16 @@ def make_radam(params: Iterable[torch.Tensor], lr: float, *,
 
 @dataclass
 class TrainState:
-    """What the supervised train step changes: the step counter, the
-    trainable head and its optimizer. The frozen E2VID stays in the
-    modules."""
+    """What a train step changes: the step counter, the trainable head and
+    its optimizer and, for UDA, the image front (with its batch-norm
+    statistics) and its optimizer, None in the supervised steps. The
+    frozen E2VID stays in the modules."""
 
     step: int
     head: nn.Module
     opt_back: RAdam
+    front: Optional[nn.Module] = None
+    opt_front: Optional[RAdam] = None
 
 
 def apply_updates(params: Iterable[torch.Tensor],

@@ -29,6 +29,15 @@ from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
 
 
+def draw_augment(pipeline: EventPipeline, seed: int, step: int,
+                 batch_size: int) -> AugmentParams:
+    """A train step's augmentation: ``pipeline``'s draws from a generator
+    seeded by ``seed`` and ``step``."""
+    entropy = np.random.SeedSequence((seed, step)).generate_state(1)[0]
+    gen = torch.Generator().manual_seed(int(entropy))
+    return pipeline.sample_augment(gen, batch_size, train=True)
+
+
 def make_train_step(mods: ESSModules, pipeline: EventPipeline
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
@@ -41,11 +50,8 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              aug: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
         if aug is None:
-            seed = np.random.SeedSequence((cfg.seed, state.step))
-            gen = torch.Generator().manual_seed(
-                int(seed.generate_state(1)[0]))
-            aug = pipeline.sample_augment(gen, batch["ev_x"].shape[0],
-                                          train=True)
+            aug = draw_augment(pipeline, cfg.seed, state.step,
+                               batch["ev_x"].shape[0])
         with torch.no_grad():
             windows, labels = pipeline.build_all(batch, aug=aug,
                                                  out_dtype=recon.model.dtype)

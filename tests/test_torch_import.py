@@ -22,10 +22,12 @@ MODULES = [
     "ess_tpu_torch.tools.bench_cell_host", "ess_tpu_torch.ops.conv_halo",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
-    "ess_tpu_torch.models.seghead", "ess_tpu_torch.recon.reconstructor",
+    "ess_tpu_torch.models.seghead", "ess_tpu_torch.models.resnet",
+    "ess_tpu_torch.recon.reconstructor",
     "ess_tpu_torch.train.builder", "ess_tpu_torch.train.losses",
     "ess_tpu_torch.train.metrics", "ess_tpu_torch.train.supervised",
-    "ess_tpu_torch.train.streaming", "ess_tpu_torch.io.convert",
+    "ess_tpu_torch.train.streaming", "ess_tpu_torch.train.uda",
+    "ess_tpu_torch.io.convert",
     "ess_tpu_torch.bench",
 ]
 
