@@ -1,5 +1,6 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
-streaming-eval paths once on one NVIDIA GPU, in the rollout form of
+streaming-eval paths and its DDD17 supervised and UDA steps once on one
+NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
 recording to the eval and streaming steps.
@@ -70,6 +71,20 @@ exits non-zero, with no result line):
    two UDA eval steps once (eval B on the exact cell), and UDA train-step
    throughput at B=8 with int8 kernels and with plain versions, alternated,
    and its peak device memory;
+5c. DDD17 slice (``bench_extra.py``'s DDD17 shapes: B=16, T=20 windows of
+   32k integer-coordinate events on the 260x346 sensor, 6 classes): B1 over
+   a step's 320 windows of integer band records (the padded 264x384 grid's
+   pad empty, the stats those of the sensor grid) and B2 and B2-int8 at
+   the cells of a 200x352 and a 120x216 window, each against its plain
+   version with times and bounds; the supervised train step (int8 cells on
+   all levels) and eval step at 200x352, the UDA train step at the
+   bottom-anchored 120x216 crop (by JAX's size rule B2-int8 on level 0
+   only, B2 on levels 1 and 2) and its eval B step at 200x352 -- launch
+   counts, agreement with the plain path (first-step losses, the eval
+   slice's bounds), windows/s alternated with the plain path and peak
+   memory; then a DDD17 store written to a temporary directory ->
+   ``pad_windows_ddd17`` -> integer band binning -> the eval step, with
+   the host ingest per window;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -127,9 +142,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ess_tpu_torch import bench, kernels  # noqa: E402
 from ess_tpu_torch.bench import (  # noqa: E402
     BINS, CROP, SENSOR_H, SENSOR_W, make_batch, make_raw)
-from ess_tpu_torch.data import dsec, loader, native  # noqa: E402
+from ess_tpu_torch.data import ddd17, dsec, loader, native  # noqa: E402
 from ess_tpu_torch.data.pipeline import AugmentParams, to_soa  # noqa: E402
-from ess_tpu_torch.data.slicer import ArrayEventStore  # noqa: E402
+from ess_tpu_torch.data.slicer import (  # noqa: E402
+    ArrayEventStore, DDD17EventStore)
 from ess_tpu_torch.models import layers  # noqa: E402
 from ess_tpu_torch.ops import (  # noqa: E402
     batch_voxel, conv3x3, conv_halo, conv_lstm, head_cmajor, level,
@@ -139,7 +155,7 @@ from ess_tpu_torch.ops.voxel import (  # noqa: E402
 from ess_tpu_torch.tools import (  # noqa: E402
     REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head, bench_level,
     bench_lstm_breakdown)
-from ess_tpu_torch.train import uda  # noqa: E402
+from ess_tpu_torch.train import builder, uda  # noqa: E402
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.streaming import run_streaming_eval  # noqa: E402
 from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
@@ -262,12 +278,14 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
                                        else "operations")
 
 
-def voxel_bound(live_events: int, n_offsets: int, out_floats: int):
+def voxel_bound(live_events: int, n_offsets: int, out_floats: int,
+                corners: int = 8):
     """Bound of a voxelizer call: 16 B per event read (x, y, ts, pol), the
-    offsets, the outputs written once; 8 corners x 4 f32 operations (three
-    multiplies and an add) per event."""
+    offsets, the outputs written once; ``corners`` x 4 f32 operations
+    (three multiplies and an add) per event: 8 corners of the trilinear
+    tent, 2 of an integer record's (its x and y fractions are 0)."""
     return bound(16.0 * live_events + 4.0 * n_offsets + 4.0 * out_floats,
-                 32.0 * live_events, "f32")
+                 4.0 * corners * live_events, "f32")
 
 
 def log(msg: str) -> None:
@@ -295,15 +313,19 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def plain_cell(x, h, c, w, b, *, impl="pallas", prepared=None):
-    """The plain version of the cell ``impl`` names."""
-    fn = (conv_lstm.conv_lstm_int8_ref if impl == "pallas_int8"
+    """The plain version of the cell ``impl`` names at x's shape (the int8
+    size rule's route)."""
+    fn = (conv_lstm.conv_lstm_int8_ref
+          if conv_lstm.int8_route(impl, x.shape) == "pallas_int8"
           else conv_lstm.conv_lstm_ref)
     return fn(x, h, c, w, b)
 
 
 def plain_conv(x, w, b, *, relu=True, impl="xla", prepared=None):
-    """The plain version of the fused conv ``impl`` names."""
-    fn = (conv3x3.conv3x3_int8_ref if impl == "pallas_int8"
+    """The plain version of the fused conv ``impl`` names at x's shape (the
+    int8 size rule's route)."""
+    fn = (conv3x3.conv3x3_int8_ref
+          if conv_lstm.int8_route(impl, x.shape) == "pallas_int8"
           else conv3x3.conv3x3_ref)
     return fn(x, w, b, relu=relu)
 
@@ -374,6 +396,16 @@ def add_launches(kern_rows, path: str, counts) -> None:
         by_path = row.setdefault("launches_by_path", {})
         by_path[path] = by_path.get(path, 0) + n
         row["launches"] = sum(by_path.values())
+
+
+def int8_cells(b: int, hh: int, ww: int, base: int = 32) -> tuple:
+    """(exact, int8) cells of a window at batch ``b`` and rollout size
+    ``hh`` x ``ww`` for ``'pallas_int8'``: the JAX package's size rule
+    (``conv_lstm.int8_size_rule``) on each encoder cell's input."""
+    int8 = sum(conv_lstm.int8_size_rule(
+        (b, base * 2 ** (i + 1), hh >> (i + 1), ww >> (i + 1)))
+        for i in range(3))
+    return 3 - int8, int8
 
 
 def bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -686,7 +718,9 @@ def check_cells(dev, *, int8: bool):
     logged) and at the main path's B=8 (the three encoder cells of one
     window), where the row's times are taken, beside the library's gate
     conv alone; the int8 cell's prep launches per cell."""
-    name, impl = ("B2-int8", "pallas_int8") if int8 else ("B2", "pallas")
+    # the int8 cell at every shape: level 2 at B=2 is below the size rule
+    name, impl = (("B2-int8", "pallas_int8_interpret") if int8
+                  else ("B2", "pallas"))
     kind, unit = ("int8", "TOP/s") if int8 else ("bf16", "TFLOP/s")
     plain = conv_lstm.conv_lstm_int8_ref if int8 else conv_lstm.conv_lstm_ref
     g = torch.Generator().manual_seed(5 if int8 else 2)
@@ -1002,7 +1036,8 @@ def check_conv3x3_int8(dev):
 
     def launch(x, w, bb, relu, prep):
         n0, p0 = conv3x3.launches_int8, conv3x3.launches_int8_prep
-        got = conv3x3.conv3x3_fused(x, w, bb, relu=relu, impl="pallas_int8",
+        got = conv3x3.conv3x3_fused(x, w, bb, relu=relu,
+                                    impl="pallas_int8_interpret",
                                     prepared=prep)
         torch.cuda.synchronize()
         if (conv3x3.launches_int8, conv3x3.launches_int8_prep) != (
@@ -1035,7 +1070,8 @@ def check_conv3x3_int8(dev):
             conv3x3.conv3x3_int8_ref(x8, w, bias, relu=True)))
         lib8, lib_what = library_conv_fn(x8, w, bias)
         t_k8 = cuda_ms(lambda: conv3x3.conv3x3_fused(
-            x8, w, bias, relu=True, impl="pallas_int8", prepared=prep), 20)
+            x8, w, bias, relu=True, impl="pallas_int8_interpret",
+            prepared=prep), 20)
         t_prep = cuda_ms(lambda: conv3x3.int8_prep(x8, prep), 20)
         t_p8 = cuda_ms(lambda: conv3x3.conv3x3_int8_ref(x8, w, bias,
                                                         relu=True), 3)
@@ -1659,10 +1695,13 @@ def phase_train(dev, kern_rows):
     losses = [step(state, batch)["loss"] for _ in range(steps)]
     counts = read_counts()
     losses = [float(v) for v in losses]
+    n_exact, n_int8 = int8_cells(b, SENSOR_H - CROP, SENSOR_W)
     log(f"train slice B={b} T={WINDOWS}, {steps} train steps (train rollout "
-        f"on the int8 cell): launches {show_counts(counts)}; "
+        f"on the int8 cell; by the size rule {n_int8} cells a window int8, "
+        f"{n_exact} exact): launches {show_counts(counts)}; "
         f"losses {[round(v, 6) for v in losses]}")
-    need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
+    need_counts(counts, (steps, steps * n_exact * WINDOWS,
+                         steps * n_int8 * WINDOWS, 0, 0, 0))
     prep = conv_lstm.launches_int8_prep / counts[2]
     log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3); int8 "
         f"conv prep launches {conv3x3.launches_int8_prep} (no int8 conv on "
@@ -1743,11 +1782,14 @@ def phase_uda(dev, kern_rows):
     outs = [step(state, batch) for _ in range(steps)]
     counts = read_counts()
     outs = [{k: float(v) for k, v in o.items()} for o in outs]
+    n_exact, n_int8 = int8_cells(b, SENSOR_H - CROP, SENSOR_W)
     log(f"UDA slice B={b} T={WINDOWS}, sensor A {SENSOR_H - CROP}x{SENSOR_W}"
         f", {steps} UDA train steps (train rollout on the int8 cell, "
-        f"decoded): launches {show_counts(counts)}; total losses "
+        f"decoded; by the size rule {n_int8} cells a window int8, {n_exact} "
+        f"exact): launches {show_counts(counts)}; total losses "
         f"{[round(o['loss'], 6) for o in outs]}")
-    need_counts(counts, (steps, 0, steps * 3 * WINDOWS, 0, 0, 0))
+    need_counts(counts, (steps, steps * n_exact * WINDOWS,
+                         steps * n_int8 * WINDOWS, 0, 0, 0))
     prep = conv_lstm.launches_int8_prep / counts[2]
     log(f"int8 cell prep kernel launches per cell: {prep:g} (bound 3)")
     if prep > 3:
@@ -2123,6 +2165,374 @@ def phase_data(dev, kern_rows):
     torch.cuda.empty_cache()
 
 
+# DDD17 (phase 5c): bench_extra.py's DDD17 shapes, B=16 x T=20 windows of
+# 32k integer-coordinate events on 260x346, 6 classes; the rollout at
+# 200x352, the UDA train rollout at the 120x216 crop. The cells of one window
+# at each geometry (B, C, H, W) are held against their plain versions there.
+DDD17_B = bench.DDD17_BATCH
+DDD17_CELLS = {"200x352": [(DDD17_B, 64, 100, 176), (DDD17_B, 128, 50, 88),
+                           (DDD17_B, 256, 25, 44)],
+               "120x216": [(DDD17_B, 64, 60, 108), (DDD17_B, 128, 30, 54),
+                           (DDD17_B, 256, 15, 27)]}
+DDD17_STORE_IMAGES = DDD17_B
+
+
+def ddd17_voxel_inputs(batch):
+    """The B1 kernel's operands of a DDD17 batch, all B x T windows
+    window-major, and the padded geometry: ``batch_voxel.band_operands``,
+    which ``voxelize_band`` launches B1 on."""
+    flat = lambda a: a.transpose(0, 1).reshape(-1, a.shape[-1])
+    h, w = bench.DDD17_SENSOR
+    return batch_voxel.band_operands(
+        *(flat(batch[k]) for k in ("ev_x", "ev_y", "ev_t", "ev_p", "ev_valid",
+                                   "ev_band_offsets")),
+        num_bins=BINS, height=h, width=w, trilinear=False)
+
+
+def ddd17_kernels(dev, kern_rows):
+    """B1 over one DDD17 step's 320 windows of integer records, and B2 and
+    B2-int8 at the cells of both DDD17 geometries, each against its plain
+    version on the same inputs, with kernel, plain and bound times."""
+    h, w = bench.DDD17_SENSOR
+    batch = bench.make_ddd17_batch(11, DDD17_B, dev)
+    args, kw = ddd17_voxel_inputs(batch)
+    n_win = args[0].shape[0]
+    n0 = voxel_folded.launches
+    grid_k, stats_k = voxel_folded.voxelize_folded(*args, **kw)
+    torch.cuda.synchronize()
+    if voxel_folded.launches != n0 + 1:
+        raise AssertionError("voxelize_folded did not launch B1 once")
+    grid_p, stats_p = voxel_folded.voxelize_folded_ref(*args, **kw)
+    err_raw = (grid_k - grid_p).abs().max().item()
+    err = (normalize_from_stats(grid_k, stats_k)
+           - normalize_from_stats(grid_p, stats_p)).abs().max().item()
+    live = grid_k[:, :, :h, :w].double()
+    stats_live = torch.stack([live.sum((1, 2, 3)), (live * live).sum(
+        (1, 2, 3)), (live != 0).sum((1, 2, 3)).double()], -1)
+    pad_empty = not (grid_k[..., w:].any() or grid_k[:, :, h:].any())
+    stats_rel = ((stats_k.double() - stats_live).abs()
+                 / stats_live.abs().clamp(min=1.0)).max().item()
+    log(f"DDD17 B1 voxel_folded ({n_win} windows of {bench.DDD17_EVENTS} "
+        f"integer events, {kw['height']}x{kw['width']} grid, "
+        f"{(kw['height'] // voxel_folded.tile_h_for_bins(BINS)) * 3} groups):"
+        f" max|d| raw grid {err_raw:.3e}, normalized grid {err:.3e} (bound "
+        f"{VOXEL_ATOL}); padded rows and columns empty {pad_empty}; stats vs "
+        f"the sensor grid's rel max|d| {stats_rel:.3e} (bound 1e-5)")
+    if not (err <= VOXEL_ATOL and pad_empty and stats_rel <= 1e-5):
+        raise AssertionError("B1 on integer records disagrees with its plain "
+                             "version")
+    del grid_p, live
+    ms = cuda_ms(lambda: voxel_folded.voxelize_folded(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: voxel_folded.voxelize_folded_ref(*args, **kw),
+                       3)
+    # the bound writes the sensor grid the pipeline keeps (the kernel's
+    # tile pad, checked empty above, is not work the function needs)
+    offs, live_events = args[4], int(args[4][:, -1].sum())
+    bound_ms, bound_by = voxel_bound(live_events, offs.numel(),
+                                     n_win * kw["bins"] * h * w + 3 * n_win,
+                                     corners=2)
+    padded_ms, _ = voxel_bound(live_events, offs.numel(),
+                               grid_k.numel() + 3 * n_win, corners=2)
+    log(f"DDD17 B1 time for {n_win} windows: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; of the "
+        f"{h}x{w} sensor grid, {padded_ms:.3f} ms of the padded "
+        f"{kw['height']}x{kw['width']} one), share of bound "
+        f"{100.0 * bound_ms / ms:.1f}%")
+    row = kern_rows[KERNEL_NAMES.index("B1")]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ddd17"] = {"windows": n_win, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+    del grid_k, args, batch
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(12)
+    for int8 in (False, True):
+        name = "B2-int8" if int8 else "B2"
+        impl = "pallas_int8_interpret" if int8 else "pallas"
+        kind = "int8" if int8 else "bf16"
+        plain = (conv_lstm.conv_lstm_int8_ref if int8
+                 else conv_lstm.conv_lstm_ref)
+        row = kern_rows[KERNEL_NAMES.index(name)]
+        per_geometry = {}
+        for geo, shapes in DDD17_CELLS.items():
+            tot = [0.0, 0.0, 0.0]
+            for b, ch, hh, ww in shapes:
+                x, hs, c, wt, bias = cell_inputs(g, dev, b, ch, hh, ww,
+                                                 int8=int8)
+                prep = conv_lstm.prepare_cell_weights(wt, impl)
+                h_p, c_p = plain(x, hs, c, wt, bias)
+                h_k, c_k = conv_lstm.conv_lstm_cell(
+                    x, hs, c.clone(), wt, bias, impl=impl, prepared=prep)
+                torch.cuda.synchronize()
+                if int8:
+                    bad = sum(int(((got.float() - want.float()).abs()
+                                   > bf16_ulp(got, want)
+                                   + INT8_ULP_SLACK).sum())
+                              for got, want in ((h_k, h_p), (c_k, c_p)))
+                    e = max((h_k.float() - h_p.float()).abs().max().item(),
+                            (c_k.float() - c_p.float()).abs().max().item())
+                    what = (f"max|d| {e:.3e}, {bad} values beyond one bf16 "
+                            "ulp (bound 0)")
+                    ok = bad == 0
+                else:
+                    eh = (h_k.float() - h_p.float()).abs().max().item()
+                    ec = (c_k.float() - c_p.float()).abs().max().item()
+                    e = max(eh, ec)
+                    what = (f"max|dh| {eh:.3e} (bound {LSTM_H_ATOL}), max|dc| "
+                            f"{ec:.3e} (bound {LSTM_C_ATOL})")
+                    ok = eh <= LSTM_H_ATOL and ec <= LSTM_C_ATOL
+                row["max_abs_err"] = max(row["max_abs_err"], e)
+                cw = c.clone()
+                t_k = cuda_ms(lambda: conv_lstm.conv_lstm_cell(
+                    x, hs, cw, wt, bias, impl=impl, prepared=prep), 20)
+                t_p = cuda_ms(lambda: plain(x, hs, c, wt, bias), 3)
+                _, (t_b, by) = cell_bound(x, wt, bias, kind)
+                tot = [tot[0] + t_k, tot[1] + t_p, tot[2] + t_b]
+                log(f"DDD17 {name} B={b} C={ch} {hh}x{ww}: {what}; kernel "
+                    f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms "
+                    f"({by}), share of bound {100.0 * t_b / t_k:.1f}%")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version at {b}x{ch}x{hh}x{ww}")
+                del x, hs, c, cw, h_p, c_p, h_k, c_k
+            per_geometry[geo] = {"ms": tot[0], "plain_ms": tot[1],
+                                 "bound_ms": tot[2]}
+            log(f"DDD17 {name}, the three cells of a {geo} window at "
+                f"B={DDD17_B}: kernel {tot[0]:.3f} ms, plain {tot[1]:.3f} ms,"
+                f" bound {tot[2]:.4f} ms, share {100.0 * tot[2] / tot[0]:.1f}%")
+        row["ddd17"] = per_geometry
+    torch.cuda.empty_cache()
+
+
+def ddd17_plain_logits(mods, recon, pipe, batch):
+    """The plain path's latent8 and logits of an eval rollout."""
+    with plain_versions(), torch.inference_mode():
+        windows, _ = pipe.build_all(batch, out_dtype=mods.e2vid.dtype)
+        _, _, latent = recon.rollout(windows)
+        return latent[8].float(), mods.head(latent)[1].float()
+
+
+def ddd17_rates(what, runs, batch, order, windows):
+    """Median windows/s of each run of ``runs`` (``timed_steps``)."""
+    samples = timed_steps(runs, order, batch)
+    for name, ts in samples.items():
+        med = statistics.median(ts)
+        log(f"{what} ({name}): {windows / med:.2f} windows/s, median "
+            f"{1e3 * med:.1f} ms over {len(ts)} steps "
+            f"{[round(1e3 * t, 1) for t in ts]}")
+
+
+def ddd17_store(tmp: str, rng) -> str:
+    """A DDD17 recording directory in ``tmp``: DDD17_STORE_IMAGES images,
+    each with a step's 20 x 32k events before it (int64 ns times, int16 x,
+    y, p), and the 50 ms image index."""
+    span = WINDOWS * bench.DDD17_EVENTS
+    n = span * DDD17_STORE_IMAGES + 5000
+    h, w = bench.DDD17_SENSOR
+    t = np.cumsum(rng.integers(1000, 50_000, n, dtype=np.int64))
+    xyp = np.stack([rng.integers(0, w, n), rng.integers(0, h, n),
+                    rng.integers(0, 2, n)], axis=1).astype(np.int16)
+    d = os.path.join(tmp, "dir0")
+    os.makedirs(os.path.join(d, "index"))
+    t.tofile(os.path.join(d, "events.dat.t"))
+    xyp.tofile(os.path.join(d, "events.dat.xyp"))
+    ends = 5000 + span * (1 + np.arange(DDD17_STORE_IMAGES))
+    np.save(os.path.join(d, "index", "index_50ms.npy"),
+            np.stack([t[ends - 1], ends, ends - 1000], 1).astype(np.int64))
+    return d
+
+
+def phase_ddd17(dev, kern_rows):
+    """Phase 5c: DDD17 on the card (module docstring)."""
+    ddd17_kernels(dev, kern_rows)
+    b = DDD17_B
+    hw_val, hw_crop = bench.DDD17_RESIZED, bench.DDD17_CROP
+
+    # --- supervised train, then eval ---
+    batch = bench.make_ddd17_batch(3, b, dev)
+    mods, state, step = bench.build_ddd17("ess_supervised", dev)
+    n_exact, n_int8 = int8_cells(b, *hw_val)
+    reset_counts()
+    loss = float(step(state, batch)["loss"])
+    counts = read_counts()
+    log(f"DDD17 supervised train step B={b} T={WINDOWS} "
+        f"{bench.DDD17_SENSOR} -> {hw_val}: launches {show_counts(counts)} "
+        f"(by the size rule {n_int8} int8 cells a window, {n_exact} exact)")
+    need_counts(counts, (1, n_exact * WINDOWS, n_int8 * WINDOWS, 0, 0, 0))
+    add_launches(kern_rows, "ddd17_train", counts)
+    _, state_p, step_p = bench.build_ddd17("ess_supervised", dev)
+    with plain_versions():
+        loss_p = float(step_p(state_p, batch)["loss"])
+    pipe = builder.make_pipeline(mods.cfg)
+    with torch.no_grad():
+        windows, _ = pipe.build_all(batch, out_dtype=mods.e2vid.dtype)
+        lat_k = mods.recon_train.rollout(windows, decode=False)[2][8].float()
+        with plain_versions():
+            lat_p = mods.recon_train.rollout(windows,
+                                             decode=False)[2][8].float()
+    rel = ((lat_k - lat_p).abs().max() / lat_p.abs().max()).item()
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    log(f"  step 1, kernel path vs plain path: loss {loss:.6f} vs "
+        f"{loss_p:.6f} (relative difference {loss_rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL}); latent8 rel max|d| {rel:.3e} (bound "
+        f"{TRAIN_LATENT_REL})")
+    if not (np.isfinite(loss) and loss_rel <= TRAIN_LOSS_REL
+            and rel <= TRAIN_LATENT_REL):
+        raise AssertionError("DDD17 train: kernel path disagrees with the "
+                             "plain path")
+    del windows, lat_k, lat_p
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"int8 kernels": (state, step), "plain versions": (state_p, step_p)}
+    timed_steps(runs, (("int8 kernels", 1),), batch)
+    log(f"  peak device memory of the DDD17 supervised train step: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    ddd17_rates(f"DDD17 supervised train step B={b}", runs, batch,
+                (("plain versions", 1), ("int8 kernels", 3),
+                 ("int8 kernels", 3), ("plain versions", 1)), b * WINDOWS)
+    del state_p, step_p, runs
+
+    eval_pipe = builder.make_pipeline(mods.cfg, train=False)
+    eval_step = make_eval_step(mods, eval_pipe)
+    reset_counts()
+    out = eval_step(batch)
+    counts = read_counts()
+    log(f"DDD17 supervised eval step B={b}: launches {show_counts(counts)}")
+    need_counts(counts, (1, 3 * WINDOWS, 0, 0, 0, 0))
+    add_launches(kern_rows, "ddd17_eval", counts)
+    lat_p, logits_p = ddd17_plain_logits(mods, mods.recon_val, eval_pipe,
+                                         batch)
+    if float(out["cm"].sum()) != float((batch["label"] != 255).sum()):
+        raise AssertionError("DDD17 eval: the confusion matrix misses pixels")
+    slice_agreement("DDD17 eval, kernel path vs plain path", out["latent8"],
+                    lat_p, out["pred"], logits_p.argmax(1), logits_p)
+    del out, lat_p, logits_p
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for plain in (True, False, False, True):
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(eval_step(batch)["loss"])
+            torch.cuda.synchronize()
+            ts.append((plain, time.perf_counter() - t0))
+    for plain in (False, True):
+        med = statistics.median(t for p_, t in ts if p_ == plain)
+        log(f"DDD17 supervised eval step B={b} "
+            f"({'plain versions' if plain else 'kernels'}): "
+            f"{b * WINDOWS / med:.2f} windows/s, median {1e3 * med:.1f} ms")
+    log(f"  peak device memory of the DDD17 eval step: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del mods, state, step, eval_step
+    torch.cuda.empty_cache()
+
+    # --- UDA train at the 120x216 crop, then eval B at 200x352 ---
+    batch_u = bench.make_ddd17_batch(4, b, dev, uda_=True)
+    mods, state, step = bench.build_ddd17("ess", dev)
+    n_exact, n_int8 = int8_cells(b, *hw_crop)
+    reset_counts()
+    out = {k: float(v) for k, v in step(state, batch_u).items()}
+    counts = read_counts()
+    log(f"DDD17 UDA train step B={b} T={WINDOWS}, the {hw_crop} crop: "
+        f"launches {show_counts(counts)} (by the size rule {n_int8} int8 "
+        f"cell a window, level 0; {n_exact} exact)")
+    need_counts(counts, (1, n_exact * WINDOWS, n_int8 * WINDOWS, 0, 0, 0))
+    add_launches(kern_rows, "ddd17_uda_train", counts)
+    _, state_p, step_p = bench.build_ddd17("ess", dev)
+    with plain_versions():
+        out_p = {k: float(v) for k, v in step_p(state_p, batch_u).items()}
+    rels = {k: abs(out[k] - v) / max(abs(v), 1e-12) for k, v in out_p.items()}
+    log("  step 1, kernel path vs plain path, relative difference: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rels.items()))
+        + f" (bound on loss {TRAIN_LOSS_REL})")
+    if not (sorted(out) == UDA_LOSS_KEYS
+            and all(np.isfinite(v) for v in out.values())
+            and rels["loss"] <= TRAIN_LOSS_REL):
+        raise AssertionError("DDD17 UDA: kernel path disagrees with the "
+                             "plain path")
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"int8 kernels": (state, step), "plain versions": (state_p, step_p)}
+    timed_steps(runs, (("int8 kernels", 1),), batch_u)
+    log(f"  peak device memory of the DDD17 UDA train step: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    ddd17_rates(f"DDD17 UDA train step B={b}", runs, batch_u,
+                (("plain versions", 1), ("int8 kernels", 3),
+                 ("int8 kernels", 3), ("plain versions", 1)), b * WINDOWS)
+    del state_p, step_p, runs, batch_u
+
+    eval_b = uda.make_eval_step_b(mods, eval_pipe)
+    reset_counts()
+    out = eval_b(batch)
+    counts = read_counts()
+    log(f"DDD17 UDA eval B step B={b} at {hw_val}: launches "
+        f"{show_counts(counts)}")
+    need_counts(counts, (1, 3 * WINDOWS, 0, 0, 0, 0))
+    add_launches(kern_rows, "ddd17_uda_eval_b", counts)
+    lat_p, logits_p = ddd17_plain_logits(mods, mods.recon_val, eval_pipe,
+                                         batch)
+    if not (out["img_fake"].shape == (b, 1) + hw_val
+            and bool(torch.isfinite(out["img_fake"]).all())):
+        raise AssertionError("DDD17 UDA eval B: bad img_fake")
+    slice_agreement("DDD17 UDA eval B, kernel path vs plain path",
+                    out["latent8"], lat_p, out["pred"], logits_p.argmax(1),
+                    logits_p)
+    del mods, state, step, eval_b, out, lat_p, logits_p, batch
+    torch.cuda.empty_cache()
+
+    # --- the host path: a written store -> windows -> binning -> eval ---
+    rng = np.random.default_rng(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = DDD17EventStore.open(ddd17_store(tmp, rng))
+        log(f"DDD17 store of {len(store.t)} events written and opened in "
+            f"{time.perf_counter() - t0:.1f} s")
+        samples, host_s = [], []
+        for i in range(DDD17_STORE_IMAGES):
+            t0 = time.perf_counter()
+            samples.append(ddd17.events_for_image(
+                store, i, nr_events_data=WINDOWS,
+                nr_events_window=bench.DDD17_EVENTS))
+            host_s.append(time.perf_counter() - t0)
+        del store
+    log(f"  host ingest (pad_windows_ddd17 + integer band binning, one "
+        f"thread): {1e3 * statistics.median(host_s) / WINDOWS:.3f} ms per "
+        f"window of {bench.DDD17_EVENTS} events (median of "
+        f"{DDD17_STORE_IMAGES} samples)")
+    recs = np.stack([s["raw_events"] for s in samples])
+    host = {"ev_x": recs[..., 0], "ev_y": recs[..., 1], "ev_t": recs[..., 2],
+            "ev_p": recs[..., 3],
+            "ev_valid": np.stack([s["valid"] for s in samples]),
+            "ev_band_offsets": np.stack([s["band_offsets"]
+                                         for s in samples]),
+            "label": rng.integers(0, bench.DDD17_CLASSES, (b,) + hw_val)}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in host.items()}
+    del samples, recs, host
+    mods = build_modules(bench.make_ddd17_cfg("ess_supervised"), device=dev)
+    init_params(mods, torch.Generator().manual_seed(0))
+    eval_pipe = builder.make_pipeline(mods.cfg, train=False)
+    eval_step = make_eval_step(mods, eval_pipe)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eval_step(batch)
+    float(out["loss"])
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"DDD17 store -> pad_windows_ddd17 -> integer band binning -> eval "
+        f"step B={b}: launches {show_counts(counts)}; {b * WINDOWS / dt:.2f}"
+        f" windows/s on the device (one step, {1e3 * dt:.1f} ms)")
+    need_counts(counts, (1, 3 * WINDOWS, 0, 0, 0, 0))
+    add_launches(kern_rows, "ddd17_store_eval", counts)
+    lat_p, logits_p = ddd17_plain_logits(mods, mods.recon_val, eval_pipe,
+                                         batch)
+    slice_agreement("DDD17 store eval, kernel path vs plain path",
+                    out["latent8"], lat_p, out["pred"], logits_p.argmax(1),
+                    logits_p)
+    del mods, eval_step, out, lat_p, logits_p, batch
+    torch.cuda.empty_cache()
+
+
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
                     cm=None, cm_ref=None) -> None:
     """Hold one path against a reference path under the slice bounds
@@ -2367,6 +2777,7 @@ def main() -> None:
     phase_slice(dev, rows)
     phase_train(dev, rows)
     phase_uda(dev, rows)
+    phase_ddd17(dev, rows)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

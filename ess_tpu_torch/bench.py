@@ -22,6 +22,17 @@ rollout on the int8 cell with its decoder, the ResNet18 image front twice
 RAdams (``dsec_uda_train_event_windows_per_sec_per_chip``; a reading, not
 a claim).
 
+DDD17 (``bench_extra.py``'s two DDD17 shapes): B=16 x T=20 windows of 32k
+integer-coordinate events on the 260x346 DAVIS sensor, 6 classes, the train
+rollout on the int8 cell (where the size rule lets it run: every level of
+the 200x352 supervised rollout, level 0 of the 120x216 UDA crop). The
+supervised step (``ddd17_supervised_train_event_windows_per_sec_per_chip``)
+crops 60 rows and resizes the width to 352, no augmentation; the UDA step
+(``ddd17_uda_train_event_windows_per_sec_per_chip``) runs
+``make_pipeline``'s augmentation (the bottom-anchored 120x216 crop at a
+random x and the flip) with 120x216 N(0, 1) sensor-A images and uniform
+labels. Readings, not claims.
+
 Run from the repository root::
 
     python -m ess_tpu_torch.bench [--iters N] [--profile DIR]
@@ -29,7 +40,7 @@ Run from the repository root::
 It prints JSON lines under ``bench.py``'s and ``bench_extra.py``'s metric
 names: the two streaming readings, the eval step, the exact-bf16 train
 companion (``lstm_impl_train=None``, the exact kernel), the UDA train
-step, and the train headline last; each names the card and its power
+step, the two DDD17 train steps, and the train headline last; each names the card and its power
 limit. Every rollout runs
 in block space with the block convs (head, first encoder) on the library
 conv, the builder's form; beside each reading stands the same one with the
@@ -38,7 +49,8 @@ train rollout ``'pallas_int8'`` beside its int8 ConvLSTM cell), its metric
 name extended by ``_block_conv_pallas``. ``--profile DIR`` traces 20
 streaming windows at each batch size, one eval step and one headline train
 step (each in ``build_modules``' form), one train step with the block
-convs on the int8 fused conv kernel and one UDA train step, with
+convs on the int8 fused conv kernel, one UDA train step and one step of
+each DDD17 train step, with
 ``torch.profiler`` and prints device time by kernel and the device's idle
 share for each, with the traces in ``DIR``. It needs a CUDA device and
 raises without one; there is no fallback configuration.
@@ -61,9 +73,10 @@ import torch
 from ess_tpu_torch.core.config import (
     Config, DatasetConfig, EventDatasetConfig, ImageDatasetConfig,
     ModelConfig, OptimConfig, TaskConfig)
-from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
+from ess_tpu_torch.data.pipeline import EventPipeline
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
 from ess_tpu_torch.train import uda
+from ess_tpu_torch.train import builder
 from ess_tpu_torch.train.builder import (
     ESSModules, build_modules, init_params, init_state, with_block_conv_impl)
 from ess_tpu_torch.train.streaming import make_streaming_steps
@@ -83,6 +96,10 @@ UDA_METRIC = "dsec_uda_train_event_windows_per_sec_per_chip"
 PALLAS_SUFFIX = "_block_conv_pallas"
 FORMS = ("standard", "block_xla", "block_pallas")
 STREAM_METRIC = "dsec_streaming_eval{}_windows_per_sec_per_chip"
+DDD17_BATCH, DDD17_EVENTS, DDD17_CLASSES = 16, 32_000, 6
+DDD17_SENSOR, DDD17_RESIZED, DDD17_CROP = (260, 346), (200, 352), (120, 216)
+DDD17_BASELINE_WINDOWS_PER_SEC = 625.0   # bench_extra.py's, both steps
+DDD17_METRIC = "ddd17_{}_train_event_windows_per_sec_per_chip"
 WINDOWS_PER_SCORE = 20             # one labeled window in 20
 
 
@@ -119,12 +136,81 @@ def make_uda_cfg(batch: int = BATCH,
         optim=dataclasses.replace(cfg.optim, batch_size_a=batch))
 
 
+def make_ddd17_cfg(model_name: str, batch: int = DDD17_BATCH,
+                   lstm_impl_train: Optional[str] = "pallas_int8"
+                   ) -> Config:
+    """``bench_extra.py``'s DDD17 configs at ``batch``: the 200x346 sensor
+    B (the rollouts at 200x352, ESS UDA's train rollout at the 120x216
+    crop), 5 bins, 6 classes, bf16, the train rollout on
+    ``lstm_impl_train``; ``model_name`` 'ess_supervised' or 'ess' (then
+    augmentation on and 120x216 sensor-A images)."""
+    uda_ = model_name == "ess"
+    return Config(
+        dataset=DatasetConfig(
+            sensor_a=ImageDatasetConfig(
+                shape=DDD17_CROP if uda_ else DDD17_RESIZED),
+            sensor_b=EventDatasetConfig(
+                name="DDD17_events", shape=(200, 346),
+                nr_events_data=WINDOWS, nr_temporal_bins=BINS,
+                nr_events_window=DDD17_EVENTS)),
+        model=ModelConfig(model_name=model_name, compute_dtype="bfloat16",
+                          data_augmentation_train=uda_,
+                          lstm_impl_train=lstm_impl_train),
+        task=TaskConfig(semseg_num_classes=DDD17_CLASSES),
+        optim=OptimConfig(batch_size_a=batch, batch_size_b=batch))
+
+
+def make_ddd17_batch(seed: int, batch: int, device, *, uda_: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """``bench_extra.py::make_event_batch`` with integer coordinates:
+    uniform integer events on 260x346, sorted times, random polarity,
+    binned on the host into integer band records (``host_band_bin_folded(
+    trilinear=False)``, x-slots). The supervised batch has uniform labels
+    at 200x352; the UDA batch none, and N(0, 1) sensor-A images (B, 1,
+    120, 216) with uniform labels instead."""
+    rng = np.random.default_rng(seed)
+    h, w = DDD17_SENSOR
+    shape = (batch, WINDOWS, DDD17_EVENTS)
+    raw = np.zeros(shape + (4,), np.float32)
+    raw[..., 0] = rng.integers(0, w, shape)
+    raw[..., 1] = rng.integers(0, h, shape)
+    raw[..., 2] = np.sort(rng.uniform(0, 5e4, shape), axis=-1)
+    raw[..., 3] = rng.integers(0, 2, shape)
+    valid = np.ones(shape, bool)
+    recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
+        raw[i], valid[i], height=h, width=w, bins=BINS, trilinear=False)
+        for i in range(batch)))
+    host = {"ev_x": np.stack(recs)[..., 0], "ev_y": np.stack(recs)[..., 1],
+            "ev_t": np.stack(recs)[..., 2], "ev_p": np.stack(recs)[..., 3],
+            "ev_valid": np.stack(vals), "ev_band_offsets": np.stack(offs)}
+    if uda_:
+        host["image_a"] = rng.normal(
+            size=(batch, 1) + DDD17_CROP).astype(np.float32)
+        host["label_a"] = rng.integers(0, DDD17_CLASSES,
+                                       (batch,) + DDD17_CROP)
+    else:
+        host["label"] = rng.integers(0, DDD17_CLASSES,
+                                     (batch,) + DDD17_RESIZED)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host.items()}
+
+
+def build_ddd17(model_name: str, device, seed: int = 0,
+                batch: int = DDD17_BATCH,
+                lstm_impl_train: Optional[str] = "pallas_int8"):
+    """Seeded modules, train state and train step of a DDD17 config."""
+    cfg = make_ddd17_cfg(model_name, batch, lstm_impl_train)
+    mods = build_modules(cfg, device=device)
+    init_params(mods, torch.Generator().manual_seed(seed))
+    make = uda.make_train_step if model_name == "ess" else make_train_step
+    return mods, init_state(mods), make(mods, builder.make_pipeline(cfg))
+
+
 def make_pipeline() -> EventPipeline:
     """DSEC: 480x640 rectified float coordinates, per-window normalization,
-    40 bottom rows cropped; no flip (``bench.py::make_pipeline``)."""
-    return EventPipeline(PipelineConfig(
-        sensor_height=SENSOR_H, sensor_width=SENSOR_W, num_bins=BINS,
-        trilinear=True, normalize=True, crop_bottom=CROP))
+    40 bottom rows cropped; no flip (``bench.py::make_pipeline``, which is
+    ``make_pipeline`` of the DSEC config without training's flip)."""
+    return builder.make_pipeline(make_cfg(), train=False)
 
 
 def make_raw(rng: np.random.Generator, batch: int, windows: int = WINDOWS):
@@ -474,6 +560,23 @@ def main(argv=None) -> None:
             lambda: float(uda_step(uda_state, uda_batch)["loss"]),
             args.profile, "uda_train_step"), "device": name}), flush=True)
     del mods, uda_state, uda_step, uda_batch
+    for model_name, kind in (("ess_supervised", "supervised"),
+                             ("ess", "uda")):
+        ddd_batch = make_ddd17_batch(0, DDD17_BATCH, dev,
+                                     uda_=model_name == "ess")
+        mods, ddd_state, ddd_step = build_ddd17(model_name, dev)
+        wps = windows_per_sec(ddd_step, ddd_state, ddd_batch, args.iters)
+        print(json.dumps({
+            "metric": DDD17_METRIC.format(kind), "value": round(wps, 2),
+            "unit": "windows/s",
+            "vs_baseline": round(wps / DDD17_BASELINE_WINDOWS_PER_SEC, 3),
+            "device": name}), flush=True)
+        if args.profile:
+            print(json.dumps({"profile": profile_call(
+                lambda: float(ddd_step(ddd_state, ddd_batch)["loss"]),
+                args.profile, f"ddd17_{kind}_train_step"), "device": name}),
+                flush=True)
+        del mods, ddd_state, ddd_step, ddd_batch
     print(json.dumps(lines[-1]), flush=True)
 
 

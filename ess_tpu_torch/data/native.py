@@ -7,7 +7,8 @@ raises if the build fails. Bound here: the ghost-folded band binning of the
 fold-free voxelizer and the tile binning of the halo-tiled one, the fused
 DSEC ingests (rectify + per-window time re-zero + one of the two binnings,
 in one pass over the raw event columns), the gather-pad of event windows
-and a vectorized ``searchsorted``. The contracts are those of
+a vectorized ``searchsorted`` and the gather-pad straight from DDD17's
+memmap layout (int64 times, int16 x, y, p). The contracts are those of
 ``ess_tpu/data/native.py``, except that nothing returns ``None``: without
 the library every entry point raises.
 """
@@ -73,6 +74,10 @@ def _build() -> ctypes.CDLL:
     cdll.pad_windows_f64.argtypes = [f64p, i64p, i64p, c_i64, c_i64, f32p,
                                      u8p]
     cdll.pad_windows_f64.restype = None
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    cdll.pad_windows_i16.argtypes = [i64p, i16p, c_i64, i64p, i64p, c_i64,
+                                     c_i64, f32p, u8p]
+    cdll.pad_windows_i16.restype = None
     cdll.ingest_rectify_bin_f32.argtypes = [
         u16p, u16p, i64p, u8p, i64p, i64p, c_i64, c_i64,
         f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
@@ -202,6 +207,31 @@ def pad_windows_from_bounds(
     lib.pad_windows_f64(ev, np.ascontiguousarray(starts, np.int64),
                         np.ascontiguousarray(ends, np.int64), t_dim,
                         capacity, out, valid)
+    return out, valid.astype(bool)
+
+
+def pad_windows_ddd17(
+    t: np.ndarray, xyp: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+    capacity: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Gather-pad DDD17 windows straight from its memmap layout (``t``
+    int64 nanoseconds, ``xyp`` (N, 3) int16): (T, capacity, 4) f32 (x, y,
+    t re-zeroed to the window's first kept event, p) + (T, capacity) bool,
+    the contract of :func:`pad_windows_from_bounds`. Only the region the
+    windows touch is read from the memmaps."""
+    lib = get_lib()
+    t_dim = len(starts)
+    starts = np.asarray(starts, np.int64)
+    ends = np.asarray(ends, np.int64)
+    lo = int(starts.min()) if t_dim else 0
+    hi = int(ends.max()) if t_dim else 0
+    out = np.empty((t_dim, capacity, 4), np.float32)
+    valid = np.empty((t_dim, capacity), np.uint8)
+    lib.pad_windows_i16(np.ascontiguousarray(t[lo:hi], np.int64),
+                        np.ascontiguousarray(xyp[lo:hi], np.int16), hi - lo,
+                        np.ascontiguousarray(starts - lo),
+                        np.ascontiguousarray(ends - lo), t_dim, capacity,
+                        out, valid)
     return out, valid.astype(bool)
 
 

@@ -1,4 +1,4 @@
-"""Event-sample pipeline: voxelize, normalize, crop, flip.
+"""Event-sample pipeline: voxelize, normalize, crop, resize, augment.
 
 Counterpart of ``ess_tpu/data/pipeline.py`` (``PipelineConfig``, ``to_soa``,
 ``AugmentParams``, ``EventPipeline.sample_augment``, ``_transform_grid``,
@@ -7,11 +7,17 @@ event wires: host-folded band batches (``ev_band_offsets``), host
 tile-sorted batches (``ev_tile_offsets``) and raw batches with no offsets,
 which are tile-sorted on the device. ``build_all`` voxelizes all B*T windows
 of a batch in one launch, window-major; ``make_window_fn`` voxelizes one
-window at a time for the streaming steps. DSEC drops the 40 bottom sensor
-rows (480 -> 440) after the per-window normalization, which covers the full
-sensor grid; a cropped or flipped sample has its windows and its label
-transformed together. The resize and the packed u16 wire are not ported
-yet.
+window at a time for the streaming steps.
+
+The transforms run in the JAX package's order: the per-window normalization
+at sensor resolution (inside the voxelizer: the nonzero standardization does
+not commute with a resize), the bottom crop (DSEC 480 -> 440, DDD17
+260 -> 200 rows), the bilinear resize (DDD17's 346 -> 352 width, with
+``align_corners`` as the reference), the per-sample crop (DDD17 UDA's
+bottom-anchored 120x216, drawn from the post-resize size) and the flip; a
+cropped or flipped sample has its windows and its label transformed
+together. Only the ``voxel_grid`` representation is ported (the others
+raise), and the packed u16 wire is not.
 
 Augmentation draws come from an explicit ``torch.Generator``; they cannot
 reproduce JAX's PRNG bits, so parity tests pass :class:`AugmentParams`
@@ -27,18 +33,26 @@ import numpy as np
 import torch
 
 from ess_tpu_torch.ops.batch_voxel import effective_bins, voxelize_window_soa
+from ess_tpu_torch.ops.resize import resize_bilinear
+
+
+REPRESENTATIONS = ("voxel_grid",)   # the ported event representations
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Static geometry of one event dataset."""
+    """Static geometry and augmentation of one event dataset."""
 
     sensor_height: int
     sensor_width: int
     num_bins: int = 5
+    representation: str = "voxel_grid"
     separate_pol: bool = False
     normalize: bool = False          # per-window nonzero normalization
     crop_bottom: int = 0             # rows dropped from the bottom
+    resize_to: Optional[Tuple[int, int]] = None   # (H, W) after the crop
+    # the reference resizes event tensors with align_corners=True
+    resize_align_corners: bool = True
     random_crop: Optional[Tuple[int, int]] = None  # train-time crop (H, W)
     crop_anchor: str = "random"      # 'random' | 'bottom'
     random_flip: bool = False        # train-time horizontal flip
@@ -46,14 +60,31 @@ class PipelineConfig:
                                      # (rectified streams); False = temporal
                                      # bilinear on floored coordinates
 
+    def __post_init__(self):
+        if self.representation not in REPRESENTATIONS:
+            raise ValueError(f"representation {self.representation!r} is "
+                             f"not ported; expected one of {REPRESENTATIONS}")
+
     @property
     def channels(self) -> int:
         return effective_bins(self.num_bins, self.separate_pol,
                               self.trilinear)
 
     @property
-    def output_size(self) -> Tuple[int, int]:
+    def post_crop_size(self) -> Tuple[int, int]:
         return (self.sensor_height - self.crop_bottom, self.sensor_width)
+
+    @property
+    def pre_aug_size(self) -> Tuple[int, int]:
+        """The size after the bottom crop and the resize: what labels are
+        stored at and what the per-sample crop draws from."""
+        return (tuple(self.resize_to) if self.resize_to is not None
+                else self.post_crop_size)
+
+    def output_size(self, train: bool) -> Tuple[int, int]:
+        if train and self.random_crop is not None:
+            return tuple(self.random_crop)
+        return self.pre_aug_size
 
 
 def to_soa(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -138,7 +169,7 @@ class EventPipeline:
             flip = torch.rand(batch_size, generator=generator) < 0.5
         if cfg.random_crop is not None:
             ch, cw = cfg.random_crop
-            h, w = cfg.output_size
+            h, w = cfg.pre_aug_size
             if cfg.crop_anchor == "bottom":
                 crop_y = torch.full((batch_size,), h - ch)
             else:
@@ -151,10 +182,13 @@ class EventPipeline:
     def _transform_grid(self, grids: torch.Tensor, aug: AugmentParams
                         ) -> torch.Tensor:
         """(B, C, Hs, Ws) sensor-size grids -> model-input grids: bottom
-        crop, per-sample crop, horizontal flip."""
+        crop, resize, per-sample crop, horizontal flip."""
         cfg = self.cfg
         if cfg.crop_bottom > 0:
             grids = grids[:, :, :cfg.sensor_height - cfg.crop_bottom]
+        if cfg.resize_to is not None:
+            grids = resize_bilinear(grids, *cfg.resize_to,
+                                    align_corners=cfg.resize_align_corners)
         if aug.crop_y is not None:
             grids = crop_per_sample(grids, aug.crop_y, aug.crop_x,
                                     cfg.random_crop)
@@ -183,10 +217,12 @@ class EventPipeline:
 
     def apply_label_transform(self, label: torch.Tensor, aug: AugmentParams
                               ) -> torch.Tensor:
-        """The same spatial augmentation on (B, H, W) integer labels."""
+        """The same spatial augmentation on (B, H, W) integer labels, which
+        are stored at the pre-augmentation size (after the crop and the
+        resize, as the reference's loaders store them)."""
         cfg = self.cfg
         if aug.crop_y is not None and \
-                tuple(label.shape[1:]) == tuple(cfg.output_size):
+                tuple(label.shape[1:]) == tuple(cfg.pre_aug_size):
             label = crop_per_sample(label, aug.crop_y, aug.crop_x,
                                     cfg.random_crop)
         if aug.flip is not None:

@@ -1,11 +1,12 @@
 """Event stores and the time/count slicer (host ingest).
 
-Counterpart of ``ess_tpu/data/slicer.py`` for DSEC and in-memory streams:
-``ArrayEventStore`` (events in plain arrays), ``H5EventStore`` (a DSEC
-``events.h5`` with its per-millisecond ``ms_to_idx`` index and
-``t_offset``), ``EventSlicer`` (time and count window queries with the
+Counterpart of ``ess_tpu/data/slicer.py``: ``ArrayEventStore`` (events in
+plain arrays), ``H5EventStore`` (a DSEC ``events.h5`` with its
+per-millisecond ``ms_to_idx`` index and ``t_offset``), ``DDD17EventStore``
+(DDD17's ``events.dat.t`` / ``events.dat.xyp`` memmaps and its image ->
+event index), ``EventSlicer`` (time and count window queries with the
 reference's boundary semantics), ``events_dict_to_xytp`` and
-``pad_windows``. The DDD17 memmap store is not ported yet.
+``pad_windows``.
 
 A window ``[t_start, t_end)`` holds exactly the events with ``t_start <= t <
 t_end`` after the ``t_offset`` is removed. The index ``ms_to_idx`` satisfies
@@ -16,6 +17,8 @@ only the millisecond around its bound and refines it with
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -70,6 +73,49 @@ class H5EventStore(ArrayEventStore):
 
     def __len__(self) -> int:
         return self.t.shape[0]
+
+
+@dataclass
+class DDD17EventStore:
+    """DDD17 memmap store; timestamps in **nanoseconds**."""
+
+    t: np.ndarray
+    xyp: np.ndarray
+    # index rows: (img_timestamp_ns, event_idx, event_idx_before)
+    img_index: np.ndarray
+
+    @staticmethod
+    def open(directory: str, t_interval_ms: int = 50) -> "DDD17EventStore":
+        """Open a recording directory: ``events.dat.t`` (int64),
+        ``events.dat.xyp`` (int16 x, y, p) and
+        ``index/index_{10,50,250}ms.npy`` (50 ms for any other interval)."""
+        interval = t_interval_ms if t_interval_ms in (10, 50, 250) else 50
+        idx = np.load(os.path.join(directory, "index",
+                                   f"index_{interval}ms.npy"))
+        t_file = os.path.join(directory, "events.dat.t")
+        n = os.path.getsize(t_file) // 8
+        t = np.memmap(t_file, dtype="int64", mode="r", shape=(n,))
+        xyp = np.memmap(os.path.join(directory, "events.dat.xyp"),
+                        dtype="int16", mode="r", shape=(n, 3))
+        return DDD17EventStore(t=t, xyp=xyp, img_index=idx)
+
+    def window_for_image(self, img_idx: int, *, fixed_duration: bool,
+                         nr_events: int) -> np.ndarray:
+        """(N, 4) float64 events [x, y, t_ns, p] ending at image
+        ``img_idx``: from the index's ``event_idx_before`` in fixed-duration
+        mode, else the last ``nr_events`` events."""
+        row = self.img_index[img_idx]
+        end = int(row[1])
+        start = (max(int(row[2]), 0) if fixed_duration
+                 else max(end - nr_events, 0))
+        t = np.asarray(self.t[start:end], np.int64)
+        xyp = np.asarray(self.xyp[start:end], np.int64)
+        out = np.empty((end - start, 4), np.float64)
+        out[:, 0] = xyp[:, 0]
+        out[:, 1] = xyp[:, 1]
+        out[:, 2] = t
+        out[:, 3] = xyp[:, 2]
+        return out
 
 
 class EventSlicer:

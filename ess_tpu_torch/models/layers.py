@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from ess_tpu_torch.ops.conv3x3 import (
     IMPLS as BLOCK_CONV_IMPLS, conv3x3_fused, prepare_conv_weights)
-from ess_tpu_torch.ops.conv_lstm import conv_lstm_cell, prepare_cell_weights
+from ess_tpu_torch.ops.conv_lstm import (
+    conv_lstm_cell, int8_route, prepare_cell_weights)
 from ess_tpu_torch.ops.conv_s2d import block_bias, block_kernel
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -89,7 +90,8 @@ class BlockConv:
     resolution unblocked.
 
     ``impl``: ``'xla'`` is the library conv rounded to the input's dtype,
-    then bias and activation; ``'pallas'`` and ``'pallas_int8'`` run
+    then bias and activation; ``'pallas'`` and ``'pallas_int8'`` (the
+    exact conv below the JAX package's int8 size rule, ``int8_route``) run
     :func:`ess_tpu_torch.ops.conv3x3.conv3x3_fused` with the bias and a ReLU
     fused. While the parameters need no gradient, the remapped weights (cast
     for ``'xla'``, kernel-ready for the others on CUDA) are kept per
@@ -138,8 +140,9 @@ class BlockConv:
         if torch.is_grad_enabled() and (
                 w.requires_grad or (b is not None and b.requires_grad)):
             (w2, b2), prepared = self._remap(w, b), None
-        else:
-            w2, b2, prepared = self._frozen_weights(impl, x_blk.dtype)
+        else:   # prepared for the conv this shape runs
+            w2, b2, prepared = self._frozen_weights(
+                int8_route(impl, x_blk.shape), x_blk.dtype)
         if impl == "xla":
             out = F.conv2d(x_blk, w2.to(x_blk.dtype),
                            None if b2 is None else b2.to(x_blk.dtype),
@@ -207,8 +210,12 @@ class UpsampleConvLayer(nn.Module):
 class ConvLSTMCell(nn.Module):
     """Convolutional LSTM cell: one 3x3 ``Gates`` conv over concat([x, h])
     producing (i, f, o, g) x hidden channels (:mod:`ess_tpu_torch.ops.conv_lstm`).
-    ``forward`` takes the resolved cell name (``'pallas'``, ``'pallas_int8'``
-    or ``'xla'``), so one parameter set serves rollouts on different cells."""
+    ``forward`` takes the resolved cell name (``'pallas'``, ``'pallas_int8'``,
+    ``'pallas_int8_interpret'`` or ``'xla'``), so one parameter set serves
+    rollouts on different cells. The cell routes the name by the input's
+    shape (``int8_route``: the JAX package's int8 size rule), and the
+    weights are prepared for the routed cell, so an int8 weight matrix
+    never reaches the exact cell."""
 
     def __init__(self, input_size: int, hidden_size: int, *, device=None):
         super().__init__()
@@ -235,9 +242,10 @@ class ConvLSTMCell(nn.Module):
                 impl: str = "pallas"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         h_prev, c_prev = state
-        h, c = conv_lstm_cell(x, h_prev.to(x.dtype), c_prev.to(x.dtype),
-                              self.Gates.weight, self.Gates.bias, impl=impl,
-                              prepared=self._prepared_weight(impl))
+        h, c = conv_lstm_cell(
+            x, h_prev.to(x.dtype), c_prev.to(x.dtype), self.Gates.weight,
+            self.Gates.bias, impl=impl,
+            prepared=self._prepared_weight(int8_route(impl, x.shape)))
         return h, (h, c)
 
 

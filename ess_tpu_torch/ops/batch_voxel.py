@@ -6,7 +6,10 @@ branches of ``_voxelize_pallas`` and their dispatcher
 
 - :func:`voxelize_band` (``offsets_kind='band'``): host ghost-folded records
   with pre-weighted polarity through the fold-free voxelizer, normalized
-  from its per-window stats.
+  from its per-window stats; float-coordinate (trilinear, DSEC) or
+  integer-coordinate (temporal bilinear, DDD17: floored coordinates, the
+  time clipped to the bin range, ``separate_pol`` folding the polarity into
+  the bin axis) records.
 - :func:`voxelize_tile` (``offsets_kind='tile'``): raw events with +-1
   polarity, tile-sorted on the host (``ev_tile_offsets``) or on the device
   (no offsets), through the halo-tiled voxelizer, normalized over the grid.
@@ -42,24 +45,56 @@ def _padded(height: int, width: int, bins: int) -> tuple[int, int]:
     return -(-height // th) * th, -(-width // TILE_W) * TILE_W
 
 
-def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+def band_operands(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   p: torch.Tensor, valid: torch.Tensor,
                   offsets: torch.Tensor, *, num_bins: int, height: int,
-                  width: int, normalize: bool = False) -> torch.Tensor:
-    """(B, N) folded records -> (B, num_bins, height, width) f32 grids.
+                  width: int, separate_pol: bool = False,
+                  trilinear: bool = True):
+    """``voxelize_folded``'s operands and keywords for (B, N) folded
+    records: ``((x, y, ts, pol, offsets), dict(bins, height, width))``,
+    the grid padded to the kernel's tiles (:func:`voxelize_band`).
 
     ``p`` is the host's pre-weighted signed polarity; ``offsets`` the
-    (B, n_groups + 1) group offsets of :func:`host_band_bin_folded`.
+    (B, n_groups + 1) group offsets of :func:`host_band_bin_folded`, binned
+    with ``bins=C``. ``ts`` is the normalized time; ``trilinear=False``
+    floors the coordinates and clips ``ts`` to [0, num_bins - 1] (pure
+    temporal bilinear); with ``separate_pol`` negative records then go to
+    bins ``num_bins .. 2 * num_bins - 1`` with their magnitude. ``pol`` is
+    0 on invalid records and on records outside the sensor frame.
     """
-    hp, wp = _padded(height, width, num_bins)
     x, y, p = x.float(), y.float(), p.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
     ts = masked_time_norm(t.float(), valid, num_bins)
-    pol = torch.where(ok, p, torch.zeros_like(p))
-    grid, stats = voxelize_folded(
-        x.contiguous(), y.contiguous(), ts.contiguous(), pol.contiguous(),
-        offsets.to(torch.int32).contiguous(), bins=num_bins, height=hp,
-        width=wp)
+    pol = p
+    if not trilinear:
+        x, y = torch.floor(x), torch.floor(y)
+        ts = torch.clamp(ts, 0.0, num_bins - 1)
+    bins_eff = effective_bins(num_bins, separate_pol, trilinear)
+    if bins_eff != num_bins:
+        ts = ts + torch.where(pol < 0, float(num_bins), 0.0)
+        pol = pol.abs()
+    hp, wp = _padded(height, width, bins_eff)
+    pol = torch.where(ok, pol, torch.zeros_like(pol))
+    args = (x.contiguous(), y.contiguous(), ts.contiguous(), pol.contiguous(),
+            offsets.to(torch.int32).contiguous())
+    return args, dict(bins=bins_eff, height=hp, width=wp)
+
+
+def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                  p: torch.Tensor, valid: torch.Tensor,
+                  offsets: torch.Tensor, *, num_bins: int, height: int,
+                  width: int, separate_pol: bool = False,
+                  trilinear: bool = True,
+                  normalize: bool = False) -> torch.Tensor:
+    """(B, N) folded records -> (B, C, height, width) f32 grids, C =
+    ``effective_bins(...)``: :func:`band_operands` (which says what each
+    option does), then ``voxelize_folded``. Normalization uses the
+    kernel's stats over the grid at sensor resolution.
+    """
+    args, kw = band_operands(x, y, t, p, valid, offsets, num_bins=num_bins,
+                             height=height, width=width,
+                             separate_pol=separate_pol, trilinear=trilinear)
+    grid, stats = voxelize_folded(*args, **kw)
     if normalize:
         grid = normalize_from_stats(grid, stats)
     return grid[:, :, :height, :width]
@@ -120,10 +155,9 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     if offsets_kind == "band":
         if tile_offsets is None:
             raise ValueError("band offsets require host binning")
-        if not trilinear:
-            raise ValueError("the folded wire is ported for trilinear "
-                             "(float-coordinate) streams only")
-        return voxelize_band(x, y, t, p, valid, tile_offsets, **kw)
+        return voxelize_band(x, y, t, p, valid, tile_offsets,
+                             separate_pol=separate_pol, trilinear=trilinear,
+                             **kw)
     if offsets_kind != "tile":
         raise ValueError(f"unknown offsets_kind {offsets_kind!r}")
     return voxelize_tile(x, y, t, p, valid, tile_offsets,

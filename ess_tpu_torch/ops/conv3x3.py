@@ -18,15 +18,22 @@ By ``impl`` name:
   re-quantization, :func:`int8_prep`), then the same halo-tile conv with
   s8 operands, which quantizes x as it stages it (tile plan:
   :func:`conv_halo.conv_plan` with ``int8=True``);
+  as in the JAX package, only where ``conv_lstm.int8_size_rule`` holds
+  (an input of at least 4M elements whose height has a row tile); elsewhere
+  it is the exact conv on the route ``'pallas'`` takes
+  (``conv_lstm.int8_route``);
+- ``'pallas_int8_interpret'``: the int8 conv at every size, as the JAX
+  package's ``_interpret`` names skip the size half of its rule (a height
+  with no row tile still runs the exact conv);
 - ``'xla'``: the plain exact conv on every device (an explicit choice, as
   in the JAX package).
 
 Tensors are NCHW, weights (C_out, C_in, 3, 3). On CPU a conv runs its plain
 version. On CUDA a kernel reads bf16 x in channels-last memory
 (``torch.channels_last``) and writes a new channels-last tensor; C_in must
-be a multiple of 4 and C_out of 8, any H and W. There is no size gate and
-no route to the plain version on CUDA: a shape the kernel does not take
-raises. The backward of a kernel and of the plain int8 conv recomputes
+be a multiple of 4 and C_out of 8, any H and W. Apart from the JAX
+package's int8 rule there is no size gate and no route to the plain version
+on CUDA: a shape the kernel does not take raises. The backward of a kernel and of the plain int8 conv recomputes
 :func:`conv3x3_ref`, as the JAX package's ``custom_vjp`` does.
 """
 
@@ -40,13 +47,13 @@ import torch.nn.functional as F
 from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv_lstm import (
     PREP_PARTIALS, _check_aligned, _check_matrix, _div127, input_scale,
-    quantize)
+    int8_route, quantize)
 
 launches = 0        # exact-conv kernel launches (CUDA tensors only)
 launches_int8 = 0   # int8-conv kernel launches (CUDA only)
 launches_int8_prep = 0   # the int8 convs' prep kernel launches (2 a conv)
 
-IMPLS = ("xla", "pallas", "pallas_int8")
+IMPLS = ("xla", "pallas", "pallas_int8", "pallas_int8_interpret")
 STAGE_ROW_BYTES = 64   # bytes of one input-channel chunk in the kernels
 
 
@@ -299,13 +306,16 @@ def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor,
     tensors: the conv's kernel, at any H and W. ``prepared`` is
     ``prepare_conv_weights(weight)`` for the exact kernel and
     ``prepare_conv_weights(weight, int8=True)`` for the int8 one, computed
-    here when not given. Gradients of the kernels and of the plain int8
-    conv are those of :func:`conv3x3_ref`. A kernel that is not 3x3 raises.
+    here when not given (prepare for the name ``conv_lstm.int8_route``
+    gives at x's shape: ``'pallas_int8'`` below the JAX size rule is the
+    exact conv). Gradients of the kernels and of the plain int8 conv are
+    those of :func:`conv3x3_ref`. A kernel that is not 3x3 raises.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown conv impl {impl!r}; expected one of "
                          f"{IMPLS}")
     _check_weight(weight)
+    impl = int8_route(impl, x.shape)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_fused: unsupported device {x.device}")
     if impl == "xla" or (x.device.type == "cpu" and impl == "pallas"):

@@ -15,7 +15,15 @@ Cells, by resolved ``impl`` name (:func:`resolve_lstm_impl`):
 - ``'pallas_int8'``: the int8 cell (per-call absmax scale for x, static
   1/127 for h, per-output-channel weight scales); on CUDA the kernels of
   ``csrc/conv_lstm_int8.cu``: two prep launches (x's absmax; the weight
-  re-quantization and the x/h quantize), then the cell;
+  re-quantization and the x/h quantize), then the cell. As in the JAX
+  package, only where :func:`int8_size_rule` holds (a cell input of at
+  least 4M elements whose height has a row tile); elsewhere
+  ``'pallas_int8'`` is the exact cell, on the exact kernel on CUDA
+  (:func:`int8_route`);
+- ``'pallas_int8_interpret'``: the int8 cell at every size, as the JAX
+  package's ``_interpret`` names skip the size half of its rule (tests
+  compare the int8 math at small shapes with it); a height with no row tile
+  still runs the exact cell, as there;
 - ``'xla'``: the plain exact cell on every device (an explicit choice, as
   in the JAX package).
 
@@ -37,6 +45,7 @@ variants that ``ess_tpu_torch/tools/bench_lstm_breakdown.py`` times.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -57,7 +66,8 @@ INT8_KC = 64          # int8 channels per chunk (64 bytes a halo pixel)
 MODES = ("full", "ptw_bf16", "ptw_mul", "no_ptw", "no_build")
 
 GATE_GROUP = 8   # channels per gate run in the prepared weight columns
-IMPLS = ("auto", "xla", "pallas", "pallas_int8")
+IMPLS = ("auto", "xla", "pallas", "pallas_int8", "pallas_int8_interpret")
+INT8_MIN_ELEMENTS = 4_000_000   # the JAX package's size rule for int8
 
 
 def resolve_lstm_impl(requested: str) -> str:
@@ -79,6 +89,33 @@ def pick_row_tile(height: int, lo: int = 2, hi: int = 24) -> Optional[int]:
     if not cands:
         return None
     return min(cands, key=lambda t: (abs(t - 22), -t))
+
+
+def int8_size_rule(shape) -> bool:
+    """The JAX package's rule for its ``'pallas_int8'`` cell and block conv
+    (``conv_lstm_cell``, ``conv3x3_fused``): the int8 kernel runs iff the
+    input has at least :data:`INT8_MIN_ELEMENTS` elements and
+    :func:`pick_row_tile` finds a row tile of its height; elsewhere the JAX
+    package computes the exact function. ``shape`` is the input's NCHW
+    shape (H is ``shape[2]``). The JAX rule also asks for a 3x3 kernel,
+    which is the only kernel the port's cells and block convs accept."""
+    return (math.prod(shape) >= INT8_MIN_ELEMENTS
+            and pick_row_tile(shape[2]) is not None)
+
+
+def int8_route(impl: str, shape) -> str:
+    """The function an op of resolved name ``impl`` computes on an input of
+    NCHW ``shape``: ``'pallas_int8'`` below :func:`int8_size_rule` is the
+    exact ``'pallas'``; ``'pallas_int8_interpret'`` skips the rule's size
+    half only, as the JAX package's ``_interpret`` names do, so it is
+    ``'pallas_int8'`` wherever :func:`pick_row_tile` finds a row tile and
+    ``'pallas'`` elsewhere; other names are unchanged."""
+    if impl == "pallas_int8_interpret":
+        return "pallas_int8" if pick_row_tile(shape[2]) is not None \
+            else "pallas"
+    if impl == "pallas_int8" and not int8_size_rule(shape):
+        return "pallas"
+    return impl
 
 
 def quant_cols(w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,8 +191,9 @@ def prepare_cell_weights(weight: torch.Tensor, impl: str) -> torch.Tensor:
     """What a cell kernel reads of a gate conv weight, computed once per
     weight: the exact kernel's bf16 image (:func:`gate_weight_image`) for
     ``'pallas'``, the f32 prepared matrix the int8 prep re-quantizes per
-    call for ``'pallas_int8'``."""
-    if impl == "pallas_int8":
+    call for ``'pallas_int8'`` (and ``'pallas_int8_interpret'``). Prepare
+    for the cell a shape runs: :func:`int8_route`."""
+    if impl in ("pallas_int8", "pallas_int8_interpret"):
         return prepare_gate_weights(weight, torch.float32)
     return gate_weight_image(prepare_gate_weights(weight))
 
@@ -521,7 +559,9 @@ def conv_lstm_cell(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
                    prepared: torch.Tensor | None = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ConvLSTM cell update with the resolved ``impl`` (module docstring);
-    returns (h', c').
+    returns (h', c'). ``impl`` is routed by :func:`int8_route` at x's shape
+    first: ``'pallas_int8'`` on a cell below the JAX size rule is the exact
+    cell.
 
     CPU tensors, or ``impl='xla'``: the plain version of the cell. CUDA
     tensors: the cell's kernel, which needs bf16 channels-last x
@@ -531,12 +571,13 @@ def conv_lstm_cell(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
     weight image (:func:`gate_weight_image`, 5-D) for ``'pallas'``, the
     f32 prepared gate matrix for ``'pallas_int8'``; it is computed here
     when not given, and one of another form is refused with a
-    ``ValueError``. Gradients of the kernels and of the plain int8 cell are
-    those of :func:`conv_lstm_ref`.
+    ``ValueError``: prepare for the routed name. Gradients of the kernels
+    and of the plain int8 cell are those of :func:`conv_lstm_ref`.
     """
-    if impl not in ("xla", "pallas", "pallas_int8"):
+    if impl not in IMPLS[1:]:
         raise ValueError(f"conv_lstm_cell: impl {impl!r} is not a resolved "
                          "name (see resolve_lstm_impl)")
+    impl = int8_route(impl, x.shape)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_lstm_cell: unsupported device {x.device}")
     if impl == "xla" or (x.device.type == "cpu" and impl == "pallas"):

@@ -1,14 +1,18 @@
-"""Fold-free trilinear voxelizer over host ghost-folded (band, x-slot) records.
+"""Fold-free voxelizer over host ghost-folded (band, x-slot) records.
 
 Counterpart of ``ess_tpu/ops/voxel_pallas.py``: :func:`host_band_bin_folded`
-(trilinear, with or without x-slots) and :func:`voxelize_folded` on both of
-its wires: the x-slot branch that runs ``_kernel_slotted`` and the legacy
-full-width band branch that runs ``_kernel`` with ``k_tiles=1``.
+(trilinear or integer-coordinate, with or without x-slots) and
+:func:`voxelize_folded` on both of its wires: the x-slot branch that runs
+``_kernel_slotted`` and the legacy full-width band branch that runs
+``_kernel`` with ``k_tiles=1``.
 
 The host pass rewrites every event whose bilinear footprint crosses a frame
 edge, a band of ``tile_h`` rows or a 128-column x-slot into single-corner
 records with the crossing weight folded into a pre-weighted polarity, and
-sorts the records by (band, x-slot) group. Each group then deposits only
+sorts the records by (band, x-slot) group. Integer-coordinate streams
+(DDD17, ``trilinear=False``) have no spatial fractions: their records are
+the in-frame events with +-1 polarity, sorted the same way, with no ghosts.
+Each group then deposits only
 into its own ``bins x tile_h x 128`` tile of the grid, so the x-slot kernel
 (``csrc/voxel_folded.cu`` on the persistent scatter core
 ``csrc/voxel_scatter.cuh``, plan :func:`voxel_scatter.scatter_plan`) takes
@@ -56,24 +60,39 @@ def _geometry(height: int, width: int, bins: int) -> tuple[int, int, int]:
     return th, hp, wp
 
 
+def _capacity(n: int, trilinear: bool, capacity: Optional[int]) -> int:
+    """Record capacity: ``capacity``, else room for the trilinear wire's
+    ghosts, else ``n`` (integer-coordinate records never split)."""
+    if capacity is not None:
+        return capacity
+    return native.folded_capacity(n) if trilinear else n
+
+
 def host_band_bin_folded(raw_windows: np.ndarray, valid: np.ndarray, *,
                          height: int, width: int, bins: int = 5,
+                         trilinear: bool = True,
                          capacity: Optional[int] = None,
                          x_slots: bool = True):
     """(T, N, 4) raw (x, y, t, p) windows + validity -> (records (T, N2, 4)
     f32 with pre-weighted signed polarity, valid (T, N2) bool, offsets
     (T, n_groups + 1) i32), binned by the native library. ``x_slots``
     groups by (band, 128-column slot), ``n_groups = n_bands * n_slots``;
-    without it by band only (the legacy wire), ``n_groups = n_bands``."""
+    without it by band only (the legacy wire), ``n_groups = n_bands``.
+    ``trilinear=False`` bins integer-coordinate events (no folds, no
+    ghosts, capacity ``N`` unless given). ``bins`` is the voxelizer's
+    channel count (``batch_voxel.effective_bins``): it fixes the band
+    height."""
     th, hp, wp = _geometry(height, width, bins)
     return native.band_bin_folded(
         raw_windows, valid, height=height, width=width, tile_h=th,
-        trilinear=True, capacity=capacity,
+        trilinear=trilinear,
+        capacity=_capacity(raw_windows.shape[1], trilinear, capacity),
         ntx=wp // TILE_W if x_slots else 1, slot_w=TILE_W)
 
 
 def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
                              height: int, width: int, bins: int = 5,
+                             trilinear: bool = True,
                              capacity: Optional[int] = None,
                              x_slots: bool = True):
     """Plain numpy version of :func:`host_band_bin_folded` (float64 folds,
@@ -82,7 +101,7 @@ def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
     n_bands = hp // th
     ntx = wp // TILE_W if x_slots else 1
     t_dim, n = raw_windows.shape[:2]
-    n2 = capacity if capacity is not None else native.folded_capacity(n)
+    n2 = _capacity(n, trilinear, capacity)
 
     per_window = []
     for i in range(t_dim):
@@ -91,6 +110,18 @@ def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
         y = w[:, 1].astype(np.float64)
         t = w[:, 2].astype(np.float64)
         p = np.where(w[:, 3] > 0, 1.0, -1.0)
+        if not trilinear:
+            # integer coordinates: the in-frame events, sorted as they are
+            ok = (valid[i] & (np.floor(x) >= 0) & (np.floor(x) < width)
+                  & (np.floor(y) >= 0) & (np.floor(y) < height))
+            x, y, t, p = x[ok], y[ok], t[ok], p[ok]
+            band = np.clip((y // th).astype(np.int64), 0, n_bands - 1)
+            slot = np.clip((x // TILE_W).astype(np.int64), 0, ntx - 1)
+            group = band * ntx + slot
+            order = np.argsort(group, kind="stable")
+            per_window.append((x[order], y[order], t[order], p[order],
+                               group[order]))
+            continue
         ok = valid[i] & (x > -1) & (x < width) & (y > -1) & (y < height)
         x, y, t, p = x[ok], y[ok], t[ok], p[ok]
         # frame edges: a coordinate in (-1, 0) or (dim-1, dim) keeps only its

@@ -95,7 +95,9 @@ def main(argv=None) -> None:
                       "value": round(wps, 2), "device": bench.card()}),
           flush=True)
     del mods, steps, windows
-    for impl in ("pallas", "pallas_int8"):
+    # the int8 cell at every level (two of three DSEC levels at B=1 are
+    # below the size rule of 'pallas_int8', which runs the exact cell there)
+    for impl in ("pallas", "pallas_int8_interpret"):
         for level, host_us, dev_ms in cell_times(torch, layers, dev, impl,
                                                  args.calls):
             print(json.dumps({"root": root, "cell": impl, "level": level,

@@ -5,8 +5,10 @@ level (L0 with a space-to-depth input, L1 and L2 with a full-resolution
 input), at B=8 in bf16:
 
   split: the library's stride-2 5x5 conv + ReLU, then the int8 ConvLSTM
-         cell (``conv_lstm_cell(impl='pallas_int8')``: absmax reduce,
-         weight re-quantization, quantize pre-pass, int8 GEMM)
+         cell (``conv_lstm_cell(impl='pallas_int8_interpret')``, the int8
+         cell at every shape, as the fused level is: absmax reduce, weight
+         re-quantization, quantize pre-pass, int8 GEMM; at the DSEC levels
+         at B=8 it is what ``'pallas_int8'`` runs)
   fused: ``ops/level.py::encoder_level_int8``, the three kernels of
          ``csrc/level_int8.cu`` with the weights prepared once
 
@@ -133,7 +135,8 @@ def make_steps(u, ek, eb, gk, gb, u_s2d: bool):
         x = F.conv2d(u, w_lib, stride=1 if u_s2d else 2,
                      padding=1 if u_s2d else 2)
         x = torch.relu(x + b_lib).contiguous(memory_format=cl)
-        return conv_lstm.conv_lstm_cell(x, h, c, gk, gb, impl="pallas_int8",
+        return conv_lstm.conv_lstm_cell(x, h, c, gk, gb,
+                                        impl="pallas_int8_interpret",
                                         prepared=gate_prep)
 
     def fused_step(h, c):

@@ -1,7 +1,7 @@
 """Model construction for the supervised and UDA steps from a Config.
 
 Counterpart of ``ess_tpu/train/builder.py`` (``build_modules``,
-``init_state``): the frozen E2VID backbone, the segmentation head, the
+``init_state``, ``make_pipeline``): the frozen E2VID backbone, the segmentation head, the
 train and validation rollouts (each with its ConvLSTM cell,
 ``model.lstm_impl`` / ``model.lstm_impl_train``, over one parameter set)
 and the head's RAdam; for ESS UDA (``model_name='ess'``) also the ResNet18
@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from ess_tpu_torch import resolve_device
 from ess_tpu_torch.core.config import Config
+from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
 from ess_tpu_torch.models.e2vid import RecurrentUNet
 from ess_tpu_torch.models.layers import (
     BLOCK_CONV_IMPLS, BatchNorm2d, INSResBlock, ReLUINSConv2d)
@@ -137,6 +138,46 @@ def with_block_conv_impl(mods: ESSModules, impl: str,
                                         block_conv_impl=impl_train),
         recon_val=dataclasses.replace(mods.recon_val, block_space=True,
                                       block_conv_impl=impl))
+
+
+def make_pipeline(cfg: Config, *, train: bool = True,
+                  rectify_map=None) -> EventPipeline:
+    """The dataset's event pipeline, as the JAX ``make_pipeline``:
+
+    - DSEC: host-rectified float coordinates, the trilinear voxelizer at
+      480x640, the 40 bottom rows cropped, a flip when training with
+      augmentation; a ``rectify_map`` (rectification on the device) is not
+      ported and raises;
+    - DDD17: integer coordinates, the temporal-bilinear voxelizer at
+      260x346, the 60 bottom rows cropped, the width resized to 200x352,
+      and when training with augmentation a flip and, for ESS UDA, the
+      bottom-anchored 120x216 crop;
+    - any other dataset: the plain voxelizer at its shape.
+
+    Every branch normalizes each window."""
+    ds = cfg.dataset.sensor_b
+    aug = train and cfg.model.data_augmentation_train
+    common = dict(num_bins=ds.nr_temporal_bins,
+                  representation=ds.event_representation,
+                  separate_pol=ds.separate_pol, normalize=True,
+                  random_flip=aug)
+    if ds.name.startswith("DSEC"):
+        if rectify_map is not None:
+            raise ValueError("rectification on the device is not ported: "
+                             "rectify on the host (data.dsec)")
+        pc = PipelineConfig(sensor_height=480, sensor_width=640,
+                            crop_bottom=40, trilinear=True, **common)
+    elif ds.name.startswith("DDD17"):
+        pc = PipelineConfig(
+            sensor_height=260, sensor_width=346, crop_bottom=60,
+            resize_to=(200, 352),
+            random_crop=((120, 216) if aug and cfg.model.model_name == "ess"
+                         else None),
+            crop_anchor="bottom", **common)
+    else:
+        h, w = ds.shape
+        pc = PipelineConfig(sensor_height=h, sensor_width=w, **common)
+    return EventPipeline(pc)
 
 
 def init_state(mods: ESSModules) -> TrainState:

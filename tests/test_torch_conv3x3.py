@@ -149,9 +149,11 @@ def test_int8_conv_matches_jax_interpret(shape, relu, bias):
     got = conv3x3_int8_ref(*args, relu=relu)
     scale = np.abs(want).max()
     assert np.abs(nhwc(got) - want).max() <= 1e-5 * scale
-    # the dispatcher runs the same plain conv on CPU tensors
-    assert torch.equal(conv3x3_fused(*args, relu=relu, impl="pallas_int8"),
-                       got)
+    # the dispatcher runs the same plain conv on CPU tensors when asked for
+    # the int8 math at every shape (these shapes are below the JAX package's
+    # size rule, where its own 'pallas_int8' is the exact conv)
+    assert torch.equal(conv3x3_fused(*args, relu=relu,
+                                     impl="pallas_int8_interpret"), got)
 
 
 def test_int8_conv_error_bound_vs_exact():
@@ -177,7 +179,10 @@ def test_gradients_match_jax(impl):
     xt, wt, bt = to_torch(x, k, b)
     wt.requires_grad_(True)
     bt.requires_grad_(True)
-    out = conv3x3_fused(xt, wt, bt, relu=True, impl=impl)
+    # the JAX '_interpret' names skip the size rule; so does the port's
+    # 'pallas_int8_interpret'
+    port_impl = impl if impl == "pallas" else impl + "_interpret"
+    out = conv3x3_fused(xt, wt, bt, relu=True, impl=port_impl)
     gk, gb = torch.autograd.grad((out ** 2).sum(), (wt, bt))
     np.testing.assert_allclose(gk.permute(2, 3, 1, 0).numpy(),
                                np.asarray(gk_j), atol=1e-3, rtol=1e-3)
@@ -199,7 +204,7 @@ def test_int8_conv_backward_is_the_exact_convs():
             return torch.autograd.grad((out * ct).sum(), ins)
 
         g_q = grads(lambda *a: conv3x3_fused(*a, relu=True,
-                                             impl="pallas_int8"))
+                                             impl="pallas_int8_interpret"))
         g_r = grads(lambda *a: conv3x3_ref(*a, relu=True))
         assert len(g_q) == len(g_r) == (3 if bias is not None else 2)
         for a, r in zip(g_q, g_r):
@@ -215,11 +220,13 @@ def test_impl_names_and_kernel_size():
                       impl=bad)
         with pytest.raises(ValueError):
             conv3x3_fused(*args, impl=bad)
-    # the port has no interpret mode: a CPU tensor runs the plain version
-    for name in ("pallas_interpret", "pallas_int8_interpret", "auto"):
+    # the port has no interpret mode: a CPU tensor runs the plain version;
+    # 'pallas_int8_interpret' is the int8 conv at every shape
+    for name in ("pallas_interpret", "auto"):
         with pytest.raises(ValueError):
             conv3x3_fused(*args, impl=name)
-    assert c3.IMPLS == ("xla", "pallas", "pallas_int8")
+    assert c3.IMPLS == ("xla", "pallas", "pallas_int8",
+                        "pallas_int8_interpret")
     w5 = torch.zeros(16, 24, 5, 5)
     for impl in c3.IMPLS:
         with pytest.raises(ValueError):

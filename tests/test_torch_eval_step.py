@@ -76,15 +76,17 @@ def folded_batch(rng):
 
 def port_config(cfg):
     """The same Config through the port's dataclasses. The JAX package's
-    CPU-test cell names (``'pallas_interpret'``, ``'pallas_int8_interpret'``)
-    become the port's (``'pallas'``, ``'pallas_int8'``): a port cell runs its
-    plain version on CPU tensors by itself."""
+    CPU-test name ``'pallas_interpret'`` becomes the port's ``'pallas'``: a
+    port cell runs its plain version on CPU tensors by itself.
+    ``'pallas_int8_interpret'`` stays: in both packages it is the int8 cell
+    at every shape, below the size rule of ``'pallas_int8'`` too."""
     def conv(obj, cls):
         kw = {}
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
-            if f.name in ("lstm_impl", "lstm_impl_train") and v is not None:
-                v = v.removesuffix("_interpret")
+            if f.name in ("lstm_impl", "lstm_impl_train") and \
+                    v == "pallas_interpret":
+                v = "pallas"
             kw[f.name] = (conv(v, getattr(tcfg, type(v).__name__))
                           if dataclasses.is_dataclass(v) else v)
         return cls(**kw)

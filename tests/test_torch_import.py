@@ -11,6 +11,7 @@ MODULES = [
     "ess_tpu_torch.data.native", "ess_tpu_torch.data.pipeline",
     "ess_tpu_torch.data.slicer", "ess_tpu_torch.data.synthetic",
     "ess_tpu_torch.data.loader", "ess_tpu_torch.data.dsec",
+    "ess_tpu_torch.data.ddd17",
     "ess_tpu_torch.ops.voxel", "ess_tpu_torch.ops.voxel_folded",
     "ess_tpu_torch.ops.voxel_tiled",
     "ess_tpu_torch.ops.batch_voxel", "ess_tpu_torch.ops.conv_lstm",

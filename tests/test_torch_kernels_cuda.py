@@ -68,6 +68,7 @@ import numpy as np
 import pytest
 import torch
 
+from ess_tpu_torch.models import layers
 from ess_tpu_torch.ops import conv3x3 as c3
 from ess_tpu_torch.ops import conv_halo as chp
 from ess_tpu_torch.ops import conv_lstm as cl
@@ -77,7 +78,8 @@ from ess_tpu_torch.ops import voxel_folded as vf
 from ess_tpu_torch.ops import voxel_scatter as vs
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.conv_lstm import input_scale
-from ess_tpu_torch.ops.batch_voxel import voxelize_band, voxelize_tile
+from ess_tpu_torch.ops.batch_voxel import (band_operands, voxelize_band,
+                                          voxelize_tile)
 from ess_tpu_torch.ops.voxel import (
     masked_time_norm, normalize_from_stats, normalize_nonzero,
     voxel_grid_trilinear)
@@ -85,6 +87,12 @@ from ess_tpu_torch.tools import bench_head, bench_level
 from ess_tpu_torch.tools import bench_lstm_breakdown as bd
 
 pytestmark = pytest.mark.cuda
+
+# The int8 cell and conv at every shape: these tests hold the int8 kernels at
+# shapes below the JAX package's size rule, where 'pallas_int8' is the exact
+# op (tests/test_torch_int8_rule.py).
+INT8 = "pallas_int8_interpret"
+EVERY_SHAPE = {"pallas": "pallas", "pallas_int8": INT8}
 
 
 @pytest.fixture
@@ -153,6 +161,59 @@ def test_voxel_kernel_one_slot_sensor(dev):
     assert vf.launches == n0 + 1
     torch.testing.assert_close(got.cpu(), voxelize_band(*cols, offs, **kw),
                                atol=1e-5, rtol=1e-5)
+
+
+def ddd17_records(rng, b, n, bins):
+    """``b`` windows of ``n`` integer-coordinate events on DDD17's 260x346
+    sensor (a tenth invalid, a few off the sensor), binned into integer
+    band records for ``bins`` channels."""
+    h, w = 260, 346
+    raw = np.zeros((b, n, 4), np.float32)
+    raw[..., 0] = rng.integers(-1, w + 1, (b, n))
+    raw[..., 1] = rng.integers(0, h, (b, n))
+    raw[..., 2] = np.sort(rng.uniform(0, 5e4, (b, n)), axis=-1)
+    raw[..., 3] = rng.integers(0, 2, (b, n))
+    valid = np.ones((b, n), bool)
+    valid[:, n - n // 10:] = False
+    r, v, o = vf.host_band_bin_folded(raw, valid, height=h, width=w,
+                                      bins=bins, trilinear=False)
+    cols = [torch.from_numpy(np.ascontiguousarray(r[..., i]))
+            for i in range(4)]
+    return cols + [torch.from_numpy(v)], torch.from_numpy(o)
+
+
+@pytest.mark.parametrize("separate_pol", [False, True])
+def test_voxel_kernel_integer_records_ddd17(dev, separate_pol):
+    """B1 on ghost-free integer records at 260x346 (padded to 264x384 at 5
+    bins, 260x384 at 10: 11 or 26 bands of three x-slots, the last only
+    90 columns live), one sample's 20 windows of 32k events: the grid and
+    the normalized grid against the plain version (atol/rtol 1e-5), the
+    padded columns and rows empty, and the stats those of the sensor
+    grid alone."""
+    bins = 10 if separate_pol else 5
+    cols, offs = ddd17_records(np.random.default_rng(3), 20, 32_000, bins)
+    assert offs.shape[1] == (11 if bins == 5 else 26) * 3 + 1
+    kw = dict(num_bins=5, height=260, width=346, separate_pol=separate_pol,
+              trilinear=False)
+    for normalize in (False, True):
+        n0 = vf.launches
+        got = voxelize_band(*[c.to(dev) for c in cols], offs.to(dev),
+                            normalize=normalize, **kw)
+        torch.cuda.synchronize()
+        assert vf.launches == n0 + 1
+        want = voxelize_band(*cols, offs, normalize=normalize, **kw)
+        assert got.shape == (20, bins, 260, 346)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    # the kernel's own grid: nothing in the pad, stats of the sensor grid
+    args, kwf = band_operands(*[c.to(dev) for c in cols], offs.to(dev), **kw)
+    assert kwf == dict(bins=bins, height=264 if bins == 5 else 260,
+                       width=384)
+    grid, stats = vf.voxelize_folded(*args, **kwf)
+    assert not grid[..., 346:].any() and not grid[:, :, 260:].any()
+    live = grid[:, :, :260, :346].double()
+    torch.testing.assert_close(stats.double(), torch.stack(
+        [live.sum((1, 2, 3)), (live * live).sum((1, 2, 3)),
+         (live != 0).sum((1, 2, 3)).double()], -1), atol=1e-2, rtol=1e-5)
 
 
 def raw_windows(rng, b, n, h, w, edges=False):
@@ -335,7 +396,10 @@ def test_conv_lstm_int8_kernel_matches_plain(dev, shape):
     h_ref, c_ref = cl.conv_lstm_int8_ref(x, hp, cp, wgt, bias)
     hp0 = hp.clone()
     n0, e0, p0 = cl.launches_int8, cl.launches, cl.launches_int8_prep
-    h_new, c_new = cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8")
+    if cl.pick_row_tile(h) is not None:
+        h_new, c_new = cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl=INT8)
+    else:   # the name runs the exact cell here, as in the JAX package
+        h_new, c_new = cl._launch_int8(x, hp, cp, wgt, bias, None)
     torch.cuda.synchronize()
     assert cl.launches_int8 == n0 + 1 and cl.launches == e0
     assert cl.launches_int8_prep == p0 + 2
@@ -346,8 +410,70 @@ def test_conv_lstm_int8_kernel_matches_plain(dev, shape):
         assert (d <= bf16_ulp(got, want) + 1e-6).all(), d.max()
 
 
+# the six DDD17 cells at B=16 (B, H, W, CX, CH): the 200x352 rollout's
+# three levels and the 120x216 UDA crop's (partial pixel tiles in both axes
+# at 25x44 and 15x27)
+DDD17_CELLS = [(16, 100, 176, 64, 64), (16, 50, 88, 128, 128),
+               (16, 25, 44, 256, 256), (16, 60, 108, 64, 64),
+               (16, 30, 54, 128, 128), (16, 15, 27, 256, 256)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", DDD17_CELLS)
+def test_cells_at_ddd17_shapes(dev, shape, int8):
+    """B2 and B2-int8 (the int8 cell at every shape) at the DDD17 level
+    shapes against their plain versions, under the bounds above."""
+    b, h, w, cx, ch = shape
+    x, hp, cp, wgt, bias = cell_inputs(dev, *shape)
+    if int8:
+        x = torch.relu(x) * 2
+        wgt = wgt * (0.05 * (9 * (cx + ch)) ** 0.5) ** -1
+        h_ref, c_ref = cl.conv_lstm_int8_ref(x, hp, cp, wgt, bias)
+    else:
+        h_ref, c_ref = cl.conv_lstm_ref(x, hp, cp, wgt, bias)
+    counts = (cl.launches, cl.launches_int8)
+    h_new, c_new = cl.conv_lstm_cell(x, hp, cp, wgt, bias,
+                                     impl=INT8 if int8 else "pallas")
+    torch.cuda.synchronize()
+    assert (cl.launches, cl.launches_int8) == (counts[0] + (not int8),
+                                               counts[1] + int8)
+    if int8:
+        for got, want in ((h_new, h_ref), (c_new, c_ref)):
+            d = (got.float() - want.float()).abs()
+            assert (d <= bf16_ulp(got, want) + 1e-6).all(), d.max()
+    else:
+        torch.testing.assert_close(h_new.float(), h_ref.float(), atol=2e-2,
+                                   rtol=0)
+        torch.testing.assert_close(c_new.float(), c_ref.float(), atol=3e-2,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("shape", DDD17_CELLS)
+def test_int8_rule_routes_the_cells_on_the_card(dev, shape):
+    """'pallas_int8' launches B2-int8 where the JAX package's size rule
+    holds and B2, with the exact weight image, where it does not (its
+    result is then the exact cell's, bit for bit), through the model's
+    cell as the rollout calls it."""
+    b, h, w, cx, ch = shape
+    x, hp, cp, _, _ = cell_inputs(dev, *shape)
+    cell = layers.ConvLSTMCell(cx, ch, device=dev)
+    rule = cl.int8_size_rule(tuple(x.shape))
+    counts = (cl.launches, cl.launches_int8)
+    with torch.no_grad():
+        h8, (_, c8) = cell(x, (hp, cp.clone()), "pallas_int8")
+        torch.cuda.synchronize()
+        assert (cl.launches, cl.launches_int8) == (
+            counts[0] + (not rule), counts[1] + rule)
+        if not rule:
+            he, (_, ce) = cell(x, (hp, cp.clone()), "pallas")
+            assert torch.equal(h8, he) and torch.equal(c8, ce)
+            assert cell._prepared["pallas"][1].dim() == 5
+            assert "pallas_int8" not in cell._prepared
+
+
 @pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
 def test_kernel_cells_backward(dev, impl):
+    impl = EVERY_SHAPE[impl]
     x, hp, cp, wgt, bias = cell_inputs(dev, 1, 12, 14, 32, 64, seed=3)
     g = torch.Generator().manual_seed(4)
     ct_h, ct_c = (torch.randn(1, 64, 12, 14, generator=g).to(dev)
@@ -438,12 +564,12 @@ def test_conv_lstm_int8_wrapper_rejects(dev):
     for args in ((x.float(), hp, cp), (x.contiguous(), hp.contiguous(), cp),
                  (x, hp, hp)):
         with pytest.raises(ValueError):
-            cl.conv_lstm_cell(*args, wgt, bias, impl="pallas_int8")
+            cl.conv_lstm_cell(*args, wgt, bias, impl=INT8)
     x16, h16, c16, w16, b16 = cell_inputs(dev, 1, 4, 4, 16, 16)
     with pytest.raises(ValueError):
-        cl.conv_lstm_cell(x16, h16, c16, w16, b16, impl="pallas_int8")
+        cl.conv_lstm_cell(x16, h16, c16, w16, b16, impl=INT8)
     with pytest.raises(ValueError):
-        cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl="pallas_int8",
+        cl.conv_lstm_cell(x, hp, cp, wgt, bias, impl=INT8,
                           prepared=cl.prepare_gate_weights(wgt))
 
 
@@ -496,7 +622,7 @@ def test_conv3x3_int8_kernel_matches_plain(dev, shape, relu, bias):
     x, wgt, bia = conv_inputs(dev, *shape, seed=1, bias=bias)
     want = c3.conv3x3_int8_ref(x, wgt, bia, relu=relu)
     n0, i0, p0 = c3.launches, c3.launches_int8, c3.launches_int8_prep
-    got = c3.conv3x3_fused(x, wgt, bia, relu=relu, impl="pallas_int8")
+    got = c3.conv3x3_fused(x, wgt, bia, relu=relu, impl=INT8)
     torch.cuda.synchronize()
     assert c3.launches == n0 and c3.launches_int8 == i0 + 1
     assert c3.launches_int8_prep == p0 + 2
@@ -547,12 +673,13 @@ def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
     """On a CUDA tensor the fused conv launches its kernel and never reaches
     ``F.conv2d``, ``torch.matmul`` or a plain version; it raises on what the
     kernel does not take."""
+    int8, impl = impl == "pallas_int8", EVERY_SHAPE[impl]
     x, wgt, bia = conv_inputs(dev, 1, 12, 14, 20, 32)
 
     def refuse(*a, **k):
         raise AssertionError("the fused conv reached a library or plain conv")
 
-    prepared = c3.prepare_conv_weights(wgt, int8=impl == "pallas_int8")
+    prepared = c3.prepare_conv_weights(wgt, int8=int8)
     with monkeypatch.context() as mp:
         mp.setattr(torch.nn.functional, "conv2d", refuse)
         mp.setattr(torch, "matmul", refuse)
@@ -562,7 +689,7 @@ def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
         got = c3.conv3x3_fused(x, wgt, bia, impl=impl, prepared=prepared)
         torch.cuda.synchronize()
         assert c3.launches + c3.launches_int8 == n0 + 1
-    plain = c3.conv3x3_int8_ref if impl == "pallas_int8" else c3.conv3x3_ref
+    plain = c3.conv3x3_int8_ref if int8 else c3.conv3x3_ref
     torch.testing.assert_close(got.float(),
                                plain(x, wgt, bia, relu=True).float(),
                                atol=2e-2, rtol=2e-2)
@@ -581,7 +708,7 @@ def test_conv3x3_kernel_is_the_only_route_on_cuda(dev, impl, monkeypatch):
     with pytest.raises(ValueError):                        # the other kernel's
         c3.conv3x3_fused(x, wgt, bia, impl=impl,
                          prepared=c3.prepare_conv_weights(
-                             wgt, int8=impl != "pallas_int8"))
+                             wgt, int8=not int8))
 
 
 def test_halo_launchers_refuse_a_plan_that_disagrees(dev):
@@ -649,6 +776,7 @@ def test_halo_launchers_refuse_a_plan_that_disagrees(dev):
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_int8"])
 def test_conv3x3_kernel_backward(dev, impl):
+    impl = EVERY_SHAPE[impl]
     x, wgt, bia = conv_inputs(dev, 1, 12, 14, 24, 16, seed=3)
     ct = torch.randn(1, 16, 12, 14,
                      generator=torch.Generator().manual_seed(4)).to(dev)
@@ -920,7 +1048,7 @@ def test_full_mode_is_the_cells_own_entry_point(dev, int8):
     from ess_tpu_torch import kernels
 
     x, h0, c0, wgt, bias = bd.make_inputs(7, (2, 64, 22, 40), dev)
-    impl = "pallas_int8" if int8 else "pallas"
+    impl = INT8 if int8 else "pallas"
     h1, c1 = cl.conv_lstm_cell(x, h0, c0.clone(), wgt, bias, impl=impl)
     counts = (cl.launches, cl.launches_int8, cl.launches_variant)
     h2, c2 = cl.launch_variant(x, h0, c0.clone(), wgt, bias, mode="full",

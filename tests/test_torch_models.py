@@ -135,7 +135,7 @@ def test_recurrent_unet_block_input_matches_jax(jax_impl, port_impl):
     # the per-call override takes the place of JAX's clone(block_conv_impl=)
     with torch.no_grad():
         _, _, lat_o = port(x_blk, st_p, decode=False, block_input=True,
-                           block_conv_impl="pallas_int8")
+                           block_conv_impl="pallas_int8_interpret")
     assert (lat_o[2] - port(x_blk, st_p, decode=False,
                             block_input=True)[2][2]).abs().max() > 1e-4
     with pytest.raises(ValueError):

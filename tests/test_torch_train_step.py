@@ -10,7 +10,8 @@ over the train rollout's cell:
 
 - exact (``lstm_impl_train=None``): the JAX step runs on the same folded
   batch, its voxelizer and ConvLSTM kernels in interpret mode;
-- int8 (``'pallas_int8_interpret'``, the port's ``'pallas_int8'``): the
+- int8 (``'pallas_int8_interpret'`` in both packages: the int8 cell at
+  every shape, these being below the size rule of ``'pallas_int8'``): the
   JAX step runs on the windows the port's pipeline built (flipped) and the
   flipped labels, as a dense batch. Int8 rounding is discontinuous: the
   two voxelizers differ by f32 noise (up to 1.4e-4 in the normalized grid,
@@ -22,8 +23,8 @@ over the train rollout's cell:
 ``test_train_step_block_conv_matches_jax`` runs the int8 case with the
 rollout's block convs (head and first encoder) on the int8 conv too: JAX
 ``block_conv_impl='pallas_int8_interpret'`` beside the int8 cell, the port
-``with_block_conv_impl(mods, 'pallas', 'pallas_int8')`` (plain versions on
-CPU), under the same bounds.
+``with_block_conv_impl(mods, 'pallas', 'pallas_int8_interpret')`` (plain
+versions on CPU), under the same bounds.
 
 Bounds:
 - per-step loss rtol 1e-4; head parameters atol 1e-5 after three RAdam
@@ -94,7 +95,8 @@ def test_train_step_matches_jax(lstm_impl_train):
 
 
 def test_train_step_block_conv_matches_jax():
-    check_train_step("pallas_int8_interpret", block_conv_train="pallas_int8")
+    check_train_step("pallas_int8_interpret",
+                     block_conv_train="pallas_int8_interpret")
 
 
 def check_train_step(lstm_impl_train, block_conv_train=None):
@@ -114,7 +116,7 @@ def check_train_step(lstm_impl_train, block_conv_train=None):
     mods = jax_build(cfg)
     if block_conv_train is not None:
         mods = jax_with_block_conv(mods, "pallas_interpret",
-                                   block_conv_train + "_interpret")
+                                   block_conv_train)
         assert mods.recon_train.model.lstm_impl == "pallas_int8_interpret"
     state = jax_init_state(mods, jax.random.PRNGKey(0))
     e2vid0, head0 = (jax.device_get(state.e2vid_params),
@@ -137,7 +139,7 @@ def check_train_step(lstm_impl_train, block_conv_train=None):
     pcfg = port_config(cfg)
     pmods = build_modules(pcfg, device="cpu")
     assert pmods.recon_train.lstm_impl == (
-        "pallas" if lstm_impl_train is None else "pallas_int8")
+        "pallas" if lstm_impl_train is None else "pallas_int8_interpret")
     if block_conv_train is not None:
         pmods = with_block_conv_impl(pmods, "pallas", block_conv_train)
         assert pmods.recon_train.block_conv_impl == block_conv_train

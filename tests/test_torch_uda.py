@@ -178,7 +178,7 @@ def test_uda_train_step_matches_jax(sensor, lstm_impl_train):
     state = jax_init_state(mods, jax.random.PRNGKey(0))
     pmods = port_modules(cfg, state)
     assert pmods.recon_train.lstm_impl == (
-        "pallas" if lstm_impl_train is None else "pallas_int8")
+        "pallas" if lstm_impl_train is None else "pallas_int8_interpret")
     jbatch = {k: jnp.asarray(v) for k, v in cols.items()}
     for k in ("label_a", "label_b"):
         jbatch[k] = jbatch[k].astype(jnp.int32)

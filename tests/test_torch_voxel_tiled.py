@@ -368,7 +368,9 @@ def test_window_fn_crop_flip_matches_jax(kind):
         *map(jnp.asarray, cols),
         tile_offsets=None if offs is None else jnp.asarray(offs))
     pipe = EventPipeline(PipelineConfig(**geo))
-    assert pipe.cfg.channels == 5 and pipe.cfg.output_size == (h - 8, w)
+    assert pipe.cfg.channels == 5 and pipe.cfg.pre_aug_size == (h - 8, w)
+    assert pipe.cfg.output_size(train=False) == (h - 8, w)
+    assert pipe.cfg.output_size(train=True) == (32, 128)
     aug = AugmentParams(flip=torch.from_numpy(flip),
                         crop_y=torch.from_numpy(crop_y),
                         crop_x=torch.from_numpy(crop_x))
