@@ -1,6 +1,6 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
-streaming-eval paths and its DDD17 supervised and UDA steps once on one
-NVIDIA GPU, in the rollout form of
+streaming-eval paths, its DDD17 supervised and UDA steps and its train and
+evaluate CLIs once on one NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
 recording to the eval and streaming steps.
@@ -85,6 +85,20 @@ exits non-zero, with no result line):
    memory; then a DDD17 store written to a temporary directory ->
    ``pad_windows_ddd17`` -> integer band binning -> the eval step, with
    the host ingest per window;
+5d. the trainer and its CLIs: a DDD17 tree written to a temporary
+   directory (seven ``dir*`` folders, event stores with 20 x 32k events
+   before each image, 8-bit PNG masks), ``configs/settings_DDD17_
+   supervised.yaml`` with only the dataset path, the log directory, two
+   epochs and no paired frames changed; ``ess_tpu_torch.cli.train.main``
+   in-process (launches a train step and a validation batch, checkpoints,
+   ``train/loss`` lines, finite losses, the printed mIoU, the first step
+   against the plain versions), a resume from the run (epoch, step, head
+   bit for bit, one more epoch with a profiled step), ``cli.evaluate.main``
+   on the run's checkpoints (within 0.5 mIoU of the run's last
+   validation) and a UDA ``Trainer`` on ``configs/settings_DDD17.yaml``
+   with in-memory sensor-A images (two steps, one validation) -- ms a
+   step in the Trainer and through the loader, windows/s, the idle share,
+   peak memory, the host ingest and the loader alone;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -362,10 +376,12 @@ def reset_counts() -> None:
     head_cmajor.launches = 0
 
 
-def read_counts() -> tuple:
+def read_counts(sync: bool = True) -> tuple:
     """Launches of the kernels (KERNEL_NAMES order) since
-    :func:`reset_counts`."""
-    torch.cuda.synchronize()
+    :func:`reset_counts` (the wrappers count on the host as they launch;
+    ``sync`` also waits for the device)."""
+    if sync:
+        torch.cuda.synchronize()
     return (voxel_folded.launches, conv_lstm.launches,
             conv_lstm.launches_int8, voxel_tiled.launches,
             conv3x3.launches, conv3x3.launches_int8, level.launches,
@@ -2322,21 +2338,22 @@ def ddd17_rates(what, runs, batch, order, windows):
             f"{[round(1e3 * t, 1) for t in ts]}")
 
 
-def ddd17_store(tmp: str, rng) -> str:
-    """A DDD17 recording directory in ``tmp``: DDD17_STORE_IMAGES images,
-    each with a step's 20 x 32k events before it (int64 ns times, int16 x,
-    y, p), and the 50 ms image index."""
+def ddd17_store(tmp: str, rng, name: str = "dir0",
+                images: int = DDD17_STORE_IMAGES) -> str:
+    """A DDD17 recording directory ``tmp/name``: ``images`` images, each
+    with a step's 20 x 32k events before it (int64 ns times, int16 x, y,
+    p), and the 50 ms image index."""
     span = WINDOWS * bench.DDD17_EVENTS
-    n = span * DDD17_STORE_IMAGES + 5000
+    n = span * images + 5000
     h, w = bench.DDD17_SENSOR
     t = np.cumsum(rng.integers(1000, 50_000, n, dtype=np.int64))
     xyp = np.stack([rng.integers(0, w, n), rng.integers(0, h, n),
                     rng.integers(0, 2, n)], axis=1).astype(np.int16)
-    d = os.path.join(tmp, "dir0")
+    d = os.path.join(tmp, name)
     os.makedirs(os.path.join(d, "index"))
     t.tofile(os.path.join(d, "events.dat.t"))
     xyp.tofile(os.path.join(d, "events.dat.xyp"))
-    ends = 5000 + span * (1 + np.arange(DDD17_STORE_IMAGES))
+    ends = 5000 + span * (1 + np.arange(images))
     np.save(os.path.join(d, "index", "index_50ms.npy"),
             np.stack([t[ends - 1], ends, ends - 1000], 1).astype(np.int64))
     return d
@@ -2531,6 +2548,403 @@ def phase_ddd17(dev, kern_rows):
                     logits_p)
     del mods, eval_step, out, lat_p, logits_p, batch
     torch.cuda.empty_cache()
+
+
+# The trainer and its CLIs (phase 5d): configs/settings_DDD17_supervised.yaml
+# as written but for the dataset, the log directory, two epochs and no paired
+# frames, on a DDD17 tree written here. Seven dir* folders, so that JAX's
+# split table finds its splits (train 0, 2, 3, 5, 6; valid 1; test 4), each an
+# event store as ddd17_store makes one and 8-bit grayscale PNG masks; the
+# train folders hold 35 masks (two steps an epoch at B=16, drop_last), the
+# valid folder one batch.
+CLI_MASKS = {0: 7, 1: DDD17_B, 2: 7, 3: 7, 4: 1, 5: 7, 6: 7}
+CLI_EPOCHS = 2
+CLI_STEPS = 2                # train steps an epoch
+CLI_MIOU_ATOL = 0.5          # evaluate CLI vs the training run's last mIoU
+CLI_CONFIGS = ("configs/settings_DDD17_supervised.yaml",
+               "configs/settings_DDD17.yaml")
+
+
+def png_gray8(img: np.ndarray) -> bytes:
+    """An 8-bit grayscale PNG of ``img`` (H x W uint8), rows filtered
+    alternately with Sub and Up."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+    v = img.astype(np.int16)
+    sub = v - np.pad(v, ((0, 0), (1, 0)))[:, :-1]
+    up = v - np.pad(v, ((1, 0), (0, 0)))[:-1]
+    even = (np.arange(h) % 2 == 0)[:, None]
+    rows = (np.where(even, sub, up) & 255).astype(np.uint8)
+    kinds = np.where(even, 1, 2).astype(np.uint8)
+    data = zlib.compress(np.concatenate([kinds, rows], 1).tobytes())
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", data) + chunk(b"IEND", b""))
+
+
+def ddd17_tree(tmp: str, rng) -> str:
+    """The DDD17 tree of phase 5d under ``tmp/ddd17``: CLI_MASKS masks a
+    folder (class ids 0-5, ~5 % ignored), each image with 20 x 32k events
+    before it."""
+    root = os.path.join(tmp, "ddd17")
+    h, w = bench.DDD17_SENSOR
+    for i, n in CLI_MASKS.items():
+        d = ddd17_store(root, rng, f"dir{i}", images=n)
+        os.makedirs(os.path.join(d, "segmentation_masks"))
+        for m in range(n):
+            mask = rng.integers(0, bench.DDD17_CLASSES, (h, w)).astype(
+                np.uint8)
+            mask[rng.random((h, w)) < 0.05] = 255
+            with open(os.path.join(d, "segmentation_masks",
+                                   f"seg_{m + 1:05d}.png"), "wb") as f:
+                f.write(png_gray8(mask))
+    return root
+
+
+def cli_yaml(tmp: str, src: str, name: str, changes: dict) -> str:
+    """``src`` with ``changes`` ({"a.b.c": value}) applied, written to
+    ``tmp/name``; each change is logged."""
+    import yaml
+
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    for dotted, value in changes.items():
+        *path, key = dotted.split(".")
+        node = raw
+        for k in path:
+            node = node[k]
+        log(f"  {os.path.basename(src)} -> {name}: {dotted} "
+            f"{node.get(key)!r} -> {value!r}")
+        node[key] = value
+    out = os.path.join(tmp, name)
+    with open(out, "w") as f:
+        yaml.safe_dump(raw, f)
+    return out
+
+
+@contextlib.contextmanager
+def tapped_steps(calls: list):
+    """Wrap the step builders of ``train.supervised`` and ``train.uda`` so
+    that each step call appends (kind, its launch counts, its loss or None)
+    to ``calls``; the Trainer builds its steps through them."""
+    from ess_tpu_torch.train import supervised
+
+    builders = [(supervised, "make_train_step", "train"),
+                (supervised, "make_eval_step", "eval"),
+                (uda, "make_train_step", "train"),
+                (uda, "make_eval_step_a", "eval_a"),
+                (uda, "make_eval_step_b", "eval")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in builders]
+
+    def tap(make, kind):
+        def make_tapped(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def tapped(*a, **kw):
+                before = read_counts(sync=False)
+                out = step(*a, **kw)
+                after = read_counts(sync=False)
+                loss = float(out["loss"]) if kind == "train" else None
+                calls.append((kind, tuple(x - y for x, y in
+                                          zip(after, before)), loss))
+                return out
+            return tapped
+        return make_tapped
+
+    for (mod, name, kind), (_, _, make) in zip(builders, saved):
+        setattr(mod, name, tap(make, kind))
+    try:
+        yield
+    finally:
+        for mod, name, make in saved:
+            setattr(mod, name, make)
+
+
+@contextlib.contextmanager
+def timed_epochs(seconds: list):
+    """Time each ``Trainer.train_epoch`` (wall, through the loader)."""
+    from ess_tpu_torch.train import loop
+
+    run = loop.Trainer.train_epoch
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(self)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    loop.Trainer.train_epoch = timed
+    try:
+        yield
+    finally:
+        loop.Trainer.train_epoch = run
+
+
+def captured(fn, *args, **kwargs) -> str:
+    """Run ``fn`` with its standard output captured, then log it."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args, **kwargs)
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    return out.getvalue()
+
+
+def printed_summary(text: str) -> dict:
+    return {k: float(v) for k, v in (line.split(": ", 1) for line in
+            text.splitlines() if line.startswith("semseg_"))}
+
+
+def need_calls(calls, kind: str, n: int, want) -> None:
+    """``n`` step calls of ``kind``, each with the launch counts ``want``."""
+    mine = [c for c in calls if c[0] == kind]
+    if len(mine) != n:
+        raise AssertionError(f"{len(mine)} {kind} step calls; want {n}")
+    for _, counts, _ in mine:
+        need_counts(counts, want)
+
+
+def phase_cli(dev, kern_rows):
+    """Phase 5d: the port's train and evaluate CLIs in-process on a written
+    DDD17 tree at the full width of the DDD17 supervised config, a resume,
+    and a UDA Trainer on the DDD17 UDA config (module docstring)."""
+    from ess_tpu_torch.cli import evaluate as cli_evaluate
+    from ess_tpu_torch.cli import train as cli_train
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.data.synthetic import SyntheticImages
+    from ess_tpu_torch.io import timers
+    from ess_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    b, win = DDD17_B, DDD17_B * WINDOWS
+    per_call = (1, 3 * WINDOWS)     # B1, B2: lstm_impl_train unset -> B2
+    rng = np.random.default_rng(14)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = ddd17_tree(tmp, rng)
+        log(f"DDD17 tree of {sum(CLI_MASKS.values())} masks in 7 folders "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        log(f"phase 5d config, from {CLI_CONFIGS[0]}:")
+        base = {"dataset.DDD17_events.dataset_path": root,
+                "optim.num_epochs": CLI_EPOCHS,
+                "dataset.DDD17_events.require_paired_data_val": False}
+        yaml_sup = cli_yaml(tmp, CLI_CONFIGS[0], "supervised.yaml", {
+            **base, "dir.log": os.path.join(tmp, "runs")})
+        cfg = load_config(yaml_sup)
+        ds = cfg.dataset.sensor_b
+        if (cfg.optim.batch_size_b, ds.nr_events_data, ds.nr_events_window,
+                cfg.model.e2vid_base_channels, cfg.model.compute_dtype,
+                cfg.model.data_augmentation_train, cfg.model.lstm_impl_train,
+                cfg.task.semseg_num_classes) != (
+                b, WINDOWS, bench.DDD17_EVENTS, 32, "bfloat16", True, None,
+                bench.DDD17_CLASSES):
+            raise AssertionError(f"{CLI_CONFIGS[0]} is not the width phase "
+                                 "5d expects")
+
+        # --- 1. python -m ess_tpu_torch.cli.train, two epochs ---
+        calls, epoch_s = [], []
+        timers.reset_timers()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with tapped_steps(calls), timed_epochs(epoch_s):
+            out = captured(cli_train.main, ["--settings_file", yaml_sup])
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = list(timers._ACCUM["train_step"])
+        timers.reset_timers()   # nothing left for the report at exit
+        n_train, n_val = CLI_EPOCHS * CLI_STEPS, CLI_EPOCHS + 1
+        log(f"cli.train: {n_train} train steps, {n_val} validations of one "
+            f"batch; launches {show_counts(counts)}")
+        need_calls(calls, "train", n_train, per_call)
+        need_calls(calls, "eval", n_val, per_call)
+        need_counts(counts, [(n_train + n_val) * k for k in per_call])
+        add_launches(kern_rows, "cli_train", counts)
+        summary = printed_summary(out)
+        losses = [c[2] for c in calls if c[0] == "train"]
+        runs = sorted(os.listdir(os.path.join(tmp, "runs")))
+        run_dir = os.path.join(tmp, "runs", runs[0])
+        ckpt_keys = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+        with open(os.path.join(run_dir, "checkpoints", "1",
+                               "metadata.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        logged_loss = [r["train/loss"] for r in logged if "train/loss" in r]
+        log(f"  losses {[round(v, 5) for v in losses]}; train/loss lines "
+            f"{logged_loss}; checkpoints {ckpt_keys} (metadata of 1: "
+            f"{meta}); summary {summary}")
+        miou = summary.get("semseg_sensor_b_mean_iou", float("nan"))
+        if not (len(runs) == 1 and ckpt_keys == ["0", "1"]
+                and meta == {"epoch": 1, "step_count": n_train}
+                and len(logged_loss) == CLI_EPOCHS
+                and all(np.isfinite(losses + logged_loss))
+                and 0.0 <= miou <= 100.0
+                and os.path.isfile(os.path.join(run_dir, "supervised.yaml"))):
+            raise AssertionError("cli.train: bad run")
+        ms = 1e3 * statistics.median(step_s)
+        log(f"  ms per train step in the Trainer (step + loss read): "
+            f"{[round(1e3 * t, 1) for t in step_s]}, median {ms:.1f} ms, "
+            f"{win / (ms / 1e3):.2f} windows/s")
+        for e, t in enumerate(epoch_s):
+            log(f"  epoch {e} through the loader: {1e3 * t / CLI_STEPS:.1f} "
+                f"ms per step, {CLI_STEPS * win / t:.2f} windows/s")
+        log(f"  peak device memory of the train CLI: {peak / 2 ** 30:.2f} "
+            f"GiB; {bench.card()}")
+
+        # the first step on the plain versions, from the same seed and batch
+        _, train_b, _, _ = cli_train.build_loaders(cfg)
+        with plain_versions():
+            tr = loop.Trainer(cfg, train_b=train_b,
+                              log_dir=os.path.join(tmp, "plain"))
+            batches = tr._train_batches()
+            loss_p = float(tr.train_step(tr.state, next(batches))["loss"])
+            batches.close()
+        rel = abs(losses[0] - loss_p) / abs(loss_p)
+        log(f"  step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
+            f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
+            f"{TRAIN_LOSS_REL})")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError("cli.train: kernel path disagrees with the "
+                                 "plain path")
+        del tr, batches
+
+        t0 = time.perf_counter()
+        ingest = []
+        for i in range(8):
+            t1 = time.perf_counter()
+            train_b.dataset[i]
+            ingest.append(time.perf_counter() - t1)
+        log(f"  host ingest (DDD17Events.__getitem__: memmaps -> "
+            f"pad_windows_ddd17 -> band binning, PNG mask read and resize; "
+            f"one thread): {1e3 * statistics.median(ingest) / WINDOWS:.3f} "
+            f"ms per window of {bench.DDD17_EVENTS} events (median of 8)")
+        for workers in sorted({1, cfg.hardware.num_cpu_workers}):
+            batches = iter(loader.BatchLoader(train_b.dataset, b,
+                                              shuffle=False,
+                                              num_workers=workers))
+            t0 = time.perf_counter()
+            next(batches)
+            dt = time.perf_counter() - t0
+            batches.close()
+            log(f"  the loader alone, {workers} thread(s): {1e3 * dt:.1f} ms "
+                f"a batch of {b} samples ({1e3 * dt / win:.3f} ms a window)")
+
+        # --- 2. resume from the run, one more epoch profiled ---
+        yaml_res = cli_yaml(tmp, CLI_CONFIGS[0], "resume.yaml", {
+            **base, "dir.log": os.path.join(tmp, "resumed"),
+            "checkpoint.resume_training": True,
+            "checkpoint.resume_file": run_dir})
+        cfg_r = load_config(yaml_res)
+        _, train_b, _, val_b = cli_train.build_loaders(cfg_r)
+        tr = loop.Trainer(cfg_r, train_b=train_b, val_b=val_b,
+                          profile_steps=(n_train, n_train + 1))
+        saved = torch.load(os.path.join(run_dir, "checkpoints", "1",
+                                        "state.pt"), weights_only=True)
+        head = tr.state.head.state_dict()
+        same = all(torch.equal(head[k].cpu(), v)
+                   for k, v in saved["head"].items())
+        log(f"  resumed: epoch {tr.epoch}, step {tr.step_count}, RAdam step "
+            f"{tr.state.opt_back.step_count}; head bit-identical to the "
+            f"saved one: {same}")
+        if not (tr.epoch == CLI_EPOCHS and tr.step_count == n_train
+                and tr.state.step == n_train
+                and tr.state.opt_back.step_count == n_train and same
+                and sorted(head) == sorted(saved["head"])):
+            raise AssertionError("resume: bad state")
+        epoch_s = []
+        reset_counts()
+        with timed_epochs(epoch_s):
+            tr.train_epoch()
+        counts = read_counts()
+        timers.reset_timers()
+        need_counts(counts, [CLI_STEPS * k for k in per_call])
+        add_launches(kern_rows, "cli_resumed_epoch", counts)
+        prof = bench.trace_summary(os.path.join(tr.log_dir, "profile",
+                                                "trace.json"), top=6)
+        log(f"  the resumed epoch: {1e3 * epoch_s[0] / CLI_STEPS:.1f} ms per "
+            f"step through the loader; profiled step {n_train + 1}: device "
+            f"busy {prof['busy_ms']:.1f} ms of a {prof['span_ms']:.1f} ms "
+            f"span, idle share {100 * prof['idle_share']:.1f} %; top "
+            + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms ({k['calls']})"
+                        for k in prof["top"]))
+        del tr, saved
+        torch.cuda.empty_cache()
+
+        # --- 3. python -m ess_tpu_torch.cli.evaluate on the run ---
+        calls = []
+        reset_counts()
+        with tapped_steps(calls):
+            out = captured(cli_evaluate.main, [
+                "--settings_file", yaml_sup, "--checkpoint",
+                os.path.join(run_dir, "checkpoints")])
+        counts = read_counts()
+        need_calls(calls, "eval", 1, per_call)
+        add_launches(kern_rows, "cli_evaluate", counts)
+        miou_e = printed_summary(out).get("semseg_sensor_b_mean_iou",
+                                          float("nan"))
+        log(f"cli.evaluate: launches {show_counts(counts)}; mIoU "
+            f"{miou_e:.4f} against the training run's last {miou:.4f} "
+            f"(bound {CLI_MIOU_ATOL})")
+        if not abs(miou_e - miou) <= CLI_MIOU_ATOL:
+            raise AssertionError("cli.evaluate disagrees with the training "
+                                 "run's last validation")
+        torch.cuda.empty_cache()
+
+        # --- 4. a UDA Trainer on the DDD17 UDA config ---
+        # sensor A: in-memory images, since the image datasets (Cityscapes,
+        # DDD17 grayscale) are not ported; the event loaders are the CLI's
+        log(f"phase 5d UDA config, from {CLI_CONFIGS[1]} (sensor-A images: "
+            "SyntheticImages 200x352 in memory, the image sets not being "
+            "ported):")
+        cfg_u = load_config(cli_yaml(tmp, CLI_CONFIGS[1], "uda.yaml", {
+            **base, "dir.log": os.path.join(tmp, "uda")}))
+        workers = cfg_u.hardware.num_cpu_workers
+        images = SyntheticImages(length=CLI_STEPS * b, height=200, width=352)
+        train_a = loader.BatchLoader(images, b, num_workers=workers,
+                                     seed=cfg_u.seed)
+        val_a = loader.BatchLoader(
+            SyntheticImages(length=b, height=200, width=352, seed=8), b,
+            shuffle=False, drop_last=False, num_workers=workers)
+        _, train_b, _, val_b = cli_train.build_loaders(cfg)
+        calls = []
+        with tapped_steps(calls):
+            tr = loop.Trainer(cfg_u, train_b=train_b, val_b=val_b,
+                              train_a=train_a, val_a=val_a)
+            reset_counts()
+            tr.train_epoch()
+            train_counts = read_counts()
+            summary = tr.validate()
+        counts = read_counts()
+        timers.reset_timers()
+        need_calls(calls, "train", CLI_STEPS, per_call)
+        need_calls(calls, "eval", 1, per_call)
+        need_calls(calls, "eval_a", 1, ())
+        add_launches(kern_rows, "uda_trainer", counts)
+        uda_losses = [c[2] for c in calls if c[0] == "train"]
+        keys = ("semseg_sensor_a_mean_iou", "semseg_sensor_b_mean_iou",
+                "semseg_sensor_cycle_mean_iou")
+        log(f"UDA Trainer: {CLI_STEPS} train steps (launches "
+            f"{show_counts(train_counts)}), losses "
+            f"{[round(v, 5) for v in uda_losses]}; one validation: "
+            + ", ".join(f"{k} {summary.get(k, float('nan')):.4f}"
+                        for k in keys))
+        if not (all(np.isfinite(uda_losses))
+                and all(0.0 <= summary.get(k, -1.0) <= 100.0
+                        for k in keys)):
+            raise AssertionError("UDA Trainer: bad run")
+        del tr
+        torch.cuda.empty_cache()
+    if "cv2" in sys.modules or "h5py" in sys.modules:
+        raise AssertionError("phase 5d imported cv2 or h5py")
+    log(f"phase 5d took {time.perf_counter() - t_phase:.1f} s")
 
 
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
@@ -2778,6 +3192,7 @@ def main() -> None:
     phase_train(dev, rows)
     phase_uda(dev, rows)
     phase_ddd17(dev, rows)
+    phase_cli(dev, rows)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

@@ -431,10 +431,8 @@ def card() -> str:
 def profile_call(fn: Callable[[], object], out_dir: str, name: str,
                  top: int = 14) -> dict:
     """Trace one call of ``fn`` (after two warm-up calls) with
-    ``torch.profiler``; returns wall time, device busy time (the union of
-    kernel, copy and set intervals), their span, the idle share of the span
-    and the top kernels by device time. The Chrome trace goes to
-    ``out_dir/<name>_trace.json``."""
+    ``torch.profiler``; returns wall time and :func:`trace_summary` of the
+    Chrome trace, which goes to ``out_dir/<name>_trace.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -449,6 +447,13 @@ def profile_call(fn: Callable[[], object], out_dir: str, name: str,
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{name}_trace.json")
     prof.export_chrome_trace(path)
+    return {"wall_ms": 1e3 * wall, **trace_summary(path, top)}
+
+
+def trace_summary(path: str, top: int = 14) -> dict:
+    """Device busy time (the union of kernel, copy and set intervals) of a
+    ``torch.profiler`` Chrome trace, their span, the idle share of the span
+    and the top kernels by device time."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
@@ -471,9 +476,8 @@ def profile_call(fn: Callable[[], object], out_dir: str, name: str,
         by_name[e["name"]][0] += float(e["dur"])
         by_name[e["name"]][1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": 1e3 * wall, "busy_ms": busy / 1e3,
-            "span_ms": span / 1e3, "idle_share": 1.0 - busy / span,
-            "trace": path,
+    return {"busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span, "trace": path,
             "top": [{"name": n[:120], "ms": t / 1e3, "calls": c,
                      "share": t / busy} for n, (t, c) in ranked]}
 

@@ -19,9 +19,10 @@ normalizes, crops the 60 bottom rows, resizes the width to 352 and augments.
 
 The label is squeezed from 260 to 200 rows by a nearest resize while the
 event grids are bottom-cropped from 260 to 200 rows: the reference's own
-geometry, kept on purpose (the JAX module says why). ``cv2`` is imported
-where a PNG is read (the mask, the paired frame): :func:`events_for_image`
-builds a sample's event windows without it.
+geometry, kept on purpose (the JAX module says why). Masks are read and
+resized by :mod:`ess_tpu_torch.data.png` (what ``cv2.imread(path, 0)`` and
+its nearest resize give), so the loader needs no ``cv2``; only a paired
+grayscale frame, resized bilinearly, imports it, once one exists.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ess_tpu_torch.data import native
+from ess_tpu_torch.data import native, png
 from ess_tpu_torch.data.slicer import DDD17EventStore
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
 
@@ -153,18 +154,14 @@ class DDD17Events:
         return len(self.files)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        import cv2
-
         mask_file = self.files[idx]
         directory = os.path.dirname(os.path.dirname(mask_file))
         img_idx = int(os.path.basename(mask_file).split("_")[-1]
                       .split(".")[0]) - 1
-        label_original = cv2.imread(mask_file, 0)
+        label_original = png.read_gray8(mask_file)
         # squeezed to 200 rows while the events are bottom-cropped: the
         # reference's geometry, kept on purpose (module docstring)
-        label = cv2.resize(label_original,
-                           (RESIZED_SHAPE[1], RESIZED_SHAPE[0]),
-                           interpolation=cv2.INTER_NEAREST)
+        label = png.resize_nearest(label_original, *RESIZED_SHAPE)
         out = events_for_image(
             self.stores[directory], img_idx,
             nr_events_data=self.nr_events_data,
@@ -183,13 +180,13 @@ class DDD17Events:
     def _paired_frame(self, mask_file: str) -> Optional[np.ndarray]:
         """The grayscale frame of a validation mask, resized to 352 wide
         and bottom-cropped to 200 rows."""
-        import cv2
-
         parts = mask_file.split(os.sep)
         fid = parts[-1].split("_")[-1]
         for name in (f"img_{fid}", fid.zfill(14)):
             candidate = os.sep.join(parts[:-2] + ["imgs", name])
             if os.path.exists(candidate):
+                import cv2
+
                 img = cv2.imread(candidate, 0)
                 img = cv2.resize(img, (RESIZED_SHAPE[1], SENSOR_SHAPE[0]))
                 img = img[:-60]

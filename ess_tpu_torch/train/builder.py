@@ -182,9 +182,10 @@ def make_pipeline(cfg: Config, *, train: bool = True,
 
 def init_state(mods: ESSModules) -> TrainState:
     """The train state at step 0 over the modules' trainable parts (head,
-    and for UDA the image front) and their optimizers."""
+    and for UDA the image front), their optimizers and the frozen E2VID."""
     return TrainState(step=0, head=mods.head, opt_back=mods.opt_back,
-                      front=mods.front_a, opt_front=mods.opt_front)
+                      front=mods.front_a, opt_front=mods.opt_front,
+                      e2vid=mods.e2vid)
 
 
 @torch.no_grad()

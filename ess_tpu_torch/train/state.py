@@ -90,6 +90,18 @@ class RAdam(torch.optim.Optimizer):
                 p.add_(scale * u)
         self.step_count = t
 
+    def state_dict(self) -> dict:
+        """torch's optimizer state (``mu``, ``nu`` and the groups) plus
+        ``step_count``, which the update reads."""
+        out = super().state_dict()
+        out["step_count"] = self.step_count
+        return out
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.step_count = int(state_dict.pop("step_count"))
+        super().load_state_dict(state_dict)
+
 
 def make_radam(params: Iterable[torch.Tensor], lr: float, *,
                lr_decay: float = 1.0, steps_per_epoch: int = 1,
@@ -104,14 +116,17 @@ def make_radam(params: Iterable[torch.Tensor], lr: float, *,
 class TrainState:
     """What a train step changes: the step counter, the trainable head and
     its optimizer and, for UDA, the image front (with its batch-norm
-    statistics) and its optimizer, None in the supervised steps. The
-    frozen E2VID stays in the modules."""
+    statistics) and its optimizer, None in the supervised steps; and the
+    frozen E2VID, which no step changes but a checkpoint holds, as the
+    JAX ``TrainState`` does. The modules are the ones the steps run, so
+    a restore loads into them in place."""
 
     step: int
     head: nn.Module
     opt_back: RAdam
     front: Optional[nn.Module] = None
     opt_front: Optional[RAdam] = None
+    e2vid: Optional[nn.Module] = None
 
 
 def apply_updates(params: Iterable[torch.Tensor],

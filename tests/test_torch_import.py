@@ -28,7 +28,12 @@ MODULES = [
     "ess_tpu_torch.train.builder", "ess_tpu_torch.train.losses",
     "ess_tpu_torch.train.metrics", "ess_tpu_torch.train.supervised",
     "ess_tpu_torch.train.streaming", "ess_tpu_torch.train.uda",
-    "ess_tpu_torch.io.convert",
+    "ess_tpu_torch.io.convert", "ess_tpu_torch.io.checkpoint",
+    "ess_tpu_torch.io.writers", "ess_tpu_torch.io.timers",
+    "ess_tpu_torch.data.png", "ess_tpu_torch.utils",
+    "ess_tpu_torch.utils.viz", "ess_tpu_torch.train.loop",
+    "ess_tpu_torch.cli", "ess_tpu_torch.cli.train",
+    "ess_tpu_torch.cli.evaluate",
     "ess_tpu_torch.bench",
 ]
 
