@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
 streaming-eval paths, its DDD17 supervised and UDA steps and its train and
-evaluate CLIs once on one NVIDIA GPU, in the rollout form of
+evaluate CLIs (ESS UDA from Cityscapes images on disk included) once on
+one NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
 recording to the eval and streaming steps.
@@ -13,8 +14,8 @@ exits non-zero, with no result line):
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off for the f32 plain versions;
 2. build: compile the CUDA kernels of ``ess_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel) and the host binning library from the
-   checkout's sources;
+   per source, in parallel), the host binning library and the image host
+   library (``csrc/image_host.cpp``) from the checkout's sources;
 3. kernels: each kernel (B1 fold-free voxelizer, B2 exact ConvLSTM cell,
    B2-int8 ConvLSTM cell, B3 halo-tiled voxelizer, B4 fused 3x3 conv, B4-int8
    fused 3x3 conv, B5 fused encoder level, T2 the cell kernels' attribution
@@ -93,12 +94,25 @@ exits non-zero, with no result line):
    in-process (launches a train step and a validation batch, checkpoints,
    ``train/loss`` lines, finite losses, the printed mIoU, the first step
    against the plain versions), a resume from the run (epoch, step, head
-   bit for bit, one more epoch with a profiled step), ``cli.evaluate.main``
-   on the run's checkpoints (within 0.5 mIoU of the run's last
-   validation) and a UDA ``Trainer`` on ``configs/settings_DDD17.yaml``
-   with in-memory sensor-A images (two steps, one validation) -- ms a
-   step in the Trainer and through the loader, windows/s, the idle share,
-   peak memory, the host ingest and the loader alone;
+   bit for bit, one more epoch with a profiled step) and
+   ``cli.evaluate.main`` on the run's checkpoints (within 0.5 mIoU of the
+   run's last validation) -- ms a step in the Trainer and through the
+   loader, windows/s, the idle share, peak memory, the host ingest and the
+   loader alone;
+5e. ESS UDA from disk: a Cityscapes tree written to the same directory
+   (2048x1024 RGB frames, rows filtered by a mix of Sub, Up, Average and
+   Paeth, gray ``labelIds`` masks) and grayscale frames beside phase 5d's
+   validation masks; ``configs/settings_DDD17.yaml`` with only its two
+   dataset paths, the log directory and two epochs changed, through
+   ``ess_tpu_torch.cli.train.main`` in-process (sensor A the
+   ``Cityscapes_gray`` image set read with the port's PNG decoder and cv2-free
+   augmentation): launches a train step, an event validation batch and an
+   image one, finite losses, the three printed mIoUs, checkpoints, the
+   first step against the plain versions; one more epoch with a profiled
+   step -- ms a step in the Trainer and through the loaders, the idle
+   share, peak memory, the decode of a frame on one thread (and its
+   parts) and the image loader's samples/s on 1 and 8 threads at the
+   200x352 crop and the 440x640 full frame;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -156,7 +170,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ess_tpu_torch import bench, kernels  # noqa: E402
 from ess_tpu_torch.bench import (  # noqa: E402
     BINS, CROP, SENSOR_H, SENSOR_W, make_batch, make_raw)
-from ess_tpu_torch.data import ddd17, dsec, loader, native  # noqa: E402
+from ess_tpu_torch.data import ddd17, dsec, loader, native, png  # noqa: E402
 from ess_tpu_torch.data.pipeline import AugmentParams, to_soa  # noqa: E402
 from ess_tpu_torch.data.slicer import (  # noqa: E402
     ArrayEventStore, DDD17EventStore)
@@ -452,7 +466,9 @@ def phase_build():
         if "registers" in line or "spill" in line or line.endswith(".cu:"):
             log(f"  {line.strip()}")
     native.get_lib()
-    log(f"built host binning in {time.perf_counter() - t0:.1f} s total")
+    png.get_lib()
+    log(f"built host binning and the image host library in "
+        f"{time.perf_counter() - t0:.1f} s total")
 
 
 def log_scatter_plan(what: str, plan) -> None:
@@ -2565,26 +2581,34 @@ CLI_CONFIGS = ("configs/settings_DDD17_supervised.yaml",
                "configs/settings_DDD17.yaml")
 
 
-def png_gray8(img: np.ndarray) -> bytes:
-    """An 8-bit grayscale PNG of ``img`` (H x W uint8), rows filtered
-    alternately with Sub and Up."""
+def png_file(img: np.ndarray, kinds) -> bytes:
+    """An 8-bit PNG of ``img``, gray (H, W) or RGB (H, W, 3) uint8, row
+    ``y`` filtered with ``kinds[y]`` (0 None, 1 Sub, 2 Up, 3 Average, 4
+    Paeth); every row is filtered at once from the unfiltered image."""
     import struct
     import zlib
 
-    h, w = img.shape
-    v = img.astype(np.int16)
-    sub = v - np.pad(v, ((0, 0), (1, 0)))[:, :-1]
-    up = v - np.pad(v, ((1, 0), (0, 0)))[:-1]
-    even = (np.arange(h) % 2 == 0)[:, None]
-    rows = (np.where(even, sub, up) & 255).astype(np.uint8)
-    kinds = np.where(even, 1, 2).astype(np.uint8)
-    data = zlib.compress(np.concatenate([kinds, rows], 1).tobytes())
+    h = img.shape[0]
+    ch = 1 if img.ndim == 2 else 3
+    v = img.reshape(h, -1).astype(np.int16)
+    a = np.pad(v, ((0, 0), (ch, 0)))[:, :-ch]
+    b = np.pad(v, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(b, ((0, 0), (ch, 0)))[:, :-ch]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    k = np.asarray(kinds, np.uint8)
+    pred = np.select([k[:, None] == i for i in (1, 2, 3, 4)],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    rows = ((v - pred) & 255).astype(np.uint8)
+    data = zlib.compress(np.concatenate([k[:, None], rows], 1).tobytes())
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], h, 8, 0 if ch == 1 else 2,
+                       0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", data) + chunk(b"IEND", b""))
 
 
@@ -2603,7 +2627,7 @@ def ddd17_tree(tmp: str, rng) -> str:
             mask[rng.random((h, w)) < 0.05] = 255
             with open(os.path.join(d, "segmentation_masks",
                                    f"seg_{m + 1:05d}.png"), "wb") as f:
-                f.write(png_gray8(mask))
+                f.write(png_file(mask, np.arange(h) % 2 + 1))  # Sub, Up
     return root
 
 
@@ -2712,239 +2736,451 @@ def need_calls(calls, kind: str, n: int, want) -> None:
         need_counts(counts, want)
 
 
-def phase_cli(dev, kern_rows):
-    """Phase 5d: the port's train and evaluate CLIs in-process on a written
-    DDD17 tree at the full width of the DDD17 supervised config, a resume,
-    and a UDA Trainer on the DDD17 UDA config (module docstring)."""
+def phase_cli(dev, kern_rows, tmp: str, root: str):
+    """Phase 5d: the port's train and evaluate CLIs in-process on the DDD17
+    tree ``root`` (:func:`ddd17_tree`) at the full width of the DDD17
+    supervised config, and a resume (module docstring); ``tmp`` takes the
+    runs."""
     from ess_tpu_torch.cli import evaluate as cli_evaluate
     from ess_tpu_torch.cli import train as cli_train
     from ess_tpu_torch.core.config import load_config
-    from ess_tpu_torch.data.synthetic import SyntheticImages
     from ess_tpu_torch.io import timers
     from ess_tpu_torch.train import loop
 
     t_phase = time.perf_counter()
     b, win = DDD17_B, DDD17_B * WINDOWS
     per_call = (1, 3 * WINDOWS)     # B1, B2: lstm_impl_train unset -> B2
-    rng = np.random.default_rng(14)
-    with tempfile.TemporaryDirectory() as tmp:
+    log(f"phase 5d config, from {CLI_CONFIGS[0]}:")
+    base = {"dataset.DDD17_events.dataset_path": root,
+            "optim.num_epochs": CLI_EPOCHS,
+            "dataset.DDD17_events.require_paired_data_val": False}
+    yaml_sup = cli_yaml(tmp, CLI_CONFIGS[0], "supervised.yaml", {
+        **base, "dir.log": os.path.join(tmp, "runs")})
+    cfg = load_config(yaml_sup)
+    ds = cfg.dataset.sensor_b
+    if (cfg.optim.batch_size_b, ds.nr_events_data, ds.nr_events_window,
+            cfg.model.e2vid_base_channels, cfg.model.compute_dtype,
+            cfg.model.data_augmentation_train, cfg.model.lstm_impl_train,
+            cfg.task.semseg_num_classes) != (
+            b, WINDOWS, bench.DDD17_EVENTS, 32, "bfloat16", True, None,
+            bench.DDD17_CLASSES):
+        raise AssertionError(f"{CLI_CONFIGS[0]} is not the width phase "
+                             "5d expects")
+
+    # --- 1. python -m ess_tpu_torch.cli.train, two epochs ---
+    calls, epoch_s = [], []
+    timers.reset_timers()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tapped_steps(calls), timed_epochs(epoch_s):
+        out = captured(cli_train.main, ["--settings_file", yaml_sup])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = list(timers._ACCUM["train_step"])
+    timers.reset_timers()   # nothing left for the report at exit
+    n_train, n_val = CLI_EPOCHS * CLI_STEPS, CLI_EPOCHS + 1
+    log(f"cli.train: {n_train} train steps, {n_val} validations of one "
+        f"batch; launches {show_counts(counts)}")
+    need_calls(calls, "train", n_train, per_call)
+    need_calls(calls, "eval", n_val, per_call)
+    need_counts(counts, [(n_train + n_val) * k for k in per_call])
+    add_launches(kern_rows, "cli_train", counts)
+    summary = printed_summary(out)
+    losses = [c[2] for c in calls if c[0] == "train"]
+    runs = sorted(os.listdir(os.path.join(tmp, "runs")))
+    run_dir = os.path.join(tmp, "runs", runs[0])
+    ckpt_keys = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    with open(os.path.join(run_dir, "checkpoints", "1",
+                           "metadata.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    logged_loss = [r["train/loss"] for r in logged if "train/loss" in r]
+    log(f"  losses {[round(v, 5) for v in losses]}; train/loss lines "
+        f"{logged_loss}; checkpoints {ckpt_keys} (metadata of 1: "
+        f"{meta}); summary {summary}")
+    miou = summary.get("semseg_sensor_b_mean_iou", float("nan"))
+    if not (len(runs) == 1 and ckpt_keys == ["0", "1"]
+            and meta == {"epoch": 1, "step_count": n_train}
+            and len(logged_loss) == CLI_EPOCHS
+            and all(np.isfinite(losses + logged_loss))
+            and 0.0 <= miou <= 100.0
+            and os.path.isfile(os.path.join(run_dir, "supervised.yaml"))):
+        raise AssertionError("cli.train: bad run")
+    ms = 1e3 * statistics.median(step_s)
+    log(f"  ms per train step in the Trainer (step + loss read): "
+        f"{[round(1e3 * t, 1) for t in step_s]}, median {ms:.1f} ms, "
+        f"{win / (ms / 1e3):.2f} windows/s")
+    for e, t in enumerate(epoch_s):
+        log(f"  epoch {e} through the loader: {1e3 * t / CLI_STEPS:.1f} "
+            f"ms per step, {CLI_STEPS * win / t:.2f} windows/s")
+    log(f"  peak device memory of the train CLI: {peak / 2 ** 30:.2f} "
+        f"GiB; {bench.card()}")
+
+    # the first step on the plain versions, from the same seed and batch
+    _, train_b, _, _ = cli_train.build_loaders(cfg)
+    with plain_versions():
+        tr = loop.Trainer(cfg, train_b=train_b,
+                          log_dir=os.path.join(tmp, "plain"))
+        batches = tr._train_batches()
+        loss_p = float(tr.train_step(tr.state, next(batches))["loss"])
+        batches.close()
+    rel = abs(losses[0] - loss_p) / abs(loss_p)
+    log(f"  step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
+        f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL})")
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError("cli.train: kernel path disagrees with the "
+                             "plain path")
+    del tr, batches
+
+    t0 = time.perf_counter()
+    ingest = []
+    for i in range(8):
+        t1 = time.perf_counter()
+        train_b.dataset[i]
+        ingest.append(time.perf_counter() - t1)
+    log(f"  host ingest (DDD17Events.__getitem__: memmaps -> "
+        f"pad_windows_ddd17 -> band binning, PNG mask read and resize; "
+        f"one thread): {1e3 * statistics.median(ingest) / WINDOWS:.3f} "
+        f"ms per window of {bench.DDD17_EVENTS} events (median of 8)")
+    for workers in sorted({1, cfg.hardware.num_cpu_workers}):
+        batches = iter(loader.BatchLoader(train_b.dataset, b,
+                                          shuffle=False,
+                                          num_workers=workers))
         t0 = time.perf_counter()
-        root = ddd17_tree(tmp, rng)
-        log(f"DDD17 tree of {sum(CLI_MASKS.values())} masks in 7 folders "
-            f"written in {time.perf_counter() - t0:.1f} s")
-        log(f"phase 5d config, from {CLI_CONFIGS[0]}:")
-        base = {"dataset.DDD17_events.dataset_path": root,
-                "optim.num_epochs": CLI_EPOCHS,
-                "dataset.DDD17_events.require_paired_data_val": False}
-        yaml_sup = cli_yaml(tmp, CLI_CONFIGS[0], "supervised.yaml", {
-            **base, "dir.log": os.path.join(tmp, "runs")})
-        cfg = load_config(yaml_sup)
-        ds = cfg.dataset.sensor_b
-        if (cfg.optim.batch_size_b, ds.nr_events_data, ds.nr_events_window,
-                cfg.model.e2vid_base_channels, cfg.model.compute_dtype,
-                cfg.model.data_augmentation_train, cfg.model.lstm_impl_train,
-                cfg.task.semseg_num_classes) != (
-                b, WINDOWS, bench.DDD17_EVENTS, 32, "bfloat16", True, None,
-                bench.DDD17_CLASSES):
-            raise AssertionError(f"{CLI_CONFIGS[0]} is not the width phase "
-                                 "5d expects")
+        next(batches)
+        dt = time.perf_counter() - t0
+        batches.close()
+        log(f"  the loader alone, {workers} thread(s): {1e3 * dt:.1f} ms "
+            f"a batch of {b} samples ({1e3 * dt / win:.3f} ms a window)")
 
-        # --- 1. python -m ess_tpu_torch.cli.train, two epochs ---
-        calls, epoch_s = [], []
-        timers.reset_timers()
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with tapped_steps(calls), timed_epochs(epoch_s):
-            out = captured(cli_train.main, ["--settings_file", yaml_sup])
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        step_s = list(timers._ACCUM["train_step"])
-        timers.reset_timers()   # nothing left for the report at exit
-        n_train, n_val = CLI_EPOCHS * CLI_STEPS, CLI_EPOCHS + 1
-        log(f"cli.train: {n_train} train steps, {n_val} validations of one "
-            f"batch; launches {show_counts(counts)}")
-        need_calls(calls, "train", n_train, per_call)
-        need_calls(calls, "eval", n_val, per_call)
-        need_counts(counts, [(n_train + n_val) * k for k in per_call])
-        add_launches(kern_rows, "cli_train", counts)
-        summary = printed_summary(out)
-        losses = [c[2] for c in calls if c[0] == "train"]
-        runs = sorted(os.listdir(os.path.join(tmp, "runs")))
-        run_dir = os.path.join(tmp, "runs", runs[0])
-        ckpt_keys = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
-        with open(os.path.join(run_dir, "checkpoints", "1",
-                               "metadata.json")) as f:
-            meta = json.load(f)
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
-        logged_loss = [r["train/loss"] for r in logged if "train/loss" in r]
-        log(f"  losses {[round(v, 5) for v in losses]}; train/loss lines "
-            f"{logged_loss}; checkpoints {ckpt_keys} (metadata of 1: "
-            f"{meta}); summary {summary}")
-        miou = summary.get("semseg_sensor_b_mean_iou", float("nan"))
-        if not (len(runs) == 1 and ckpt_keys == ["0", "1"]
-                and meta == {"epoch": 1, "step_count": n_train}
-                and len(logged_loss) == CLI_EPOCHS
-                and all(np.isfinite(losses + logged_loss))
-                and 0.0 <= miou <= 100.0
-                and os.path.isfile(os.path.join(run_dir, "supervised.yaml"))):
-            raise AssertionError("cli.train: bad run")
-        ms = 1e3 * statistics.median(step_s)
-        log(f"  ms per train step in the Trainer (step + loss read): "
-            f"{[round(1e3 * t, 1) for t in step_s]}, median {ms:.1f} ms, "
-            f"{win / (ms / 1e3):.2f} windows/s")
-        for e, t in enumerate(epoch_s):
-            log(f"  epoch {e} through the loader: {1e3 * t / CLI_STEPS:.1f} "
-                f"ms per step, {CLI_STEPS * win / t:.2f} windows/s")
-        log(f"  peak device memory of the train CLI: {peak / 2 ** 30:.2f} "
-            f"GiB; {bench.card()}")
+    # --- 2. resume from the run, one more epoch profiled ---
+    yaml_res = cli_yaml(tmp, CLI_CONFIGS[0], "resume.yaml", {
+        **base, "dir.log": os.path.join(tmp, "resumed"),
+        "checkpoint.resume_training": True,
+        "checkpoint.resume_file": run_dir})
+    cfg_r = load_config(yaml_res)
+    _, train_b, _, val_b = cli_train.build_loaders(cfg_r)
+    tr = loop.Trainer(cfg_r, train_b=train_b, val_b=val_b,
+                      profile_steps=(n_train, n_train + 1))
+    saved = torch.load(os.path.join(run_dir, "checkpoints", "1",
+                                    "state.pt"), weights_only=True)
+    head = tr.state.head.state_dict()
+    same = all(torch.equal(head[k].cpu(), v)
+               for k, v in saved["head"].items())
+    log(f"  resumed: epoch {tr.epoch}, step {tr.step_count}, RAdam step "
+        f"{tr.state.opt_back.step_count}; head bit-identical to the "
+        f"saved one: {same}")
+    if not (tr.epoch == CLI_EPOCHS and tr.step_count == n_train
+            and tr.state.step == n_train
+            and tr.state.opt_back.step_count == n_train and same
+            and sorted(head) == sorted(saved["head"])):
+        raise AssertionError("resume: bad state")
+    epoch_s = []
+    reset_counts()
+    with timed_epochs(epoch_s):
+        tr.train_epoch()
+    counts = read_counts()
+    timers.reset_timers()
+    need_counts(counts, [CLI_STEPS * k for k in per_call])
+    add_launches(kern_rows, "cli_resumed_epoch", counts)
+    prof = bench.trace_summary(os.path.join(tr.log_dir, "profile",
+                                            "trace.json"), top=6)
+    log(f"  the resumed epoch: {1e3 * epoch_s[0] / CLI_STEPS:.1f} ms per "
+        f"step through the loader; profiled step {n_train + 1}: device "
+        f"busy {prof['busy_ms']:.1f} ms of a {prof['span_ms']:.1f} ms "
+        f"span, idle share {100 * prof['idle_share']:.1f} %; top "
+        + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms ({k['calls']})"
+                    for k in prof["top"]))
+    del tr, saved
+    torch.cuda.empty_cache()
 
-        # the first step on the plain versions, from the same seed and batch
-        _, train_b, _, _ = cli_train.build_loaders(cfg)
-        with plain_versions():
-            tr = loop.Trainer(cfg, train_b=train_b,
-                              log_dir=os.path.join(tmp, "plain"))
-            batches = tr._train_batches()
-            loss_p = float(tr.train_step(tr.state, next(batches))["loss"])
-            batches.close()
-        rel = abs(losses[0] - loss_p) / abs(loss_p)
-        log(f"  step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
-            f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
-            f"{TRAIN_LOSS_REL})")
-        if not rel <= TRAIN_LOSS_REL:
-            raise AssertionError("cli.train: kernel path disagrees with the "
-                                 "plain path")
-        del tr, batches
+    # --- 3. python -m ess_tpu_torch.cli.evaluate on the run ---
+    calls = []
+    reset_counts()
+    with tapped_steps(calls):
+        out = captured(cli_evaluate.main, [
+            "--settings_file", yaml_sup, "--checkpoint",
+            os.path.join(run_dir, "checkpoints")])
+    counts = read_counts()
+    need_calls(calls, "eval", 1, per_call)
+    add_launches(kern_rows, "cli_evaluate", counts)
+    miou_e = printed_summary(out).get("semseg_sensor_b_mean_iou",
+                                      float("nan"))
+    log(f"cli.evaluate: launches {show_counts(counts)}; mIoU "
+        f"{miou_e:.4f} against the training run's last {miou:.4f} "
+        f"(bound {CLI_MIOU_ATOL})")
+    if not abs(miou_e - miou) <= CLI_MIOU_ATOL:
+        raise AssertionError("cli.evaluate disagrees with the training "
+                             "run's last validation")
+    torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        ingest = []
-        for i in range(8):
-            t1 = time.perf_counter()
-            train_b.dataset[i]
-            ingest.append(time.perf_counter() - t1)
-        log(f"  host ingest (DDD17Events.__getitem__: memmaps -> "
-            f"pad_windows_ddd17 -> band binning, PNG mask read and resize; "
-            f"one thread): {1e3 * statistics.median(ingest) / WINDOWS:.3f} "
-            f"ms per window of {bench.DDD17_EVENTS} events (median of 8)")
-        for workers in sorted({1, cfg.hardware.num_cpu_workers}):
-            batches = iter(loader.BatchLoader(train_b.dataset, b,
-                                              shuffle=False,
-                                              num_workers=workers))
-            t0 = time.perf_counter()
-            next(batches)
-            dt = time.perf_counter() - t0
-            batches.close()
-            log(f"  the loader alone, {workers} thread(s): {1e3 * dt:.1f} ms "
-                f"a batch of {b} samples ({1e3 * dt / win:.3f} ms a window)")
-
-        # --- 2. resume from the run, one more epoch profiled ---
-        yaml_res = cli_yaml(tmp, CLI_CONFIGS[0], "resume.yaml", {
-            **base, "dir.log": os.path.join(tmp, "resumed"),
-            "checkpoint.resume_training": True,
-            "checkpoint.resume_file": run_dir})
-        cfg_r = load_config(yaml_res)
-        _, train_b, _, val_b = cli_train.build_loaders(cfg_r)
-        tr = loop.Trainer(cfg_r, train_b=train_b, val_b=val_b,
-                          profile_steps=(n_train, n_train + 1))
-        saved = torch.load(os.path.join(run_dir, "checkpoints", "1",
-                                        "state.pt"), weights_only=True)
-        head = tr.state.head.state_dict()
-        same = all(torch.equal(head[k].cpu(), v)
-                   for k, v in saved["head"].items())
-        log(f"  resumed: epoch {tr.epoch}, step {tr.step_count}, RAdam step "
-            f"{tr.state.opt_back.step_count}; head bit-identical to the "
-            f"saved one: {same}")
-        if not (tr.epoch == CLI_EPOCHS and tr.step_count == n_train
-                and tr.state.step == n_train
-                and tr.state.opt_back.step_count == n_train and same
-                and sorted(head) == sorted(saved["head"])):
-            raise AssertionError("resume: bad state")
-        epoch_s = []
-        reset_counts()
-        with timed_epochs(epoch_s):
-            tr.train_epoch()
-        counts = read_counts()
-        timers.reset_timers()
-        need_counts(counts, [CLI_STEPS * k for k in per_call])
-        add_launches(kern_rows, "cli_resumed_epoch", counts)
-        prof = bench.trace_summary(os.path.join(tr.log_dir, "profile",
-                                                "trace.json"), top=6)
-        log(f"  the resumed epoch: {1e3 * epoch_s[0] / CLI_STEPS:.1f} ms per "
-            f"step through the loader; profiled step {n_train + 1}: device "
-            f"busy {prof['busy_ms']:.1f} ms of a {prof['span_ms']:.1f} ms "
-            f"span, idle share {100 * prof['idle_share']:.1f} %; top "
-            + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms ({k['calls']})"
-                        for k in prof["top"]))
-        del tr, saved
-        torch.cuda.empty_cache()
-
-        # --- 3. python -m ess_tpu_torch.cli.evaluate on the run ---
-        calls = []
-        reset_counts()
-        with tapped_steps(calls):
-            out = captured(cli_evaluate.main, [
-                "--settings_file", yaml_sup, "--checkpoint",
-                os.path.join(run_dir, "checkpoints")])
-        counts = read_counts()
-        need_calls(calls, "eval", 1, per_call)
-        add_launches(kern_rows, "cli_evaluate", counts)
-        miou_e = printed_summary(out).get("semseg_sensor_b_mean_iou",
-                                          float("nan"))
-        log(f"cli.evaluate: launches {show_counts(counts)}; mIoU "
-            f"{miou_e:.4f} against the training run's last {miou:.4f} "
-            f"(bound {CLI_MIOU_ATOL})")
-        if not abs(miou_e - miou) <= CLI_MIOU_ATOL:
-            raise AssertionError("cli.evaluate disagrees with the training "
-                                 "run's last validation")
-        torch.cuda.empty_cache()
-
-        # --- 4. a UDA Trainer on the DDD17 UDA config ---
-        # sensor A: in-memory images, since the image datasets (Cityscapes,
-        # DDD17 grayscale) are not ported; the event loaders are the CLI's
-        log(f"phase 5d UDA config, from {CLI_CONFIGS[1]} (sensor-A images: "
-            "SyntheticImages 200x352 in memory, the image sets not being "
-            "ported):")
-        cfg_u = load_config(cli_yaml(tmp, CLI_CONFIGS[1], "uda.yaml", {
-            **base, "dir.log": os.path.join(tmp, "uda")}))
-        workers = cfg_u.hardware.num_cpu_workers
-        images = SyntheticImages(length=CLI_STEPS * b, height=200, width=352)
-        train_a = loader.BatchLoader(images, b, num_workers=workers,
-                                     seed=cfg_u.seed)
-        val_a = loader.BatchLoader(
-            SyntheticImages(length=b, height=200, width=352, seed=8), b,
-            shuffle=False, drop_last=False, num_workers=workers)
-        _, train_b, _, val_b = cli_train.build_loaders(cfg)
-        calls = []
-        with tapped_steps(calls):
-            tr = loop.Trainer(cfg_u, train_b=train_b, val_b=val_b,
-                              train_a=train_a, val_a=val_a)
-            reset_counts()
-            tr.train_epoch()
-            train_counts = read_counts()
-            summary = tr.validate()
-        counts = read_counts()
-        timers.reset_timers()
-        need_calls(calls, "train", CLI_STEPS, per_call)
-        need_calls(calls, "eval", 1, per_call)
-        need_calls(calls, "eval_a", 1, ())
-        add_launches(kern_rows, "uda_trainer", counts)
-        uda_losses = [c[2] for c in calls if c[0] == "train"]
-        keys = ("semseg_sensor_a_mean_iou", "semseg_sensor_b_mean_iou",
-                "semseg_sensor_cycle_mean_iou")
-        log(f"UDA Trainer: {CLI_STEPS} train steps (launches "
-            f"{show_counts(train_counts)}), losses "
-            f"{[round(v, 5) for v in uda_losses]}; one validation: "
-            + ", ".join(f"{k} {summary.get(k, float('nan')):.4f}"
-                        for k in keys))
-        if not (all(np.isfinite(uda_losses))
-                and all(0.0 <= summary.get(k, -1.0) <= 100.0
-                        for k in keys)):
-            raise AssertionError("UDA Trainer: bad run")
-        del tr
-        torch.cuda.empty_cache()
     if "cv2" in sys.modules or "h5py" in sys.modules:
         raise AssertionError("phase 5d imported cv2 or h5py")
     log(f"phase 5d took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ESS UDA from disk (phase 5e): configs/settings_DDD17.yaml as written but
+# for its two dataset paths, the log directory and two epochs: sensor A the
+# Cityscapes_gray image set on a Cityscapes tree written here (CITY_TRAIN +
+# CITY_VAL frames at the real 2048x1024 RGB, smooth scenes with sensor noise,
+# rows filtered by a random mix of Sub, Up, Average and Paeth, and gray
+# labelIds masks of regions), sensor B phase 5d's DDD17 tree with grayscale
+# frames added to its valid folder (the config pairs them at validation).
+# Two steps an epoch at B=16 on each side.
+CITY_TRAIN, CITY_VAL = 32, 16
+CITY_HW = (1024, 2048)
+CITY_NOISE = 2.0             # sensor noise of the written scenes, levels
+CITY_GEOMETRIES = (("random_crop", 200, 352), ("full_frame", 440, 640))
+
+
+def cityscapes_tree(tmp: str, rng) -> tuple:
+    """The Cityscapes tree of phase 5e under ``tmp/cityscapes``; returns
+    (its root, mean bytes of a frame's PNG, of a mask's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.join(tmp, "cityscapes")
+    h, w = CITY_HW
+    yy, xx = np.mgrid[0:h + 256, 0:w + 256].astype(np.float32)
+    base = np.stack([128 + 90 * np.sin(xx / 61 + yy / 97),
+                     128 + 80 * np.cos(xx / 37 - yy / 53),
+                     128 + 70 * np.sin((xx + 2 * yy) / 79)], -1)
+    jobs = [(split, i, int(s)) for split, n in (("train", CITY_TRAIN),
+                                                ("val", CITY_VAL))
+            for i, s in zip(range(n), rng.integers(0, 1 << 30, n))]
+
+    def write(job):
+        split, i, seed = job
+        g = np.random.default_rng(seed)
+        city = f"city{i % 3}"
+        oy, ox = g.integers(0, 256, 2)
+        img = base[oy:oy + h, ox:ox + w] + g.normal(0, CITY_NOISE,
+                                                    (h, w, 3))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        ids = g.integers(0, 34, (h // 64, w // 64)).astype(np.uint8)
+        label = np.repeat(np.repeat(ids, 64, 0), 64, 1)
+        sizes = []
+        for sub, suffix, arr in (("leftImg8bit", "leftImg8bit", img),
+                                 ("gtFine", "gtFine_labelIds", label)):
+            d = os.path.join(root, sub, split, city)
+            os.makedirs(d, exist_ok=True)
+            data = png_file(arr, g.integers(1, 5, h))
+            with open(os.path.join(d, f"{city}_{i:06d}_{suffix}.png"),
+                      "wb") as f:
+                f.write(data)
+            sizes.append(len(data))
+        return sizes
+
+    with ThreadPoolExecutor(8) as pool:
+        sizes = np.array(list(pool.map(write, jobs)))
+    return root, float(sizes[:, 0].mean()), float(sizes[:, 1].mean())
+
+
+def paired_frames(root: str, rng) -> int:
+    """Grayscale 260x346 frames beside the masks of the DDD17 tree's valid
+    folder (``imgs/img_<id>.png``), as the UDA config pairs them."""
+    h, w = bench.DDD17_SENSOR
+    d = os.path.join(root, "dir1")
+    masks = sorted(os.listdir(os.path.join(d, "segmentation_masks")))
+    os.makedirs(os.path.join(d, "imgs"), exist_ok=True)
+    for name in masks:
+        img = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        with open(os.path.join(d, "imgs", "img_" + name.split("_")[-1]),
+                  "wb") as f:
+            f.write(png_file(img, rng.integers(0, 5, h)))
+    return len(masks)
+
+
+def decode_breakdown(paths) -> dict:
+    """Median ms a frame on this thread: the whole read of the image sets
+    (``png.imread_gray`` + ``imgproc.resize_linear`` to 256x512) and its
+    parts (file read, ``zlib`` inflate, the C++ unfilter with its gray mix,
+    the C++ resize)."""
+    from ess_tpu_torch.data import imgproc
+
+    parts: dict = {k: [] for k in ("whole", "read", "inflate",
+                                   "unfilter_gray", "resize")}
+    for path in paths:
+        t0 = time.perf_counter()
+        imgproc.resize_linear(png.imread_gray(path), 256, 512)
+        t1 = time.perf_counter()
+        with open(path, "rb") as f:
+            data = f.read()
+        t2 = time.perf_counter()
+        rows, channels = png._rows(data)
+        t3 = time.perf_counter()
+        gray = png.unfilter_gray(rows)
+        t4 = time.perf_counter()
+        imgproc.resize_linear(gray, 256, 512)
+        t5 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                 t5 - t4)):
+            parts[k].append(1e3 * dt)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_uda_cli(dev, kern_rows, tmp: str, root: str):
+    """Phase 5e: ``python -m ess_tpu_torch.cli.train`` in-process on
+    ``configs/settings_DDD17.yaml`` (ESS UDA, sensor A Cityscapes_gray from
+    disk) on the trees above, with the image loader's rates, the decode
+    time of a frame and one profiled step (module docstring)."""
+    from ess_tpu_torch.cli import train as cli_train
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.data.cityscapes import CityscapesGray
+    from ess_tpu_torch.io import timers
+    from ess_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    b, win = DDD17_B, DDD17_B * WINDOWS
+    per_call = (1, 3 * WINDOWS)     # B1, B2: lstm_impl_train unset -> B2
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    city, frame_bytes, mask_bytes = cityscapes_tree(tmp, rng)
+    n_frames = paired_frames(root, rng)
+    log(f"Cityscapes tree of {CITY_TRAIN} + {CITY_VAL} frames "
+        f"{CITY_HW[1]}x{CITY_HW[0]} RGB (mean PNG {frame_bytes / 2**20:.2f} "
+        f"MiB a frame, {mask_bytes / 2**10:.1f} KiB a mask) and "
+        f"{n_frames} paired DDD17 frames written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 5e config, from {CLI_CONFIGS[1]}:")
+    yaml_uda = cli_yaml(tmp, CLI_CONFIGS[1], "uda.yaml", {
+        "dataset.DDD17_events.dataset_path": root,
+        "dataset.cityscapes_img.dataset_path": city,
+        "dir.log": os.path.join(tmp, "uda_runs"),
+        "optim.num_epochs": CLI_EPOCHS})
+    cfg = load_config(yaml_uda)
+    ds, ds_a = cfg.dataset.sensor_b, cfg.dataset.sensor_a
+    if (cfg.model.model_name, ds_a.name, ds_a.shape, ds_a.random_crop,
+            cfg.optim.batch_size_a, cfg.optim.batch_size_b,
+            ds.nr_events_data, ds.nr_events_window, ds.require_paired_data_val,
+            cfg.model.e2vid_base_channels, cfg.model.compute_dtype,
+            cfg.model.data_augmentation_train, cfg.model.lstm_impl_train) != (
+            "ess", "Cityscapes_gray", (200, 352), True, b, b, WINDOWS,
+            bench.DDD17_EVENTS, True, 32, "bfloat16", True, None):
+        raise AssertionError(f"{CLI_CONFIGS[1]} is not the width phase 5e "
+                             "expects")
+
+    # --- 1. python -m ess_tpu_torch.cli.train, two epochs of UDA ---
+    calls, epoch_s = [], []
+    timers.reset_timers()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tapped_steps(calls), timed_epochs(epoch_s):
+        out = captured(cli_train.main, ["--settings_file", yaml_uda])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = list(timers._ACCUM["train_step"])
+    timers.reset_timers()
+    n_train, n_val = CLI_EPOCHS * CLI_STEPS, CLI_EPOCHS + 1
+    log(f"cli.train (UDA): {n_train} train steps, {n_val} validations of "
+        f"one image and one event batch; launches {show_counts(counts)}")
+    need_calls(calls, "train", n_train, per_call)
+    need_calls(calls, "eval", n_val, per_call)
+    need_calls(calls, "eval_a", n_val, ())
+    need_counts(counts, [(n_train + n_val) * k for k in per_call])
+    add_launches(kern_rows, "cli_uda_train", counts)
+    summary = printed_summary(out)
+    losses = [c[2] for c in calls if c[0] == "train"]
+    runs = sorted(os.listdir(os.path.join(tmp, "uda_runs")))
+    run_dir = os.path.join(tmp, "uda_runs", runs[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    logged_a = [r["train/semseg_sensor_a_loss"] for r in logged
+                if "train/semseg_sensor_a_loss" in r]
+    keys = ("semseg_sensor_a_mean_iou", "semseg_sensor_b_mean_iou",
+            "semseg_sensor_cycle_mean_iou")
+    log(f"  losses {[round(v, 5) for v in losses]}; train/semseg_sensor_a_"
+        f"loss lines {logged_a}; summary {summary}")
+    if not (len(runs) == 1 and len(logged_a) == CLI_EPOCHS
+            and all(np.isfinite(losses + logged_a))
+            and all(0.0 <= summary.get(k, -1.0) <= 100.0 for k in keys)
+            and sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+            == ["0", "1"]):
+        raise AssertionError("cli.train (UDA): bad run")
+    ms = 1e3 * statistics.median(step_s)
+    log(f"  ms per train step in the Trainer (step + loss read): "
+        f"{[round(1e3 * t, 1) for t in step_s]}, median {ms:.1f} ms, "
+        f"{win / (ms / 1e3):.2f} windows/s")
+    for e, t in enumerate(epoch_s):
+        log(f"  epoch {e} through the loaders: {1e3 * t / CLI_STEPS:.1f} ms "
+            f"per step, {CLI_STEPS * win / t:.2f} windows/s, "
+            f"{CLI_STEPS * b / t:.2f} images/s")
+    log(f"  peak device memory of the UDA train CLI: {peak / 2 ** 30:.2f} "
+        f"GiB; {bench.card()}")
+
+    # the first step on the plain versions, from the same seed and batches
+    train_a, train_b, val_a, val_b = cli_train.build_loaders(cfg)
+    with plain_versions():
+        tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
+                          log_dir=os.path.join(tmp, "uda_plain"))
+        batches = tr._train_batches()
+        loss_p = float(tr.train_step(tr.state, next(batches))["loss"])
+        batches.close()
+    rel = abs(losses[0] - loss_p) / abs(loss_p)
+    log(f"  step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
+        f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL})")
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError("cli.train (UDA): kernel path disagrees with "
+                             "the plain path")
+    del tr, batches
+    torch.cuda.empty_cache()
+
+    # --- 2. one more epoch in a Trainer, its second step profiled ---
+    train_a, train_b, val_a, val_b = cli_train.build_loaders(cfg)
+    tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
+                      log_dir=os.path.join(tmp, "uda_profiled"),
+                      profile_steps=(1, 2))
+    reset_counts()
+    tr.train_epoch()
+    counts = read_counts()
+    timers.reset_timers()
+    need_counts(counts, [CLI_STEPS * k for k in per_call])
+    add_launches(kern_rows, "cli_uda_profiled_epoch", counts)
+    prof = bench.trace_summary(os.path.join(tr.log_dir, "profile",
+                                            "trace.json"), top=6)
+    log(f"  profiled UDA step 2: device busy {prof['busy_ms']:.1f} ms of a "
+        f"{prof['span_ms']:.1f} ms span, idle share "
+        f"{100 * prof['idle_share']:.1f} %; top "
+        + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms ({k['calls']})"
+                    for k in prof["top"]))
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- 3. the image set alone: decode, and the loader's rates ---
+    frames = sorted(train_a.dataset.images)
+    parts = decode_breakdown(frames)
+    log(f"  decode a {CITY_HW[1]}x{CITY_HW[0]} RGB frame, one thread "
+        f"(median of {len(frames)}): {parts['whole']:.2f} ms read + gray + "
+        f"resize to 256x512 (target <= 40 ms); parts: file read "
+        f"{parts['read']:.2f}, inflate (zlib) {parts['inflate']:.2f}, "
+        f"unfilter + gray mix (C++) {parts['unfilter_gray']:.2f}, resize "
+        f"(C++) {parts['resize']:.2f} ms")
+    for mode, h, w in CITY_GEOMETRIES:
+        images = CityscapesGray(city, height=h, width=w,
+                                semseg_num_classes=cfg.task.semseg_num_classes,
+                                augmentation=True,
+                                random_crop=mode == "random_crop",
+                                seed=cfg.seed)
+        for workers in (1, 8):
+            batches = iter(loader.BatchLoader(images, b, shuffle=False,
+                                              num_workers=workers))
+            t0 = time.perf_counter()
+            batch = next(batches)
+            dt = time.perf_counter() - t0
+            batches.close()
+            if batch["image"].shape != (b, h, w, 1):
+                raise AssertionError(f"image batch {batch['image'].shape}")
+            log(f"  the image loader alone, {mode} {h}x{w}, {workers} "
+                f"thread(s): {1e3 * dt:.1f} ms a batch of {b}, "
+                f"{b / dt:.2f} samples/s")
+    # (PIL may be loaded: torch.utils.tensorboard, which the run's metrics
+    # writer mirrors to where it is installed, imports it; the image sets
+    # never do, tests/test_torch_image_sets.py checks)
+    if "cv2" in sys.modules or "h5py" in sys.modules:
+        raise AssertionError("phase 5e imported cv2 or h5py")
+    log(f"phase 5e took {time.perf_counter() - t_phase:.1f} s")
 
 
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
@@ -3192,7 +3428,13 @@ def main() -> None:
     phase_train(dev, rows)
     phase_uda(dev, rows)
     phase_ddd17(dev, rows)
-    phase_cli(dev, rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = ddd17_tree(tmp, np.random.default_rng(14))
+        log(f"DDD17 tree of {sum(CLI_MASKS.values())} masks in 7 folders "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        phase_cli(dev, rows, tmp, root)
+        phase_uda_cli(dev, rows, tmp, root)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

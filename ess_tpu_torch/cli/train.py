@@ -7,9 +7,10 @@ takes the same YAML as the JAX CLI, seeds from ``cfg.seed``, dispatches
 logs and checkpoints under a timestamped log directory with the YAML
 copied in. It trains on the first CUDA device.
 
+``model_name: 'ess'`` reads its sensor-A image set from disk:
+``Cityscapes_gray``, ``DDD17_gray`` or their mix ``DDD17_Cityscapes_gray``.
 Not ported yet: ``--num_devices`` other than 0 (data parallel over several
-GPUs) raises, and so does ``model_name: 'ess'`` where it would read the
-Cityscapes or DDD17 grayscale image sets from disk.
+GPUs) raises.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def build_loaders(cfg):
     train_a = val_a = None
     if cfg.model.model_name == "ess":
         ds_a = cfg.dataset.sensor_a
-        set_a, set_a_val = _image_datasets(cfg, ds_a)
+        h, w = ds_a.shape
+        set_a, set_a_val = _image_datasets(cfg, ds_a, h, w)
         train_a = BatchLoader(set_a, cfg.optim.batch_size_a, shuffle=True,
                               num_workers=workers, seed=cfg.seed)
         val_a = BatchLoader(set_a_val, cfg.optim.batch_size_a, shuffle=False,
@@ -77,14 +79,32 @@ def build_loaders(cfg):
     return train_a, train_b, val_a, val_b
 
 
-def _image_datasets(cfg, ds_a):
-    """Sensor-A datasets (Cityscapes_gray, DDD17_gray or their mix): not
-    ported yet."""
-    raise NotImplementedError(
-        f"model_name 'ess' reads the sensor-A image set {ds_a.name!r} from "
-        f"disk, and the port has no image datasets yet (Cityscapes and DDD17 "
-        f"grayscale); train 'ess_supervised', or build a Trainer with "
-        f"in-memory image loaders")
+def _image_datasets(cfg, ds_a, h, w):
+    """Sensor-A (train, validation) datasets: Cityscapes_gray, DDD17_gray,
+    or the DDD17_Cityscapes_gray mix (DDD17 frames added to the Cityscapes
+    training set, validation on Cityscapes)."""
+    from ess_tpu_torch.data.cityscapes import CityscapesGray
+    from ess_tpu_torch.data.ddd17_gray import ConcatImages, DDD17Gray
+
+    def cityscapes(split, aug):
+        return CityscapesGray(ds_a.dataset_path, height=h, width=w,
+                              split=split,
+                              semseg_num_classes=cfg.task.semseg_num_classes,
+                              augmentation=aug, random_crop=ds_a.random_crop,
+                              seed=cfg.seed)
+
+    aug = cfg.model.data_augmentation_train
+    if ds_a.name == "DDD17_gray":
+        return (DDD17Gray(ds_a.dataset_path, split="train", height=h, width=w),
+                DDD17Gray(ds_a.dataset_path, split="valid", height=h, width=w))
+    if ds_a.name == "DDD17_Cityscapes_gray":
+        ddd17_root = (getattr(ds_a, "extra_dataset_path", "")
+                      or ds_a.dataset_path)
+        train = ConcatImages(
+            cityscapes("train", aug),
+            DDD17Gray(ddd17_root, split="train", height=h, width=w))
+        return train, cityscapes("val", False)
+    return cityscapes("train", aug), cityscapes("val", False)
 
 
 def load_pretrained_backbone(cfg):

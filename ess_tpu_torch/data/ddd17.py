@@ -21,8 +21,9 @@ The label is squeezed from 260 to 200 rows by a nearest resize while the
 event grids are bottom-cropped from 260 to 200 rows: the reference's own
 geometry, kept on purpose (the JAX module says why). Masks are read and
 resized by :mod:`ess_tpu_torch.data.png` (what ``cv2.imread(path, 0)`` and
-its nearest resize give), so the loader needs no ``cv2``; only a paired
-grayscale frame, resized bilinearly, imports it, once one exists.
+its nearest resize give) and a paired grayscale frame by ``png`` and
+:func:`ess_tpu_torch.data.imgproc.resize_linear`, so the loader needs no
+``cv2``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ess_tpu_torch.data import native, png
+from ess_tpu_torch.data import imgproc, native, png
 from ess_tpu_torch.data.slicer import DDD17EventStore
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
 
@@ -185,10 +186,8 @@ class DDD17Events:
         for name in (f"img_{fid}", fid.zfill(14)):
             candidate = os.sep.join(parts[:-2] + ["imgs", name])
             if os.path.exists(candidate):
-                import cv2
-
-                img = cv2.imread(candidate, 0)
-                img = cv2.resize(img, (RESIZED_SHAPE[1], SENSOR_SHAPE[0]))
+                img = imgproc.resize_linear(png.imread_gray(candidate),
+                                            SENSOR_SHAPE[0], RESIZED_SHAPE[1])
                 img = img[:-60]
                 return (img.astype(np.float32) / 255.0)[..., None]
         return None

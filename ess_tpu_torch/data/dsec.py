@@ -27,9 +27,10 @@ ingest for the per-window slicer chain, as in the JAX module.
 
 :class:`SequenceRecurrent` streams a whole sequence as consecutive
 single-window samples for ``train.streaming.run_streaming_eval``.
-``h5py`` and ``cv2`` are imported where files are read;
-:meth:`DSECSequence.from_store` builds a sequence from an event store, a
-rectify map and label arrays held in memory, which needs neither.
+``h5py`` is imported where files are read, and label PNGs are read by
+:mod:`ess_tpu_torch.data.png`; :meth:`DSECSequence.from_store` builds a
+sequence from an event store, a rectify map and label arrays held in
+memory, which needs no ``h5py``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from ess_tpu_torch.data import native
+from ess_tpu_torch.data import native, png
 from ess_tpu_torch.data.slicer import (
     EventSlicer, H5EventStore, events_dict_to_xytp, pad_windows)
 from ess_tpu_torch.ops import voxel_folded, voxel_tiled
@@ -145,8 +146,7 @@ class DSECSequence:
         lbl = self.label_files[li]
         if not isinstance(lbl, str):
             return np.asarray(lbl, np.uint8)
-        import cv2
-        return cv2.imread(lbl, 0).astype(np.uint8)
+        return png.imread_gray(lbl)
 
     def _rectify(self, ev: np.ndarray) -> np.ndarray:
         """x, y -> rectify_map[y, x] float coordinates, in place."""

@@ -32,10 +32,13 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> ctypes.CDLL:
-    with open(_SRC, "rb") as f:
+def build_library(src: str, stem: str) -> ctypes.CDLL:
+    """Build ``src`` (C++ with a plain C interface) with ``g++ -O3`` into
+    ``BUILD_DIR/<stem>_<digest of the source>.so``, unless that library is
+    there already, and load it. Raises if ``g++`` fails."""
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libess_host_{digest}.so")
+    lib_path = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         # build to a private name and rename: concurrent test workers never
@@ -44,16 +47,20 @@ def _build() -> ctypes.CDLL:
         os.close(fd)
         try:
             proc = subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"g++ failed to build {_SRC}:\n{proc.stderr}")
+                    f"g++ failed to build {src}:\n{proc.stderr}")
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    cdll = ctypes.CDLL(lib_path)
+    return ctypes.CDLL(lib_path)
+
+
+def _build() -> ctypes.CDLL:
+    cdll = build_library(_SRC, "libess_host")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

@@ -11,9 +11,14 @@
   checkpoints;
 - ``cli.evaluate.main`` on that run's checkpoints prints the training
   run's last validation summary exactly;
-- ``--num_devices`` other than 0 and ``model_name: 'ess'`` with an image
-  set on disk raise; ``python -m ess_tpu_torch.cli.train`` raises without
-  a GPU.
+- on written DDD17 (frames in ``imgs/`` added) and Cityscapes trees,
+  ``build_loaders``' image loaders equal the JAX ones for each sensor-A
+  set (lengths, and first batches within ``tests/test_torch_image_sets.py``'s
+  bounds), and ``model_name: 'ess'`` trains from disk: the first step's
+  losses of ``cli.train.main`` within 1e-3 (relative) of the JAX CLI's on
+  the same trees, both runs starting from the JAX run's initial weights;
+- ``--num_devices`` other than 0 raises; ``python -m
+  ess_tpu_torch.cli.train`` raises without a GPU.
 """
 
 import json
@@ -185,15 +190,145 @@ def test_num_devices_raises(tmp_path, tree):
                     "--num_devices", "1"], device="cpu")
 
 
-@pytest.mark.parametrize("name_a", ["Cityscapes_gray", "DDD17_gray"])
-def test_uda_from_disk_raises(tmp_path, tree, name_a):
-    from ess_tpu_torch.cli import train
+@pytest.fixture(scope="module")
+def uda_trees(tmp_path_factory):
+    """A DDD17 tree of one mask a recording with its frames, and in the
+    same directory a Cityscapes tree of 3 train and 2 val frames: the
+    DDD17_Cityscapes_gray mix reads both from its one ``dataset_path``."""
+    from tests.test_torch_image_sets import (add_ddd17_frames,
+                                             make_cityscapes_tree)
 
-    path = yaml_for(tmp_path, tree, edits={
-        "model_name: 'ess_supervised'": "model_name: 'ess'",
-        "name_a: 'Cityscapes_gray'": f"name_a: '{name_a}'"})
-    with pytest.raises(NotImplementedError, match="image datasets"):
-        train.main(["--settings_file", path], device="cpu")
+    root = str(tmp_path_factory.mktemp("ddd17_cityscapes"))
+    make_ddd17_dir(root, n_masks=1, n_events=4000)
+    add_ddd17_frames(root, 1)
+    make_cityscapes_tree(root, n_train=3, n_val=2)
+    return root
+
+
+def uda_yaml(tmp_path, root, name_a, name="uda.yaml"):
+    """``tests/test_cli.py``'s YAML with ``model_name: 'ess'``, sensor-A
+    set ``name_a``, every set on ``root``, augmentation on and one event
+    batch of 4."""
+    import yaml
+
+    path = str(tmp_path / name)
+    write_yaml(path, root, str(tmp_path / f"logs_{name}"))
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    ds = raw["dataset"]
+    ds["name_a"] = name_a
+    ds["cityscapes_img"]["dataset_path"] = root
+    ds["DDD17_img"] = dict(dataset_path=root, shape=[200, 352])
+    raw["model"].update(model_name="ess", data_augmentation_train=True)
+    raw["optim"]["batch_size_b"] = 4
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+@pytest.mark.parametrize("name_a", ["Cityscapes_gray", "DDD17_gray",
+                                    "DDD17_Cityscapes_gray"])
+def test_image_loaders_match_jax(monkeypatch, tmp_path, uda_trees, name_a):
+    from ess_tpu.cli.train import build_loaders as jax_build_loaders
+    from ess_tpu.core.config import load_config as jax_load_config
+    from ess_tpu_torch.cli.train import build_loaders
+    from ess_tpu_torch.core.config import load_config
+    from tests.test_torch_image_sets import check_sample, float32_corners
+
+    float32_corners(monkeypatch)
+    path = uda_yaml(tmp_path, uda_trees, name_a)
+    jtrain_a, _, jval_a, _, _ = jax_build_loaders(jax_load_config(path))
+    train_a, _, val_a, _ = build_loaders(load_config(path))
+    lengths = {"Cityscapes_gray": (1, 1), "DDD17_gray": (2, 1),
+               "DDD17_Cityscapes_gray": (4, 1)}[name_a]
+    assert (len(train_a), len(val_a)) == (len(jtrain_a), len(jval_a)) \
+        == lengths
+    for got_loader, want_loader in ((train_a, jtrain_a), (val_a, jval_a)):
+        got, want = next(iter(got_loader)), next(iter(want_loader))
+        assert sorted(got) == sorted(want) == ["image", "label"]
+        n = got["image"].shape[0]
+        assert n == want["image"].shape[0] > 0
+        for i in range(n):
+            check_sample({k: v[i] for k, v in got.items()},
+                         {k: v[i] for k, v in want.items()}, warped=True)
+
+
+def jax_draws(jax_pipeline):
+    """A stand-in for the port's ``draw_augment`` that draws what the JAX
+    UDA step draws at the same step: ``sample_augment`` of the JAX
+    pipeline with the key ``fold_in(PRNGKey(seed), step)``."""
+    import jax
+    import torch
+
+    from ess_tpu_torch.data.pipeline import AugmentParams
+
+    def draw(pipeline, seed, step, batch_size):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
+        aug = jax_pipeline.sample_augment(key, batch_size, train=True)
+        return AugmentParams(*(
+            None if a is None else torch.from_numpy(np.asarray(a).copy())
+            for a in (aug.flip, aug.crop_y, aug.crop_x)))
+
+    return draw
+
+
+def test_uda_cli_first_step_matches_jax(monkeypatch, tmp_path, uda_trees):
+    """Both CLIs train ``model_name: 'ess'`` on the DDD17_Cityscapes_gray
+    mix and DDD17 events from disk for one epoch, the port from the JAX
+    run's initial weights and with the JAX run's event augmentation draws
+    (:func:`jax_draws`): the first step's losses agree within 1e-3
+    (relative)."""
+    import jax
+
+    from ess_tpu.cli import train as jax_train
+    from ess_tpu.core.config import load_config as jax_load_config
+    from ess_tpu.train import loop as jax_loop
+    from ess_tpu.train.builder import make_pipeline as jax_make_pipeline
+    from ess_tpu_torch.cli import train
+    from ess_tpu_torch.io.convert import front_from_jax, params_from_jax
+    from ess_tpu_torch.train import loop, uda
+    from tests.test_torch_image_sets import float32_corners
+    from tests.test_torch_loop import scalars
+
+    float32_corners(monkeypatch)
+    initial = {}
+
+    class JaxTrainer(jax_loop.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.writer.flush_every = 1   # log every step's losses
+            initial["state"] = jax.device_get(self.state)
+            initial["log_dir"] = self.log_dir
+
+    class Trainer(loop.Trainer):
+        def __init__(self, cfg, **kw):
+            st = initial["state"]
+            e2vid, head = params_from_jax(st.e2vid_params, st.back_params)
+            kw.update(e2vid_state=e2vid, front_state=front_from_jax(
+                st.front_params, st.front_batch_stats))
+            super().__init__(cfg, **kw)
+            self.state.head.load_state_dict(head)
+            self.writer.flush_every = 1
+            initial["port_log_dir"] = self.log_dir
+
+    monkeypatch.setattr(jax_loop, "Trainer", JaxTrainer)
+    monkeypatch.setattr(loop, "Trainer", Trainer)
+    jax_train.main(["--settings_file", uda_yaml(
+        tmp_path, uda_trees, "DDD17_Cityscapes_gray", "jax.yaml")])
+    monkeypatch.setattr(uda, "draw_augment", jax_draws(
+        jax_make_pipeline(jax_load_config(uda_yaml(
+            tmp_path, uda_trees, "DDD17_Cityscapes_gray", "draws.yaml")),
+            train=True)))
+    train.main(["--settings_file", uda_yaml(
+        tmp_path, uda_trees, "DDD17_Cityscapes_gray", "port.yaml")],
+        device="cpu")
+    want = scalars(initial["log_dir"], "train/")
+    got = scalars(initial["port_log_dir"], "train/")
+    assert sorted(got) == sorted(want)
+    assert {"train/loss", "train/semseg_sensor_a_loss"} <= set(got)
+    for k, v in want.items():
+        assert len(got[k]) == len(v) == 4, k   # 3 + 5 images at B=2
+        np.testing.assert_allclose(got[k][0], v[0], rtol=1e-3, err_msg=k)
 
 
 def test_module_entry_point_needs_a_gpu(tmp_path, tree):

@@ -1,5 +1,6 @@
-"""The port never loads JAX: importing it and every slice module leaves
-``jax`` (and the JAX package) out of ``sys.modules``."""
+"""The port never loads JAX, cv2 or PIL: importing it and every slice
+module leaves ``jax`` (and the JAX package), ``cv2`` and ``PIL`` out of
+``sys.modules``."""
 
 import os
 import subprocess
@@ -30,7 +31,9 @@ MODULES = [
     "ess_tpu_torch.train.streaming", "ess_tpu_torch.train.uda",
     "ess_tpu_torch.io.convert", "ess_tpu_torch.io.checkpoint",
     "ess_tpu_torch.io.writers", "ess_tpu_torch.io.timers",
-    "ess_tpu_torch.data.png", "ess_tpu_torch.utils",
+    "ess_tpu_torch.data.png", "ess_tpu_torch.data.imgproc",
+    "ess_tpu_torch.data.cityscapes", "ess_tpu_torch.data.ddd17_gray",
+    "ess_tpu_torch.utils",
     "ess_tpu_torch.utils.viz", "ess_tpu_torch.train.loop",
     "ess_tpu_torch.cli", "ess_tpu_torch.cli.train",
     "ess_tpu_torch.cli.evaluate",
@@ -43,7 +46,7 @@ def test_port_imports_no_jax():
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                    'ess_tpu'))\n"
+            "                                    'ess_tpu', 'cv2', 'PIL'))\n"
             "assert not bad, bad\n")
     root = os.path.join(os.path.dirname(__file__), "..")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
