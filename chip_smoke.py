@@ -1,7 +1,7 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
-streaming-eval paths, its DDD17 supervised and UDA steps and its train and
-evaluate CLIs (ESS UDA from Cityscapes images on disk included) once on
-one NVIDIA GPU, in the rollout form of
+streaming-eval paths, its DDD17 supervised and UDA steps, its train and
+evaluate CLIs (ESS UDA from Cityscapes images on disk included) and its
+E2VID reconstruction program once on one NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
 recording to the eval and streaming steps.
@@ -113,6 +113,21 @@ exits non-zero, with no result line):
    share, peak memory, the decode of a frame on one thread (and its
    parts) and the image loader's samples/s on 1 and 8 threads at the
    200x352 crop and the 440x640 full frame;
+5f. the reconstruction program: ``ess_tpu_torch.cli.reconstruct.main``
+   in-process on the DAVIS346 sensor (260x346, padded to 264x352) with a
+   seeded E2VID-lightweight checkpoint in the upstream ``.pth.tar`` layout
+   (f32, base 32), on written ``t x y p`` streams at ~1M events/s: ``-N
+   10000`` over 60 windows, ``-T 50`` over 20 and ``--color -N 20000`` over
+   30 (read from a zip), each on the kernel path and on B3's plain version
+   -- one B3 launch a window and no other kernel, the frames (one PNG a
+   window, 260x346 gray or 260x346x3) held kernel against plain; B3's grid
+   on every ``-N`` and ``-T`` window against its plain version on the CPU;
+   ``python -m ess_tpu_torch.cli.reconstruct -N 10000`` once in its own
+   process, its frames against the in-process run's; windows/s, peak
+   memory, a window's text parse, host-to-device copy, voxelizer, rollout
+   step and PNG write each alone, and the idle share of a profiled 10-window
+   run of the program (set-up included) and of windows 10-19 through the
+   program's per-window body with the model built (steady state);
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -158,6 +173,7 @@ import contextlib
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -2710,16 +2726,22 @@ def timed_epochs(seconds: list):
         loop.Trainer.train_epoch = run
 
 
-def captured(fn, *args, **kwargs) -> str:
-    """Run ``fn`` with its standard output captured, then log it."""
+def quiet(fn, *args, **kwargs) -> str:
+    """Run ``fn`` with its standard output captured; return the text."""
     import io
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         fn(*args, **kwargs)
-    for line in out.getvalue().splitlines():
-        log(f"  | {line}")
     return out.getvalue()
+
+
+def captured(fn, *args, **kwargs) -> str:
+    """Run ``fn`` with its standard output captured, then log it."""
+    text = quiet(fn, *args, **kwargs)
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return text
 
 
 def printed_summary(text: str) -> dict:
@@ -3183,6 +3205,295 @@ def phase_uda_cli(dev, kern_rows, tmp: str, root: str):
     log(f"phase 5e took {time.perf_counter() - t_phase:.1f} s")
 
 
+# The reconstruction program (phase 5f): python -m ess_tpu_torch.cli.reconstruct
+# in-process on the DAVIS346 sensor (260x346, padded to 264x352) with a
+# seeded E2VID-lightweight checkpoint (base 32, 3 encoders, 2 residual
+# blocks, sum skips: the upstream checkpoint's geometry) in the upstream
+# .pth.tar layout, on written t x y p streams at ~1M events/s: -N 10000 over
+# 60 windows (a 0.6 s text file), -T 50 over 20 (a 1 s file) and --color
+# -N 20000 over 30 (the zip copy of the 0.6 s file). Each run once on the
+# kernel path (B3, 1 launch a window) and once with B3's plain version; the
+# frames held against each other: gray within 1 grey level, color within 2
+# (the CPU test's levels, tests/test_torch_reconstruct_cli.py), on at most
+# 0.1 % of a frame's values. B3's raw grid on every window of the -N and -T
+# runs is held against its plain version on the CPU within RECON_GRID_TOL
+# (absolute and relative), as tests/test_torch_kernels_cuda.py does.
+RECON_HW = (260, 346)
+RECON_RATE = 1_000_000        # events/s of the written streams
+RECON_RUNS = (("gray_N", "short.txt", ["-N", "10000"], 60),
+              ("gray_T", "long.txt", ["-T", "50"], 20),
+              ("color_N", "short.zip", ["-N", "20000", "--color"], 30))
+RECON_FRAME_BOUND = {"gray_N": (1, 0.001), "gray_T": (1, 0.001),
+                     "color_N": (2, 0.001)}
+RECON_GRID_TOL = 1e-5
+
+
+def recon_stream(path: str, seconds: float, rng) -> int:
+    """A t x y p text file with a ``width height`` header: RECON_RATE
+    events/s over ``seconds``, integer pixels, t in seconds from 1.0."""
+    h, w = RECON_HW
+    n = int(seconds * RECON_RATE)
+    t = 1.0 + np.sort(rng.uniform(0, seconds, n))
+    cols = (t.tolist(), rng.integers(0, w, n).tolist(),
+            rng.integers(0, h, n).tolist(), rng.integers(0, 2, n).tolist())
+    with open(path, "w") as f:
+        f.write(f"{w} {h}\n")
+        f.write("\n".join(map("{:.9f} {} {} {}".format, *cols)))
+        f.write("\n")
+    return n
+
+
+def recon_checkpoint(path: str) -> None:
+    """A seeded E2VID-lightweight ``.pth.tar`` in the upstream layout: the
+    program's own seeded initialization, doubled (as the CPU test's), so
+    that frames span many grey levels."""
+    from ess_tpu_torch.cli import reconstruct
+    from ess_tpu_torch.models.e2vid import RecurrentUNet
+
+    model = RecurrentUNet(device="cpu")
+    reconstruct.seeded_init(model, seed=16)
+    torch.save({"state_dict": {f"unetrecurrent.{k}": 2 * v
+                               for k, v in model.state_dict().items()},
+                "model": {"num_bins": 5, "num_encoders": 3,
+                          "base_num_channels": 32, "num_residual_blocks": 2,
+                          "skip_type": "sum"}}, path)
+
+
+def recon_frames(folder: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = png.decode(f.read())
+    return out
+
+
+def phase_reconstruct(dev, kern_rows, tmp: str):
+    """Phase 5f: the reconstruction program (module docstring)."""
+    import zipfile
+
+    from ess_tpu_torch.cli import reconstruct
+    from torch.profiler import ProfilerActivity, profile
+
+    from ess_tpu_torch.data.readers import (
+        FixedDurationEventReader, FixedSizeEventReader)
+    from ess_tpu_torch.ops.pad import crop_output
+    from ess_tpu_torch.recon.reconstructor import Reconstructor
+
+    t_phase = time.perf_counter()
+    h, w = RECON_HW
+    folder = os.path.join(tmp, "recon")
+    os.makedirs(folder)
+    rng = np.random.default_rng(16)
+    t0 = time.perf_counter()
+    n_short = recon_stream(os.path.join(folder, "short.txt"), 0.6, rng)
+    n_long = recon_stream(os.path.join(folder, "long.txt"), 1.0, rng)
+    with zipfile.ZipFile(os.path.join(folder, "short.zip"), "w",
+                         zipfile.ZIP_DEFLATED) as zf:
+        zf.write(os.path.join(folder, "short.txt"), "events.txt")
+    ckpt = os.path.join(folder, "e2vid_lightweight.pth.tar")
+    recon_checkpoint(ckpt)
+    log(f"phase 5f: {w}x{h} streams of {n_short} and {n_long} events at "
+        f"{RECON_RATE} events/s (+ a zip copy) and a seeded E2VID-lightweight "
+        f"checkpoint written in {time.perf_counter() - t0:.1f} s")
+
+    for name, src, flags, n_win in RECON_RUNS:
+        argv = ["-c", ckpt, "-i", os.path.join(folder, src)] + flags
+        out = {}
+        for path in ("kernel", "plain"):
+            out[path] = os.path.join(folder, f"{name}_{path}")
+            with plain_versions() if path == "plain" else \
+                    contextlib.nullcontext():
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                text = quiet(reconstruct.main, argv + ["-o", out[path]])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("window ")]
+            log(f"  | {text.splitlines()[0]} | {lines[0]} ... {lines[-1]}")
+            if (text.splitlines()[0] != f"sensor size: {w} x {h}"
+                    or len(lines) != n_win):
+                raise AssertionError(f"{name}: {len(lines)} window lines; "
+                                     f"want {n_win}")
+            if path == "kernel":
+                need_counts(counts, [0, 0, 0, n_win])
+                add_launches(kern_rows, f"reconstruct_{name}", counts)
+                log(f"  {name} ({' '.join(flags)}): {n_win} windows in "
+                    f"{wall:.2f} s, {n_win / wall:.2f} windows/s, launches "
+                    f"{show_counts(counts)}, peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            else:
+                need_counts(counts, [0, 0, 0, 0])
+                log(f"  {name} on B3's plain version: {n_win / wall:.2f} "
+                    f"windows/s")
+        got, want = recon_frames(out["kernel"]), recon_frames(out["plain"])
+        shape = (h, w, 3) if "--color" in flags else (h, w)
+        names = [f"frame_{i:010d}.png" for i in range(n_win)]
+        if list(got) != names or list(want) != names:
+            raise AssertionError(f"{name}: frame files {list(got)[:3]}...")
+        levels, share = RECON_FRAME_BOUND[name]
+        worst, off_share, spread = 0, 0.0, []
+        for k in names:
+            if got[k].shape != shape or want[k].shape != shape:
+                raise AssertionError(f"{name}: frame {got[k].shape}")
+            off = np.abs(got[k].astype(np.int16) - want[k])
+            worst = max(worst, int(off.max()))
+            off_share = max(off_share, float((off > 0).mean()))
+            spread.append(float(got[k].std()))
+        log(f"  {name} frames, kernel vs plain path: max {worst} levels, "
+            f"at most {100 * off_share:.3f} % of a frame's values differ "
+            f"(bound {levels}, {100 * share:.1f} %); frame std "
+            f"{min(spread):.1f}-{max(spread):.1f} levels")
+        if worst > levels or off_share > share or min(spread) < 2:
+            raise AssertionError(f"{name}: frames disagree or are flat")
+
+    # B3's grids against its plain version on the CPU, on every window of
+    # the -N and -T runs (launched outside the counted runs above)
+    short = os.path.join(folder, "short.txt")
+
+    def window_grid(win, device):
+        return batch_voxel.voxelize_window_soa(
+            *reconstruct.window_tensors(win, device), num_bins=5, height=h,
+            width=w, normalize=False)
+
+    for name, reader in (
+            ("gray_N", FixedSizeEventReader(short, 10000)),
+            ("gray_T", FixedDurationEventReader(
+                os.path.join(folder, "long.txt"), 50))):
+        worst, n_win = 0.0, 0
+        for win in reader:
+            got, want = window_grid(win, dev).cpu(), window_grid(win, "cpu")
+            off = (got - want).abs()
+            worst = max(worst, float(off.max()))
+            if not bool((off <= RECON_GRID_TOL * (1 + want.abs())).all()):
+                raise AssertionError(f"{name} window {n_win}: B3's grid "
+                                     f"off by {float(off.max())}")
+            n_win += 1
+        log(f"  {name}: B3's grid on all {n_win} windows against its plain "
+            f"version on the CPU: max abs err {worst:.3g} (bound "
+            f"{RECON_GRID_TOL:g} abs + rel)")
+
+    # the entry point as a user runs it, in a process of its own
+    cli_out = os.path.join(folder, "gray_N_module")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ess_tpu_torch.cli.reconstruct", "-c", ckpt,
+         "-i", short, "-o", cli_out, "-N", "10000"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ess_tpu_torch.cli.reconstruct: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    got = recon_frames(cli_out)
+    want = recon_frames(os.path.join(folder, "gray_N_kernel"))
+    if list(got) != list(want) or any(
+            got[k].shape != (h, w)
+            or np.abs(got[k].astype(np.int16) - want[k]).max() > 1
+            for k in got):
+        raise AssertionError("python -m ess_tpu_torch.cli.reconstruct: "
+                             "frames differ from the in-process run's")
+    log(f"  python -m ess_tpu_torch.cli.reconstruct -c <ckpt> -i short.txt "
+        f"-N 10000: exit 0, {len(got)} frames of {w}x{h} (within 1 level "
+        f"of the in-process run's) in {time.perf_counter() - t0:.1f} s, "
+        f"process start included")
+
+    # the per-window split of -N 10000, each part alone on the same windows
+    t0 = time.perf_counter()
+    windows = list(FixedSizeEventReader(short, 10000))
+    parse_ms = 1e3 * (time.perf_counter() - t0) / len(windows)
+    h2d = []
+    for win in windows:
+        t0 = time.perf_counter()
+        cols = reconstruct.window_tensors(win, dev)
+        torch.cuda.synchronize()
+        h2d.append(1e3 * (time.perf_counter() - t0))
+    model = reconstruct.build_model(ckpt, dev)
+    recon = Reconstructor(model=model, height=h, width=w)
+
+    def voxelize():
+        return batch_voxel.voxelize_window_soa(*cols, num_bins=5, height=h,
+                                               width=w, normalize=False)
+
+    grid, state = normalize_nonzero(voxelize()), recon.init_state(1, dev)
+    with torch.no_grad():
+        vox_ms = cuda_ms(voxelize, 50)
+        roll_ms = cuda_ms(lambda: recon.step(normalize_nonzero(grid), state),
+                          20)
+        img = recon.step(grid, state)[0]
+    frame = reconstruct.to_frame8(img[0, 0]).cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        png.imwrite(os.path.join(folder, "one.png"), frame)
+    png_ms = 1e2 * (time.perf_counter() - t0)
+    log(f"  a -N 10000 window, each part alone: text parse "
+        f"{parse_ms:.2f} ms (host), host-to-device copy "
+        f"{statistics.median(h2d):.3f} ms (host clock, synchronized), "
+        f"voxelizer {vox_ms:.3f} ms (device: tile binning + B3 + time "
+        f"normalization), normalize + rollout step {roll_ms:.3f} ms "
+        f"(device), PNG write {png_ms:.2f} ms (host)")
+    # the idle share of one -N 10000 run of the program over 10 windows: the
+    # third call, after two warm-up calls, so cuDNN's plans are chosen; the
+    # model build and the checkpoint load are in it
+    with open(short) as f:
+        head = [next(f) for _ in range(1 + 100_000)]
+    ten = os.path.join(folder, "ten.txt")
+    with open(ten, "w") as f:
+        f.writelines(head)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        prof = bench.profile_call(
+            lambda: quiet(reconstruct.main, [
+                "-c", ckpt, "-i", ten, "-o", os.path.join(folder, "ten"),
+                "-N", "10000"]), trace_dir, "reconstruct", top=6)
+    log(f"  profiled -N 10000 run of the program over 10 windows (model "
+        f"build and checkpoint load included): wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+        f"over a {prof['span_ms']:.1f} ms span, device idle share "
+        f"{100.0 * prof['idle_share']:.1f} %; top "
+        + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms ({k['calls']})"
+                    for k in prof["top"]))
+    # the idle share in steady state: windows 10-19 of the -N 10000 stream
+    # through the program's per-window body (parse, copy, voxelize,
+    # normalize, step, crop, frame, PNG), the model built and windows 0-9
+    # run first
+    stream = iter(FixedSizeEventReader(short, 10000))
+    state = recon.init_state(1, dev)
+
+    def cli_window():
+        nonlocal state
+        grid = normalize_nonzero(window_grid(next(stream), dev))
+        img, state, _ = recon.step(grid, state)
+        frame = reconstruct.to_frame8(crop_output(img, recon.geometry)[0, 0])
+        png.imwrite(os.path.join(folder, "one.png"), frame.cpu().numpy())
+
+    with torch.no_grad():
+        for _ in range(10):
+            cli_window()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                cli_window()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        path = os.path.join(trace_dir, "reconstruct_steady_trace.json")
+        trace.export_chrome_trace(path)
+        steady = bench.trace_summary(path, top=4)
+    log(f"  profiled windows 10-19 of -N 10000 in steady state (the "
+        f"program's per-window body, model built): wall {wall:.1f} ms, "
+        f"device busy {steady['busy_ms']:.1f} ms over a "
+        f"{steady['span_ms']:.1f} ms span, device idle share "
+        f"{100.0 * steady['idle_share']:.1f} %")
+    if "cv2" in sys.modules:
+        raise AssertionError("phase 5f imported cv2")
+    del model, recon, grid, state
+    torch.cuda.empty_cache()
+    log(f"phase 5f took {time.perf_counter() - t_phase:.1f} s")
+
+
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
                     cm=None, cm_ref=None) -> None:
     """Hold one path against a reference path under the slice bounds
@@ -3435,6 +3746,7 @@ def main() -> None:
             f"written in {time.perf_counter() - t0:.1f} s")
         phase_cli(dev, rows, tmp, root)
         phase_uda_cli(dev, rows, tmp, root)
+        phase_reconstruct(dev, rows, tmp)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

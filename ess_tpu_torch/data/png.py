@@ -7,7 +7,10 @@ grayscale PNGs, Cityscapes' ``leftImg8bit`` frames 8-bit RGB ones.
 0)`` gives for both, and :func:`resize_nearest` computes what
 ``cv2.resize(..., interpolation=cv2.INTER_NEAREST)`` does, so the image
 sets run where ``cv2`` is not installed. Palette, 16-bit, alpha and
-interlaced PNGs raise ``ValueError``.
+interlaced PNGs raise ``ValueError``. :func:`imwrite` writes what
+``cv2.imwrite`` would for 8-bit gray and BGR images: files whose pixels
+``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` and :func:`decode` read back
+(every row filtered with None; the bytes differ from cv2's).
 
 Decoding inflates the image data with ``zlib`` and undoes the five PNG
 row filters, a row at a time since Up, Average and Paeth read the row
@@ -237,3 +240,30 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
         return np.minimum(i, src - 1)
 
     return img[index(height, src_h)[:, None], index(width, src_w)[None, :]]
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """``cv2.imwrite(path, img)`` for a uint8 gray (H, W) or, in cv2's B,
+    G, R order, color (H, W, 3) image: an 8-bit PNG of IHDR, one zlib IDAT
+    of rows filtered with None, and IEND."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"imwrite takes uint8 (H, W) or (H, W, 3) images, "
+                         f"got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    if img.ndim == 3:
+        img = img[:, :, ::-1]   # the file holds R, G, B
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)
+    rows[:, 1:] = img.reshape(h, -1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2,
+                       0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + _chunk(b"IEND", b""))

@@ -1,12 +1,14 @@
 """Recurrent E2VID rollout over a stack of event windows.
 
 Counterpart of ``ess_tpu/recon/reconstructor.py::Reconstructor`` (``step``,
-``rollout``) on the eval path: windows arrive already normalized from the
-pipeline, the rollout starts from zero state, runs encoder-only until the
-last window and decodes only that one. A Python loop takes the place of the
-JAX ``lax.scan``. As there, the rollout runs in block space by default:
-every window is folded into 2x2 space-to-depth blocks and the model's head
-and first-encoder convs run as 3x3 convs over them.
+``rollout``) for windows that arrive already normalized, from the pipeline
+or from the reconstruction program: every window is reflection-padded to
+the UNet-divisible size, the rollout starts from zero state, runs
+encoder-only until the last window and decodes only that one. A Python loop
+takes the place of the JAX ``lax.scan``. As there, the rollout runs in block
+space by default: every padded window is folded into 2x2 space-to-depth
+blocks and the model's head and first-encoder convs run as 3x3 convs over
+them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ess_tpu_torch.models.e2vid import RecurrentUNet, zero_recurrent_state
 from ess_tpu_torch.ops.conv_s2d import space_to_depth
-from ess_tpu_torch.ops.pad import CropGeometry
+from ess_tpu_torch.ops.pad import CropGeometry, reflect_pad
 
 
 @dataclass(frozen=True)
@@ -42,8 +44,8 @@ class Reconstructor:
         return CropGeometry(self.height, self.width, self.model.num_encoders)
 
     def init_state(self, batch: int, device=None):
-        """Zero recurrent state on ``device`` (None: the first CUDA
-        device)."""
+        """Zero recurrent state at the padded size on ``device`` (None: the
+        first CUDA device)."""
         g = self.geometry
         return zero_recurrent_state(
             batch, g.padded_height, g.padded_width,
@@ -53,18 +55,20 @@ class Reconstructor:
 
     def step(self, events: torch.Tensor, state, *, decode: bool = True,
              events_s2d: bool = False):
-        """One window (B, C, H, W) -> (image (B, 1, H, W) or None, new
-        state, latent). With ``events_s2d`` the window arrives as
-        (B, 4C, H/2, W/2) space-to-depth blocks; that needs a block-space
-        rollout."""
+        """One window (B, C, H, W): reflect pad -> recurrent forward.
+        Returns (image (B, 1, Hp, Wp) or None, new state, latent);
+        :func:`ess_tpu_torch.ops.pad.crop_output` crops the image back.
+        With ``events_s2d`` the window arrives as (B, 4C, H/2, W/2)
+        space-to-depth blocks; that needs a block-space rollout and a
+        geometry that needs no pad."""
         g = self.geometry
-        if any(g.pads):
-            raise ValueError(
-                f"a {self.height}x{self.width} rollout padded to "
-                f"{(g.padded_height, g.padded_width)}: the port implements "
-                "no pad")
-        if events_s2d and not self.block_space:
-            raise ValueError("events_s2d needs a block-space rollout")
+        if events_s2d:
+            if not self.block_space:
+                raise ValueError("events_s2d needs a block-space rollout")
+            if any(g.pads):
+                raise ValueError(
+                    f"events_s2d: a {self.height}x{self.width} rollout pads "
+                    f"to {(g.padded_height, g.padded_width)}")
         want = ((self.height // 2, self.width // 2) if events_s2d
                 else (self.height, self.width))
         if tuple(events.shape[-2:]) != want:
@@ -72,8 +76,10 @@ class Reconstructor:
                 f"window {tuple(events.shape[-2:])} for a {self.height}x"
                 f"{self.width} rollout"
                 + (" in space-to-depth blocks" if events_s2d else ""))
-        if self.block_space and not events_s2d:
-            events = space_to_depth(events)
+        if not events_s2d:
+            events = reflect_pad(events, g)
+            if self.block_space:
+                events = space_to_depth(events)
         return self.model(events, state, decode=decode,
                           lstm_impl=self.lstm_impl,
                           block_input=self.block_space,

@@ -25,7 +25,8 @@ MODULES = [
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.models.resnet",
-    "ess_tpu_torch.recon.reconstructor",
+    "ess_tpu_torch.recon.reconstructor", "ess_tpu_torch.recon.color",
+    "ess_tpu_torch.data.readers", "ess_tpu_torch.cli.reconstruct",
     "ess_tpu_torch.train.builder", "ess_tpu_torch.train.losses",
     "ess_tpu_torch.train.metrics", "ess_tpu_torch.train.supervised",
     "ess_tpu_torch.train.streaming", "ess_tpu_torch.train.uda",

@@ -61,14 +61,23 @@ Bounds:
   that rounds to the other bf16 neighbour moves the result by an ulp or
   two; all within 2^-5); bf16 body: max |d| within 2^-6 of the plain
   output's absmax (f32 accumulation in another order, then one bf16
-  rounding of values of any size), ``ptw_bf16`` within 2^-4 absolute.
+  rounding of values of any size), ``ptw_bf16`` within 2^-4 absolute;
+- the reconstruction program's windows (B=1 on the 260x346 DAVIS346
+  sensor, integer coordinates, temporal bilinear, 10k and a ragged 7919
+  events, device-side tile binning): B3 under the voxelizers' bounds
+  (raw grid 1e-5, normalized 1e-4), and the padded f32 ``Reconstructor``
+  step (264x352) over five carried windows, the kernel path against the
+  plain path (B3's plain version): images within 1e-3 absolute, their 8-bit
+  frames within 1 grey level on at most 1 % of the pixels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ess_tpu_torch.cli import reconstruct
 from ess_tpu_torch.models import layers
+from ess_tpu_torch.ops import batch_voxel
 from ess_tpu_torch.ops import conv3x3 as c3
 from ess_tpu_torch.ops import conv_halo as chp
 from ess_tpu_torch.ops import conv_lstm as cl
@@ -79,7 +88,9 @@ from ess_tpu_torch.ops import voxel_scatter as vs
 from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.conv_lstm import input_scale
 from ess_tpu_torch.ops.batch_voxel import (band_operands, voxelize_band,
-                                          voxelize_tile)
+                                          voxelize_tile, voxelize_window_soa)
+from ess_tpu_torch.ops.pad import crop_output
+from ess_tpu_torch.recon.reconstructor import Reconstructor
 from ess_tpu_torch.ops.voxel import (
     masked_time_norm, normalize_from_stats, normalize_nonzero,
     voxel_grid_trilinear)
@@ -1531,3 +1542,72 @@ def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
     assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:],
                                      stream) == 0
     torch.cuda.synchronize()
+
+
+# The reconstruction program (cli/reconstruct.py) at the DAVIS346 sensor.
+DAVIS = (260, 346)
+
+
+def davis_window(rng, n: int) -> np.ndarray:
+    """A reader's (n, 4) float64 [t, x, y, p] window: integer pixels, ~10 ms
+    of events starting at an arbitrary stamp."""
+    h, w = DAVIS
+    return np.stack([3.0 + np.sort(rng.uniform(0, 0.01, n)),
+                     rng.integers(0, w, n), rng.integers(0, h, n),
+                     rng.integers(0, 2, n)], -1).astype(np.float64)
+
+
+def cli_grid(window, device):
+    return voxelize_window_soa(*reconstruct.window_tensors(window, device),
+                               num_bins=5, height=DAVIS[0], width=DAVIS[1],
+                               normalize=False)
+
+
+@pytest.mark.parametrize("n", [10_000, 7919])
+def test_voxel_tiled_kernel_reconstruct_window(dev, n):
+    """B3 at B=1 on 260x346 with the program's call: one launch, the grid
+    against the plain version on the CPU."""
+    window = davis_window(np.random.default_rng(n), n)
+    n0 = vt.launches
+    got = cli_grid(window, dev)
+    torch.cuda.synchronize()
+    assert vt.launches == n0 + 1 and got.shape == (1, 5) + DAVIS
+    want = cli_grid(window, "cpu")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(normalize_nonzero(got).cpu(),
+                               normalize_nonzero(want), atol=1e-4, rtol=1e-4)
+
+
+def test_padded_reconstructor_step_kernel_vs_plain(dev, monkeypatch):
+    """Five carried windows through B3, ``normalize_nonzero`` and the
+    padded step at 260x346 (-> 264x352) on the card, against the same with
+    B3's plain version."""
+    model = reconstruct.build_model("", dev)
+    recon = Reconstructor(model=model, height=DAVIS[0], width=DAVIS[1])
+    assert recon.geometry.pads == (2, 2, 3, 3)
+    rng = np.random.default_rng(5)
+    windows = [davis_window(rng, n) for n in (10_000, 7919, 10_000, 4000,
+                                              10_000)]
+
+    def run():
+        state, imgs = recon.init_state(1, dev), []
+        with torch.no_grad():
+            for window in windows:
+                img, state, _ = recon.step(
+                    normalize_nonzero(cli_grid(window, dev)), state)
+                imgs.append(crop_output(img, recon.geometry))
+        return torch.cat(imgs)
+
+    n0 = vt.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert vt.launches == n0 + len(windows)
+    with monkeypatch.context() as m:
+        m.setattr(batch_voxel, "voxelize_tiled", vt.voxelize_tiled_ref)
+        want = run()
+    assert vt.launches == n0 + len(windows)
+    assert got.shape == (len(windows), 1) + DAVIS
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    off = (reconstruct.to_frame8(got).int()
+           - reconstruct.to_frame8(want).int()).abs()
+    assert off.max() <= 1 and (off > 0).float().mean() <= 0.01
