@@ -1,7 +1,8 @@
 """Drive the PyTorch + CUDA port's DSEC eval, train, UDA train and
 streaming-eval paths, its DDD17 supervised and UDA steps, its train and
-evaluate CLIs (ESS UDA from Cityscapes images on disk included) and its
-E2VID reconstruction program once on one NVIDIA GPU, in the rollout form of
+evaluate CLIs (ESS UDA from Cityscapes images on disk included), its
+E2VID reconstruction program and the YAML's model and event options once
+on one NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
 recording to the eval and streaming steps.
@@ -128,6 +129,26 @@ exits non-zero, with no result line):
    step and PNG write each alone, and the idle share of a profiled 10-window
    run of the program (set-up included) and of windows 10-19 through the
    program's per-window body with the model built (steady state);
+5g. the YAML's model and event options, one key changed at a time: the
+   train CLI in-process for one epoch on phase 5d's tree with
+   ``configs/settings_DDD17_supervised.yaml`` and ``event_representation:
+   'histogram'`` / ``'ev_segnet'`` (tile-sorted raw events, no B1),
+   ``e2vid_recurrent_block: 'convgru'`` (no B2), ``e2vid_norm: 'IN'``
+   (standard layout) and ``skip_connect_task: False`` (the plain head),
+   and with ``configs/settings_DDD17.yaml`` (ESS UDA, phase 5e's Cityscapes
+   tree) and the histogram -- launches a train step and a validation
+   batch, finite losses and mIoUs, step 1 against the plain versions; the
+   DSEC supervised eval and train steps at the bench shape (B=8) with the
+   histogram and with the ConvGRU backbone -- launches, agreement with the
+   plain versions (the slice bounds; train loss within 2 %), windows/s
+   alternated with the plain path, peak memory, the idle share of a
+   profiled step; streaming with the ConvGRU backbone at B=8 over 40
+   windows on the tile wire against the plain path, its rate and idle
+   share; and ``ess_tpu_torch.tools.sanity_train``: its ``main`` (the
+   overfit of a label-correlated batch at the bench shape on the int8
+   train cell) and the same overfit on the exact cell (the loss falls
+   below 0.7x of the first step's on both) and on the histogram, with each
+   loss trajectory and batch mIoU;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -3494,6 +3515,369 @@ def phase_reconstruct(dev, kern_rows, tmp: str):
     log(f"phase 5f took {time.perf_counter() - t_phase:.1f} s")
 
 
+# The YAML's model and event options (phase 5g). Each changes one key of a
+# config the repo ships; everything else runs as written. The CLI runs take
+# phase 5d's DDD17 tree (and phase 5e's Cityscapes tree for the UDA run),
+# one epoch of CLI_STEPS steps and the validations the Trainer runs. The
+# per-call launches (B1, B2) follow from the wire and the cell: the
+# histogram and EV-SegNet representations take tile-sorted raw events (no
+# B1: their scatter is ATen's) and the ConvLSTM cells; the ConvGRU backbone
+# computes its gates on the library convs (no B2); instance norm rolls out
+# in the standard layout on the same kernels.
+OPTION_KEYS = {
+    "histogram": ("event_representation", "histogram"),
+    "ev_segnet": ("event_representation", "ev_segnet"),
+    "convgru": ("e2vid_recurrent_block", "convgru"),
+    "IN": ("e2vid_norm", "IN"),
+    "plain_head": ("skip_connect_task", False),
+}
+OPTION_CLI_RUNS = (   # (run, option, config, per-call launches B1, B2)
+    ("histogram", "histogram", 0, (0, 3 * WINDOWS)),
+    ("ev_segnet", "ev_segnet", 0, (0, 3 * WINDOWS)),
+    ("convgru", "convgru", 0, (1, 0)),
+    ("IN", "IN", 0, (1, 3 * WINDOWS)),
+    ("plain_head", "plain_head", 0, (1, 3 * WINDOWS)),
+    ("uda_histogram", "histogram", 1, (0, 3 * WINDOWS)),
+)
+OPTION_DSEC = ("histogram", "convgru")    # the DSEC steps at the bench shape
+SANITY_STEPS = 40
+
+
+def option_yaml_key(option: str) -> str:
+    """The YAML key of ``option`` in the DDD17 configs."""
+    key, _ = OPTION_KEYS[option]
+    return (f"dataset.DDD17_events.{key}" if key == "event_representation"
+            else f"model.{key}")
+
+
+def with_option(cfg, option: str):
+    """``cfg`` with the one key of ``option`` changed."""
+    import dataclasses
+
+    key, value = OPTION_KEYS[option]
+    if key == "event_representation":
+        return cfg.replace(dataset=dataclasses.replace(
+            cfg.dataset, sensor_b=dataclasses.replace(
+                cfg.dataset.sensor_b, event_representation=value)))
+    return cfg.replace(model=dataclasses.replace(cfg.model, **{key: value}))
+
+
+def tile_batch(seed: int, b: int, device, ignore_rows: int = 0) -> dict:
+    """:func:`bench.make_batch`'s events tile-sorted on the host
+    (``ev_tile_offsets``), as the loaders send them for the histogram and
+    EV-SegNet representations, with its labels."""
+    rng = np.random.default_rng(seed)
+    raw, valid = bench.make_raw(rng, b)
+    recs, vals, offs = zip(*(voxel_tiled.host_tile_bin(
+        raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS)
+        for i in range(b)))
+    recs = np.stack(recs)
+    label = rng.integers(0, CLASSES, (b, SENSOR_H - CROP, SENSOR_W))
+    if ignore_rows:
+        label[:, -ignore_rows:] = 255
+    host = {"ev_x": recs[..., 0], "ev_y": recs[..., 1], "ev_t": recs[..., 2],
+            "ev_p": recs[..., 3], "ev_valid": np.stack(vals),
+            "ev_tile_offsets": np.stack(offs), "label": label}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host.items()}
+
+
+def last_hidden(state) -> torch.Tensor:
+    """The deepest level's hidden state: h of (h, c), or a GRU's h."""
+    top = state[-1]
+    return (top[0] if isinstance(top, tuple) else top).float()
+
+
+def option_cli(dev, kern_rows, tmp: str, root: str, city: str) -> None:
+    """Phase 5g, part 1: the train CLI on each option (OPTION_CLI_RUNS)."""
+    from ess_tpu_torch.cli import train as cli_train
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.io import timers
+    from ess_tpu_torch.train import loop
+
+    win = DDD17_B * WINDOWS
+    for run, option, which, per_call in OPTION_CLI_RUNS:
+        changes = {"dataset.DDD17_events.dataset_path": root,
+                   "dir.log": os.path.join(tmp, f"opt_{run}"),
+                   "optim.num_epochs": 1,
+                   option_yaml_key(option): OPTION_KEYS[option][1]}
+        if which == 0:
+            changes["dataset.DDD17_events.require_paired_data_val"] = False
+        else:
+            changes["dataset.cityscapes_img.dataset_path"] = city
+        log(f"phase 5g run {run}, from {CLI_CONFIGS[which]}:")
+        path = cli_yaml(tmp, CLI_CONFIGS[which], f"opt_{run}.yaml", changes)
+        cfg = load_config(path)
+        calls = []
+        timers.reset_timers()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with tapped_steps(calls):
+            out = captured(cli_train.main, ["--settings_file", path])
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = list(timers._ACCUM["train_step"])
+        timers.reset_timers()
+        n_val = 2           # before the epoch and after it
+        log(f"  cli.train, {run}: {CLI_STEPS} train steps, {n_val} "
+            f"validations; launches {show_counts(counts)}")
+        need_calls(calls, "train", CLI_STEPS, per_call)
+        need_calls(calls, "eval", n_val, per_call)
+        need_counts(counts, [(CLI_STEPS + n_val) * k for k in per_call])
+        add_launches(kern_rows, f"option_cli_{run}", counts)
+        summary = printed_summary(out)
+        losses = [c[2] for c in calls if c[0] == "train"]
+        if not (all(np.isfinite(losses)) and summary
+                and all(0.0 <= v <= 100.0 for k, v in summary.items()
+                        if k.endswith("mean_iou"))):
+            raise AssertionError(f"cli.train, {run}: bad run {summary}")
+        log(f"  losses {[round(v, 5) for v in losses]}; summary {summary}; "
+            f"ms per train step in the Trainer "
+            f"{[round(1e3 * t, 1) for t in step_s]} (the second, after the "
+            f"first's warm-up: {win / step_s[-1]:.2f} windows/s); peak "
+            f"device memory {peak / 2 ** 30:.2f} GiB")
+        train_a, train_b, _, _ = cli_train.build_loaders(cfg)
+        with plain_versions():
+            tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
+                              log_dir=os.path.join(tmp, f"opt_plain_{run}"))
+            batches = tr._train_batches()
+            loss_p = float(tr.train_step(tr.state, next(batches))["loss"])
+            batches.close()
+        rel = abs(losses[0] - loss_p) / abs(loss_p)
+        log(f"  step 1, kernel path vs plain path: loss {losses[0]:.6f} vs "
+            f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
+            f"{TRAIN_LOSS_REL})")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"cli.train, {run}: kernel path disagrees "
+                                 "with the plain path")
+        del tr, batches
+        torch.cuda.empty_cache()
+
+
+def option_dsec(dev, kern_rows, tmp: str) -> None:
+    """Phase 5g, part 2: the DSEC supervised eval and train steps at the
+    bench shape (B=8, T=20, 100k events, 440x640, train rollout on the int8
+    cell) with each of OPTION_DSEC, against the plain path, with rates,
+    peak memory and the idle share of a profiled step."""
+    from ess_tpu_torch.train.builder import init_state
+    from ess_tpu_torch.train.supervised import make_train_step
+
+    b = 8
+    n_exact, n_int8 = int8_cells(b, SENSOR_H - CROP, SENSOR_W)
+    for option in OPTION_DSEC:
+        cfg = with_option(bench.make_cfg(b), option)
+        tile = cfg.dataset.sensor_b.event_representation != "voxel_grid"
+        batch = (tile_batch if tile else make_batch)(4, b, dev,
+                                                     ignore_rows=20)
+        pipe = builder.make_pipeline(cfg, train=False)
+        gru = cfg.model.e2vid_recurrent_block == "convgru"
+        b1 = 0 if tile else 1
+        want_eval = (b1, 0 if gru else 3 * WINDOWS)
+        want_train = (b1, 0 if gru else n_exact * WINDOWS,
+                      0 if gru else n_int8 * WINDOWS)
+
+        def built():
+            mods = build_modules(cfg, device=dev)
+            init_params(mods, torch.Generator().manual_seed(0))
+            return mods
+
+        mods = built()
+        logits = [None]
+        hook = mods.head.register_forward_hook(
+            lambda mod, args, out: logits.__setitem__(0, out[1].float()))
+        ev = make_eval_step(mods, pipe)
+        reset_counts()
+        out = ev(batch)
+        counts = read_counts()
+        log(f"DSEC eval step B={b}, {option}: launches {show_counts(counts)}")
+        need_counts(counts, want_eval)
+        add_launches(kern_rows, f"option_dsec_eval_{option}", counts)
+        if not (np.isfinite(float(out["loss"]))
+                and float(out["cm"].sum()) == float(
+                    (batch["label"] != 255).sum())):
+            raise AssertionError(f"DSEC eval, {option}: bad output")
+        with plain_versions():
+            ref = ev(batch)
+        slice_agreement(f"DSEC eval, {option}, kernel path vs plain path",
+                        out["latent8"], ref["latent8"], out["pred"],
+                        ref["pred"], logits[0], out["cm"], ref["cm"])
+        hook.remove()
+        del out, ref, logits
+
+        state = init_state(mods)
+        step = make_train_step(mods, pipe)
+        reset_counts()
+        loss = float(step(state, batch)["loss"])
+        counts = read_counts()
+        mods_p = built()
+        state_p = init_state(mods_p)
+        step_p = make_train_step(mods_p, pipe)
+        with plain_versions():
+            loss_p = float(step_p(state_p, batch)["loss"])
+        rel = abs(loss - loss_p) / abs(loss_p)
+        log(f"DSEC train step B={b}, {option}: launches {show_counts(counts)};"
+            f" step 1 loss {loss:.6f} vs the plain path's {loss_p:.6f} "
+            f"(relative difference {rel:.3e}, bound {TRAIN_LOSS_REL})")
+        need_counts(counts, want_train)
+        add_launches(kern_rows, f"option_dsec_train_{option}", counts)
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"DSEC train, {option}: kernel path "
+                                 "disagrees with the plain path")
+
+        def eval_call():
+            float(ev(batch)["loss"])
+
+        def train_call():
+            float(step(state, batch)["loss"])
+
+        for name, call, plain_call in (
+                ("eval", eval_call, eval_call),
+                ("train", train_call,
+                 lambda: float(step_p(state_p, batch)["loss"]))):
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            times = {"kernel": [], "plain": []}
+            for plain in (True, False, False, True):
+                with plain_versions() if plain else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (plain_call if plain else call)()
+                    torch.cuda.synchronize()
+                    times["plain" if plain else "kernel"].append(
+                        time.perf_counter() - t0)
+            prof = bench.profile_call(call, os.path.join(tmp, "opt_prof"),
+                                      f"{name}_{option}", top=4)
+            for kind, ts in times.items():
+                med = statistics.median(ts)
+                log(f"  DSEC {name} step B={b}, {option} ({kind} versions): "
+                    f"{b * WINDOWS / med:.2f} windows/s, "
+                    f"{[round(1e3 * t, 1) for t in ts]} ms")
+            log(f"  DSEC {name} step B={b}, {option}: peak device memory "
+                f"{peak:.2f} GiB; profiled step: device busy "
+                f"{prof['busy_ms']:.1f} ms of a {prof['span_ms']:.1f} ms "
+                f"span, idle share {100 * prof['idle_share']:.1f} %; top "
+                + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms "
+                            f"({k['calls']})" for k in prof["top"]))
+        del mods, mods_p, state, state_p, step, step_p, ev, batch
+        torch.cuda.empty_cache()
+
+
+def option_stream(dev, kern_rows, tmp: str) -> None:
+    """Phase 5g, part 3: streaming with the ConvGRU backbone at B=8 over
+    STREAM_WINDOWS windows on the tile wire (B3 a window, the gates on the
+    library convs), against the plain path, with its rate and idle
+    share."""
+    from ess_tpu_torch.train.streaming import make_streaming_steps
+
+    b = 8
+    cfg = with_option(bench.make_cfg(b, None), "convgru")
+    mods = build_modules(cfg, device=dev)
+    init_params(mods, torch.Generator().manual_seed(0))
+    steps = make_streaming_steps(mods, builder.make_pipeline(cfg,
+                                                             train=False))
+    logits = [None]
+    hook = mods.head.register_forward_hook(
+        lambda mod, args, out: logits.__setitem__(0, out[1].float()))
+    windows = bench.make_stream(7, b, dev, "tile", windows=STREAM_WINDOWS,
+                                resets=((0, 1.0), (STREAM_WINDOWS // 2, 0.5)))
+    reset_counts()
+    state, cm = bench.run_stream(steps, mods.recon_val.init_state(b, dev),
+                                 windows)
+    counts = read_counts()
+    log(f"streaming B={b}, convgru, tile wire, {STREAM_WINDOWS} windows: "
+        f"launches {show_counts(counts)}")
+    need_counts(counts, (0, 0, 0, STREAM_WINDOWS))
+    add_launches(kern_rows, "option_stream_convgru", counts)
+    latent, pred = last_hidden(state), logits[0].argmax(dim=1)
+    if not (len(state) == 3 and tuple(latent.shape) == (b, 256, 55, 80)
+            and torch.isfinite(latent).all()):
+        raise AssertionError("streaming, convgru: bad state")
+    with plain_versions():
+        state_p, cm_p = bench.run_stream(
+            steps, mods.recon_val.init_state(b, dev), windows)
+    slice_agreement("streaming B=8, convgru, kernel path vs plain path after "
+                    f"{STREAM_WINDOWS} windows", latent, last_hidden(state_p),
+                    pred, logits[0].argmax(dim=1), logits[0], cm, cm_p)
+    hook.remove()
+    timed = windows[:bench.WINDOWS_PER_SCORE]
+    rates = {"plain": [], "kernel": []}
+    for plain in (True, False, False, True):
+        with plain_versions() if plain else contextlib.nullcontext():
+            rates["plain" if plain else "kernel"].append(
+                bench.stream_windows_per_sec(mods, steps, timed, 3))
+    carried = [mods.recon_val.init_state(b, dev)]
+
+    def twenty_windows():
+        carried[0], cm_ = bench.run_stream(steps, carried[0], timed)
+        float(cm_.sum())
+
+    prof = bench.profile_call(twenty_windows, os.path.join(tmp, "opt_prof"),
+                              "stream_convgru", top=4)
+    for name, r in rates.items():
+        log(f"  streaming B={b}, convgru ({name} versions): "
+            f"{statistics.median(r):.2f} windows/s (runs "
+            f"{[round(v, 1) for v in r]})")
+    log(f"  profiled 20 windows: device busy {prof['busy_ms']:.1f} ms of a "
+        f"{prof['span_ms']:.1f} ms span, idle share "
+        f"{100 * prof['idle_share']:.1f} %")
+    del mods, steps, windows, state, state_p, timed, carried
+    torch.cuda.empty_cache()
+
+
+def option_sanity(dev, kern_rows) -> None:
+    """Phase 5g, part 4: the training-sanity tool's ``main`` (int8 train
+    cell) and its overfit on the exact cell and on the histogram
+    representation; the loss must fall below LOSS_DROP of the first
+    step's on both cells."""
+    from ess_tpu_torch.tools import sanity_train as st
+
+    reset_counts()
+    text = captured(st.main, SANITY_STEPS)
+    counts = read_counts()
+    log(f"  sanity_train.main: launches {show_counts(counts)}")
+    add_launches(kern_rows, "option_sanity_int8", counts)
+    if "SANITY OK" not in text:
+        raise AssertionError("sanity_train.main did not finish")
+    host = st.make_scene_batch(np.random.default_rng(0), st.B, st.T, st.N,
+                               st.SENSOR_H, st.SENSOR_W, st.CLASSES,
+                               st.CROP_BOTTOM)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in host.items()}
+    for name, kw, must_fall in (
+            ("exact", dict(lstm_impl_train=None), True),
+            ("histogram", dict(representation="histogram"), False)):
+        lines = []
+        reset_counts()
+        losses, miou = st.overfit(st.sanity_config(**kw), batch,
+                                  SANITY_STEPS, device=dev, log=lines.append)
+        counts = read_counts()
+        add_launches(kern_rows, f"option_sanity_{name}", counts)
+        fell = losses[-1] < st.LOSS_DROP * losses[0]
+        log(f"  sanity overfit, {name}: losses "
+            f"{[round(v, 4) for v in losses]}; train-batch mIoU {miou:.1f}; "
+            f"last/first {losses[-1] / losses[0]:.3f} (bound < "
+            f"{st.LOSS_DROP}{'' if must_fall else ', reported'}); launches "
+            f"{show_counts(counts)}")
+        if must_fall and not fell:
+            raise AssertionError(f"sanity overfit, {name}: the loss did not "
+                                 "fall")
+    del batch
+    torch.cuda.empty_cache()
+
+
+def phase_options(dev, kern_rows, tmp: str, root: str) -> None:
+    """Phase 5g: the YAML's model and event options (module docstring)."""
+    t_phase = time.perf_counter()
+    option_cli(dev, kern_rows, tmp, root, os.path.join(tmp, "cityscapes"))
+    option_dsec(dev, kern_rows, tmp)
+    option_stream(dev, kern_rows, tmp)
+    option_sanity(dev, kern_rows)
+    if "cv2" in sys.modules or "h5py" in sys.modules:
+        raise AssertionError("phase 5g imported cv2 or h5py")
+    log(f"phase 5g took {time.perf_counter() - t_phase:.1f} s")
+
+
 def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
                     cm=None, cm_ref=None) -> None:
     """Hold one path against a reference path under the slice bounds
@@ -3747,6 +4131,7 @@ def main() -> None:
         phase_cli(dev, rows, tmp, root)
         phase_uda_cli(dev, rows, tmp, root)
         phase_reconstruct(dev, rows, tmp)
+        phase_options(dev, rows, tmp, root)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

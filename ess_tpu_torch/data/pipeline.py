@@ -16,8 +16,8 @@ not commute with a resize), the bottom crop (DSEC 480 -> 440, DDD17
 ``align_corners`` as the reference), the per-sample crop (DDD17 UDA's
 bottom-anchored 120x216, drawn from the post-resize size) and the flip; a
 cropped or flipped sample has its windows and its label transformed
-together. Only the ``voxel_grid`` representation is ported (the others
-raise), and the packed u16 wire is not.
+together, whatever the representation (``voxel_grid``, ``histogram`` or
+``ev_segnet``). The packed u16 wire is not ported.
 
 Augmentation draws come from an explicit ``torch.Generator``; they cannot
 reproduce JAX's PRNG bits, so parity tests pass :class:`AugmentParams`
@@ -32,11 +32,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ess_tpu_torch.ops.batch_voxel import effective_bins, voxelize_window_soa
+from ess_tpu_torch.ops.batch_voxel import (
+    REPRESENTATIONS, effective_bins, voxelize_window_soa)
 from ess_tpu_torch.ops.resize import resize_bilinear
-
-
-REPRESENTATIONS = ("voxel_grid",)   # the ported event representations
 
 
 @dataclass(frozen=True)
@@ -62,11 +60,18 @@ class PipelineConfig:
 
     def __post_init__(self):
         if self.representation not in REPRESENTATIONS:
-            raise ValueError(f"representation {self.representation!r} is "
-                             f"not ported; expected one of {REPRESENTATIONS}")
+            raise ValueError(f"unknown representation "
+                             f"{self.representation!r}; expected one of "
+                             f"{REPRESENTATIONS}")
 
     @property
     def channels(self) -> int:
+        """Channels of a built window. JAX's property gives ``num_bins``
+        for ``ev_segnet``; this is the grid's real count (6)."""
+        if self.representation == "histogram":
+            return 2
+        if self.representation == "ev_segnet":
+            return 6
         return effective_bins(self.num_bins, self.separate_pol,
                               self.trilinear)
 
@@ -208,9 +213,9 @@ class EventPipeline:
             grids = voxelize_window_soa(
                 x, y, t, p, valid, offsets_kind=offsets_kind,
                 num_bins=cfg.num_bins, height=cfg.sensor_height,
-                width=cfg.sensor_width, separate_pol=cfg.separate_pol,
-                trilinear=cfg.trilinear, normalize=cfg.normalize,
-                tile_offsets=tile_offsets)
+                width=cfg.sensor_width, representation=cfg.representation,
+                separate_pol=cfg.separate_pol, trilinear=cfg.trilinear,
+                normalize=cfg.normalize, tile_offsets=tile_offsets)
             return self._transform_grid(grids, aug)
 
         return fn

@@ -42,19 +42,28 @@ def conv_state(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     return _conv(p, prefix)
 
 
+_GRU_GATES = ("reset_gate", "update_gate", "out_gate")
+
+
 def params_from_jax(e2vid_params: Mapping[str, Any],
                     back_params: Mapping[str, Any]
                     ) -> tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(JAX RecurrentUNet params, JAX skip-connect SegmentationHead params)
-    -> (``RecurrentUNet`` state dict, ``SegmentationHead`` state dict)."""
+    """(JAX RecurrentUNet params, JAX SegmentationHead params) ->
+    (``RecurrentUNet`` state dict, ``SegmentationHead`` state dict), for
+    ConvLSTM (``rnn.gates``) or ConvGRU (``rnn.{reset,update,out}_gate``)
+    encoders and the skip-connect or the plain head."""
     e2vid: Dict[str, torch.Tensor] = {}
     e2vid.update(_conv(e2vid_params["head"]["Conv_0"], "head.conv2d"))
     i = 0
     while f"encoder_{i}" in e2vid_params:
         enc = e2vid_params[f"encoder_{i}"]
+        cell = f"encoders.{i}.recurrent_block"
         e2vid.update(_conv(enc["conv"]["Conv_0"], f"encoders.{i}.conv.conv2d"))
-        e2vid.update(_conv(enc["rnn"]["gates"],
-                           f"encoders.{i}.recurrent_block.Gates"))
+        if "gates" in enc["rnn"]:
+            e2vid.update(_conv(enc["rnn"]["gates"], f"{cell}.Gates"))
+        else:
+            for gate in _GRU_GATES:
+                e2vid.update(_conv(enc["rnn"][gate], f"{cell}.{gate}"))
         e2vid.update(_conv(e2vid_params[f"decoder_{i}"]["Conv_0"],
                            f"decoders.{i}.conv2d"))
         i += 1
@@ -67,16 +76,19 @@ def params_from_jax(e2vid_params: Mapping[str, Any],
     e2vid.update(_conv(e2vid_params["pred"]["Conv_0"], "pred.conv2d"))
 
     head: Dict[str, torch.Tensor] = {}
-    for i in range(5):
+    skip = "reduce" in back_params
+    for i in range(5 if skip else 3):
         res = back_params[f"res_{i}"]
         head.update(_conv(res["Conv_0"], f"decoder_scale_1.{i}.model.0"))
         head.update(_conv(res["Conv_1"], f"decoder_scale_1.{i}.model.3"))
-    for name, prefix in (("reduce", "decoder_scale_1.5"),
-                         ("s2_a", "decoder_scale_2.0"),
-                         ("s2_b", "decoder_scale_2.1"),
-                         ("s3_a", "decoder_scale_3.0"),
-                         ("s3_b", "decoder_scale_3.1"),
-                         ("s4", "decoder_scale_4.0")):
+    # the plain head's scales hold their upsample at .0, their conv at .1
+    convs = ((("reduce", "decoder_scale_1.5"), ("s2_a", "decoder_scale_2.0"),
+              ("s2_b", "decoder_scale_2.1"), ("s3_a", "decoder_scale_3.0"),
+              ("s3_b", "decoder_scale_3.1"), ("s4", "decoder_scale_4.0"))
+             if skip else
+             (("s2", "decoder_scale_2.1"), ("s3", "decoder_scale_3.1"),
+              ("s4", "decoder_scale_4.1")))
+    for name, prefix in convs:
         head.update(_conv(back_params[name]["Conv_0"], f"{prefix}.model.0"))
     head.update(_conv(back_params["logits"], "decoder_scale_5.0"))
     return e2vid, head
@@ -243,9 +255,11 @@ def load_style_encoder_torch(source, front: nn.Module) -> None:
 
 def load_semseg_head_torch(source, head: nn.Module, *,
                            skip_connect: bool = True) -> None:
-    """Load an upstream ``SemSegE2VID`` state dict into the port's
-    ``SegmentationHead`` (the same module names; instance norms carry no
-    parameters). The port builds only the skip-connect head."""
-    if not skip_connect:
-        raise ValueError("the port builds only the skip-connect head")
+    """Load an upstream ``SemSegE2VID`` state dict, of the skip-connect or
+    (``skip_connect=False``) the plain head, into the port's
+    ``SegmentationHead`` of the same kind (the same module names; instance
+    norms and upsamples carry no parameters)."""
+    if skip_connect != head.skip_connect:
+        raise ValueError(f"a skip_connect={skip_connect} state dict for a "
+                         f"skip_connect={head.skip_connect} head")
     _load_exact(head, _read(source))

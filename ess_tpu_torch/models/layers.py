@@ -2,16 +2,20 @@
 
 Counterpart of ``ess_tpu/models/layers.py`` (``ConvLayer`` with its
 block-space form ``_BlockConv`` at ``in_block=2``, ``ResidualBlock``,
-``UpsampleConvLayer``, ``ConvLSTMCell``, ``RecurrentConvLayer``,
-``ReLUINSConv2d``, ``INSResBlock``, ``upsample2x_nearest``, ``skip_merge``,
-``TorchBatchNorm`` as :class:`BatchNorm2d`; ``instance_norm`` is
-``nn.InstanceNorm2d(affine=False)``). The JAX
+``UpsampleConvLayer``, ``ConvLSTMCell``, ``ConvGRUCell``,
+``RecurrentConvLayer``, ``ReLUINSConv2d``, ``INSResBlock``,
+``upsample2x_nearest``, ``skip_merge``, ``TorchBatchNorm`` as
+:class:`BatchNorm2d`, ``instance_norm``). The E2VID
+layers take the JAX package's ``norm``: None or ``'IN'`` (instance norm
+without affine parameters, eps 1e-5, before the activation); ``'BN'``
+raises (:func:`check_norm`). The JAX
 package's im2col, decoder and quad-block space-to-depth variants compute
 the same functions with remapped weights; a plain convolution is the same
 function here.
 
 Submodule names follow upstream ESS/E2VID (``conv2d``,
-``recurrent_block.Gates``, ``conv1``/``conv2``, ``model.<i>``), so a
+``recurrent_block.Gates``, ``recurrent_block.{reset,update,out}_gate``,
+``conv1``/``conv2``, ``model.<i>``), so a
 module's ``state_dict`` is a reference-format checkpoint. Parameters stay
 float32; every conv casts them to its input's dtype, the JAX package's
 mixed-precision rule (bf16 compute, f32 params).
@@ -154,57 +158,96 @@ class BlockConv:
         return out if fuse_relu else _ACTIVATIONS[self.activation](out)
 
 
+NORMS = (None, "IN")   # the E2VID norms the port runs
+
+
+def check_norm(norm: Optional[str]) -> None:
+    """Raise unless the port runs ``norm``. The JAX package builds
+    ``'BN'`` but cannot roll it out: its batch norms read a
+    ``batch_stats`` collection that ``init_state`` does not keep (flax
+    raises ``ScopeCollectionNotFound``), so the port refuses it here."""
+    if norm == "BN":
+        raise ValueError("e2vid_norm 'BN' is not run by the JAX package "
+                         "either: its rollout needs batch statistics that "
+                         "init_state drops")
+    if norm not in NORMS:
+        raise ValueError(f"unknown e2vid_norm {norm!r}; expected one of "
+                         f"{NORMS}")
+
+
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample, per-channel normalization over H and W (no affine,
+    eps 1e-5), in x's memory format: the cell kernels read channels-last
+    operands, and ``F.instance_norm`` returns NCHW-contiguous tensors."""
+    y = F.instance_norm(x, eps=1e-5)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y
+
+
+def _norm_fn(norm: Optional[str]):
+    check_norm(norm)
+    return (lambda x: x) if norm is None else instance_norm
+
+
 class ConvLayer(nn.Module):
-    """Conv (padding k//2) + optional activation. With ``block_space`` the
-    input is a 2x2 space-to-depth tensor and the (5x5) conv runs in block
-    form (:class:`BlockConv`) on ``block_conv_impl``, over the same
-    parameters."""
+    """Conv (padding k//2) + optional norm + optional activation. With
+    ``block_space`` the input is a 2x2 space-to-depth tensor and the (5x5,
+    norm-free) conv runs in block form (:class:`BlockConv`) on
+    ``block_conv_impl``, over the same parameters."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
-                 activation: Optional[str] = "relu", *, device=None):
+                 activation: Optional[str] = "relu", *,
+                 norm: Optional[str] = None, device=None):
         super().__init__()
         self.conv2d = Conv2d(in_channels, out_channels, kernel_size, stride,
                              padding=kernel_size // 2, device=device)
+        self.norm = _norm_fn(norm)
         self.activation = _ACTIVATIONS[activation]
         self._block = (BlockConv(self.conv2d, activation)
-                       if kernel_size == 5 and stride in (1, 2) else None)
+                       if kernel_size == 5 and stride in (1, 2)
+                       and norm is None else None)
 
     def forward(self, x: torch.Tensor, block_space: bool = False,
                 block_conv_impl: str = "xla") -> torch.Tensor:
         if block_space:
             if self._block is None:
-                raise ValueError("the block-space path takes 5x5 convs of "
-                                 f"stride 1 or 2, got {self.conv2d}")
+                raise ValueError("the block-space path takes norm-free 5x5 "
+                                 f"convs of stride 1 or 2, got {self.conv2d}")
             return self._block(x, block_conv_impl)
-        return self.activation(self.conv2d(x))
+        return self.activation(self.norm(self.conv2d(x)))
 
 
 class ResidualBlock(nn.Module):
-    """relu(conv2(relu(conv1(x))) + x), 3x3 convs, no norm."""
+    """relu(norm(conv2(relu(norm(conv1(x))))) + x), 3x3 convs."""
 
-    def __init__(self, channels: int, *, device=None):
+    def __init__(self, channels: int, *, norm: Optional[str] = None,
+                 device=None):
         super().__init__()
         self.conv1 = Conv2d(channels, channels, 3, padding=1, device=device)
         self.conv2 = Conv2d(channels, channels, 3, padding=1, device=device)
+        self.norm = _norm_fn(norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.conv2(torch.relu(self.conv1(x))) + x)
+        y = torch.relu(self.norm(self.conv1(x)))
+        return torch.relu(self.norm(self.conv2(y)) + x)
 
 
 class UpsampleConvLayer(nn.Module):
-    """Bilinear 2x upsample + conv + activation."""
+    """Bilinear 2x upsample + conv + optional norm + activation."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, activation: Optional[str] = "relu", *,
-                 device=None):
+                 norm: Optional[str] = None, device=None):
         super().__init__()
         self.conv2d = Conv2d(in_channels, out_channels, kernel_size,
                              padding=kernel_size // 2, device=device)
+        self.norm = _norm_fn(norm)
         self.activation = _ACTIVATIONS[activation]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.activation(self.conv2d(upsample2x_bilinear(x)))
+        return self.activation(self.norm(self.conv2d(upsample2x_bilinear(x))))
 
 
 class ConvLSTMCell(nn.Module):
@@ -249,24 +292,65 @@ class ConvLSTMCell(nn.Module):
         return h, (h, c)
 
 
+class ConvGRUCell(nn.Module):
+    """Convolutional GRU cell: ``update_gate`` and ``reset_gate`` 3x3 convs
+    over concat([x, h]), ``out_gate`` over concat([x, h * reset]), and
+    h' = h (1 - update) + tanh(out) update, in the input's dtype. The JAX
+    package computes it with XLA convs, not a Pallas kernel, so it runs on
+    the library convs; it takes no cell name."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 kernel_size: int = 3, *, device=None):
+        super().__init__()
+        gate = lambda: Conv2d(input_size + hidden_size, hidden_size,
+                              kernel_size, padding=kernel_size // 2,
+                              device=device)
+        self.reset_gate, self.update_gate, self.out_gate = (
+            gate(), gate(), gate())
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h_prev = state.to(x.dtype)
+        xh = torch.cat([x, h_prev], dim=1)
+        update = torch.sigmoid(self.update_gate(xh))
+        reset = torch.sigmoid(self.reset_gate(xh))
+        cand = torch.tanh(self.out_gate(torch.cat([x, h_prev * reset],
+                                                  dim=1)))
+        h = h_prev * (1.0 - update) + cand * update
+        return h, h
+
+
+RECURRENT_BLOCKS = ("convlstm", "convgru")
+
+
 class RecurrentConvLayer(nn.Module):
-    """Stride-2 5x5 conv + ReLU followed by a ConvLSTM cell (``impl`` as
-    :class:`ConvLSTMCell`). With ``block_space`` the input is a 2x2
-    space-to-depth tensor: the conv runs in block form and lands unblocked
-    at half resolution, where the cell runs as always."""
+    """Stride-2 5x5 conv (+ ``norm``) + ReLU followed by a recurrent cell:
+    a ConvLSTM cell (``impl`` as :class:`ConvLSTMCell`) or, with
+    ``recurrent_block='convgru'``, a :class:`ConvGRUCell` (state one tensor,
+    ``impl`` unused). With ``block_space`` the input is a 2x2 space-to-depth
+    tensor: the conv runs in block form and lands unblocked at half
+    resolution, where the cell runs as always."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 5, stride: int = 2, *, device=None):
+                 kernel_size: int = 5, stride: int = 2, *,
+                 recurrent_block: str = "convlstm",
+                 norm: Optional[str] = None, device=None):
         super().__init__()
+        if recurrent_block not in RECURRENT_BLOCKS:
+            raise ValueError(f"unknown recurrent block {recurrent_block!r}; "
+                             f"expected one of {RECURRENT_BLOCKS}")
         self.conv = ConvLayer(in_channels, out_channels, kernel_size, stride,
-                              "relu", device=device)
-        self.recurrent_block = ConvLSTMCell(out_channels, out_channels,
-                                            device=device)
+                              "relu", norm=norm, device=device)
+        cell = (ConvLSTMCell if recurrent_block == "convlstm"
+                else ConvGRUCell)
+        self.recurrent_block = cell(out_channels, out_channels, device=device)
 
     def forward(self, x: torch.Tensor, state, impl: str = "pallas",
                 block_space: bool = False, block_conv_impl: str = "xla"):
-        return self.recurrent_block(
-            self.conv(x, block_space, block_conv_impl), state, impl)
+        x = self.conv(x, block_space, block_conv_impl)
+        if isinstance(self.recurrent_block, ConvGRUCell):
+            return self.recurrent_block(x, state)
+        return self.recurrent_block(x, state, impl)
 
 
 class ReLUINSConv2d(nn.Module):

@@ -1,8 +1,8 @@
 """Batched voxelization of event windows on the two event wires.
 
 Counterpart of ``ess_tpu/ops/batch_voxel.py``: ``effective_bins``, the two
-branches of ``_voxelize_pallas`` and their dispatcher
-``voxelize_window_soa`` for the ``voxel_grid`` representation.
+branches of ``_voxelize_pallas``, the ``histogram`` and ``ev_segnet``
+representations and their dispatcher ``voxelize_window_soa``.
 
 - :func:`voxelize_band` (``offsets_kind='band'``): host ghost-folded records
   with pre-weighted polarity through the fold-free voxelizer, normalized
@@ -16,12 +16,18 @@ branches of ``_voxelize_pallas`` and their dispatcher
 
 Both apply the per-window time normalization over the valid events and the
 in-frame mask, voxelize on the grid padded to whole tiles, and crop back to
-the sensor size. Grids are NCHW.
+the sensor size.
+
+- :func:`event_histogram` and :func:`ev_segnet_grid`: raw events of any
+  order (tile offsets are ignored) through one flat ATen scatter-add, as
+  the JAX package computes them with an XLA scatter, not a Pallas kernel.
+
+Grids are NCHW.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -139,17 +145,102 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     return normalize_nonzero(grid) if normalize else grid
 
 
+def _pixel_index(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
+                 height: int, width: int):
+    """(in-frame mask, flat pixel index) of (B, N) events: coordinates cast
+    to integers toward zero (an x in (-1, 0) lands in column 0), as JAX's
+    ``astype(int32)``."""
+    xi = x.float().to(torch.int64)
+    yi = y.float().to(torch.int64)
+    ok = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height) & valid
+    return ok, yi * width + xi
+
+
+def _scatter_planes(ok: torch.Tensor, index: torch.Tensor,
+                    values: Sequence[torch.Tensor], planes: int,
+                    cells: int) -> list:
+    """Sum each of ``values`` (B, N) at ``index`` (B, N, in [0, planes *
+    cells)) of its sample's ``planes`` planes; events outside ``ok`` add
+    nothing. One flat ``index_add_`` a value -> (B, planes, cells) f32."""
+    b = ok.shape[0]
+    boff = torch.arange(b, device=ok.device)[:, None] * (planes * cells)
+    idx = torch.where(ok, boff + index, 0).reshape(-1)
+    out = []
+    for v in values:
+        flat = torch.zeros(b * planes * cells, dtype=torch.float32,
+                           device=ok.device)
+        flat.index_add_(0, idx, torch.where(ok, v, 0.0).reshape(-1))
+        out.append(flat.view(b, planes, cells))
+    return out
+
+
+def event_histogram(x: torch.Tensor, y: torch.Tensor, p: torch.Tensor,
+                    valid: torch.Tensor, *, height: int, width: int
+                    ) -> torch.Tensor:
+    """(B, N) events -> (B, 2, height, width) f32 event counts per pixel:
+    channel 0 the negative events, 1 the positive ones (``p > 0``)."""
+    ok, pix = _pixel_index(x, y, valid, height, width)
+    cells = height * width
+    chan = (p > 0).to(torch.int64)
+    (grid,) = _scatter_planes(ok, chan * cells + pix,
+                              [torch.ones_like(x, dtype=torch.float32)],
+                              2, cells)
+    return grid.view(-1, 2, height, width)
+
+
+def ev_segnet_grid(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                   p: torch.Tensor, valid: torch.Tensor, *, height: int,
+                   width: int) -> torch.Tensor:
+    """(B, N) events -> (B, 6, height, width) f32: EV-SegNet's
+    representation, per polarity the event count and the mean and standard
+    deviation of the timestamps normalized to [0, 1] over the window's
+    valid events, in the order [cnt+, cnt-, mean_t+, mean_t-, std_t+,
+    std_t-]. A window with no valid event gives zeros."""
+    ok, pix = _pixel_index(x, y, valid, height, width)
+    cells = height * width
+    t = t.float()
+    tmax = torch.where(valid, t, -torch.inf).amax(-1, keepdim=True)
+    tmin = torch.where(valid, t, torch.inf).amin(-1, keepdim=True)
+    tn = (t - tmin) / torch.clamp(tmax - tmin, min=1e-9)
+    chan = torch.where(p > 0, 0, 1)
+    cnt, s_t, s_t2 = _scatter_planes(
+        ok, chan * cells + pix, [torch.ones_like(tn), tn, tn * tn], 2, cells)
+    denom = torch.clamp(cnt, min=1.0)
+    mean = s_t / denom
+    std = torch.sqrt(torch.clamp(s_t2 / denom - mean * mean, min=0.0))
+    return torch.cat([cnt, mean, std], 1).view(-1, 6, height, width)
+
+
+REPRESENTATIONS = ("voxel_grid", "histogram", "ev_segnet")
+
+
 def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                         p: torch.Tensor, valid: torch.Tensor, *,
                         num_bins: int, height: int, width: int,
+                        representation: str = "voxel_grid",
                         separate_pol: bool = False, trilinear: bool = False,
                         normalize: bool = False,
                         tile_offsets: Optional[torch.Tensor] = None,
                         offsets_kind: str = "tile") -> torch.Tensor:
-    """One batched window of struct-of-arrays events -> (B, C, H, W) grids,
-    on the voxelizer that ``offsets_kind`` names: ``'band'`` for host-folded
-    records (``tile_offsets`` are then the band offsets), ``'tile'`` for raw
-    events with host tile offsets or none."""
+    """One batched window of struct-of-arrays events -> (B, C, H, W) grids.
+    The ``voxel_grid`` representation runs on the voxelizer that
+    ``offsets_kind`` names: ``'band'`` for host-folded records
+    (``tile_offsets`` are then the band offsets), ``'tile'`` for raw events
+    with host tile offsets or none. ``'histogram'`` and ``'ev_segnet'``
+    take raw events and ignore ``num_bins``, ``separate_pol``,
+    ``trilinear``, ``normalize`` and any tile offsets, as JAX's branches
+    do; folded band records (pre-weighted polarities) cannot feed them."""
+    if representation not in REPRESENTATIONS:
+        raise ValueError(f"unknown representation {representation!r}; "
+                         f"expected one of {REPRESENTATIONS}")
+    if representation != "voxel_grid":
+        if offsets_kind == "band":
+            raise ValueError(f"the {representation!r} representation takes "
+                             "raw events, not folded band records")
+        if representation == "histogram":
+            return event_histogram(x, y, p, valid, height=height,
+                                   width=width)
+        return ev_segnet_grid(x, y, t, p, valid, height=height, width=width)
     kw = dict(num_bins=num_bins, height=height, width=width,
               normalize=normalize)
     if offsets_kind == "band":

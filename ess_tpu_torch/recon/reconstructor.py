@@ -8,7 +8,8 @@ encoder-only until the last window and decodes only that one. A Python loop
 takes the place of the JAX ``lax.scan``. As there, the rollout runs in block
 space by default: every padded window is folded into 2x2 space-to-depth
 blocks and the model's head and first-encoder convs run as 3x3 convs over
-them.
+them; a model with a norm rolls out in the standard layout (JAX's
+``_use_blocks``).
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ from ess_tpu_torch.ops.pad import CropGeometry, reflect_pad
 @dataclass(frozen=True)
 class Reconstructor:
     """Model plus the static input geometry and, per rollout, the ConvLSTM
-    cell (``lstm_impl``: a resolved cell name; None = the model's), the
-    layout (``block_space``: head and first encoder on space-to-depth
-    blocks, the same function over the same parameters) and the block
-    convs' implementation (``block_conv_impl``: ``'xla'``, ``'pallas'`` or
+    cell (``lstm_impl``: a resolved cell name; None = the model's; a ConvGRU
+    model has no cell name), the layout (``block_space``: head and first
+    encoder on space-to-depth blocks, the same function over the same
+    parameters, where the model has no norm) and the block convs'
+    implementation (``block_conv_impl``: ``'xla'``, ``'pallas'`` or
     ``'pallas_int8'``; None = the model's)."""
 
     model: RecurrentUNet
@@ -38,6 +40,11 @@ class Reconstructor:
     lstm_impl: Optional[str] = None
     block_space: bool = True
     block_conv_impl: Optional[str] = None
+
+    @property
+    def use_blocks(self) -> bool:
+        """Block space asked for and possible: the model has no norm."""
+        return self.block_space and self.model.norm is None
 
     @property
     def geometry(self) -> CropGeometry:
@@ -51,6 +58,7 @@ class Reconstructor:
             batch, g.padded_height, g.padded_width,
             num_encoders=self.model.num_encoders,
             base_channels=self.model.base_channels,
+            recurrent_block=self.model.recurrent_block,
             dtype=self.model.dtype, device=device)
 
     def step(self, events: torch.Tensor, state, *, decode: bool = True,
@@ -63,7 +71,7 @@ class Reconstructor:
         geometry that needs no pad."""
         g = self.geometry
         if events_s2d:
-            if not self.block_space:
+            if not self.use_blocks:
                 raise ValueError("events_s2d needs a block-space rollout")
             if any(g.pads):
                 raise ValueError(
@@ -78,11 +86,11 @@ class Reconstructor:
                 + (" in space-to-depth blocks" if events_s2d else ""))
         if not events_s2d:
             events = reflect_pad(events, g)
-            if self.block_space:
+            if self.use_blocks:
                 events = space_to_depth(events)
         return self.model(events, state, decode=decode,
                           lstm_impl=self.lstm_impl,
-                          block_input=self.block_space,
+                          block_input=self.use_blocks,
                           block_conv_impl=self.block_conv_impl)
 
     def rollout(self, windows: torch.Tensor, init_state=None, *,

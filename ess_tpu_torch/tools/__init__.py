@@ -6,7 +6,9 @@ rollout on the GPU, counterparts of the JAX package's ``tools/``.
 - :mod:`ess_tpu_torch.tools.bench_lstm_breakdown`: the ConvLSTM cell kernel
   with its pointwise, its transcendentals or its operand gather taken out;
 - :mod:`ess_tpu_torch.tools.bench_head`: the head conv on a C-major window
-  with its normalize fused (T1) beside the library conv after a relayout.
+  with its normalize fused (T1) beside the library conv after a relayout;
+- :mod:`ess_tpu_torch.tools.sanity_train`: a supervised overfit of one
+  label-correlated batch at the DSEC bench shape (the loss must fall).
 
 Each runs on ``cuda:0`` unless called with ``device="cpu"``, where it runs
 the kernels' plain versions at whatever small shape the caller passes and

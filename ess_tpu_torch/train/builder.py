@@ -1,12 +1,14 @@
 """Model construction for the supervised and UDA steps from a Config.
 
 Counterpart of ``ess_tpu/train/builder.py`` (``build_modules``,
-``init_state``, ``make_pipeline``): the frozen E2VID backbone, the segmentation head, the
-train and validation rollouts (each with its ConvLSTM cell,
-``model.lstm_impl`` / ``model.lstm_impl_train``, over one parameter set)
-and the head's RAdam; for ESS UDA (``model_name='ess'``) also the ResNet18
-image front and its RAdam. Both rollouts run in block space with the block
-convs on the library conv (``'xla'``), the choice of JAX ``build_modules``;
+``init_state``, ``make_pipeline``): the frozen E2VID backbone (ConvLSTM or
+ConvGRU cells, no norm or instance norm), the segmentation head
+(skip-connect or plain), the train and validation rollouts (each with its
+ConvLSTM cell, ``model.lstm_impl`` / ``model.lstm_impl_train``, over one
+parameter set) and the head's RAdam; for ESS UDA (``model_name='ess'``)
+also the ResNet18 image front and its RAdam. Both rollouts run in block
+space, where the backbone has no norm, with the block convs on the library
+conv (``'xla'``), the choice of JAX ``build_modules``;
 :func:`with_block_conv_impl` puts them on the fused conv kernel.
 """
 
@@ -25,7 +27,7 @@ from ess_tpu_torch.core.config import Config
 from ess_tpu_torch.data.pipeline import EventPipeline, PipelineConfig
 from ess_tpu_torch.models.e2vid import RecurrentUNet
 from ess_tpu_torch.models.layers import (
-    BLOCK_CONV_IMPLS, BatchNorm2d, INSResBlock, ReLUINSConv2d)
+    BLOCK_CONV_IMPLS, BatchNorm2d, ConvGRUCell, INSResBlock, ReLUINSConv2d)
 from ess_tpu_torch.models.resnet import ResNet18Encoder
 from ess_tpu_torch.models.seghead import SegmentationHead
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
@@ -67,23 +69,24 @@ def build_modules(cfg: Config, *, device=None,
         raise ValueError(f"the port builds 'ess_supervised' and 'ess', got "
                          f"{m.model_name!r}")
     is_uda = m.model_name == "ess"
-    if m.e2vid_num_encoders != 3 or m.e2vid_recurrent_block != "convlstm" \
-            or m.e2vid_norm is not None or not m.skip_connect_task:
-        raise ValueError("the port builds the E2VID-lightweight backbone "
-                         "(3 ConvLSTM encoders, no norm) and the skip-connect "
-                         "segmentation head")
+    # the head decodes the scale-8 latent: JAX asserts 3 encoders too
+    if m.e2vid_num_encoders != 3:
+        raise ValueError("ESS needs e2vid_num_encoders=3, got "
+                         f"{m.e2vid_num_encoders}")
     dtype = compute_dtype(cfg)
     e2vid = RecurrentUNet(
         in_channels=cfg.dataset.sensor_b.input_channels,
         base_channels=m.e2vid_base_channels,
         num_encoders=m.e2vid_num_encoders,
         num_residual_blocks=m.e2vid_num_residual_blocks,
-        skip_type=m.e2vid_skip_type, lstm_impl=resolve_lstm_impl(m.lstm_impl),
+        skip_type=m.e2vid_skip_type, recurrent_block=m.e2vid_recurrent_block,
+        norm=m.e2vid_norm, lstm_impl=resolve_lstm_impl(m.lstm_impl),
         dtype=dtype, device=device)
     e2vid.requires_grad_(False)
     head = SegmentationHead(
         cfg.task.semseg_num_classes,
         input_features=m.e2vid_base_channels * 2 ** m.e2vid_num_encoders,
+        skip_connect=m.skip_connect_task,
         skip_type=m.skip_connect_task_type, dtype=dtype, device=device)
     # UDA trains at the (possibly cropped) train size and validates at the
     # val size; supervised ESS trains and validates at ceil(shape / 8) * 8.
@@ -188,17 +191,37 @@ def init_state(mods: ESSModules) -> TrainState:
                       e2vid=mods.e2vid)
 
 
+def orthogonal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill a (C_out, C_in, kh, kw) conv weight as flax's
+    ``initializers.orthogonal()`` fills its (kh, kw, C_in, C_out) kernel:
+    the kernel flattened to (kh kw C_in, C_out) has orthonormal columns (or
+    rows, if it is wide), Q of the QR of a normal matrix with the signs of
+    R's diagonal."""
+    c_out, c_in, kh, kw = weight.shape
+    rows = kh * kw * c_in
+    a = torch.randn((max(rows, c_out), min(rows, c_out)), generator=generator,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < c_out:
+        q = q.T
+    weight.copy_(q.reshape(kh, kw, c_in, c_out).permute(3, 2, 0, 1))
+
+
 @torch.no_grad()
 def init_params(mods: ESSModules, generator: torch.Generator) -> None:
     """Seeded initialization at the JAX package's scales: normal conv kernels
     with variance 1/fan_in and zero biases, N(0, 0.02) kernels in the head's
-    instance-norm blocks; the image front's batch norms at scale 1, bias 0,
-    running mean 0 and running variance 1."""
+    instance-norm blocks, orthogonal kernels in the ConvGRU gates; the image
+    front's batch norms at scale 1, bias 0, running mean 0 and running
+    variance 1."""
     gaussian = set()
     for mod in mods.head.modules():
         if isinstance(mod, (INSResBlock, ReLUINSConv2d)):
             gaussian.update(id(c) for c in mod.model
                             if isinstance(c, nn.Conv2d))
+    orthogonal = {id(c) for mod in mods.e2vid.modules()
+                  if isinstance(mod, ConvGRUCell) for c in mod.children()}
     roots = [mods.e2vid, mods.head]
     if mods.front_a is not None:
         roots.append(mods.front_a)
@@ -210,8 +233,11 @@ def init_params(mods: ESSModules, generator: torch.Generator) -> None:
             if not isinstance(mod, nn.Conv2d):
                 continue
             w = mod.weight
-            std = (0.02 if id(mod) in gaussian
-                   else 1.0 / math.sqrt(w[0].numel()))
-            w.copy_(torch.randn(w.shape, generator=generator) * std)
+            if id(mod) in orthogonal:
+                orthogonal_(w, generator)
+            else:
+                std = (0.02 if id(mod) in gaussian
+                       else 1.0 / math.sqrt(w[0].numel()))
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
             if mod.bias is not None:
                 mod.bias.zero_()

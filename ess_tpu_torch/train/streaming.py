@@ -2,7 +2,7 @@
 
 Counterpart of ``ess_tpu/train/streaming.py`` (``make_streaming_steps``,
 ``run_streaming_eval``): consecutive non-overlapping event windows roll
-through the recurrent encoder with the ConvLSTM state carried across
+through the recurrent encoder with the recurrent state carried across
 samples (reset only where ``is_first`` is set), and the segmentation head is
 scored at the windows that carry a label. Windows without a label run
 encoder-only; the state and the confusion matrix stay on the device.
@@ -10,7 +10,9 @@ encoder-only; the state and the confusion matrix stay on the device.
 A window batch holds ``ev_x, ev_y, ev_t, ev_p, ev_valid`` of shape (B, N) or
 (B, 1, N), ``is_first`` (B,), for a scored window ``label`` (B, H, W), and
 picks its voxelizer by key presence: ``ev_band_offsets`` the fold-free one,
-``ev_tile_offsets`` or no offsets the halo-tiled one.
+``ev_tile_offsets`` or no offsets the halo-tiled one; the ``histogram`` and
+``ev_segnet`` representations take raw events with or without tile offsets
+(their scatter ignores them).
 """
 
 from __future__ import annotations
@@ -47,13 +49,13 @@ def make_streaming_steps(mods: ESSModules, pipeline: EventPipeline
 
     def _reset_where(is_first: torch.Tensor, recon_state):
         """Zero the state of the streams that start a sequence, on the
-        state's device; every tensor comes out as a new channels-last
-        buffer."""
+        state's device; every tensor ((h, c) of a ConvLSTM level, h of a
+        ConvGRU one) comes out as a new channels-last buffer."""
         flag = is_first.to(torch.bool).view(-1, 1, 1, 1)
-        return tuple(
-            tuple(torch.where(flag, 0.0, s).contiguous(
-                memory_format=torch.channels_last) for s in hc)
-            for hc in recon_state)
+        reset = lambda s: torch.where(flag, 0.0, s).contiguous(
+            memory_format=torch.channels_last)
+        return tuple(tuple(map(reset, st)) if isinstance(st, tuple)
+                     else reset(st) for st in recon_state)
 
     def _window(batch: Batch) -> torch.Tensor:
         take = lambda a: a[:, 0] if a.ndim == 3 else a

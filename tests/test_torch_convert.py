@@ -9,6 +9,8 @@ The config is ``tiny_config('ess')`` (E2VID base 8, so a 16-wide image
 front): the loaders map names and layouts, whatever the widths.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -204,7 +206,27 @@ def test_bad_keys_raise(setup, tmp_path, what, fault):
 
 
 def test_plain_head_is_not_built(setup):
-    cfg, _ = setup
-    with pytest.raises(ValueError, match="skip-connect"):
-        convert.load_semseg_head_torch({}, port_mods(cfg).head,
+    """The plain head (``skip_connect_task=False``) is built only as the
+    plain head: an upstream plain ``SemSegE2VID`` state dict loads into it
+    as JAX's ``load_semseg_head_torch(skip_connect=False)`` maps it (every
+    parameter equal through ``params_from_jax``), and a state dict of one
+    kind does not load into a head of the other."""
+    cfg, state = setup
+    plain = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  skip_connect_task=False))
+    jstate = jax.device_get(jax_init_state(jax_build(plain),
+                                           jax.random.PRNGKey(1)))
+    mods = port_mods(plain)
+    src = prefixed(randomized(mods.head.state_dict(), 4))
+    assert any(k.startswith("module.decoder_scale_4.1.") for k in src)
+    convert.load_semseg_head_torch(src, mods.head, skip_connect=False)
+    jax_head = jax_convert.load_semseg_head_torch(
+        src, jstate.back_params, skip_connect=False)
+    _, head_sd = convert.params_from_jax(jstate.e2vid_params, jax_head)
+    assert_state_equal(mods.head.state_dict(), head_sd)
+    with pytest.raises(ValueError, match="skip_connect"):
+        convert.load_semseg_head_torch(src, port_mods(cfg).head,
                                        skip_connect=False)
+    with pytest.raises(ValueError, match="skip_connect"):
+        convert.load_semseg_head_torch(prefixed(head_reference(cfg)),
+                                       mods.head)

@@ -209,7 +209,9 @@ def test_crop_draws_from_the_resized_size():
 
 def test_make_pipeline_branches():
     """The DSEC, DDD17 and other branches of JAX ``make_pipeline`` (their
-    geometry and augmentation), and the unported options raise."""
+    geometry and augmentation, and the three representations); the
+    rectification on the device (unported) and an unknown representation
+    raise."""
     for name, model_name, train in (
             ("DSEC_events", "ess_supervised", True),
             ("DDD17_events", "ess", True), ("DDD17_events", "ess", False),
@@ -230,9 +232,22 @@ def test_make_pipeline_branches():
     assert bench.make_pipeline().cfg == PipelineConfig(
         sensor_height=480, sensor_width=640, num_bins=5, crop_bottom=40,
         trilinear=True, normalize=True)
+    # the histogram and EV-SegNet representations build as JAX's (their
+    # windows: tests/test_torch_representations.py); an unknown one raises
+    for rep in ("histogram", "ev_segnet"):
+        cfg = ddd17_cfg("ess")
+        cfg = cfg.replace(dataset=dataclasses.replace(
+            cfg.dataset, sensor_b=dataclasses.replace(
+                cfg.dataset.sensor_b, event_representation=rep)))
+        want = jax_make_pipeline(cfg, train=True).cfg
+        got = make_pipeline(port_config(cfg), train=True).cfg
+        assert got.representation == rep
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name), (rep,
+                                                                   f.name)
     with pytest.raises(ValueError):
         PipelineConfig(sensor_height=8, sensor_width=8,
-                       representation="histogram")
+                       representation="voxel")
 
 
 # --- the steps on a reduced DDD17 geometry ---------------------------------

@@ -21,7 +21,8 @@ MODULES = [
     "ess_tpu_torch.tools", "ess_tpu_torch.tools.bench_head",
     "ess_tpu_torch.tools.bench_level",
     "ess_tpu_torch.tools.bench_lstm_breakdown",
-    "ess_tpu_torch.tools.bench_cell_host", "ess_tpu_torch.ops.conv_halo",
+    "ess_tpu_torch.tools.bench_cell_host",
+    "ess_tpu_torch.tools.sanity_train", "ess_tpu_torch.ops.conv_halo",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.models.resnet",
