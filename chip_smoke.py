@@ -177,12 +177,18 @@ exits non-zero, with no result line):
 9. host event path: an in-memory DSEC-shaped recording (20M events on
    480x640, a rectify map with sub-pixel offsets, labels every ~0.3 s)
    through ``DSECSequence.from_store`` (slicer, then the fused native
-   rectify + band binning on both band wires: 5 x-slots and full-width
-   bands) -> ``BatchLoader`` (pinned collate ring) -> ``prefetch_to_device``
-   -> the eval step at B=8, T=20 windows of 100k events, with the two
-   wires' outputs held against each other, and through ``SequenceRecurrent``
-   -> ``run_streaming_eval`` at B=1 on both wires -- host ingest ms per
-   window, launch counts, windows/s and the device idle share.
+   rectify + binning on four wires: f32 band records on 5 x-slots and on
+   full-width bands, and ``wire_format='packed'`` u16 columns of the folded
+   records and of tile-sorted events) -> ``BatchLoader`` (pinned collate
+   ring) -> ``prefetch_to_device`` -> the eval step at B=8, T=20 windows of
+   100k events, each wire's outputs held against the default wire's, and
+   through ``SequenceRecurrent`` -> ``run_streaming_eval`` at B=1 on every
+   wire -- host ingest ms per window, bytes a batch on the host-to-device
+   wire, launch counts, windows/s and the device idle share; on each packed
+   wire also, on one batch decoded on the card, its voxelizer (B1 or B3)
+   against its plain version, the eval step against the plain versions,
+   and the supervised train step and the UDA train step (B=8, int8 cell)
+   with their launch counts and first losses against the plain versions.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -247,6 +253,9 @@ LEVEL_SMALL = [((2, 8, 32, 32), 32, False), ((2, 32, 16, 16), 32, True)]
 
 # tolerances, stated before any run on the card
 VOXEL_ATOL = 1e-4      # normalized grid: same f32 weights, atomic order
+# cells zero in one grid only, a voxelizer on 160 decoded packed windows vs
+# its plain version (a + and - deposit that cancel in one order only)
+VOXEL_PATTERN_MAX = 16
 LSTM_H_ATOL = 2e-2     # bf16 state, f32 accumulation in another order
 LSTM_C_ATOL = 3e-2
 # Slice, kernel path vs plain path. The logits are bf16 and the seeded
@@ -319,14 +328,46 @@ UDA_LOSS_KEYS = sorted(
 # as the eval step's 20.
 STREAM_WINDOWS = 40
 # Host event path (phase 9): an in-memory recording of DATA_EVENTS events at
-# ~2M events/s, DATA_SAMPLES labeled samples (two B=8 eval batches per band
-# wire) and DATA_STREAM windows streamed at B=1 per wire; both band wires
-# (DSECSequence binnings: 5 x-slots per band, B1; full-width bands,
-# B3-legacy) are held against each other under the slice bounds (SLICE_*).
+# ~2M events/s, DATA_SAMPLES labeled samples (two B=8 eval batches per
+# wire) and DATA_STREAM windows streamed at B=1 per wire. The wires are
+# DSECSequence's (binning, wire_format): f32 records on 5 x-slots per band
+# (B1, the default) and on full-width bands (B3-legacy), and the packed u16
+# wire's folded records (B1) and tile-sorted events (B3). Every other wire
+# is held against the default under the slice bounds (SLICE_*): the
+# full-width bands reorder sums, the packed wires quantize coordinates to
+# 1/64 px, times to 1/60000 of a window and folded polarities to 1/127.
 DATA_EVENTS = 20_000_000
 DATA_SAMPLES = 16
 DATA_STREAM = 60
-DATA_WIRES = ("folded", "folded_bands")
+DATA_WIRES = {"folded": ("folded", "f32"),
+              "folded_bands": ("folded_bands", "f32"),
+              "packed_folded": ("folded", "packed"),
+              "packed": ("tile", "packed")}
+# A packed wire against the default f32 wire: the windows before
+# normalization within the JAX package's packed-vs-f32 grid bounds
+# (tests/test_native.py: max |d| 0.25 on the folded wire, 1.01 on the tile
+# wire, where an event in (-1, 0) is clamped onto the frame edge; mean |d|
+# 5e-3), the eval outputs within the slice bounds on the latent, all
+# pixels' argmax and the confusion matrix. The argmax where the top-2 gap
+# exceeds SLICE_GAP is held to PACKED_PRED_AGREE_CLEAR, not to the
+# summation-order bound: the quantized input moves the seeded backbone's
+# logits by more, in the JAX package as in the port
+# (tests/test_torch_packed_steps.py reads the same agreement from both).
+# The bound lies between the correct decode (98.30-98.35 %) and the nearest
+# of five faulty decodes (92.69-92.73 %, x one lattice step off; NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md); the first packed batch is also decoded
+# with the two faults nearest to it, and the bound must reject both.
+PACKED_GRID_MAX = {"packed_folded": 0.25, "packed": 1.01}
+PACKED_GRID_MEAN = 5e-3
+PACKED_PRED_AGREE_CLEAR = 97.0
+PACKED_FAULTS = {
+    "x one lattice step (1/64 px) off": lambda d: dict(
+        d, ev_x=d["ev_x"] + 1.0 / 64.0),
+    "time 1% short": lambda d: dict(d, ev_t=d["ev_t"] * 0.99),
+}
+# the voxelizer each wire launches (KERNEL_NAMES index)
+DATA_VOXELIZER = {"folded": 0, "folded_bands": 8, "packed_folded": 0,
+                  "packed": 3}
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -2101,35 +2142,233 @@ def make_recording(seed: int):
     return ArrayEventStore(x, y, t, p), rmap, t[idx], labels
 
 
+def wire_counts(wire: str, n_vox: int, n_exact: int, n_int8: int = 0
+                ) -> tuple:
+    """Launch counts (KERNEL_NAMES order) of a path on a phase-9 wire:
+    ``n_vox`` voxelizer launches and the cells'."""
+    counts = [0] * len(KERNEL_NAMES)
+    counts[DATA_VOXELIZER[wire]] = n_vox
+    counts[1], counts[2] = n_exact, n_int8
+    return tuple(counts)
+
+
+def wire_bytes(sample: dict) -> tuple:
+    """(event columns + offsets, label) bytes of one sample."""
+    arrays = {k: v for k, v in sample.items() if isinstance(v, np.ndarray)}
+    label = arrays.pop("label").nbytes
+    return sum(v.nbytes for v in arrays.values()), label
+
+
+def packed_checks(dev, kern_rows, wire: str, batch: dict, eval_step,
+                  logits) -> None:
+    """On one packed batch (on the card, as the loader delivered it): the
+    wire's voxelizer on the decoded windows against its plain version, the
+    eval step against the plain versions, and the train and UDA train
+    steps' launches and first losses against the plain versions."""
+    pipe = bench.make_pipeline()
+    dec = pipe.decode_packed(batch)
+    if dec["ev_x"].device != batch["ev_xq"].device:
+        raise AssertionError("the packed batch was decoded off its device")
+    flat = lambda a: a.transpose(0, 1).reshape(-1, a.shape[-1]).contiguous()
+    kind = "band" if wire == "packed_folded" else "tile"
+    offs = flat(dec[f"ev_{kind}_offsets"])
+    cols = [flat(dec[k]) for k in ("ev_x", "ev_y", "ev_t", "ev_p",
+                                   "ev_valid")]
+    x, y, t, p, valid = cols
+    th = voxel_folded.tile_h_for_bins(BINS)
+    kw = dict(bins=BINS, height=-(-SENSOR_H // th) * th, width=SENSOR_W)
+    if kind == "band":
+        args, kw = batch_voxel.band_operands(
+            x, y, t, p, valid, offs, num_bins=BINS, height=SENSOR_H,
+            width=SENSOR_W, t_prenormalized=True)
+        kernel, plain = voxel_folded.voxelize_folded, \
+            voxel_folded.voxelize_folded_ref
+        grids = lambda f: f(*args, **kw)          # (grid, stats)
+        norm = normalize_from_stats
+    else:
+        ok = valid & (x > -1) & (x < SENSOR_W) & (y > -1) & (y < SENSOR_H)
+        pol = torch.where(ok, torch.where(p > 0, 1.0, -1.0), 0.0)
+        args = (x, y, t, pol.contiguous(), offs.int())
+        kernel, plain = voxel_tiled.voxelize_tiled, \
+            voxel_tiled.voxelize_tiled_ref
+        grids = lambda f: (f(*args, **kw), None)
+        norm = lambda g, _: normalize_nonzero(g)
+    (raw_k, stats_k), (raw_p, stats_p) = grids(kernel), grids(plain)
+    err_raw = (raw_k - raw_p).abs().max().item()
+    # on the 1/64-px lattice + and - events cancel exactly in one sum order
+    # and leave a residue in another: such a cell is zero in one grid only,
+    # and the nonzero normalization moves it by the grid's mean over std
+    both = (raw_k != 0) & (raw_p != 0)
+    err = (norm(raw_k, stats_k) - norm(raw_p, stats_p))[both].abs().max() \
+        .item()
+    pattern = int(((raw_k != 0) != (raw_p != 0)).sum())
+    name = "B1" if kind == "band" else "B3"
+    ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+    log(f"  {wire} wire, {name} on the {offs.shape[0]} decoded windows of a "
+        f"B=8 batch vs its plain version: raw grid max|d| {err_raw:.3e}, "
+        f"normalized grid max|d| {err:.3e} where both are nonzero (bounds "
+        f"{VOXEL_ATOL}); {pattern} of {raw_k.numel()} cells zero in one "
+        f"grid only (bound {VOXEL_PATTERN_MAX}); kernel {ms:.3f} ms a call")
+    if not (err_raw <= VOXEL_ATOL and err <= VOXEL_ATOL
+            and pattern <= VOXEL_PATTERN_MAX):
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"the {wire} wire")
+    del raw_k, raw_p, dec, cols, args
+
+    out = eval_step(batch)
+    with plain_versions():
+        ref = eval_step(batch)
+    slice_agreement(f"{wire} wire, eval step B=8, kernel path vs plain path",
+                    out["latent8"], ref["latent8"], out["pred"], ref["pred"],
+                    logits[0], out["cm"], ref["cm"])
+    del out, ref
+
+    n_exact, n_int8 = int8_cells(8, SENSOR_H - CROP, SENSOR_W)
+    cfg = bench.make_cfg(8)
+    _, state, step = bench.build_train(cfg, dev)
+    reset_counts()
+    loss = float(step(state, batch)["loss"])
+    counts = read_counts()
+    need_counts(counts, wire_counts(wire, 1, n_exact * WINDOWS,
+                                    n_int8 * WINDOWS))
+    add_launches(kern_rows, f"data_train_{wire}", counts)
+    _, state_p, step_p = bench.build_train(cfg, dev)
+    with plain_versions():
+        loss_p = float(step_p(state_p, batch)["loss"])
+    rel = abs(loss - loss_p) / abs(loss_p)
+    log(f"  {wire} wire, train step B=8 (int8 cell): launches "
+        f"{show_counts(counts)}; loss {loss:.6f} vs plain {loss_p:.6f} "
+        f"(relative difference {rel:.3e}, bound {TRAIN_LOSS_REL})")
+    if not (np.isfinite(loss) and rel <= TRAIN_LOSS_REL):
+        raise AssertionError(f"train step on the {wire} wire")
+    del state, step, state_p, step_p
+
+    ucfg = bench.make_uda_cfg(8)
+    rng = np.random.default_rng(9)
+    shape = (8, SENSOR_H - CROP, SENSOR_W)
+    ubatch = {k: v for k, v in batch.items() if k.startswith("ev_")}
+    ubatch["image_a"] = torch.from_numpy(rng.normal(
+        size=(8, 1) + shape[1:]).astype(np.float32)).to(dev)
+    ubatch["label_a"] = torch.from_numpy(
+        rng.integers(0, CLASSES, shape)).to(dev)
+    _, state, step = bench.build_uda(ucfg, dev)
+    reset_counts()
+    out = {k: float(v) for k, v in step(state, ubatch).items()}
+    counts = read_counts()
+    need_counts(counts, wire_counts(wire, 1, n_exact * WINDOWS,
+                                    n_int8 * WINDOWS))
+    add_launches(kern_rows, f"data_uda_train_{wire}", counts)
+    _, state_p, step_p = bench.build_uda(ucfg, dev)
+    with plain_versions():
+        loss_p = float(step_p(state_p, ubatch)["loss"])
+    rel = abs(out["loss"] - loss_p) / abs(loss_p)
+    log(f"  {wire} wire, UDA train step B=8 (int8 cell): launches "
+        f"{show_counts(counts)}; loss {out['loss']:.6f} vs plain "
+        f"{loss_p:.6f} (relative difference {rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL})")
+    if not (sorted(out) == UDA_LOSS_KEYS
+            and all(np.isfinite(v) for v in out.values())
+            and rel <= TRAIN_LOSS_REL):
+        raise AssertionError(f"UDA train step on the {wire} wire")
+    del state, step, state_p, step_p, ubatch
+    torch.cuda.empty_cache()
+
+
+def packed_grids(wire: str, batch: dict, ref_batch: dict) -> None:
+    """The windows of a packed batch before normalization against those of
+    the default f32 wire's batch of the same samples, within
+    PACKED_GRID_MAX / PACKED_GRID_MEAN."""
+    pipe = bench.make_pipeline()
+    kw = dict(num_bins=BINS, height=SENSOR_H, width=SENSOR_W,
+              trilinear=True)
+
+    def grids(b):
+        if "ev_xq" in b:
+            b = pipe.decode_packed(b)
+        kind = "band" if "ev_band_offsets" in b else "tile"
+        flat = lambda a: a.transpose(0, 1).reshape(-1, a.shape[-1])
+        return batch_voxel.voxelize_window_soa(
+            *(flat(b[k]).contiguous() for k in ("ev_x", "ev_y", "ev_t",
+                                                "ev_p", "ev_valid")),
+            tile_offsets=flat(b[f"ev_{kind}_offsets"]).contiguous(),
+            offsets_kind=kind,
+            t_prenormalized=bool(b.get("ev_t_prenormalized", False)), **kw)
+
+    d = (grids(batch) - grids(ref_batch)).abs()
+    worst, mean = d.max().item(), d.mean().item()
+    log(f"  {wire} wire vs folded wire, the B=8 x T={WINDOWS} windows before "
+        f"normalization: max|d| {worst:.4f} (bound "
+        f"{PACKED_GRID_MAX[wire]}), mean|d| {mean:.3e} (bound "
+        f"{PACKED_GRID_MEAN})")
+    if not (worst <= PACKED_GRID_MAX[wire] and mean <= PACKED_GRID_MEAN):
+        raise AssertionError(f"the {wire} wire's windows are not the f32 "
+                             "wire's within the quantization bounds")
+
+
+def packed_faults(wire: str, batch: dict, ref: tuple, eval_step) -> None:
+    """The first packed batch decoded with each of PACKED_FAULTS through the
+    eval step, against the f32 wire's outputs ``ref`` (latent, pred, cm,
+    logits): each fault's argmax agreement where the top-2 gap exceeds
+    SLICE_GAP must fall below PACKED_PRED_AGREE_CLEAR."""
+    dec = bench.make_pipeline().decode_packed(batch)
+    for fault, mangle in PACKED_FAULTS.items():
+        out = eval_step(mangle(dec))
+        agree, agree_clear = pred_agreement(out["pred"], ref[1], ref[3])
+        rel = ((out["latent8"] - ref[0]).abs().max()
+               / ref[0].abs().max()).item()
+        log(f"  {wire} wire decoded with a fault, {fault}, vs folded wire: "
+            f"latent rel max|d| {rel:.3e}; pred agreement {agree:.3f}%, "
+            f"{agree_clear:.3f}% where the top-2 gap exceeds {SLICE_GAP} "
+            f"(must be < {PACKED_PRED_AGREE_CLEAR}%)")
+        if not agree_clear < PACKED_PRED_AGREE_CLEAR:
+            raise AssertionError(f"the {wire} wire's agreement bound does "
+                                 f"not reject a decode with {fault}")
+    del dec
+
+
 def phase_data(dev, kern_rows):
-    """Phase 9: the host event path on both band wires, from an in-memory
-    recording through the dataset, the loader and the device prefetch to
-    the eval step (B=8), and through ``SequenceRecurrent`` to
-    ``run_streaming_eval`` (B=1)."""
+    """Phase 9: the host event path on the four DSEC wires, from an
+    in-memory recording through the dataset, the loader and the device
+    prefetch to the eval step (B=8), and through ``SequenceRecurrent`` to
+    ``run_streaming_eval`` (B=1); on the packed wires also the train and
+    UDA steps (:func:`packed_checks`)."""
     t0 = time.perf_counter()
     rec = make_recording(5)
+    card = bench.card()
     log(f"data: in-memory recording of {DATA_EVENTS} events "
         f"({(int(rec[0].t[-1]) + 1) / 1e6:.2f} s), {len(rec[3])} labels, "
-        f"made in {time.perf_counter() - t0:.1f} s")
+        f"made in {time.perf_counter() - t0:.1f} s; card {card}")
     seqs = {wire: dsec.DSECSequence.from_store(
         *rec, nr_events_data=WINDOWS, nr_events_window=EVENTS,
-        binning=wire) for wire in DATA_WIRES}
+        binning=binning, wire_format=fmt)
+        for wire, (binning, fmt) in DATA_WIRES.items()}
     n_groups = {"folded": SENSOR_H // 24 * (SENSOR_W // 128),
-                "folded_bands": SENSOR_H // 24}
+                "folded_bands": SENSOR_H // 24,
+                "packed_folded": SENSOR_H // 24 * (SENSOR_W // 128),
+                "packed": SENSOR_H // 24 * (SENSOR_W // 128)}
     for wire, seq in seqs.items():
         best = float("inf")
         for i in range(3):
             t0 = time.perf_counter()
             sample = seq[i]
             best = min(best, time.perf_counter() - t0)
-        offs = sample["band_offsets"]
+        packed = DATA_WIRES[wire][1] == "packed"
+        offs = sample["tile_offsets" if wire == "packed"
+                      else "band_offsets"]
         if offs.shape != (WINDOWS, n_groups[wire] + 1):
-            raise AssertionError(f"{wire}: band offsets {offs.shape}")
+            raise AssertionError(f"{wire}: offsets {offs.shape}")
+        cap = sample["ev_xq" if packed else "raw_events"].shape[1]
+        ev_bytes, label_bytes = wire_bytes(sample)
+        what = ("tile binning" if wire == "packed"
+                else "ghost-folded binning")
         log(f"host ingest, {wire} wire: {1e3 * best / WINDOWS:.3f} ms per "
-            f"window of {EVENTS} events (slicer + fused native rectify, time "
-            f"re-zero and ghost-folded binning, one thread; best of 3 "
-            f"samples), offsets {offs.shape}, record capacity "
-            f"{sample['raw_events'].shape[1]}")
+            f"window of {EVENTS} events (slicer + fused native rectify, "
+            f"time {'normalization, 1/64-px quantization' if packed else 're-zero'}"
+            f" and {what}, one thread; best of 3 samples), offsets "
+            f"{offs.shape}, capacity {cap}; host-to-device bytes a B=8 batch:"
+            f" {8 * ev_bytes / 1e6:.2f} MB of events and offsets "
+            f"({ev_bytes / (WINDOWS * EVENTS):.3f} B an event) + "
+            f"{8 * label_bytes / 1e6:.2f} MB of labels ({card})")
 
     mods, step = bench.build_eval(8, dev)
     logits = [None]
@@ -2140,7 +2379,7 @@ def phase_data(dev, kern_rows):
     hook = mods.head.register_forward_hook(keep_logits)
     n_batches = DATA_SAMPLES // 8
     label_px = 8 * (SENSOR_H - CROP) * SENSOR_W
-    results = {}
+    results, first = {}, {}
     for wire in DATA_WIRES:
         dl = loader.BatchLoader(seqs[wire], batch_size=8, shuffle=False,
                                 num_workers=4, collate_buffers=4,
@@ -2149,8 +2388,10 @@ def phase_data(dev, kern_rows):
         def one_pass(keep=None):
             for batch in loader.prefetch_to_device(iter(dl), size=2,
                                                    device=dev):
-                out = step(to_soa(batch))
+                batch = to_soa(batch)
+                out = step(batch)
                 if keep is not None:
+                    first.setdefault(wire, batch)
                     keep.append((out["latent8"], out["pred"], out["cm"],
                                  logits[0]))
             torch.cuda.synchronize()
@@ -2159,13 +2400,12 @@ def phase_data(dev, kern_rows):
         keep = []
         one_pass(keep)
         counts = read_counts()
-        want = ((n_batches, 3 * WINDOWS * n_batches) if wire == "folded"
-                else (0, 3 * WINDOWS * n_batches) + (0,) * 6 + (n_batches,))
         log(f"data -> loader -> prefetch -> eval step, {wire} wire, "
             f"{n_batches} batches of B=8 T={WINDOWS}: launches "
             f"{show_counts(counts)}")
-        need_counts(counts, want)
-        add_launches(kern_rows, "data", counts)
+        need_counts(counts, wire_counts(wire, n_batches,
+                                        3 * WINDOWS * n_batches))
+        add_launches(kern_rows, f"data_{wire}", counts)
         for latent, pred, cm, _ in keep:
             if (float(cm.sum()) != label_px or not torch.isfinite(latent).all()
                     or tuple(pred.shape) != (8, SENSOR_H - CROP, SENSOR_W)):
@@ -2178,23 +2418,42 @@ def phase_data(dev, kern_rows):
             f"windows/s through the loader (one pass of {DATA_SAMPLES} "
             f"samples: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['busy_ms']:.1f} ms over a {prof['span_ms']:.1f} ms span, "
-            f"device idle share {100.0 * prof['idle_share']:.1f}%)")
+            f"device idle share {100.0 * prof['idle_share']:.1f}%; {card})")
+    for wire in list(DATA_WIRES)[1:]:
+        packed = DATA_WIRES[wire][1] == "packed"
+        if packed:
+            packed_grids(wire, first[wire], first["folded"])
+        for i, (ref, got) in enumerate(zip(results["folded"],
+                                           results[wire])):
+            what = f"eval batch {i}, {wire} wire vs folded wire"
+            if packed:
+                d = (got[3] - ref[3]).abs().flatten()
+                q = torch.quantile(d[torch.randperm(
+                    d.numel(), device=d.device)[:2 ** 24]], 0.999).item()
+                what += (f" (logits |d| max {d.max().item():.3f}, 99.9th "
+                         f"percentile {q:.3f})")
+            slice_agreement(what, got[0], ref[0], got[1], ref[1], ref[3],
+                            got[2], ref[2], clear_min=(
+                                PACKED_PRED_AGREE_CLEAR if packed
+                                else SLICE_PRED_AGREE_CLEAR))
+        if packed:
+            packed_faults(wire, first[wire], results["folded"][0], step)
+    del results, keep
+    for wire in DATA_WIRES:
+        if DATA_WIRES[wire][1] == "packed":
+            packed_checks(dev, kern_rows, wire, first[wire], step, logits)
     hook.remove()
-    for i, (ref, got) in enumerate(zip(*(results[w] for w in DATA_WIRES))):
-        slice_agreement(f"eval batch {i}, full-width band wire vs x-slot "
-                        "wire", got[0], ref[0], got[1], ref[1], ref[3],
-                        got[2], ref[2])
-    del results, keep, mods, step
+    del first, mods, step
     torch.cuda.empty_cache()
 
     mods1, _ = bench.build_stream(1, dev)
     pipe = bench.make_pipeline()
     cms = {}
-    for wire in DATA_WIRES:
+    for wire, (binning, fmt) in DATA_WIRES.items():
         stream = dsec.SequenceRecurrent(
             dsec.DSECSequence.from_store(*rec, nr_events_data=1,
                                          nr_events_window=EVENTS,
-                                         binning=wire),
+                                         binning=binning, wire_format=fmt),
             nr_events_window=EVENTS)
         scored = sum(w < DATA_STREAM for w in stream.label_idx)
 
@@ -2205,13 +2464,11 @@ def phase_data(dev, kern_rows):
         reset_counts()
         m = run()
         counts = read_counts()
-        want = ((DATA_STREAM, 3 * DATA_STREAM) if wire == "folded"
-                else (0, 3 * DATA_STREAM) + (0,) * 6 + (DATA_STREAM,))
         log(f"data -> SequenceRecurrent -> run_streaming_eval B=1, {wire} "
             f"wire, {DATA_STREAM} windows ({scored} scored): launches "
             f"{show_counts(counts)}")
-        need_counts(counts, want)
-        add_launches(kern_rows, "data_stream", counts)
+        need_counts(counts, wire_counts(wire, DATA_STREAM, 3 * DATA_STREAM))
+        add_launches(kern_rows, f"data_stream_{wire}", counts)
         cm_sum = float(m.confusion.sum())
         if scored < 2 or cm_sum != scored * label_px / 8:
             raise AssertionError(f"bad stream output on the {wire} wire: "
@@ -2222,14 +2479,15 @@ def phase_data(dev, kern_rows):
         log(f"  {DATA_STREAM / (prof['wall_ms'] / 1e3):.2f} windows/s "
             f"(wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['busy_ms']:.1f} ms over a {prof['span_ms']:.1f} ms span, "
-            f"device idle share {100.0 * prof['idle_share']:.1f}%)")
-    moved = 100.0 * np.abs(cms["folded_bands"] - cms["folded"]).sum() / (
-        2 * cms["folded"].sum())
-    log(f"  streaming, full-width band wire vs x-slot wire: confusion matrix "
-        f"{moved:.3f}% of the pixels moved (bound <= "
-        f"{100.0 - SLICE_PRED_AGREE}%)")
-    if not moved <= 100.0 - SLICE_PRED_AGREE:
-        raise AssertionError("the band wires disagree in streaming")
+            f"device idle share {100.0 * prof['idle_share']:.1f}%; {card})")
+    for wire in list(DATA_WIRES)[1:]:
+        moved = 100.0 * np.abs(cms[wire] - cms["folded"]).sum() / (
+            2 * cms["folded"].sum())
+        log(f"  streaming, {wire} wire vs folded wire: confusion matrix "
+            f"{moved:.3f}% of the pixels moved (bound <= "
+            f"{100.0 - SLICE_PRED_AGREE}%)")
+        if not moved <= 100.0 - SLICE_PRED_AGREE:
+            raise AssertionError(f"the {wire} wire disagrees in streaming")
     del mods1, rec, seqs
     torch.cuda.empty_cache()
 
@@ -3878,25 +4136,33 @@ def phase_options(dev, kern_rows, tmp: str, root: str) -> None:
     log(f"phase 5g took {time.perf_counter() - t_phase:.1f} s")
 
 
-def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
-                    cm=None, cm_ref=None) -> None:
-    """Hold one path against a reference path under the slice bounds
-    (SLICE_*): the latent, the argmax on all pixels and on the pixels whose
-    top-2 logit gap in the reference exceeds SLICE_GAP, and, where given,
-    the share of confusion-matrix counts that moved."""
-    latent, latent_ref = latent.float(), latent_ref.float()
-    rel = ((latent - latent_ref).abs().max() / latent_ref.abs().max()).item()
+def pred_agreement(pred, pred_ref, logits_ref) -> tuple:
+    """% of all pixels with the reference's argmax, and % of the pixels
+    whose top-2 logit gap in the reference exceeds SLICE_GAP."""
     top2 = logits_ref.float().topk(2, dim=1).values
     clear = top2[:, 0] - top2[:, 1] > SLICE_GAP
     same = pred == pred_ref
-    agree = 100.0 * same.float().mean().item()
-    agree_clear = 100.0 * same[clear].float().mean().item()
+    return (100.0 * same.float().mean().item(),
+            100.0 * same[clear].float().mean().item())
+
+
+def slice_agreement(what, latent, latent_ref, pred, pred_ref, logits_ref,
+                    cm=None, cm_ref=None, *,
+                    clear_min: float = SLICE_PRED_AGREE_CLEAR) -> None:
+    """Hold one path against a reference path under the slice bounds
+    (SLICE_*): the latent, the argmax on all pixels and, at least
+    ``clear_min`` %, on the pixels whose top-2 logit gap in the reference
+    exceeds SLICE_GAP, and, where given, the share of confusion-matrix
+    counts that moved."""
+    latent, latent_ref = latent.float(), latent_ref.float()
+    rel = ((latent - latent_ref).abs().max() / latent_ref.abs().max()).item()
+    agree, agree_clear = pred_agreement(pred, pred_ref, logits_ref)
     msg = (f"  {what}: latent rel max|d| {rel:.3e} (bound {SLICE_LATENT_REL}); "
            f"pred agreement {agree:.3f}% (bound >= {SLICE_PRED_AGREE}%), "
            f"{agree_clear:.3f}% where the top-2 gap exceeds {SLICE_GAP} "
-           f"(bound >= {SLICE_PRED_AGREE_CLEAR}%)")
+           f"(bound >= {clear_min}%)")
     ok = (rel <= SLICE_LATENT_REL and agree >= SLICE_PRED_AGREE
-          and agree_clear >= SLICE_PRED_AGREE_CLEAR)
+          and agree_clear >= clear_min)
     if cm is not None:
         moved = 100.0 * float((cm - cm_ref).abs().sum()) / (
             2 * float(cm_ref.sum()))

@@ -1,11 +1,11 @@
 """DSEC-Semantic event dataset (host ingest).
 
-Counterpart of ``ess_tpu/data/dsec.py`` on the f32 wire: a recorded
-sequence (``events.h5`` + ``rectify_map.h5`` + label PNGs with
-``timestamps.txt``) becomes label-aligned samples of fixed-capacity event
-windows, rectified and binned on the host by the native library's fused
-ingest in one pass over the raw event columns (``native.
-ingest_rectify_bin_folded`` / ``ingest_rectify_bin``). The 480x640 sensor,
+Counterpart of ``ess_tpu/data/dsec.py``: a recorded sequence
+(``events.h5`` + ``rectify_map.h5`` + label PNGs with ``timestamps.txt``)
+becomes label-aligned samples of fixed-capacity event windows, rectified
+and binned on the host by the native library's fused ingest in one pass
+over the raw event columns (``native.ingest_rectify_bin_folded`` /
+``ingest_rectify_bin``, or their ``_packed`` forms). The 480x640 sensor,
 the train/val sequence lists, the dropped first labels (too little event
 history), the label stride 2 and the fixed-count and fixed-duration window
 modes are the JAX package's.
@@ -20,10 +20,20 @@ Binnings (``binning``):
 - ``'tile'``: events sorted by halo tile, ``tile_offsets``.
 
 ``tile_bin=False`` ships rectified, padded raw windows with no offsets.
-The packed u16 wire is not ported and raises. Unlike the JAX module there
-is no numpy fallback for a missing native library (it raises); only windows
-that reach outside the recording's index leave the fused fixed-duration
-ingest for the per-window slicer chain, as in the JAX module.
+
+Wires (``wire_format``): ``'f32'`` ships ``raw_events`` (T, N, 4) f32 and
+``valid``; ``'packed'`` ships the quantized columns ``ev_xq``, ``ev_yq``,
+``ev_tq`` (u16) and ``ev_pq`` (u8, or i8 pre-weighted on the folded wire)
+beside the offsets (``native`` says what they hold), for ``'folded'`` and
+``'tile'``; ``'folded_bands'`` has no packed form and raises. As in the
+JAX module the packed wire is the fused ingest's: without ``tile_bin``,
+and for fixed-duration windows that reach outside the recording's index,
+samples take the f32 slicer chain.
+
+Unlike the JAX module there is no numpy fallback for a missing native
+library (it raises); only windows that reach outside the recording's index
+leave the fused fixed-duration ingest for the per-window slicer chain, as
+in the JAX module.
 
 :class:`SequenceRecurrent` streams a whole sequence as consecutive
 single-window samples for ``train.streaming.run_streaming_eval``.
@@ -50,6 +60,7 @@ SENSOR_HEIGHT, SENSOR_WIDTH = 480, 640
 CROP_BOTTOM = 40  # labels are provided at 440x640
 SLOT_W = 128
 BINNINGS = ("folded", "folded_bands", "tile")
+WIRES = ("f32", "packed")
 
 TRAIN_SEQUENCES = [
     "zurich_city_00_a", "zurich_city_01_a", "zurich_city_02_a",
@@ -69,8 +80,8 @@ class DSECSequence:
     sample), ``nr_events_window`` (events per window, the capacity),
     ``fixed_duration`` and ``delta_t_per_data`` (ms per window), the dropped
     first labels' ``remove_time_window``, ``tile_bin`` (False: raw
-    windows), ``tile_bins``, ``wire_format`` (``'f32'`` only) and
-    ``binning`` (module docstring)."""
+    windows), ``tile_bins``, ``wire_format`` and ``binning`` (module
+    docstring)."""
 
     def __init__(self, seq_path: str, mode: str = "train", *,
                  semseg_num_classes: int = 11, **kw):
@@ -109,11 +120,14 @@ class DSECSequence:
                remove_time_window: int = 250, tile_bin: bool = True,
                tile_bins: int = 5, wire_format: str = "f32",
                binning: str = "folded") -> None:
-        if wire_format != "f32":
-            raise ValueError(f"wire_format={wire_format!r}: only the f32 "
-                             "wire is ported")
+        if wire_format not in WIRES:
+            raise ValueError(f"wire_format={wire_format!r} is not one of "
+                             f"{WIRES}")
         if binning not in BINNINGS:
             raise ValueError(f"binning={binning!r} is not one of {BINNINGS}")
+        if wire_format == "packed" and binning == "folded_bands":
+            raise ValueError("binning='folded_bands' has no packed wire: "
+                             "use 'folded' or 'tile'")
         if len(labels) != timestamps.size:
             raise ValueError(f"{len(labels)} labels for {timestamps.size} "
                              "timestamps")
@@ -214,8 +228,19 @@ class DSECSequence:
     def _ingest(self, ev: dict, starts: np.ndarray, ends: np.ndarray
                 ) -> Dict[str, np.ndarray]:
         """The fused native rectify + pad + binning of raw event columns
-        over per-window [start, end) bounds."""
+        over per-window [start, end) bounds, on ``self.wire_format``."""
         th = voxel_folded.tile_h_for_bins(self.tile_bins)
+        if self.wire_format == "packed":
+            if self.binning == "tile":
+                return native.ingest_rectify_bin_packed(
+                    ev, starts, ends, self.nr_events_window,
+                    self.rectify_map, tile_h=th)
+            got = native.ingest_rectify_bin_packed_folded(
+                ev, starts, ends, self.nr_events_window, self.rectify_map,
+                tile_h=th, ntx=self._ntx(), slot_w=SLOT_W,
+                out_capacity=self._folded_cap)
+            self._folded_cap = got["ev_xq"].shape[1]
+            return got
         if self.binning == "tile":
             raw, valid, offsets = native.ingest_rectify_bin(
                 ev, starts, ends, self.nr_events_window, self.rectify_map,

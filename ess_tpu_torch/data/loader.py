@@ -14,7 +14,9 @@ Counterpart of ``ess_tpu/data/loader.py``:
 Data order for a seed, the index sharding (``shard_index`` /
 ``num_shards``), the collate ring's ``>= prefetch_size + 2`` rule and the
 zero padding of ghost-folded record batches of mixed capacity are the JAX
-package's. The multi-device sharding of its prefetch is not ported yet.
+package's; the port pads the packed folded wire's columns too, where the
+JAX collate raises on them. The multi-device sharding of its prefetch is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,21 +33,27 @@ import torch
 from ess_tpu_torch import resolve_device
 
 
+# the per-record columns of a ghost-folded sample, f32 and packed wires
+RECORD_KEYS = ("raw_events", "valid", "ev_xq", "ev_yq", "ev_tq", "ev_pq")
+
+
 def _collate(samples: list, out: Optional[Dict[str, np.ndarray]] = None
              ) -> Dict[str, np.ndarray]:
     """Stack per-sample dicts into batch arrays, into ``out`` (a ring
     buffer of the same keys and shapes) when given. Ghost-folded record
     batches ("band_offsets" present) may mix record capacities (a sample
     that overflowed the default margin was binned at a larger quantized
-    level): their records and validity are zero-padded to the batch's
-    largest capacity, which the voxelizer reads as no records."""
+    level): their record columns (``RECORD_KEYS``) are zero-padded to the
+    batch's largest capacity. The voxelizer reads the padding as no
+    records: zero polarity and no validity on the f32 wire, past the
+    window's count ``band_offsets[..., -1]`` on the packed one."""
     folded = "band_offsets" in samples[0]
     if out is not None:
         for key in samples[0]:
             vals = [s[key] for s in samples]
             if isinstance(vals[0], np.ndarray) or np.isscalar(vals[0]):
                 dst = out[key]
-                if (folded and key in ("raw_events", "valid")
+                if (folded and key in RECORD_KEYS
                         and any(v.shape != dst.shape[1:] for v in vals)):
                     out[key] = _stack_padded(vals)
                     continue
@@ -59,7 +67,7 @@ def _collate(samples: list, out: Optional[Dict[str, np.ndarray]] = None
         vals = [s[key] for s in samples]
         if not (isinstance(vals[0], np.ndarray) or np.isscalar(vals[0])):
             result[key] = vals
-        elif (folded and key in ("raw_events", "valid")
+        elif (folded and key in RECORD_KEYS
                 and isinstance(vals[0], np.ndarray)
                 and len({v.shape for v in vals}) > 1):
             result[key] = _stack_padded(vals)

@@ -6,11 +6,20 @@ where the JAX package keeps its copy), keyed by a hash of the source, and
 raises if the build fails. Bound here: the ghost-folded band binning of the
 fold-free voxelizer and the tile binning of the halo-tiled one, the fused
 DSEC ingests (rectify + per-window time re-zero + one of the two binnings,
-in one pass over the raw event columns), the gather-pad of event windows
-a vectorized ``searchsorted`` and the gather-pad straight from DDD17's
-memmap layout (int64 times, int16 x, y, p). The contracts are those of
-``ess_tpu/data/native.py``, except that nothing returns ``None``: without
-the library every entry point raises.
+in one pass over the raw event columns) on the f32 wire and on the packed
+u16 wire, the gather-pad of event windows, a vectorized ``searchsorted``
+and the gather-pad straight from DDD17's memmap layout (int64 times, int16
+x, y, p).
+
+The packed wire carries an event (or a folded record) in 7 bytes instead
+of 16-17: x and y in 1/``COORD_SCALE`` pixel steps (u16), the time already
+normalized over its window to [0, 1] in 1/``TIME_SCALE`` steps (u16) and
+the polarity (u8 0/1 on the tile wire; on the folded wire the
+pre-weighted polarity in 1/``POL_SCALE`` steps, i8). Validity follows
+from the offsets: a window's first ``offsets[-1]`` entries are its events.
+
+The contracts are those of ``ess_tpu/data/native.py``, except that nothing
+returns ``None``: without the library every entry point raises.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -95,7 +104,23 @@ def _build() -> ctypes.CDLL:
         f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
         f32p, u8p, i32p, i64p, f32p, i32p]
     cdll.ingest_rectify_bin_folded.restype = c_i64
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    cdll.ingest_rectify_bin_packed.argtypes = [
+        u16p, u16p, i64p, u8p, i64p, i64p, c_i64, c_i64,
+        f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
+        u16p, u16p, u16p, u8p, i32p, i64p, i32p, i32p]
+    cdll.ingest_rectify_bin_packed.restype = None
+    cdll.ingest_rectify_bin_packed_folded.argtypes = [
+        u16p, u16p, i64p, u8p, i64p, i64p, c_i64, c_i64, c_i64,
+        f32p, c_i64, c_i64, c_i64, c_i64, c_i64, c_i64,
+        u16p, u16p, u16p, i8p, i32p, i64p, f32p, i32p]
+    cdll.ingest_rectify_bin_packed_folded.restype = c_i64
     return cdll
+
+
+COORD_SCALE = 64       # packed wire: coordinates in 1/64-pixel steps
+TIME_SCALE = 60000     # packed wire: window-normalized time in 1/60000 steps
+POL_SCALE = 127        # packed folded wire: pre-weighted polarity steps
 
 
 def get_lib() -> ctypes.CDLL:
@@ -316,4 +341,78 @@ def ingest_rectify_bin_folded(
             rec_scratch, band_scratch)
         if needed <= cap2:
             return out, out_valid.astype(bool), offsets
+        cap2 = quantize_folded_capacity(int(needed), capacity)
+
+
+def ingest_rectify_bin_packed(
+    ev: dict, starts: np.ndarray, ends: np.ndarray, capacity: int,
+    rectify_map: np.ndarray, *, tile_h: int, tile_w: int = 128,
+) -> Dict[str, np.ndarray]:
+    """:func:`ingest_rectify_bin` on the packed wire: {"ev_xq", "ev_yq",
+    "ev_tq": (T, capacity) u16, "ev_pq": (T, capacity) u8 (0 / 1),
+    "tile_offsets": (T, n_tiles + 1) i32}. The tile ids come from the
+    quantized coordinates, so the binning and the voxelizer see the same
+    tile of every event; the entries past a window's event count are
+    zero."""
+    lib = get_lib()
+    mh, mw = rectify_map.shape[:2]
+    hp = -(-mh // tile_h) * tile_h
+    wp = -(-mw // tile_w) * tile_w
+    ntx = wp // tile_w
+    n_tiles = (hp // tile_h) * ntx
+    t_dim = len(starts)
+    out = {k: np.empty((t_dim, capacity), np.uint16)
+           for k in ("ev_xq", "ev_yq", "ev_tq")}
+    out["ev_pq"] = np.empty((t_dim, capacity), np.uint8)
+    offsets = np.empty((t_dim, n_tiles + 1), np.int32)
+    counts = np.empty(n_tiles, np.int64)
+    q_scratch = np.empty((capacity, 2), np.int32)
+    tid_scratch = np.empty(capacity, np.int32)
+    lib.ingest_rectify_bin_packed(
+        *_event_columns(ev), np.ascontiguousarray(starts, np.int64),
+        np.ascontiguousarray(ends, np.int64), t_dim, capacity,
+        np.ascontiguousarray(rectify_map, np.float32), mh, mw, tile_h,
+        tile_w, ntx, n_tiles, out["ev_xq"], out["ev_yq"], out["ev_tq"],
+        out["ev_pq"], offsets, counts, q_scratch, tid_scratch)
+    out["tile_offsets"] = offsets
+    return out
+
+
+def ingest_rectify_bin_packed_folded(
+    ev: dict, starts: np.ndarray, ends: np.ndarray, capacity: int,
+    rectify_map: np.ndarray, *, tile_h: int,
+    out_capacity: Optional[int] = None, ntx: int = 1, slot_w: int = 128,
+) -> Dict[str, np.ndarray]:
+    """:func:`ingest_rectify_bin_folded` on the packed wire: {"ev_xq",
+    "ev_yq", "ev_tq": (T, cap2) u16, "ev_pq": (T, cap2) i8 pre-weighted
+    polarity, "band_offsets": (T, n_bands * ntx + 1) i32}. The coordinates
+    are quantized before the folding, so the (band, x-slot) groups and the
+    voxelizer's tents agree; ``cap2`` grows as on the f32 wire."""
+    lib = get_lib()
+    mh, mw = rectify_map.shape[:2]
+    n_bands = -(-mh // tile_h)
+    t_dim = len(starts)
+    cols = _event_columns(ev)
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    rmap = np.ascontiguousarray(rectify_map, np.float32)
+    cap2 = (out_capacity if out_capacity is not None
+            else folded_capacity(capacity))
+    n_groups = n_bands * ntx
+    while True:
+        out = {k: np.empty((t_dim, cap2), np.uint16)
+               for k in ("ev_xq", "ev_yq", "ev_tq")}
+        out["ev_pq"] = np.empty((t_dim, cap2), np.int8)
+        offsets = np.empty((t_dim, n_groups + 1), np.int32)
+        counts = np.empty(n_groups, np.int64)
+        rec_scratch = np.empty((4 * capacity, 4), np.float32)
+        band_scratch = np.empty(4 * capacity, np.int32)
+        needed = lib.ingest_rectify_bin_packed_folded(
+            *cols, starts, ends, t_dim, capacity, cap2, rmap, mh, mw,
+            tile_h, n_bands, ntx, slot_w, out["ev_xq"], out["ev_yq"],
+            out["ev_tq"], out["ev_pq"], offsets, counts, rec_scratch,
+            band_scratch)
+        if needed <= cap2:
+            out["band_offsets"] = offsets
+            return out
         cap2 = quantize_folded_capacity(int(needed), capacity)

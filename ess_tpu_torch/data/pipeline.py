@@ -2,12 +2,15 @@
 
 Counterpart of ``ess_tpu/data/pipeline.py`` (``PipelineConfig``, ``to_soa``,
 ``AugmentParams``, ``EventPipeline.sample_augment``, ``_transform_grid``,
-``make_window_fn``, ``apply_label_transform`` and ``build_all``) on the f32
-event wires: host-folded band batches (``ev_band_offsets``), host
-tile-sorted batches (``ev_tile_offsets``) and raw batches with no offsets,
-which are tile-sorted on the device. ``build_all`` voxelizes all B*T windows
-of a batch in one launch, window-major; ``make_window_fn`` voxelizes one
-window at a time for the streaming steps.
+``make_window_fn``, ``apply_label_transform``, ``decode_packed`` and
+``build_all``) on every event wire: host-folded band batches
+(``ev_band_offsets``), host tile-sorted batches (``ev_tile_offsets``) and
+raw batches with no offsets, which are tile-sorted on the device, each with
+f32 columns (``ev_x``...) or, for the two host-binned ones, the packed u16
+columns (``ev_xq``...; ``decode_packed`` turns them into f32 columns where
+the batch lies, with the time already normalized). ``build_all``
+voxelizes all B*T windows of a batch in one launch, window-major;
+``make_window_fn`` voxelizes one window at a time for the streaming steps.
 
 The transforms run in the JAX package's order: the per-window normalization
 at sensor resolution (inside the voxelizer: the nonzero standardization does
@@ -17,7 +20,7 @@ not commute with a resize), the bottom crop (DSEC 480 -> 440, DDD17
 bottom-anchored 120x216, drawn from the post-resize size) and the flip; a
 cropped or flipped sample has its windows and its label transformed
 together, whatever the representation (``voxel_grid``, ``histogram`` or
-``ev_segnet``). The packed u16 wire is not ported.
+``ev_segnet``).
 
 Augmentation draws come from an explicit ``torch.Generator``; they cannot
 reproduce JAX's PRNG bits, so parity tests pass :class:`AugmentParams`
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ess_tpu_torch.data.native import COORD_SCALE, POL_SCALE, TIME_SCALE
 from ess_tpu_torch.ops.batch_voxel import (
     REPRESENTATIONS, effective_bins, voxelize_window_soa)
 from ess_tpu_torch.ops.resize import resize_bilinear
@@ -100,10 +104,12 @@ def to_soa(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     ("tile_offsets", "band_offsets") ride along as "ev_tile_offsets" /
     "ev_band_offsets", every other key unchanged. Numpy arrays on the host,
     or tensors where they lie (a batch after ``loader.prefetch_to_device``).
+    A packed batch ("ev_xq", ...) is SoA already: only its offsets are
+    renamed.
     """
     if "ev_xq" in batch:
-        raise ValueError("the packed u16 wire is not ported: pass f32 "
-                         "raw_events")
+        return {("ev_" + k if k in ("tile_offsets", "band_offsets") else k):
+                v for k, v in batch.items()}
     out = {k: v for k, v in batch.items()
            if k not in ("raw_events", "valid", "tile_offsets",
                         "band_offsets")}
@@ -184,6 +190,37 @@ class EventPipeline:
                                    generator=generator)
         return AugmentParams(flip=flip, crop_y=crop_y, crop_x=crop_x)
 
+    def decode_packed(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """A packed batch ("ev_xq", "ev_yq", "ev_tq", "ev_pq": (..., N) and
+        "ev_band_offsets" or "ev_tile_offsets") -> the f32 columns "ev_x",
+        "ev_y" (u16 / COORD_SCALE), "ev_t" (u16 * (num_bins - 1) /
+        TIME_SCALE: the time normalized to [0, num_bins - 1] already),
+        "ev_p" (u8 as 0 / 1 on the tile wire, where the voxelizer reads 0
+        as -1; i8 / POL_SCALE, the pre-weighted polarity, on the folded
+        one) and "ev_valid" (the first ``offsets[..., -1]`` entries of a
+        window), with "ev_t_prenormalized" set; every other key unchanged.
+        Plain tensor ops on the batch's device, in f32 as the JAX package
+        computes them."""
+        folded = "ev_band_offsets" in batch
+        key = "ev_band_offsets" if folded else "ev_tile_offsets"
+        if key not in batch:
+            raise ValueError("a packed batch needs ev_band_offsets or "
+                             "ev_tile_offsets: its validity is the offsets'")
+        f32 = lambda k: batch[k].to(torch.float32)
+        out = {k: v for k, v in batch.items()
+               if k not in ("ev_xq", "ev_yq", "ev_tq", "ev_pq")}
+        out["ev_x"] = f32("ev_xq") * (1.0 / COORD_SCALE)
+        out["ev_y"] = f32("ev_yq") * (1.0 / COORD_SCALE)
+        out["ev_t"] = f32("ev_tq") * ((self.cfg.num_bins - 1) / TIME_SCALE)
+        out["ev_p"] = (f32("ev_pq") * (1.0 / POL_SCALE) if folded
+                       else f32("ev_pq"))
+        count = batch[key][..., -1:]
+        n = out["ev_x"].shape[-1]
+        out["ev_valid"] = torch.arange(n, device=count.device) < count
+        out["ev_t_prenormalized"] = True
+        return out
+
     def _transform_grid(self, grids: torch.Tensor, aug: AugmentParams
                         ) -> torch.Tensor:
         """(B, C, Hs, Ws) sensor-size grids -> model-input grids: bottom
@@ -202,11 +239,14 @@ class EventPipeline:
         return grids
 
     def make_window_fn(self, aug: AugmentParams, *,
+                       t_prenormalized: bool = False,
                        offsets_kind: str = "tile"
                        ) -> Callable[..., torch.Tensor]:
         """fn(x, y, t, p, valid, tile_offsets=None), each (B, N) ->
         (B, C, H_out, W_out) f32: one window per sample on the voxelizer
-        that ``offsets_kind`` names, then the spatial transforms."""
+        that ``offsets_kind`` names, then the spatial transforms.
+        ``t_prenormalized``: ``t`` is normalized to [0, num_bins - 1]
+        already (a decoded packed window)."""
         cfg = self.cfg
 
         def fn(x, y, t, p, valid, tile_offsets=None):
@@ -215,7 +255,8 @@ class EventPipeline:
                 num_bins=cfg.num_bins, height=cfg.sensor_height,
                 width=cfg.sensor_width, representation=cfg.representation,
                 separate_pol=cfg.separate_pol, trilinear=cfg.trilinear,
-                normalize=cfg.normalize, tile_offsets=tile_offsets)
+                normalize=cfg.normalize, tile_offsets=tile_offsets,
+                t_prenormalized=t_prenormalized)
             return self._transform_grid(grids, aug)
 
         return fn
@@ -243,11 +284,14 @@ class EventPipeline:
         "ev_tile_offsets" (tile-sorted events), each (B, T, G + 1), or no
         offsets (raw events) -> (windows (T, B, C, H', W') in ``out_dtype``,
         label), with ``aug`` applied to each sample's windows and label
-        alike. Key presence picks the voxelizer.
+        alike. Key presence picks the voxelizer; a packed batch
+        ("ev_xq", ...) is decoded first (:meth:`decode_packed`).
 
         Windows come out time-major, so the recurrent rollout reads window
         ``t`` as one contiguous block.
         """
+        if "ev_xq" in batch:
+            batch = self.decode_packed(batch)
         kind = "band" if "ev_band_offsets" in batch else "tile"
         offs = batch.get(f"ev_{kind}_offsets")
         b, t_dim, n = batch["ev_x"].shape
@@ -255,6 +299,7 @@ class EventPipeline:
         window_fn = self.make_window_fn(
             AugmentParams(*(None if a is None else a.repeat(t_dim)
                             for a in (aug.flip, aug.crop_y, aug.crop_x))),
+            t_prenormalized=bool(batch.get("ev_t_prenormalized", False)),
             offsets_kind=kind)
         grids = window_fn(
             flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),

@@ -14,9 +14,10 @@ representations and their dispatcher ``voxelize_window_soa``.
   polarity, tile-sorted on the host (``ev_tile_offsets``) or on the device
   (no offsets), through the halo-tiled voxelizer, normalized over the grid.
 
-Both apply the per-window time normalization over the valid events and the
-in-frame mask, voxelize on the grid padded to whole tiles, and crop back to
-the sensor size.
+Both apply the per-window time normalization over the valid events (or
+take the time as it comes with ``t_prenormalized``: a decoded packed
+window, whose host ingest normalized it) and the in-frame mask, voxelize on
+the grid padded to whole tiles, and crop back to the sensor size.
 
 - :func:`event_histogram` and :func:`ev_segnet_grid`: raw events of any
   order (tile offsets are ignored) through one flat ATen scatter-add, as
@@ -51,26 +52,33 @@ def _padded(height: int, width: int, bins: int) -> tuple[int, int]:
     return -(-height // th) * th, -(-width // TILE_W) * TILE_W
 
 
+def _time(t: torch.Tensor, valid: torch.Tensor, num_bins: int,
+          t_prenormalized: bool) -> torch.Tensor:
+    t = t.float()
+    return t if t_prenormalized else masked_time_norm(t, valid, num_bins)
+
+
 def band_operands(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   p: torch.Tensor, valid: torch.Tensor,
                   offsets: torch.Tensor, *, num_bins: int, height: int,
                   width: int, separate_pol: bool = False,
-                  trilinear: bool = True):
+                  trilinear: bool = True, t_prenormalized: bool = False):
     """``voxelize_folded``'s operands and keywords for (B, N) folded
     records: ``((x, y, ts, pol, offsets), dict(bins, height, width))``,
     the grid padded to the kernel's tiles (:func:`voxelize_band`).
 
     ``p`` is the host's pre-weighted signed polarity; ``offsets`` the
     (B, n_groups + 1) group offsets of :func:`host_band_bin_folded`, binned
-    with ``bins=C``. ``ts`` is the normalized time; ``trilinear=False``
-    floors the coordinates and clips ``ts`` to [0, num_bins - 1] (pure
-    temporal bilinear); with ``separate_pol`` negative records then go to
-    bins ``num_bins .. 2 * num_bins - 1`` with their magnitude. ``pol`` is
+    with ``bins=C``. ``ts`` is the normalized time (``t`` itself with
+    ``t_prenormalized``); ``trilinear=False`` floors the coordinates and
+    clips ``ts`` to [0, num_bins - 1] (pure temporal bilinear); with
+    ``separate_pol`` negative records then go to bins
+    ``num_bins .. 2 * num_bins - 1`` with their magnitude. ``pol`` is
     0 on invalid records and on records outside the sensor frame.
     """
     x, y, p = x.float(), y.float(), p.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
-    ts = masked_time_norm(t.float(), valid, num_bins)
+    ts = _time(t, valid, num_bins, t_prenormalized)
     pol = p
     if not trilinear:
         x, y = torch.floor(x), torch.floor(y)
@@ -90,8 +98,8 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   p: torch.Tensor, valid: torch.Tensor,
                   offsets: torch.Tensor, *, num_bins: int, height: int,
                   width: int, separate_pol: bool = False,
-                  trilinear: bool = True,
-                  normalize: bool = False) -> torch.Tensor:
+                  trilinear: bool = True, normalize: bool = False,
+                  t_prenormalized: bool = False) -> torch.Tensor:
     """(B, N) folded records -> (B, C, height, width) f32 grids, C =
     ``effective_bins(...)``: :func:`band_operands` (which says what each
     option does), then ``voxelize_folded``. Normalization uses the
@@ -99,7 +107,8 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     """
     args, kw = band_operands(x, y, t, p, valid, offsets, num_bins=num_bins,
                              height=height, width=width,
-                             separate_pol=separate_pol, trilinear=trilinear)
+                             separate_pol=separate_pol, trilinear=trilinear,
+                             t_prenormalized=t_prenormalized)
     grid, stats = voxelize_folded(*args, **kw)
     if normalize:
         grid = normalize_from_stats(grid, stats)
@@ -110,8 +119,8 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   p: torch.Tensor, valid: torch.Tensor,
                   offsets: Optional[torch.Tensor] = None, *, num_bins: int,
                   height: int, width: int, separate_pol: bool = False,
-                  trilinear: bool = False, normalize: bool = False
-                  ) -> torch.Tensor:
+                  trilinear: bool = False, normalize: bool = False,
+                  t_prenormalized: bool = False) -> torch.Tensor:
     """(B, N) raw events -> (B, C, height, width) f32 grids, C =
     ``effective_bins(...)``.
 
@@ -119,11 +128,12 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     for events that arrive tile-sorted; with None the events are sorted on
     the device. ``trilinear=False`` floors the coordinates (pure temporal
     bilinear); with ``separate_pol`` negative events then go to bins
-    ``num_bins .. 2 * num_bins - 1`` with weight +1.
+    ``num_bins .. 2 * num_bins - 1`` with weight +1. ``t_prenormalized``
+    takes ``t`` as the normalized time.
     """
     x, y = x.float(), y.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
-    ts = masked_time_norm(t.float(), valid, num_bins)
+    ts = _time(t, valid, num_bins, t_prenormalized)
     pol = torch.where(p > 0, 1.0, -1.0).float()
     if not trilinear:
         x, y = torch.floor(x), torch.floor(y)
@@ -221,7 +231,8 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                         separate_pol: bool = False, trilinear: bool = False,
                         normalize: bool = False,
                         tile_offsets: Optional[torch.Tensor] = None,
-                        offsets_kind: str = "tile") -> torch.Tensor:
+                        offsets_kind: str = "tile",
+                        t_prenormalized: bool = False) -> torch.Tensor:
     """One batched window of struct-of-arrays events -> (B, C, H, W) grids.
     The ``voxel_grid`` representation runs on the voxelizer that
     ``offsets_kind`` names: ``'band'`` for host-folded records
@@ -229,7 +240,10 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     with host tile offsets or none. ``'histogram'`` and ``'ev_segnet'``
     take raw events and ignore ``num_bins``, ``separate_pol``,
     ``trilinear``, ``normalize`` and any tile offsets, as JAX's branches
-    do; folded band records (pre-weighted polarities) cannot feed them."""
+    do (EV-SegNet normalizes whatever time it is given over the window,
+    ``t_prenormalized`` or not); folded band records (pre-weighted
+    polarities) cannot feed them. ``t_prenormalized``: ``t`` is the time
+    normalized to [0, num_bins - 1] already."""
     if representation not in REPRESENTATIONS:
         raise ValueError(f"unknown representation {representation!r}; "
                          f"expected one of {REPRESENTATIONS}")
@@ -242,7 +256,7 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                                    width=width)
         return ev_segnet_grid(x, y, t, p, valid, height=height, width=width)
     kw = dict(num_bins=num_bins, height=height, width=width,
-              normalize=normalize)
+              normalize=normalize, t_prenormalized=t_prenormalized)
     if offsets_kind == "band":
         if tile_offsets is None:
             raise ValueError("band offsets require host binning")

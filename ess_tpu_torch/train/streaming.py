@@ -12,7 +12,9 @@ A window batch holds ``ev_x, ev_y, ev_t, ev_p, ev_valid`` of shape (B, N) or
 picks its voxelizer by key presence: ``ev_band_offsets`` the fold-free one,
 ``ev_tile_offsets`` or no offsets the halo-tiled one; the ``histogram`` and
 ``ev_segnet`` representations take raw events with or without tile offsets
-(their scatter ignores them).
+(their scatter ignores them). A packed window (``ev_xq, ev_yq, ev_tq,
+ev_pq`` and its offsets) is decoded where it lies before it is voxelized,
+its time taken as normalized.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ def make_streaming_steps(mods: ESSModules, pipeline: EventPipeline
     """
     cfg = mods.cfg
     recon = mods.recon_val
-    voxel_fns = {kind: pipeline.make_window_fn(AugmentParams(),
-                                               offsets_kind=kind)
-                 for kind in ("tile", "band")}
+    voxel_fns = {(kind, pre): pipeline.make_window_fn(
+        AugmentParams(), t_prenormalized=pre, offsets_kind=kind)
+        for kind in ("tile", "band") for pre in (False, True)}
 
     def _reset_where(is_first: torch.Tensor, recon_state):
         """Zero the state of the streams that start a sequence, on the
@@ -58,11 +60,13 @@ def make_streaming_steps(mods: ESSModules, pipeline: EventPipeline
                      else reset(st) for st in recon_state)
 
     def _window(batch: Batch) -> torch.Tensor:
+        if "ev_xq" in batch:
+            batch = pipeline.decode_packed(batch)
         take = lambda a: a[:, 0] if a.ndim == 3 else a
-        if "ev_band_offsets" in batch:
-            voxel_fn, offs = voxel_fns["band"], batch["ev_band_offsets"]
-        else:
-            voxel_fn, offs = voxel_fns["tile"], batch.get("ev_tile_offsets")
+        kind = "band" if "ev_band_offsets" in batch else "tile"
+        voxel_fn = voxel_fns[kind, bool(batch.get("ev_t_prenormalized",
+                                                  False))]
+        offs = batch.get(f"ev_{kind}_offsets")
         return voxel_fn(take(batch["ev_x"]), take(batch["ev_y"]),
                         take(batch["ev_t"]), take(batch["ev_p"]),
                         take(batch["ev_valid"]),
@@ -96,10 +100,10 @@ def make_streaming_steps(mods: ESSModules, pipeline: EventPipeline
 def run_streaming_eval(mods: ESSModules, stream: Iterator[dict],
                        pipeline: EventPipeline) -> MetricsSemseg:
     """Drive a stream of single-window samples (numpy: ``raw_events``
-    (1, N, 4) and ``valid`` (1, N), or the SoA columns; ``is_first``,
-    ``has_label``, ``label``; optionally host offsets) through the streaming
-    steps on the modules' device, one stream (B=1), and return the
-    accumulated metrics."""
+    (1, N, 4) and ``valid`` (1, N), the SoA columns, or the packed columns
+    ``ev_xq``...; ``is_first``, ``has_label``, ``label``; optionally host
+    offsets) through the streaming steps on the modules' device, one stream
+    (B=1), and return the accumulated metrics."""
     cfg = mods.cfg
     device = next(mods.e2vid.parameters()).device
     encode_step, score_step = make_streaming_steps(mods, pipeline)
@@ -108,7 +112,7 @@ def run_streaming_eval(mods: ESSModules, stream: Iterator[dict],
                             cfg.task.class_names)
     recon_state = None
     for sample in stream:
-        if "raw_events" in sample:
+        if "raw_events" in sample or "ev_xq" in sample:
             sample = to_soa(sample)
         has_label = bool(np.asarray(sample["has_label"]))
         batch = {k: torch.from_numpy(np.ascontiguousarray(
@@ -117,7 +121,7 @@ def run_streaming_eval(mods: ESSModules, stream: Iterator[dict],
                  if k != "has_label" and (k != "label" or has_label)}
         if recon_state is None:
             recon_state = mods.recon_val.init_state(
-                batch["ev_x"].shape[0], device)
+                batch["is_first"].shape[0], device)
         if has_label:
             recon_state, cm = score_step(recon_state, batch)
             metrics.update_confusion(cm.cpu().numpy())

@@ -1,7 +1,8 @@
 """Supervised ESS steps: frozen E2VID rollout + trainable segmentation head.
 
 Counterparts of ``ess_tpu/train/supervised.py::make_train_step`` and
-``make_eval_step`` on host-folded batches.
+``make_eval_step`` on the batches ``EventPipeline.build_all`` takes (f32
+or packed columns, host-folded, tile-sorted or raw).
 
 - Train: voxelize all windows once (with the flip augmentation), roll the
   frozen backbone out under ``torch.no_grad`` on the train rollout's
@@ -38,6 +39,11 @@ def draw_augment(pipeline: EventPipeline, seed: int, step: int,
     return pipeline.sample_augment(gen, batch_size, train=True)
 
 
+def batch_size(batch: Dict[str, torch.Tensor]) -> int:
+    """B of an event batch, f32 ("ev_x") or packed ("ev_xq")."""
+    return batch["ev_xq" if "ev_xq" in batch else "ev_x"].shape[0]
+
+
 def make_train_step(mods: ESSModules, pipeline: EventPipeline
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
@@ -51,7 +57,7 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
              aug: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
         if aug is None:
             aug = draw_augment(pipeline, cfg.seed, state.step,
-                               batch["ev_x"].shape[0])
+                               batch_size(batch))
         with torch.no_grad():
             windows, labels = pipeline.build_all(batch, aug=aug,
                                                  out_dtype=recon.model.dtype)

@@ -40,7 +40,7 @@ from ess_tpu_torch.train.losses import (
     l1_loss, symmetric_js_divergence, task_loss)
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
-from ess_tpu_torch.train.supervised import draw_augment
+from ess_tpu_torch.train.supervised import batch_size, draw_augment
 
 Losses = Dict[str, torch.Tensor]
 PREFIX = "sensor_b_to_sensor_a"
@@ -149,7 +149,7 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
             b_batch["label"] = batch["label_b"]
         if aug is None:
             aug = draw_augment(pipeline, cfg.seed + 1, state.step,
-                               b_batch["ev_x"].shape[0])
+                               batch_size(b_batch))
         with torch.no_grad():
             windows, labels_b = pipeline.build_all(
                 b_batch, aug=aug, out_dtype=recon.model.dtype)

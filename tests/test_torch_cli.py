@@ -5,7 +5,8 @@
 - ``build_loaders`` of both packages gives equal batches, in the same
   order, on the tree and on a DSEC tree written with
   ``tests.test_datasets_integration.make_dsec_seq`` (needs ``h5py``), for
-  the band wire (voxel grid) and the tile wire (histogram);
+  the band wire (voxel grid) and the tile wire (histogram), on DSEC also
+  with ``wire_format: packed`` (``DSEC_packed``);
 - the port's ``cli.train.main`` prints the summary keys the JAX CLI prints
   and writes the YAML copy, ``metrics.jsonl`` with train losses, and the
   checkpoints;
@@ -74,9 +75,10 @@ def summary_lines(out: str) -> dict:
     return {k: v for k, v in rows}
 
 
-def dsec_config(tmp_path, representation):
-    """``configs/settings_DSEC.yaml`` (supervised, small windows, B=2) on a
-    DSEC tree of one train and one val sequence written here."""
+def dsec_config(tmp_path, representation, wire_format="f32"):
+    """``configs/settings_DSEC.yaml`` (supervised, small windows, B=2, on
+    ``wire_format``) on a DSEC tree of one train and one val sequence
+    written here."""
     import yaml
 
     for sub, name, seed in (("train", "zurich_city_00_a", 0),
@@ -87,7 +89,8 @@ def dsec_config(tmp_path, representation):
         raw = yaml.safe_load(f)
     raw["dataset"]["DSEC_events"].update(
         dataset_path=str(tmp_path / "dsec"), nr_events_data=4,
-        nr_events_window=1024, event_representation=representation)
+        nr_events_window=1024, event_representation=representation,
+        wire_format=wire_format)
     raw["model"]["model_name"] = "ess_supervised"
     raw["optim"]["batch_size_b"] = 2
     raw["hardware"]["num_cpu_workers"] = 2
@@ -95,17 +98,19 @@ def dsec_config(tmp_path, representation):
 
 
 @pytest.mark.parametrize("representation", ["voxel_grid", "histogram"])
-@pytest.mark.parametrize("dataset", ["DDD17", "DSEC"])
+@pytest.mark.parametrize("dataset", ["DDD17", "DSEC", "DSEC_packed"])
 def test_build_loaders_match_jax(tmp_path, tree, dataset, representation):
     """Both packages' loaders give equal batches in the same order: the
-    band wire for the voxel grid, the tile wire otherwise."""
+    band wire for the voxel grid, the tile wire otherwise; ``DSEC_packed``
+    sends them as packed columns."""
     from ess_tpu.cli.train import build_loaders as jax_build_loaders
     from ess_tpu.core.config import load_config as jax_load_config
     from ess_tpu_torch.cli.train import build_loaders
     from ess_tpu_torch.core.config import load_config
 
-    if dataset == "DSEC":
-        src = dsec_config(tmp_path, representation)
+    if dataset.startswith("DSEC"):
+        src = dsec_config(tmp_path, representation,
+                          "packed" if dataset == "DSEC_packed" else "f32")
     else:
         src = yaml_for(tmp_path, tree, edits={
             "event_representation: 'voxel_grid'":
@@ -123,6 +128,7 @@ def test_build_loaders_match_jax(tmp_path, tree, dataset, representation):
     offsets = ("band_offsets" if representation == "voxel_grid"
                else "tile_offsets")
     assert offsets in got[0]
+    assert ("ev_xq" in got[0]) == (dataset == "DSEC_packed")
 
 
 @pytest.fixture(scope="module")

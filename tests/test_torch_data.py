@@ -276,7 +276,8 @@ def test_dsec_events_match_jax(seq_root):
         assert len(got) == len(want) == 2
         assert_dicts_equal(got[1], want[1])
     with pytest.raises(ValueError):
-        dsec.DSECSequence(seq_dir(seq_root), wire_format="packed", **SEQ_KW)
+        dsec.DSECSequence(seq_dir(seq_root), binning="folded_bands",
+                          wire_format="packed", **SEQ_KW)
     with pytest.raises(ValueError):
         dsec.DSECSequence(seq_dir(seq_root), binning="dense", **SEQ_KW)
 

@@ -1,5 +1,6 @@
 """The port never loads JAX, cv2 or PIL: importing it and every slice
-module leaves ``jax`` (and the JAX package), ``cv2`` and ``PIL`` out of
+module, or ``chip_smoke.py`` (which runs on a machine without them),
+leaves ``jax`` (and the JAX package), ``cv2`` and ``PIL`` out of
 ``sys.modules``."""
 
 import os
@@ -43,9 +44,9 @@ MODULES = [
 ]
 
 
-def test_port_imports_no_jax():
+def imports_nothing_forbidden(modules):
     code = ("import importlib, sys\n"
-            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
             "                                    'ess_tpu', 'cv2', 'PIL'))\n"
@@ -54,3 +55,11 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_imports_no_jax():
+    imports_nothing_forbidden(MODULES)
+
+
+def test_chip_smoke_imports_no_jax():
+    imports_nothing_forbidden(["chip_smoke"])

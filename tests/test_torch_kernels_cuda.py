@@ -14,7 +14,10 @@ Bounds:
   atol 1e-4: tens of thousands of deposits a cell in run-dependent
   order); a direct launch into a NaN-filled grid leaves no NaN (every
   element stored once); B3 allocates nothing but its grid; both launchers
-  refuse a plan that disagrees with their layout;
+  refuse a plan that disagrees with their layout; a packed u16 batch
+  (native ingest, folded and tile wires) decodes on the card to the CPU's
+  decode bit for bit, and its windows through B1 / B3 match the plain
+  versions (atol/rtol 1e-5);
 - ConvLSTM cell (bf16): h atol 2e-2, c atol 3e-2, the bounds of
   tests/test_conv_lstm_pallas.py: both accumulate bf16 products in f32,
   in other orders, and round the state to bf16 once;
@@ -126,6 +129,53 @@ def folded(rng, b, n, h, w):
     r, v, o = vf.host_band_bin_folded(raw, valid, height=h, width=w, bins=5)
     cols = [torch.from_numpy(np.ascontiguousarray(r[..., i])) for i in range(4)]
     return raw, valid, cols + [torch.from_numpy(v)], torch.from_numpy(o)
+
+
+@pytest.mark.parametrize("wire", ["folded", "tile"])
+def test_packed_wire_on_the_card(dev, wire):
+    """B=2 x T=3 windows of 100k events on 480x640 through the packed
+    ingest: decoded where they lie (the card, the CPU), then ``build_all``
+    with one voxelizer launch."""
+    from ess_tpu_torch.data import loader, native
+    from ess_tpu_torch.data.pipeline import (EventPipeline, PipelineConfig,
+                                             to_soa)
+
+    rng = np.random.default_rng(12)
+    t_dim, n = 3, 100_000
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    rmap = np.stack([xx + rng.uniform(-0.4, 0.4, xx.shape),
+                     yy + rng.uniform(-0.4, 0.4, yy.shape)],
+                    -1).astype(np.float32)
+    starts = np.arange(t_dim, dtype=np.int64) * n
+    samples = []
+    for _ in range(2):
+        ev = {"x": rng.integers(0, 640, t_dim * n).astype(np.uint16),
+              "y": rng.integers(0, 480, t_dim * n).astype(np.uint16),
+              "t": np.sort(rng.integers(0, 10**6, t_dim * n)),
+              "p": rng.integers(0, 2, t_dim * n).astype(np.uint8)}
+        samples.append(
+            native.ingest_rectify_bin_packed(ev, starts, starts + n, n, rmap,
+                                             tile_h=24) if wire == "tile"
+            else native.ingest_rectify_bin_packed_folded(
+                ev, starts, starts + n, n, rmap, tile_h=24, ntx=5))
+    batch = {k: torch.from_numpy(v)
+             for k, v in to_soa(loader._collate(samples)).items()}
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    pipe = EventPipeline(PipelineConfig(sensor_height=480, sensor_width=640,
+                                        num_bins=5, trilinear=True))
+    want = pipe.decode_packed(batch)
+    got = pipe.decode_packed(on_card)
+    assert got.pop("ev_t_prenormalized") and want.pop("ev_t_prenormalized")
+    for k, v in want.items():
+        assert got[k].device.type == "cuda", k
+        assert torch.equal(got[k].cpu(), v), k
+    counter = (vf, "launches") if wire == "folded" else (vt, "launches")
+    n0 = getattr(*counter)
+    grids, _ = pipe.build_all(on_card)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == n0 + 1
+    ref, _ = pipe.build_all(batch)
+    torch.testing.assert_close(grids.cpu(), ref, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("h,w", [(48, 256), (26, 170), (480, 640)])

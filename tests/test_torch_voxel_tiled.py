@@ -15,7 +15,8 @@ Inputs come from a numpy seed and go through both packages:
 - ``voxelize_tile`` / ``voxelize_window_soa`` against the JAX dispatcher
   with ``use_pallas=True, pallas_interpret=True`` over sensors, bin counts,
   trilinear on and off, ``separate_pol``, host offsets and none;
-- ``to_soa`` and ``make_window_fn`` (bottom crop, per-sample crop, flip)
+- ``to_soa`` (also its pass-through of a packed batch, whose offsets it
+  renames) and ``make_window_fn`` (bottom crop, per-sample crop, flip)
   against the JAX pipeline.
 
 Events cover coordinates in (-1, 0), tile edges (rows and columns just below
@@ -339,8 +340,13 @@ def test_to_soa_matches_jax():
         np.testing.assert_array_equal(got[k], want[k])
         assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
     assert got["ev_x"].flags.c_contiguous
-    with pytest.raises(ValueError):
-        to_soa({"ev_xq": np.zeros(3, np.uint16)})
+    packed = {"ev_xq": np.zeros((4, 3), np.uint16), "tile_offsets": offs,
+              "is_first": np.bool_(True)}
+    got, want = to_soa(packed), jax_to_soa(packed)
+    assert sorted(got) == sorted(want) == ["ev_tile_offsets", "ev_xq",
+                                           "is_first"]
+    for k in want:
+        assert got[k] is want[k] is packed[k.replace("ev_tile", "tile")]
 
 
 @pytest.mark.parametrize("kind", ["tile", "raw"])
