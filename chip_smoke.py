@@ -121,7 +121,8 @@ exits non-zero, with no result line):
    10000`` over 60 windows, ``-T 50`` over 20 and ``--color -N 20000`` over
    30 (read from a zip), each on the kernel path and on B3's plain version
    -- one B3 launch a window and no other kernel, the frames (one PNG a
-   window, 260x346 gray or 260x346x3) held kernel against plain; B3's grid
+   window, 260x346 gray or 260x346x3; with ``--color`` also the phase and
+   gray frames the merge reads) held kernel against plain; B3's grid
    on every ``-N`` and ``-T`` window against its plain version on the CPU;
    ``python -m ess_tpu_torch.cli.reconstruct -N 10000`` once in its own
    process, its frames against the in-process run's; windows/s, peak
@@ -149,6 +150,30 @@ exits non-zero, with no result line):
    train cell) and the same overfit on the exact cell (the loss falls
    below 0.7x of the first step's on both) and on the histogram, with each
    loss trajectory and batch mIoU;
+5h. data parallel (``ess_tpu_torch/parallel``): the train CLI on phase
+   5d's tree and config with ``--num_devices 1`` (a world of one on NCCL)
+   against ``--num_devices 0`` run twice: per-step losses and final head
+   weights equal bit for bit, or within the two one-device runs' own
+   difference where those differ (B1 sums in no fixed order), with B1 and
+   B2 launches as in phase 5d, and the same summary; the same run under
+   ``torchrun --standalone --nproc_per_node 1`` with ``--num_devices -1``,
+   its logged losses and summary equal to the one-device run's; two ranks
+   on this one card over gloo, started by ``parallel.launch.spawn`` with
+   an explicit backend: each rank's B2-int8 and B4-int8 preps of its rows
+   (the absmax kernel, the maximum over the ranks, the prep with the given
+   absmax) against the one-device prep of the whole batch, bit for bit;
+   the DSEC supervised train step at global B=8 and the UDA train step at
+   the ``settings_DDD17.yaml`` shape (global B=16, augmentation on), each
+   on the int8 kernels with one sample of rank 1's rows piling its events
+   on one pixel, against the one-device step on the same global batch --
+   every int8 prep call's s_x on each rank the one of the global batch bit
+   for bit, losses, the parameters' updates, the ranks equal bit for bit,
+   each rank's launches, ms a step, windows/s and peak memory a rank,
+   beside the one device's; three planted faults (a rank-local absmax,
+   rank-local loss sums, no gradient average), each of which must fail one
+   of these checks; and
+   ``--num_devices 2`` through the CLI on NCCL where two cards exist, else
+   a line saying why it did not run and the CLI's raise for 2 on one card;
 6. streaming slice: the streaming eval steps at the same width, at B=1 and
    at B=8 streams: 40 carried-state windows with a state reset at window 0
    and, for half of the streams, at window 20, a scored window every 20th,
@@ -223,6 +248,7 @@ from ess_tpu_torch.ops import (  # noqa: E402
     voxel_folded, voxel_scatter, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
+from ess_tpu_torch.recon import color  # noqa: E402
 from ess_tpu_torch.tools import (  # noqa: E402
     REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head, bench_level,
     bench_lstm_breakdown)
@@ -3076,6 +3102,7 @@ def phase_cli(dev, kern_rows, tmp: str, root: str):
     with tapped_steps(calls), timed_epochs(epoch_s):
         out = captured(cli_train.main, ["--settings_file", yaml_sup])
     counts = read_counts()
+    calls_train = list(calls)
     peak = torch.cuda.max_memory_allocated()
     step_s = list(timers._ACCUM["train_step"])
     timers.reset_timers()   # nothing left for the report at exit
@@ -3220,6 +3247,8 @@ def phase_cli(dev, kern_rows, tmp: str, root: str):
     if "cv2" in sys.modules or "h5py" in sys.modules:
         raise AssertionError("phase 5d imported cv2 or h5py")
     log(f"phase 5d took {time.perf_counter() - t_phase:.1f} s")
+    return {"yaml": yaml_sup, "run": run_dir, "losses": losses,
+            "calls": calls_train}
 
 
 # ESS UDA from disk (phase 5e): configs/settings_DDD17.yaml as written but
@@ -3492,9 +3521,15 @@ def phase_uda_cli(dev, kern_rows, tmp: str, root: str):
 # 60 windows (a 0.6 s text file), -T 50 over 20 (a 1 s file) and --color
 # -N 20000 over 30 (the zip copy of the 0.6 s file). Each run once on the
 # kernel path (B3, 1 launch a window) and once with B3's plain version; the
-# frames held against each other: gray within 1 grey level, color within 2
-# (the CPU test's levels, tests/test_torch_reconstruct_cli.py), on at most
-# 0.1 % of a frame's values. B3's raw grid on every window of the -N and -T
+# frames held against each other on at most 0.1 % of a frame's values: gray
+# within 1 grey level; with --color, the frames the color merge reads (the
+# four half-resolution Bayer phase frames and the full-resolution gray one,
+# the rollout's outputs) within 1, and the merged color frames within the
+# merge's own bound, recon/color.py::merge_move_bound: the largest move of
+# a merged value that a one-level move of one input value can cause through
+# the resize, the G/W mean and the 8-bit Lab round trip (38 levels over all
+# 2^24 triples). B3 sums in no fixed order, so its grids differ from the
+# plain version's at ~1e-7 and may flip a frame value's rounding. B3's raw grid on every window of the -N and -T
 # runs is held against its plain version on the CPU within RECON_GRID_TOL
 # (absolute and relative), as tests/test_torch_kernels_cuda.py does.
 RECON_HW = (260, 346)
@@ -3503,7 +3538,8 @@ RECON_RUNS = (("gray_N", "short.txt", ["-N", "10000"], 60),
               ("gray_T", "long.txt", ["-T", "50"], 20),
               ("color_N", "short.zip", ["-N", "20000", "--color"], 30))
 RECON_FRAME_BOUND = {"gray_N": (1, 0.001), "gray_T": (1, 0.001),
-                     "color_N": (2, 0.001)}
+                     "color_N": (None, 0.001),   # None: merge_move_bound
+                     "color_N merged frames": (1, 0.001)}
 RECON_GRID_TOL = 1e-5
 
 
@@ -3536,6 +3572,23 @@ def recon_checkpoint(path: str) -> None:
                 "model": {"num_bins": 5, "num_encoders": 3,
                           "base_num_channels": 32, "num_residual_blocks": 2,
                           "skip_type": "sum"}}, path)
+
+
+@contextlib.contextmanager
+def merge_inputs(frames: list):
+    """Record, for each call of ``recon/color.py``'s color merge, the
+    frames it reads: the R, G, W, B phase frames and the gray frame."""
+    merge = color.merge_channels_into_color_image
+
+    def tapped(channels):
+        frames.append([channels[k].copy() for k in
+                       ("R", "G", "W", "B", "grayscale")])
+        return merge(channels)
+    color.merge_channels_into_color_image = tapped
+    try:
+        yield
+    finally:
+        color.merge_channels_into_color_image = merge
 
 
 def recon_frames(folder: str) -> dict:
@@ -3575,13 +3628,22 @@ def phase_reconstruct(dev, kern_rows, tmp: str):
         f"{RECON_RATE} events/s (+ a zip copy) and a seeded E2VID-lightweight "
         f"checkpoint written in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    merge_bound = color.merge_move_bound()
+    log(f"  the color merge's bound (recon/color.py::merge_move_bound, all "
+        f"2^24 triples, {time.perf_counter() - t0:.1f} s): {merge_bound}")
+    if merge_bound["bound"] < 1:
+        raise AssertionError("a merge step moves a value by more than one "
+                             "level")
+    merged = {}
     for name, src, flags, n_win in RECON_RUNS:
         argv = ["-c", ckpt, "-i", os.path.join(folder, src)] + flags
         out = {}
         for path in ("kernel", "plain"):
             out[path] = os.path.join(folder, f"{name}_{path}")
             with plain_versions() if path == "plain" else \
-                    contextlib.nullcontext():
+                    contextlib.nullcontext(), \
+                    merge_inputs(merged.setdefault(path, [])):
                 torch.cuda.reset_peak_memory_stats()
                 reset_counts()
                 t0 = time.perf_counter()
@@ -3612,21 +3674,33 @@ def phase_reconstruct(dev, kern_rows, tmp: str):
         names = [f"frame_{i:010d}.png" for i in range(n_win)]
         if list(got) != names or list(want) != names:
             raise AssertionError(f"{name}: frame files {list(got)[:3]}...")
-        levels, share = RECON_FRAME_BOUND[name]
-        worst, off_share, spread = 0, 0.0, []
-        for k in names:
-            if got[k].shape != shape or want[k].shape != shape:
-                raise AssertionError(f"{name}: frame {got[k].shape}")
-            off = np.abs(got[k].astype(np.int16) - want[k])
-            worst = max(worst, int(off.max()))
-            off_share = max(off_share, float((off > 0).mean()))
-            spread.append(float(got[k].std()))
-        log(f"  {name} frames, kernel vs plain path: max {worst} levels, "
-            f"at most {100 * off_share:.3f} % of a frame's values differ "
-            f"(bound {levels}, {100 * share:.1f} %); frame std "
-            f"{min(spread):.1f}-{max(spread):.1f} levels")
-        if worst > levels or off_share > share or min(spread) < 2:
-            raise AssertionError(f"{name}: frames disagree or are flat")
+        frames = [(name, [got[k] for k in names],
+                   [want[k] for k in names], shape)]
+        if "--color" in flags:
+            got_in, want_in = merged["kernel"], merged["plain"]
+            if len(got_in) != n_win or len(want_in) != n_win:
+                raise AssertionError(f"{name}: {len(got_in)} merges; want "
+                                     f"{n_win}")
+            frames.insert(0, (f"{name} merged frames",
+                              [f for c in got_in for f in c],
+                              [f for c in want_in for f in c], None))
+        for what, got_f, want_f, fshape in frames:
+            levels, share = RECON_FRAME_BOUND[what]
+            levels = merge_bound["bound"] if levels is None else levels
+            worst, off_share, spread = 0, 0.0, []
+            for g, wnt in zip(got_f, want_f):
+                if g.shape != wnt.shape or (fshape and g.shape != fshape):
+                    raise AssertionError(f"{what}: frame {g.shape}")
+                off = np.abs(g.astype(np.int16) - wnt)
+                worst = max(worst, int(off.max()))
+                off_share = max(off_share, float((off > 0).mean()))
+                spread.append(float(g.std()))
+            log(f"  {what}, kernel vs plain path: max {worst} levels, at "
+                f"most {100 * off_share:.3f} % of a frame's values differ "
+                f"(bound {levels}, {100 * share:.1f} %); frame std "
+                f"{min(spread):.1f}-{max(spread):.1f} levels")
+            if worst > levels or off_share > share or min(spread) < 2:
+                raise AssertionError(f"{what}: frames disagree or are flat")
 
     # B3's grids against its plain version on the CPU, on every window of
     # the -N and -T runs (launched outside the counted runs above)
@@ -4124,6 +4198,511 @@ def option_sanity(dev, kern_rows) -> None:
     torch.cuda.empty_cache()
 
 
+# Data parallel (phase 5h): a world of one on NCCL through the train CLI,
+# against the one-device CLI run twice; two gloo ranks sharing this card
+# (parallel.launch.spawn, backend='gloo'), each step on its rows of the
+# global batch, against the one-device step on that batch. Checks of the
+# two ranks, of which each planted fault (DP_FAULTS, run in the same ranks
+# on both steps) must fail at least one:
+# - sx: every int8 prep call (cells and block convs) forms on every rank
+#   the s_x of the largest |x| over the ranks' rows of that call, bit for
+#   bit (a tap reads each call's local |x| maximum and its s_x); the
+#   batch's sample B/2, rank 1's first row, piles events on one pixel, so
+#   its |x| dwarfs rank 0's;
+# - agree: the ranks' losses and states are equal bit for bit;
+# - loss: each loss within DP_LOSS_REL (relative) of the one-device step;
+# - update: each trainable parameter after one step within DP_UPDATE_REL of
+#   the one-device step's largest change to a parameter (RAdam's first
+#   update is lr times the gradient, so this bounds the gradient), and
+#   each batch-norm running statistic within DP_UPDATE_REL of the largest
+#   change to one (a statistic moves by ~1e3x a parameter's update: held
+#   in one group with the parameters, it would hide them). The int8 cells
+#   quantize with the same global absmax on both sides, but at another
+#   batch the library convs may pick other algorithms, and B1 sums in no
+#   fixed order, so a few quantized values flip: on the DSEC step the one
+#   device against itself reads 3-4e-2, and on these batches of similar
+#   halves the planted faults read 3-6e-2 too, so there only sx and agree
+#   tell them apart; on the DDD17 UDA step sound runs read 3.1-3.3e-3 and
+#   the gradient faults 3.1-3.8e-2, statistics 3.6-3.9e-4 against 0.68
+#   (H100 runs). A per-tensor reading (each tensor's difference over its
+#   own largest change, for tensors whose change is at least
+#   DP_TENSOR_FLOOR of the largest) is printed beside it; tensors whose
+#   exact gradient is 0 (biases before an instance norm) read 1-2 of their
+#   own rounding-sized change in sound runs, so it bounds nothing alone.
+# And each rank's int8 preps of its rows of a seeded global x (DP_PREPS,
+# sample B/2 scaled 16x) equal the two-launch prep of the global x on one
+# device bit for bit: scales, weights and the quantized rows.
+# The world of one: bit for bit, or within DP_RUN_FACTOR times the two
+# one-device runs' difference where they differ.
+DP_LOSS_REL = 1e-3
+DP_UPDATE_REL = (0.1, 1e-2)     # the DSEC step, the DDD17 UDA step
+DP_TENSOR_FLOOR = 0.1
+DP_RUN_FACTOR = 2
+DP_TIMED = 3                 # timed train steps after the compared one
+# (kind, (B, H, W, C_in, C_out or hidden)) at the DSEC B=8: the level-0
+# and level-2 cells, the head and first encoder block convs
+DP_PREPS = [("cell", (8, 220, 320, 64, 64)), ("cell", (8, 55, 80, 256, 256)),
+            ("conv", (8, 220, 320, 20, 128)),
+            ("conv", (8, 220, 320, 128, 64))]
+DP_FAULTS = ("rank_absmax", "rank_sums", "no_gradient_average")
+
+
+@contextlib.contextmanager
+def tapped_preps(rows: list):
+    """Wrap the int8 preps of the cells and the block convs: each call
+    appends (the largest |x| of this process's rows, the s_x the prep
+    formed) as a device pair, read after the run."""
+    saved = conv_lstm.int8_prep, conv3x3.int8_prep
+
+    def tap(prep):
+        def tapped(x, *args):
+            out = prep(x, *args)
+            rows.append(torch.stack([torch.maximum(-x.amin(), x.amax())
+                                     .float(), out[0][0]]))
+            return out
+        return tapped
+
+    conv_lstm.int8_prep, conv3x3.int8_prep = map(tap, saved)
+    try:
+        yield
+    finally:
+        conv_lstm.int8_prep, conv3x3.int8_prep = saved
+
+
+@contextlib.contextmanager
+def dp_fault(name: str):
+    """Plant one data-parallel fault in this process for the block:
+    ``rank_absmax`` the int8 preps' x absmax over this rank's rows alone,
+    ``rank_sums`` the losses' and batch norms' sums over this rank's rows
+    alone, ``no_gradient_average`` each rank stepping with its own
+    gradient."""
+    from ess_tpu_torch.parallel import dp
+
+    saved = [(m, k, getattr(m, k)) for m, k in (
+        (conv_lstm, "global_partials"), (conv3x3, "global_partials"),
+        (dp, "all_sum"), (dp, "average_gradients"))]
+    if name == "rank_absmax":
+        conv_lstm.global_partials = conv3x3.global_partials = \
+            lambda *args: 0
+    elif name == "rank_sums":
+        dp.all_sum = lambda x: x
+    elif name == "no_gradient_average":
+        dp.average_gradients = list
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for m, k, v in saved:
+            setattr(m, k, v)
+
+
+def dp_prep_x(kind: str, shape, seed: int) -> tuple:
+    """A seeded global x of a DP_PREPS case on the card, sample B/2 scaled
+    16x, and ``rows -> the prep of x[rows]`` with its output names."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl_ = torch.channels_last
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x = rnd(b, cin, h, w).to(torch.bfloat16).contiguous(memory_format=cl_)
+    x[b // 2] *= 16
+    if kind == "cell":
+        hp = torch.tanh(rnd(b, cout, h, w)).to(torch.bfloat16).contiguous(
+            memory_format=cl_)
+        prep = conv_lstm.prepare_gate_weights(
+            rnd(4 * cout, cin + cout, 3, 3) * 0.05, torch.float32)
+        return (lambda rows: conv_lstm.int8_prep(x[rows], hp[rows], prep),
+                ("scal", "w_img", "ws", "xq", "hq"))
+    prep = conv3x3.prepare_conv_weights(
+        rnd(cout, cin, 3, 3) * (9 * cin) ** -0.5, int8=True)
+    return (lambda rows: conv3x3.int8_prep(x[rows], prep),
+            ("scal", "wq", "ws"))
+
+
+def dp_rank(specs: list, faults: tuple) -> dict:
+    """What each of phase 5h's gloo ranks runs: its int8 preps of its rows
+    of each DP_PREPS x, each spec through ``parallel.steps.run_steps``
+    with the int8 preps tapped, then each spec once more (no timed steps)
+    under each planted fault."""
+    from ess_tpu_torch.parallel import dp
+
+    preps = []
+    for i, (kind, shape) in enumerate(DP_PREPS):
+        run, _ = dp_prep_x(kind, shape, 40 + i)
+        preps.append([t.cpu() for t in run(slice(*dp.row_range(shape[0])))])
+    out = {"preps": preps, "specs": [dp_tapped_run(sp) for sp in specs],
+           "faults": {}}
+    for name in faults:
+        with dp_fault(name):
+            out["faults"][name] = [dp_tapped_run(dict(sp, timed=0))
+                                   for sp in specs]
+    return out
+
+
+def dp_tapped_run(spec: dict) -> dict:
+    from ess_tpu_torch.parallel import steps
+
+    rows = []
+    with tapped_preps(rows):
+        res = steps.run_steps(spec)
+    res["preps"] = torch.stack(rows).cpu() if rows else torch.zeros(0, 2)
+    return res
+
+
+def dp_errors(ranks: list, ref: dict) -> dict:
+    """The checks of the ranks' results of one spec against the one-device
+    ``ref`` (the block comment above): ``loss``; ``update`` over the
+    trainable parameters and ``stats`` over the batch-norm running
+    statistics, each tensor's difference over the largest change the
+    reference step made in its group; ``tensor`` and ``worst`` (the three
+    parameters of the largest difference over their own change, with
+    their change's share of the largest); ``params`` (absolute, every
+    tensor); ``agree``, ``sx`` and ``sx_one`` (the largest relative
+    difference of the ranks' s_x from the one-device run's), with
+    ``sx_ratio``: rank 1's |x| maximum over rank 0's at the first call."""
+    err = {"loss": 0.0, "update": 0.0, "stats": 0.0, "tensor": 0.0,
+           "params": 0.0}
+    for res in ranks:
+        for got, want in zip(res["train"], ref["train"]):
+            for k, v in want.items():
+                err["loss"] = max(err["loss"],
+                                  abs(got[k] - v) / max(abs(v), 1e-30))
+    changes = {(name, k): float((v.double() - ref["state0"][name][k].double()
+                                 ).abs().max())
+               for name, sd in ref["state"].items() if name in ref["state0"]
+               for k, v in sd.items() if v.is_floating_point()}
+    group = lambda key: "stats" if "running_" in key[1] else "update"
+    largest = {g: max([c for key, c in changes.items() if group(key) == g]
+                      + [1e-30]) for g in ("update", "stats")}
+    per_tensor = {}
+    for res in ranks:
+        for name, sd in ref["state"].items():
+            for k, v in sd.items():
+                d = float((res["state"][name][k].double() - v.double()
+                           ).abs().max())
+                err["params"] = max(err["params"], d)
+                if (name, k) not in changes:
+                    continue
+                g = group((name, k))
+                err[g] = max(err[g], d / largest[g])
+                if g == "update":
+                    own = max(changes[(name, k)], 1e-30)
+                    per_tensor[(name, k)] = max(
+                        per_tensor.get((name, k), 0.0), d / own)
+                    if changes[(name, k)] >= DP_TENSOR_FLOOR * largest[g]:
+                        err["tensor"] = max(err["tensor"], d / own)
+    err["worst"] = [(f"{key[0]}.{key[1]}", e,
+                     changes[key] / largest["update"])
+                    for key, e in sorted(per_tensor.items(),
+                                         key=lambda kv: -kv[1])[:3]]
+    first = ranks[0]
+    err["agree"] = all(
+        r["train"] == first["train"] and all(
+            torch.equal(v, first["state"][n][k])
+            for n, sd in r["state"].items() for k, v in sd.items())
+        for r in ranks[1:])
+    if "preps" not in first:
+        return dict(err, sx=None, sx_one=None, sx_ratio=None)
+    amax = torch.stack([r["preps"][:, 0] for r in ranks])
+    want = conv_lstm._div127(torch.clamp(amax.max(0).values, min=1e-8))
+    err["sx"] = len(want) > 0 and all(
+        torch.equal(r["preps"][:, 1], want) for r in ranks)
+    err["sx_one"] = (float(((want - ref["preps"][:, 1]).abs()
+                            / ref["preps"][:, 1]).max())
+                     if len(ref.get("preps", [])) == len(want) else None)
+    err["sx_ratio"] = (float(amax[1, 0] / amax[0, 0]) if len(want)
+                       else None)
+    return err
+
+
+def dp_caught(err: dict, update_rel: float) -> list:
+    """The checks that ``err`` fails, the update held to ``update_rel``."""
+    return [name for name, ok in (
+        ("sx", err["sx"]), ("agree", err["agree"]),
+        ("loss", err["loss"] <= DP_LOSS_REL),
+        ("update", err["update"] <= update_rel),
+        ("stats", err["stats"] <= update_rel)) if not ok]
+
+
+def dp_cli(cli_train, yaml_path: str, n: int) -> dict:
+    """One train CLI run with ``--num_devices n`` in this process: its
+    train steps' losses and launches, ms a step, peak memory and final
+    head."""
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.io import timers
+
+    calls = []
+    timers.reset_timers()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tapped_steps(calls):
+        text = quiet(cli_train.main, ["--settings_file", yaml_path,
+                                      "--num_devices", str(n)])
+    counts = read_counts()
+    step_s = list(timers._ACCUM["train_step"])
+    timers.reset_timers()
+    log_dir = load_config(yaml_path).log_dir
+    (run,) = os.listdir(log_dir)
+    head = torch.load(os.path.join(log_dir, run, "checkpoints",
+                                   str(CLI_EPOCHS - 1), "state.pt"),
+                      weights_only=True)["head"]
+    return {"calls": calls, "counts": counts, "text": text, "head": head,
+            "losses": [c[2] for c in calls if c[0] == "train"],
+            "ms": 1e3 * statistics.median(step_s),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def logged_losses(log_root: str) -> list:
+    """The ``train/loss`` lines of the one run under ``log_root``."""
+    (run,) = os.listdir(log_root)
+    with open(os.path.join(log_root, run, "metrics.jsonl")) as f:
+        return [r["train/loss"] for r in map(json.loads, f)
+                if "train/loss" in r]
+
+
+def run_difference(a: dict, b: dict) -> tuple:
+    """(largest loss difference, largest head difference) of two runs."""
+    dl = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    dh = max(float((a["head"][k].double() - v.double()).abs().max())
+             for k, v in b["head"].items())
+    return dl, dh
+
+
+def rank_counts(launches: dict) -> tuple:
+    """``parallel.steps.launch_counts`` in KERNEL_NAMES order."""
+    return all_counts([launches[k] for k in (
+        "voxel_folded", "conv_lstm", "conv_lstm_int8", "voxel_tiled",
+        "conv3x3", "conv3x3_int8")])
+
+
+def dp_rows(b: int, r: int) -> tuple:
+    """Rank ``r``'s rows of a global batch of ``b`` over two ranks."""
+    from ess_tpu_torch.parallel import dp
+
+    return dp.row_range(b, r, 2)
+
+
+def show_worst(worst: list) -> str:
+    return ", ".join(f"{t} {e:.3g} (its update {s:.2g} of the largest)"
+                     for t, e, s in worst)
+
+
+def phase_dp(dev, kern_rows, tmp: str, cli_run: dict) -> None:
+    """Phase 5h: data parallel (module docstring); ``cli_run`` is phase
+    5d's one-device train CLI run on its tree."""
+    import yaml
+
+    from ess_tpu_torch.cli import train as cli_train
+    from ess_tpu_torch.parallel import launch, steps
+
+    t_phase = time.perf_counter()
+    card = bench.card()
+    b, win = DDD17_B, DDD17_B * WINDOWS
+    per_call = (1, 3 * WINDOWS)
+    n_train = CLI_EPOCHS * CLI_STEPS
+    yamls = {}
+    for name in ("one", "world1", "torchrun"):
+        with open(cli_run["yaml"]) as f:
+            raw = yaml.safe_load(f)
+        raw["dir"]["log"] = os.path.join(tmp, f"dp_{name}")
+        yamls[name] = os.path.join(tmp, f"dp_{name}.yaml")
+        with open(yamls[name], "w") as f:
+            yaml.safe_dump(raw, f)
+
+    # --- 1. a world of one on NCCL against one device ---
+    runs = {"5d": {"losses": cli_run["losses"], "head": torch.load(
+        os.path.join(cli_run["run"], "checkpoints", str(CLI_EPOCHS - 1),
+                     "state.pt"), weights_only=True)["head"]}}
+    runs["one"] = dp_cli(cli_train, yamls["one"], 0)
+    runs["world1"] = dp_cli(cli_train, yamls["world1"], 1)
+    need_calls(runs["world1"]["calls"], "train", n_train, per_call)
+    need_calls(runs["world1"]["calls"], "eval", CLI_EPOCHS + 1, per_call)
+    add_launches(kern_rows, "dp_cli_world1", runs["world1"]["counts"])
+    d00 = run_difference(runs["5d"], runs["one"])
+    d01 = run_difference(runs["world1"], runs["one"])
+    d01b = run_difference(runs["world1"], runs["5d"])
+    exact = d01 == d01b == (0.0, 0.0)
+    for name in ("one", "world1"):
+        r = runs[name]
+        log(f"  train CLI --num_devices {0 if name == 'one' else 1}: "
+            f"losses {r['losses']}; {r['ms']:.1f} ms a step in the "
+            f"Trainer, {win / (r['ms'] / 1e3):.2f} windows/s, peak "
+            f"{r['peak'] / 2 ** 30:.2f} GiB, launches "
+            f"{show_counts(r['counts'])}; {card}")
+    log(f"  world of one vs one device: max |d loss| {d01[0]:.3e} / "
+        f"{d01b[0]:.3e}, head {d01[1]:.3e} / {d01b[1]:.3e} (against this "
+        f"phase's and phase 5d's one-device runs); the two one-device runs "
+        f"differ by {d00[0]:.3e} (loss) and {d00[1]:.3e} (head)")
+    if not (exact or (d01[0] <= DP_RUN_FACTOR * d00[0]
+                      and d01[1] <= DP_RUN_FACTOR * d00[1])):
+        raise AssertionError("--num_devices 1 disagrees with --num_devices "
+                             "0 beyond the one-device runs' own difference")
+    if printed_summary(runs["world1"]["text"]) != \
+            printed_summary(runs["one"]["text"]):
+        raise AssertionError("--num_devices 1 printed another summary")
+
+    # the same run under torchrun: one process that joins torchrun's group
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "ess_tpu_torch.cli.train",
+         "--settings_file", yamls["torchrun"], "--num_devices", "-1"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    got, want = (logged_losses(os.path.join(tmp, f"dp_{name}"))
+                 for name in ("torchrun", "one"))
+    log(f"  torchrun --nproc_per_node 1 -m ess_tpu_torch.cli.train "
+        f"--num_devices -1: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; summary "
+        f"{printed_summary(proc.stdout)}; logged losses {got} (one device "
+        f"{want})")
+    if (proc.returncode or got != want or printed_summary(proc.stdout)
+            != printed_summary(runs["one"]["text"])):
+        raise AssertionError(f"the train CLI under torchrun disagrees with "
+                             f"one device:\n{proc.stderr[-3000:]}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # --- 2. two gloo ranks on this card against one device ---
+    n_ex_s, n_i8_s = int8_cells(8, SENSOR_H - CROP, SENSOR_W)
+    n_ex_u, n_i8_u = int8_cells(DDD17_B, *bench.DDD17_CROP)
+    host_s = {k: v.numpy() for k, v in
+              make_batch(21, 8, "cpu", ignore_rows=20, pile=4).items()}
+    host_u = {k: v.numpy() for k, v in bench.make_ddd17_batch(
+        22, DDD17_B, "cpu", uda_=True, pile=DDD17_B // 2).items()}
+    paths = []
+    for name, host in (("dsec_sup", host_s), ("ddd17_uda", host_u)):
+        paths.append(os.path.join(tmp, f"dp_{name}.npz"))
+        np.savez(paths[-1], **host)
+    del host_s, host_u
+    pipe = bench.make_pipeline().cfg
+    specs = [{"cfg": bench.make_cfg(8), "pipeline_train": pipe,
+              "pipeline_val": pipe, "train": [paths[0]],
+              "timed": DP_TIMED, "device": str(dev)},
+             {"cfg": bench.make_ddd17_cfg("ess", DDD17_B),
+              "train": [paths[1]], "timed": DP_TIMED, "device": str(dev)}]
+    wants = [(1, n_ex_s * WINDOWS, n_i8_s * WINDOWS),
+             (1, n_ex_u * WINDOWS, n_i8_u * WINDOWS)]
+    one = [dp_tapped_run(sp) for sp in specs]
+    again = [steps.run_steps(dict(sp, timed=0)) for sp in specs]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = launch.spawn(dp_rank, 2, (specs, DP_FAULTS), device=dev,
+                       backend="gloo")
+    log(f"  two gloo ranks on {dev}: launched, ran the prep checks, both "
+        f"specs and {len(DP_FAULTS)} planted faults, and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the int8 preps of each rank's rows against one device's of the batch
+    for i, (kind, shape) in enumerate(DP_PREPS):
+        b = shape[0]
+        run, names = dp_prep_x(kind, shape, 40 + i)
+        want = [t.cpu() for t in run(slice(0, b))]
+        alone = [float(run(slice(*dp_rows(b, r)))[0][0]) for r in (0, 1)]
+        for r, res in enumerate(two):
+            lo, hi = dp_rows(b, r)
+            differ = [n for n, got, w in zip(names, res["preps"][i], want)
+                      if not torch.equal(got, w[lo:hi] if n in ("xq", "hq")
+                                         else w)]
+            if differ:
+                raise AssertionError(f"{kind} prep {shape}, rank {r}: "
+                                     f"{differ} differ from one device's")
+        log(f"  {'B2-int8' if kind == 'cell' else 'B4-int8'} prep, global "
+            f"(B, H, W, C_in, C_out) {shape}, rows split over two ranks: "
+            f"each rank's {', '.join(names)} equal one device's of the "
+            f"whole batch bit for bit (s_x {float(want[0][0]):.6e}); a "
+            f"rank-local absmax would give rank 0 s_x {alone[0]:.6e}, "
+            f"rank 1 {alone[1]:.6e}")
+        if alone[0] == float(want[0][0]):
+            raise AssertionError("the prep check's batch does not tell a "
+                                 "rank-local absmax from the global one")
+
+    cases = (("DSEC supervised train step", 8),
+             ("DDD17 UDA train step", DDD17_B))
+    for i, (name, gb) in enumerate(cases):
+        ranks = [r["specs"][i] for r in two]
+        err = dp_errors(ranks, one[i])
+        self_err = dp_errors([again[i]], one[i])
+        need_counts(rank_counts(one[i]["launches_train"]), wants[i])
+        for r in ranks:
+            need_counts(rank_counts(r["launches_train"]), wants[i])
+            add_launches(kern_rows, f"dp_gloo_rank{r['rank']}",
+                         rank_counts(r["launches_train"]))
+        log(f"  {name}, global B={gb} (B={gb // 2} a rank), int8 kernels: "
+            f"losses {ranks[0]['train'][0]['loss']:.6f} (2 ranks) vs "
+            f"{one[i]['train'][0]['loss']:.6f} (1 device); max relative "
+            f"loss difference {err['loss']:.3e} (bound {DP_LOSS_REL}), "
+            f"parameters {err['update']:.3e} of the largest update (bound "
+            f"{DP_UPDATE_REL[i]}), batch-norm statistics {err['stats']:.3e} "
+            f"of their largest change, {err['params']:.3e} absolute, per "
+            f"tensor {err['tensor']:.3e} of its own update (parameters of "
+            f"at least {DP_TENSOR_FLOOR} of the largest; worst of all "
+            f"{show_worst(err['worst'])}); ranks equal bit for bit: "
+            f"{err['agree']}; s_x of all {len(ranks[0]['preps'])} int8 "
+            f"prep calls a rank the global one bit for bit: {err['sx']} "
+            f"(rank 1's |x| max {err['sx_ratio']:.2f}x rank 0's at the "
+            f"first call; {err['sx_one']:.3e} from one device's); launches "
+            f"a rank {show_counts(rank_counts(ranks[0]['launches_train']))}"
+            f" (the int8 rule on the global B={gb}); one device against "
+            f"itself: loss {self_err['loss']:.3e}, parameters "
+            f"{self_err['update']:.3e} of the largest update, statistics "
+            f"{self_err['stats']:.3e}, per tensor "
+            f"{self_err['tensor']:.3e} (worst of all "
+            f"{show_worst(self_err['worst'])})")
+        for who, r in [("1 device", one[i])] + [
+                (f"rank {r['rank']}", r) for r in ranks]:
+            log(f"    {who}: {r['ms_per_step']:.1f} ms a step, "
+                f"{gb * WINDOWS / (r['ms_per_step'] / 1e3):.2f} windows/s "
+                f"(global), peak {r['peak_bytes'] / 2 ** 30:.2f} GiB; {card}")
+        caught = dp_caught(err, DP_UPDATE_REL[i])
+        if caught or not all(np.isfinite(
+                [v for r in ranks for v in r["train"][0].values()])):
+            raise AssertionError(f"{name}: two ranks disagree with one "
+                                 f"device: {caught}")
+
+    # each planted fault fails a check
+    for fault in DP_FAULTS:
+        for i, (name, _) in enumerate(cases):
+            err = dp_errors([r["faults"][fault][i] for r in two], one[i])
+            caught = dp_caught(err, DP_UPDATE_REL[i])
+            log(f"  planted fault {fault}, {name}: loss {err['loss']:.3e}, "
+                f"parameters {err['update']:.3e} of the largest update, "
+                f"statistics {err['stats']:.3e}, per tensor "
+                f"{err['tensor']:.3e} (worst of all "
+                f"{show_worst(err['worst'])}), ranks equal {err['agree']}, "
+                f"s_x global {err['sx']}; fails {caught or 'no check'}")
+            if not caught:
+                raise AssertionError(f"the planted fault {fault} passes "
+                                     f"every check of the two ranks ({name})")
+    del one, two, again
+    torch.cuda.empty_cache()
+
+    # --- 3. --num_devices 2 on NCCL ---
+    if torch.cuda.device_count() >= 2:
+        with open(cli_run["yaml"]) as f:
+            raw = yaml.safe_load(f)
+        raw["dir"]["log"] = os.path.join(tmp, "dp_world2")
+        path = os.path.join(tmp, "dp_world2.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        text = captured(cli_train.main, ["--settings_file", path,
+                                         "--num_devices", "2"])
+        if not 0 <= printed_summary(text).get(
+                "semseg_sensor_b_mean_iou", -1) <= 100:
+            raise AssertionError("--num_devices 2: no summary")
+    else:
+        log(f"  --num_devices 2 on NCCL did not run: "
+            f"{torch.cuda.device_count()} CUDA device on this machine")
+        try:
+            quiet(cli_train.main, ["--settings_file", yamls["one"],
+                                   "--num_devices", "2"])
+        except ValueError as e:
+            log(f"  --num_devices 2 on one card raises: {e}")
+        else:
+            raise AssertionError("--num_devices 2 ran on one card")
+    log(f"phase 5h took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_options(dev, kern_rows, tmp: str, root: str) -> None:
     """Phase 5g: the YAML's model and event options (module docstring)."""
     t_phase = time.perf_counter()
@@ -4394,10 +4973,11 @@ def main() -> None:
         root = ddd17_tree(tmp, np.random.default_rng(14))
         log(f"DDD17 tree of {sum(CLI_MASKS.values())} masks in 7 folders "
             f"written in {time.perf_counter() - t0:.1f} s")
-        phase_cli(dev, rows, tmp, root)
+        cli_run = phase_cli(dev, rows, tmp, root)
         phase_uda_cli(dev, rows, tmp, root)
         phase_reconstruct(dev, rows, tmp)
         phase_options(dev, rows, tmp, root)
+        phase_dp(dev, rows, tmp, cli_run)
     phase_stream(dev, rows)
     phase_data(dev, rows)
     phase_block(dev, rows)

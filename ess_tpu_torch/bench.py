@@ -160,14 +160,16 @@ def make_ddd17_cfg(model_name: str, batch: int = DDD17_BATCH,
         optim=OptimConfig(batch_size_a=batch, batch_size_b=batch))
 
 
-def make_ddd17_batch(seed: int, batch: int, device, *, uda_: bool = False
-                     ) -> Dict[str, torch.Tensor]:
+def make_ddd17_batch(seed: int, batch: int, device, *, uda_: bool = False,
+                     pile: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """``bench_extra.py::make_event_batch`` with integer coordinates:
     uniform integer events on 260x346, sorted times, random polarity,
     binned on the host into integer band records (``host_band_bin_folded(
     trilinear=False)``, x-slots). The supervised batch has uniform labels
     at 200x352; the UDA batch none, and N(0, 1) sensor-A images (B, 1,
-    120, 216) with uniform labels instead."""
+    120, 216) with uniform labels instead. Sample ``pile``'s events are
+    partly piled on the middle pixel (:func:`pile_events`), inside every
+    UDA crop."""
     rng = np.random.default_rng(seed)
     h, w = DDD17_SENSOR
     shape = (batch, WINDOWS, DDD17_EVENTS)
@@ -176,6 +178,7 @@ def make_ddd17_batch(seed: int, batch: int, device, *, uda_: bool = False
     raw[..., 1] = rng.integers(0, h, shape)
     raw[..., 2] = np.sort(rng.uniform(0, 5e4, shape), axis=-1)
     raw[..., 3] = rng.integers(0, 2, shape)
+    pile_events(raw, pile, w // 2, h // 2)
     valid = np.ones(shape, bool)
     recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
         raw[i], valid[i], height=h, width=w, bins=BINS, trilinear=False)
@@ -225,6 +228,16 @@ def make_raw(rng: np.random.Generator, batch: int, windows: int = WINDOWS):
     return raw, np.ones(shape, bool)
 
 
+def pile_events(raw: np.ndarray, sample: Optional[int], x: float,
+                y: float) -> None:
+    """Move 15 % of each window's events of ``sample`` onto the pixel
+    ``(x, y)`` in place (nothing where ``sample`` is None): that sample's
+    voxels, and the int8 cells' x, then dwarf the others' in |x|."""
+    if sample is not None:
+        k = int(0.15 * raw.shape[2])
+        raw[sample, :, :k, 0], raw[sample, :, :k, 1] = x, y
+
+
 def _stack_padded(arrays) -> np.ndarray:
     """Stack per-sample (T, cap_i, ...) arrays along a new first axis,
     zero-padded to the largest capacity."""
@@ -233,12 +246,14 @@ def _stack_padded(arrays) -> np.ndarray:
                             + [(0, 0)] * (a.ndim - 2)) for a in arrays])
 
 
-def make_batch(seed: int, batch: int, device,
-               ignore_rows: int = 0) -> Dict[str, torch.Tensor]:
+def make_batch(seed: int, batch: int, device, ignore_rows: int = 0,
+               pile: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Host-folded batch on ``device`` with labels at 440x640 (the bottom
-    ``ignore_rows`` rows set to the ignore label)."""
+    ``ignore_rows`` rows set to the ignore label; sample ``pile``'s events
+    partly piled on one pixel, :func:`pile_events`)."""
     rng = np.random.default_rng(seed)
     raw, valid = make_raw(rng, batch)
+    pile_events(raw, pile, SENSOR_W / 2, SENSOR_H / 2)
     recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
         raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS)
         for i in range(batch)))

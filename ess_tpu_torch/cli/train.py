@@ -9,8 +9,16 @@ copied in. It trains on the first CUDA device.
 
 ``model_name: 'ess'`` reads its sensor-A image set from disk:
 ``Cityscapes_gray``, ``DDD17_gray`` or their mix ``DDD17_Cityscapes_gray``.
-Not ported yet: ``--num_devices`` other than 0 (data parallel over several
-GPUs) raises.
+
+``--num_devices N`` trains data parallel (``ess_tpu_torch/parallel``) on N
+ranks, one process and one CUDA device each, and computes what
+``--num_devices 0`` computes on the same global batches: 0 is one device
+and no process group, -1 every visible CUDA device, and N more than exist
+raises, as does a batch size that does not divide over N. The command
+starts the ranks itself (spawn); under ``torchrun --nproc_per_node N`` each
+process joins the group ``torchrun`` describes instead. Rank 0 prints the
+summary and writes the logs and checkpoints. The YAML's
+``hardware.num_devices`` is read and unused, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -133,35 +141,85 @@ def print_summary(summary: dict) -> None:
             print(f"{k}: {v}")
 
 
-def main(argv=None, *, device=None) -> None:
-    """Train as the YAML says; ``device`` (not a command-line flag) builds
-    on another device than the first CUDA one, e.g. ``"cpu"``."""
-    args = parse_args(argv, "ess-tpu training (PyTorch)", **{
-        "--num_devices": dict(type=int, default=0,
-                              help="data-parallel devices (only 0, one "
-                                   "device, is ported)")})
-    if args.num_devices != 0:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: multi-GPU data parallel "
-            f"training is not ported yet; use 0 (one device)")
-
-    from ess_tpu_torch.core.config import load_config
-    from ess_tpu_torch.train.loop import Trainer
-
-    cfg = load_config(args.settings_file)
-    np.random.seed(cfg.seed)
-
+def make_log_dir(cfg, settings_file: str) -> str:
+    """A timestamped directory under ``cfg.log_dir`` with the YAML copied
+    in."""
     log_dir = os.path.join(cfg.log_dir, time.strftime("%Y%m%d-%H%M%S"))
     os.makedirs(log_dir, exist_ok=True)
-    shutil.copyfile(args.settings_file,
-                    os.path.join(log_dir, os.path.basename(args.settings_file)))
+    shutil.copyfile(settings_file,
+                    os.path.join(log_dir, os.path.basename(settings_file)))
+    return log_dir
 
+
+def train(settings_file: str, log_dir: str, device=None) -> dict:
+    """Build the loaders and the Trainer of the YAML and run it; returns
+    the last validation summary. Under an active data-parallel group this
+    is one rank's share, on the group's device."""
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.io import timers
+    from ess_tpu_torch.parallel import dp
+    from ess_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(settings_file)
+    np.random.seed(cfg.seed)
     train_a, train_b, val_a, val_b = build_loaders(cfg)
     trainer = Trainer(
         cfg, train_b=train_b, val_b=val_b, train_a=train_a, val_a=val_a,
         log_dir=log_dir, e2vid_state=load_pretrained_backbone(cfg),
+        group=dp.active(), device=None if dp.active() else device)
+    summary = trainer.run()
+    if dp.rank():
+        timers.reset_timers()   # one timing report, rank 0's
+    return summary
+
+
+def check_batches(cfg, world: int) -> None:
+    """Raise unless the config's global batches divide over ``world``
+    ranks."""
+    from ess_tpu_torch.parallel import dp
+
+    dp.check_divides(cfg.optim.batch_size_b, world, "batch_size_b")
+    if cfg.model.model_name == "ess":
+        dp.check_divides(cfg.optim.batch_size_a, world, "batch_size_a")
+
+
+def main(argv=None, *, device=None) -> None:
+    """Train as the YAML says; ``device`` (not a command-line flag) builds
+    on another device than the first CUDA one, e.g. ``"cpu"``, where
+    ``--num_devices N`` runs N gloo ranks on the CPU."""
+    args = parse_args(argv, "ess-tpu training (PyTorch)", **{
+        "--num_devices": dict(type=int, default=0,
+                              help="data-parallel devices (0 = single, "
+                                   "-1 = all)")})
+    from ess_tpu_torch.core.config import load_config
+    from ess_tpu_torch.parallel import dp, launch, multihost
+
+    cfg = load_config(args.settings_file)
+    if args.num_devices == 0:
+        print_summary(train(args.settings_file,
+                            make_log_dir(cfg, args.settings_file), device))
+        return
+    if multihost.from_torchrun():
+        multihost.initialize(backend=dp.default_backend(device or "cuda"))
+        try:
+            group = dp.make_group(args.num_devices, device=device)
+            check_batches(cfg, group.world)
+            log_dir = dp.broadcast_object(
+                make_log_dir(cfg, args.settings_file) if group.rank == 0
+                else None)
+            summary = train(args.settings_file, log_dir)
+            if group.rank == 0:
+                print_summary(summary)
+        finally:
+            dp.release()
+        return
+    world = dp.world_size(args.num_devices, device)
+    check_batches(cfg, world)
+    results = launch.spawn(
+        train, world, (args.settings_file,
+                       make_log_dir(cfg, args.settings_file)),
         device=device)
-    print_summary(trainer.run())
+    print_summary(results[0])
 
 
 if __name__ == "__main__":

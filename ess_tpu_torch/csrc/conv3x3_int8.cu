@@ -92,22 +92,27 @@ weight_prep_kernel(const float* __restrict__ w,   // (COUT, K) prepared f32
 
 }  // namespace
 
-// The prep of one int8 conv, two launches. x: bf16 NHWC (B, H, W, CIN), CIN
+// The prep of one int8 conv, two launches (one when n_given > 0: then
+// `partials` holds n_given maxima of |x| already, see ess_int8_absmax in
+// conv_lstm_int8.cu). x: bf16 NHWC (B, H, W, CIN), CIN
 // a multiple of 4; w: the f32 prepared tap matrix (COUT, 9*CP) with CP =
 // CIN rounded up to 64 (ops/conv3x3.py::prepare_conv_weights(int8=True));
 // partials: f32 scratch of kMaxPartials; scal: 2 f32 (s_x, 1/s_x); wq: s8
 // (COUT, 9*CP); ws: f32 (COUT,). All 16-byte aligned.
 extern "C" int ess_conv3x3_int8_prep(const void* x, const void* w,
-                                     void* partials, void* scal, void* wq,
-                                     void* ws, int B, int H, int W, int CIN,
-                                     int COUT, void* stream) {
+                                     void* partials, int n_given,
+                                     void* scal, void* wq, void* ws, int B,
+                                     int H, int W, int CIN, int COUT,
+                                     void* stream) {
   const int64_t n = (int64_t)B * H * W * CIN;
   if (n == 0 || COUT == 0) return 0;
-  if (CIN <= 0 || CIN % 4 != 0 || COUT % 8 != 0)
+  if (CIN <= 0 || CIN % 4 != 0 || COUT % 8 != 0 || n_given < 0 ||
+      n_given > kMaxPartials)
     return (int)cudaErrorInvalidValue;
-  const int na = absmax_blocks(n);
-  absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, n, (float*)partials);
+  const int na = n_given ? n_given : absmax_blocks(n);
+  if (!n_given)
+    absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, n, (float*)partials);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int K = 9 * ((CIN + 63) / 64 * 64);

@@ -164,7 +164,22 @@ int launch(const void* xq, const void* hq, void* c, const void* w,
 
 }  // namespace
 
-// The prep of one int8 cell, two launches. x: bf16 NHWC (B, H, W, CX), h:
+// The absmax kernel alone over n bf16 values (16-byte aligned): one
+// partial a block into `partials` (kMaxPartials f32), the blocks past
+// absmax_blocks(n) untouched. Data parallel reduces the partials over the
+// ranks and hands the prep the global maximum (n_given = 1).
+extern "C" int ess_int8_absmax(const void* x, long long n, void* partials,
+                               void* stream) {
+  if (n <= 0) return 0;
+  absmax_kernel<<<absmax_blocks(n), kPrepThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (int64_t)n, (float*)partials);
+  return (int)cudaGetLastError();
+}
+
+// The prep of one int8 cell, two launches (one when n_given > 0: then
+// `partials` holds n_given maxima of |x| already, ess_int8_absmax's or
+// their maximum over data-parallel ranks, and the absmax kernel is
+// skipped). x: bf16 NHWC (B, H, W, CX), h:
 // (B, H, W, CH), CX and CH multiples of 32; w: the f32 prepared gate matrix
 // (4*CH, 9*(CX+CH)) (ops/conv_lstm.py::prepare_gate_weights); partials:
 // f32 scratch of kMaxPartials; scal: 2 f32 (s_x, 1/s_x); w_img: int8
@@ -172,16 +187,19 @@ int launch(const void* xq, const void* hq, void* c, const void* w,
 // CX, CH rounded up to 64 channels. All 16-byte aligned.
 extern "C" int ess_conv_lstm_int8_prep(const void* x, const void* h,
                                        const void* w, void* partials,
-                                       void* scal, void* w_img, void* ws,
-                                       void* xq, void* hq, int B, int H,
-                                       int W, int CX, int CH, void* stream) {
+                                       int n_given, void* scal, void* w_img,
+                                       void* ws, void* xq, void* hq, int B,
+                                       int H, int W, int CX, int CH,
+                                       void* stream) {
   const int64_t npix = (int64_t)B * H * W;
   if (npix == 0) return 0;
-  if (CX <= 0 || CH <= 0 || CX % 32 || CH % 32)
+  if (CX <= 0 || CH <= 0 || CX % 32 || CH % 32 || n_given < 0 ||
+      n_given > kMaxPartials)
     return (int)cudaErrorInvalidValue;
-  const int na = absmax_blocks(npix * CX);
-  absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, npix * CX, (float*)partials);
+  const int na = n_given ? n_given : absmax_blocks(npix * CX);
+  if (!n_given)
+    absmax_kernel<<<na, kPrepThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, npix * CX, (float*)partials);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int w_blocks = (4 * CH + kPrepThreads / 32 - 1) / (kPrepThreads / 32);

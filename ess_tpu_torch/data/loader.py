@@ -15,8 +15,17 @@ Data order for a seed, the index sharding (``shard_index`` /
 ``num_shards``), the collate ring's ``>= prefetch_size + 2`` rule and the
 zero padding of ghost-folded record batches of mixed capacity are the JAX
 package's; the port pads the packed folded wire's columns too, where the
-JAX collate raises on them. The multi-device sharding of its prefetch is
-not ported yet.
+JAX collate raises on them.
+
+Data parallel: a loader whose ``replica`` is ``(rank, world)`` yields that
+rank's rows ``[r*B/N, (r+1)*B/N)`` of each batch of B rows that the
+one-device loader yields, in its order, and reads only those samples; the
+JAX package's single-process mesh shards the same global batches. A batch
+that does not divide over the ranks (a last partial batch without
+``drop_last``) raises there, as the mesh's sharding does.
+``prefetch_to_device`` then puts them on the rank's device. (Its
+``shard_index`` / ``num_shards`` deal whole indices by stride instead,
+the JAX package's split between hosts, which gives other batches.)
 """
 
 from __future__ import annotations
@@ -113,7 +122,7 @@ class BatchLoader:
                  drop_last: bool = True, num_workers: int = 4, seed: int = 6,
                  shard_index: int = 0, num_shards: int = 1,
                  collate_buffers: int = 0, prefetch_size: int = 2,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, replica: tuple = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -122,6 +131,7 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.replica = replica
         # A ring of N > 0 collate destinations recycles each buffer after N
         # batches. prefetch_to_device(size=d) may still read a buffer until
         # d + 1 batches later, so the ring needs N >= d + 2; 0 stacks fresh
@@ -154,11 +164,20 @@ class BatchLoader:
         n_batches = (len(idx) // self.batch_size if self.drop_last
                      else -(-len(idx) // self.batch_size))
         with ThreadPoolExecutor(self.num_workers) as pool:
+            r, world = self.replica
             for b in range(n_batches):
                 chunk = idx[b * self.batch_size: (b + 1) * self.batch_size]
+                if world > 1:
+                    if len(chunk) % world:
+                        raise ValueError(
+                            f"a batch of {len(chunk)} samples does not "
+                            f"divide over {world} data-parallel ranks")
+                    rows = len(chunk) // world
+                    chunk = chunk[r * rows:(r + 1) * rows]
                 samples = list(pool.map(self.dataset.__getitem__, chunk))
                 out = None
-                if self.collate_buffers and len(chunk) == self.batch_size:
+                if (self.collate_buffers
+                        and len(chunk) == self.batch_size // world):
                     if len(self._ring) < self.collate_buffers:
                         self._ring.append(_alloc_like(samples,
                                                       self.pin_memory))

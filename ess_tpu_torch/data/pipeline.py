@@ -133,6 +133,13 @@ class AugmentParams:
     crop_y: Optional[torch.Tensor] = None    # (B,) integer
     crop_x: Optional[torch.Tensor] = None    # (B,) integer
 
+    def rows(self, lo: int, hi: int) -> "AugmentParams":
+        """The draws of samples ``[lo, hi)`` (a data-parallel rank's rows
+        of the global batch's draws)."""
+        return AugmentParams(*(None if v is None else v[lo:hi]
+                               for v in (self.flip, self.crop_y,
+                                         self.crop_x)))
+
 
 def random_flip(x: torch.Tensor, flip: torch.Tensor, batch_dim: int
                 ) -> torch.Tensor:

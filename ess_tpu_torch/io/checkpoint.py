@@ -10,7 +10,9 @@ One checkpoint is a directory ``<directory>/<key>`` with ``state.pt`` (a
 where the state has them, ``front`` with its batch-norm buffers,
 ``opt_front`` and the frozen ``e2vid``) and, when given, ``metadata.json``.
 It is written to a temporary directory and renamed into place, so a crash
-never leaves half a checkpoint under a key.
+never leaves half a checkpoint under a key. Under data parallel rank 0
+alone writes, the other ranks wait for it at a barrier, and every rank
+restores (the replicas are equal, so rank 0's state is every rank's).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ess_tpu_torch.parallel import dp
 from ess_tpu_torch.train.state import TrainState
 
 # Mid-epoch autosave keys live above this base so they never collide with
@@ -64,6 +67,12 @@ class CheckpointManager:
         with the device, so the saved state is the one after every step
         issued before the call; the save is synchronous and ``wait`` has
         nothing to wait for."""
+        if dp.rank() == 0:
+            self._write(key, state, metadata)
+        dp.barrier()
+
+    def _write(self, key: int, state: TrainState,
+               metadata: Optional[dict]) -> None:
         blob: Dict[str, Any] = {"step": int(state.step)}
         for name in _MODULES + _OPTIMIZERS:
             part = getattr(state, name)

@@ -3,10 +3,12 @@
 Counterpart of ``ess_tpu/io/writers.py``: scalar curves (train losses
 averaged over 50 steps), image grids and confusion-matrix figures. The
 durable record is a JSONL stream (``metrics.jsonl``) that any dashboard can
-tail; TensorBoard gets the same records where
-``torch.utils.tensorboard`` imports, and a ``tracker`` mirrors them:
+tail; TensorBoard gets the same records where ``torch.utils.tensorboard``
+imports, unless ``ESS_TENSORBOARD=0`` is set (the import may load
+TensorFlow, seconds in a fresh process), and a ``tracker`` mirrors them:
 ``'wandb'`` to a W&B run where the package imports, or any callable, which
-receives ``(kind, tag, value, step)``.
+receives ``(kind, tag, value, step)``. Under data parallel only rank 0
+writes; the other ranks hold a :class:`NullWriter`.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ class MetricsWriter:
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._tb = None
         try:
-            from torch.utils.tensorboard import SummaryWriter
-            self._tb = SummaryWriter(log_dir)
+            if os.environ.get("ESS_TENSORBOARD", "1") != "0":
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir)
         except Exception:
             pass
         self._avg: Dict[str, list] = defaultdict(list)
@@ -116,3 +119,34 @@ class MetricsWriter:
             self._tb.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullWriter:
+    """A :class:`MetricsWriter` that writes nothing: the writer of every
+    data-parallel rank but rank 0, so one run writes one log."""
+
+    flush_every = 50
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def scalars(self, values: Dict[str, float], step: int,
+                prefix: str = "") -> None:
+        pass
+
+    def averaged_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def image(self, tag: str, img_hwc: np.ndarray, step: int) -> None:
+        pass
+
+    def figure(self, tag: str, fig, step: int) -> None:
+        if fig is not None:
+            import matplotlib.pyplot as plt
+            plt.close(fig)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -103,7 +103,8 @@ def _build() -> ctypes.CDLL:
     # the cells: shape (B, H, W, CX, CH), then the plan (th, tw, grid, smem)
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_conv_lstm.restype = ci
-    lib.ess_conv_lstm_int8_prep.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+    lib.ess_conv_lstm_int8_prep.argtypes = [vp] * 4 + [ci] + [vp] * 5 + [
+        ci] * 5 + [vp]
     lib.ess_conv_lstm_int8_prep.restype = ci
     lib.ess_conv_lstm_int8.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.ess_conv_lstm_int8.restype = ci
@@ -115,7 +116,10 @@ def _build() -> ctypes.CDLL:
     lib.ess_level_int8.restype = ci
     lib.ess_conv3x3.argtypes = [vp] * 4 + [ci] * 11 + [vp]
     lib.ess_conv3x3.restype = ci
-    lib.ess_conv3x3_int8_prep.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.ess_conv3x3_int8_prep.argtypes = [vp] * 3 + [ci] + [vp] * 3 + [
+        ci] * 5 + [vp]
+    lib.ess_int8_absmax.argtypes = [vp, ctypes.c_longlong, vp, vp]
+    lib.ess_int8_absmax.restype = ci
     lib.ess_conv3x3_int8_prep.restype = ci
     lib.ess_conv3x3_int8.argtypes = [vp] * 6 + [ci] * 12 + [vp]
     lib.ess_conv3x3_int8.restype = ci

@@ -23,6 +23,7 @@ mixed-precision rule (bf16 compute, f32 params).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,6 +35,7 @@ from ess_tpu_torch.ops.conv3x3 import (
 from ess_tpu_torch.ops.conv_lstm import (
     conv_lstm_cell, int8_route, prepare_cell_weights)
 from ess_tpu_torch.ops.conv_s2d import block_bias, block_kernel
+from ess_tpu_torch.parallel import dp
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 None: lambda x: x}
@@ -53,7 +55,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics with the biased variance and ``running_var`` updated with
     the unbiased one, as torch does. It normalizes in f32 with its f32
     parameters and casts back to the input's dtype; ``train`` picks batch
-    statistics (and updates the running ones) or the running ones."""
+    statistics (and updates the running ones) or the running ones; under
+    data parallel the batch statistics are the global batch's."""
 
     def __init__(self, num_features: int, *, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
@@ -61,9 +64,31 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             self.num_batches_tracked.add_(1)
+            if dp.world() > 1:
+                return self._global_batch_norm(x)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                          self.weight, self.bias, train, self.momentum,
                          self.eps)
+        return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode under data parallel: the statistics of the global
+        batch (``dp.all_sum`` of the ranks' sums, mean first, then the
+        biased variance about it), and the running ones updated with them
+        on every rank alike."""
+        xf = x.float()
+        n = math.prod(dp.global_shape(x.shape)) // x.shape[1]
+        mean = dp.all_sum(xf.sum((0, 2, 3))) / n
+        centered = xf - mean[None, :, None, None]
+        var = dp.all_sum((centered * centered).sum((0, 2, 3))) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach())
+            self.running_var.mul_(1 - m).add_(
+                m * var.detach() * (n / max(n - 1, 1)))
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = centered * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
         return y.to(x.dtype)
 
 

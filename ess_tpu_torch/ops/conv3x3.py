@@ -11,7 +11,8 @@ By ``impl`` name:
 
 - ``'pallas'``: the exact conv; on CUDA the kernel of ``csrc/conv3x3.cu``
   on the halo-tile core (tile plan: :func:`conv_halo.conv_plan`);
-- ``'pallas_int8'``: per-call absmax scale ``s_x`` for x, x quantized to s8,
+- ``'pallas_int8'``: per-call absmax scale ``s_x`` for x (over the global
+  batch under data parallel), x quantized to s8,
   the weights ``W * s_x`` quantized per output channel, i32 accumulation,
   ``acc * ws + bias``; on CUDA the kernels of ``csrc/conv3x3_int8.cu``:
   two prep launches (x's absmax; the scales and the weight
@@ -46,8 +47,9 @@ import torch.nn.functional as F
 
 from ess_tpu_torch.ops import conv_halo
 from ess_tpu_torch.ops.conv_lstm import (
-    PREP_PARTIALS, _check_aligned, _check_matrix, _div127, input_scale,
-    int8_route, quantize)
+    PREP_PARTIALS, _check_aligned, _check_matrix, _div127, global_partials,
+    input_scale, int8_route, quantize)
+from ess_tpu_torch.parallel import dp
 
 launches = 0        # exact-conv kernel launches (CUDA tensors only)
 launches_int8 = 0   # int8-conv kernel launches (CUDA only)
@@ -107,7 +109,7 @@ def int8_prep_ref(x: torch.Tensor, prepared: torch.Tensor
     :func:`quantize_conv_weights`. x bf16; ``prepared`` the f32 tap matrix
     of ``prepare_conv_weights(w, int8=True)``."""
     bits = x.contiguous().view(torch.int16).to(torch.int32) & 0x7FFF
-    amax = (bits.max() << 16).view(torch.float32)
+    amax = dp.all_max((bits.max() << 16).view(torch.float32))
     s_x = _div127(torch.clamp(amax, min=1e-8))
     return (torch.stack([s_x, torch.reciprocal(s_x)]),
             *quantize_conv_weights(prepared, s_x))
@@ -230,10 +232,11 @@ def int8_prep(x: torch.Tensor, prepared: torch.Tensor
     _check_aligned(name, x, prepared, wq)
     from ess_tpu_torch import kernels
 
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.get_lib().ess_conv3x3_int8_prep(
         x.data_ptr(), prepared.data_ptr(), partials.data_ptr(),
-        scal.data_ptr(), wq.data_ptr(), ws.data_ptr(), b, hh, ww, cin, cout,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        global_partials(x, partials, stream), scal.data_ptr(),
+        wq.data_ptr(), ws.data_ptr(), b, hh, ww, cin, cout, stream)
     kernels.check(err, "conv3x3 int8 prep kernels")
     launches_int8_prep += 2
     return scal, wq, ws

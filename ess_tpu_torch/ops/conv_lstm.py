@@ -12,7 +12,8 @@ int32 (int8 cell).
 Cells, by resolved ``impl`` name (:func:`resolve_lstm_impl`):
 
 - ``'pallas'``: the exact cell; on CUDA the kernel of ``csrc/conv_lstm.cu``;
-- ``'pallas_int8'``: the int8 cell (per-call absmax scale for x, static
+- ``'pallas_int8'``: the int8 cell (per-call absmax scale for x, over the
+  global batch under data parallel (:func:`global_partials`), static
   1/127 for h, per-output-channel weight scales); on CUDA the kernels of
   ``csrc/conv_lstm_int8.cu``: two prep launches (x's absmax; the weight
   re-quantization and the x/h quantize), then the cell. As in the JAX
@@ -52,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ess_tpu_torch.ops import conv_halo
+from ess_tpu_torch.parallel import dp
 
 launches = 0        # exact-cell kernel launches (CUDA tensors only)
 launches_int8 = 0   # int8-cell kernel launches (CUDA only)
@@ -109,7 +111,10 @@ def int8_route(impl: str, shape) -> str:
     exact ``'pallas'``; ``'pallas_int8_interpret'`` skips the rule's size
     half only, as the JAX package's ``_interpret`` names do, so it is
     ``'pallas_int8'`` wherever :func:`pick_row_tile` finds a row tile and
-    ``'pallas'`` elsewhere; other names are unchanged."""
+    ``'pallas'`` elsewhere; other names are unchanged. Under data parallel
+    the rule reads the global batch's shape (``dp.global_shape``), as the
+    JAX package traces it, so every rank routes alike."""
+    shape = dp.global_shape(shape)
     if impl == "pallas_int8_interpret":
         return "pallas_int8" if pick_row_tile(shape[2]) is not None \
             else "pallas"
@@ -207,8 +212,10 @@ def _div127(v: torch.Tensor) -> torch.Tensor:
 
 def input_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-call x scale ``max(absmax(x), 1e-8) / 127`` as an f32 device
-    scalar (no host sync)."""
-    return _div127(torch.clamp(x.abs().amax().float(), min=1e-8))
+    scalar (no host sync); under data parallel the absmax of the global
+    batch (``dp.all_max``)."""
+    return _div127(torch.clamp(dp.all_max(x.abs().amax().float()),
+                               min=1e-8))
 
 
 def quantize_gate_weights(weight: torch.Tensor, s_x: torch.Tensor, cx: int,
@@ -255,7 +262,7 @@ def int8_prep_ref(x: torch.Tensor, h_prev: torch.Tensor,
     of 64. ``prepared`` is the f32 prepared matrix; x and h_prev bf16."""
     ch = h_prev.shape[1]
     bits = x.contiguous().view(torch.int16).to(torch.int32) & 0x7FFF
-    amax = (bits.max() << 16).view(torch.float32)
+    amax = dp.all_max((bits.max() << 16).view(torch.float32))
     s_x = _div127(torch.clamp(amax, min=1e-8))
     inv_sx = torch.reciprocal(s_x)
     cin = cx + ch
@@ -442,6 +449,25 @@ def _launch_exact(x, h_prev, c_prev, weight, bias, prepared, mode=0):
     return h_new, c_prev
 
 
+def global_partials(x: torch.Tensor, partials: torch.Tensor, stream) -> int:
+    """Under data parallel, the int8 preps' x absmax over the global
+    batch: the absmax kernel's partials (``ess_int8_absmax``, the first of
+    a prep's two launches), their maximum reduced over the ranks
+    (``dp.all_max``) into ``partials[0]``; returns the partial count the
+    prep then reads, 1. Otherwise 0, and the prep launches the absmax
+    kernel itself."""
+    if dp.world() == 1:
+        return 0
+    from ess_tpu_torch import kernels
+
+    partials.zero_()
+    kernels.check(kernels.get_lib().ess_int8_absmax(
+        x.data_ptr(), x.numel(), partials.data_ptr(), stream),
+        "int8 absmax kernel")
+    partials[:1] = dp.all_max(partials.amax().view(1))
+    return 1
+
+
 def int8_prep(x: torch.Tensor, h_prev: torch.Tensor, prepared: torch.Tensor
               ) -> Tuple[torch.Tensor, ...]:
     """The int8 cell's prep on CUDA tensors, two kernel launches (counted in
@@ -469,11 +495,12 @@ def int8_prep(x: torch.Tensor, h_prev: torch.Tensor, prepared: torch.Tensor
     from ess_tpu_torch import kernels
 
     lib = kernels.get_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ess_conv_lstm_int8_prep(
         x.data_ptr(), h_prev.data_ptr(), prepared.data_ptr(),
-        partials.data_ptr(), scal.data_ptr(), w_img.data_ptr(),
-        ws.data_ptr(), xq.data_ptr(), hq.data_ptr(), b, hh, ww, cx, ch,
-        torch.cuda.current_stream(dev).cuda_stream)
+        partials.data_ptr(), global_partials(x, partials, stream),
+        scal.data_ptr(), w_img.data_ptr(), ws.data_ptr(), xq.data_ptr(),
+        hq.data_ptr(), b, hh, ww, cx, ch, stream)
     kernels.check(err, "conv_lstm int8 prep kernels")
     launches_int8_prep += 2
     return scal, w_img, ws, xq, hq

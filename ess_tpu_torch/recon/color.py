@@ -216,3 +216,63 @@ def merge_channels_into_color_image(channels: Dict[str, np.ndarray]
     green = np.rint((up["G"].astype(np.float32) + up["W"]) * np.float32(0.5))
     reconstruction_bgr = np.dstack([up["B"], green.astype(np.uint8), up["R"]])
     return upsample_color_image(channels["grayscale"], reconstruction_bgr)
+
+
+def merge_move_bound(b_min: int = 0) -> Dict[str, int]:
+    """The largest move, in levels, of a value of
+    :func:`merge_channels_into_color_image`'s output that a one-level move
+    of one value of one of its input frames (a half-resolution R, G, W or
+    B frame, or the full-resolution gray one) can cause. Returns the parts
+    and their maximum, ``"bound"``:
+
+    - ``"resize"``: the 2x linear resize moves an upsampled value by at
+      most this much (a scan of seeded one-level moves); ``"green"``: the
+      G and W mean, over all 256^2 pairs. Both are 1, so a phase frame's
+      move moves one of the B, G, R values the Lab conversion reads by at
+      most one level;
+    - ``"color"``: the 8-bit Lab round trip with the lightness replaced:
+      the output's largest move when one of B, G, R moves by one level,
+      over every one of the 2^24 BGR triples (or those with B >= ``b_min``,
+      a scan an eighth as long at 224 that finds the same maxima) and
+      every gray level;
+    - ``"gray"``: its largest move when the gray level moves by one, over
+      the (a, b) of those triples.
+    """
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (64, 9, 12), np.uint8)
+    moved = frames.copy()
+    at = (np.arange(64), rng.integers(0, 9, 64), rng.integers(0, 12, 64))
+    moved[at] = np.where(frames[at] < 255, frames[at] + 1, frames[at] - 1)
+    resize = max(int(np.abs(resize_linear(f, 18, 24).astype(np.int16)
+                            - resize_linear(m, 18, 24)).max())
+                 for f, m in zip(frames, moved))
+    g = np.arange(256, dtype=np.float32)
+    mean = np.rint((g[:, None] + g[None, :]) * np.float32(0.5))
+    green = int(np.abs(np.diff(mean, axis=0)).max())
+
+    v = np.arange(256, dtype=np.uint8)
+    cube = np.stack(np.meshgrid(v[b_min:], v, v, indexing="ij"), -1)
+    lab = bgr_to_lab(cube).astype(np.uint32)
+    codes = lab[..., 1] * 256 + lab[..., 2]          # (a, b) of (B, G, R)
+    del cube, lab
+    # (a, b) before and after a one-level move of B, G or R; every (a, b)
+    # of a triple is in some pair
+    pairs = np.unique(np.concatenate([
+        (np.take(codes, np.arange(n - 1), ax) * 65536
+         + np.take(codes, np.arange(1, n), ax)).ravel()
+        for ax, n in enumerate(codes.shape)]))
+    cols, inv = np.unique(np.concatenate([pairs // 65536, pairs % 65536]),
+                          return_inverse=True)
+    p0, p1 = inv[:len(pairs)], inv[len(pairs):]
+    grid = np.empty((256, len(cols), 3), np.uint8)
+    grid[..., 0] = v[:, None]
+    grid[..., 1], grid[..., 2] = cols // 256, cols % 256
+    table = lab_to_bgr(grid).astype(np.int16)       # (L, (a, b), BGR)
+    color = 0
+    for i in range(0, len(pairs), 1 << 16):
+        sl = slice(i, i + (1 << 16))
+        color = max(color, int(np.abs(table[:, p0[sl]]
+                                      - table[:, p1[sl]]).max()))
+    gray = int(np.abs(np.diff(table, axis=0)).max())
+    return {"resize": resize, "green": green, "color": color, "gray": gray,
+            "bound": max(color, gray) if max(resize, green) <= 1 else -1}

@@ -14,6 +14,15 @@ The train steps update the state's modules in place and return only their
 losses, so the state always names the modules the steps run, and a
 checkpoint, whose copy to the host waits for the device, saves the state
 after the last step issued.
+
+Data parallel (the JAX Trainer's ``mesh``): with ``group``, one Trainer
+runs in each rank's process on the group's device. Every rank builds the
+same state (seeded init, the same pretrained weights, or the same
+checkpoint), its loaders yield its rows of each global batch
+(``BatchLoader.replica``), the steps reduce over the global batch
+(``parallel/dp.py``), validation sums the ranks' confusion matrices and
+gathers their embeddings, and rank 0 alone prints, logs and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ from ess_tpu_torch.data.loader import PairedLoader, prefetch_to_device
 from ess_tpu_torch.data.pipeline import to_soa
 from ess_tpu_torch.io import timers
 from ess_tpu_torch.io.checkpoint import AUTOSAVE_BASE, CheckpointManager
-from ess_tpu_torch.io.writers import MetricsWriter
+from ess_tpu_torch.io.writers import MetricsWriter, NullWriter
+from ess_tpu_torch.parallel import dp, multihost
 from ess_tpu_torch.train import supervised as sup
 from ess_tpu_torch.train import uda as uda_mod
 from ess_tpu_torch.train.builder import (
@@ -57,6 +67,15 @@ def _merge_uda(batch_a: dict, batch_b: dict) -> dict:
     return out
 
 
+def _summed(m: MetricsSemseg) -> MetricsSemseg:
+    """``m`` with its confusion matrix summed over the data-parallel ranks
+    (every rank takes part, and gets the sum)."""
+    total = multihost.all_reduce_host(m.confusion)
+    m.reset()
+    m.update_confusion(total)
+    return m
+
+
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else \
         np.asarray(x)
@@ -71,10 +90,13 @@ class Trainer:
     :mod:`ess_tpu_torch.io.convert`) replace the E2VID's and the image
     front's. ``save_every_steps > 0`` adds mid-epoch checkpoints under
     ``AUTOSAVE_BASE + step``; ``profile_steps = (start, end)`` writes a
-    ``torch.profiler`` trace of those train steps to ``<log_dir>/profile``.
-    The JAX Trainer's ``mesh`` (data parallel over several devices) and its
-    ``rectify_map`` (DSEC rectification on the device) are not ported: the
-    port trains on one device, and DSEC is rectified on the host."""
+    ``torch.profiler`` trace of those train steps to ``<log_dir>/profile``
+    (rank 0's under data parallel).
+    ``group`` (the active ``dp.Group``, the counterpart of the JAX
+    Trainer's ``mesh``) trains data parallel on the group's device (module
+    docstring); every loader's batch size must divide over its ranks. The
+    JAX Trainer's ``rectify_map`` (DSEC rectification on the device) is
+    not ported: DSEC is rectified on the host."""
 
     def __init__(
         self,
@@ -89,8 +111,22 @@ class Trainer:
         log_dir: Optional[str] = None,
         save_every_steps: int = 0,
         profile_steps: Optional[tuple] = None,
+        group: Optional[dp.Group] = None,
         device=None,
     ):
+        if group is not None:
+            if group is not dp.active():
+                raise ValueError("group is not the active data-parallel "
+                                 "group (dp.make_group)")
+            if device is not None and torch.device(device) != group.device:
+                raise ValueError(f"device {device} is not the group's "
+                                 f"{group.device}")
+            device = group.device
+            for loader in (train_b, val_b, train_a, val_a):
+                if loader is not None:
+                    dp.check_divides(loader.batch_size)
+                    loader.replica = (group.rank, group.world)
+        self.main = dp.rank() == 0
         self.device = resolve_device(device)
         self.save_every_steps = save_every_steps
         self.profile_steps = profile_steps
@@ -126,11 +162,13 @@ class Trainer:
             self.eval_step_b = sup.make_eval_step(self.mods, self.pipe_val)
             self.eval_step_a = None
 
-        self.log_dir = log_dir or os.path.join(
-            cfg.log_dir, time.strftime("%Y%m%d-%H%M%S"))
+        # one directory for every rank: rank 0's clock names it
+        self.log_dir = log_dir or dp.broadcast_object(os.path.join(
+            cfg.log_dir, time.strftime("%Y%m%d-%H%M%S")))
         self.writer = MetricsWriter(
             self.log_dir, config={"cfg": cfg},
-            tracker=cfg.tracker if cfg.tracker != "none" else None)
+            tracker=cfg.tracker if cfg.tracker != "none" else None
+        ) if self.main else NullWriter()
         # train losses are averaged over 50 steps, or over an epoch where an
         # epoch is shorter, so that every epoch logs them
         self.writer.flush_every = min(self.writer.flush_every,
@@ -141,7 +179,7 @@ class Trainer:
         if self.state.front is not None:
             counts["front_sensor_a"] = viz.count_params(self.state.front)
         for name, n in counts.items():
-            print(f"[ess-tpu] {name}: {n / 1e6:.2f}M params")
+            self._print(f"[ess-tpu] {name}: {n / 1e6:.2f}M params")
         self.ckpt = (CheckpointManager(os.path.join(self.log_dir,
                                                     "checkpoints"))
                      if cfg.checkpoint.save_checkpoint else None)
@@ -172,8 +210,12 @@ class Trainer:
             self.epoch = int(meta.get("epoch", 0))
         else:
             self.epoch = int(meta.get("epoch", latest)) + 1
-        print(f"[ess-tpu] resumed from checkpoint {latest} "
-              f"(epoch {self.epoch}, step {self.step_count})")
+        self._print(f"[ess-tpu] resumed from checkpoint {latest} "
+                    f"(epoch {self.epoch}, step {self.step_count})")
+
+    def _print(self, msg: str) -> None:
+        if self.main:
+            print(msg)
 
     # ------------------------------------------------------------------
 
@@ -192,7 +234,8 @@ class Trainer:
 
     def train_epoch(self) -> None:
         for batch in self._train_batches():
-            if self.profile_steps and self.step_count == self.profile_steps[0]:
+            profiling = self.profile_steps and self.main
+            if profiling and self.step_count == self.profile_steps[0]:
                 timers.start_trace(os.path.join(self.log_dir, "profile"))
             with timers.Timer("train_step"):
                 losses = self.train_step(self.state, batch)
@@ -208,7 +251,7 @@ class Trainer:
                 self.ckpt.save(AUTOSAVE_BASE + self.step_count, self.state,
                                metadata={"epoch": self.epoch,
                                          "step_count": self.step_count})
-            if self.profile_steps and self.step_count == self.profile_steps[1]:
+            if profiling and self.step_count == self.profile_steps[1]:
                 timers.stop_trace()
 
     def _metrics(self) -> MetricsSemseg:
@@ -227,7 +270,7 @@ class Trainer:
                 out = self.eval_step_a(batch)
                 m.update_confusion(_np(out["cm_a"]))
                 losses_a.append(float(out["semseg_sensor_a_loss"]))
-                if not logged_a:
+                if not logged_a and self.main:
                     self._log_val_images_a(batch, out)
                     self._log_latent_pca(out, "val_img")
                     logged_a = True
@@ -236,7 +279,7 @@ class Trainer:
                 # averaged_scalar would swallow small validation sets)
                 self.writer.scalar("val/semseg_sensor_a_loss",
                                    float(np.mean(losses_a)), self.step_count)
-            s = m.summary()
+            s = _summed(m).summary()
             summary["semseg_sensor_a_mean_iou"] = s["mean_iou"]
             summary["semseg_sensor_a_acc"] = s["acc"]
 
@@ -252,30 +295,33 @@ class Trainer:
                     m_cycle.update_confusion(_np(out["cm_cycle"]))
                 if "latent8" in out:
                     # task-feature embedding: the spatially pooled deepest
-                    # latent of each sample (NCHW)
-                    embeds.append(_np(out["latent8"].mean(dim=(2, 3))))
-                if not logged_images:
+                    # latent of each sample (NCHW), of every rank's rows
+                    embeds.append(dp.gather_rows(
+                        _np(out["latent8"].mean(dim=(2, 3)))))
+                if not logged_images and self.main:
                     self._log_val_images(batch, out)
                     self._log_latent_pca(out, "val_events")
                     logged_images = True
-            if embeds:
+            if embeds and self.main:
                 edir = os.path.join(self.log_dir, "embeddings")
                 os.makedirs(edir, exist_ok=True)
                 viz.embedding_dump(
                     np.concatenate(embeds, axis=0), None,
                     os.path.join(edir,
                                  f"task_feature_space_{self.step_count}.tsv"))
-            s = m_b.summary()
+            s = _summed(m_b).summary()
             summary["semseg_sensor_b_mean_iou"] = s["mean_iou"]
             summary["semseg_sensor_b_acc"] = s["acc"]
             summary["cm_b"] = s["cm"]
             for name in task.class_names:
                 self.writer.scalar(f"val_events/iou_{name}", float(s[name]),
                                    self.step_count)
-            self.writer.figure(
-                "val_events/semseg_cm",
-                viz.confusion_matrix_figure(s["cm"], task.class_names),
-                self.step_count)
+            if self.main:
+                self.writer.figure(
+                    "val_events/semseg_cm",
+                    viz.confusion_matrix_figure(s["cm"], task.class_names),
+                    self.step_count)
+            m_cycle = _summed(m_cycle)
             if m_cycle.confusion.sum() > 0:
                 sc = m_cycle.summary()
                 summary["semseg_sensor_cycle_mean_iou"] = sc["mean_iou"]
@@ -340,14 +386,16 @@ class Trainer:
             m = self._metrics()
             for batch in self._device_batches(self.train_a):
                 m.update_confusion(_np(self.eval_step_a(batch)["cm_a"]))
-            summary["train_stats_sensor_a_mean_iou"] = m.summary()["mean_iou"]
+            summary["train_stats_sensor_a_mean_iou"] = \
+                _summed(m).summary()["mean_iou"]
         if self.train_b is not None:
             m = self._metrics()
             for batch in self._device_batches(self.train_b):
                 out = self.eval_step_b(batch)
                 m.update_confusion(_np(out["cm_b" if "cm_b" in out
                                            else "cm"]))
-            summary["train_stats_sensor_b_mean_iou"] = m.summary()["mean_iou"]
+            summary["train_stats_sensor_b_mean_iou"] = \
+                _summed(m).summary()["mean_iou"]
         for k, v in summary.items():
             tag = k.removeprefix("train_stats_")
             self.writer.scalar(f"train_stats/{tag}", float(v),

@@ -6,11 +6,20 @@ NHW integer labels: ``cross_entropy_loss``, ``dice_loss`` and their sum
 ``l1_loss``, the cycle losses of ESS UDA. The math runs in f32 and is
 differentiable in the logits. The JAX package's class-on-sublane
 transposes and label folds are TPU layouts of the same sums.
+
+Every sum, count and mean over the batch is the global batch's under data
+parallel (``parallel/dp.py``): the ranks' partial sums go through
+``dp.all_sum``, so each rank computes the loss of the whole global batch,
+as GSPMD makes the JAX package's reductions global.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ess_tpu_torch.parallel import dp
 
 
 def _check_classes(logits: torch.Tensor, num_classes: int) -> None:
@@ -27,7 +36,8 @@ def _valid_labels(labels: torch.Tensor, ignore_label: int):
 def _cross_entropy(log_probs, valid, safe) -> torch.Tensor:
     picked = log_probs.gather(1, safe[:, None])[:, 0]
     nll = torch.where(valid, -picked, torch.zeros_like(picked))
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return dp.all_sum(nll.sum()) / torch.clamp(dp.all_sum(valid.sum()),
+                                               min=1)
 
 
 def _dice(log_probs, valid, safe, smooth: float = 1.0) -> torch.Tensor:
@@ -35,9 +45,20 @@ def _dice(log_probs, valid, safe, smooth: float = 1.0) -> torch.Tensor:
     probs = torch.exp(log_probs) * vmask
     one_hot = torch.zeros_like(probs).scatter_(1, safe[:, None], 1.0) * vmask
     axes = (0, 2, 3)
-    num = 2.0 * (probs * one_hot).sum(axes) + smooth
-    den = (probs * probs).sum(axes) + one_hot.sum(axes) + smooth
+    pt, pp, tt = dp.all_sum(torch.stack([(probs * one_hot).sum(axes),
+                                         (probs * probs).sum(axes),
+                                         one_hot.sum(axes)]))
+    num = 2.0 * pt + smooth
+    den = pp + tt + smooth
     return (1.0 - num / den).mean()
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over every element of the global batch (``x.mean()`` on one
+    device)."""
+    if dp.world() == 1:
+        return x.mean()
+    return dp.all_sum(x.sum()) / math.prod(dp.global_shape(x.shape))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -84,11 +105,11 @@ def symmetric_js_divergence(p_logits: torch.Tensor,
     p = torch.clamp(torch.softmax(p_logits.float(), dim=1), min=1e-10)
     q = torch.clamp(torch.softmax(q_logits.float(), dim=1), min=1e-10)
     log_p, log_q = torch.log(p), torch.log(q)
-    kl_qp = (q * (log_q - log_p)).mean()
-    kl_pq = (p * (log_p - log_q)).mean()
+    kl_qp = _mean(q * (log_q - log_p))
+    kl_pq = _mean(p * (log_p - log_q))
     return 0.5 * kl_qp + 0.5 * kl_pq
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Mean absolute error in f32 (the cycle-content loss)."""
-    return (a.float() - b.float()).abs().mean()
+    return _mean((a.float() - b.float()).abs())

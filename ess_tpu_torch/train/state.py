@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ess_tpu_torch.parallel import dp
+
 
 class RAdam(torch.optim.Optimizer):
     """optax's ``radam`` (module docstring) for f32 parameters. The step
@@ -132,8 +134,10 @@ class TrainState:
 def apply_updates(params: Iterable[torch.Tensor],
                   grads: Iterable[torch.Tensor], opt: RAdam) -> None:
     """Set each parameter's gradient and take one optimizer step (the
-    counterpart of optax's ``update`` + ``apply_updates``)."""
-    for p, g in zip(params, grads):
+    counterpart of optax's ``update`` + ``apply_updates``). Under data
+    parallel the gradients are first averaged over the ranks
+    (``dp.average_gradients``), so every rank takes the same step."""
+    for p, g in zip(params, dp.average_gradients(grads)):
         p.grad = g
     opt.step()
 

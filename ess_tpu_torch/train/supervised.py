@@ -13,6 +13,13 @@ or packed columns, host-folded, tile-sorted or raw).
 - Eval: voxelize, roll out at the validation geometry, run the head on the
   final latent, resize logits to the label size if they differ, then the
   task loss, argmax and confusion matrix.
+
+Under data parallel (``parallel/dp.py``) each rank runs its rows of the
+global batch: the augmentation is drawn for the global batch and sliced
+(:func:`rank_rows`), the losses are the global batch's, the gradients
+are averaged over the ranks before the update (``apply_updates``), and an
+eval step's confusion matrix counts the rank's rows (the Trainer sums
+them).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
+from ess_tpu_torch.parallel import dp
 from ess_tpu_torch.train.builder import ESSModules
 from ess_tpu_torch.train.losses import task_loss
 from ess_tpu_torch.train.metrics import confusion_matrix
@@ -32,11 +40,20 @@ from ess_tpu_torch.train.state import TrainState, apply_updates
 
 def draw_augment(pipeline: EventPipeline, seed: int, step: int,
                  batch_size: int) -> AugmentParams:
-    """A train step's augmentation: ``pipeline``'s draws from a generator
-    seeded by ``seed`` and ``step``."""
+    """A train step's augmentation: ``pipeline``'s draws for a global
+    batch of ``batch_size`` rows from a generator seeded by ``seed`` and
+    ``step``."""
     entropy = np.random.SeedSequence((seed, step)).generate_state(1)[0]
     gen = torch.Generator().manual_seed(int(entropy))
     return pipeline.sample_augment(gen, batch_size, train=True)
+
+
+def rank_rows(aug: AugmentParams, global_rows: int) -> AugmentParams:
+    """This data-parallel rank's rows of a global batch's draws (the
+    draws themselves on one device)."""
+    if dp.world() == 1:
+        return aug
+    return aug.rows(*dp.row_range(global_rows))
 
 
 def batch_size(batch: Dict[str, torch.Tensor]) -> int:
@@ -48,16 +65,19 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
     updates ``state`` (the head's parameters through ``state.opt_back``,
-    ``state.step``) in place. ``aug`` defaults to draws from a generator
-    seeded by ``cfg.seed`` and ``state.step``."""
+    ``state.step``) in place. ``aug`` (the global batch's draws) defaults
+    to draws from a generator seeded by ``cfg.seed`` and ``state.step``.
+    Under data parallel ``batch`` is this rank's rows of the global batch,
+    and the losses and the update are the global batch's."""
     cfg = mods.cfg
     recon = mods.recon_train
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              aug: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
+        rows = batch_size(batch) * dp.world()
         if aug is None:
-            aug = draw_augment(pipeline, cfg.seed, state.step,
-                               batch_size(batch))
+            aug = draw_augment(pipeline, cfg.seed, state.step, rows)
+        aug = rank_rows(aug, rows)
         with torch.no_grad():
             windows, labels = pipeline.build_all(batch, aug=aug,
                                                  out_dtype=recon.model.dtype)

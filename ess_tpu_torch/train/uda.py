@@ -25,6 +25,10 @@ which parameters each term trains. Here the same gradients are two
 ``autograd.grad`` calls over one forward: the front's of ``e_loss`` (plus
 ``t_img`` off DSEC), the head's of ``t_img + t_ev``, with the
 cross-targets detached. Each RAdam then steps once.
+
+Under data parallel each rank runs its rows of the global batch, as the
+supervised steps do (``train/supervised.py``); the image front's batch
+norm takes the global batch's statistics (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ import torch
 
 from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
+from ess_tpu_torch.parallel import dp
 from ess_tpu_torch.train.builder import ESSModules
 from ess_tpu_torch.train.losses import (
     l1_loss, symmetric_js_divergence, task_loss)
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
-from ess_tpu_torch.train.supervised import batch_size, draw_augment
+from ess_tpu_torch.train.supervised import (
+    batch_size, draw_augment, rank_rows)
 
 Losses = Dict[str, torch.Tensor]
 PREFIX = "sensor_b_to_sensor_a"
@@ -147,9 +153,10 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
         b_batch = {k: v for k, v in batch.items() if k.startswith("ev_")}
         if batch.get("label_b") is not None:
             b_batch["label"] = batch["label_b"]
+        rows = batch_size(b_batch) * dp.world()
         if aug is None:
-            aug = draw_augment(pipeline, cfg.seed + 1, state.step,
-                               batch_size(b_batch))
+            aug = draw_augment(pipeline, cfg.seed + 1, state.step, rows)
+        aug = rank_rows(aug, rows)
         with torch.no_grad():
             windows, labels_b = pipeline.build_all(
                 b_batch, aug=aug, out_dtype=recon.model.dtype)

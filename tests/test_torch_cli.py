@@ -18,7 +18,9 @@
   bounds), and ``model_name: 'ess'`` trains from disk: the first step's
   losses of ``cli.train.main`` within 1e-3 (relative) of the JAX CLI's on
   the same trees, both runs starting from the JAX run's initial weights;
-- ``--num_devices`` other than 0 raises; ``python -m
+- ``--num_devices`` beyond the CUDA devices present, or with a batch that
+  does not divide over the ranks, raises (data parallel itself:
+  ``tests/test_torch_parallel_cli.py``); ``python -m
   ess_tpu_torch.cli.train`` raises without a GPU.
 """
 
@@ -189,11 +191,21 @@ def test_evaluate_cli_reproduces_the_last_validation(trained, capsys):
 
 
 def test_num_devices_raises(tmp_path, tree):
+    """Data parallel on more CUDA devices than exist (none here), or with a
+    batch that does not divide over the ranks, raises before a rank
+    starts; no path trains on fewer devices."""
     from ess_tpu_torch.cli import train
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train.main(["--settings_file", yaml_for(tmp_path, tree),
-                    "--num_devices", "1"], device="cpu")
+    path = yaml_for(tmp_path, tree)
+    for n in ("1", "2", "-1"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            train.main(["--settings_file", path, "--num_devices", n])
+    with pytest.raises(ValueError, match="does not divide over 3"):
+        train.main(["--settings_file", path, "--num_devices", "3"],
+                   device="cpu")
+    with pytest.raises(ValueError, match="name the number of ranks"):
+        train.main(["--settings_file", path, "--num_devices", "-1"],
+                   device="cpu")
 
 
 @pytest.fixture(scope="module")

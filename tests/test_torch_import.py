@@ -41,6 +41,9 @@ MODULES = [
     "ess_tpu_torch.cli", "ess_tpu_torch.cli.train",
     "ess_tpu_torch.cli.evaluate",
     "ess_tpu_torch.bench",
+    "ess_tpu_torch.parallel", "ess_tpu_torch.parallel.dp",
+    "ess_tpu_torch.parallel.multihost", "ess_tpu_torch.parallel.launch",
+    "ess_tpu_torch.parallel.steps",
 ]
 
 

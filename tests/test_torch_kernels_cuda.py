@@ -577,6 +577,57 @@ def test_int8_prep_kernels_match_plain(dev, shape):
         assert a.shape == b_.shape and torch.equal(a, b_), name
 
 
+def two_rank_absmax(monkeypatch, rows_of_other):
+    """Emulate rank r of two data-parallel ranks in this process: the
+    world reads 2 and ``dp.all_max`` takes the maximum with the other
+    rank's |x| (``rows_of_other``, bf16, whose absmax is exact)."""
+    from ess_tpu_torch.parallel import dp
+
+    other = rows_of_other.abs().amax().float().view(1)
+    monkeypatch.setattr(dp, "world", lambda: 2)
+    monkeypatch.setattr(dp, "all_max", lambda t: torch.maximum(t, other))
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("cell", (4, 55, 80, 256, 256)), ("cell", (2, 7, 9, 32, 64)),
+    ("conv", (4, 220, 320, 128, 64)), ("conv", (2, 13, 40, 24, 16))])
+def test_int8_prep_global_absmax(dev, kind, shape, monkeypatch):
+    """Under data parallel each rank's int8 prep takes the global batch's
+    x absmax: ``ess_int8_absmax`` on its rows, the maximum over the ranks
+    (``dp.all_max``; two ranks emulated in this process), then the prep
+    kernel with ``n_given=1``. Each rank's scales and weights equal the
+    two-launch prep's on the global batch bit for bit, and so do the
+    cell's quantized x and h rows; sample 1 (rank 1's first row) has the
+    largest |x| by far, so a rank-local absmax fails this test."""
+    b, h, w, cin, cout = shape
+    if kind == "cell":
+        x, hp, _, wgt, _ = cell_inputs(dev, *shape, seed=9)
+        prep = cl.prepare_gate_weights(wgt, torch.float32)
+        run = lambda x_, r: cl.int8_prep(x_, hp[r], prep)
+        names = ("scal", "w_img", "ws", "xq", "hq")
+    else:
+        x, wgt, _ = conv_inputs(dev, *shape, seed=9)
+        prep = c3.prepare_conv_weights(wgt, int8=True)
+        run = lambda x_, r: c3.int8_prep(x_, prep)
+        names = ("scal", "wq", "ws")
+    x[b // 2] *= 16
+    whole = slice(0, b)
+    want = run(x, whole)
+    halves = [slice(0, b // 2), slice(b // 2, b)]
+    for r, rows in enumerate(halves):
+        alone = run(x[rows], rows)
+        assert (alone[0][0] != want[0][0]) == (r == 0)
+        with monkeypatch.context() as m:
+            two_rank_absmax(m, x[halves[1 - r]])
+            p0 = cl.launches_int8_prep + c3.launches_int8_prep
+            got = run(x[rows], rows)
+            assert cl.launches_int8_prep + c3.launches_int8_prep == p0 + 2
+        for name, a, b_ in zip(names, got, want):
+            if name in ("xq", "hq"):
+                b_ = b_[rows]
+            assert a.shape == b_.shape and torch.equal(a, b_), (name, r)
+
+
 def test_cell_launchers_refuse_a_plan_that_disagrees(dev):
     """The cell launchers rebuild the plan's layout and refuse (an error,
     no launch) a patch of other than 256 pixels, a patch width that is not
