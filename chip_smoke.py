@@ -5,7 +5,8 @@ E2VID reconstruction program and the YAML's model and event options once
 on one NVIDIA GPU, in the rollout form of
 ``build_modules`` and with the block convs on the fused conv kernel, then
 its three kernel tools, then the host event path from an in-memory
-recording to the eval and streaming steps.
+recording to the eval and streaming steps, then the dense and in-loop
+forms of the steps, DSEC rectification on the card and A10's drift.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -213,7 +214,26 @@ exits non-zero, with no result line):
    wire also, on one batch decoded on the card, its voxelizer (B1 or B3)
    against its plain version, the eval step against the plain versions,
    and the supervised train step and the UDA train step (B=8, int8 cell)
-   with their launch counts and first losses against the plain versions.
+   with their launch counts and first losses against the plain versions;
+10. the dense and in-loop forms (B=8, T=20 windows of 100k events): the
+   eval step and the supervised train step (int8 cell) with
+   ``precompute=False`` (each window voxelized just before its step, T
+   voxelizer launches a step) on the band wire (B1) and the tile wire
+   (B3), against the precomputed form on the same batch and draws (the
+   slice bounds; the train loss and the int8 rollout's latent within
+   phase 5's), with both forms' windows/s and peak memory read
+   alternately; raw sensor-coordinate windows of phase 9's recording
+   rectified on the card (``make_pipeline(rectify_map=)``, B3 with the
+   tile sort on the card) through the eval step against the host-rectified
+   tile wire of the same events (``ingest_rectify_bin``), B3's rectified
+   grids against its plain version and the host's, the rectify gather's
+   share of the step's device time and both steps' rates;
+   ``EventPipeline.__call__`` -> dense ``{"events"}`` batches through the
+   eval, train and UDA train steps against the raw wire of the same
+   events (no voxelizer in the step); and A10: ``rollout_events`` over 60
+   carried windows on the exact (B2) and the int8 (B2-int8) cell, the
+   drift of the int8 state from the exact one at windows 1, 20, 40 and 60
+   and its maximum against A10_H_BOUND / A10_C_BOUND.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -255,7 +275,8 @@ from ess_tpu_torch.tools import (  # noqa: E402
 from ess_tpu_torch.train import builder, uda  # noqa: E402
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.streaming import run_streaming_eval  # noqa: E402
-from ess_tpu_torch.train.supervised import make_eval_step  # noqa: E402
+from ess_tpu_torch.train.supervised import (  # noqa: E402
+    make_eval_step, make_train_step)
 
 WINDOWS, EVENTS, CLASSES = bench.WINDOWS, bench.EVENTS_PER_WINDOW, bench.NUM_CLASSES
 CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
@@ -3146,7 +3167,7 @@ def phase_cli(dev, kern_rows, tmp: str, root: str):
         f"GiB; {bench.card()}")
 
     # the first step on the plain versions, from the same seed and batch
-    _, train_b, _, _ = cli_train.build_loaders(cfg)
+    _, train_b, _, _, _ = cli_train.build_loaders(cfg)
     with plain_versions():
         tr = loop.Trainer(cfg, train_b=train_b,
                           log_dir=os.path.join(tmp, "plain"))
@@ -3189,7 +3210,7 @@ def phase_cli(dev, kern_rows, tmp: str, root: str):
         "checkpoint.resume_training": True,
         "checkpoint.resume_file": run_dir})
     cfg_r = load_config(yaml_res)
-    _, train_b, _, val_b = cli_train.build_loaders(cfg_r)
+    _, train_b, _, val_b, _ = cli_train.build_loaders(cfg_r)
     tr = loop.Trainer(cfg_r, train_b=train_b, val_b=val_b,
                       profile_steps=(n_train, n_train + 1))
     saved = torch.load(os.path.join(run_dir, "checkpoints", "1",
@@ -3440,7 +3461,7 @@ def phase_uda_cli(dev, kern_rows, tmp: str, root: str):
         f"GiB; {bench.card()}")
 
     # the first step on the plain versions, from the same seed and batches
-    train_a, train_b, val_a, val_b = cli_train.build_loaders(cfg)
+    train_a, train_b, val_a, val_b, _ = cli_train.build_loaders(cfg)
     with plain_versions():
         tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
                           log_dir=os.path.join(tmp, "uda_plain"))
@@ -3458,7 +3479,7 @@ def phase_uda_cli(dev, kern_rows, tmp: str, root: str):
     torch.cuda.empty_cache()
 
     # --- 2. one more epoch in a Trainer, its second step profiled ---
-    train_a, train_b, val_a, val_b = cli_train.build_loaders(cfg)
+    train_a, train_b, val_a, val_b, _ = cli_train.build_loaders(cfg)
     tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
                       log_dir=os.path.join(tmp, "uda_profiled"),
                       profile_steps=(1, 2))
@@ -3968,7 +3989,7 @@ def option_cli(dev, kern_rows, tmp: str, root: str, city: str) -> None:
             f"{[round(1e3 * t, 1) for t in step_s]} (the second, after the "
             f"first's warm-up: {win / step_s[-1]:.2f} windows/s); peak "
             f"device memory {peak / 2 ** 30:.2f} GiB")
-        train_a, train_b, _, _ = cli_train.build_loaders(cfg)
+        train_a, train_b, _, _, _ = cli_train.build_loaders(cfg)
         with plain_versions():
             tr = loop.Trainer(cfg, train_b=train_b, train_a=train_a,
                               log_dir=os.path.join(tmp, f"opt_plain_{run}"))
@@ -4956,6 +4977,468 @@ def phase_block(dev, kern_rows):
         torch.cuda.empty_cache()
 
 
+# Phase 10: the dense and in-loop forms. A10's carried rollout: FORMS_A10
+# windows at B=8, the drift of the int8 cell's state (B2-int8) from the
+# exact cell's (B2) read at the windows of A10_REPORT. The bounds come from
+# readings: this phase's first run on the H100 read at most 0.1187 (h)
+# and 0.1562 (c, a few bf16 ulps of c's largest values) over 60 windows;
+# the CPU test at 128x160 in f32 (tests/test_torch_int8_drift.py) reads
+# 0.039 and 0.062.
+FORMS_A10 = 60
+A10_REPORT = (1, 20, 40, 60)
+A10_H_BOUND = 0.2
+A10_C_BOUND = 0.3
+RECT_TILE_H = 24               # B3's tile height at 5 bins
+
+
+def form_counts(*, b1: int = 0, b3: int = 0, exact: int = 0,
+                int8: int = 0) -> tuple:
+    """Launch counts (KERNEL_NAMES order) of one path of phase 10."""
+    counts = [0] * len(KERNEL_NAMES)
+    counts[0], counts[1], counts[2], counts[3] = b1, exact, int8, b3
+    return tuple(counts)
+
+
+def timed_forms_peak(what: str, calls: dict, windows: int) -> None:
+    """Run each of ``calls`` (name -> a synchronized call) alternately,
+    twice a turn, and print each one's windows/s and its peak device
+    memory (``torch.cuda.max_memory_allocated`` over its own calls)."""
+    names = list(calls)
+    samples = {n: [] for n in names}
+    peaks = {n: 0 for n in names}
+    for name in names + names[::-1]:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            samples[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+    for name in names:
+        med = statistics.median(samples[name])
+        log(f"{what} ({name}): {windows / med:.2f} windows/s, median "
+            f"{1e3 * med:.1f} ms over {len(samples[name])} calls "
+            f"{[round(1e3 * t, 1) for t in samples[name]]}; peak device "
+            f"memory {peaks[name] / 2 ** 30:.3f} GiB")
+
+
+def grid_agreement(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b| where both normalized grids are nonzero, the cells
+    zero in one only): + and - deposits that cancel exactly in one sum
+    order leave a residue in another, and the nonzero normalization moves
+    such a cell by the grid's mean over its std."""
+    both = (a != 0) & (b != 0)
+    return ((a - b)[both].abs().max().item(),
+            int(((a != 0) != (b != 0)).sum()))
+
+
+def forms_in_loop(dev, kern_rows) -> None:
+    """Phase 10, part 1: the eval and train steps with ``precompute=False``
+    (each window voxelized just before its step) against the precomputed
+    form on the same batch, on the band wire (B1) and the tile wire (B3)."""
+    pipe = bench.make_pipeline()
+    mods, _ = bench.build_eval(8, dev)
+    evals = {pre: make_eval_step(mods, pipe, precompute=pre)
+             for pre in (True, False)}
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    cfg = bench.make_cfg(8)
+    trains = {}
+    for pre in (True, False):
+        mods_t = build_modules(cfg, device=dev)
+        init_params(mods_t, torch.Generator().manual_seed(0))
+        trains[pre] = (mods_t, builder.init_state(mods_t),
+                       make_train_step(mods_t, pipe, precompute=pre))
+    batches = {"band": make_batch(11, 8, dev, ignore_rows=20),
+               "tile": tile_batch(11, 8, dev, ignore_rows=20)}
+    for wire, batch in batches.items():
+        vox = "b1" if wire == "band" else "b3"
+        outs, losses = {}, {}
+        for pre in (True, False):
+            reset_counts()
+            out = evals[pre](batch)
+            counts = read_counts()
+            need_counts(counts, form_counts(
+                exact=3 * WINDOWS, **{vox: 1 if pre else WINDOWS}))
+            outs[pre] = (out, logits[0])
+            form = "precomputed" if pre else "in-loop"
+            log(f"{form} eval step B=8 T={WINDOWS}, {wire} wire: launches "
+                f"{show_counts(counts)}, loss {float(out['loss']):.6f}")
+            if not pre:
+                add_launches(kern_rows, f"in_loop_eval_{wire}", counts)
+            mods_t, state, step = trains[pre]
+            reset_counts()
+            losses[pre] = float(step(state, batch, AugmentParams())["loss"])
+            counts = read_counts()
+            need_counts(counts, form_counts(
+                int8=3 * WINDOWS, **{vox: 1 if pre else WINDOWS}))
+            log(f"{form} train step B=8 T={WINDOWS} (int8 cell), {wire} "
+                f"wire: launches {show_counts(counts)}, loss "
+                f"{losses[pre]:.6f}")
+            if not pre:
+                add_launches(kern_rows, f"in_loop_train_{wire}", counts)
+        (got, _), (ref, ref_logits) = outs[False], outs[True]
+        slice_agreement(f"in-loop eval vs precomputed, {wire} wire",
+                        got["latent8"], ref["latent8"], got["pred"],
+                        ref["pred"], ref_logits, got["cm"], ref["cm"])
+        rel = abs(losses[False] - losses[True]) / abs(losses[True])
+        # the train rollout's final latent, both forms, the same weights
+        recon = trains[True][0].recon_train
+        fn = pipe.make_window_fn(AugmentParams(), offsets_kind=(
+            "band" if wire == "band" else "tile"))
+        lats = []
+        with torch.no_grad():
+            for _ in range(2):
+                windows, _ = pipe.build_all(batch,
+                                            out_dtype=recon.model.dtype)
+                lats.append(recon.rollout(windows, decode=False)[2][8]
+                            .float())
+                del windows
+            for _ in range(2):
+                lats.append(recon.rollout_events(batch, fn, decode=False)[2][8]
+                            .float())
+        rel_of = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+        lat_rel = rel_of(lats[2], lats[0])
+        log(f"  in-loop train step vs precomputed, {wire} wire: loss "
+            f"relative difference {rel:.3e} (bound {TRAIN_LOSS_REL}); the "
+            f"int8 rollout's latent8 rel max|d| {lat_rel:.3e} (bound: the "
+            f"larger of {TRAIN_LATENT_REL} and twice the spread of "
+            f"precomputed vs precomputed); spread: precomputed vs precomputed "
+            f"{rel_of(lats[1], lats[0]):.3e}, in-loop vs in-loop "
+            f"{rel_of(lats[3], lats[2]):.3e}, second in-loop vs first "
+            f"precomputed {rel_of(lats[3], lats[0]):.3e}; mean |d| "
+            f"{(lats[2] - lats[0]).abs().mean().item():.3e} over mean |x| "
+            f"{lats[0].abs().mean().item():.3e}")
+        # the int8 rollout is not deterministic on the card (B1's and
+        # B3's compare-and-swap sums flip int8 codes downstream): its
+        # latent is held to the larger of phase 5's bound and twice the
+        # precomputed form's own spread in this call
+        lat_bound = max(TRAIN_LATENT_REL, 2 * rel_of(lats[1], lats[0]))
+        if not (rel <= TRAIN_LOSS_REL and lat_rel <= lat_bound):
+            raise AssertionError(f"in-loop train step disagrees ({wire}): "
+                                 f"latent bound {lat_bound:.3e}")
+    hook.remove()
+    batch = batches["band"]
+    del batches, outs, got, ref, lats
+    calls = {f"{form}, {what}": fn for form, pre in (("precomputed", True),
+                                                     ("in-loop", False))
+             for what, fn in (
+                 ("eval", lambda pre=pre: float(evals[pre](batch)["loss"])),
+                 ("train", lambda pre=pre: float(trains[pre][2](
+                     trains[pre][1], batch, AugmentParams())["loss"])))}
+    timed_forms_peak(f"B=8 T={WINDOWS} band wire", calls, 8 * WINDOWS)
+    torch.cuda.empty_cache()
+
+
+def forms_rectify(dev, kern_rows) -> None:
+    """Phase 10, part 2: raw sensor-coordinate windows of phase 9's
+    recording rectified on the card (``make_pipeline(rectify_map=)``, B3
+    with the tile sort on the card) through the eval step, against the
+    host-rectified tile wire of the same events (``ingest_rectify_bin``)."""
+    store, rmap, _, _ = make_recording(5)
+    b, n = 8, EVENTS
+    starts = (np.arange(b)[:, None] * (WINDOWS * n + n)
+              + np.arange(WINDOWS)[None] * n)
+    ev = {"x": store.x, "y": store.y, "t": store.t, "p": store.p}
+    t0 = time.perf_counter()
+    host = [native.ingest_rectify_bin(ev, starts[i], starts[i] + n, n, rmap,
+                                      tile_h=RECT_TILE_H) for i in range(b)]
+    host_ms = 1e3 * (time.perf_counter() - t0) / (b * WINDOWS)
+    rng = np.random.default_rng(13)
+    label = rng.integers(0, CLASSES, (b, SENSOR_H - CROP, SENSOR_W))
+    label[:, -20:] = 255
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    raw = np.stack([h[0] for h in host])
+    tile = {"ev_x": raw[..., 0], "ev_y": raw[..., 1], "ev_t": raw[..., 2],
+            "ev_p": raw[..., 3], "ev_valid": np.stack([h[1] for h in host]),
+            "ev_tile_offsets": np.stack([h[2] for h in host]),
+            "label": label}
+    tile = {k: to_dev(v) for k, v in tile.items()}
+    idx = starts[..., None] + np.arange(n)
+    sensor = {"ev_x": store.x[idx].astype(np.float32),
+              "ev_y": store.y[idx].astype(np.float32),
+              "ev_t": (store.t[idx] - store.t[starts][..., None]).astype(
+                  np.float32),
+              "ev_p": store.p[idx].astype(np.float32),
+              "ev_valid": np.ones(idx.shape, bool), "label": label}
+    sensor = {k: to_dev(v) for k, v in sensor.items()}
+    del raw, idx
+    kept = int(tile["ev_valid"].sum())
+    log(f"device rectification: {b} x {WINDOWS} windows of {n} raw "
+        f"events at sensor coordinates (window-relative times); the host "
+        f"ingest kept {kept} of {b * WINDOWS * n} (the map's image lies in "
+        f"the frame), {host_ms:.3f} ms a window on one thread")
+    if kept != b * WINDOWS * n:
+        raise AssertionError("the host ingest dropped events")
+    pipe_host = bench.make_pipeline()
+    pipe_dev = builder.make_pipeline(bench.make_cfg(8, None), train=False,
+                                     rectify_map=rmap, device=dev)
+    if not (pipe_dev.cfg.rectify and pipe_dev.rectify_map.device == dev):
+        raise AssertionError("make_pipeline did not keep the map on the "
+                             "card")
+    mods, _ = bench.build_eval(8, dev)
+    steps = {"device rectify, raw wire": (make_eval_step(mods, pipe_dev),
+                                          sensor),
+             "host rectify, tile wire": (make_eval_step(mods, pipe_host),
+                                         tile)}
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    outs = {}
+    for name, (step, batch) in steps.items():
+        reset_counts()
+        out = step(batch)
+        counts = read_counts()
+        need_counts(counts, form_counts(b3=1, exact=3 * WINDOWS))
+        log(f"eval step B=8 T={WINDOWS}, {name}: launches "
+            f"{show_counts(counts)}, loss {float(out['loss']):.6f}")
+        if name.startswith("device"):
+            add_launches(kern_rows, "rectify_eval", counts)
+        outs[name] = (out, logits[0])
+    hook.remove()
+    (got, _), (ref, ref_logits) = outs.values()
+    slice_agreement("device rectify vs host rectify, eval step",
+                    got["latent8"], ref["latent8"], got["pred"], ref["pred"],
+                    ref_logits, got["cm"], ref["cm"])
+    with torch.no_grad():
+        g_dev, _ = pipe_dev.build_all(sensor)
+        g_host, _ = pipe_host.build_all(tile)
+        d_host = grid_agreement(g_dev, g_host)
+        del g_host
+        with plain_versions():
+            g_plain, _ = pipe_dev.build_all(sensor)
+        d_plain = grid_agreement(g_dev, g_plain)
+        del g_dev, g_plain
+    log(f"  rectified grids (normalized, 160 windows), max|d| where both "
+        f"are nonzero and cells zero in one grid only: B3 vs its plain "
+        f"version {d_plain[0]:.3e}, {d_plain[1]}; device vs host "
+        f"rectification {d_host[0]:.3e}, {d_host[1]} (bounds {VOXEL_ATOL}, "
+        f"{VOXEL_PATTERN_MAX})")
+    if not all(e <= VOXEL_ATOL and n <= VOXEL_PATTERN_MAX
+               for e, n in (d_plain, d_host)):
+        raise AssertionError("rectified grids disagree")
+    step_dev = steps["device rectify, raw wire"][0]
+    xs = sensor["ev_x"].view(-1)
+    ys = sensor["ev_y"].view(-1)
+    gather_ms = cuda_ms(lambda: batch_voxel.rectify_events(
+        xs, ys, pipe_dev.rectify_map), 5)
+    step_ms = cuda_ms(lambda: step_dev(sensor), 2)
+    log(f"  the rectify gather of a step ({xs.numel()} events): "
+        f"{gather_ms:.3f} ms device time, {100 * gather_ms / step_ms:.2f} % "
+        f"of the eval step's {step_ms:.1f} ms ({bench.card()})")
+    timed_forms_peak(f"eval step B=8 T={WINDOWS}", {
+        name: (lambda st=st, bt=bt: float(st(bt)["loss"]))
+        for name, (st, bt) in steps.items()}, 8 * WINDOWS)
+    del steps, sensor, tile, outs, got, ref
+    torch.cuda.empty_cache()
+
+
+def forms_dense(dev, kern_rows) -> None:
+    """Phase 10, part 3: ``EventPipeline.__call__`` -> the dense
+    ``{"events"}`` batch through the eval, train and UDA train steps,
+    each against the same steps on the raw wire of the same events."""
+    rng = np.random.default_rng(14)
+    raw, valid = bench.make_raw(rng, 8)
+    label = rng.integers(0, CLASSES, (8, SENSOR_H - CROP, SENSOR_W))
+    label[:, -20:] = 255
+    raw_t = torch.from_numpy(raw).to(dev)
+    soa = {k: raw_t[..., i].contiguous()
+           for i, k in enumerate(("ev_x", "ev_y", "ev_t", "ev_p"))}
+    soa["ev_valid"] = torch.from_numpy(valid).to(dev)
+    soa["label"] = torch.from_numpy(label).to(dev)
+    pipe = bench.make_pipeline()
+    reset_counts()
+    dense = pipe({"raw_events": raw_t, "valid": soa["ev_valid"],
+                  "label": soa["label"]})
+    counts = read_counts()
+    need_counts(counts, form_counts(b3=1))
+    add_launches(kern_rows, "dense_build", counts)
+    del raw_t
+    ev = dense["events"]
+    log(f"EventPipeline.__call__: events {tuple(ev.shape)} "
+        f"{ev.dtype} ({ev.numel() * 4 / 2 ** 30:.2f} GiB) in one B3 launch")
+    if tuple(ev.shape) != (8, WINDOWS, SENSOR_H - CROP, SENSOR_W, BINS):
+        raise AssertionError("dense events have the wrong shape")
+
+    mods, step = bench.build_eval(8, dev)
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    outs = {}
+    for name, batch, want in (("dense", dense, form_counts(exact=3 * WINDOWS)),
+                              ("raw wire", soa, form_counts(
+                                  b3=1, exact=3 * WINDOWS))):
+        reset_counts()
+        outs[name] = (step(batch), logits[0])
+        counts = read_counts()
+        need_counts(counts, want)
+        log(f"eval step B=8 T={WINDOWS}, {name}: launches "
+            f"{show_counts(counts)}, loss {float(outs[name][0]['loss']):.6f}")
+        if name == "dense":
+            add_launches(kern_rows, "dense_eval", counts)
+    hook.remove()
+    (got, _), (ref, ref_logits) = outs["dense"], outs["raw wire"]
+    slice_agreement("dense eval vs raw wire", got["latent8"], ref["latent8"],
+                    got["pred"], ref["pred"], ref_logits, got["cm"],
+                    ref["cm"])
+    timed_forms_peak(f"eval step B=8 T={WINDOWS}", {
+        "dense": lambda: float(step(dense)["loss"]),
+        "raw wire": lambda: float(step(soa)["loss"])}, 8 * WINDOWS)
+    del mods, step, outs, got, ref
+
+    cfg = bench.make_cfg(8)
+    losses = {}
+    for name, batch, want in (("dense", dense, form_counts(int8=3 * WINDOWS)),
+                              ("raw wire", soa, form_counts(
+                                  b3=1, int8=3 * WINDOWS))):
+        _, state, step = bench.build_train(cfg, dev)
+        reset_counts()
+        losses[name] = float(step(state, batch, AugmentParams())["loss"])
+        counts = read_counts()
+        need_counts(counts, want)
+        log(f"train step B=8 T={WINDOWS} (int8 cell), {name}: launches "
+            f"{show_counts(counts)}, loss {losses[name]:.6f}")
+        if name == "dense":
+            add_launches(kern_rows, "dense_train", counts)
+        del state, step
+    rel = abs(losses["dense"] - losses["raw wire"]) / abs(losses["raw wire"])
+    log(f"  dense train step vs raw wire: loss relative difference "
+        f"{rel:.3e} (bound {TRAIN_LOSS_REL})")
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError("dense train step disagrees")
+
+    image = {"image_a": torch.from_numpy(rng.normal(
+                 size=(8, 1, SENSOR_H - CROP, SENSOR_W)).astype(np.float32)
+             ).to(dev), "label_a": soa["label"]}
+    n_exact, n_int8 = int8_cells(8, SENSOR_H - CROP, SENSOR_W)
+    uda_out = {}
+    for name, batch, b3 in (("dense", {"events_b": ev, **image}, 0),
+                            ("raw wire", {**{k: v for k, v in soa.items()
+                                             if k.startswith("ev_")},
+                                          **image}, 1)):
+        _, state, step = bench.build_uda(bench.make_uda_cfg(8), dev)
+        reset_counts()
+        uda_out[name] = {k: float(v) for k, v in step(state, batch).items()}
+        counts = read_counts()
+        need_counts(counts, form_counts(b3=b3, exact=n_exact * WINDOWS,
+                                        int8=n_int8 * WINDOWS))
+        log(f"UDA train step B=8 T={WINDOWS}, {name}: launches "
+            f"{show_counts(counts)}, loss {uda_out[name]['loss']:.6f}")
+        if name == "dense":
+            add_launches(kern_rows, "dense_uda_train", counts)
+        del state, step
+    rels = {k: abs(uda_out["dense"][k] - v) / max(abs(v), 1e-12)
+            for k, v in uda_out["raw wire"].items()}
+    log("  dense UDA train step vs raw wire, relative difference: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rels.items()))
+        + f" (bound on loss {TRAIN_LOSS_REL})")
+    if not (sorted(uda_out["dense"]) == UDA_LOSS_KEYS
+            and rels["loss"] <= TRAIN_LOSS_REL):
+        raise AssertionError("dense UDA train step disagrees")
+    del dense, ev, soa, image
+    torch.cuda.empty_cache()
+
+
+def moving_bars(seed: int, b: int, t_dim: int, n: int, dev) -> dict:
+    """(B, T, N) raw event columns on the card, made there: 80 % on the
+    leading (positive) and trailing (negative) edges of six bars moving
+    across the 480x640 frame, 20 % uniform noise; 1/64-pixel lattice
+    coordinates in the frame, sorted window-relative times (as
+    tests/test_torch_int8_drift.py makes them at 128x160)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(*shape, generator=g, device=dev)
+    k, shape = 6, (b, t_dim, n)
+    y0, x0 = u(b, k) * (SENSOR_H - 80), u(b, k) * (SENSOR_W - 80)
+    bh, bw = 20 + 60 * u(b, k), 20 + 60 * u(b, k)
+    vx, vy = 6 * (u(b, k) - 0.5), 2 * (u(b, k) - 0.5)
+    pick = (u(*shape) * k).long().view(b, -1)
+    at = lambda v: torch.gather(v, 1, pick).view(shape)
+    tau = u(*shape).sort(-1).values
+    lead = u(*shape) < 0.5
+    step = torch.arange(t_dim, device=dev).view(1, -1, 1) + tau
+    x = at(x0) + at(bw) * lead + at(vx) * step
+    y = at(y0) + u(*shape) * at(bh) + at(vy) * step
+    noise = u(*shape) < 0.2
+    x = torch.where(noise, u(*shape) * SENSOR_W, torch.remainder(x, SENSOR_W))
+    y = torch.where(noise, u(*shape) * SENSOR_H, torch.remainder(y, SENSOR_H))
+    lattice = lambda v, hi: torch.clamp(torch.round(v * 64) / 64, 0, hi - 1)
+    return {"ev_x": lattice(x, SENSOR_W), "ev_y": lattice(y, SENSOR_H),
+            "ev_t": tau * 5e4,
+            "ev_p": torch.where(noise, u(*shape) < 0.5, lead).float(),
+            "ev_valid": torch.ones(shape, dtype=torch.bool, device=dev)}
+
+
+def forms_a10(dev, kern_rows) -> None:
+    """Phase 10, part 4: A10 on the card, ``rollout_events`` over
+    FORMS_A10 carried windows at B=8 on the exact cell (B2) and on the
+    int8 cell (B2-int8), one window a call with the state carried in."""
+    soa = moving_bars(15, 8, FORMS_A10, EVENTS, dev)
+    mods = build_modules(bench.make_cfg(8), device=dev)
+    init_params(mods, torch.Generator().manual_seed(0))
+    fn = bench.make_pipeline().make_window_fn(AugmentParams())
+    n_exact, n_int8 = int8_cells(8, SENSOR_H - CROP, SENSOR_W)
+    if n_int8 != 3:
+        raise AssertionError("the int8 rule leaves a cell exact at B=8")
+    states = {"exact": mods.recon_val.init_state(8, dev),
+              "int8": mods.recon_train.init_state(8, dev)}
+    drifts = []
+    reset_counts()
+    with torch.no_grad():
+        for i in range(FORMS_A10):
+            one = {k: v[:, i:i + 1] for k, v in soa.items()}
+            for name, recon in (("exact", mods.recon_val),
+                                ("int8", mods.recon_train)):
+                states[name] = recon.rollout_events(
+                    one, fn, states[name], decode=False)[1]
+            pairs = list(zip(states["int8"], states["exact"]))
+            drifts.append(tuple(
+                max((a[j].float() - b[j].float()).abs().max().item()
+                    for a, b in pairs) for j in (0, 1)))
+    counts = read_counts()
+    need_counts(counts, form_counts(b3=2 * FORMS_A10, exact=3 * FORMS_A10,
+                                    int8=3 * FORMS_A10))
+    add_launches(kern_rows, "a10_rollout", counts)
+    finite = all(torch.isfinite(t.float()).all()
+                 for st in states.values() for lvl in st for t in lvl)
+    for w in A10_REPORT:
+        dh, dc = drifts[w - 1]
+        log(f"A10 drift, window {w} of {FORMS_A10} (B=8, 440x640, bf16, "
+            f"int8 cell vs exact cell, max over the three levels): max|dh| "
+            f"{dh:.4f}, max|dc| {dc:.4f}")
+    h_max = max(d[0] for d in drifts)
+    c_max = max(d[1] for d in drifts)
+    log(f"A10 drift over all {FORMS_A10} windows: max|dh| {h_max:.4f} "
+        f"(bound {A10_H_BOUND}), max|dc| {c_max:.4f} (bound {A10_C_BOUND});"
+        f" launches {show_counts(counts)} ({bench.card()})")
+    if not (finite and h_max <= A10_H_BOUND and c_max <= A10_C_BOUND
+            and min(d[0] for d in drifts) > 0):
+        raise AssertionError("A10: the int8 rollout drifts past its bound")
+    del soa, states
+    torch.cuda.empty_cache()
+
+
+def phase_forms(dev, kern_rows) -> None:
+    """Phase 10: the dense and in-loop forms of the steps (module
+    docstring)."""
+    t_phase = time.perf_counter()
+    forms_in_loop(dev, kern_rows)
+    forms_rectify(dev, kern_rows)
+    forms_dense(dev, kern_rows)
+    forms_a10(dev, kern_rows)
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -4982,6 +5465,7 @@ def main() -> None:
     phase_data(dev, rows)
     phase_block(dev, rows)
     phase_tools(dev, rows)
+    phase_forms(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,10 +25,11 @@ def main(argv=None, *, device=None) -> None:
     from ess_tpu_torch.train.loop import Trainer
 
     cfg = load_config(args.settings_file)
-    _, train_b, val_a, val_b = build_loaders(cfg)
+    _, train_b, val_a, val_b, rectify_map = build_loaders(cfg)
     # restore_pretrained keeps the template's E2VID, so load the backbone
     # exactly as the train CLI does, or the rollout runs on random weights
     trainer = Trainer(cfg, train_b=train_b, val_b=val_b, val_a=val_a,
+                      rectify_map=rectify_map,
                       e2vid_state=load_pretrained_backbone(cfg),
                       device=device)
     CheckpointManager(args.checkpoint).restore_pretrained(trainer.state,

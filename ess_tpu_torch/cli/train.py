@@ -32,10 +32,13 @@ import numpy as np
 
 
 def build_loaders(cfg):
-    """The loaders of the config's datasets: (train_a, train_b, val_a,
-    val_b), the image loaders None for supervised ESS. The event sets are
-    built as the JAX CLI builds them: ``'folded'`` binning for the voxel
-    grid (else ``'tile'``) at the voxelizer's channel count."""
+    """The loaders of the config's datasets and the rectify map: (train_a,
+    train_b, val_a, val_b, rectify_map), the image loaders None for
+    supervised ESS. The event sets are built as the JAX CLI builds them:
+    ``'folded'`` binning for the voxel grid (else ``'tile'``) at the
+    voxelizer's channel count. ``rectify_map`` is the one the Trainer
+    applies on the device: None, as in JAX, since the DSEC loaders
+    rectify on the host and DDD17 needs none."""
     from ess_tpu_torch.data.loader import BatchLoader
     from ess_tpu_torch.ops.batch_voxel import effective_bins
 
@@ -84,7 +87,7 @@ def build_loaders(cfg):
                               num_workers=workers, seed=cfg.seed)
         val_a = BatchLoader(set_a_val, cfg.optim.batch_size_a, shuffle=False,
                             drop_last=False, num_workers=workers)
-    return train_a, train_b, val_a, val_b
+    return train_a, train_b, val_a, val_b, None
 
 
 def _image_datasets(cfg, ds_a, h, w):
@@ -162,10 +165,11 @@ def train(settings_file: str, log_dir: str, device=None) -> dict:
 
     cfg = load_config(settings_file)
     np.random.seed(cfg.seed)
-    train_a, train_b, val_a, val_b = build_loaders(cfg)
+    train_a, train_b, val_a, val_b, rectify_map = build_loaders(cfg)
     trainer = Trainer(
         cfg, train_b=train_b, val_b=val_b, train_a=train_a, val_a=val_a,
-        log_dir=log_dir, e2vid_state=load_pretrained_backbone(cfg),
+        rectify_map=rectify_map, log_dir=log_dir,
+        e2vid_state=load_pretrained_backbone(cfg),
         group=dp.active(), device=None if dp.active() else device)
     summary = trainer.run()
     if dp.rank():

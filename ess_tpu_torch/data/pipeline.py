@@ -10,7 +10,16 @@ f32 columns (``ev_x``...) or, for the two host-binned ones, the packed u16
 columns (``ev_xq``...; ``decode_packed`` turns them into f32 columns where
 the batch lies, with the time already normalized). ``build_all``
 voxelizes all B*T windows of a batch in one launch, window-major;
-``make_window_fn`` voxelizes one window at a time for the streaming steps.
+``make_window_fn`` voxelizes one window at a time for the streaming steps
+and the in-loop rollout (``Reconstructor.rollout_events``); ``__call__``
+builds the dense form, raw (B, T, N, 4) events -> ``"events"`` (B, T, H,
+W, C), the batch the steps take prebuilt.
+
+With ``PipelineConfig.rectify`` and a rectify map (DSEC's (480, 640, 2)
+lookup, kept on the pipeline's device), every path rectifies raw events on
+the device before it voxelizes them (``ops/batch_voxel.rectify_events``);
+host-binned wires were rectified on the host, and their offsets with a map
+raise.
 
 The transforms run in the JAX package's order: the per-window normalization
 at sensor resolution (inside the voxelizer: the nonzero standardization does
@@ -35,9 +44,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ess_tpu_torch import resolve_device
 from ess_tpu_torch.data.native import COORD_SCALE, POL_SCALE, TIME_SCALE
 from ess_tpu_torch.ops.batch_voxel import (
-    REPRESENTATIONS, effective_bins, voxelize_window_soa)
+    REPRESENTATIONS, effective_bins, flat_windows, voxelize_window_soa)
 from ess_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -61,6 +71,7 @@ class PipelineConfig:
     trilinear: bool = False          # float-coordinate 8-corner voxelizer
                                      # (rectified streams); False = temporal
                                      # bilinear on floored coordinates
+    rectify: bool = False            # apply the rectify map on the device
 
     def __post_init__(self):
         if self.representation not in REPRESENTATIONS:
@@ -169,10 +180,37 @@ def crop_per_sample(x: torch.Tensor, crop_y: torch.Tensor,
 
 
 class EventPipeline:
-    """Builds model-input windows from SoA event batches."""
+    """Builds model-input windows from event batches.
 
-    def __init__(self, cfg: PipelineConfig):
+    ``rectify_map``: an (H, W, 2) array or tensor, stored as an f32 tensor
+    on ``device`` (None: where a tensor map lies, else the first CUDA
+    device); ``cfg.rectify`` without one raises, as in JAX."""
+
+    def __init__(self, cfg: PipelineConfig, rectify_map=None, *,
+                 device=None):
         self.cfg = cfg
+        self.rectify_map = None
+        if rectify_map is not None:
+            if device is None and isinstance(rectify_map, torch.Tensor):
+                device = rectify_map.device
+            self.rectify_map = torch.as_tensor(
+                rectify_map, dtype=torch.float32,
+                device=resolve_device(device)).contiguous()
+        if cfg.rectify and self.rectify_map is None:
+            raise ValueError("rectify=True requires a rectify_map")
+
+    @property
+    def _rectify(self) -> Optional[torch.Tensor]:
+        """The map the voxelizers apply: None unless ``cfg.rectify``."""
+        return self.rectify_map if self.cfg.rectify else None
+
+    def _voxel_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(num_bins=cfg.num_bins, height=cfg.sensor_height,
+                    width=cfg.sensor_width,
+                    representation=cfg.representation,
+                    separate_pol=cfg.separate_pol, trilinear=cfg.trilinear,
+                    normalize=cfg.normalize, rectify_map=self._rectify)
 
     def sample_augment(self, generator: Optional[torch.Generator],
                        batch_size: int, *, train: bool) -> AugmentParams:
@@ -253,17 +291,15 @@ class EventPipeline:
         (B, C, H_out, W_out) f32: one window per sample on the voxelizer
         that ``offsets_kind`` names, then the spatial transforms.
         ``t_prenormalized``: ``t`` is normalized to [0, num_bins - 1]
-        already (a decoded packed window)."""
-        cfg = self.cfg
+        already (a decoded packed window). With ``cfg.rectify`` the raw
+        events are rectified first."""
+        kw = self._voxel_kw()
 
         def fn(x, y, t, p, valid, tile_offsets=None):
             grids = voxelize_window_soa(
                 x, y, t, p, valid, offsets_kind=offsets_kind,
-                num_bins=cfg.num_bins, height=cfg.sensor_height,
-                width=cfg.sensor_width, representation=cfg.representation,
-                separate_pol=cfg.separate_pol, trilinear=cfg.trilinear,
-                normalize=cfg.normalize, tile_offsets=tile_offsets,
-                t_prenormalized=t_prenormalized)
+                tile_offsets=tile_offsets, t_prenormalized=t_prenormalized,
+                **kw)
             return self._transform_grid(grids, aug)
 
         return fn
@@ -318,3 +354,33 @@ class EventPipeline:
         if label is not None:
             label = self.apply_label_transform(label, aug)
         return windows, label
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None, *,
+                 train: bool = False,
+                 aug: Optional[AugmentParams] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """The dense form of a raw batch, JAX's ``EventPipeline.__call__``:
+        {"raw_events": (B, T, N, 4), "valid": (B, T, N), "label"?, ...} ->
+        the same dict with "events" (B, T, H', W', C) in place of
+        "raw_events" and "valid" (``ops/batch_voxel.voxelize_windows``'s
+        channel-last view) and the label transformed. All B*T windows are
+        voxelized in one launch (rectified first with ``cfg.rectify``),
+        then cropped, resized and augmented over the flattened window axis.
+        ``aug`` defaults to :meth:`sample_augment`'s draws from
+        ``generator``."""
+        events = batch["raw_events"]
+        b, t_dim = events.shape[:2]
+        if aug is None:
+            aug = self.sample_augment(generator, b, train=train)
+        grids = flat_windows(events, batch["valid"], **self._voxel_kw())
+        grids = self._transform_grid(grids, AugmentParams(
+            *(None if a is None else a.repeat_interleave(t_dim)
+              for a in (aug.flip, aug.crop_y, aug.crop_x))))
+        out = {k: v for k, v in batch.items()
+               if k not in ("raw_events", "valid")}
+        out["events"] = grids.view(b, t_dim, *grids.shape[1:]).permute(
+            0, 1, 3, 4, 2)
+        if "label" in batch:
+            out["label"] = self.apply_label_transform(batch["label"], aug)
+        return out

@@ -22,8 +22,16 @@ the grid padded to whole tiles, and crop back to the sensor size.
 - :func:`event_histogram` and :func:`ev_segnet_grid`: raw events of any
   order (tile offsets are ignored) through one flat ATen scatter-add, as
   the JAX package computes them with an XLA scatter, not a Pallas kernel.
+- :func:`rectify_events`: DSEC's rectification on the device, a gather of
+  the (H, W, 2) rectify map at each event's integer sensor pixel (a plain
+  tensor op, as JAX's is an XLA gather); ``voxelize_window_soa(
+  rectify_map=...)`` applies it before any representation and then
+  voxelizes trilinearly.
+- :func:`voxelize_windows`: the dense form, (B, T, N, 4) events ->
+  (B, T, H, W, C) grids, all B*T windows in one voxelizer launch.
 
-Grids are NCHW.
+Grids are NCHW but for :func:`voxelize_windows`, whose output keeps the
+JAX package's channel-last order.
 """
 
 from __future__ import annotations
@@ -37,6 +45,24 @@ from ess_tpu_torch.ops.voxel import (
 from ess_tpu_torch.ops.voxel_folded import (
     TILE_W, tile_h_for_bins, voxelize_folded)
 from ess_tpu_torch.ops.voxel_tiled import bin_events_device, voxelize_tiled
+
+
+def rectify_events(x: torch.Tensor, y: torch.Tensor,
+                   rectify_map: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rectified float coordinates of events at sensor coordinates (x, y):
+    ``rectify_map[y, x] = (x_rect, y_rect)``, the coordinates cast to
+    integers toward zero and clipped to the map's shape first, as JAX's
+    ``rectify_events``. One gather on the events' device; the map must lie
+    there too."""
+    if rectify_map.device != x.device:
+        raise ValueError(f"the rectify map lies on {rectify_map.device}, "
+                         f"the events on {x.device}")
+    h, w = rectify_map.shape[:2]
+    xi = x.to(torch.int32).clamp(0, w - 1).long()
+    yi = y.to(torch.int32).clamp(0, h - 1).long()
+    rect = rectify_map.reshape(h * w, 2)[yi * w + xi]
+    return rect[..., 0], rect[..., 1]
 
 
 def effective_bins(num_bins: int, separate_pol: bool, trilinear: bool) -> int:
@@ -230,10 +256,16 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                         representation: str = "voxel_grid",
                         separate_pol: bool = False, trilinear: bool = False,
                         normalize: bool = False,
+                        rectify_map: Optional[torch.Tensor] = None,
                         tile_offsets: Optional[torch.Tensor] = None,
                         offsets_kind: str = "tile",
                         t_prenormalized: bool = False) -> torch.Tensor:
     """One batched window of struct-of-arrays events -> (B, C, H, W) grids.
+    ``rectify_map`` (an (H, W, 2) tensor on the events' device) rectifies
+    the sensor coordinates first (:func:`rectify_events`), for every
+    representation, and makes the voxel grid trilinear; host offsets were
+    computed on the coordinates before rectification, so a map with any
+    offsets raises, as JAX's assert does.
     The ``voxel_grid`` representation runs on the voxelizer that
     ``offsets_kind`` names: ``'band'`` for host-folded records
     (``tile_offsets`` are then the band offsets), ``'tile'`` for raw events
@@ -247,6 +279,13 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     if representation not in REPRESENTATIONS:
         raise ValueError(f"unknown representation {representation!r}; "
                          f"expected one of {REPRESENTATIONS}")
+    if rectify_map is not None:
+        if tile_offsets is not None:
+            raise ValueError("host offsets were computed on the coordinates "
+                             "before rectification: rectify on the host "
+                             "before binning instead")
+        x, y = rectify_events(x, y, rectify_map)
+        trilinear = True
     if representation != "voxel_grid":
         if offsets_kind == "band":
             raise ValueError(f"the {representation!r} representation takes "
@@ -267,3 +306,34 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
         raise ValueError(f"unknown offsets_kind {offsets_kind!r}")
     return voxelize_tile(x, y, t, p, valid, tile_offsets,
                          separate_pol=separate_pol, trilinear=trilinear, **kw)
+
+
+def voxelize_windows(events: torch.Tensor, valid: torch.Tensor, *,
+                     num_bins: int, height: int, width: int,
+                     representation: str = "voxel_grid",
+                     separate_pol: bool = False, trilinear: bool = False,
+                     rectify_map: Optional[torch.Tensor] = None,
+                     normalize: bool = False) -> torch.Tensor:
+    """(B, T, N, 4) raw events (x, y, t, p) and (B, T, N) validity ->
+    (B, T, H, W, C) grids, the JAX package's dense layout: the B*T windows
+    in one :func:`voxelize_window_soa` call (the voxel grid on the
+    halo-tiled voxelizer, the events tile-sorted on the device), each
+    window normalized over itself. The result is a channel-last view of
+    channel-first windows: ``permute(0, 1, 4, 2, 3)`` gives them back
+    without a copy."""
+    grids = flat_windows(events, valid, num_bins=num_bins, height=height,
+                         width=width, representation=representation,
+                         separate_pol=separate_pol, trilinear=trilinear,
+                         rectify_map=rectify_map, normalize=normalize)
+    b, t_dim = events.shape[:2]
+    return grids.view(b, t_dim, *grids.shape[1:]).permute(0, 1, 3, 4, 2)
+
+
+def flat_windows(events: torch.Tensor, valid: torch.Tensor,
+                 **kw) -> torch.Tensor:
+    """(B, T, N, 4) events -> (B*T, C, H, W) grids, sample-major:
+    :func:`voxelize_window_soa` over the flattened window axis."""
+    n = events.shape[2]
+    col = lambda i: events[..., i].reshape(-1, n)
+    return voxelize_window_soa(col(0), col(1), col(2), col(3),
+                               valid.reshape(-1, n), **kw)

@@ -10,12 +10,17 @@ space by default: every padded window is folded into 2x2 space-to-depth
 blocks and the model's head and first-encoder convs run as 3x3 convs over
 them; a model with a norm rolls out in the standard layout (JAX's
 ``_use_blocks``).
+
+:meth:`Reconstructor.rollout_events` is JAX's ``rollout_events``, the
+in-loop form: each window is voxelized from the batch's event columns
+just before its step, so one window's grid is alive at a time instead of
+the (T, B, C, H, W) stack.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -104,3 +109,33 @@ class Reconstructor:
         for i in range(t_dim - 1):
             _, state, _ = self.step(windows[i], state, decode=False)
         return self.step(windows[t_dim - 1], state, decode=decode)
+
+    def rollout_events(self, soa: Dict[str, torch.Tensor],
+                       voxel_fn: Callable[..., torch.Tensor],
+                       init_state=None, *, decode: bool = True):
+        """The in-loop rollout: f32 event columns ``"ev_x"``, ``"ev_y"``,
+        ``"ev_t"``, ``"ev_p"``, ``"ev_valid"`` (B, T, N) and the offsets
+        the batch carries (``"ev_band_offsets"``, else
+        ``"ev_tile_offsets"``, else none) -> (final image, final state,
+        final latent), as :meth:`rollout`. Window ``i`` is
+        ``voxel_fn(x, y, t, p, valid, tile_offsets=)`` of the batch's
+        ``[:, i]`` columns (``EventPipeline.make_window_fn``), voxelized
+        just before its step: T voxelizer launches where :meth:`rollout`
+        takes one batched build. A packed batch is decoded before it gets
+        here (``EventPipeline.decode_packed``)."""
+        key = ("ev_band_offsets" if "ev_band_offsets" in soa
+               else "ev_tile_offsets")
+        offs = soa.get(key)
+        b, t_dim = soa["ev_x"].shape[:2]
+
+        def window(i):
+            col = lambda k: soa[k][:, i]
+            return voxel_fn(col("ev_x"), col("ev_y"), col("ev_t"),
+                            col("ev_p"), col("ev_valid"),
+                            tile_offsets=None if offs is None else offs[:, i])
+
+        state = (self.init_state(b, soa["ev_x"].device) if init_state is None
+                 else init_state)
+        for i in range(t_dim - 1):
+            _, state, _ = self.step(window(i), state, decode=False)
+        return self.step(window(t_dim - 1), state, decode=decode)

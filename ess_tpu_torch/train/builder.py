@@ -143,21 +143,23 @@ def with_block_conv_impl(mods: ESSModules, impl: str,
                                       block_conv_impl=impl))
 
 
-def make_pipeline(cfg: Config, *, train: bool = True,
-                  rectify_map=None) -> EventPipeline:
+def make_pipeline(cfg: Config, *, train: bool = True, rectify_map=None,
+                  device=None) -> EventPipeline:
     """The dataset's event pipeline, as the JAX ``make_pipeline``:
 
     - DSEC: host-rectified float coordinates, the trilinear voxelizer at
       480x640, the 40 bottom rows cropped, a flip when training with
-      augmentation; a ``rectify_map`` (rectification on the device) is not
-      ported and raises;
+      augmentation; with a ``rectify_map`` (480, 640, 2) the raw events'
+      sensor coordinates are rectified on the device instead (``rectify``),
+      the map kept on ``device`` (``EventPipeline``);
     - DDD17: integer coordinates, the temporal-bilinear voxelizer at
       260x346, the 60 bottom rows cropped, the width resized to 200x352,
       and when training with augmentation a flip and, for ESS UDA, the
       bottom-anchored 120x216 crop;
     - any other dataset: the plain voxelizer at its shape.
 
-    Every branch normalizes each window."""
+    Every branch normalizes each window. The other branches keep a given
+    map and do not apply it, as JAX's do."""
     ds = cfg.dataset.sensor_b
     aug = train and cfg.model.data_augmentation_train
     common = dict(num_bins=ds.nr_temporal_bins,
@@ -165,11 +167,9 @@ def make_pipeline(cfg: Config, *, train: bool = True,
                   separate_pol=ds.separate_pol, normalize=True,
                   random_flip=aug)
     if ds.name.startswith("DSEC"):
-        if rectify_map is not None:
-            raise ValueError("rectification on the device is not ported: "
-                             "rectify on the host (data.dsec)")
         pc = PipelineConfig(sensor_height=480, sensor_width=640,
-                            crop_bottom=40, trilinear=True, **common)
+                            crop_bottom=40, trilinear=True,
+                            rectify=rectify_map is not None, **common)
     elif ds.name.startswith("DDD17"):
         pc = PipelineConfig(
             sensor_height=260, sensor_width=346, crop_bottom=60,
@@ -180,7 +180,7 @@ def make_pipeline(cfg: Config, *, train: bool = True,
     else:
         h, w = ds.shape
         pc = PipelineConfig(sensor_height=h, sensor_width=w, **common)
-    return EventPipeline(pc)
+    return EventPipeline(pc, rectify_map, device=device)
 
 
 def init_state(mods: ESSModules) -> TrainState:

@@ -52,7 +52,9 @@ from ess_tpu_torch.utils import viz
 
 def _host_batch(b: dict) -> dict:
     """A loader batch as the steps take it: raw events split into SoA
-    columns, an (B, H, W, 1) image moved to (B, 1, H, W)."""
+    columns, an (B, H, W, 1) image moved to (B, 1, H, W); dense grids
+    ("events", (B, T, H, W, C)) pass as they are: the steps move their
+    axes on the device."""
     if "raw_events" in b or "ev_xq" in b:
         b = to_soa(b)
     if "image" in b:
@@ -61,9 +63,13 @@ def _host_batch(b: dict) -> dict:
 
 
 def _merge_uda(batch_a: dict, batch_b: dict) -> dict:
+    """The UDA train step's batch: the image batch's image and label as
+    "image_a" / "label_a", the event batch's keys with "label" and dense
+    "events" renamed "label_b" / "events_b"."""
     out = {"image_a": batch_a["image"], "label_a": batch_a["label"]}
+    rename = {"label": "label_b", "events": "events_b"}
     for k, v in batch_b.items():
-        out["label_b" if k == "label" else k] = v
+        out[rename.get(k, k)] = v
     return out
 
 
@@ -94,9 +100,11 @@ class Trainer:
     (rank 0's under data parallel).
     ``group`` (the active ``dp.Group``, the counterpart of the JAX
     Trainer's ``mesh``) trains data parallel on the group's device (module
-    docstring); every loader's batch size must divide over its ranks. The
-    JAX Trainer's ``rectify_map`` (DSEC rectification on the device) is
-    not ported: DSEC is rectified on the host."""
+    docstring); every loader's batch size must divide over its ranks.
+    ``rectify_map`` (DSEC's (480, 640, 2) map) builds both pipelines to
+    rectify raw events on the device (``make_pipeline``); the event
+    loaders may also yield dense grids ("events", (B, T, H, W, C)), which
+    the steps roll out as they are."""
 
     def __init__(
         self,
@@ -106,6 +114,7 @@ class Trainer:
         val_b=None,
         train_a=None,
         val_a=None,
+        rectify_map=None,
         e2vid_state: Optional[Mapping[str, torch.Tensor]] = None,
         front_state: Optional[Mapping[str, torch.Tensor]] = None,
         log_dir: Optional[str] = None,
@@ -139,8 +148,12 @@ class Trainer:
             len(train_a or train_b), len(train_b))
         self.mods: ESSModules = build_modules(
             cfg, device=self.device, steps_per_epoch=steps_per_epoch)
-        self.pipe_train = make_pipeline(cfg, train=True)
-        self.pipe_val = make_pipeline(cfg, train=False)
+        self.pipe_train = make_pipeline(cfg, train=True,
+                                        rectify_map=rectify_map,
+                                        device=self.device)
+        self.pipe_val = make_pipeline(cfg, train=False,
+                                      rectify_map=rectify_map,
+                                      device=self.device)
         init_params(self.mods, torch.Generator().manual_seed(cfg.seed))
         if e2vid_state is not None:
             self.mods.e2vid.load_state_dict(e2vid_state)

@@ -14,7 +14,9 @@ picks its voxelizer by key presence: ``ev_band_offsets`` the fold-free one,
 ``ev_segnet`` representations take raw events with or without tile offsets
 (their scatter ignores them). A packed window (``ev_xq, ev_yq, ev_tq,
 ev_pq`` and its offsets) is decoded where it lies before it is voxelized,
-its time taken as normalized.
+its time taken as normalized. A pipeline with a rectify map
+(``PipelineConfig.rectify``) rectifies raw windows at sensor coordinates
+on the device before it voxelizes them.
 """
 
 from __future__ import annotations

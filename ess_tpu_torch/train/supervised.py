@@ -1,8 +1,21 @@
 """Supervised ESS steps: frozen E2VID rollout + trainable segmentation head.
 
 Counterparts of ``ess_tpu/train/supervised.py::make_train_step`` and
-``make_eval_step`` on the batches ``EventPipeline.build_all`` takes (f32
-or packed columns, host-folded, tile-sorted or raw).
+``make_eval_step``. Both take a batch in any of JAX's three forms
+(:func:`_rollout`):
+
+- event columns as ``EventPipeline.build_all`` takes them (f32 or packed,
+  host-folded, tile-sorted or raw, rectified on the device with the
+  pipeline's map), all T windows voxelized in one launch before the
+  rollout (``precompute=True``, the default);
+- the same columns with ``precompute=False``: each window voxelized just
+  before its step (``Reconstructor.rollout_events``), T voxelizer launches
+  a step and one window's grid alive at a time;
+- dense grids ``{"events": (B, T, H, W, C), "label"}``, built already (for
+  example by ``EventPipeline.__call__``): rolled out as given, with no
+  normalization, crop or augmentation and the label as it comes. The step
+  permutes them to (T, B, C, H, W) where they lie, which must be the
+  model's device.
 
 - Train: voxelize all windows once (with the flip augmentation), roll the
   frozen backbone out under ``torch.no_grad`` on the train rollout's
@@ -57,31 +70,83 @@ def rank_rows(aug: AugmentParams, global_rows: int) -> AugmentParams:
 
 
 def batch_size(batch: Dict[str, torch.Tensor]) -> int:
-    """B of an event batch, f32 ("ev_x") or packed ("ev_xq")."""
-    return batch["ev_xq" if "ev_xq" in batch else "ev_x"].shape[0]
+    """B of a batch: dense ("events"), f32 ("ev_x") or packed ("ev_xq")."""
+    for key in ("events", "ev_xq", "ev_x"):
+        if key in batch:
+            return batch[key].shape[0]
+    raise KeyError("a batch needs events, ev_x or ev_xq")
 
 
-def make_train_step(mods: ESSModules, pipeline: EventPipeline
+def _rollout(recon, batch: Dict[str, torch.Tensor],
+             pipeline: Optional[EventPipeline], *,
+             aug: AugmentParams = AugmentParams(), decode: bool = True,
+             precompute: bool = True):
+    """The rollout of a batch in one of the three forms (module docstring)
+    -> (final image or None, final latent, labels), JAX's ``_rollout``.
+    ``aug`` applies to event batches only."""
+    if "events" in batch:
+        events = batch["events"]
+        device = next(recon.model.parameters()).device
+        if events.device != device:
+            raise ValueError(f"dense events on {events.device}, the model "
+                             f"on {device}")
+        img, _, latent = recon.rollout(events.permute(1, 0, 4, 2, 3),
+                                       decode=decode)
+        return img, latent, batch.get("label")
+    if pipeline is None:
+        raise ValueError("an event batch needs an EventPipeline")
+    if precompute:
+        windows, labels = pipeline.build_all(batch, aug=aug,
+                                             out_dtype=recon.model.dtype)
+        img, _, latent = recon.rollout(windows, decode=decode)
+        return img, latent, labels
+    if "ev_xq" in batch:
+        batch = pipeline.decode_packed(batch)
+    voxel_fn = pipeline.make_window_fn(
+        aug, t_prenormalized=bool(batch.get("ev_t_prenormalized", False)),
+        offsets_kind="band" if "ev_band_offsets" in batch else "tile")
+    labels = batch.get("label")
+    if labels is not None:
+        labels = pipeline.apply_label_transform(labels, aug)
+    img, _, latent = recon.rollout_events(batch, voxel_fn, decode=decode)
+    return img, latent, labels
+
+
+def _step_augment(pipeline, batch, aug, seed: int, step: int,
+                  draw=None) -> AugmentParams:
+    """This rank's draws for an event batch (``aug``, the global batch's,
+    else ``draw(pipeline, seed, step, rows)``, :func:`draw_augment` by
+    default); none for a dense one."""
+    if "events" in batch:
+        return AugmentParams()
+    rows = batch_size(batch) * dp.world()
+    if aug is None:
+        aug = (draw or draw_augment)(pipeline, seed, step, rows)
+    return rank_rows(aug, rows)
+
+
+def make_train_step(mods: ESSModules,
+                    pipeline: Optional[EventPipeline] = None, *,
+                    precompute: bool = True
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
     updates ``state`` (the head's parameters through ``state.opt_back``,
-    ``state.step``) in place. ``aug`` (the global batch's draws) defaults
-    to draws from a generator seeded by ``cfg.seed`` and ``state.step``.
-    Under data parallel ``batch`` is this rank's rows of the global batch,
-    and the losses and the update are the global batch's."""
+    ``state.step``) in place. ``batch`` in any form of the module
+    docstring (an event batch needs ``pipeline``; ``precompute`` picks
+    its rollout). ``aug`` (the global batch's draws) defaults to draws
+    from a generator seeded by ``cfg.seed`` and ``state.step``; a dense
+    batch takes none. Under data parallel ``batch`` is this rank's rows of
+    the global batch, and the losses and the update are the global
+    batch's."""
     cfg = mods.cfg
     recon = mods.recon_train
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              aug: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
-        rows = batch_size(batch) * dp.world()
-        if aug is None:
-            aug = draw_augment(pipeline, cfg.seed, state.step, rows)
-        aug = rank_rows(aug, rows)
+        aug = _step_augment(pipeline, batch, aug, cfg.seed, state.step)
         with torch.no_grad():
-            windows, labels = pipeline.build_all(batch, aug=aug,
-                                                 out_dtype=recon.model.dtype)
-            _, _, latent = recon.rollout(windows, decode=False)
+            _, latent, labels = _rollout(recon, batch, pipeline, aug=aug,
+                                         decode=False, precompute=precompute)
         params = [p for p in state.head.parameters() if p.requires_grad]
         logits = state.head(latent)[1]
         loss = task_loss(
@@ -97,19 +162,21 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
     return step
 
 
-def make_eval_step(mods: ESSModules, pipeline: EventPipeline
+def make_eval_step(mods: ESSModules,
+                   pipeline: Optional[EventPipeline] = None, *,
+                   precompute: bool = True
                    ) -> Callable[[Dict[str, torch.Tensor]],
                                  Dict[str, torch.Tensor]]:
     """``step(batch) -> {"loss", "cm", "pred", "img_fake", "latent8"}``;
-    ``img_fake`` and ``latent8`` are NCHW f32."""
+    ``img_fake`` and ``latent8`` are NCHW f32. ``batch``, ``pipeline`` and
+    ``precompute`` as for :func:`make_train_step`."""
     cfg = mods.cfg
     recon = mods.recon_val
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        windows, labels = pipeline.build_all(batch,
-                                             out_dtype=recon.model.dtype)
-        img_fake, _, latent = recon.rollout(windows)
+        img_fake, latent, labels = _rollout(recon, batch, pipeline,
+                                            precompute=precompute)
         logits = mods.head(latent)[1]
         lh, lw = labels.shape[1], labels.shape[2]
         if tuple(logits.shape[2:]) != (lh, lw):

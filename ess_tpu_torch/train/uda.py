@@ -2,7 +2,11 @@
 
 Counterpart of ``ess_tpu/train/uda.py`` (``_cycle_latent_loss``,
 ``uda_losses``, ``make_train_step``, ``make_eval_step_a``,
-``make_eval_step_b``) on host-folded event batches and NCHW images.
+``make_eval_step_b``) on NCHW images and sensor-B events in the three
+forms of ``train/supervised.py``: event columns (precomputed or, with
+``precompute=False``, voxelized in the loop) or dense grids, which the
+train step takes as ``"events_b"`` and the event eval step as
+``"events"``.
 
 The train step rolls the frozen E2VID out under ``torch.no_grad`` on the
 train rollout's ConvLSTM cell, decoder included (``img_fake``, the
@@ -39,14 +43,13 @@ import torch
 
 from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
-from ess_tpu_torch.parallel import dp
 from ess_tpu_torch.train.builder import ESSModules
 from ess_tpu_torch.train.losses import (
     l1_loss, symmetric_js_divergence, task_loss)
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
 from ess_tpu_torch.train.supervised import (
-    batch_size, draw_augment, rank_rows)
+    _rollout, _step_augment, draw_augment)
 
 Losses = Dict[str, torch.Tensor]
 PREFIX = "sensor_b_to_sensor_a"
@@ -135,15 +138,17 @@ def uda_losses(mods: ESSModules, front, head, *, img_a, labels_a, img_fake,
     return losses, front_loss, t_img + t_ev
 
 
-def make_train_step(mods: ESSModules, pipeline: EventPipeline
-                    ) -> Callable[..., Losses]:
+def make_train_step(mods: ESSModules,
+                    pipeline: Optional[EventPipeline] = None, *,
+                    precompute: bool = True) -> Callable[..., Losses]:
     """``step(state, batch, aug=None) -> losses``; updates ``state`` (front
     and head parameters through their RAdams, the front's batch-norm
     statistics, ``state.step``) in place. ``batch``: ``"image_a"``
     (B, 1, H, W), ``"label_a"`` (B, H, W), the sensor-B events as
-    ``build_all`` takes them (``"ev_*"``) and optionally ``"label_b"``.
-    ``aug`` defaults to draws from a generator seeded by ``cfg.seed + 1``
-    and ``state.step`` (JAX's UDA key)."""
+    event columns (``"ev_*"``, through ``pipeline``; ``precompute`` picks
+    their rollout) or dense grids ``"events_b"`` (B, T, H, W, C), and
+    optionally ``"label_b"``. ``aug`` defaults to draws from a generator
+    seeded by ``cfg.seed + 1`` and ``state.step`` (JAX's UDA key)."""
     cfg = mods.cfg
     recon = mods.recon_train
     is_dsec = cfg.dataset.sensor_b.name.startswith("DSEC")
@@ -151,16 +156,15 @@ def make_train_step(mods: ESSModules, pipeline: EventPipeline
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              aug: Optional[AugmentParams] = None) -> Losses:
         b_batch = {k: v for k, v in batch.items() if k.startswith("ev_")}
+        if "events_b" in batch:
+            b_batch["events"] = batch["events_b"]
         if batch.get("label_b") is not None:
             b_batch["label"] = batch["label_b"]
-        rows = batch_size(b_batch) * dp.world()
-        if aug is None:
-            aug = draw_augment(pipeline, cfg.seed + 1, state.step, rows)
-        aug = rank_rows(aug, rows)
+        aug = _step_augment(pipeline, b_batch, aug, cfg.seed + 1, state.step,
+                            draw_augment)
         with torch.no_grad():
-            windows, labels_b = pipeline.build_all(
-                b_batch, aug=aug, out_dtype=recon.model.dtype)
-            img_fake, _, latent_real = recon.rollout(windows)
+            img_fake, latent_real, labels_b = _rollout(
+                recon, b_batch, pipeline, aug=aug, precompute=precompute)
         p_front = [p for p in state.front.parameters() if p.requires_grad]
         p_back = [p for p in state.head.parameters() if p.requires_grad]
         losses, front_loss, back_loss = uda_losses(
@@ -203,9 +207,11 @@ def make_eval_step_a(mods: ESSModules) -> Callable[..., Losses]:
     return step
 
 
-def make_eval_step_b(mods: ESSModules, pipeline: EventPipeline
-                     ) -> Callable[..., Losses]:
-    """Sensor-B (event) validation with the cycle branch, ``step(batch)``:
+def make_eval_step_b(mods: ESSModules,
+                     pipeline: Optional[EventPipeline] = None, *,
+                     precompute: bool = True) -> Callable[..., Losses]:
+    """Sensor-B (event) validation with the cycle branch, ``step(batch)``
+    on a batch in any form of ``train/supervised.py``:
     the rollout at the validation geometry (exact cell), the head's
     prediction resized to the label size, its loss and confusion matrix;
     then the reconstruction through the front (running statistics) and the
@@ -220,9 +226,8 @@ def make_eval_step_b(mods: ESSModules, pipeline: EventPipeline
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Losses:
         out: Losses = {}
-        windows, labels = pipeline.build_all(batch,
-                                             out_dtype=recon.model.dtype)
-        img_fake, _, latent_ev = recon.rollout(windows)
+        img_fake, latent_ev, labels = _rollout(recon, batch, pipeline,
+                                               precompute=precompute)
         lh, lw = labels.shape[1], labels.shape[2]
 
         def scored(logits, loss_key, cm_key):

@@ -6,7 +6,8 @@
   order, on the tree and on a DSEC tree written with
   ``tests.test_datasets_integration.make_dsec_seq`` (needs ``h5py``), for
   the band wire (voxel grid) and the tile wire (histogram), on DSEC also
-  with ``wire_format: packed`` (``DSEC_packed``);
+  with ``wire_format: packed`` (``DSEC_packed``), and the rectify map
+  both return fifth is None (the loaders rectify on the host);
 - the port's ``cli.train.main`` prints the summary keys the JAX CLI prints
   and writes the YAML copy, ``metrics.jsonl`` with train losses, and the
   checkpoints;
@@ -117,9 +118,12 @@ def test_build_loaders_match_jax(tmp_path, tree, dataset, representation):
         src = yaml_for(tmp_path, tree, edits={
             "event_representation: 'voxel_grid'":
             f"event_representation: '{representation}'"})
-    _, jtrain, _, jval, _ = jax_build_loaders(jax_load_config(src))
-    train_a, train_b, val_a, val_b = build_loaders(load_config(src))
+    _, jtrain, _, jval, jrect = jax_build_loaders(jax_load_config(src))
+    train_a, train_b, val_a, val_b, rect = build_loaders(load_config(src))
     assert train_a is None and val_a is None
+    # the fifth value, the map the Trainer applies on the device: None in
+    # both, the loaders rectify on the host
+    assert rect is None and jrect is None
     for got_loader, want_loader in ((train_b, jtrain), (val_b, jval)):
         got, want = list(got_loader), list(want_loader)
         assert len(got) == len(want) > 0
@@ -256,7 +260,7 @@ def test_image_loaders_match_jax(monkeypatch, tmp_path, uda_trees, name_a):
     float32_corners(monkeypatch)
     path = uda_yaml(tmp_path, uda_trees, name_a)
     jtrain_a, _, jval_a, _, _ = jax_build_loaders(jax_load_config(path))
-    train_a, _, val_a, _ = build_loaders(load_config(path))
+    train_a, _, val_a, _, _ = build_loaders(load_config(path))
     lengths = {"Cityscapes_gray": (1, 1), "DDD17_gray": (2, 1),
                "DDD17_Cityscapes_gray": (4, 1)}[name_a]
     assert (len(train_a), len(val_a)) == (len(jtrain_a), len(jval_a)) \

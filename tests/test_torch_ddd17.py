@@ -209,9 +209,10 @@ def test_crop_draws_from_the_resized_size():
 
 def test_make_pipeline_branches():
     """The DSEC, DDD17 and other branches of JAX ``make_pipeline`` (their
-    geometry and augmentation, and the three representations); the
-    rectification on the device (unported) and an unknown representation
-    raise."""
+    geometry and augmentation, and the three representations), the DSEC
+    branch with a rectify map (rectification on the device: the map kept on
+    the named device, on the first CUDA device by default); an unknown
+    representation raises."""
     for name, model_name, train in (
             ("DSEC_events", "ess_supervised", True),
             ("DDD17_events", "ess", True), ("DDD17_events", "ess", False),
@@ -225,9 +226,17 @@ def test_make_pipeline_branches():
         for f in dataclasses.fields(got):
             assert getattr(got, f.name) == getattr(want, f.name), (
                 name, model_name, train, f.name)
-    with pytest.raises(ValueError):
-        make_pipeline(port_config(tiny_config(event_name="DSEC_events")),
-                      rectify_map=np.zeros((480, 640, 2), np.float32))
+    dsec = tiny_config(event_name="DSEC_events")
+    rmap = np.zeros((480, 640, 2), np.float32)
+    want = jax_make_pipeline(dsec, rectify_map=rmap)
+    got = make_pipeline(port_config(dsec), rectify_map=rmap, device="cpu")
+    assert got.cfg.rectify and want.cfg.rectify
+    for f in dataclasses.fields(got.cfg):
+        assert getattr(got.cfg, f.name) == getattr(want.cfg, f.name), f.name
+    assert got.rectify_map.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_pipeline(port_config(dsec), rectify_map=rmap)
     # the bench's DSEC pipeline is bench.py's hand-built one
     assert bench.make_pipeline().cfg == PipelineConfig(
         sensor_height=480, sensor_width=640, num_bins=5, crop_bottom=40,

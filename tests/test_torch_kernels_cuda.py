@@ -71,7 +71,18 @@ Bounds:
   (raw grid 1e-5, normalized 1e-4), and the padded f32 ``Reconstructor``
   step (264x352) over five carried windows, the kernel path against the
   plain path (B3's plain version): images within 1e-3 absolute, their 8-bit
-  frames within 1 grey level on at most 1 % of the pixels.
+  frames within 1 grey level on at most 1 % of the pixels;
+- the dense and in-loop forms: B3 on raw sensor-coordinate events
+  rectified on the card (a map with sub-pixel offsets whose bands leave
+  the frame on every side, 8 windows of 100k events, tile sort on the
+  card) against its plain version on the CPU, and ``voxelize_windows``
+  through it (the voxelizers' bounds: raw grid 1e-5, normalized 1e-4);
+  B1 (folded wire) and B3 (tile and raw wires) launched one window at a
+  time (``make_window_fn``, the in-loop rollout's voxelizer) against one
+  batched ``build_all`` launch of the same windows: normalized grids
+  within 1e-4 where both are nonzero, at most 16 cells zero in one only
+  (+ and - deposits that cancel in one sum order: ``chip_smoke.py``'s
+  VOXEL_PATTERN_MAX), one launch a window.
 """
 
 import numpy as np
@@ -1712,3 +1723,104 @@ def test_padded_reconstructor_step_kernel_vs_plain(dev, monkeypatch):
     off = (reconstruct.to_frame8(got).int()
            - reconstruct.to_frame8(want).int()).abs()
     assert off.max() <= 1 and (off > 0).float().mean() <= 0.01
+
+
+def assert_normalized_close(got, want):
+    """Normalized grids within 1e-4 where both are nonzero; at most 16
+    cells zero in one only (+ and - deposits that cancel exactly in one
+    sum order leave a residue in another)."""
+    both = (got != 0) & (want != 0)
+    assert int(((got != 0) != (want != 0)).sum()) <= 16
+    torch.testing.assert_close(got[both], want[both], atol=1e-4, rtol=1e-4)
+
+
+def sensor_map(rng, h, w):
+    """(h, w, 2) rectify map: sub-pixel offsets, with bands that leave the
+    frame on every side."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    m = np.stack([xx + rng.uniform(-0.45, 0.45, xx.shape),
+                  yy + rng.uniform(-0.45, 0.45, yy.shape)], -1)
+    m[:, :3, 0] -= 1.5
+    m[:2, :, 1] -= 0.8
+    m[:, -3:, 0] += 1.5
+    m[-3:, :, 1] += 2.0
+    return torch.from_numpy(m.astype(np.float32))
+
+
+def test_rectified_raw_events_on_the_card(dev):
+    h, w, b, n = 480, 640, 8, 100_000
+    rng = np.random.default_rng(21)
+    cols = [torch.from_numpy(rng.integers(0, w, (b, n)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, h, (b, n)).astype(np.float32)),
+            torch.from_numpy(np.sort(rng.uniform(0, 5e4, (b, n)), -1)
+                             .astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 2, (b, n)).astype(np.float32)),
+            torch.ones(b, n, dtype=torch.bool)]
+    m = sensor_map(rng, h, w)
+    for normalize in (False, True):
+        kw = dict(num_bins=5, height=h, width=w, normalize=normalize)
+        n0 = vt.launches
+        got = voxelize_window_soa(*[c.to(dev) for c in cols],
+                                  rectify_map=m.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert vt.launches == n0 + 1
+        want = voxelize_window_soa(*cols, rectify_map=m, **kw)
+        if normalize:
+            assert_normalized_close(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="lies on"):
+        voxelize_window_soa(*[c.to(dev) for c in cols], rectify_map=m,
+                            num_bins=5, height=h, width=w)
+    events = torch.stack(cols[:4], -1).view(2, 4, n, 4)
+    valid = cols[4].view(2, 4, n)
+    kw = dict(num_bins=5, height=h, width=w, normalize=True, rectify_map=m)
+    dense = batch_voxel.voxelize_windows(
+        events.to(dev), valid.to(dev), **{**kw, "rectify_map": m.to(dev)})
+    assert dense.shape == (2, 4, h, w, 5)
+    assert_normalized_close(dense.cpu(), batch_voxel.voxelize_windows(
+        events, valid, **kw))
+
+
+@pytest.mark.parametrize("wire", ["folded", "tile", "raw"])
+def test_window_at_a_time_matches_batched_launch(dev, wire):
+    """The in-loop rollout's voxelizer: one launch a window against one
+    batched launch of the same 2 x 4 windows of 100k events."""
+    from ess_tpu_torch.data.pipeline import (AugmentParams, EventPipeline,
+                                             PipelineConfig)
+
+    h, w, b, t_dim, n = 480, 640, 2, 4, 100_000
+    rng = np.random.default_rng(22)
+    if wire == "folded":
+        _, _, cols, offs = folded(rng, b * t_dim, n, h, w)
+        offs = offs.view(b, t_dim, -1)
+    else:
+        raw, valid = raw_windows(rng, b * t_dim, n, h, w)
+        offs = None
+        if wire == "tile":
+            raw, valid, o = vt.host_tile_bin(raw, valid, height=h, width=w)
+            offs = torch.from_numpy(o).view(b, t_dim, -1)
+        cols = [torch.from_numpy(np.ascontiguousarray(raw[..., i]))
+                for i in range(4)] + [torch.from_numpy(valid)]
+    batch = {k: c.view(b, t_dim, -1).to(dev) for k, c in zip(
+        ("ev_x", "ev_y", "ev_t", "ev_p", "ev_valid"), cols)}
+    key = "ev_band_offsets" if wire == "folded" else "ev_tile_offsets"
+    if offs is not None:
+        batch[key] = offs.to(dev)
+    pipe = EventPipeline(PipelineConfig(sensor_height=h, sensor_width=w,
+                                        num_bins=5, trilinear=True,
+                                        normalize=True, crop_bottom=40))
+    counter = (vf, "launches") if wire == "folded" else (vt, "launches")
+    n0 = getattr(*counter)
+    batched, _ = pipe.build_all(batch)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == n0 + 1
+    fn = pipe.make_window_fn(AugmentParams(), offsets_kind=(
+        "band" if wire == "folded" else "tile"))
+    for i in range(t_dim):
+        one = fn(*(batch[k][:, i] for k in ("ev_x", "ev_y", "ev_t", "ev_p",
+                                            "ev_valid")),
+                 tile_offsets=batch[key][:, i] if key in batch else None)
+        assert_normalized_close(one, batched[i])
+    torch.cuda.synchronize()
+    assert getattr(*counter) == n0 + 1 + t_dim
