@@ -247,14 +247,20 @@ def _stack_padded(arrays) -> np.ndarray:
 
 
 def make_batch(seed: int, batch: int, device, ignore_rows: int = 0,
-               pile: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Host-folded batch on ``device`` with labels at 440x640 (the bottom
+               pile: Optional[int] = None, wire: str = "band"
+               ) -> Dict[str, torch.Tensor]:
+    """Host-binned batch on ``device`` with labels at 440x640 (the bottom
     ``ignore_rows`` rows set to the ignore label; sample ``pile``'s events
-    partly piled on one pixel, :func:`pile_events`)."""
+    partly piled on one pixel, :func:`pile_events`): ghost-folded x-slot
+    band records (``wire='band'``, ``ev_band_offsets``) or tile-sorted
+    events (``'tile'``, ``ev_tile_offsets``), the same events either
+    way."""
     rng = np.random.default_rng(seed)
     raw, valid = make_raw(rng, batch)
     pile_events(raw, pile, SENSOR_W / 2, SENSOR_H / 2)
-    recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
+    bin_fn = (voxel_folded.host_band_bin_folded if wire == "band"
+              else voxel_tiled.host_tile_bin)
+    recs, vals, offs = zip(*(bin_fn(
         raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS)
         for i in range(batch)))
     recs, vals = _stack_padded(recs), _stack_padded(vals)
@@ -263,7 +269,7 @@ def make_batch(seed: int, batch: int, device, ignore_rows: int = 0,
         label[:, -ignore_rows:] = 255
     host = {"ev_x": recs[..., 0], "ev_y": recs[..., 1], "ev_t": recs[..., 2],
             "ev_p": recs[..., 3], "ev_valid": vals,
-            "ev_band_offsets": np.stack(offs), "label": label}
+            f"ev_{wire}_offsets": np.stack(offs), "label": label}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}
 
@@ -447,21 +453,29 @@ def profile_call(fn: Callable[[], object], out_dir: str, name: str,
                  top: int = 14) -> dict:
     """Trace one call of ``fn`` (after two warm-up calls) with
     ``torch.profiler``; returns wall time and :func:`trace_summary` of the
-    Chrome trace, which goes to ``out_dir/<name>_trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
+    Chrome trace, which goes to ``out_dir/<name>_trace.json``. The second
+    warm-up call runs under the profiler as its warm-up step: right after
+    the tracer starts, the card's first kernels can go unrecorded (seen
+    for kernels launched through the port's own library, and in a process
+    that had profiled before, for library kernels too)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(2):
-        fn()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}_trace.json")
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{name}_trace.json")
-    prof.export_chrome_trace(path)
+        prof.step()
     return {"wall_ms": 1e3 * wall, **trace_summary(path, top)}
 
 

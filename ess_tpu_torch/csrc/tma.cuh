@@ -1,5 +1,5 @@
 // What the kernels' TMA and async-proxy copies share (conv_halo.cuh's halo
-// loads and wgmma operands, voxel_scatter.cuh's tile stores): the proxy
+// loads and wgmma operands): the proxy
 // fence and the tensor-map encoder, cuTensorMapEncodeTiled.
 
 #pragma once
@@ -9,7 +9,7 @@
 
 // Generic-proxy writes to shared memory (threads' stores, cp.async,
 // atomics) become visible to async-proxy readers (wgmma's shared-memory
-// operand, TMA stores) only after this fence
+// operand, TMA copies) only after this fence
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -10,21 +10,18 @@
 // one (window, group), a group being one band of tile_h rows by one
 // 128-column x-slot; the host sort and the offsets give each group a
 // contiguous record range, and the host folding guarantees that no nonzero
-// corner leaves the group's tile, so an item walks its own range only. Each
-// item's tile leaves by one TMA tensor store, and the pass that zeroes its
-// accumulator afterwards also reduces the tile's (sum, sum of squares,
-// nonzero count) into one partial per (window, group); the caller sums the
-// partials per window in group order. One launch a call.
+// corner leaves the group's tile, so an item walks its own range only. Its
+// corners add into 64-bit fixed-point cells, so the grid and the stats are
+// the same bits on every launch; the pass that stores the tile converts it
+// to f32 and reduces its (sum, sum of squares, nonzero count) into one
+// partial per (window, group), which the caller sums per window in group
+// order. One launch a call.
 //
 // Bound on the H100: per 100k-event DSEC window it reads ~104.6k records x
 // 16 B and writes a 6.1 MB f32 grid, so bytes bound it: at one step's 160
-// windows 268 MB + 983 MB over 3.35 TB/s = 0.373 ms. The old design (one
-// block per item, zero, scatter with one compare-and-swap loop per corner,
-// then 4-byte stores) wrote the grid only in each block's last phase and
-// reached a third of that rate; here the TMA stores one block's tile while
-// the SM's other blocks scatter, a record's corners go to shared memory in
-// one batch of swaps, and the next item's records are in registers before
-// its accumulator is free. Corners that fall outside the tile (x exactly
+// windows 268 MB + 983 MB over 3.35 TB/s = 0.373 ms. Persistent blocks
+// walk the items, and the next item's records are in registers before its
+// accumulator is free. Corners that fall outside the tile (x exactly
 // 127.0 in a slot, row exactly tile_h - 1, time exactly bins - 1) carry zero
 // weight and are skipped by explicit bounds checks.
 //
@@ -41,7 +38,7 @@
 // each walks the band's whole range and keeps the records whose floor(x)
 // lies in [128 tx - 1, 128 tx + 127], so the band's records are read from
 // device memory once and from L2 by the other tiles. Every grid element is
-// stored once, by its tile's TMA store, and the partial stats count each
+// stored once, by its tile's drain, and the partial stats count each
 // element once. Bound as B1's (the same records and grid bytes): 0.373 ms
 // at 160 windows.
 

@@ -15,39 +15,47 @@
 // while its tiles run (B3's tiles read their neighbours' ranges again, and
 // B3-legacy's tiles their band's, from there).
 //
-// Accumulator. Each item deposits into a dense bins x tile_h x 128 f32
-// accumulator in shared memory (row pitch 128 floats; bins * (tile_h + 1)
-// <= 128 keeps it under 64 KB: 60 KB at 5 bins). A block holds one, so
-// three 256-thread blocks share an SM at 5 bins and the TMA stores one
-// block's tile while the others scatter (two accumulators in one block an
-// SM measured slower at every main-path shape on the H100).
+// Accumulator. Each item deposits into a dense bins x tile_h x 128
+// accumulator of 64-bit integers in shared memory (row pitch 128 cells,
+// 1 KB; bins * (tile_h + 1) <= 128 keeps it under 128 KB: 120 KB at 5
+// bins, so one block an SM).
 //
-// Deposit. The H100 has no shared-memory f32 add: atomicAdd on shared
-// memory compiles to a compare-and-swap loop (ATOMS.CAST.SPIN), one corner
-// after the other. So a record's up to 8 corners are added in one batch:
-// 8 shared loads, then 8 independent compare-and-swaps in flight together,
-// and only a corner whose swap lost a race (another thread changed the
-// cell in between) goes through atomicAdd. The sum is the same as eight
-// atomicAdds; only the order of the additions to a cell differs.
+// Deposit: fixed point, so that a cell's sum is the same in any order. A
+// corner's f32 value v (|v| <= 1: the polarity, pre-weighted by at most 1
+// on the folded wires, times three tent weights) is rounded to the nearest
+// multiple of 2^-kFracBits, or to one unit of its own sign where that is
+// 0, and added to its 64-bit cell (deposit). Integer addition is
+// associative, so the order in which a cell's corners arrive (which the
+// threads' races decide) does not reach the sum, and two launches, or two
+// processes, give the same bits. A cell's sum of n corners is at most
+// n * 2^32 units, under 2^63 for any n an int can count, so no
+// cell overflows (ops/voxel_scatter.py::fixed_point_bound; a pile of every
+// record of a window on one cell included). The rounding moves a corner by
+// at most 2^-33, far below f32's rounding of the sums it replaces; a corner
+// that rounds to 0 keeps one unit, so no cell that a nonzero corner
+// reaches reads 0 (the normalization counts nonzero cells). 32-bit cells
+// with a per-item scale 2^(30 - bitlen(n)) fit three blocks an SM but
+// round at ~1e-6: an exact CPU emulation at the DSEC shape gave 5 cells in
+// 8 windows whose zero pattern differs from the plain version's, which
+// moves the normalized grid by 2.7e-3 (bound 1e-4; PERF.md).
+// The corner products are rounded IEEE multiplies (__fmul_rn), as the
+// plain versions compute them, so no compiler contraction moves a value.
 //
-// Stores. A finished tile leaves as one TMA tensor store
-// (cp.async.bulk.tensor.4d.global.shared::cta.bulk_group) of a 128 x tile_h
-// x bins x 1 box of the (W, H, bins, windows) grid: the box's shared-memory
-// image is the accumulator itself. The deposits write shared memory through
-// the generic proxy and the TMA reads it through the async proxy, so every
-// thread runs fence.proxy.async.shared::cta before the block barrier that
-// ends the scatter, and the issuing thread runs it again after the barrier.
-// Before the accumulator is scattered into again, the issuing thread waits
-// with cp.async.bulk.wait_group.read, then comes a block barrier, then one
-// pass of 16-byte shared loads and stores reads it (B1: the item's sum, sum
-// of squares and nonzero count) and zeroes it. Every grid element is stored by exactly one box,
-// empty tiles as zeros, so the grid needs no zero fill; nothing is added to
-// device memory, so there are no global atomics and no second pass.
+// Stores. After an item's scatter, one pass over the accumulator (16-byte
+// shared loads) converts each cell to f32 (one rounding of the exact sum),
+// stores the tile's rows to the grid as 16-byte global stores (512
+// contiguous bytes a warp), reduces the tile's sum, sum of squares and
+// nonzero count (one partial an item, summed per window by the caller in
+// tile order: the same bits whatever the call's number of windows), and
+// zeroes the cells. Every grid element
+// is stored by exactly one item, empty tiles as zeros, so the grid needs no
+// zero fill; nothing is added to device memory, so there are no global
+// atomics and no second pass.
 //
 // Loads. The next item's first kAhead records (x, y, ts, pol) are loaded
-// into registers right after the current item's store is issued, so they
-// arrive while the block waits for and zeroes the accumulator; records past
-// the first kAhead are loaded on demand.
+// into registers right after the current item's scatter ends, so they
+// arrive while the block drains its accumulator; records past the first
+// kAhead are loaded on demand.
 //
 // Band rule (B3-legacy). The host folds ghosts across band rows and frame
 // edges only, so a band's records keep global columns and a record's x + 1
@@ -79,8 +87,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tma.cuh"
-
 // Attribution builds only (tools/bench_voxel.py --attribute): leave out the
 // neighbours' gathers (1), the deposits (2) or the tile stores (4).
 #ifndef VOXEL_SCATTER_SKIP
@@ -91,12 +97,16 @@ namespace {
 namespace scatter {
 
 constexpr int kTileW = 128;     // tile columns = accumulator row pitch
-constexpr int kRowBytes = kTileW * 4;
+typedef unsigned long long Cell;   // a fixed-point cell, two's complement
+constexpr int kRowBytes = kTileW * (int)sizeof(Cell);
+constexpr int kFracBits = 32;      // fraction bits of a cell
+constexpr float kToFixed = (float)(1ull << kFracBits);
+constexpr float kFromFixed = 1.f / kToFixed;
 constexpr int kAhead = 1024;    // records of the next item loaded ahead
 constexpr int kMaxSmem = 232448;
 
-// What a work item reads and reduces: B1 (own group, stats), B3 (own tile
-// and its neighbours' ranges, no stats), B3-legacy (its band, stats).
+// What a work item reads: B1 its own group, B3 its own tile's and its
+// neighbours' ranges, B3-legacy its band.
 enum Kind { kFolded = 0, kTiled = 1, kBand = 2 };
 
 struct Args {
@@ -106,7 +116,7 @@ struct Args {
   const float* pols;
   const int32_t* offsets;       // (windows, n_groups + 1)
   float* grid;                  // (windows, bins, height, width)
-  float* partials;              // (windows, n_tiles, 3), B1 and B3-legacy
+  float* partials;              // (windows, n_tiles, 3), or null (B3)
   int n_records;                // records per window
   int bins;
   int tile_h;
@@ -126,66 +136,61 @@ inline int tile_h_for_bins(int bins) {
   return th < 4 ? 4 : (th > 64 ? 64 : th);
 }
 
-// One tile's box (x = tx * 128, y = ty * tile_h, bin 0, window w) from its
-// accumulator.
-__device__ __forceinline__ void store_tile(const CUtensorMap* map,
-                                           const float* acc, int x, int y,
-                                           int w) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(acc))), "r"(x),
-      "r"(y), "r"(0), "r"(w)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+// A corner's value in fixed point: the nearest multiple of 2^-kFracBits,
+// or one unit of v's sign where that is 0 (v != 0).
+__device__ __forceinline__ Cell to_fixed(float v) {
+  long long q = __float2ll_rn(v * kToFixed);   // exact scaling, one rounding
+  if (q == 0) q = v > 0.f ? 1 : -1;
+  return (Cell)q;
 }
 
 // The up to 8 corners of one event that land in the accumulator. (yl, xl)
 // are the event's coordinates in its own tile's frame; the receiving tile's
-// row and column are that frame's less (dr, dq).
-__device__ __forceinline__ void deposit(float* acc, float yl, float xl,
+// row and column are that frame's less (dr, dq). The H100 has no 64-bit
+// shared-memory add (atomicAdd on a 64-bit cell compiles to a
+// compare-and-swap loop, ATOMS.CAST.SPIN.64), but a native 32-bit one. So a
+// cell's two halves take the add: a 32-bit atomicAdd of the low half that
+// returns the old low word, then, where the high half or the carry out of
+// the low word is not 0, an atomicAdd of (high half + carry) to the high
+// word. Every wrap of the low word is counted once, in whatever order the
+// corners arrive, so the cell ends at the exact 64-bit sum; the 8 corners'
+// low-word adds are in flight together.
+__device__ __forceinline__ void deposit(Cell* acc, float yl, float xl,
                                         float ts, float p, int bins, int th,
                                         int dr, int dq) {
   if (VOXEL_SCATTER_SKIP & 2) return;
   const float yf = floorf(yl), xf = floorf(xl), cf = floorf(ts);
-  const float fy = yl - yf, fx = xl - xf, wt = ts - cf;
+  const float fy = __fsub_rn(yl, yf), fx = __fsub_rn(xl, xf),
+              wt = __fsub_rn(ts, cf);
   const int r0 = (int)yf - dr, q0 = (int)xf - dq, c0 = (int)cf;
-  const float sc[2] = {p * (1.f - wt), p * wt};
-  const float wy[2] = {1.f - fy, fy};
-  const float wx[2] = {1.f - fx, fx};
-  int idx[8];
-  float val[8], old[8];
-  bool ok[8];
+  const float sc[2] = {__fmul_rn(p, __fsub_rn(1.f, wt)), __fmul_rn(p, wt)};
+  const float wy[2] = {__fsub_rn(1.f, fy), fy};
+  const float wx[2] = {__fsub_rn(1.f, fx), fx};
+  unsigned* word[8];
+  Cell add[8];
+  unsigned old[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dc = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
     const int c = c0 + dc, r = r0 + dy, q = q0 + dx;
-    val[k] = sc[dc] * wy[dy] * wx[dx];
-    ok[k] = c >= 0 && c < bins && r >= 0 && r < th && q >= 0 &&
-            q < kTileW && val[k] != 0.f;
-    idx[k] = (c * th + r) * kTileW + q;
+    const float v = __fmul_rn(__fmul_rn(sc[dc], wy[dy]), wx[dx]);
+    const bool ok = c >= 0 && c < bins && r >= 0 && r < th && q >= 0 &&
+                    q < kTileW && v != 0.f;
+    word[k] = ok ? reinterpret_cast<unsigned*>(acc + (c * th + r) * kTileW +
+                                               q)
+                 : nullptr;
+    add[k] = ok ? to_fixed(v) : 0ull;
   }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (word[k]) old[k] = atomicAdd(word[k], (unsigned)add[k]);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    old[k] = 0.f;
-    if (ok[k]) old[k] = acc[idx[k]];
+    if (!word[k]) continue;
+    const unsigned lo = (unsigned)add[k];
+    const unsigned up = (unsigned)(add[k] >> 32) + (old[k] + lo < old[k]);
+    if (up) atomicAdd(word[k] + 1, up);
   }
-  unsigned seen[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    if (ok[k])
-      seen[k] = atomicCAS(reinterpret_cast<unsigned*>(acc + idx[k]),
-                          __float_as_uint(old[k]),
-                          __float_as_uint(old[k] + val[k]));
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    if (ok[k] && seen[k] != __float_as_uint(old[k]))
-      atomicAdd(acc + idx[k], val[k]);
 }
 
 // One item's place: window, tile row and column, and its record range.
@@ -242,7 +247,7 @@ struct Ahead {
 // A neighbour's range: only events whose row floor (UP) and / or column
 // floor (LEFT) is the neighbour's last reach this tile.
 template <int THREADS, bool UP, bool LEFT>
-__device__ __forceinline__ void gather(const Args& a, float* acc,
+__device__ __forceinline__ void gather(const Args& a, Cell* acc,
                                        const Item& it, int tile, float row0,
                                        float col0) {
   constexpr int U = 4;
@@ -298,7 +303,7 @@ struct BandQueue {
 
 // Every lane offers one record (keep: it reaches the tile); once 32 wait,
 // each lane deposits one. Called by the whole warp.
-__device__ __forceinline__ void band_offer(BandQueue& bq, float* acc,
+__device__ __forceinline__ void band_offer(BandQueue& bq, Cell* acc,
                                            bool keep, float yl, float xl,
                                            float t, float p, int bins,
                                            int th) {
@@ -320,7 +325,7 @@ __device__ __forceinline__ void band_offer(BandQueue& bq, float* acc,
 }
 
 // The records still waiting, one a lane.
-__device__ __forceinline__ void band_flush(BandQueue& bq, float* acc,
+__device__ __forceinline__ void band_flush(BandQueue& bq, Cell* acc,
                                            int bins, int th) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
@@ -338,7 +343,7 @@ __device__ __forceinline__ void band_flush(BandQueue& bq, float* acc,
 // put two dependent load latencies on every kept record), offered to the
 // warp's queue. The loop runs warp-uniform rounds (the queue's ballots).
 template <int THREADS>
-__device__ __forceinline__ void band_rest(const Args& a, float* acc,
+__device__ __forceinline__ void band_rest(const Args& a, Cell* acc,
                                           BandQueue& bq, const Item& it,
                                           float row0, float col0) {
   constexpr int U = 4;
@@ -362,17 +367,33 @@ __device__ __forceinline__ void band_rest(const Args& a, float* acc,
   band_flush(bq, acc, a.bins, a.tile_h);
 }
 
-// One pass over an accumulator whose store has read it: 16-byte loads for
-// the stats (STATS), 16-byte zero stores (zero). Each warp leaves its sums
-// in red[warp].
-template <int THREADS, bool STATS>
-__device__ __forceinline__ void drain(float* acc, int n4, bool zero,
-                                      float (*red)[3]) {
-  float4* a4 = reinterpret_cast<float4*>(acc);
+// One pass over an item's accumulator: each thread takes 4 cells at a time
+// (two 16-byte shared loads), converts them to f32, stores them to the grid
+// as one 16-byte store (a warp: one 512-byte tile row), adds them to the
+// tile's stats and zeroes them. Each warp leaves its sums in red[warp].
+template <int THREADS>
+__device__ __forceinline__ void drain(const Args& a, const Item& it,
+                                      Cell* acc, float (*red)[3]) {
+  const int th = a.tile_h;
+  const int n4 = a.bins * th * kTileW / 4;
+  ulonglong2* a2 = reinterpret_cast<ulonglong2*>(acc);
+  float* g0 = a.grid + (int64_t)it.w * a.bins * a.height * a.width +
+              (int64_t)it.ty * th * a.width + it.tx * kTileW;
   float s = 0.f, sq = 0.f, nz = 0.f;
   for (int i = threadIdx.x; i < n4; i += THREADS) {
-    if (STATS) {
-      const float4 v = a4[i];
+    const ulonglong2 u = a2[2 * i], w = a2[2 * i + 1];
+    const float4 v = make_float4(
+        __ll2float_rn((long long)u.x) * kFromFixed,
+        __ll2float_rn((long long)u.y) * kFromFixed,
+        __ll2float_rn((long long)w.x) * kFromFixed,
+        __ll2float_rn((long long)w.y) * kFromFixed);
+    a2[2 * i] = a2[2 * i + 1] = make_ulonglong2(0ull, 0ull);
+    const int row = i / (kTileW / 4), c = row / th;
+    if (!(VOXEL_SCATTER_SKIP & 4))
+      *reinterpret_cast<float4*>(
+          g0 + ((int64_t)c * a.height + row - c * th) * a.width +
+          (i % (kTileW / 4)) * 4) = v;
+    {
       s += v.x;
       s += v.y;
       s += v.z;
@@ -383,9 +404,8 @@ __device__ __forceinline__ void drain(float* acc, int n4, bool zero,
       sq += v.w * v.w;
       nz += (v.x != 0.f) + (v.y != 0.f) + (v.z != 0.f) + (v.w != 0.f);
     }
-    if (zero) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (STATS) {
+  {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       s += __shfl_down_sync(0xffffffffu, s, o);
@@ -400,8 +420,8 @@ __device__ __forceinline__ void drain(float* acc, int n4, bool zero,
   }
 }
 
-// Threads 0..2 sum the warps' stats of one item into its partial (B1,
-// B3-legacy).
+// Threads 0..2 sum the warps' stats of one item into its partial, in warp
+// order (where the caller asked for partials).
 template <int THREADS>
 __device__ __forceinline__ void write_partial(const Args& a,
                                               float (*red)[3], int item) {
@@ -412,22 +432,21 @@ __device__ __forceinline__ void write_partial(const Args& a,
   }
 }
 
-// KIND: B1 (own range only, one stats partial per item), B3 (gather from
-// the neighbours' ranges, no stats) or B3-legacy (the band's range with the
-// band rule and the warps' queues, one stats partial per item). map: the
-// grid as a (W, H, bins, windows) f32 tensor, box 128 x tile_h x bins x 1.
+// KIND: B1 (own range only), B3 (gather from the neighbours' ranges) or
+// B3-legacy (the band's range with the band rule and the warps' queues);
+// each item's stats partial where a.partials is not null.
 template <int KIND, int THREADS>
-__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 3 : 2)
-scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
+__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
+scatter_kernel(const Args a) {
   constexpr bool TILED = KIND == kTiled;
-  extern __shared__ __align__(128) float acc[];
+  extern __shared__ __align__(128) Cell acc[];
   __shared__ float red[THREADS / 32][3];
   const int tid = threadIdx.x;
   const int th = a.tile_h;
-  const int n4 = a.bins * th * kTileW / 4;
+  const int n2 = a.bins * th * kTileW / 2;
 
-  for (int i = tid; i < n4; i += THREADS)
-    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < n2; i += THREADS)
+    reinterpret_cast<ulonglong2*>(acc)[i] = make_ulonglong2(0ull, 0ull);
   Ahead<THREADS> ahead;
   int item = blockIdx.x;
   Item it;
@@ -437,16 +456,7 @@ scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
   }
   __syncthreads();
 
-  int held = -1;                // the item whose store reads acc
   while (item < a.n_items) {
-    if (held >= 0) {
-      if (tid == 0) bulk_wait_read();
-      __syncthreads();
-      drain<THREADS, !TILED>(acc, n4, true, red);
-      __syncthreads();
-      if (!TILED) write_partial<THREADS>(a, red, held);
-    }
-
     // own range: the records loaded ahead, then the rest
     const float row0 = (float)(it.ty * th), col0 = (float)(it.tx * kTileW);
     if constexpr (KIND == kBand) {
@@ -483,51 +493,20 @@ scatter_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
         gather<THREADS, true, true>(a, acc, it, tile - a.n_tx - 1, up0,
                                     left0);
     }
-    fence_proxy_async();
     __syncthreads();
 
-    if (tid == 0 && !(VOXEL_SCATTER_SKIP & 4)) {
-      fence_proxy_async();
-      store_tile(&map, acc, it.tx * kTileW, it.ty * th, it.w);
-    }
-    held = item;
+    // the next item's records load while this one drains
+    const Item done = it;
+    const int done_item = item;
     item += gridDim.x;
     if (item < a.n_items) {
       it = locate<KIND>(a, item);
       ahead.load(a, it);
     }
-  }
-
-  // the store must have read shared memory before the block exits; its
-  // writes to the grid complete with the kernel
-  if (tid == 0) bulk_wait_read();
-  __syncthreads();
-  if (!TILED && held >= 0) {
-    drain<THREADS, true>(acc, n4, false, red);
+    drain<THREADS>(a, done, acc, red);
     __syncthreads();
-    write_partial<THREADS>(a, red, held);
+    if (a.partials) write_partial<THREADS>(a, red, done_item);
   }
-}
-
-// The grid as a (W, H, bins, windows) f32 tensor with a 128 x tile_h x
-// bins x 1 box: one box is one tile's accumulator. Returns a cudaError_t.
-inline int grid_map(CUtensorMap* map, const Args& a) {
-  const TensorMapEncodeTiled enc = tensor_map_encoder();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t plane = (cuuint64_t)a.height * a.width * 4;
-  const cuuint64_t dims[4] = {(cuuint64_t)a.width, (cuuint64_t)a.height,
-                              (cuuint64_t)a.bins,
-                              (cuuint64_t)(a.n_items / a.n_tiles)};
-  const cuuint64_t strides[3] = {(cuuint64_t)a.width * 4, plane,
-                                 plane * a.bins};
-  const cuuint32_t box[4] = {kTileW, (cuuint32_t)a.tile_h,
-                             (cuuint32_t)a.bins, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.grid, dims, strides, box,
-      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // Checks the plan against the layout and launches one kernel over every
@@ -543,16 +522,12 @@ int launch(const Args& a, int threads, int grid, int smem, void* stream) {
       smem != a.bins * a.tile_h * kRowBytes || smem > kMaxSmem ||
       grid < 1 || grid > a.n_items)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map;
-  int err = grid_map(&map, a);
-  if (err) return err;
-  void (*kern)(const Args, const CUtensorMap) =
-      threads == 256 ? scatter_kernel<KIND, 256>
-                     : scatter_kernel<KIND, 512>;
-  err = (int)cudaFuncSetAttribute(
+  void (*kern)(const Args) = threads == 256 ? scatter_kernel<KIND, 256>
+                                            : scatter_kernel<KIND, 512>;
+  int err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(a, map);
+  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

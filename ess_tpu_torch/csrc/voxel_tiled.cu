@@ -21,7 +21,7 @@
 // the event's own tile frame (flooring, so a coordinate in (-1, 0) keeps
 // only its in-frame corner) and deposits only the corners that land inside
 // its own tile: no halo leaves the block, so there is no halo scratch and
-// no fold pass, and every grid element is stored once, by the TMA store of
+// no fold pass, and every grid element is stored once, by the drain of
 // its tile.
 //
 // Bound on the H100: per 100k-event DSEC window the kernel reads 1.6 MB of
@@ -34,20 +34,35 @@
 #include "voxel_scatter.cuh"
 
 // offsets (n_windows, n_ty * n_tx + 1); grid (n_windows, bins,
-// n_ty * tile_h, n_tx * 128). The plan (threads, grid_blocks, smem) is
-// ops/voxel_scatter.py's.
+// n_ty * tile_h, n_tx * 128); partials (n_windows, n_ty * n_tx, 3), the
+// tiles' (sum, sum of squares, nonzero count), or null. The plan (threads,
+// grid_blocks, smem) is ops/voxel_scatter.py's.
+extern "C" int ess_voxel_tiled_stats(const void* x, const void* y,
+                                     const void* ts, const void* pol,
+                                     const void* offsets, void* grid,
+                                     void* partials, int n_windows,
+                                     int n_events, int bins, int tile_h,
+                                     int n_ty, int n_tx, int threads,
+                                     int grid_blocks, int smem,
+                                     void* stream) {
+  const scatter::Args a{(const float*)x,  (const float*)y,
+                        (const float*)ts, (const float*)pol,
+                        (const int32_t*)offsets, (float*)grid,
+                        (float*)partials, n_events, bins, tile_h, n_tx,
+                        n_ty * n_tx, n_ty * tile_h, n_tx * scatter::kTileW,
+                        n_windows * n_ty * n_tx, n_ty * n_tx};
+  return scatter::launch<scatter::kTiled>(a, threads, grid_blocks, smem,
+                                          stream);
+}
+
+// The grid alone.
 extern "C" int ess_voxel_tiled(const void* x, const void* y, const void* ts,
                                const void* pol, const void* offsets,
                                void* grid, int n_windows, int n_events,
                                int bins, int tile_h, int n_ty, int n_tx,
                                int threads, int grid_blocks, int smem,
                                void* stream) {
-  const scatter::Args a{(const float*)x,  (const float*)y,
-                        (const float*)ts, (const float*)pol,
-                        (const int32_t*)offsets, (float*)grid,
-                        nullptr, n_events, bins, tile_h, n_tx,
-                        n_ty * n_tx, n_ty * tile_h, n_tx * scatter::kTileW,
-                        n_windows * n_ty * n_tx, n_ty * n_tx};
-  return scatter::launch<scatter::kTiled>(a, threads, grid_blocks, smem,
-                                          stream);
+  return ess_voxel_tiled_stats(x, y, ts, pol, offsets, grid, nullptr,
+                               n_windows, n_events, bins, tile_h, n_ty, n_tx,
+                               threads, grid_blocks, smem, stream);
 }

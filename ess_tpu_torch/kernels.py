@@ -100,6 +100,8 @@ def _build() -> ctypes.CDLL:
     lib.ess_voxel_folded_band.restype = ci
     lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_voxel_tiled.restype = ci
+    lib.ess_voxel_tiled_stats.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+    lib.ess_voxel_tiled_stats.restype = ci
     # the cells: shape (B, H, W, CX, CH), then the plan (th, tw, grid, smem)
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_conv_lstm.restype = ci

@@ -173,11 +173,14 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     if offsets is None:
         x, y, ts, pol, offsets = bin_events_device(
             x, y, ts, pol, ok, height=hp, width=wp, bins=bins_eff)
-    grid = voxelize_tiled(
-        x.contiguous(), y.contiguous(), ts.contiguous(), pol.contiguous(),
-        offsets.to(torch.int32).contiguous(), bins=bins_eff, height=hp,
-        width=wp)
-    grid = grid[:, :, :height, :width]
+    cols = (x.contiguous(), y.contiguous(), ts.contiguous(),
+            pol.contiguous(), offsets.to(torch.int32).contiguous())
+    kw = dict(bins=bins_eff, height=hp, width=wp)
+    if normalize and (hp, wp) == (height, width):
+        # the voxelizer's own stats: the same bits whether the windows come
+        # in one call or one batch at a time (torch's reductions would not)
+        return normalize_from_stats(*voxelize_tiled(*cols, **kw, stats=True))
+    grid = voxelize_tiled(*cols, **kw)[:, :, :height, :width]
     return normalize_nonzero(grid) if normalize else grid
 
 

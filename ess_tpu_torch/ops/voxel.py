@@ -61,13 +61,20 @@ def voxel_grid_trilinear(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     return normalize_nonzero(grid) if normalize else grid
 
 
+def grid_stats(grid: torch.Tensor) -> torch.Tensor:
+    """Per-sample (sum, sum of squares, nonzero count) (B, 3) f32 of (B, C,
+    H, W) grids. On the card torch's reductions sum in an order that
+    depends on B, so two calls over different batches of the same windows
+    may differ in the last bit; the voxelizers' own stats do not."""
+    g = grid.float()
+    return torch.stack([g.sum((1, 2, 3)), (g * g).sum((1, 2, 3)),
+                        (g != 0).sum((1, 2, 3)).float()], dim=-1)
+
+
 def normalize_nonzero(grid: torch.Tensor) -> torch.Tensor:
     """Standardize each sample's nonzero entries to mean 0 / std 1 (biased
     std over nonzeros; zeros stay zero; an all-zero sample is unchanged)."""
-    g = grid.float()
-    stats = torch.stack([g.sum((1, 2, 3)), (g * g).sum((1, 2, 3)),
-                         (g != 0).sum((1, 2, 3)).float()], dim=-1)
-    return normalize_from_stats(grid, stats)
+    return normalize_from_stats(grid, grid_stats(grid))
 
 
 def normalize_from_stats(grid: torch.Tensor,

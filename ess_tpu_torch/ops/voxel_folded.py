@@ -17,7 +17,8 @@ into its own ``bins x tile_h x 128`` tile of the grid, so the x-slot kernel
 (``csrc/voxel_folded.cu`` on the persistent scatter core
 ``csrc/voxel_scatter.cuh``, plan :func:`voxel_scatter.scatter_plan`) takes
 each (window, group) as one work item: its persistent blocks accumulate a
-tile in shared memory, store it by one TMA tensor store and reduce its
+tile in fixed point in shared memory (the same bits on every launch),
+store it and reduce its
 normalization partials (sum, sum of squares, nonzero count), one launch a
 call; the partials are summed per window in group order.
 

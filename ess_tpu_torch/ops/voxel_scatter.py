@@ -18,14 +18,15 @@ walks the band's range and keeps the records whose ``floor(x)`` lies in
 ``[128 tx - 1, 128 tx + 127]`` (:func:`band_keeps`).
 
 Per item a block scatters the item's records into a dense ``bins x tile_h
-x 128`` f32 accumulator in shared memory (row pitch 128 floats, 512 bytes),
-then stores the tile by one TMA tensor store of a ``128 x tile_h x bins x
-1`` box of the ``(W, H, bins, windows)`` grid, whose shared-memory image
-is the accumulator: :func:`box_rows` lists the rows it writes. A block
-holds one accumulator (:data:`BUFS`), so several blocks share an SM and the
-TMA stores one block's tile while the others scatter. Every grid element is
-stored by exactly one box, empty tiles as zeros, so the grid needs no zero
-fill.
+x 128`` accumulator of 64-bit fixed-point cells in shared memory (row
+pitch 128 cells, 1 KB): each corner value is rounded to a multiple of
+``2^-FRAC_BITS`` (:func:`to_fixed`) and added by an integer atomic, so a
+cell's sum does not depend on the order in which the threads' corners
+arrive, and two launches give the same bits. Then one pass converts the
+tile to f32, stores its rows to the grid (:func:`box_rows` lists them) and
+zeroes it. A block holds one accumulator (:data:`BUFS`); at 5 bins (120
+KB) one block fits an SM. Every grid element is stored by exactly one
+item, empty tiles as zeros, so the grid needs no zero fill.
 
 The plan is computed here, where the CPU tests reach it, and passed to the
 kernels as arguments; the CUDA launchers recompute the layout and refuse a
@@ -38,8 +39,12 @@ import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
-TILE_W = 128                 # tile columns = accumulator row pitch, floats
-ROW_BYTES = TILE_W * 4       # one 128-float accumulator row, bytes
+import torch
+
+TILE_W = 128                 # tile columns = accumulator row pitch, cells
+CELL_BYTES = 8               # a 64-bit fixed-point cell
+ROW_BYTES = TILE_W * CELL_BYTES   # one 128-cell accumulator row, bytes
+FRAC_BITS = 32               # fraction bits of a cell (kFracBits)
 MAX_SMEM = 232_448           # dynamic shared memory a block may use (H100)
 SM_SMEM = 233_472            # shared memory of one SM
 BLOCK_RESERVED = 1_024       # the runtime's share per resident block
@@ -48,14 +53,13 @@ H100_SMS = 132
 THREADS = (256, 512)         # block sizes the kernels are built for
 # Resident blocks an SM that the kernels' registers allow at least
 # (``__launch_bounds__`` of voxel_scatter.cuh::scatter_kernel).
-REG_BLOCKS = {256: 3, 512: 2}
-# Accumulators per block: one (three 256-thread blocks an SM at 5 bins);
-# two in one block an SM were slower at every main-path shape on the H100
-# (PERF.md).
+REG_BLOCKS = {256: 2, 512: 1}
+# Accumulators per block: one (one block an SM at 5 bins).
 BUFS = 1
 # 512 threads a block where there is at most one item for each resident
-# 256-thread block (B3 at streaming B=1: 100 items), else 256 (B3 at B=8:
-# 800 items; B1: 4,000-16,000), as measured on the H100 (PERF.md).
+# 256-thread block (B3 at streaming B=1: 100 items), or where 512-thread
+# blocks keep more threads on an SM (5 bins: one block an SM either way),
+# else 256.
 FEW_ITEMS_PER_SLOT = 1
 MODES = ("tile", "band")
 
@@ -88,7 +92,7 @@ class ScatterPlan:
     n_tiles: int          # n_ty * n_tx: items per window
     n_windows: int
     n_items: int          # n_windows * n_tiles, window-major
-    acc_bytes: int        # one accumulator: bins * tile_h * 512
+    acc_bytes: int        # one accumulator: bins * tile_h * ROW_BYTES
     bufs: int             # accumulators per block (BUFS)
     threads: int          # threads per block
     smem: int             # dynamic shared memory per block: bufs * acc_bytes
@@ -118,8 +122,8 @@ def scatter_plan(bins: int, height: int, width: int, n_windows: int,
         raise ValueError(f"scatter_plan: grid {height}x{width} is not a "
                          f"multiple of the {th}x{TILE_W} tile")
     acc = bins * th * ROW_BYTES
-    if acc > MAX_SMEM or bins > 256:       # 256: a TMA box dimension
-        raise ValueError(f"scatter_plan: a {bins} x {th} x {TILE_W} f32 "
+    if acc > MAX_SMEM or bins > 256:
+        raise ValueError(f"scatter_plan: a {bins} x {th} x {TILE_W} "
                          f"accumulator ({acc} B) exceeds a block's shared "
                          "memory")
     n_ty, n_tx = height // th, width // TILE_W
@@ -134,7 +138,8 @@ def scatter_plan(bins: int, height: int, width: int, n_windows: int,
 
     if not threads:
         few = n_items <= FEW_ITEMS_PER_SLOT * n_sm * blocks_per_sm(256)
-        threads = 512 if few else 256
+        more = 512 * blocks_per_sm(512) > 256 * blocks_per_sm(256)
+        threads = 512 if few or more else 256
     if threads not in THREADS:
         raise ValueError(f"scatter_plan: threads={threads} not in {THREADS}")
     bpsm = blocks_per_sm(threads)
@@ -172,10 +177,10 @@ def band_keeps(x, tx: int):
 
 
 def box_rows(plan: ScatterPlan, item: int) -> List[Tuple[int, int]]:
-    """The rows the tile store of item ``item`` writes: (element offset in
-    the (n_windows, bins, height, width) f32 grid, element offset in the
-    accumulator) of each 128-float row of its box, in the box's order
-    (bin-major, then row)."""
+    """The rows the drain of item ``item`` stores: (element offset in the
+    (n_windows, bins, height, width) f32 grid, cell offset in the
+    accumulator) of each 128-cell row of its tile, in the accumulator's
+    order (bin-major, then row)."""
     w, ty, tx = item_tile(plan, item)
     th, height, width = plan.tile_h, plan.n_ty * plan.tile_h, \
         plan.n_tx * TILE_W
@@ -185,3 +190,19 @@ def box_rows(plan: ScatterPlan, item: int) -> List[Tuple[int, int]]:
         out.append((((w * plan.bins + c) * height + ty * th + r) * width
                     + tx * TILE_W, row * TILE_W))
     return out
+
+
+def to_fixed(v: torch.Tensor) -> torch.Tensor:
+    """``voxel_scatter.cuh::to_fixed`` on f32 corner values: int64 units of
+    ``2^-FRAC_BITS``, the nearest (ties to even, as ``__float2ll_rn``), or
+    one unit of v's sign where that is 0 and v is not."""
+    q = torch.round(v.double() * 2.0 ** FRAC_BITS).long()    # exact scaling
+    return torch.where((q == 0) & (v != 0), torch.sign(v).long(), q)
+
+
+def fixed_point_bound(n_corners: int) -> int:
+    """The largest |sum| in units that ``n_corners`` corners of |v| <= 1
+    (one a record, at most) put in one cell: each rounds to at most
+    ``2^FRAC_BITS`` units. A cell cannot overflow while this is below
+    ``2^63``: for any record count below ``2^31``."""
+    return n_corners << FRAC_BITS

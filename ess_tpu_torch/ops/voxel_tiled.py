@@ -31,7 +31,7 @@ import torch
 from ess_tpu_torch.data import native
 from ess_tpu_torch.ops import voxel_scatter
 from ess_tpu_torch.ops.conv_halo import sm_count
-from ess_tpu_torch.ops.voxel import masked_time_norm
+from ess_tpu_torch.ops.voxel import grid_stats, masked_time_norm
 from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
 launches = 0   # kernel launches of voxelize_tiled (CUDA tensors only)
@@ -119,12 +119,14 @@ def host_tile_bin_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
 
 def voxelize_tiled_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                        pol: torch.Tensor, offsets: torch.Tensor, *,
-                       bins: int, height: int, width: int) -> torch.Tensor:
+                       bins: int, height: int, width: int,
+                       stats: bool = False):
     """Plain PyTorch version of :func:`voxelize_tiled`: an index_add scatter
     of each event's 8 trilinear corners in its own tile's frame. A corner
     deposits only inside the tile or its +1 halo row and column, inside the
     grid and inside the bin range; events at or past ``offsets[:, -1]`` are
-    not read."""
+    not read. ``stats``: also the grid's per-window stats
+    (``voxel.grid_stats``)."""
     b, n = x.shape
     th = tile_h_for_bins(bins)
     ntx = width // TILE_W
@@ -155,14 +157,18 @@ def voxelize_tiled_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                 idx = (((bidx * bins + c) * height + row0 + r) * width
                        + col0 + q)
                 flat.index_add_(0, idx[ok], (s * wy * wx)[ok])
-    return flat.view(b, bins, height, width)
+    grid = flat.view(b, bins, height, width)
+    return (grid, grid_stats(grid)) if stats else grid
 
 
 def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                    pol: torch.Tensor, offsets: torch.Tensor, *, bins: int,
-                   height: int, width: int) -> torch.Tensor:
+                   height: int, width: int, stats: bool = False):
     """(B, N) tile-sorted events + (B, n_tiles + 1) offsets -> voxel grids
-    (B, bins, height, width) f32.
+    (B, bins, height, width) f32; with ``stats`` also (B, 3) f32 per-window
+    (sum, sum of squares, nonzero count) of the grid: on the card the
+    kernel's per-tile partials summed in tile order, the same bits whatever
+    the number of windows in the call.
 
     ``x, y`` are sensor coordinates, ``ts`` the time normalized to
     [0, bins - 1], ``pol`` the signed value (+-1, zero for dropped events);
@@ -184,7 +190,7 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
         raise ValueError(f"offsets {tuple(offsets.shape)} != {(b, n_tiles + 1)}")
     if x.device.type == "cpu":
         return voxelize_tiled_ref(x, y, ts, pol, offsets, bins=bins,
-                                  height=height, width=width)
+                                  height=height, width=width, stats=stats)
     if x.device.type != "cuda":
         raise ValueError(f"voxelize_tiled: unsupported device {x.device}")
     for name, t in (("x", x), ("y", y), ("ts", ts), ("pol", pol)):
@@ -205,13 +211,19 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     grid = torch.empty((b, bins, height, width), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ess_voxel_tiled(
-        x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
-        offsets.data_ptr(), grid.data_ptr(), b, n, bins, th, n_ty, n_tx,
-        plan.threads, plan.grid, plan.smem, stream)
+    cols = (x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
+            offsets.data_ptr(), grid.data_ptr())
+    shape = (b, n, bins, th, n_ty, n_tx, plan.threads, plan.grid, plan.smem,
+             stream)
+    if stats:
+        partials = torch.empty((b, n_tiles, 3), dtype=torch.float32,
+                               device=x.device)
+        err = lib.ess_voxel_tiled_stats(*cols, partials.data_ptr(), *shape)
+    else:
+        err = lib.ess_voxel_tiled(*cols, *shape)
     kernels.check(err, "voxel_tiled kernel")
     launches += 1
-    return grid
+    return (grid, partials.sum(dim=1)) if stats else grid
 
 
 def voxelize_trilinear(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,

@@ -77,8 +77,49 @@ def attribution_libs(kernels) -> dict:
         lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
         lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
+        lib.ess_voxel_tiled_stats.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         libs[k] = lib
     return libs
+
+
+def device_ms(run_one, calls: int) -> float:
+    """Device ms a call of ``run_one``: CUDA events over ``calls`` calls
+    after three warm-up calls, the best of three such runs, each behind a
+    spin kernel that holds the stream while the host enqueues the calls, so
+    the host's cost does not enter the reading."""
+    import torch
+
+    for _ in range(3):
+        run_one()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        for _ in range(calls):
+            run_one()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / calls)
+    return best
+
+
+def host_call_us(run_one) -> tuple:
+    """(median, 10th percentile) host us of a call of ``run_one`` over
+    HOST_CALLS calls enqueued while a longer spin kernel holds the card."""
+    import torch
+
+    host = []
+    for _ in range(HOST_CALLS // 500):
+        torch.cuda._sleep(HOST_SPIN_CYCLES)
+        for _ in range(500):
+            t0 = time.perf_counter()
+            run_one()
+            host.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    host.sort()
+    return statistics.median(host), host[len(host) // 10]
 
 
 def main(argv=None) -> None:
@@ -143,31 +184,8 @@ def main(argv=None) -> None:
                       columns(r, v, o, True), o, 0))
 
     def timed(fn, cols):
-        def run(n):
-            for _ in range(n):
-                fn(*cols, **kw)
-
-        run(3)
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(3):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda._sleep(SPIN_CYCLES)
-            e0.record()
-            run(args.calls)
-            e1.record()
-            torch.cuda.synchronize()
-            best = min(best, e0.elapsed_time(e1) / args.calls)
-        host = []
-        for _ in range(HOST_CALLS // 500):
-            torch.cuda._sleep(HOST_SPIN_CYCLES)
-            for _ in range(500):
-                t0 = time.perf_counter()
-                fn(*cols, **kw)
-                host.append(1e6 * (time.perf_counter() - t0))
-            torch.cuda.synchronize()
-        host.sort()
-        return best, statistics.median(host), host[len(host) // 10]
+        run_one = lambda: fn(*cols, **kw)
+        return (device_ms(run_one, args.calls), *host_call_us(run_one))
 
     try:
         from ess_tpu_torch.ops import voxel_scatter

@@ -23,7 +23,13 @@ MODULES = [
     "ess_tpu_torch.tools.bench_level",
     "ess_tpu_torch.tools.bench_lstm_breakdown",
     "ess_tpu_torch.tools.bench_cell_host",
-    "ess_tpu_torch.tools.sanity_train", "ess_tpu_torch.ops.conv_halo",
+    "ess_tpu_torch.tools.sanity_train", "ess_tpu_torch.tools.roofline",
+    "ess_tpu_torch.tools.bench_voxel", "ess_tpu_torch.tools.bench_kernel",
+    "ess_tpu_torch.tools.profile_kernel", "ess_tpu_torch.tools.bench_lstm",
+    "ess_tpu_torch.tools.profile_lstm",
+    "ess_tpu_torch.tools.bench_increments",
+    "ess_tpu_torch.tools.bench_uda_increments",
+    "ess_tpu_torch.ops.voxel_scatter", "ess_tpu_torch.ops.conv_halo",
     "ess_tpu_torch.ops.pad", "ess_tpu_torch.ops.resize",
     "ess_tpu_torch.models.layers", "ess_tpu_torch.models.e2vid",
     "ess_tpu_torch.models.seghead", "ess_tpu_torch.models.resnet",

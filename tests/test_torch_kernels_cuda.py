@@ -5,8 +5,12 @@ on a machine with an H100 run ``python -m pytest tests/test_torch_kernels_cuda.p
 Bounds:
 - voxelizers (fold-free B1, its full-width band wire and halo-tiled B3):
   atol/rtol 1e-5 on the grid and the stats, 1e-4 on normalized grids at
-  100k events per window: both sum the same f32 corner weights, the kernel
-  with shared-memory atomics in run-dependent order; the band wire also
+  100k events per window: both sum the same f32 corner weights, the plain
+  version in f32, the kernel in 64-bit fixed point (each corner rounded to
+  2^-32, the sum exact in any order, so two launches agree bit for bit,
+  also with 15k events on one pixel; B3's per-tile stats within 1e-3 /
+  1e-5 of the grid's and the same bits for 8 windows in one call or one
+  at a time); the band wire also
   against the x-slot wire on the same events (normalized grids, 1e-4); B1
   and B3 on the persistent scatter core also at one step's 160 windows,
   at the streaming B=1 and B=8, at grid widths of one, two and three
@@ -106,7 +110,7 @@ from ess_tpu_torch.ops.batch_voxel import (band_operands, voxelize_band,
 from ess_tpu_torch.ops.pad import crop_output
 from ess_tpu_torch.recon.reconstructor import Reconstructor
 from ess_tpu_torch.ops.voxel import (
-    masked_time_norm, normalize_from_stats, normalize_nonzero,
+    grid_stats, masked_time_norm, normalize_from_stats, normalize_nonzero,
     voxel_grid_trilinear)
 from ess_tpu_torch.tools import bench_head, bench_level
 from ess_tpu_torch.tools import bench_lstm_breakdown as bd
@@ -1654,6 +1658,66 @@ def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
     assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:],
                                      stream) == 0
     torch.cuda.synchronize()
+
+
+def repeat_inputs(kernel, pile):
+    """Kernel inputs on the CPU of 8 DSEC windows of 100k events
+    (``bench.make_raw``): B1's x-slot band records, B3-legacy's full-width
+    band records or B3's tile-sorted events; with ``pile`` 15 % of each
+    window's events on one pixel (``bench.pile_events``, as chip_smoke.py's
+    data parallel phase piles them)."""
+    from ess_tpu_torch import bench
+
+    raw, valid = bench.make_raw(np.random.default_rng(15), 1, 8)
+    raw, valid = raw[0], valid[0]
+    if pile:
+        bench.pile_events(raw[None], 0, 320.0, 240.0)
+    if kernel == "B3":
+        r, v, o = vt.host_tile_bin(raw, valid, height=480, width=640)
+    else:
+        r, v, o = vf.host_band_bin_folded(raw, valid, height=480, width=640,
+                                          bins=5, x_slots=kernel == "B1")
+    x, y, t, p = (torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                  for i in range(4))
+    vd = torch.from_numpy(v)
+    if kernel == "B3":
+        p = torch.where(p > 0, 1.0, -1.0)
+    return [x, y, masked_time_norm(t, vd, 5).contiguous(),
+            torch.where(vd, p, torch.zeros_like(p)).contiguous(),
+            torch.from_numpy(o)]
+
+
+@pytest.mark.parametrize("pile", [False, True])
+@pytest.mark.parametrize("kernel", ["B1", "B3", "B3-legacy"])
+def test_voxelizer_repeats_bit_for_bit(dev, kernel, pile):
+    """Two launches on one input give the same grid and stats, bit for bit:
+    the scatter core adds fixed-point cells, so the order in which the
+    threads' corners reach a cell does not reach its sum, also where 15k
+    events pile on one pixel."""
+    args = [a.to(dev) for a in repeat_inputs(kernel, pile)]
+    fn = vt.voxelize_tiled if kernel == "B3" else vf.voxelize_folded
+    runs = [fn(*args, bins=5, height=480, width=640) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*(r if isinstance(r, tuple) else (r,) for r in runs)):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_voxel_tiled_stats_do_not_depend_on_the_batch(dev):
+    """B3's stats (the kernel's per-tile partials summed in tile order)
+    against ``grid_stats`` of its grid (atol/rtol 1e-3 / 1e-5, B1's stats
+    bound), and the same bits whether 8 windows come in one call or one at
+    a time, so the tile wire's in-loop and batched forms normalize alike."""
+    args = [a.to(dev) for a in repeat_inputs("B3", False)]
+    kw = dict(bins=5, height=480, width=640, stats=True)
+    grid, stats = vt.voxelize_tiled(*args, **kw)
+    torch.testing.assert_close(stats, grid_stats(grid), atol=1e-3,
+                               rtol=1e-5)
+    one = [vt.voxelize_tiled(*[a[i:i + 1] for a in args], **kw)
+           for i in range(8)]
+    assert torch.equal(torch.cat([o[0] for o in one]), grid)
+    assert torch.equal(torch.cat([o[1] for o in one]).view(torch.int32),
+                       stats.view(torch.int32))
 
 
 # The reconstruction program (cli/reconstruct.py) at the DAVIS346 sensor.

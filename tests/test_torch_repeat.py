@@ -1,0 +1,225 @@
+"""Repeatability of the voxelizers and the int8 rollout (CPU).
+
+The scatter core (``csrc/voxel_scatter.cuh``) adds each corner into a
+64-bit fixed-point cell (``ops/voxel_scatter.py::to_fixed``), so a cell's
+sum does not depend on the order in which the card's threads deliver its
+corners. What runs on the card is held by ``chip_smoke.py``'s repeat phase
+and ``tests/test_torch_kernels_cuda.py``; here:
+
+- the cell range: no cell overflows at the worst case the kernel can
+  meet (every record of a window on one cell, a pile of 100k events on
+  one pixel as ``chip_smoke.py``'s data-parallel phase makes, and any
+  record count an ``int`` holds);
+- an exact emulation of the core's accumulation on B1's records at the
+  DSEC shape (8 windows of 100k events): the same f32 corner values as
+  ``voxelize_folded_ref``, rounded by ``to_fixed`` and summed as
+  integers. It is the same in any record order (the f32 sums are not),
+  its normalized grid is within the kernel checks' 1e-4 of the plain
+  version's with no cell zero in one grid only; the 32-bit design with a
+  per-item scale ``2^(30 - bitlen(n))``, tried first, leaves cells zero
+  in one grid only and moves the normalized grid beyond 1e-4, which is why
+  the core keeps 64-bit cells (``PERF.md``);
+- two runs of the plain voxelizers and of the plain int8 rollout give the
+  same bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ess_tpu_torch import bench
+from ess_tpu_torch.core.config import (
+    Config, DatasetConfig, EventDatasetConfig, ImageDatasetConfig,
+    ModelConfig, OptimConfig, TaskConfig)
+from ess_tpu_torch.data import native
+from ess_tpu_torch.ops import voxel_folded as vf
+from ess_tpu_torch.ops import voxel_scatter as vs
+from ess_tpu_torch.ops import voxel_tiled as vt
+from ess_tpu_torch.ops.voxel import masked_time_norm, normalize_from_stats
+from ess_tpu_torch.train.builder import build_modules, init_params
+
+H, W, BINS = 480, 640, 5
+VOXEL_ATOL = 1e-4          # chip_smoke.py's kernel-vs-plain bound
+
+
+def folded_records(n_win: int, seed: int = 1, pile: bool = False):
+    """B1's kernel inputs of ``n_win`` DSEC windows (``bench.make_raw``)
+    on the CPU: x, y, ts, pol, offsets."""
+    raw, valid = bench.make_raw(np.random.default_rng(seed), 1, n_win)
+    if pile:
+        bench.pile_events(raw, 0, W / 2, H / 2)
+    r, v, o = vf.host_band_bin_folded(raw[0], valid[0], height=H, width=W,
+                                      bins=BINS)
+    x, y, t, p = (torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                  for i in range(4))
+    vd = torch.from_numpy(v)
+    return (x, y, masked_time_norm(t, vd, BINS).contiguous(),
+            torch.where(vd, p, torch.zeros_like(p)).contiguous(),
+            torch.from_numpy(o))
+
+
+def fixed_point_b1(x, y, ts, pol, offsets, *, cell_bits: int = 64,
+                   order=None):
+    """The scatter core's accumulation on B1's records, exactly: each
+    record's corner values computed as ``voxelize_folded_ref`` computes
+    them (f32), rounded to units of ``2^-S`` with ``to_fixed``'s rule and
+    summed as int64; ``S`` = ``vs.FRAC_BITS`` for 64-bit cells, ``30 -
+    bitlen(n)`` a item (n: the item's records) for 32-bit ones. ``order``
+    permutes the records first. Returns the f32 grid (one rounding of each
+    cell's exact sum) and the per-window stats."""
+    b, n = x.shape
+    th = vs.tile_h_for_bins(BINS)
+    n_bands, ntx = H // th, W // vs.TILE_W
+    live = torch.arange(n)[None, :] < offsets[:, -1:].long()
+    if order is not None:
+        x, y, ts, pol, live = (a[:, order] for a in (x, y, ts, pol, live))
+    band = torch.clamp(torch.div(torch.floor(y), th, rounding_mode="floor"),
+                       0, n_bands - 1)
+    slot = torch.clamp(torch.div(torch.floor(x), vs.TILE_W,
+                                 rounding_mode="floor"), 0, ntx - 1)
+    counts = (offsets[:, 1:] - offsets[:, :-1]).long()        # (b, items)
+    if cell_bits == 64:
+        shift = torch.full_like(counts, vs.FRAC_BITS)
+    else:
+        bitlen = torch.floor(torch.log2(counts.clamp(min=1).double())) + 1
+        shift = 30 - bitlen.long()
+    item = (band * ntx + slot).long()
+    up = torch.pow(2.0, torch.gather(shift, 1, item).double())
+    yl, xl = y - band * th, x - slot * vs.TILE_W
+    yi, xi, c0 = torch.floor(yl), torch.floor(xl), torch.floor(ts)
+    fy, fx, wt = yl - yi, xl - xi, ts - c0
+    bidx = torch.arange(b)[:, None]
+    acc = torch.zeros(b * BINS * H * W, dtype=torch.int64)
+    for dc, s in ((0, pol * (1.0 - wt)), (1, pol * wt)):
+        c = c0.long() + dc
+        for dy, wy in ((0, 1.0 - fy), (1, fy)):
+            r = yi.long() + dy
+            for dx, wx in ((0, 1.0 - fx), (1, fx)):
+                col = xi.long() + dx
+                v = s * wy * wx
+                ok = (live & (c >= 0) & (c < BINS) & (r >= 0) & (r < th)
+                      & (col >= 0) & (col < vs.TILE_W) & (v != 0))
+                idx = (((bidx * BINS + c) * H + band.long() * th + r) * W
+                       + slot.long() * vs.TILE_W + col)
+                q = torch.round(v.double() * up).long()
+                q = torch.where(q == 0, torch.sign(v).long(), q)
+                acc.index_add_(0, idx[ok], q[ok])
+    cell_shift = shift.view(b, 1, n_bands, 1, ntx, 1).expand(
+        b, BINS, n_bands, th, ntx, vs.TILE_W).reshape(b, BINS, H, W)
+    grid = (acc.view(b, BINS, H, W).double()
+            * torch.pow(2.0, -cell_shift.double())).float()
+    stats = torch.stack([grid.sum((1, 2, 3)), (grid * grid).sum((1, 2, 3)),
+                         (grid != 0).sum((1, 2, 3)).float()], -1)
+    return grid, stats, acc
+
+
+def test_to_fixed_rounds_to_nearest_and_keeps_a_unit():
+    v = torch.tensor([1.0, -1.0, 0.5, 2.0 ** -33, -(2.0 ** -40), 0.0,
+                      3.0 * 2.0 ** -33])
+    want = [2 ** 32, -(2 ** 32), 2 ** 31, 1, -1, 0, 2]   # 1.5 -> 2 (ties even)
+    assert vs.to_fixed(v).tolist() == want
+
+
+def test_cells_cannot_overflow_at_the_worst_case():
+    """Every corner rounds to at most 2^FRAC_BITS units, a record adds one
+    corner to a cell at most, and a window's records (every event splits
+    into at most 4) all on one cell stay far inside int64; so does any
+    record count an int holds."""
+    assert vs.to_fixed(torch.tensor([1.0, -1.0])).abs().max() \
+        == 2 ** vs.FRAC_BITS
+    worst_window = 4 * 100_000
+    assert native.folded_capacity(100_000) <= worst_window
+    assert vs.fixed_point_bound(worst_window) < 2 ** 63
+    assert vs.fixed_point_bound(2 ** 31 - 1) < 2 ** 63
+    # a pile of 15 % of each window's events on one pixel: the emulated
+    # cell sums stay within the bound of their item's record count
+    cols = folded_records(2, seed=3, pile=True)
+    _, _, acc = fixed_point_b1(*cols)
+    per_item = (cols[4][:, 1:] - cols[4][:, :-1]).max().item()
+    assert 15_000 <= per_item
+    assert acc.abs().max().item() <= vs.fixed_point_bound(per_item)
+
+
+@pytest.fixture(scope="module")
+def dsec_b1():
+    """8 DSEC windows of B1 records, their plain grid and stats."""
+    cols = folded_records(8)
+    grid, stats = vf.voxelize_folded_ref(*cols, bins=BINS, height=H,
+                                         width=W)
+    return cols, grid, stats
+
+
+def test_fixed_point_is_order_free_and_within_the_kernel_bound(dsec_b1):
+    cols, grid_p, stats_p = dsec_b1
+    grid, stats, _ = fixed_point_b1(*cols)
+    perm = torch.randperm(cols[0].shape[1],
+                          generator=torch.Generator().manual_seed(0))
+    grid_shuffled, _, _ = fixed_point_b1(*cols, order=perm)
+    assert torch.equal(grid.view(torch.int32),
+                       grid_shuffled.view(torch.int32))
+    assert int(((grid != 0) != (grid_p != 0)).sum()) == 0
+    torch.testing.assert_close(grid, grid_p, atol=1e-5, rtol=1e-5)
+    err = (normalize_from_stats(grid, stats)
+           - normalize_from_stats(grid_p, stats_p)).abs().max().item()
+    assert err <= 1e-5 < VOXEL_ATOL
+
+
+def test_32_bit_cells_break_the_kernel_bound(dsec_b1):
+    """The design tried first: 32-bit cells scaled by 2^(30 - bitlen(n))
+    round at ~1e-6, which leaves cells zero in one grid only (a + and a -
+    corner of nearly equal size that cancel, a lone corner below half a
+    unit) and moves the normalized grid past 1e-4."""
+    cols, grid_p, stats_p = dsec_b1
+    grid, stats, _ = fixed_point_b1(*cols, cell_bits=32)
+    assert int(((grid != 0) != (grid_p != 0)).sum()) > 0
+    err = (normalize_from_stats(grid, stats)
+           - normalize_from_stats(grid_p, stats_p)).abs().max().item()
+    assert err > VOXEL_ATOL
+
+
+def test_plain_voxelizers_repeat_bit_for_bit():
+    """Two runs of each plain voxelizer (B1's, B3-legacy's, B3's) on one
+    input give the same grid and stats."""
+    raw, valid = bench.make_raw(np.random.default_rng(4), 1, 2)
+    raw, valid = raw[0, :, :20_000], valid[0, :, :20_000]
+    kw = dict(bins=BINS, height=H, width=W)
+    for x_slots in (True, False):
+        r, v, o = vf.host_band_bin_folded(raw, valid, height=H, width=W,
+                                          bins=BINS, x_slots=x_slots)
+        cols = [torch.from_numpy(np.ascontiguousarray(r[..., i]))
+                for i in range(4)] + [torch.from_numpy(o)]
+        a, b = (vf.voxelize_folded_ref(*cols, **kw) for _ in range(2))
+        assert all(torch.equal(s.view(torch.int32), t.view(torch.int32))
+                   for s, t in zip(a, b))
+    r, v, o = vt.host_tile_bin(raw, valid, height=H, width=W, bins=BINS)
+    cols = [torch.from_numpy(np.ascontiguousarray(r[..., i]))
+            for i in range(4)] + [torch.from_numpy(o)]
+    a, b = (vt.voxelize_tiled_ref(*cols, **kw) for _ in range(2))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_plain_int8_rollout_repeats_bit_for_bit():
+    """Two rollouts of the int8 train cell's plain version (the int8 math
+    at every size) on one window stack give the same latent."""
+    shape = (32, 64)
+    cfg = Config(
+        dataset=DatasetConfig(
+            sensor_a=ImageDatasetConfig(shape=shape),
+            sensor_b=EventDatasetConfig(
+                name="synthetic_events", shape=shape, nr_events_data=3,
+                nr_temporal_bins=BINS, nr_events_window=500)),
+        model=ModelConfig(model_name="ess_supervised",
+                          compute_dtype="bfloat16",
+                          lstm_impl_train="pallas_int8_interpret"),
+        task=TaskConfig(semseg_num_classes=6),
+        optim=OptimConfig(batch_size_b=2))
+    mods = build_modules(cfg, device="cpu")
+    init_params(mods, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    windows = torch.randn(3, 2, BINS, *shape, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        a, b = (mods.recon_train.rollout(windows, decode=False)[2]
+                for _ in range(2))
+    assert a.keys() == b.keys() and all(
+        torch.equal(a[k].view(torch.int16), b[k].view(torch.int16))
+        for k in a)

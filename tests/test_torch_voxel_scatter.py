@@ -105,43 +105,44 @@ def test_plan_at_the_dsec_shape(n_windows):
     plan = vs.scatter_plan(5, 480, 640, n_windows)
     assert (plan.tile_h, plan.n_ty, plan.n_tx) == (24, 20, 5)
     assert plan.n_items == 100 * n_windows
-    assert plan.acc_bytes == 61_440
-    # one accumulator a block; 512 threads where each resident 256-thread
-    # block would have at most one item (streaming at B=1), else 256
-    assert (plan.bufs, plan.threads, plan.blocks_per_sm) == (
-        (1, 512, 2) if n_windows == 1 else (1, 256, 3))
+    assert plan.acc_bytes == 122_880            # 64-bit fixed-point cells
+    # one accumulator a block, one block an SM (shared memory), so 512
+    # threads: more threads on the SM than one 256-thread block
+    assert (plan.bufs, plan.threads, plan.blocks_per_sm) == (1, 512, 1)
     check_plan(plan)
 
 
 @pytest.mark.parametrize("threads", [256, 512])
 def test_plan_threads(threads):
-    """Both block sizes the kernels are built for, at 5 and 10 bins: three
-    256-thread or two 512-thread blocks an SM (registers), each with one
-    accumulator."""
+    """Both block sizes the kernels are built for, at 5 and 10 bins, each
+    block with one accumulator: at 5 bins one block an SM (its 120 KB of
+    shared memory), at 10 bins two 256-thread blocks or one 512-thread
+    block (registers)."""
     for bins, n_sm in ((5, 132), (10, 7)):
         plan = vs.scatter_plan(bins, 480, 640, 8, n_sm, threads=threads)
         assert (plan.bufs, plan.threads) == (1, threads)
-        assert plan.blocks_per_sm == {256: 3, 512: 2}[threads]
+        assert plan.blocks_per_sm == (1 if bins == 5 else
+                                      {256: 2, 512: 1}[threads])
         check_plan(plan, n_sm)
 
 
 def test_plan_ten_bins_and_limits():
     plan = vs.scatter_plan(10, 480, 640, 8)
     assert (plan.tile_h, plan.n_ty) == (10, 48)
-    assert plan.acc_bytes == 51_200
+    assert plan.acc_bytes == 102_400
     check_plan(plan)
-    # the accumulator is under 64 KB whenever bins * (tile_h + 1) <= 128
+    # the accumulator is under 128 KB whenever bins * (tile_h + 1) <= 128
     for bins in range(1, 26):
         th = vs.tile_h_for_bins(bins)
         assert th == jvp.tile_h_for_bins(bins) == vf.tile_h_for_bins(bins)
         if bins * (th + 1) <= 128:
-            assert bins * th * vs.ROW_BYTES < 64 * 1024
+            assert bins * th * vs.ROW_BYTES < 128 * 1024
     with pytest.raises(ValueError):
         vs.scatter_plan(5, 470, 640, 1)            # not whole tiles
     with pytest.raises(ValueError):
         vs.scatter_plan(5, 480, 600, 1)
     with pytest.raises(ValueError):
-        vs.scatter_plan(120, 8, 128, 1)            # 240 KB accumulator
+        vs.scatter_plan(120, 8, 128, 1)            # 480 KB accumulator
     with pytest.raises(ValueError):
         vs.scatter_plan(5, 480, 640, 1, threads=128)
 
