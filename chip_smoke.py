@@ -8,7 +8,8 @@ its three kernel tools and its measurement tools (the step roofline, the
 voxelizer and cell benches and profiles, the increments ladders), then
 the host event path from an in-memory
 recording to the eval and streaming steps, then the dense and in-loop
-forms of the steps, DSEC rectification on the card and A10's drift.
+forms of the steps, DSEC rectification on the card and A10's drift, then
+the voxelizer's opt-in pins (int8 tent planes, stack and raw windows).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -54,11 +55,17 @@ exits non-zero, with no result line):
    100k events on 480x640, also against the x-slot wire (B1) on the same
    events, with its plan and ``ptxas -v``; T1 in both
    output layouts at the tool's B=8, beside the library's conv + bias + ReLU
-   on the same normalized window;
+   on the same normalized window; the voxelizer pins' forms, each its own
+   row and launch count: B1-stack, B1-raw, B1-int8, B3-legacy-int8 and
+   B3-legacy-raw over 160 windows of 100k events, B3-int8 at the
+   streaming B=8 (its row's times) and B=1 -- the int8 forms against their
+   plain int8 versions bit for bit (both add the same integer products),
+   the stack and raw forms against the default kernel's grid relaid out
+   bit for bit (stats alike) and normalized against their plain versions;
 3b. repeat: two runs on one input, bit for bit (any element that differs
    fails): B1 and B3-legacy over 160 windows of 100k events and B3 over 8,
-   launched twice and against a second process that builds the same input
-   from the same seed; B2, B2-int8, B4 and B4-int8 at the main path's B=8
+   and the six pin forms on the same inputs, launched twice and against a
+   second process that builds the same input from the same seed; B2, B2-int8, B4 and B4-int8 at the main path's B=8
    shapes launched twice; the int8 train rollout twice on one window
    stack; the DSEC int8 train step twice from one seeded state on one
    batch (loss, latent8, the head's update);
@@ -217,7 +224,9 @@ exits non-zero, with no result line):
    ``profile_kernel``, ``bench_lstm`` (the library cell, B2 and B2-int8 at
    the three encoder shapes, B2's and B2-int8's two launches bit for bit)
    and ``profile_lstm``, ``bench_increments`` and ``bench_uda_increments``
-   (the ladders of the config levers) -- launch counts, finite readings;
+   (the ladders of the config levers, with the voxelizer pins' rungs
+   ``+raw-windows``, ``+stack-emit``, ``+voxel-int8`` and the UDA
+   ladder's ``+raw-windows``) -- launch counts, finite readings;
 9. host event path: an in-memory DSEC-shaped recording (20M events on
    480x640, a rectify map with sub-pixel offsets, labels every ~0.3 s)
    through ``DSECSequence.from_store`` (slicer, then the fused native
@@ -251,7 +260,27 @@ exits non-zero, with no result line):
    events (no voxelizer in the step); and A10: ``rollout_events`` over 60
    carried windows on the exact (B2) and the int8 (B2-int8) cell, the
    drift of the int8 state from the exact one at windows 1, 20, 40 and 60
-   and its maximum against A10_H_BOUND / A10_C_BOUND.
+   and its maximum against A10_H_BOUND / A10_C_BOUND;
+11. the voxelizer pins at the bench shape (B=8, T=20 windows of 100k
+   events, band wire): the eval step (exact cell) and the train step (int8
+   cell, flips) with ``stack_windows``, ``raw_windows``,
+   ``voxel_oh_dtype='int8'`` and the s2d branch (``windows_s2d``) against
+   the default on one batch and one set of draws -- the branch each takes,
+   launch counts, the stack and raw forms bit for bit (loss, latent8,
+   argmax, confusion matrix, image; train: loss, latent8, the head's
+   update), the int8 planes under the slice bounds (eval) and the train
+   loss bound, the s2d branch under the slice bounds, each form's
+   windows/s and peak memory alternated; the eval step on the full-width
+   band wire with raw windows (bit for bit) and the int8 planes (the same
+   bounds) against that wire's default (B3-legacy-raw, B3-legacy-int8);
+   the UDA train step at B=2 with raw windows against the default, losses
+   bit for bit; the DDD17
+   supervised train step (B=16, the width resize on the raw accumulator)
+   with raw windows against its default (loss within TRAIN_LOSS_REL, the
+   windows within VOXEL_ATOL); streaming at B=8 on the tile wire with the
+   int8 planes (B3-int8), 40 windows, against the plain path under the
+   streaming bounds and against the f32 planes (reported), both rates
+   alternated; the phase's seconds.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -260,6 +289,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -277,7 +307,8 @@ from ess_tpu_torch import bench, kernels  # noqa: E402
 from ess_tpu_torch.bench import (  # noqa: E402
     BINS, CROP, SENSOR_H, SENSOR_W, make_batch, make_raw)
 from ess_tpu_torch.data import ddd17, dsec, loader, native, png  # noqa: E402
-from ess_tpu_torch.data.pipeline import AugmentParams, to_soa  # noqa: E402
+from ess_tpu_torch.data.pipeline import (  # noqa: E402
+    AugmentParams, EventPipeline, to_soa)
 from ess_tpu_torch.data.slicer import (  # noqa: E402
     ArrayEventStore, DDD17EventStore)
 from ess_tpu_torch.models import layers  # noqa: E402
@@ -296,7 +327,7 @@ from ess_tpu_torch.train import builder, uda  # noqa: E402
 from ess_tpu_torch.train.builder import build_modules, init_params  # noqa: E402
 from ess_tpu_torch.train.streaming import run_streaming_eval  # noqa: E402
 from ess_tpu_torch.train.supervised import (  # noqa: E402
-    make_eval_step, make_train_step)
+    draw_augment, make_eval_step, make_train_step)
 
 WINDOWS, EVENTS, CLASSES = bench.WINDOWS, bench.EVENTS_PER_WINDOW, bench.NUM_CLASSES
 CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
@@ -307,7 +338,8 @@ CONV_SHAPES = [("head", 2, 20, 128, 220, 320),
                ("encoder 0", 2, 128, 64, 220, 320),
                ("odd", 2, 24, 16, 13, 40)]
 KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8", "B5", "T2",
-                "B3-legacy", "T1")
+                "B3-legacy", "T1", "B1-stack", "B1-raw", "B1-int8",
+                "B3-int8", "B3-legacy-int8", "B3-legacy-raw")
 # fused encoder level (u shape, hidden channels, u_s2d): the three encoder
 # levels of a 440x640 window at the tools' B=8, the shapes phase 8 drives, in
 # the input form each uses, and level 0 from a full-resolution input at a
@@ -533,6 +565,12 @@ def reset_counts() -> None:
     conv_lstm.launches_variant = 0
     voxel_folded.launches_legacy = 0
     head_cmajor.launches = 0
+    voxel_folded.launches_stack = 0
+    voxel_folded.launches_raw = 0
+    voxel_folded.launches_int8 = 0
+    voxel_tiled.launches_int8 = 0
+    voxel_folded.launches_legacy_int8 = 0
+    voxel_folded.launches_legacy_raw = 0
 
 
 def read_counts(sync: bool = True) -> tuple:
@@ -545,7 +583,10 @@ def read_counts(sync: bool = True) -> tuple:
             conv_lstm.launches_int8, voxel_tiled.launches,
             conv3x3.launches, conv3x3.launches_int8, level.launches,
             conv_lstm.launches_variant, voxel_folded.launches_legacy,
-            head_cmajor.launches)
+            head_cmajor.launches, voxel_folded.launches_stack,
+            voxel_folded.launches_raw, voxel_folded.launches_int8,
+            voxel_tiled.launches_int8, voxel_folded.launches_legacy_int8,
+            voxel_folded.launches_legacy_raw)
 
 
 def show_counts(counts) -> str:
@@ -555,6 +596,15 @@ def show_counts(counts) -> str:
 def all_counts(want) -> tuple:
     """``want`` names the first kernels' counts; the rest are 0."""
     return tuple(want) + (0,) * (len(KERNEL_NAMES) - len(want))
+
+
+def by_name(want: dict) -> tuple:
+    """Launch counts (KERNEL_NAMES order) from {kernel name: count}; the
+    rest 0."""
+    unknown = set(want) - set(KERNEL_NAMES)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}")
+    return tuple(want.get(n, 0) for n in KERNEL_NAMES)
 
 
 def need_counts(counts, want) -> None:
@@ -695,6 +745,127 @@ def check_voxelizer(dev):
             "replaces": "ess_tpu/ops/voxel_pallas.py:334",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+PIN_REPLACES = {   # the TPU kernel form each pin row ports
+    "B1-stack": "ess_tpu/ops/voxel_pallas.py:480",   # stack_out emission
+    "B1-raw": "ess_tpu/ops/voxel_pallas.py:1257",    # layout='raw'
+    "B1-int8": "ess_tpu/ops/voxel_pallas.py:463",    # int8 planes, slotted
+    "B3-int8": "ess_tpu/ops/voxel_pallas.py:308",    # int8 planes, halo
+    "B3-legacy-int8": "ess_tpu/ops/voxel_pallas.py:308",
+    "B3-legacy-raw": "ess_tpu/ops/voxel_pallas.py:1257"}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of ``a`` and ``b`` whose bits differ (any dtype)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if a.dtype in BITS:
+        return bit_diff(a, b)[0]
+    return int((a != b).sum())
+
+
+def check_voxel_pins(dev) -> list:
+    """The voxelizer pins' forms (phase 3): B1-stack, B1-raw, B1-int8,
+    B3-legacy-int8 and B3-legacy-raw over one step's 160 windows of 100k
+    events, B3-int8 at the streaming B=8 (its row's times) and B=1. The
+    int8 forms against their plain versions bit for bit (both add the same
+    integer products); the stack and raw forms against the default
+    kernel's grid relaid out bit for bit, stats alike, and normalized
+    against their plain versions (VOXEL_ATOL); kernel and plain times, the
+    default's bound (the same bytes)."""
+    cases = bench_kernel.make_cases(dev, 8 * WINDOWS, EVENTS, SENSOR_H,
+                                    SENSOR_W, BINS, seed=1)
+    th = voxel_folded.tile_h_for_bins(BINS)
+    rows = {}
+
+    def row(name, fn, plain, cols, kw, err, out_floats):
+        n = cols[0].shape[0]
+        ms = cuda_ms(lambda: fn(*cols, **kw), 20)
+        plain_ms = cuda_ms(lambda: plain(*cols, **kw), 3)
+        bound_ms, bound_by = voxel_bound(int(cols[4][:, -1].sum()),
+                                         cols[4].numel(), out_floats)
+        log(f"{name} ({n} windows): kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+            f" ms, bound {bound_ms:.3f} ms ({bound_by}), share of bound "
+            f"{100.0 * bound_ms / ms:.1f}%")
+        return {"name": name, "route": "cuda",
+                "source": ("ess_tpu_torch/csrc/voxel_tiled.cu"
+                           if name.startswith("B3-int8")
+                           else "ess_tpu_torch/csrc/voxel_folded.cu"),
+                "replaces": PIN_REPLACES[name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    for wire in ("B1", "B3-legacy"):
+        fn, cols, kw = cases[wire][:3]
+        plain = voxel_folded.voxelize_folded_ref
+        grid, stats = fn(*cols, **kw)
+        name = f"{wire}-int8"
+        reset_counts()
+        out, out_stats = fn(*cols, **kw, **PIN_FORMS[name])
+        if read_counts() != by_name({name: 1}):
+            raise AssertionError(f"{name}: launches {show_counts(read_counts())}")
+        ref, ref_stats = plain(*cols, **kw, **PIN_FORMS[name])
+        n_diff, d = bit_diff(out, ref)
+        moved = (out - grid).abs().max().item()
+        stat_rel = ((out_stats - ref_stats).abs()
+                    / ref_stats.abs().clamp(min=1.0)).max().item()
+        log(f"{name} (160 windows): grid {n_diff} of {out.numel()} elements "
+            f"differ from the plain int8 version (bound 0), max|d| {d:.3e}; "
+            f"stats rel max|d| {stat_rel:.3e}; against the f32 grid max|d| "
+            f"{moved:.3e} (1/127-step weights)")
+        if n_diff or stat_rel > 1e-4:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        rows[name] = row(name, fn, plain, cols, {**kw, **PIN_FORMS[name]}, d,
+                         out.numel() + 3 * out.shape[0])
+        del out, ref
+        for name in ((f"{wire}-stack", f"{wire}-raw") if wire == "B1"
+                     else (f"{wire}-raw",)):
+            form = PIN_FORMS[name]
+            reset_counts()
+            out, out_stats = fn(*cols, **kw, **form)
+            if read_counts() != by_name({name: 1}):
+                raise AssertionError(f"{name}: launches "
+                                     f"{show_counts(read_counts())}")
+            want = voxel_scatter.relayout(grid, form["layout"], th)
+            n_diff, n_stats = same_bits(out, want), same_bits(out_stats,
+                                                              stats)
+            ref, ref_stats = plain(*cols, **kw, **form)
+            err = (normalize_from_stats(out, out_stats)
+                   - normalize_from_stats(ref, ref_stats)).abs().max().item()
+            log(f"{name} (160 windows): against the default grid relaid out "
+                f"{n_diff} elements and {n_stats} stats differ (bound 0); "
+                f"normalized against the plain version max|d| {err:.3e} "
+                f"(bound {VOXEL_ATOL})")
+            if n_diff or n_stats or not err <= VOXEL_ATOL:
+                raise AssertionError(f"{name} disagrees")
+            rows[name] = row(name, fn, plain, cols, {**kw, **form}, err,
+                             out.numel() + 3 * out.shape[0])
+            del out, ref, want
+        del grid, stats
+    fn, cols, kw = cases["B3"][:3]
+    plain = voxel_tiled.voxelize_tiled_ref
+    kw8 = {**kw, **PIN_FORMS["B3-int8"]}
+    for n in (8, 1):
+        sub = [a[:n] for a in cols]
+        reset_counts()
+        out = fn(*sub, **kw8)
+        if read_counts() != by_name({"B3-int8": 1}):
+            raise AssertionError("B3-int8: launches "
+                                 f"{show_counts(read_counts())}")
+        ref = plain(*sub, **kw8)
+        n_diff, d = bit_diff(out, ref)
+        log(f"B3-int8 ({n} windows): grid {n_diff} of {out.numel()} "
+            f"elements differ from the plain int8 version (bound 0)")
+        if n_diff:
+            raise AssertionError("B3-int8 disagrees with its plain version")
+        r = row("B3-int8", fn, plain, sub, kw8, d, out.numel())
+        rows.setdefault("B3-int8", r)
+        del out, ref
+    del cases
+    torch.cuda.empty_cache()
+    return [rows[n] for n in KERNEL_NAMES[10:]]
 
 
 def edge_events(rng, n_win: int, n: int, h: int, w: int, th: int):
@@ -1669,6 +1840,11 @@ def check_head_cmajor(dev):
 # Repeat phase: the seed of its inputs, and the width of the bits each
 # dtype is compared in
 REPEAT_SEED = 21
+# the voxelizer pins' kernel forms: row name -> the wrapper's keywords
+PIN_FORMS = {"B1-stack": {"layout": "stack"}, "B1-raw": {"layout": "raw"},
+             "B1-int8": {"oh_dtype": "int8"}, "B3-int8": {"oh_dtype": "int8"},
+             "B3-legacy-int8": {"oh_dtype": "int8"},
+             "B3-legacy-raw": {"layout": "raw"}}
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
         torch.int8: torch.int8, torch.int32: torch.int32}
 
@@ -1694,6 +1870,10 @@ def repeat_voxel_inputs(dev) -> dict:
     calls = {name: c[:3] for name, c in cases.items()}
     fn, cols, kw = calls["B3"]
     calls["B3"] = (fn, [a[:8] for a in cols], kw)
+    # the pins' forms of each voxelizer, on the same inputs
+    for name, form in PIN_FORMS.items():
+        fn, cols, kw = calls[name.rsplit("-", 1)[0]]
+        calls[name] = (fn, cols, {**kw, **form})
     return calls
 
 
@@ -1815,8 +1995,9 @@ def phase_repeat(dev) -> list:
     """Repeat phase: each comparison's elements that differ bit for bit,
     and their max |d|, between two runs on one input; any element that
     differs fails the phase. (1) B1, B3 and
-    B3-legacy launched twice, and against a second process that builds
-    the same input from the same seed; (2) B2, B2-int8, B4 and B4-int8
+    B3-legacy, and the pins' forms (PIN_FORMS), launched twice, and
+    against a second process that builds the same input from the same
+    seed; (2) B2, B2-int8, B4 and B4-int8
     launched twice at the main path's B=8 shapes; (3) the int8 train
     rollout twice on one window stack built once; (4) the DSEC int8
     train step twice from one seeded state on one batch: loss, latent8,
@@ -1898,7 +2079,7 @@ def phase_tools(dev, kern_rows):
     per_variant = 1 + chains * CHAIN_STEPS
     log(f"bench_head at B={bench_head.SHAPE[0]}: launches "
         f"{show_counts(counts)}")
-    need_counts(counts, (0,) * (len(KERNEL_NAMES) - 1) + (2 * per_variant,))
+    need_counts(counts, by_name({"T1": 2 * per_variant}))
     add_launches(kern_rows, "bench_head", counts)
     for name, r in res.items():
         if not (r["max_abs_diff_vs_xla"] <= CONV_MAX_REL * r["absmax"]
@@ -2031,16 +2212,19 @@ def phase_tools_measure(dev, kern_rows) -> None:
     lines = bench_increments.main([f"--iters={LADDER_ITERS}"])
     counts = read_counts()
     log(f"bench_increments: launches {show_counts(counts)}")
-    need_counts(counts, (2 * steps, 0, 3 * steps * 3 * WINDOWS, 2 * steps, 0,
-                         steps * 2 * WINDOWS))
+    need_counts(counts, by_name({
+        "B1": 2 * steps, "B2-int8": 6 * steps * 3 * WINDOWS, "B3": 2 * steps,
+        "B4-int8": steps * 2 * WINDOWS, "B1-raw": steps, "B1-stack": steps,
+        "B1-int8": steps}))
     add_launches(kern_rows, "bench_increments", counts)
     steps = 1 + UDA_LADDER_ITERS
     reset_counts()
     lines += bench_uda_increments.main([f"--iters={UDA_LADDER_ITERS}"])
     counts = read_counts()
     log(f"bench_uda_increments: launches {show_counts(counts)}")
-    need_counts(counts, (3 * steps, 0, 2 * steps * 3 * WINDOWS, 0, 0,
-                         steps * 2 * WINDOWS))
+    need_counts(counts, by_name({
+        "B1": 3 * steps, "B2-int8": 3 * steps * 3 * WINDOWS,
+        "B4-int8": steps * 2 * WINDOWS, "B1-raw": steps}))
     add_launches(kern_rows, "bench_uda_increments", counts)
     if not all(np.isfinite(ln["windows_per_sec"]) for ln in lines):
         raise AssertionError(f"a ladder rung is not finite: {lines}")
@@ -5726,6 +5910,340 @@ def phase_forms(dev, kern_rows) -> None:
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 11: the voxelizer pins at the bench shape. The stack and raw forms
+# build the standard windows bit for bit (the same cells, normalized in f32
+# and cast last, in the same memory layout), so their steps' outputs equal
+# the default's bit for bit. The int8 planes move each corner weight by up
+# to ~1/127 (the JAX package's int8 path), a quantization of the input as
+# the packed wire's 1/64-px coordinates are: the eval step is held to the
+# slice bounds against the default but for the argmax where the top-2 gap
+# exceeds SLICE_GAP, held to the packed wire's PACKED_PRED_AGREE_CLEAR
+# (98.89 % read on NVIDIA H100 80GB HBM3 at 700 W, the packed wire
+# 98.30-98.35 %; PERF.md); the train steps' losses to TRAIN_LOSS_REL; the
+# int8 train rollout's latent8 is reported (any input change moves it by
+# ~10 % on seeded weights, PERF.md). The s2d branch (``windows_s2d``) is
+# held to the slice bounds and its bits reported. DDD17's raw form (the
+# width resize on the raw accumulator) is held to phase 5c's bounds
+# against its default.
+PIN_PIPES = {"default": {}, "stack": {"stack_windows": True},
+             "raw": {"raw_windows": True}, "int8": {"voxel_oh_dtype": "int8"}}
+PIN_VOXELIZER = {"default": "B1", "stack": "B1-stack", "raw": "B1-raw",
+                 "int8": "B1-int8", "s2d": "B1"}
+
+
+def pin_pipeline(base, form: str):
+    """``base`` with the pipeline pin of ``form`` (PIN_PIPES) set."""
+    changes = PIN_PIPES.get(form, {})
+    return (EventPipeline(dataclasses.replace(base.cfg, **changes),
+                          base.rectify_map) if changes else base)
+
+
+def legacy_batch(seed: int, b: int, dev) -> dict:
+    """``bench.make_batch``'s events binned on the full-width band wire
+    (B3-legacy: one record group a band, ``x_slots=False``)."""
+    rng = np.random.default_rng(seed)
+    raw, valid = make_raw(rng, b)
+    recs, vals, offs = zip(*(voxel_folded.host_band_bin_folded(
+        raw[i], valid[i], height=SENSOR_H, width=SENSOR_W, bins=BINS,
+        x_slots=False) for i in range(b)))
+    cap = max(r.shape[1] for r in recs)
+    pad = lambda a: np.pad(a, [(0, 0), (0, cap - a.shape[1])]
+                           + [(0, 0)] * (a.ndim - 2))
+    recs = np.stack([pad(r) for r in recs])
+    host = {"ev_x": recs[..., 0], "ev_y": recs[..., 1], "ev_t": recs[..., 2],
+            "ev_p": recs[..., 3], "ev_valid": np.stack([pad(v) for v in vals]),
+            "ev_band_offsets": np.stack(offs),
+            "label": rng.integers(0, CLASSES, (b, SENSOR_H - CROP,
+                                               SENSOR_W))}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in host.items()}
+
+
+def pins_steps(dev, kern_rows) -> None:
+    """Phase 11, part 1: the DSEC eval step (exact cell) and train step
+    (int8 cell, flips) at B=8 on each form, against the default on one
+    batch and one set of draws; the eval step on the full-width band wire
+    with raw windows and the int8 planes (B3-legacy's forms); the UDA
+    train step at B=2 with raw windows; each form's windows/s and peak
+    memory, alternated."""
+    from ess_tpu_torch.train import supervised
+
+    base = bench.make_pipeline()
+    forms = {f: (pin_pipeline(base, f), f == "s2d")
+             for f in ("default", "stack", "raw", "int8", "s2d")}
+    batch = make_batch(23, 8, dev, ignore_rows=20)
+    flips = AugmentParams(flip=torch.arange(8) % 2 == 0)
+    mods, _ = bench.build_eval(8, dev)
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    evals = {f: make_eval_step(mods, p, windows_s2d=s2d)
+             for f, (p, s2d) in forms.items()}
+    outs = {}
+    for f, step in evals.items():
+        pipe, s2d = forms[f]
+        branch = supervised.rollout_form(mods.recon_val, batch, pipe,
+                                         train=False, windows_s2d=s2d)
+        reset_counts()
+        out = step(batch)
+        counts = read_counts()
+        log(f"pins eval step B=8 T={WINDOWS} ({f}, branch {branch}): "
+            f"launches {show_counts(counts)}, loss {float(out['loss']):.6f}")
+        need_counts(counts, by_name({PIN_VOXELIZER[f]: 1,
+                                     "B2": 3 * WINDOWS}))
+        if branch != {"default": "standard", "int8": "standard"}.get(f, f):
+            raise AssertionError(f"eval ({f}) took the {branch} branch")
+        add_launches(kern_rows, f"pins_eval_{f}", counts)
+        outs[f] = (out, logits[0])
+    ref, ref_logits = outs["default"]
+    for f in ("stack", "raw", "s2d"):
+        got = outs[f][0]
+        diff = {k: same_bits(got[k], ref[k])
+                for k in ("loss", "latent8", "pred", "cm", "img_fake")}
+        log(f"  eval, {f} vs default: elements that differ "
+            + ", ".join(f"{k} {n}" for k, n in diff.items()))
+        if f != "s2d" and any(diff.values()):
+            raise AssertionError(f"eval ({f}) differs from the default")
+        if f == "s2d":
+            slice_agreement("eval, s2d vs default", got["latent8"],
+                            ref["latent8"], got["pred"], ref["pred"],
+                            ref_logits, got["cm"], ref["cm"])
+    got = outs["int8"][0]
+    slice_agreement("eval, int8 planes vs default", got["latent8"],
+                    ref["latent8"], got["pred"], ref["pred"], ref_logits,
+                    got["cm"], ref["cm"], clear_min=PACKED_PRED_AGREE_CLEAR)
+    del outs, got, ref, ref_logits
+
+    # the full-width band wire (B3-legacy): raw windows and the int8 planes
+    legacy = legacy_batch(23, 8, dev)
+    outs = {}
+    for f in ("default", "raw", "int8"):
+        reset_counts()
+        out = make_eval_step(mods, forms[f][0])(legacy)
+        counts = read_counts()
+        name = "B3-legacy" + ("" if f == "default" else f"-{f}")
+        log(f"pins eval step B=8 T={WINDOWS}, full-width band wire ({f}): "
+            f"launches {show_counts(counts)}")
+        need_counts(counts, by_name({name: 1, "B2": 3 * WINDOWS}))
+        add_launches(kern_rows, f"pins_eval_legacy_{f}", counts)
+        outs[f] = (out, logits[0])
+    hook.remove()
+    ref, ref_logits = outs["default"]
+    diff = {k: same_bits(outs["raw"][0][k], ref[k])
+            for k in ("loss", "latent8", "pred", "cm", "img_fake")}
+    log("  eval, full-width bands, raw vs default: elements that differ "
+        + ", ".join(f"{k} {n}" for k, n in diff.items()))
+    if any(diff.values()):
+        raise AssertionError("eval (full-width bands, raw) differs")
+    got = outs["int8"][0]
+    slice_agreement("eval, full-width bands, int8 planes vs default",
+                    got["latent8"], ref["latent8"], got["pred"], ref["pred"],
+                    ref_logits, got["cm"], ref["cm"],
+                    clear_min=PACKED_PRED_AGREE_CLEAR)
+    del outs, got, ref, ref_logits, legacy
+
+    cfg = bench.make_cfg(8)
+    trains, results = {}, {}
+    for f, (pipe, s2d) in forms.items():
+        mods_t = build_modules(cfg, device=dev)
+        init_params(mods_t, torch.Generator().manual_seed(0))
+        state = builder.init_state(mods_t)
+        trains[f] = (state, make_train_step(mods_t, pipe, windows_s2d=s2d))
+        seen = {}
+
+        def keep_latent(mod, args, seen=seen):
+            seen.setdefault("latent8", args[0][8].clone())
+
+        hook = state.head.register_forward_pre_hook(keep_latent)
+        before = [p.detach().clone() for p in state.head.parameters()]
+        reset_counts()
+        loss = trains[f][1](state, batch, flips)["loss"]
+        counts = read_counts()
+        hook.remove()
+        update = torch.cat([(p.detach() - q).reshape(-1).float() for p, q in
+                            zip(state.head.parameters(), before)])
+        log(f"pins train step B=8 T={WINDOWS} (int8 cell, flips; {f}): "
+            f"launches {show_counts(counts)}, loss {float(loss):.6f}")
+        need_counts(counts, by_name({PIN_VOXELIZER[f]: 1,
+                                     "B2-int8": 3 * WINDOWS}))
+        add_launches(kern_rows, f"pins_train_{f}", counts)
+        results[f] = (loss, seen["latent8"], update)
+    l0, z0, u0 = results["default"]
+    for f in ("stack", "raw", "s2d", "int8"):
+        loss, lat, upd = results[f]
+        diff = {"loss": same_bits(loss, l0), "latent8": same_bits(lat, z0),
+                "head update": same_bits(upd, u0)}
+        rel = abs(float(loss) - float(l0)) / abs(float(l0))
+        lat_rel = ((lat.float() - z0.float()).abs().max()
+                   / z0.float().abs().max()).item()
+        log(f"  train, {f} vs default: elements that differ "
+            + ", ".join(f"{k} {n}" for k, n in diff.items())
+            + f"; loss relative difference {rel:.3e} (bound "
+            f"{TRAIN_LOSS_REL}), latent8 rel max|d| {lat_rel:.3e}")
+        if f in ("stack", "raw") and any(diff.values()):
+            raise AssertionError(f"train ({f}) differs from the default")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"train ({f}) loss moved by {rel:.3e}")
+    del results
+
+    # the UDA train step with raw windows (the UDA ladder's rung)
+    b = 2
+    cfg_u = bench.make_uda_cfg(b)
+    uda_batch = bench.make_uda_batch(3, b, dev, ignore_rows=20)
+    n_exact, n_int8 = int8_cells(b, SENSOR_H - CROP, SENSOR_W)
+    losses = {}
+    for f in ("default", "raw"):
+        mods_u = build_modules(cfg_u, device=dev)
+        init_params(mods_u, torch.Generator().manual_seed(0))
+        step = uda.make_train_step(mods_u, pin_pipeline(base, f))
+        reset_counts()
+        losses[f] = step(builder.init_state(mods_u), uda_batch)
+        counts = read_counts()
+        log(f"pins UDA train step B={b} ({f}): launches "
+            f"{show_counts(counts)}")
+        need_counts(counts, by_name({PIN_VOXELIZER[f]: 1,
+                                     "B2": n_exact * WINDOWS,
+                                     "B2-int8": n_int8 * WINDOWS}))
+        add_launches(kern_rows, f"pins_uda_{f}", counts)
+    diff = {k: same_bits(v, losses["default"][k])
+            for k, v in losses["raw"].items()}
+    log("  UDA train, raw vs default: losses that differ "
+        f"{sum(1 for n in diff.values() if n)} of {len(diff)}; total loss "
+        f"{float(losses['raw']['loss']):.6f}")
+    if any(diff.values()):
+        raise AssertionError("UDA train (raw) differs from the default")
+    del losses
+
+    calls = {}
+    for f in forms:
+        calls[f"eval {f}"] = lambda f=f: float(evals[f](batch)["loss"])
+        calls[f"train {f}"] = lambda f=f: float(trains[f][1](
+            trains[f][0], batch, flips)["loss"])
+    timed_forms_peak(f"pins B=8 T={WINDOWS} band wire", calls, 8 * WINDOWS)
+    del calls, evals, trains, mods
+    torch.cuda.empty_cache()
+
+
+def pins_ddd17(dev, kern_rows) -> None:
+    """Phase 11, part 2: the DDD17 supervised train step (B=16, the width
+    resize folded onto the raw accumulator) with raw windows against its
+    default on one batch and the same draws (phase 5c's bounds), and the
+    raw form's windows against the default's."""
+    from ess_tpu_torch.ops.conv_s2d import space_to_depth
+    from ess_tpu_torch.train import supervised
+
+    b = DDD17_B
+    batch = bench.make_ddd17_batch(3, b, dev)
+    cfg = bench.make_ddd17_cfg("ess_supervised", b, "pallas_int8")
+    base = builder.make_pipeline(cfg)
+    n_exact, n_int8 = int8_cells(b, *bench.DDD17_RESIZED)
+    res = {}
+    for f in ("default", "raw"):
+        pipe = pin_pipeline(base, f)
+        mods = build_modules(cfg, device=dev)
+        init_params(mods, torch.Generator().manual_seed(0))
+        branch = supervised.rollout_form(mods.recon_train, batch, pipe,
+                                         train=True)
+        step = make_train_step(mods, pipe)
+        reset_counts()
+        loss = float(step(builder.init_state(mods), batch)["loss"])
+        counts = read_counts()
+        log(f"pins DDD17 supervised train step B={b} ({f}, branch {branch})"
+            f": launches {show_counts(counts)}, loss {loss:.6f}")
+        need_counts(counts, by_name({PIN_VOXELIZER[f]: 1,
+                                     "B2": n_exact * WINDOWS,
+                                     "B2-int8": n_int8 * WINDOWS}))
+        if branch != ("raw" if f == "raw" else "standard"):
+            raise AssertionError(f"DDD17 train ({f}) took {branch}")
+        add_launches(kern_rows, f"pins_ddd17_train_{f}", counts)
+        res[f] = (loss, mods, pipe)
+    rel = abs(res["raw"][0] - res["default"][0]) / abs(res["default"][0])
+    aug = draw_augment(res["raw"][2], cfg.seed, 0, b)    # the steps' draws
+    with torch.no_grad():
+        built, _, window_map = res["raw"][2].build_all_raw(batch, aug=aug)
+        got = torch.stack([window_map(built["raw"][i], None)
+                           for i in range(WINDOWS)])
+        std, _ = base.build_all(batch, aug=aug)
+        want = torch.stack([space_to_depth(w) for w in std])
+    d = (got - want).abs().max().item()
+    log(f"  DDD17 raw vs default: loss relative difference {rel:.3e} "
+        f"(bound {TRAIN_LOSS_REL}); windows max|d| {d:.3e} (the width "
+        f"resize on the raw accumulator's extent; bound {VOXEL_ATOL})")
+    if not (rel <= TRAIN_LOSS_REL and d <= VOXEL_ATOL):
+        raise AssertionError("DDD17 raw windows disagree with the default")
+    del res, built, got, std, want
+    torch.cuda.empty_cache()
+
+
+def pins_stream(dev, kern_rows) -> None:
+    """Phase 11, part 3: streaming at B=8 on the tile wire with the int8
+    planes (B3-int8), 40 windows, against the plain path (B3's plain int8
+    version: the same grids) under the streaming bounds, against the f32
+    planes (what moved), and both rates alternated."""
+    from ess_tpu_torch.train.streaming import make_streaming_steps
+
+    b = 8
+    mods, steps_f32 = bench.build_stream(b, dev)
+    steps = make_streaming_steps(mods, pin_pipeline(bench.make_pipeline(),
+                                                    "int8"))
+    windows = bench.make_stream(7, b, dev, "tile", windows=STREAM_WINDOWS,
+                                resets=((0, 1.0), (STREAM_WINDOWS // 2, 0.5)))
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    hook = mods.head.register_forward_hook(keep_logits)
+    reset_counts()
+    state, cm = bench.run_stream(steps, mods.recon_val.init_state(b, dev),
+                                 windows)
+    counts = read_counts()
+    log(f"pins stream B={b}, tile wire, int8 planes, {STREAM_WINDOWS} "
+        f"windows: launches {show_counts(counts)}")
+    need_counts(counts, by_name({"B3-int8": STREAM_WINDOWS,
+                                 "B2": 3 * STREAM_WINDOWS}))
+    add_launches(kern_rows, "pins_stream_int8", counts)
+    got = (state[-1][0].float(), logits[0])
+    with plain_versions():
+        state_p, cm_p = bench.run_stream(
+            steps, mods.recon_val.init_state(b, dev), windows)
+    ref = (state_p[-1][0].float(), logits[0])
+    slice_agreement("stream int8 planes, kernel vs plain path", got[0],
+                    ref[0], got[1].argmax(1), ref[1].argmax(1), ref[1], cm,
+                    cm_p)
+    state_f, cm_f = bench.run_stream(
+        steps_f32, mods.recon_val.init_state(b, dev), windows)
+    lat_f = state_f[-1][0].float()
+    rel = ((got[0] - lat_f).abs().max() / lat_f.abs().max()).item()
+    moved = 100.0 * float((cm - cm_f).abs().sum()) / (2 * float(cm_f.sum()))
+    log(f"  stream int8 vs f32 planes: final latent rel max|d| {rel:.3e}, "
+        f"confusion matrix {moved:.3f}% moved (reported)")
+    hook.remove()
+    timed = windows[:bench.WINDOWS_PER_SCORE]
+    rates = {"int8": [], "f32": []}
+    for name in ("f32", "int8", "int8", "f32"):
+        rates[name].append(bench.stream_windows_per_sec(
+            mods, steps if name == "int8" else steps_f32, timed, 3))
+    for name, r in rates.items():
+        log(f"pins streaming B={b} ({name} planes): "
+            f"{statistics.median(r):.2f} windows/s (runs "
+            f"{[round(v, 1) for v in r]})")
+    del mods, steps, steps_f32, windows, state, state_p, state_f
+    torch.cuda.empty_cache()
+
+
+def phase_pins(dev, kern_rows) -> None:
+    """Phase 11: the voxelizer pins (module docstring)."""
+    t_phase = time.perf_counter()
+    pins_steps(dev, kern_rows)
+    pins_ddd17(dev, kern_rows)
+    pins_stream(dev, kern_rows)
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     at = lambda name: log(f"{name} done at "
@@ -5736,7 +6254,7 @@ def main() -> None:
             check_cells(dev, int8=True), check_voxel_tiled(dev),
             check_conv3x3(dev), check_conv3x3_int8(dev), check_level(dev),
             check_cell_variants(dev), check_voxel_folded_legacy(dev),
-            check_head_cmajor(dev)]
+            check_head_cmajor(dev)] + check_voxel_pins(dev)
     at("phases 1-3")
     phase_repeat(dev)
     at("phase 3b")
@@ -5762,7 +6280,7 @@ def main() -> None:
     for name, phase in (("phase 6", phase_stream), ("phase 9", phase_data),
                         ("phase 7", phase_block), ("phase 8", phase_tools),
                         ("phase 8b", phase_tools_measure),
-                        ("phase 10", phase_forms)):
+                        ("phase 10", phase_forms), ("phase 11", phase_pins)):
         phase(dev, rows)
         at(name)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,19 +41,30 @@
 // stored once, by its tile's drain, and the partial stats count each
 // element once. Bound as B1's (the same records and grid bytes): 0.373 ms
 // at 160 windows.
+//
+// The opt-in pins (PipelineConfig.voxel_oh_dtype, raw_windows,
+// stack_windows) select forms of the same core (voxel_scatter.cuh, LAYOUT
+// and Q8): layout 1 writes the TPU kernel's raw band accumulator (windows,
+// n_bands, bins * tile_h, width) (voxel_pallas.py:1257-1289, both wires),
+// layout 2 the space-to-depth NCHW stack (windows, 4 * bins, height / 2,
+// width / 2) of _kernel_slotted's stack_out (:480-495, x-slot wire only),
+// and q8 the int8 tent planes (oh_dtype=jnp.int8: :308-316, :463-470, the
+// x127 prescale :1108-1111). The same bytes move in every form, so the
+// bound is the default's.
 
 #include "voxel_scatter.cuh"
 
 // offsets (n_windows, n_bands * n_slots + 1); grid (n_windows, bins,
-// n_bands * tile_h, width); partials (n_windows, n_bands * n_slots, 3). The
-// plan (threads, grid_blocks, smem) is ops/voxel_scatter.py's.
+// n_bands * tile_h, width) in layout 0 (else as above); partials
+// (n_windows, n_bands * n_slots, 3). The plan (threads, grid_blocks, smem)
+// is ops/voxel_scatter.py's.
 extern "C" int ess_voxel_folded(const void* x, const void* y, const void* ts,
                                 const void* pol, const void* offsets,
                                 void* grid, void* partials, int n_windows,
                                 int n_records, int bins, int tile_h,
                                 int n_bands, int n_slots, int width,
                                 int threads, int grid_blocks, int smem,
-                                void* stream) {
+                                int layout, int q8, void* stream) {
   const scatter::Args a{(const float*)x,  (const float*)y,
                         (const float*)ts, (const float*)pol,
                         (const int32_t*)offsets, (float*)grid,
@@ -61,21 +72,21 @@ extern "C" int ess_voxel_folded(const void* x, const void* y, const void* ts,
                         n_bands * n_slots, n_bands * tile_h, width,
                         n_windows * n_bands * n_slots, n_bands * n_slots};
   return scatter::launch<scatter::kFolded>(a, threads, grid_blocks, smem,
-                                           stream);
+                                           stream, layout, q8);
 }
 
 // Legacy full-width band wire: offsets (n_windows, n_bands + 1); grid
 // (n_windows, bins, n_bands * tile_h, width); partials (n_windows,
 // n_bands * width / 128, 3). The plan (threads, grid_blocks, smem) is
-// ops/voxel_scatter.py's in mode 'band'.
+// ops/voxel_scatter.py's in mode 'band'; layout 0 or 1, q8 as above.
 extern "C" int ess_voxel_folded_band(const void* x, const void* y,
                                      const void* ts, const void* pol,
                                      const void* offsets, void* grid,
                                      void* partials, int n_windows,
                                      int n_records, int bins, int tile_h,
                                      int n_bands, int width, int threads,
-                                     int grid_blocks, int smem,
-                                     void* stream) {
+                                     int grid_blocks, int smem, int layout,
+                                     int q8, void* stream) {
   const int n_tx = width / scatter::kTileW;
   const scatter::Args a{(const float*)x,  (const float*)y,
                         (const float*)ts, (const float*)pol,
@@ -84,7 +95,7 @@ extern "C" int ess_voxel_folded_band(const void* x, const void* y,
                         n_bands * n_tx, n_bands * tile_h, width,
                         n_windows * n_bands * n_tx, n_bands};
   return scatter::launch<scatter::kBand>(a, threads, grid_blocks, smem,
-                                         stream);
+                                         stream, layout, q8);
 }
 
 extern "C" const char* ess_error_string(int err) {

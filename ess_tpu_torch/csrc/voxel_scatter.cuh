@@ -77,6 +77,23 @@
 // local row floor is the neighbour's last row (tile_h - 1) or its column
 // floor is 127.
 //
+// Forms (template parameters; the default instantiation, NCHW and f32, is
+// the code above). LAYOUT: the drain stores the tile as the NCHW grid
+// (kNCHW), as the TPU kernel's raw band accumulator (kRaw: (windows,
+// n_bands, bins * tile_h, width), voxelize_folded's layout='raw', B1 and
+// B3-legacy) or as the space-to-depth NCHW stack (kStack: (windows,
+// 4 * bins, height / 2, width / 2), channel (py * 2 + px) * bins + c,
+// layout='stack', B1 only; each 4-cell group goes out as two 8-byte stores,
+// one a column phase). The stats are reduced in the same loop in the same
+// order whatever the layout, so every layout's partials are the same bits.
+// Q8: the int8 tent planes of the TPU kernel (oh_dtype=jnp.int8): a
+// corner's row and column weights are rounded to multiples of 1/127 by the
+// same f32 expressions as the TPU kernel's prepass and planes, in the same
+// order (deposit_q8), and the corner adds the exact integer product (at
+// most 127 * 127) to its 64-bit cell; the drain scales a cell by
+// fl(1 / 127^2). A corner whose product is 0 adds nothing, as in the TPU
+// kernel (no unit is kept: the nonzero count is JAX's).
+//
 // The plan (threads, grid, shared bytes) is computed in Python
 // (ess_tpu_torch/ops/voxel_scatter.py::scatter_plan) and passed in; the
 // launchers recompute the layout and refuse a plan that disagrees.
@@ -104,6 +121,12 @@ constexpr float kToFixed = (float)(1ull << kFracBits);
 constexpr float kFromFixed = 1.f / kToFixed;
 constexpr int kAhead = 1024;    // records of the next item loaded ahead
 constexpr int kMaxSmem = 232448;
+constexpr float kQ = 127.f;     // INT8_SCALE of the TPU kernel
+constexpr float kFromQ = 1.f / (kQ * kQ);   // one unit of an int8 cell
+constexpr int kColSlot = kTileW + 8;   // B3's TPU column slot (COL_SLOT)
+
+// Where the drain stores a tile (ops/voxel_scatter.py::LAYOUTS).
+enum Layout { kNCHW = 0, kRaw = 1, kStack = 2 };
 
 // What a work item reads: B1 its own group, B3 its own tile's and its
 // neighbours' ranges, B3-legacy its band.
@@ -144,10 +167,8 @@ __device__ __forceinline__ Cell to_fixed(float v) {
   return (Cell)q;
 }
 
-// The up to 8 corners of one event that land in the accumulator. (yl, xl)
-// are the event's coordinates in its own tile's frame; the receiving tile's
-// row and column are that frame's less (dr, dq). The H100 has no 64-bit
-// shared-memory add (atomicAdd on a 64-bit cell compiles to a
+// Adds each corner's fixed-point value to its cell (null: none). The H100
+// has no 64-bit shared-memory add (atomicAdd on a 64-bit cell compiles to a
 // compare-and-swap loop, ATOMS.CAST.SPIN.64), but a native 32-bit one. So a
 // cell's two halves take the add: a 32-bit atomicAdd of the low half that
 // returns the old low word, then, where the high half or the carry out of
@@ -155,6 +176,24 @@ __device__ __forceinline__ Cell to_fixed(float v) {
 // word. Every wrap of the low word is counted once, in whatever order the
 // corners arrive, so the cell ends at the exact 64-bit sum; the 8 corners'
 // low-word adds are in flight together.
+__device__ __forceinline__ void add_corners(unsigned* const (&word)[8],
+                                            const Cell (&add)[8]) {
+  unsigned old[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (word[k]) old[k] = atomicAdd(word[k], (unsigned)add[k]);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (!word[k]) continue;
+    const unsigned lo = (unsigned)add[k];
+    const unsigned up = (unsigned)(add[k] >> 32) + (old[k] + lo < old[k]);
+    if (up) atomicAdd(word[k] + 1, up);
+  }
+}
+
+// The up to 8 corners of one event that land in the accumulator. (yl, xl)
+// are the event's coordinates in its own tile's frame; the receiving tile's
+// row and column are that frame's less (dr, dq).
 __device__ __forceinline__ void deposit(Cell* acc, float yl, float xl,
                                         float ts, float p, int bins, int th,
                                         int dr, int dq) {
@@ -168,7 +207,6 @@ __device__ __forceinline__ void deposit(Cell* acc, float yl, float xl,
   const float wx[2] = {__fsub_rn(1.f, fx), fx};
   unsigned* word[8];
   Cell add[8];
-  unsigned old[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dc = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
@@ -181,16 +219,89 @@ __device__ __forceinline__ void deposit(Cell* acc, float yl, float xl,
                  : nullptr;
     add[k] = ok ? to_fixed(v) : 0ull;
   }
+  add_corners(word, add);
+}
+
+// The int8 form of deposit: the TPU kernel's quantized tent planes
+// (ess_tpu/ops/voxel_pallas.py: the prepasses :560-585 of voxelize_tiled
+// and :1096-1111 of voxelize_folded, the planes :308-316 of _kernel and
+// :463-470 of _kernel_slotted), each weight the same f32 expression:
+//   scales   s_c = pol * (1 - wt) or pol * wt, times 1 + yl first where
+//            yl < 0 (B3's wy_fold, the row then 0), times 127;
+//   rows     p0 = c0 * gap + yl (gap: tile_h, B3 tile_h + 1), yl' = p0 -
+//            c0 * gap; the tent 1 - |r - yl'| of the factored row plane
+//            (gap % 8 == 0), in the tall form (B3, 10 bins) 1 - |(c0 + 1) *
+//            gap + r - p0 - gap| for the second bin; times s_c, rounded;
+//   columns  cx = fl(cb + xl) * 127 at the TPU kernel's global column base
+//            cb (B1 and B3-legacy: band * width + tile column; B3: tile id
+//            * COL_SLOT), the tent 127 - |127 * (cb + q) - cx|, rounded
+//            (127 * (cb + q) is an exact integer);
+// rounding half to even as jnp.round. A corner adds qy * qx.
+__device__ __forceinline__ void deposit_q8(Cell* acc, float yl, float xl,
+                                           float ts, float p, int bins,
+                                           int th, int dr, int dq, int gap,
+                                           float cb) {
+  if (VOXEL_SCATTER_SKIP & 2) return;
+  const float cf = floorf(ts);
+  const float wt = __fsub_rn(ts, cf);
+  float s0 = __fmul_rn(p, __fsub_rn(1.f, wt)), s1 = __fmul_rn(p, wt);
+  if (yl < 0.f) {
+    const float fold = __fadd_rn(1.f, yl);
+    s0 = __fmul_rn(s0, fold);
+    s1 = __fmul_rn(s1, fold);
+    yl = 0.f;
+  }
+  const float sq[2] = {__fmul_rn(s0, kQ), __fmul_rn(s1, kQ)};
+  const float g = (float)gap;
+  const float cg = __fmul_rn(cf, g);              // exact
+  const float p0 = __fadd_rn(cg, yl);
+  const float ylq = __fsub_rn(p0, cg);            // exact
+  const float yf = floorf(ylq), xf = floorf(xl);
+  const float cx = __fmul_rn(__fadd_rn(cb, xl), kQ);
+  int qy[2][2], qx[2];
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    if (word[k]) old[k] = atomicAdd(word[k], (unsigned)add[k]);
+  for (int d = 0; d < 2; ++d) {
+    const float col = __fmul_rn(__fadd_rn(cb, xf + (float)d), kQ);
+    qx[d] = __float2int_rn(
+        fmaxf(0.f, __fsub_rn(kQ, fabsf(__fsub_rn(col, cx)))));
+    const float w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(
+                                    yf + (float)d, ylq))));
+    float w1 = w0;
+    if (gap % 8) {
+      const float row = __fadd_rn(__fmul_rn(cf + 1.f, g), yf + (float)d);
+      w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(__fsub_rn(row, p0),
+                                                      g))));
+    }
+    qy[0][d] = __float2int_rn(__fmul_rn(w0, sq[0]));
+    qy[1][d] = __float2int_rn(__fmul_rn(w1, sq[1]));
+  }
+  const int r0 = (int)yf - dr, q0 = (int)xf - dq, c0 = (int)cf;
+  unsigned* word[8];
+  Cell add[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    if (!word[k]) continue;
-    const unsigned lo = (unsigned)add[k];
-    const unsigned up = (unsigned)(add[k] >> 32) + (old[k] + lo < old[k]);
-    if (up) atomicAdd(word[k] + 1, up);
+    const int dc = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+    const int c = c0 + dc, r = r0 + dy, q = q0 + dx;
+    const int v = qy[dc][dy] * qx[dx];
+    const bool ok = c >= 0 && c < bins && r >= 0 && r < th && q >= 0 &&
+                    q < kTileW && v != 0;
+    word[k] = ok ? reinterpret_cast<unsigned*>(acc + (c * th + r) * kTileW +
+                                               q)
+                 : nullptr;
+    add[k] = ok ? (Cell)(long long)v : 0ull;
   }
+  add_corners(word, add);
+}
+
+// deposit or deposit_q8; (gap, cb) as deposit_q8's.
+template <bool Q8>
+__device__ __forceinline__ void put(Cell* acc, float yl, float xl, float ts,
+                                    float p, int bins, int th, int dr,
+                                    int dq, int gap, float cb) {
+  if constexpr (Q8)
+    deposit_q8(acc, yl, xl, ts, p, bins, th, dr, dq, gap, cb);
+  else
+    deposit(acc, yl, xl, ts, p, bins, th, dr, dq);
 }
 
 // One item's place: window, tile row and column, and its record range.
@@ -246,7 +357,7 @@ struct Ahead {
 
 // A neighbour's range: only events whose row floor (UP) and / or column
 // floor (LEFT) is the neighbour's last reach this tile.
-template <int THREADS, bool UP, bool LEFT>
+template <int THREADS, bool UP, bool LEFT, bool Q8>
 __device__ __forceinline__ void gather(const Args& a, Cell* acc,
                                        const Item& it, int tile, float row0,
                                        float col0) {
@@ -275,8 +386,8 @@ __device__ __forceinline__ void gather(const Args& a, Cell* acc,
       }
       const float p = a.pols[i];
       if (p == 0.f) continue;
-      deposit(acc, yl, xl, a.tss[i], p, a.bins, th, UP ? th : 0,
-              LEFT ? kTileW : 0);
+      put<Q8>(acc, yl, xl, a.tss[i], p, a.bins, th, UP ? th : 0,
+              LEFT ? kTileW : 0, th + 1, (float)(tile * kColSlot));
     }
   }
 }
@@ -302,11 +413,13 @@ struct BandQueue {
 };
 
 // Every lane offers one record (keep: it reaches the tile); once 32 wait,
-// each lane deposits one. Called by the whole warp.
+// each lane deposits one. Called by the whole warp. cb: the tile's column
+// base (deposit_q8).
+template <bool Q8>
 __device__ __forceinline__ void band_offer(BandQueue& bq, Cell* acc,
                                            bool keep, float yl, float xl,
                                            float t, float p, int bins,
-                                           int th) {
+                                           int th, float cb) {
   const int lane = threadIdx.x & 31;
   const unsigned m = __ballot_sync(0xffffffffu, keep);
   if (keep)
@@ -319,19 +432,20 @@ __device__ __forceinline__ void band_offer(BandQueue& bq, Cell* acc,
     __syncwarp();
     if (lane < bq.n - 32) bq.q[lane] = rest;
     bq.n -= 32;
-    deposit(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0);
+    put<Q8>(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0, th, cb);
     __syncwarp();
   }
 }
 
 // The records still waiting, one a lane.
+template <bool Q8>
 __device__ __forceinline__ void band_flush(BandQueue& bq, Cell* acc,
-                                           int bins, int th) {
+                                           int bins, int th, float cb) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
   if (lane < bq.n) {
     const float4 r = bq.q[lane];
-    deposit(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0);
+    put<Q8>(acc, r.x, r.y, r.z, r.w, bins, th, 0, 0, th, cb);
   }
   bq.n = 0;
   __syncwarp();
@@ -342,10 +456,10 @@ __device__ __forceinline__ void band_flush(BandQueue& bq, Cell* acc,
 // after the band's first tile; loading y, ts and pol only after x passed
 // put two dependent load latencies on every kept record), offered to the
 // warp's queue. The loop runs warp-uniform rounds (the queue's ballots).
-template <int THREADS>
+template <int THREADS, bool Q8>
 __device__ __forceinline__ void band_rest(const Args& a, Cell* acc,
                                           BandQueue& bq, const Item& it,
-                                          float row0, float col0) {
+                                          float row0, float col0, float cb) {
   constexpr int U = 4;
   const int lane = threadIdx.x & 31, w0 = threadIdx.x - lane;
   for (int r0 = it.start + kAhead + w0; r0 < it.end; r0 += U * THREADS) {
@@ -361,38 +475,65 @@ __device__ __forceinline__ void band_rest(const Args& a, Cell* acc,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      band_offer(bq, acc, p[u] != 0.f && in_band_tile(xl[u]), yl[u], xl[u],
-                 t[u], p[u], a.bins, a.tile_h);
+      band_offer<Q8>(bq, acc, p[u] != 0.f && in_band_tile(xl[u]), yl[u],
+                     xl[u], t[u], p[u], a.bins, a.tile_h, cb);
   }
-  band_flush(bq, acc, a.bins, a.tile_h);
+  band_flush<Q8>(bq, acc, a.bins, a.tile_h, cb);
 }
 
 // One pass over an item's accumulator: each thread takes 4 cells at a time
 // (two 16-byte shared loads), converts them to f32, stores them to the grid
-// as one 16-byte store (a warp: one 512-byte tile row), adds them to the
-// tile's stats and zeroes them. Each warp leaves its sums in red[warp].
-template <int THREADS>
+// as one 16-byte store (a warp: one 512-byte tile row; kStack: two 8-byte
+// stores, one a column phase), adds them to the tile's stats and zeroes
+// them. Each warp leaves its sums in red[warp].
+template <int THREADS, int LAYOUT, bool Q8>
 __device__ __forceinline__ void drain(const Args& a, const Item& it,
                                       Cell* acc, float (*red)[3]) {
+  constexpr float kScale = Q8 ? kFromQ : kFromFixed;
   const int th = a.tile_h;
   const int n4 = a.bins * th * kTileW / 4;
   ulonglong2* a2 = reinterpret_cast<ulonglong2*>(acc);
-  float* g0 = a.grid + (int64_t)it.w * a.bins * a.height * a.width +
-              (int64_t)it.ty * th * a.width + it.tx * kTileW;
+  float* g0;
+  if constexpr (LAYOUT == kNCHW)
+    g0 = a.grid + (int64_t)it.w * a.bins * a.height * a.width +
+         (int64_t)it.ty * th * a.width + it.tx * kTileW;
+  else if constexpr (LAYOUT == kRaw)     // (w, band, c * th + r, x)
+    g0 = a.grid + ((int64_t)it.w * (a.height / th) + it.ty) * a.bins * th *
+                      a.width + it.tx * kTileW;
+  else                                   // (w, (py * 2 + px) * bins + c,
+    g0 = a.grid + (int64_t)it.w * 4 * a.bins * (a.height / 2) *  // Y, X)
+                      (a.width / 2) +
+         (int64_t)it.ty * (th / 2) * (a.width / 2) + it.tx * (kTileW / 2);
   float s = 0.f, sq = 0.f, nz = 0.f;
   for (int i = threadIdx.x; i < n4; i += THREADS) {
     const ulonglong2 u = a2[2 * i], w = a2[2 * i + 1];
     const float4 v = make_float4(
-        __ll2float_rn((long long)u.x) * kFromFixed,
-        __ll2float_rn((long long)u.y) * kFromFixed,
-        __ll2float_rn((long long)w.x) * kFromFixed,
-        __ll2float_rn((long long)w.y) * kFromFixed);
+        __ll2float_rn((long long)u.x) * kScale,
+        __ll2float_rn((long long)u.y) * kScale,
+        __ll2float_rn((long long)w.x) * kScale,
+        __ll2float_rn((long long)w.y) * kScale);
     a2[2 * i] = a2[2 * i + 1] = make_ulonglong2(0ull, 0ull);
     const int row = i / (kTileW / 4), c = row / th;
-    if (!(VOXEL_SCATTER_SKIP & 4))
-      *reinterpret_cast<float4*>(
-          g0 + ((int64_t)c * a.height + row - c * th) * a.width +
-          (i % (kTileW / 4)) * 4) = v;
+    if (!(VOXEL_SCATTER_SKIP & 4)) {
+      if constexpr (LAYOUT == kNCHW) {
+        *reinterpret_cast<float4*>(
+            g0 + ((int64_t)c * a.height + row - c * th) * a.width +
+            (i % (kTileW / 4)) * 4) = v;
+      } else if constexpr (LAYOUT == kRaw) {
+        *reinterpret_cast<float4*>(g0 + (int64_t)row * a.width +
+                                   (i % (kTileW / 4)) * 4) = v;
+      } else {
+        // cells (r, q .. q + 3): row phase r & 1, columns q / 2, q / 2 + 1
+        // of the phases px = 0 (v.x, v.z) and px = 1 (v.y, v.w)
+        const int r = row - c * th;
+        const int64_t plane = (int64_t)(a.height / 2) * (a.width / 2);
+        float* d = g0 + ((r & 1) * 2 * a.bins + c) * plane +
+                   (int64_t)(r >> 1) * (a.width / 2) + (i % (kTileW / 4)) * 2;
+        *reinterpret_cast<float2*>(d) = make_float2(v.x, v.z);
+        *reinterpret_cast<float2*>(d + a.bins * plane) =
+            make_float2(v.y, v.w);
+      }
+    }
     {
       s += v.x;
       s += v.y;
@@ -434,8 +575,9 @@ __device__ __forceinline__ void write_partial(const Args& a,
 
 // KIND: B1 (own range only), B3 (gather from the neighbours' ranges) or
 // B3-legacy (the band's range with the band rule and the warps' queues);
-// each item's stats partial where a.partials is not null.
-template <int KIND, int THREADS>
+// each item's stats partial where a.partials is not null. LAYOUT and Q8:
+// the forms (header).
+template <int KIND, int THREADS, int LAYOUT, bool Q8>
 __global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
 scatter_kernel(const Args a) {
   constexpr bool TILED = KIND == kTiled;
@@ -459,39 +601,44 @@ scatter_kernel(const Args a) {
   while (item < a.n_items) {
     // own range: the records loaded ahead, then the rest
     const float row0 = (float)(it.ty * th), col0 = (float)(it.tx * kTileW);
+    // deposit_q8's row gap and the own records' column base
+    const int gap = TILED ? th + 1 : th;
+    const float cb = TILED ? (float)((it.ty * a.n_tx + it.tx) * kColSlot)
+                           : (float)(it.ty * a.width + it.tx * kTileW);
     if constexpr (KIND == kBand) {
       __shared__ float4 queue[THREADS / 32][kQueue];
       BandQueue bq{queue[tid / 32], 0};
 #pragma unroll
       for (int j = 0; j < Ahead<THREADS>::R; ++j)
-        band_offer(bq, acc,
-                   ahead.p[j] != 0.f && in_band_tile(ahead.x[j] - col0),
-                   ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
-                   ahead.p[j], a.bins, th);
-      band_rest<THREADS>(a, acc, bq, it, row0, col0);
+        band_offer<Q8>(bq, acc,
+                       ahead.p[j] != 0.f && in_band_tile(ahead.x[j] - col0),
+                       ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
+                       ahead.p[j], a.bins, th, cb);
+      band_rest<THREADS, Q8>(a, acc, bq, it, row0, col0, cb);
     } else {
 #pragma unroll
       for (int j = 0; j < Ahead<THREADS>::R; ++j)
         if (ahead.p[j] != 0.f)
-          deposit(acc, ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
-                  ahead.p[j], a.bins, th, 0, 0);
+          put<Q8>(acc, ahead.y[j] - row0, ahead.x[j] - col0, ahead.t[j],
+                  ahead.p[j], a.bins, th, 0, 0, gap, cb);
       for (int i = it.start + kAhead + tid; i < it.end; i += THREADS) {
         const float p = a.pols[it.base + i];
         if (p == 0.f) continue;
-        deposit(acc, a.ys[it.base + i] - row0, a.xs[it.base + i] - col0,
-                a.tss[it.base + i], p, a.bins, th, 0, 0);
+        put<Q8>(acc, a.ys[it.base + i] - row0, a.xs[it.base + i] - col0,
+                a.tss[it.base + i], p, a.bins, th, 0, 0, gap, cb);
       }
     }
     if constexpr (TILED && !(VOXEL_SCATTER_SKIP & 1)) {
       const int tile = it.ty * a.n_tx + it.tx;
       const float up0 = row0 - (float)th, left0 = col0 - (float)kTileW;
       if (it.ty > 0)
-        gather<THREADS, true, false>(a, acc, it, tile - a.n_tx, up0, col0);
+        gather<THREADS, true, false, Q8>(a, acc, it, tile - a.n_tx, up0,
+                                         col0);
       if (it.tx > 0)
-        gather<THREADS, false, true>(a, acc, it, tile - 1, row0, left0);
+        gather<THREADS, false, true, Q8>(a, acc, it, tile - 1, row0, left0);
       if (it.ty > 0 && it.tx > 0)
-        gather<THREADS, true, true>(a, acc, it, tile - a.n_tx - 1, up0,
-                                    left0);
+        gather<THREADS, true, true, Q8>(a, acc, it, tile - a.n_tx - 1, up0,
+                                        left0);
     }
     __syncthreads();
 
@@ -503,16 +650,40 @@ scatter_kernel(const Args a) {
       it = locate<KIND>(a, item);
       ahead.load(a, it);
     }
-    drain<THREADS>(a, done, acc, red);
+    drain<THREADS, LAYOUT, Q8>(a, done, acc, red);
     __syncthreads();
     if (a.partials) write_partial<THREADS>(a, red, done_item);
   }
 }
 
+// The kernel of a form and block size: null where the form does not exist
+// for KIND (kRaw: B1 and B3-legacy; kStack: B1).
+template <int KIND, int LAYOUT, bool Q8>
+void (*form_kernel(int threads))(const Args) {
+  if constexpr ((LAYOUT == kRaw && KIND == kTiled) ||
+                (LAYOUT == kStack && KIND != kFolded))
+    return nullptr;
+  else
+    return threads == 256 ? scatter_kernel<KIND, 256, LAYOUT, Q8>
+                          : scatter_kernel<KIND, 512, LAYOUT, Q8>;
+}
+
+template <int KIND, bool Q8>
+void (*kernel_for(int layout, int threads))(const Args) {
+  switch (layout) {
+    case kNCHW: return form_kernel<KIND, kNCHW, Q8>(threads);
+    case kRaw: return form_kernel<KIND, kRaw, Q8>(threads);
+    case kStack: return form_kernel<KIND, kStack, Q8>(threads);
+    default: return nullptr;
+  }
+}
+
 // Checks the plan against the layout and launches one kernel over every
-// (window, tile). Returns a cudaError_t.
+// (window, tile) in the form asked for (layout, q8: the int8 tent planes).
+// Returns a cudaError_t.
 template <int KIND>
-int launch(const Args& a, int threads, int grid, int smem, void* stream) {
+int launch(const Args& a, int threads, int grid, int smem, void* stream,
+           int layout, int q8) {
   if (a.n_items == 0) return 0;
   if (a.tile_h != tile_h_for_bins(a.bins) || a.width % kTileW ||
       a.n_tx * kTileW != a.width || a.height % a.tile_h ||
@@ -520,10 +691,11 @@ int launch(const Args& a, int threads, int grid, int smem, void* stream) {
       a.n_groups != (KIND == kBand ? a.height / a.tile_h : a.n_tiles) ||
       (threads != 256 && threads != 512) ||
       smem != a.bins * a.tile_h * kRowBytes || smem > kMaxSmem ||
-      grid < 1 || grid > a.n_items)
+      grid < 1 || grid > a.n_items || a.tile_h % 2)
     return (int)cudaErrorInvalidValue;
-  void (*kern)(const Args) = threads == 256 ? scatter_kernel<KIND, 256>
-                                            : scatter_kernel<KIND, 512>;
+  void (*kern)(const Args) = q8 ? kernel_for<KIND, true>(layout, threads)
+                                : kernel_for<KIND, false>(layout, threads);
+  if (!kern) return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;

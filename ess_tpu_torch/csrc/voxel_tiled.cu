@@ -30,20 +30,26 @@
 // byte bound does not count. Corners whose time bin is `bins` (ts ==
 // bins - 1) or that fall outside the grid are skipped by explicit bounds
 // checks; a tile without events stores zeros.
+//
+// q8 (PipelineConfig.voxel_oh_dtype='int8') selects the core's int8 form:
+// the TPU kernel's int8 tent planes in halo mode (voxel_pallas.py:560-585:
+// the wy_fold of a row in (-1, 0), the x127 prescale; the tall row plane,
+// its gap tile_h + 1; each tile's columns at tile id * COL_SLOT), exact
+// integer products in the cells. Same bytes, same bound.
 
 #include "voxel_scatter.cuh"
 
 // offsets (n_windows, n_ty * n_tx + 1); grid (n_windows, bins,
 // n_ty * tile_h, n_tx * 128); partials (n_windows, n_ty * n_tx, 3), the
 // tiles' (sum, sum of squares, nonzero count), or null. The plan (threads,
-// grid_blocks, smem) is ops/voxel_scatter.py's.
+// grid_blocks, smem) is ops/voxel_scatter.py's; q8 the int8 form.
 extern "C" int ess_voxel_tiled_stats(const void* x, const void* y,
                                      const void* ts, const void* pol,
                                      const void* offsets, void* grid,
                                      void* partials, int n_windows,
                                      int n_events, int bins, int tile_h,
                                      int n_ty, int n_tx, int threads,
-                                     int grid_blocks, int smem,
+                                     int grid_blocks, int smem, int q8,
                                      void* stream) {
   const scatter::Args a{(const float*)x,  (const float*)y,
                         (const float*)ts, (const float*)pol,
@@ -52,7 +58,7 @@ extern "C" int ess_voxel_tiled_stats(const void* x, const void* y,
                         n_ty * n_tx, n_ty * tile_h, n_tx * scatter::kTileW,
                         n_windows * n_ty * n_tx, n_ty * n_tx};
   return scatter::launch<scatter::kTiled>(a, threads, grid_blocks, smem,
-                                          stream);
+                                          stream, scatter::kNCHW, q8);
 }
 
 // The grid alone.
@@ -61,8 +67,8 @@ extern "C" int ess_voxel_tiled(const void* x, const void* y, const void* ts,
                                void* grid, int n_windows, int n_events,
                                int bins, int tile_h, int n_ty, int n_tx,
                                int threads, int grid_blocks, int smem,
-                               void* stream) {
+                               int q8, void* stream) {
   return ess_voxel_tiled_stats(x, y, ts, pol, offsets, grid, nullptr,
                                n_windows, n_events, bins, tile_h, n_ty, n_tx,
-                               threads, grid_blocks, smem, stream);
+                               threads, grid_blocks, smem, q8, stream);
 }

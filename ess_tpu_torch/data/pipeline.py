@@ -31,6 +31,19 @@ cropped or flipped sample has its windows and its label transformed
 together, whatever the representation (``voxel_grid``, ``histogram`` or
 ``ev_segnet``).
 
+The voxelizer's opt-in pins, JAX's: ``voxel_oh_dtype='int8'`` (the
+voxelizers' int8 tent planes, on every path that voxelizes, the dense
+``__call__`` aside, as in JAX), ``stack_windows`` (``build_all_stack``:
+B1 emits the space-to-depth NCHW window stack, normalization, flip and crop
+deferred to a per-window map) and ``raw_windows`` (``build_all_raw``: the
+raw band accumulator, the fine space-to-depth transform in the per-window
+map); ``build_all(layout='s2d')`` builds space-to-depth block windows.
+Each is taken by the steps' rollout under JAX's conditions
+(``s2d_capable``, ``stack_capable``, ``raw_capable``;
+``train/supervised.py::rollout_form``). The windows of the stack and raw
+forms are normalized in f32 and cast last, as the standard build does, so
+they equal its windows bit for bit.
+
 Augmentation draws come from an explicit ``torch.Generator``; they cannot
 reproduce JAX's PRNG bits, so parity tests pass :class:`AugmentParams`
 explicitly.
@@ -49,6 +62,8 @@ from ess_tpu_torch.data.native import COORD_SCALE, POL_SCALE, TIME_SCALE
 from ess_tpu_torch.ops.batch_voxel import (
     REPRESENTATIONS, effective_bins, flat_windows, voxelize_window_soa)
 from ess_tpu_torch.ops.resize import resize_bilinear
+from ess_tpu_torch.ops.voxel import normalize_from_stats
+from ess_tpu_torch.ops.voxel_scatter import OH_DTYPES, tile_h_for_bins
 
 
 @dataclass(frozen=True)
@@ -72,12 +87,28 @@ class PipelineConfig:
                                      # (rectified streams); False = temporal
                                      # bilinear on floored coordinates
     rectify: bool = False            # apply the rectify map on the device
+    # tent-plane operands of the voxelizers: 'bfloat16' (JAX's default) and
+    # 'float32' take the f32 core, 'int8' the int8 tent planes
+    voxel_oh_dtype: str = "bfloat16"
+    # raw-window mode (build_all_raw): the rollout maps the voxelizer's raw
+    # band accumulator to each window just before its step; None = off
+    raw_windows: Optional[bool] = None
+    # stack-window mode (build_all_stack): B1 emits the s2d NCHW window
+    # stack; x-slot band batches, no resize; None = off
+    stack_windows: Optional[bool] = None
 
     def __post_init__(self):
         if self.representation not in REPRESENTATIONS:
             raise ValueError(f"unknown representation "
                              f"{self.representation!r}; expected one of "
                              f"{REPRESENTATIONS}")
+        if self.voxel_oh_dtype not in OH_DTYPES:
+            raise ValueError(f"voxel_oh_dtype {self.voxel_oh_dtype!r} not "
+                             f"in {OH_DTYPES}")
+        for name in ("raw_windows", "stack_windows"):
+            if getattr(self, name) not in (None, True, False):
+                raise ValueError(f"{name} must be None, True or False, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def channels(self) -> int:
@@ -299,10 +330,169 @@ class EventPipeline:
             grids = voxelize_window_soa(
                 x, y, t, p, valid, offsets_kind=offsets_kind,
                 tile_offsets=tile_offsets, t_prenormalized=t_prenormalized,
-                **kw)
+                oh_dtype=self.cfg.voxel_oh_dtype, **kw)
             return self._transform_grid(grids, aug)
 
         return fn
+
+    # -------------------- space-to-depth, stack and raw builds ----------
+
+    def s2d_capable(self, *, train: bool) -> bool:
+        """Whether the batched build can emit space-to-depth windows: the
+        voxel grid, transforms expressible in block space (an even bottom
+        crop, the flip, no per-sample crop when training), an even sensor
+        and a width-only resize to an even width (JAX's conditions; the
+        port's voxelizers are always its kernels). Callers check the
+        batch's offsets too: a resize needs band offsets."""
+        cfg = self.cfg
+        resize_ok = cfg.resize_to is None or (
+            cfg.resize_to[0] == cfg.post_crop_size[0]
+            and cfg.resize_to[1] % 2 == 0)
+        return (cfg.representation == "voxel_grid" and resize_ok
+                and (cfg.random_crop is None or not train)
+                and cfg.crop_bottom % 2 == 0
+                and cfg.sensor_height % 2 == 0
+                and cfg.sensor_width % 2 == 0
+                and not (cfg.rectify and self.rectify_map is not None))
+
+    def stack_capable(self, *, train: bool, batch: dict) -> bool:
+        """Whether :meth:`build_all_stack` serves ``batch``: the pin on,
+        :meth:`s2d_capable`, x-slot band offsets (more groups than bands),
+        an even tile height and no resize."""
+        cfg = self.cfg
+        offs = batch.get("ev_band_offsets")
+        if not (cfg.stack_windows and self.s2d_capable(train=train)
+                and offs is not None and cfg.resize_to is None):
+            return False
+        th = tile_h_for_bins(effective_bins(cfg.num_bins, cfg.separate_pol,
+                                            cfg.trilinear))
+        hp = -(-cfg.sensor_height // th) * th
+        return th % 2 == 0 and offs.shape[-1] - 1 > hp // th
+
+    def raw_capable(self, *, train: bool, batch: dict) -> bool:
+        """Whether :meth:`build_all_raw` serves ``batch``: the pin on,
+        :meth:`s2d_capable` and band offsets (either band wire)."""
+        return bool(self.cfg.raw_windows and self.s2d_capable(train=train)
+                    and ("ev_band_offsets" in batch
+                         or "band_offsets" in batch))
+
+    def _transform_s2d(self, grids: torch.Tensor, aug: AugmentParams
+                       ) -> torch.Tensor:
+        """(N, 4C, H/2, W/2) block windows: the bottom crop in block rows
+        and the flip, which reverses the block columns and the column
+        phases of the (py * 2 + px) * C + c channels."""
+        cfg = self.cfg
+        if cfg.crop_bottom > 0:
+            grids = grids[:, :, :(cfg.sensor_height - cfg.crop_bottom) // 2]
+        if aug.flip is not None:
+            c = grids.shape[1] // 4
+            perm = torch.arange(4 * c).view(2, 2, c).flip(1).reshape(-1)
+            flipped = grids[:, perm.to(grids.device)].flip(-1)
+            sel = aug.flip.to(device=grids.device, dtype=torch.bool)
+            grids = torch.where(sel.view(-1, 1, 1, 1), flipped, grids)
+        return grids
+
+    def _flat(self, batch, time_major: bool):
+        """(flatten (B, T, ...) -> (B*T, ...), repeat a per-sample draw per
+        window, leading shape): window-major with ``time_major``, else
+        sample-major."""
+        b, t_dim = batch["ev_x"].shape[:2]
+        if time_major:
+            return ((lambda a: a.transpose(0, 1).reshape(t_dim * b,
+                                                         a.shape[-1])),
+                    lambda a: a.repeat(t_dim), (t_dim, b))
+        return ((lambda a: a.reshape(b * t_dim, a.shape[-1])),
+                lambda a: a.repeat_interleave(t_dim), (b, t_dim))
+
+    def _folded_build(self, batch, layout: str, **kw):
+        """A band batch (decoded) through the voxelizer in ``layout``
+        ('stack' or 'raw'), window-major: (out (T, B, ...), stats (T, B, 3),
+        batch)."""
+        if "ev_xq" in batch:
+            batch = self.decode_packed(batch)
+        if "ev_band_offsets" not in batch:
+            raise ValueError(f"the {layout} build needs band offsets")
+        flat, _, lead = self._flat(batch, True)
+        cfg = self.cfg
+        out, stats = voxelize_window_soa(
+            flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),
+            flat(batch["ev_p"]), flat(batch["ev_valid"]),
+            tile_offsets=flat(batch["ev_band_offsets"]), offsets_kind="band",
+            t_prenormalized=bool(batch.get("ev_t_prenormalized", False)),
+            oh_dtype=cfg.voxel_oh_dtype, layout=layout, **self._voxel_kw(),
+            **kw)
+        return (out.view(*lead, *out.shape[1:]), stats.view(*lead, 3),
+                batch)
+
+    def build_all_stack(self, batch: Dict[str, torch.Tensor], *,
+                        aug: AugmentParams = AugmentParams(),
+                        out_dtype: torch.dtype = torch.float32):
+        """A band batch -> ({"raw": the s2d NCHW window stack (T, B, 4C,
+        H/2, W/2) f32, "stats": (T, B, 3) or None}, label, window_map), JAX's
+        ``build_all_stack``: B1 emits the stack directly, and
+        ``window_map(stack_t, stats_t)`` gives window t as (B, 4C, H'/2,
+        W/2) in ``out_dtype``: normalized in f32 from the kernel's stats,
+        flipped in block space, cropped, cast last (channels-last memory,
+        as ``space_to_depth`` leaves a window). Its windows are the
+        standard build's, bit for bit, in blocks."""
+        cfg = self.cfg
+        stack, stats, batch = self._folded_build(batch, "stack")
+
+        def window_map(r: torch.Tensor, s: Optional[torch.Tensor]
+                       ) -> torch.Tensor:
+            if s is not None:
+                r = normalize_from_stats(r, s)
+            r = self._transform_s2d(r, AugmentParams(flip=aug.flip))
+            return _blocks_out(r.permute(0, 2, 3, 1), out_dtype)
+
+        label = batch.get("label")
+        if label is not None:
+            label = self.apply_label_transform(label, aug)
+        return ({"raw": stack, "stats": stats if cfg.normalize else None},
+                label, window_map)
+
+    def build_all_raw(self, batch: Dict[str, torch.Tensor], *,
+                      aug: AugmentParams = AugmentParams(),
+                      out_dtype: torch.dtype = torch.float32):
+        """A band batch -> ({"raw": the voxelizer's raw band accumulator
+        (T, B, n_bands, C * tile_h, W') f32, "stats": (T, B, 3) or None},
+        label, window_map), JAX's ``build_all_raw``. ``window_map(raw_t,
+        stats_t)`` gives window t as (B, 4C, H'/2, W'/2) in ``out_dtype``:
+        normalized in f32, cut to the sensor width, flipped (a reversal of
+        x), the fine space-to-depth transform, cropped, cast last. With a
+        width resize (DDD17) the build normalizes and resizes before the
+        map, as JAX does (the normalization does not commute with it), and
+        ``stats`` is None."""
+        cfg = self.cfg
+        resize = (cfg.resize_to[1] if cfg.resize_to is not None
+                  and cfg.resize_to[1] != cfg.sensor_width else None)
+        raw, stats, batch = self._folded_build(
+            batch, "raw", resize_width_to=resize,
+            resize_align_corners=cfg.resize_align_corners)
+        c = effective_bins(cfg.num_bins, cfg.separate_pol, cfg.trilinear)
+        th = tile_h_for_bins(c)
+        out_h = cfg.sensor_height - cfg.crop_bottom
+        out_w = resize or cfg.sensor_width
+
+        def window_map(r: torch.Tensor, s: Optional[torch.Tensor]
+                       ) -> torch.Tensor:
+            if s is not None:
+                r = normalize_from_stats(r, s)
+            r = r[..., :out_w]
+            if aug.flip is not None:
+                r = random_flip(r, aug.flip, 0)
+            b, n_bands = r.shape[:2]
+            g = r.reshape(b, n_bands, c, th // 2, 2, out_w // 2, 2).permute(
+                0, 1, 3, 5, 4, 6, 2).reshape(b, n_bands * th // 2,
+                                             out_w // 2, 4 * c)
+            return _blocks_out(g[:, :out_h // 2], out_dtype)
+
+        label = batch.get("label")
+        if label is not None:
+            label = self.apply_label_transform(label, aug)
+        defer = cfg.normalize and resize is None
+        return ({"raw": raw, "stats": stats if defer else None}, label,
+                window_map)
 
     def apply_label_transform(self, label: torch.Tensor, aug: AugmentParams
                               ) -> torch.Tensor:
@@ -321,6 +511,7 @@ class EventPipeline:
     def build_all(self, batch: Dict[str, torch.Tensor], *,
                   aug: AugmentParams = AugmentParams(),
                   out_dtype: torch.dtype = torch.float32,
+                  layout: str = "nchw", time_major: bool = True,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Batch {"ev_x", "ev_y", "ev_t", "ev_p", "ev_valid": (B, T, N),
         "label": (B, H, W)} with "ev_band_offsets" (folded records),
@@ -331,25 +522,56 @@ class EventPipeline:
         ("ev_xq", ...) is decoded first (:meth:`decode_packed`).
 
         Windows come out time-major, so the recurrent rollout reads window
-        ``t`` as one contiguous block.
+        ``t`` as one contiguous block; ``time_major=False`` gives (B, T,
+        ...). ``layout='s2d'`` (needs :meth:`s2d_capable`; a resize needs
+        band offsets) gives space-to-depth block windows (T, B, 4C, H'/2,
+        W'/2) in channels-last memory: the voxelizer's s2d grids (a width
+        resize folded in), cropped and flipped in block space
+        (:meth:`_transform_s2d`).
         """
         if "ev_xq" in batch:
             batch = self.decode_packed(batch)
         kind = "band" if "ev_band_offsets" in batch else "tile"
         offs = batch.get(f"ev_{kind}_offsets")
-        b, t_dim, n = batch["ev_x"].shape
-        flat = lambda a: a.transpose(0, 1).reshape(t_dim * b, a.shape[-1])
-        window_fn = self.make_window_fn(
-            AugmentParams(*(None if a is None else a.repeat(t_dim)
-                            for a in (aug.flip, aug.crop_y, aug.crop_x))),
-            t_prenormalized=bool(batch.get("ev_t_prenormalized", False)),
-            offsets_kind=kind)
-        grids = window_fn(
-            flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),
-            flat(batch["ev_p"]), flat(batch["ev_valid"]),
-            tile_offsets=None if offs is None else flat(offs))
+        flat, rep, lead = self._flat(batch, time_major)
+        aug_w = AugmentParams(*(None if a is None else rep(a)
+                                for a in (aug.flip, aug.crop_y, aug.crop_x)))
+        pre = bool(batch.get("ev_t_prenormalized", False))
+        cols = (flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),
+                flat(batch["ev_p"]), flat(batch["ev_valid"]))
+        if layout == "s2d":
+            cfg = self.cfg
+            if not self.s2d_capable(train=aug.crop_y is not None):
+                raise ValueError("the s2d build is not possible with this "
+                                 "pipeline (s2d_capable)")
+            resize = None if cfg.resize_to is None else cfg.resize_to[1]
+            if resize is not None and kind != "band":
+                raise ValueError("an s2d build with a resize needs "
+                                 "pre-folded band offsets")
+            extra = (dict(resize_width_to=resize,
+                          resize_align_corners=cfg.resize_align_corners)
+                     if kind == "band" else {})
+            grids = voxelize_window_soa(
+                *cols, offsets_kind=kind, t_prenormalized=pre,
+                tile_offsets=None if offs is None else flat(offs),
+                oh_dtype=cfg.voxel_oh_dtype, layout="s2d",
+                **self._voxel_kw(), **extra)
+            grids = self._transform_s2d(grids.permute(0, 3, 1, 2), aug_w)
+            grids = _blocks_out(grids.permute(0, 2, 3, 1), out_dtype)
+            windows = grids.view(*lead, *grids.shape[1:])
+            label = batch.get("label")
+            if label is not None:
+                label = self.apply_label_transform(label, aug)
+            return windows, label
+        if layout != "nchw":
+            raise ValueError(f"build_all: layout {layout!r} not in "
+                             "('nchw', 's2d')")
+        window_fn = self.make_window_fn(aug_w, t_prenormalized=pre,
+                                        offsets_kind=kind)
+        grids = window_fn(*cols,
+                          tile_offsets=None if offs is None else flat(offs))
         grids = grids.to(out_dtype).contiguous()
-        windows = grids.view(t_dim, b, *grids.shape[1:])
+        windows = grids.view(*lead, *grids.shape[1:])
         label = batch.get("label")
         if label is not None:
             label = self.apply_label_transform(label, aug)
@@ -384,3 +606,10 @@ class EventPipeline:
         if "label" in batch:
             out["label"] = self.apply_label_transform(batch["label"], aug)
         return out
+
+
+def _blocks_out(nhwc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(N, H, W, C) block windows -> (N, C, H, W) in ``dtype``, cast last,
+    in channels-last memory (the strides ``space_to_depth`` gives a
+    window, so the rollout's convs see the same tensor layout)."""
+    return nhwc.to(dtype).contiguous().permute(0, 3, 1, 2)

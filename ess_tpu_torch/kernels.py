@@ -93,15 +93,7 @@ def _build() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(lib_path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # the voxelizers: shape, then the scatter plan (threads, grid, smem)
-    lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
-    lib.ess_voxel_folded.restype = ci
-    lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 9 + [vp]
-    lib.ess_voxel_folded_band.restype = ci
-    lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
-    lib.ess_voxel_tiled.restype = ci
-    lib.ess_voxel_tiled_stats.argtypes = [vp] * 7 + [ci] * 9 + [vp]
-    lib.ess_voxel_tiled_stats.restype = ci
+    voxel_argtypes(lib)
     # the cells: shape (B, H, W, CX, CH), then the plan (th, tw, grid, smem)
     lib.ess_conv_lstm.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.ess_conv_lstm.restype = ci
@@ -132,6 +124,20 @@ def _build() -> ctypes.CDLL:
     lib.ess_error_string.argtypes = [ci]
     lib.ess_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def voxel_argtypes(lib: ctypes.CDLL) -> None:
+    """The voxelizers' C signatures: pointers, the shape, the scatter plan
+    (threads, grid, smem), then the form (B1 and B3-legacy: layout and q8,
+    B3: q8) and the stream."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 12 + [vp]
+    lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+    lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.ess_voxel_tiled_stats.argtypes = [vp] * 7 + [ci] * 10 + [vp]
+    for fn in (lib.ess_voxel_folded, lib.ess_voxel_folded_band,
+               lib.ess_voxel_tiled, lib.ess_voxel_tiled_stats):
+        fn.restype = ci
 
 
 def get_lib() -> ctypes.CDLL:

@@ -31,7 +31,12 @@ the grid padded to whole tiles, and crop back to the sensor size.
   (B, T, H, W, C) grids, all B*T windows in one voxelizer launch.
 
 Grids are NCHW but for :func:`voxelize_windows`, whose output keeps the
-JAX package's channel-last order.
+JAX package's channel-last order, and for the voxel grid's other layouts
+(``layout=``, JAX's ``_voxelize_pallas``): ``'nhwc'``, ``'s2d'`` (B, H/2,
+W/2, 4C), and on the band wire ``'raw'`` (the kernel's raw band
+accumulator and its stats, normalized and width-resized only where a
+resize folds in) and ``'stack'`` (the s2d NCHW stack and its stats, x-slot
+wire); ``oh_dtype='int8'`` selects the voxelizers' int8 tent planes.
 """
 
 from __future__ import annotations
@@ -40,10 +45,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from ess_tpu_torch.ops.resize import resize_bilinear
 from ess_tpu_torch.ops.voxel import (
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.ops.voxel_folded import (
     TILE_W, tile_h_for_bins, voxelize_folded)
+from ess_tpu_torch.ops.voxel_scatter import check_layout, relayout
 from ess_tpu_torch.ops.voxel_tiled import bin_events_device, voxelize_tiled
 
 
@@ -120,25 +127,72 @@ def band_operands(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     return args, dict(bins=bins_eff, height=hp, width=wp)
 
 
+def resize_width(x: torch.Tensor, width: int,
+                 align_corners: bool = True) -> torch.Tensor:
+    """A width-only bilinear resize of (..., H, W) (``resize_bilinear`` at
+    the same height): the minor-axis resize JAX folds into its voxelizer."""
+    shape = x.shape
+    y = resize_bilinear(x.reshape(-1, 1, *shape[-2:]), shape[-2], width,
+                        align_corners=align_corners)
+    return y.view(*shape[:-1], width)
+
+
 def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   p: torch.Tensor, valid: torch.Tensor,
                   offsets: torch.Tensor, *, num_bins: int, height: int,
                   width: int, separate_pol: bool = False,
                   trilinear: bool = True, normalize: bool = False,
-                  t_prenormalized: bool = False) -> torch.Tensor:
+                  t_prenormalized: bool = False, layout: str = "nchw",
+                  oh_dtype=None, deint: bool = False,
+                  resize_width_to: Optional[int] = None,
+                  resize_align_corners: bool = True):
     """(B, N) folded records -> (B, C, height, width) f32 grids, C =
     ``effective_bins(...)``: :func:`band_operands` (which says what each
     option does), then ``voxelize_folded``. Normalization uses the
     kernel's stats over the grid at sensor resolution.
+
+    ``layout``: ``'nhwc'`` / ``'s2d'`` the grid so laid out (``deint`` the
+    s2d grid from the stack emission), after the width resize to
+    ``resize_width_to`` where one is given; ``'raw'`` -> (raw band
+    accumulator (B, n_bands, C * tile_h, W_pad), stats), with a resize
+    normalized (if asked), cut to the sensor width and resized, else as
+    the kernel wrote it; ``'stack'`` -> (the s2d NCHW stack cut to
+    (B, 4C, height / 2, width / 2), stats), no resize. ``oh_dtype``: the
+    tent planes (``voxel_scatter.quantized``).
     """
     args, kw = band_operands(x, y, t, p, valid, offsets, num_bins=num_bins,
                              height=height, width=width,
                              separate_pol=separate_pol, trilinear=trilinear,
                              t_prenormalized=t_prenormalized)
-    grid, stats = voxelize_folded(*args, **kw)
+    resize = resize_width_to is not None and resize_width_to != width
+    if layout == "stack":
+        if resize:
+            raise ValueError("layout 'stack' cannot fold a resize")
+        stack, stats = voxelize_folded(*args, **kw, layout="stack",
+                                       oh_dtype=oh_dtype)
+        return stack[:, :, :height // 2, :width // 2], stats
+    if layout == "raw":
+        raw, stats = voxelize_folded(*args, **kw, layout="raw",
+                                     oh_dtype=oh_dtype)
+        if resize:
+            if normalize:
+                raw = normalize_from_stats(raw, stats)
+            raw = resize_width(raw[..., :width], resize_width_to,
+                               resize_align_corners)
+        return raw, stats
+    if layout == "s2d" and deint and not resize:
+        grid, stats = voxelize_folded(*args, **kw, layout="s2d", deint=True,
+                                      oh_dtype=oh_dtype)
+        if normalize:
+            grid = normalize_from_stats(grid, stats)
+        return grid[:, :height // 2, :width // 2]
+    grid, stats = voxelize_folded(*args, **kw, oh_dtype=oh_dtype)
     if normalize:
         grid = normalize_from_stats(grid, stats)
-    return grid[:, :, :height, :width]
+    grid = grid[:, :, :height, :width]
+    if resize:
+        grid = resize_width(grid, resize_width_to, resize_align_corners)
+    return relayout(grid, layout)
 
 
 def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
@@ -146,7 +200,8 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   offsets: Optional[torch.Tensor] = None, *, num_bins: int,
                   height: int, width: int, separate_pol: bool = False,
                   trilinear: bool = False, normalize: bool = False,
-                  t_prenormalized: bool = False) -> torch.Tensor:
+                  t_prenormalized: bool = False, layout: str = "nchw",
+                  oh_dtype=None) -> torch.Tensor:
     """(B, N) raw events -> (B, C, height, width) f32 grids, C =
     ``effective_bins(...)``.
 
@@ -155,8 +210,13 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     the device. ``trilinear=False`` floors the coordinates (pure temporal
     bilinear); with ``separate_pol`` negative events then go to bins
     ``num_bins .. 2 * num_bins - 1`` with weight +1. ``t_prenormalized``
-    takes ``t`` as the normalized time.
+    takes ``t`` as the normalized time. ``layout`` ``'nhwc'`` or ``'s2d'``
+    lays the normalized grid out so; ``oh_dtype`` picks the tent planes.
     """
+    if layout in ("raw", "stack"):
+        raise ValueError(f"layout {layout!r} needs the folded band wire "
+                         "(band offsets)")
+    check_layout(layout)
     x, y = x.float(), y.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
     ts = _time(t, valid, num_bins, t_prenormalized)
@@ -175,13 +235,14 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
             x, y, ts, pol, ok, height=hp, width=wp, bins=bins_eff)
     cols = (x.contiguous(), y.contiguous(), ts.contiguous(),
             pol.contiguous(), offsets.to(torch.int32).contiguous())
-    kw = dict(bins=bins_eff, height=hp, width=wp)
+    kw = dict(bins=bins_eff, height=hp, width=wp, oh_dtype=oh_dtype)
     if normalize and (hp, wp) == (height, width):
         # the voxelizer's own stats: the same bits whether the windows come
         # in one call or one batch at a time (torch's reductions would not)
-        return normalize_from_stats(*voxelize_tiled(*cols, **kw, stats=True))
+        return relayout(normalize_from_stats(
+            *voxelize_tiled(*cols, **kw, stats=True)), layout)
     grid = voxelize_tiled(*cols, **kw)[:, :, :height, :width]
-    return normalize_nonzero(grid) if normalize else grid
+    return relayout(normalize_nonzero(grid) if normalize else grid, layout)
 
 
 def _pixel_index(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
@@ -262,7 +323,11 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                         rectify_map: Optional[torch.Tensor] = None,
                         tile_offsets: Optional[torch.Tensor] = None,
                         offsets_kind: str = "tile",
-                        t_prenormalized: bool = False) -> torch.Tensor:
+                        t_prenormalized: bool = False,
+                        layout: str = "nchw", oh_dtype=None,
+                        deint: bool = False,
+                        resize_width_to: Optional[int] = None,
+                        resize_align_corners: bool = True):
     """One batched window of struct-of-arrays events -> (B, C, H, W) grids.
     ``rectify_map`` (an (H, W, 2) tensor on the events' device) rectifies
     the sensor coordinates first (:func:`rectify_events`), for every
@@ -278,10 +343,18 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     do (EV-SegNet normalizes whatever time it is given over the window,
     ``t_prenormalized`` or not); folded band records (pre-weighted
     polarities) cannot feed them. ``t_prenormalized``: ``t`` is the time
-    normalized to [0, num_bins - 1] already."""
+    normalized to [0, num_bins - 1] already. The voxel grid's ``layout``,
+    ``oh_dtype``, ``deint`` and (band wire) ``resize_width_to`` are
+    :func:`voxelize_band`'s and :func:`voxelize_tile`'s; ``'raw'`` and
+    ``'stack'`` need the voxel grid on band records, as JAX asserts, and
+    the other representations take ``'nchw'`` or ``'nhwc'``."""
     if representation not in REPRESENTATIONS:
         raise ValueError(f"unknown representation {representation!r}; "
                          f"expected one of {REPRESENTATIONS}")
+    if layout in ("raw", "stack") and (representation != "voxel_grid"
+                                       or offsets_kind != "band"):
+        raise ValueError(f"layout {layout!r} needs the voxel grid on "
+                         "pre-folded band records")
     if rectify_map is not None:
         if tile_offsets is not None:
             raise ValueError("host offsets were computed on the coordinates "
@@ -293,17 +366,24 @@ def voxelize_window_soa(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
         if offsets_kind == "band":
             raise ValueError(f"the {representation!r} representation takes "
                              "raw events, not folded band records")
+        check_layout(layout, ("nchw", "nhwc"))
         if representation == "histogram":
-            return event_histogram(x, y, p, valid, height=height,
+            grid = event_histogram(x, y, p, valid, height=height,
                                    width=width)
-        return ev_segnet_grid(x, y, t, p, valid, height=height, width=width)
+        else:
+            grid = ev_segnet_grid(x, y, t, p, valid, height=height,
+                                  width=width)
+        return relayout(grid, layout)
     kw = dict(num_bins=num_bins, height=height, width=width,
-              normalize=normalize, t_prenormalized=t_prenormalized)
+              normalize=normalize, t_prenormalized=t_prenormalized,
+              layout=layout, oh_dtype=oh_dtype)
     if offsets_kind == "band":
         if tile_offsets is None:
             raise ValueError("band offsets require host binning")
         return voxelize_band(x, y, t, p, valid, tile_offsets,
                              separate_pol=separate_pol, trilinear=trilinear,
+                             deint=deint, resize_width_to=resize_width_to,
+                             resize_align_corners=resize_align_corners,
                              **kw)
     if offsets_kind != "tile":
         raise ValueError(f"unknown offsets_kind {offsets_kind!r}")

@@ -36,6 +36,16 @@ x-slot kernel.
 On a CUDA tensor :func:`voxelize_folded` launches that kernel; on a CPU
 tensor it runs :func:`voxelize_folded_ref`, the plain PyTorch scatter of the
 same records.
+
+The opt-in pins are forms of the same launch (``voxel_scatter.cuh``):
+``oh_dtype='int8'`` the TPU kernel's int8 tent planes (integer corner
+products summed exactly), ``layout='raw'`` the raw band accumulator
+``(B, n_bands, bins * tile_h, width)`` on either wire, ``layout='stack'``
+(x-slot wire) the space-to-depth NCHW stack ``(B, 4 * bins, height / 2,
+width / 2)``, and ``layout='s2d', deint=True`` the s2d grid taken from the
+stack emission; ``'nhwc'`` and ``'s2d'`` are otherwise views or copies of
+the NCHW grid, as the JAX function's layouts. The stats are the same bits
+in every layout.
 """
 
 from __future__ import annotations
@@ -50,8 +60,16 @@ from ess_tpu_torch.ops import voxel_scatter
 from ess_tpu_torch.ops.conv_halo import sm_count
 from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
-launches = 0          # x-slot kernel launches (CUDA tensors only)
-launches_legacy = 0   # full-width band kernel launches (CUDA tensors only)
+# kernel launches (CUDA tensors only), one count a form: the x-slot wire's
+# default (f32, NCHW grid), stack, raw and int8 (any layout) forms, and the
+# full-width band wire's default, raw and int8 forms
+launches = 0
+launches_stack = 0
+launches_raw = 0
+launches_int8 = 0
+launches_legacy = 0
+launches_legacy_raw = 0
+launches_legacy_int8 = 0
 
 
 def _geometry(height: int, width: int, bins: int) -> tuple[int, int, int]:
@@ -196,12 +214,18 @@ def host_band_bin_folded_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
 
 def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                         pol: torch.Tensor, offsets: torch.Tensor, *,
-                        bins: int, height: int, width: int):
+                        bins: int, height: int, width: int,
+                        layout: str = "nchw", oh_dtype=None,
+                        deint: bool = False):
     """Plain PyTorch version of :func:`voxelize_folded`: an index_add scatter
     of each record's 8 trilinear corners, with every corner outside its
     record's group (band and x-slot, or the whole band on the legacy wire)
     or bin range dropped (those corners carry zero weight on folded
-    input)."""
+    input); with ``oh_dtype='int8'`` an int64 scatter of the int8 planes'
+    integer products (``voxel_scatter.corners``). Layouts as
+    :func:`voxelize_folded` (``deint`` changes no value)."""
+    q8 = voxel_scatter.quantized(oh_dtype)
+    _check_layout(layout, offsets, bins, height)
     b, n = x.shape
     th = tile_h_for_bins(bins)
     n_bands = height // th
@@ -215,37 +239,56 @@ def voxelize_folded_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                                  rounding_mode="floor"), 0, ntx - 1)
     yl = y - band * th
     xl = x - slot * slot_w
-    yi, xi, c0 = torch.floor(yl), torch.floor(xl), torch.floor(ts)
-    fy, fx, wt = yl - yi, xl - xi, ts - c0
-    s0, s1 = pol * (1.0 - wt), pol * wt
     row0 = band.long() * th
     col0 = slot.long() * slot_w
     bidx = torch.arange(b, device=x.device)[:, None]
-    flat = torch.zeros(b * bins * height * width, dtype=torch.float32,
+    flat = torch.zeros(b * bins * height * width,
+                       dtype=torch.int64 if q8 else torch.float32,
                        device=x.device)
-    for dc, s in ((0, s0), (1, s1)):
-        c = c0.long() + dc
-        for dy, wy in ((0, 1.0 - fy), (1, fy)):
-            r = yi.long() + dy
-            for dx, wx in ((0, 1.0 - fx), (1, fx)):
-                col = xi.long() + dx
-                ok = (live & (c >= 0) & (c < bins) & (r >= 0) & (r < th)
-                      & (col >= 0) & (col < slot_w))
-                idx = (((bidx * bins + c) * height + row0 + r) * width
-                       + col0 + col)
-                flat.index_add_(0, idx[ok], (s * wy * wx)[ok])
-    grid = flat.view(b, bins, height, width)
+    # the TPU kernel's global column base: band * width + slot column
+    for c, r, col, v in voxel_scatter.corners(
+            yl, xl, ts, pol, q8=q8, gap=th, cb=band * width + slot * slot_w):
+        ok = (live & (c >= 0) & (c < bins) & (r >= 0) & (r < th)
+              & (col >= 0) & (col < slot_w))
+        if q8:
+            ok &= v != 0
+        idx = (((bidx * bins + c) * height + row0 + r) * width + col0 + col)
+        flat.index_add_(0, idx[ok], v[ok])
+    grid = voxel_scatter.cells_to_f32(flat).view(b, bins, height, width)
     stats = torch.stack([grid.sum((1, 2, 3)), (grid * grid).sum((1, 2, 3)),
                          (grid != 0).sum((1, 2, 3)).float()], dim=-1)
-    return grid, stats
+    return voxel_scatter.relayout(grid, layout, th), stats
+
+
+def _check_layout(layout: str, offsets: torch.Tensor, bins: int,
+                  height: int) -> None:
+    """Raise on a layout :func:`voxelize_folded` does not emit for these
+    offsets (the stack needs the x-slot wire with more than one slot, as
+    JAX's assert)."""
+    voxel_scatter.check_layout(layout)
+    n_bands = height // tile_h_for_bins(bins)
+    if layout == "stack" and offsets.shape[1] - 1 == n_bands:
+        raise ValueError("layout 'stack' needs the x-slot wire (per-slot "
+                         "offsets, more than one 128-column slot)")
 
 
 def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                     pol: torch.Tensor, offsets: torch.Tensor, *,
-                    bins: int, height: int, width: int):
+                    bins: int, height: int, width: int,
+                    layout: str = "nchw", oh_dtype=None,
+                    deint: bool = False):
     """(B, N) folded records + (B, n_groups + 1) offsets -> (grid (B, bins,
     height, width) f32, stats (B, 3) f32 = per-window sum, sum of squares
     and nonzero count of the grid).
+
+    ``layout``: ``'nchw'`` (above), ``'nhwc'`` (B, H, W, bins), ``'s2d'``
+    (B, H/2, W/2, 4 * bins) space-to-depth blocks, ``'raw'`` the raw band
+    accumulator (B, n_bands, bins * tile_h, W), ``'stack'`` (x-slot wire)
+    the s2d NCHW stack (B, 4 * bins, H/2, W/2); ``'s4d'`` raises.
+    ``deint`` with ``'s2d'`` on the x-slot wire (tile height a multiple of
+    8, as JAX's) emits the s2d grid from the stack form; elsewhere it is
+    ignored, as in JAX. ``oh_dtype``: ``'int8'`` the int8 tent planes,
+    ``'bfloat16'`` / ``'float32'`` / None the f32 core.
 
     ``x, y`` are sensor coordinates, ``ts`` the time normalized to
     [0, bins - 1], ``pol`` the pre-weighted polarity (zero for dropped
@@ -269,9 +312,12 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                          f"{(b, n_bands * n_slots + 1)} (x-slots) nor "
                          f"{(b, n_bands + 1)} (full-width bands)")
     legacy = offsets.shape[1] - 1 != n_bands * n_slots
+    _check_layout(layout, offsets, bins, height)
+    q8 = voxel_scatter.quantized(oh_dtype)
     if x.device.type == "cpu":
         return voxelize_folded_ref(x, y, ts, pol, offsets, bins=bins,
-                                   height=height, width=width)
+                                   height=height, width=width, layout=layout,
+                                   oh_dtype=oh_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"voxelize_folded: unsupported device {x.device}")
     for name, t in (("x", x), ("y", y), ("ts", ts), ("pol", pol)):
@@ -285,10 +331,18 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                          f"on {x.device}")
     from ess_tpu_torch import kernels
 
-    global launches, launches_legacy
+    global launches, launches_stack, launches_raw, launches_int8, \
+        launches_legacy, launches_legacy_raw, launches_legacy_int8
     lib = kernels.get_lib()
-    grid = torch.empty((b, bins, height, width), dtype=torch.float32,
-                       device=x.device)
+    deint = (deint and layout == "s2d" and not legacy and n_slots > 1
+             and th % 8 == 0)
+    form = ("stack" if deint else layout if layout in ("raw", "stack")
+            else "nchw")
+    shape = {"nchw": (b, bins, height, width),
+             "raw": (b, n_bands, bins * th, width),
+             "stack": (b, 4 * bins, height // 2, width // 2)}[form]
+    grid = torch.empty(shape, dtype=torch.float32, device=x.device)
+    code = voxel_scatter.LAYOUTS.index(form)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cols = (x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
             offsets.data_ptr(), grid.data_ptr())
@@ -300,13 +354,29 @@ def voxelize_folded(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     if legacy:
         err = lib.ess_voxel_folded_band(
             *cols, partials.data_ptr(), b, n, bins, th, n_bands, width,
-            plan.threads, plan.grid, plan.smem, stream)
+            plan.threads, plan.grid, plan.smem, code, int(q8), stream)
         kernels.check(err, "voxel_folded band kernel")
-        launches_legacy += 1
+        if q8:
+            launches_legacy_int8 += 1
+        elif form == "raw":
+            launches_legacy_raw += 1
+        else:
+            launches_legacy += 1
     else:
         err = lib.ess_voxel_folded(
             *cols, partials.data_ptr(), b, n, bins, th, n_bands, n_slots,
-            width, plan.threads, plan.grid, plan.smem, stream)
+            width, plan.threads, plan.grid, plan.smem, code, int(q8), stream)
         kernels.check(err, "voxel_folded kernel")
-        launches += 1
-    return grid, partials.sum(dim=1)
+        if q8:
+            launches_int8 += 1
+        elif form == "stack":
+            launches_stack += 1
+        elif form == "raw":
+            launches_raw += 1
+        else:
+            launches += 1
+    stats = partials.sum(dim=1)
+    if deint:
+        return grid.permute(0, 2, 3, 1), stats
+    return (grid if form != "nchw"
+            else voxel_scatter.relayout(grid, layout, th)), stats

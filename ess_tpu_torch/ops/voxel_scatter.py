@@ -31,6 +31,12 @@ item, empty tiles as zeros, so the grid needs no zero fill.
 The plan is computed here, where the CPU tests reach it, and passed to the
 kernels as arguments; the CUDA launchers recompute the layout and refuse a
 plan that disagrees: change both sides together.
+
+The voxelizer pins select forms of the same core with the same plan:
+the drain's :data:`LAYOUTS` (:func:`relayout` is their plain version on an
+NCHW grid) and the int8 tent planes (``oh_dtype='int8'``, :func:`corners`
+with ``q8``: the TPU kernel's quantized corner weights, integer products
+summed exactly, :func:`cells_to_f32`).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 TILE_W = 128                 # tile columns = accumulator row pitch, cells
@@ -62,6 +69,18 @@ BUFS = 1
 # else 256.
 FEW_ITEMS_PER_SLOT = 1
 MODES = ("tile", "band")
+# Where the drain stores a tile (voxel_scatter.cuh Layout, in this order):
+# the NCHW grid, the TPU kernel's raw band accumulator, the space-to-depth
+# NCHW stack.
+LAYOUTS = ("nchw", "raw", "stack")
+# every layout a voxelizer hands out: the drain's and JAX's views of a grid
+GRID_LAYOUTS = ("nchw", "nhwc", "s2d", "raw", "stack")
+COL_SLOT = TILE_W + 8        # B3's TPU column slot (voxel_pallas.COL_SLOT)
+Q_SCALE = 127.0              # the int8 planes' scale (INT8_SCALE)
+FROM_Q = float(np.float32(1.0) / np.float32(Q_SCALE * Q_SCALE))
+# tent-plane operand types of PipelineConfig.voxel_oh_dtype: 'bfloat16' and
+# 'float32' run the f32 core, 'int8' the int8 planes
+OH_DTYPES = ("bfloat16", "float32", "int8")
 
 
 def tile_h_for_bins(bins: int) -> int:
@@ -206,3 +225,106 @@ def fixed_point_bound(n_corners: int) -> int:
     ``2^FRAC_BITS`` units. A cell cannot overflow while this is below
     ``2^63``: for any record count below ``2^31``."""
     return n_corners << FRAC_BITS
+
+
+def quantized(oh_dtype) -> bool:
+    """Whether ``oh_dtype`` (one of :data:`OH_DTYPES`, a torch dtype of
+    them, or None: the default) selects the int8 tent planes. Another
+    value raises."""
+    if oh_dtype is None:
+        return False
+    name = (str(oh_dtype).removeprefix("torch.")
+            if isinstance(oh_dtype, torch.dtype) else oh_dtype)
+    if name not in OH_DTYPES:
+        raise ValueError(f"oh_dtype {oh_dtype!r} not in {OH_DTYPES}")
+    return name == "int8"
+
+
+def corners(yl: torch.Tensor, xl: torch.Tensor, ts: torch.Tensor,
+            p: torch.Tensor, *, q8: bool = False, gap: int = 0, cb=None):
+    """The 8 trilinear corners of events at (yl, xl) of their tile's frame,
+    time ``ts`` and value ``p``: a list of (bin, row, column, value), rows
+    and columns in the same frame. f32 values (the plain versions' corner
+    products), or with ``q8`` the integer products of
+    ``voxel_scatter.cuh::deposit_q8``: the TPU kernel's int8 row and column
+    weights, each the same f32 expression (row gap ``gap``, global column
+    base ``cb``), rounded half to even."""
+    if not q8:
+        yi, xi, c0 = torch.floor(yl), torch.floor(xl), torch.floor(ts)
+        fy, fx, wt = yl - yi, xl - xi, ts - c0
+        out = []
+        for dc, s in ((0, p * (1.0 - wt)), (1, p * wt)):
+            for dy, wy in ((0, 1.0 - fy), (1, fy)):
+                for dx, wx in ((0, 1.0 - fx), (1, fx)):
+                    out.append((c0.long() + dc, yi.long() + dy,
+                                xi.long() + dx, s * wy * wx))
+        return out
+    cf = torch.floor(ts)
+    wt = ts - cf
+    s0, s1 = p * (1.0 - wt), p * wt
+    fold = torch.where(yl < 0, 1.0 + yl, torch.ones_like(yl))
+    s0, s1 = s0 * fold, s1 * fold
+    yl = torch.clamp(yl, min=0.0)
+    sq = (s0 * Q_SCALE, s1 * Q_SCALE)
+    g = float(gap)
+    cg = cf * g                                  # exact
+    p0 = cg + yl
+    ylq = p0 - cg                                # exact
+    yf, xf = torch.floor(ylq), torch.floor(xl)
+    cx = (cb + xl) * Q_SCALE
+    qx, qy = [], [[], []]
+    for d in (0, 1):
+        col = (cb + (xf + d)) * Q_SCALE          # an exact integer
+        qx.append(torch.round(torch.clamp(
+            Q_SCALE - (col - cx).abs(), min=0.0)).long())
+        w0 = torch.clamp(1.0 - ((yf + d) - ylq).abs(), min=0.0)
+        w1 = w0
+        if gap % 8:                              # the tall row plane
+            row = (cf + 1.0) * g + (yf + d)
+            w1 = torch.clamp(1.0 - ((row - p0) - g).abs(), min=0.0)
+        qy[0].append(torch.round(w0 * sq[0]).long())
+        qy[1].append(torch.round(w1 * sq[1]).long())
+    c0, r0, q0 = cf.long(), yf.long(), xf.long()
+    return [(c0 + dc, r0 + dy, q0 + dx, qy[dc][dy] * qx[dx])
+            for dc in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+
+
+def cells_to_f32(flat: torch.Tensor) -> torch.Tensor:
+    """Summed cells -> f32: int8 products (int64) scaled as the drain does,
+    fl(fl(sum) * fl(1 / 127^2)); f32 sums as they are."""
+    if flat.dtype != torch.int64:
+        return flat
+    return flat.to(torch.float32) * torch.tensor(FROM_Q, dtype=torch.float32,
+                                                 device=flat.device)
+
+
+def check_layout(layout: str, allowed=GRID_LAYOUTS) -> None:
+    """Raise unless ``layout`` is one of ``allowed``; ``'s4d'`` (4x4 quad
+    blocks) with its own reason."""
+    if layout == "s4d":
+        raise ValueError("layout 's4d' (4x4 quad blocks) comes with the "
+                         "quad-block rollout, which the port does not have "
+                         "yet")
+    if layout not in allowed:
+        raise ValueError(f"layout {layout!r} not in {allowed}")
+
+
+def relayout(grid: torch.Tensor, layout: str,
+             tile_h: int = 0) -> torch.Tensor:
+    """An NCHW grid (B, C, H, W) in one of :data:`GRID_LAYOUTS`: itself,
+    ``'nhwc'`` (B, H, W, C) (a view), the raw band accumulator (B, H /
+    tile_h, C * tile_h, W), the space-to-depth stack ``'stack'`` (B, 4C,
+    H / 2, W / 2), channel (py * 2 + px) * C + c, or its blocks ``'s2d'``
+    (B, H / 2, W / 2, 4C) (a copy, viewed)."""
+    check_layout(layout)
+    b, c, h, w = grid.shape
+    if layout == "nchw":
+        return grid
+    if layout == "nhwc":
+        return grid.permute(0, 2, 3, 1)
+    if layout == "raw":
+        return grid.view(b, c, h // tile_h, tile_h, w).permute(
+            0, 2, 1, 3, 4).reshape(b, h // tile_h, c * tile_h, w)
+    stack = grid.view(b, c, h // 2, 2, w // 2, 2).permute(
+        0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
+    return stack if layout == "stack" else stack.permute(0, 2, 3, 1)

@@ -18,7 +18,10 @@ launch a call on the persistent scatter core ``csrc/voxel_scatter.cuh``
 corners from its own event range and those of its upper, left and
 upper-left neighbours, so no halo leaves the tile and nothing is folded. On
 a CPU tensor it runs :func:`voxelize_tiled_ref`, the plain PyTorch scatter
-of the same events.
+of the same events. ``oh_dtype='int8'`` takes the TPU kernel's int8 tent
+planes in halo mode (the same launch's int8 form: integer corner products
+summed exactly); ``layout`` ``'nhwc'`` and ``'s2d'`` are the JAX function's
+views of the grid.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from ess_tpu_torch.ops.conv_halo import sm_count
 from ess_tpu_torch.ops.voxel import grid_stats, masked_time_norm
 from ess_tpu_torch.ops.voxel_scatter import TILE_W, tile_h_for_bins
 
-launches = 0   # kernel launches of voxelize_tiled (CUDA tensors only)
+launches = 0        # kernel launches of voxelize_tiled (CUDA tensors only)
+launches_int8 = 0   # those of its int8 form
 
 
 def tile_id(x: torch.Tensor, y: torch.Tensor, width: int,
@@ -120,13 +124,18 @@ def host_tile_bin_ref(raw_windows: np.ndarray, valid: np.ndarray, *,
 def voxelize_tiled_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                        pol: torch.Tensor, offsets: torch.Tensor, *,
                        bins: int, height: int, width: int,
-                       stats: bool = False):
+                       stats: bool = False, layout: str = "nchw",
+                       oh_dtype=None):
     """Plain PyTorch version of :func:`voxelize_tiled`: an index_add scatter
     of each event's 8 trilinear corners in its own tile's frame. A corner
     deposits only inside the tile or its +1 halo row and column, inside the
     grid and inside the bin range; events at or past ``offsets[:, -1]`` are
     not read. ``stats``: also the grid's per-window stats
-    (``voxel.grid_stats``)."""
+    (``voxel.grid_stats``). With ``oh_dtype='int8'`` an int64 scatter of
+    the int8 planes' integer products (``voxel_scatter.corners``: row gap
+    tile_h + 1, column base tile id * COL_SLOT)."""
+    q8 = voxel_scatter.quantized(oh_dtype)
+    voxel_scatter.check_layout(layout, TILED_LAYOUTS)
     b, n = x.shape
     th = tile_h_for_bins(bins)
     ntx = width // TILE_W
@@ -138,32 +147,35 @@ def voxelize_tiled_ref(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                      min=0)
     yl = y - ty * th
     xl = x - tx * TILE_W
-    yi, xi, c0 = torch.floor(yl), torch.floor(xl), torch.floor(ts)
-    fy, fx, wt = yl - yi, xl - xi, ts - c0
     row0 = ty.long() * th
     col0 = tx.long() * TILE_W
     bidx = torch.arange(b, device=x.device)[:, None]
-    flat = torch.zeros(b * bins * height * width, dtype=torch.float32,
+    flat = torch.zeros(b * bins * height * width,
+                       dtype=torch.int64 if q8 else torch.float32,
                        device=x.device)
-    for dc, s in ((0, pol * (1.0 - wt)), (1, pol * wt)):
-        c = c0.long() + dc
-        for dy, wy in ((0, 1.0 - fy), (1, fy)):
-            r = yi.long() + dy
-            for dx, wx in ((0, 1.0 - fx), (1, fx)):
-                q = xi.long() + dx
-                ok = (live & (c >= 0) & (c < bins) & (r >= 0) & (r <= th)
-                      & (q >= 0) & (q <= TILE_W) & (row0 + r < height)
-                      & (col0 + q < width))
-                idx = (((bidx * bins + c) * height + row0 + r) * width
-                       + col0 + q)
-                flat.index_add_(0, idx[ok], (s * wy * wx)[ok])
-    grid = flat.view(b, bins, height, width)
-    return (grid, grid_stats(grid)) if stats else grid
+    for c, r, q, v in voxel_scatter.corners(
+            yl, xl, ts, pol, q8=q8, gap=th + 1,
+            cb=(ty * ntx + tx) * voxel_scatter.COL_SLOT):
+        ok = (live & (c >= 0) & (c < bins) & (r >= 0) & (r <= th)
+              & (q >= 0) & (q <= TILE_W) & (row0 + r < height)
+              & (col0 + q < width))
+        if q8:
+            ok &= v != 0
+        idx = (((bidx * bins + c) * height + row0 + r) * width + col0 + q)
+        flat.index_add_(0, idx[ok], v[ok])
+    grid = voxel_scatter.cells_to_f32(flat).view(b, bins, height, width)
+    out = voxel_scatter.relayout(grid, layout)
+    return (out, grid_stats(grid)) if stats else out
+
+
+# B3's layouts: the raw and stack forms are the folded wire's
+TILED_LAYOUTS = ("nchw", "nhwc", "s2d")
 
 
 def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                    pol: torch.Tensor, offsets: torch.Tensor, *, bins: int,
-                   height: int, width: int, stats: bool = False):
+                   height: int, width: int, stats: bool = False,
+                   layout: str = "nchw", oh_dtype=None):
     """(B, N) tile-sorted events + (B, n_tiles + 1) offsets -> voxel grids
     (B, bins, height, width) f32; with ``stats`` also (B, 3) f32 per-window
     (sum, sum of squares, nonzero count) of the grid: on the card the
@@ -174,10 +186,14 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     [0, bins - 1], ``pol`` the signed value (+-1, zero for dropped events);
     events are sorted by :func:`tile_id` and ``offsets`` delimits each
     tile's range. ``height`` is a multiple of ``tile_h_for_bins(bins)`` and
-    ``width`` of 128.
+    ``width`` of 128. ``layout`` ``'nhwc'`` (B, H, W, bins) or ``'s2d'``
+    (B, H/2, W/2, 4 * bins) instead of NCHW (``'s4d'`` raises);
+    ``oh_dtype='int8'`` the int8 tent planes.
     """
     th = tile_h_for_bins(bins)
     b, n = x.shape
+    voxel_scatter.check_layout(layout, TILED_LAYOUTS)
+    q8 = voxel_scatter.quantized(oh_dtype)
     if height % th or width % TILE_W:
         raise ValueError(f"grid {height}x{width} is not a multiple of the "
                          f"{th}x{TILE_W} tile")
@@ -190,7 +206,8 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
         raise ValueError(f"offsets {tuple(offsets.shape)} != {(b, n_tiles + 1)}")
     if x.device.type == "cpu":
         return voxelize_tiled_ref(x, y, ts, pol, offsets, bins=bins,
-                                  height=height, width=width, stats=stats)
+                                  height=height, width=width, stats=stats,
+                                  layout=layout, oh_dtype=oh_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"voxelize_tiled: unsupported device {x.device}")
     for name, t in (("x", x), ("y", y), ("ts", ts), ("pol", pol)):
@@ -204,7 +221,7 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
                          f"on {x.device}")
     from ess_tpu_torch import kernels
 
-    global launches
+    global launches, launches_int8
     lib = kernels.get_lib()
     plan = voxel_scatter.scatter_plan(bins, height, width, b,
                                       sm_count(x.device))
@@ -214,7 +231,7 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     cols = (x.data_ptr(), y.data_ptr(), ts.data_ptr(), pol.data_ptr(),
             offsets.data_ptr(), grid.data_ptr())
     shape = (b, n, bins, th, n_ty, n_tx, plan.threads, plan.grid, plan.smem,
-             stream)
+             int(q8), stream)
     if stats:
         partials = torch.empty((b, n_tiles, 3), dtype=torch.float32,
                                device=x.device)
@@ -222,8 +239,12 @@ def voxelize_tiled(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor,
     else:
         err = lib.ess_voxel_tiled(*cols, *shape)
     kernels.check(err, "voxel_tiled kernel")
-    launches += 1
-    return (grid, partials.sum(dim=1)) if stats else grid
+    if q8:
+        launches_int8 += 1
+    else:
+        launches += 1
+    out = voxel_scatter.relayout(grid, layout)
+    return (out, partials.sum(dim=1)) if stats else out
 
 
 def voxelize_trilinear(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,

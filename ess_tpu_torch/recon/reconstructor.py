@@ -14,7 +14,11 @@ them; a model with a norm rolls out in the standard layout (JAX's
 :meth:`Reconstructor.rollout_events` is JAX's ``rollout_events``, the
 in-loop form: each window is voxelized from the batch's event columns
 just before its step, so one window's grid is alive at a time instead of
-the (T, B, C, H, W) stack.
+the (T, B, C, H, W) stack. :meth:`Reconstructor.rollout` also takes
+space-to-depth block windows (``windows_s2d``), and
+:meth:`Reconstructor.rollout_raw` (JAX's) maps each window of a stack or
+raw build (``EventPipeline.build_all_stack`` / ``build_all_raw``) to its
+block window just before its step.
 """
 
 from __future__ import annotations
@@ -99,16 +103,43 @@ class Reconstructor:
                           block_conv_impl=self.block_conv_impl)
 
     def rollout(self, windows: torch.Tensor, init_state=None, *,
-                decode: bool = True):
+                decode: bool = True, windows_s2d: bool = False,
+                time_major: bool = True):
         """(T, B, C, H, W) windows -> (final image, final state, final
         latent). ``decode=False`` decodes no window (the image is None):
-        the train step reads only the latent."""
+        the train step reads only the latent. ``windows_s2d``: (T, B, 4C,
+        H/2, W/2) space-to-depth block windows (:meth:`step`'s
+        ``events_s2d``); ``time_major=False``: (B, T, ...)."""
+        if not time_major:
+            windows = windows.transpose(0, 1)
         t_dim, b = windows.shape[:2]
         state = (self.init_state(b, windows.device) if init_state is None
                  else init_state)
         for i in range(t_dim - 1):
-            _, state, _ = self.step(windows[i], state, decode=False)
-        return self.step(windows[t_dim - 1], state, decode=decode)
+            _, state, _ = self.step(windows[i], state, decode=False,
+                                    events_s2d=windows_s2d)
+        return self.step(windows[t_dim - 1], state, decode=decode,
+                         events_s2d=windows_s2d)
+
+    def rollout_raw(self, raw: torch.Tensor, stats: Optional[torch.Tensor],
+                    window_map: Callable[..., torch.Tensor],
+                    init_state=None, *, decode: bool = True):
+        """A stack or raw build's ``raw`` (T, B, ...) and ``stats`` (T, B,
+        3) or None -> (final image, final state, final latent), as
+        :meth:`rollout` with ``windows_s2d``: window ``i`` is
+        ``window_map(raw[i], stats[i])``, mapped just before its step."""
+        t_dim, b = raw.shape[:2]
+        state = (self.init_state(b, raw.device) if init_state is None
+                 else init_state)
+
+        def window(i):
+            return window_map(raw[i], None if stats is None else stats[i])
+
+        for i in range(t_dim - 1):
+            _, state, _ = self.step(window(i), state, decode=False,
+                                    events_s2d=True)
+        return self.step(window(t_dim - 1), state, decode=decode,
+                         events_s2d=True)
 
     def rollout_events(self, soa: Dict[str, torch.Tensor],
                        voxel_fn: Callable[..., torch.Tensor],

@@ -12,12 +12,16 @@ seeded weights and one batch's events:
                         'pallas_int8'``, B2-int8), tile wire
   2. +folded-voxel      the ghost-folded x-slot band wire (B1), the
                         default
-  3. +block-conv        the head and first-encoder block convs on the fused
+  3. +raw-windows       ``raw_windows``: B1's raw band accumulator, each
+                        window mapped to its blocks just before its step
+  4. +stack-emit        ``stack_windows``: B1 emits the space-to-depth
+                        window stack
+  5. +voxel-int8        ``voxel_oh_dtype='int8'``: B1's int8 tent planes
+  6. +block-conv        the head and first-encoder block convs on the fused
                         conv kernels (``block_conv_impl='pallas'``, B4-int8)
 
-The JAX ladder's ``+raw-windows``, ``+stack-emit`` and ``+voxel-int8``
-rungs wait for A17 (the voxelizer pins ``layout='raw' | 'stack'`` and
-``voxel_oh_dtype='int8'``, which the port does not have yet)::
+Rungs 3-5 are the JAX ladder's voxelizer pins, each alone over rung 2 as
+JAX runs them::
 
     python -m ess_tpu_torch.tools.bench_increments [--iters=10]
         [--only=0,2]
@@ -41,17 +45,22 @@ import torch
 
 from ess_tpu_torch import bench, resolve_device
 from ess_tpu_torch.core.config import Config
+from ess_tpu_torch.data.pipeline import EventPipeline
 from ess_tpu_torch.tools import device_line, parse_args
 from ess_tpu_torch.train import builder
 
-# (name, model changes, batch wire, rollout form of bench.apply_form)
-Rung = Tuple[str, Dict[str, object], str, Optional[str]]
+# (name, model changes, batch wire, rollout form of bench.apply_form,
+# pipeline changes)
+Rung = Tuple[str, Dict[str, object], str, Optional[str], Dict[str, object]]
 LADDER: List[Rung] = [
     ("xla-cells", {"lstm_impl_train": None, "lstm_impl": "xla"}, "tile",
-     None),
-    ("int8-cells", {}, "tile", None),
-    ("+folded-voxel (default)", {}, "band", None),
-    ("+block-conv", {}, "band", "block_pallas"),
+     None, {}),
+    ("int8-cells", {}, "tile", None, {}),
+    ("+folded-voxel (default)", {}, "band", None, {}),
+    ("+raw-windows", {}, "band", None, {"raw_windows": True}),
+    ("+stack-emit", {}, "band", None, {"stack_windows": True}),
+    ("+voxel-int8", {}, "band", None, {"voxel_oh_dtype": "int8"}),
+    ("+block-conv", {}, "band", "block_pallas", {}),
 ]
 
 
@@ -76,11 +85,11 @@ def run_ladder(ladder: Sequence[Rung], cfg: Config,
                only: Optional[Sequence[int]] = None) -> List[dict]:
     """Each rung of ``ladder`` (``only`` its indices): ``cfg`` with the
     rung's model changes, seeded modules (seed 0) in the rung's form,
-    ``make_step(mods, pipeline)`` on the rung's batch; prints and returns
-    one line a rung."""
-    pipeline = builder.make_pipeline(cfg, train=False)
+    ``make_step(mods, pipeline)`` on the rung's batch, the pipeline with
+    the rung's changes; prints and returns one line a rung."""
+    base = builder.make_pipeline(cfg, train=False)
     lines, prev = [], None
-    for i, (name, tweak, wire, form) in enumerate(ladder):
+    for i, (name, tweak, wire, form, pins) in enumerate(ladder):
         if only is not None and i not in only:
             continue
         rung_cfg = dataclasses.replace(
@@ -89,6 +98,8 @@ def run_ladder(ladder: Sequence[Rung], cfg: Config,
         builder.init_params(mods, torch.Generator().manual_seed(0))
         mods = bench.apply_form(mods, form)
         state = builder.init_state(mods)
+        pipeline = (EventPipeline(dataclasses.replace(base.cfg, **pins),
+                                  base.rectify_map) if pins else base)
         wps = rate(make_step(mods, pipeline), state, batches[wire], iters)
         b, t = batches[wire]["ev_x"].shape[:2]
         delta = f"  ({wps - prev:+.1f} w/s vs prev rung)" if prev else ""

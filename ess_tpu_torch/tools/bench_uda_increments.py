@@ -7,11 +7,13 @@ events at 440x640), on the x-slot band wire:
 
   0. xla-cells          the library cell (``lstm_impl='xla'``)
   1. int8-cells         the int8 cell kernel (B2-int8)
-  2. +block-conv        the head and first-encoder block convs on the fused
+  2. +raw-windows       ``raw_windows``: B1's raw band accumulator, each
+                        window mapped to its blocks just before its step
+  3. +block-conv        the head and first-encoder block convs on the fused
                         conv kernels (``block_conv_impl='pallas'``)
 
 The JAX ladder's ``+blocked-stem`` rung (the ResNet stem in space-to-depth
-block space) and ``+raw-windows`` wait for A17::
+block space) waits for the model half of A17::
 
     python -m ess_tpu_torch.tools.bench_uda_increments [--iters=8]
         [--only=0,2]
@@ -35,9 +37,10 @@ from ess_tpu_torch.tools.bench_increments import Rung, run_ladder
 
 LADDER: List[Rung] = [
     ("xla-cells", {"lstm_impl_train": None, "lstm_impl": "xla"}, "band",
-     None),
-    ("int8-cells (default)", {}, "band", None),
-    ("+block-conv", {}, "band", "block_pallas"),
+     None, {}),
+    ("int8-cells (default)", {}, "band", None, {}),
+    ("+raw-windows", {}, "band", None, {"raw_windows": True}),
+    ("+block-conv", {}, "band", "block_pallas", {}),
 ]
 
 

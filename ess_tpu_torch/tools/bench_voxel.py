@@ -67,17 +67,13 @@ def attribution_libs(kernels) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for k, path in paths.items()}
     libs = {}
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     for k, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for VOXEL_SCATTER_SKIP={k}:\n"
                                + err)
         lib = ctypes.CDLL(paths[k])
-        lib.ess_voxel_folded.argtypes = [vp] * 7 + [ci] * 10 + [vp]
-        lib.ess_voxel_folded_band.argtypes = [vp] * 7 + [ci] * 9 + [vp]
-        lib.ess_voxel_tiled.argtypes = [vp] * 6 + [ci] * 9 + [vp]
-        lib.ess_voxel_tiled_stats.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+        kernels.voxel_argtypes(lib)
         libs[k] = lib
     return libs
 

@@ -17,6 +17,15 @@ Counterparts of ``ess_tpu/train/supervised.py::make_train_step`` and
   permutes them to (T, B, C, H, W) where they lie, which must be the
   model's device.
 
+A precomputed event batch takes JAX's branches (:func:`rollout_form`):
+with ``stack_windows`` B1 emits the space-to-depth window stack
+(``build_all_stack``), with ``raw_windows`` the raw band accumulator
+(``build_all_raw``), each mapped to a block window just before its step
+(``Reconstructor.rollout_raw``); ``windows_s2d=True`` (a step keyword)
+builds space-to-depth windows in one batch (``build_all(layout='s2d')``),
+JAX's default branch, which the port keeps opt-in; otherwise the standard
+build. The stack and raw windows equal the standard build's bit for bit.
+
 - Train: voxelize all windows once (with the flip augmentation), roll the
   frozen backbone out under ``torch.no_grad`` on the train rollout's
   ConvLSTM cell with no decoder (the head reads only the latent; XLA drops
@@ -77,13 +86,46 @@ def batch_size(batch: Dict[str, torch.Tensor]) -> int:
     raise KeyError("a batch needs events, ev_x or ev_xq")
 
 
+def rollout_form(recon, batch: Dict[str, torch.Tensor],
+                 pipeline: Optional[EventPipeline], *, train: bool,
+                 precompute: bool = True, windows_s2d: bool = False) -> str:
+    """The branch :func:`_rollout` takes (``'dense'``, ``'in_loop'``,
+    ``'stack'``, ``'raw'``, ``'s2d'`` or ``'standard'``), under JAX's
+    conditions (``ess_tpu/train/supervised.py:52-69``): a
+    precomputed event batch goes to a block-window branch where the
+    pipeline can build one (``s2d_capable``), the rollout runs in block
+    space at a size that needs no pad, the windows come out at that size,
+    and a resize rides on band offsets; then the stack build if
+    ``stack_capable``, else the raw build if ``raw_capable``, else the s2d
+    build if ``windows_s2d``; else the standard build."""
+    if "events" in batch:
+        return "dense"
+    if not precompute:
+        return "in_loop"
+    cfg = pipeline.cfg
+    g = recon.geometry
+    blocks = (pipeline.s2d_capable(train=train) and recon.use_blocks
+              and (cfg.resize_to is None or "ev_band_offsets" in batch)
+              and (g.padded_height, g.padded_width)
+              == (recon.height, recon.width)
+              and tuple(cfg.output_size(train))
+              == (recon.height, recon.width))
+    if blocks and pipeline.stack_capable(train=train, batch=batch):
+        return "stack"
+    if blocks and pipeline.raw_capable(train=train, batch=batch):
+        return "raw"
+    return "s2d" if blocks and windows_s2d else "standard"
+
+
 def _rollout(recon, batch: Dict[str, torch.Tensor],
              pipeline: Optional[EventPipeline], *,
              aug: AugmentParams = AugmentParams(), decode: bool = True,
-             precompute: bool = True):
+             precompute: bool = True, train: bool = False,
+             windows_s2d: bool = False):
     """The rollout of a batch in one of the three forms (module docstring)
     -> (final image or None, final latent, labels), JAX's ``_rollout``.
-    ``aug`` applies to event batches only."""
+    ``aug`` applies to event batches only; ``train`` (a train step's
+    rollout) and ``windows_s2d`` choose the branch (:func:`rollout_form`)."""
     if "events" in batch:
         events = batch["events"]
         device = next(recon.model.parameters()).device
@@ -95,10 +137,22 @@ def _rollout(recon, batch: Dict[str, torch.Tensor],
         return img, latent, batch.get("label")
     if pipeline is None:
         raise ValueError("an event batch needs an EventPipeline")
+    form = rollout_form(recon, batch, pipeline, train=train,
+                        precompute=precompute, windows_s2d=windows_s2d)
+    dtype = recon.model.dtype
+    if form in ("stack", "raw"):
+        build = (pipeline.build_all_stack if form == "stack"
+                 else pipeline.build_all_raw)
+        built, labels, window_map = build(batch, aug=aug, out_dtype=dtype)
+        img, _, latent = recon.rollout_raw(built["raw"], built["stats"],
+                                           window_map, decode=decode)
+        return img, latent, labels
     if precompute:
-        windows, labels = pipeline.build_all(batch, aug=aug,
-                                             out_dtype=recon.model.dtype)
-        img, _, latent = recon.rollout(windows, decode=decode)
+        windows, labels = pipeline.build_all(
+            batch, aug=aug, out_dtype=dtype,
+            layout="s2d" if form == "s2d" else "nchw")
+        img, _, latent = recon.rollout(windows, decode=decode,
+                                       windows_s2d=form == "s2d")
         return img, latent, labels
     if "ev_xq" in batch:
         batch = pipeline.decode_packed(batch)
@@ -127,13 +181,14 @@ def _step_augment(pipeline, batch, aug, seed: int, step: int,
 
 def make_train_step(mods: ESSModules,
                     pipeline: Optional[EventPipeline] = None, *,
-                    precompute: bool = True
+                    precompute: bool = True, windows_s2d: bool = False
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, batch, aug=None) -> {"loss", "semseg_sensor_b_loss"}``;
     updates ``state`` (the head's parameters through ``state.opt_back``,
     ``state.step``) in place. ``batch`` in any form of the module
-    docstring (an event batch needs ``pipeline``; ``precompute`` picks
-    its rollout). ``aug`` (the global batch's draws) defaults to draws
+    docstring (an event batch needs ``pipeline``; ``precompute`` and
+    ``windows_s2d`` pick its rollout). ``aug`` (the global batch's draws)
+    defaults to draws
     from a generator seeded by ``cfg.seed`` and ``state.step``; a dense
     batch takes none. Under data parallel ``batch`` is this rank's rows of
     the global batch, and the losses and the update are the global
@@ -146,7 +201,8 @@ def make_train_step(mods: ESSModules,
         aug = _step_augment(pipeline, batch, aug, cfg.seed, state.step)
         with torch.no_grad():
             _, latent, labels = _rollout(recon, batch, pipeline, aug=aug,
-                                         decode=False, precompute=precompute)
+                                         decode=False, precompute=precompute,
+                                         train=True, windows_s2d=windows_s2d)
         params = [p for p in state.head.parameters() if p.requires_grad]
         logits = state.head(latent)[1]
         loss = task_loss(
@@ -164,19 +220,20 @@ def make_train_step(mods: ESSModules,
 
 def make_eval_step(mods: ESSModules,
                    pipeline: Optional[EventPipeline] = None, *,
-                   precompute: bool = True
+                   precompute: bool = True, windows_s2d: bool = False
                    ) -> Callable[[Dict[str, torch.Tensor]],
                                  Dict[str, torch.Tensor]]:
     """``step(batch) -> {"loss", "cm", "pred", "img_fake", "latent8"}``;
-    ``img_fake`` and ``latent8`` are NCHW f32. ``batch``, ``pipeline`` and
-    ``precompute`` as for :func:`make_train_step`."""
+    ``img_fake`` and ``latent8`` are NCHW f32. ``batch``, ``pipeline``,
+    ``precompute`` and ``windows_s2d`` as for :func:`make_train_step`."""
     cfg = mods.cfg
     recon = mods.recon_val
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         img_fake, latent, labels = _rollout(recon, batch, pipeline,
-                                            precompute=precompute)
+                                            precompute=precompute,
+                                            windows_s2d=windows_s2d)
         logits = mods.head(latent)[1]
         lh, lw = labels.shape[1], labels.shape[2]
         if tuple(logits.shape[2:]) != (lh, lw):

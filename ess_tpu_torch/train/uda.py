@@ -164,7 +164,8 @@ def make_train_step(mods: ESSModules,
                             draw_augment)
         with torch.no_grad():
             img_fake, latent_real, labels_b = _rollout(
-                recon, b_batch, pipeline, aug=aug, precompute=precompute)
+                recon, b_batch, pipeline, aug=aug, precompute=precompute,
+                train=True)
         p_front = [p for p in state.front.parameters() if p.requires_grad]
         p_back = [p for p in state.head.parameters() if p.requires_grad]
         losses, front_loss, back_loss = uda_losses(

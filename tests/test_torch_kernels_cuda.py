@@ -1575,7 +1575,8 @@ def test_voxel_scatter_stores_every_element(dev, kernel):
         err = lib.ess_voxel_folded(
             *[a.data_ptr() for a in args], grid.data_ptr(),
             partials.data_ptr(), 2, 3, 5, 24, 2, 3, w, plan.threads,
-            plan.grid, plan.smem, torch.cuda.current_stream().cuda_stream)
+            plan.grid, plan.smem, 0, 0,
+            torch.cuda.current_stream().cuda_stream)
         want, stats_r = vf.voxelize_folded_ref(x, y, ts, pol, offs, bins=5,
                                                height=h, width=w)
         torch.cuda.synchronize()
@@ -1585,7 +1586,7 @@ def test_voxel_scatter_stores_every_element(dev, kernel):
     else:
         err = lib.ess_voxel_tiled(
             *[a.data_ptr() for a in args], grid.data_ptr(), 2, 3, 5, 24, 2,
-            3, plan.threads, plan.grid, plan.smem,
+            3, plan.threads, plan.grid, plan.smem, 0,
             torch.cuda.current_stream().cuda_stream)
         want = vt.voxelize_tiled_ref(x, y, ts, pol, offs, bins=5, height=h,
                                      width=w)
@@ -1620,8 +1621,9 @@ def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
     """The three launchers (B3, B1, B3-legacy) recompute the accumulator
     layout and refuse (an error, no launch) a plan that disagrees with it: shared memory off by a
     row or of two accumulators, threads the kernel is not built for, no
-    blocks, more blocks than items, another tile height; the wrappers' own
-    plans run."""
+    blocks, more blocks than items, another tile height, a form the kernel
+    does not have (B3-legacy's stack, an unknown layout); the wrappers'
+    own plans run, in every form."""
     args = [a.to(dev) for a in tiled_inputs(np.random.default_rng(14), 2,
                                             2000, 48, 256)]
     grid = torch.empty((2, 5, 48, 256), device=dev)
@@ -1637,26 +1639,34 @@ def test_voxel_scatter_launchers_refuse_a_plan_that_disagrees(dev):
             (24, 2, 2, plan.threads, 9, plan.smem),
             (12, 4, 2, plan.threads, plan.grid, 5 * 12 * row)]
     for bad in bads:
-        assert lib.ess_voxel_tiled(*head, *bad, stream) != 0, bad
-    assert lib.ess_voxel_tiled(*head, *good, stream) == 0
+        assert lib.ess_voxel_tiled(*head, *bad, 0, stream) != 0, bad
+    assert lib.ess_voxel_tiled(*head, *good, 0, stream) == 0
+    assert lib.ess_voxel_tiled(*head, *good, 1, stream) == 0     # int8
     partials = torch.empty((2, 4, 3), device=dev)
     fhead = [a.data_ptr() for a in args] + [grid.data_ptr(),
                                             partials.data_ptr(), 2, 2000, 5]
     for bad in bads:
         t_h, n_b, n_s = bad[:3]
         assert lib.ess_voxel_folded(*fhead, t_h, n_b, n_s, 256, *bad[3:],
-                                    stream) != 0, bad
-    assert lib.ess_voxel_folded(*fhead, 24, 2, 2, 256, *good[3:],
-                                stream) == 0
+                                    0, 0, stream) != 0, bad
+    for layout in (0, 1, 2):
+        for q8 in (0, 1):
+            assert lib.ess_voxel_folded(*fhead, 24, 2, 2, 256, *good[3:],
+                                        layout, q8, stream) == 0
+    assert lib.ess_voxel_folded(*fhead, 24, 2, 2, 256, *good[3:], 3, 0,
+                                stream) != 0
     # B3-legacy: offsets of n_bands + 1 columns, the band mode's plan
     band = vs.scatter_plan(5, 48, 256, 2, mode="band")
     assert (band.threads, band.grid, band.smem) == good[3:]
     for bad in bads:
         t_h, n_b = bad[:2]
         assert lib.ess_voxel_folded_band(*fhead, t_h, n_b, 256, *bad[3:],
-                                         stream) != 0, bad
-    assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:],
-                                     stream) == 0
+                                         0, 0, stream) != 0, bad
+    for layout, q8 in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:],
+                                         layout, q8, stream) == 0
+    assert lib.ess_voxel_folded_band(*fhead, 24, 2, 256, *good[3:], 2, 0,
+                                     stream) != 0          # no stack form
     torch.cuda.synchronize()
 
 
@@ -1888,3 +1898,87 @@ def test_window_at_a_time_matches_batched_launch(dev, wire):
         assert_normalized_close(one, batched[i])
     torch.cuda.synchronize()
     assert getattr(*counter) == n0 + 1 + t_dim
+
+
+# The voxelizer pins: the int8 tent planes and the raw and stack layouts.
+# Bounds: the int8 forms against their plain versions bit for bit (both add
+# the same integer products exactly and scale the sum by the same f32
+# multiply), the stats within 1e-3 / 1e-5 (the plain version sums the grid
+# in torch's order); the raw and stack forms equal the default form's grid
+# relaid out bit for bit, with the same stats bits (the drain reduces in
+# the same order in every layout).
+PIN_SHAPES = [(480, 640, 8, 100_000), (26, 170, 3, 5000)]
+
+
+@pytest.mark.parametrize("h,w,b,n", PIN_SHAPES)
+@pytest.mark.parametrize("slots", [True, False], ids=["B1", "B3-legacy"])
+def test_voxel_folded_pin_forms_match_plain(dev, slots, h, w, b, n):
+    """B1 (x-slot wire) and B3-legacy (full-width bands) in each form: the
+    int8 grid against the plain int8 version, the raw and stack layouts
+    (f32 and int8) against the NCHW grid relaid out, deint's s2d grid
+    against the s2d view; one launch a call, on its form's count; the stack
+    on the band wire raises."""
+    cols, offs = legacy_inputs(np.random.default_rng(h + b), b, n, h,
+                               w)[slots]
+    args, kw = band_operands(*cols, offs, num_bins=5, height=h, width=w)
+    on = [a.to(dev) for a in args]
+    th = vs.tile_h_for_bins(5)
+    wire = "" if slots else "_legacy"
+
+    def counted(form, oh, **k):
+        name = f"launches{wire}" + ("_int8" if oh == "int8" else
+                                    f"_{form}" if form else "")
+        n0 = getattr(vf, name)
+        out = vf.voxelize_folded(*on, **kw, oh_dtype=oh, **k)
+        torch.cuda.synchronize()
+        assert getattr(vf, name) == n0 + 1, name
+        return out
+
+    for oh in ("float32", "int8"):
+        grid, stats = counted(None, oh)
+        if oh == "int8":
+            ref, ref_stats = vf.voxelize_folded_ref(*args, **kw,
+                                                    oh_dtype=oh)
+            assert torch.equal(grid.cpu(), ref)
+            torch.testing.assert_close(stats.cpu(), ref_stats, atol=1e-3,
+                                       rtol=1e-5)
+        for layout in ("raw", "stack") if slots else ("raw",):
+            out, out_stats = counted(layout, oh, layout=layout)
+            assert torch.equal(out, vs.relayout(grid, layout, th)), layout
+            assert torch.equal(out_stats, stats), layout
+        s2d, s2d_stats = counted("stack" if slots else None, oh,
+                                 layout="s2d", deint=True)
+        assert torch.equal(s2d, vs.relayout(grid, "stack", th).permute(
+            0, 2, 3, 1)) and torch.equal(s2d_stats, stats)
+    if not slots:
+        with pytest.raises(ValueError):
+            vf.voxelize_folded(*on, **kw, layout="stack")
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_voxel_tiled_int8_matches_plain(dev, b):
+    """B3's int8 form at the streaming B=8 and B=1 on 480x640, events on
+    tile edges and borders (rows in (-1, 0) fold their weight into the
+    scales): the grid bit for bit against the plain int8 version, its
+    per-tile stats within 1e-3 / 1e-5 of the grid's, one launch."""
+    raw, valid = raw_windows(np.random.default_rng(30 + b), b, 100_000, 480,
+                             640, edges=True)
+    raw, valid, o = vt.host_tile_bin(raw, valid, height=480, width=640)
+    ts = masked_time_norm(torch.from_numpy(raw[..., 2]),
+                          torch.from_numpy(valid), 5)
+    pol = torch.where(torch.from_numpy(valid),
+                      torch.from_numpy(np.where(raw[..., 3] > 0, 1.0, -1.0)),
+                      0.0).float()
+    args = [torch.from_numpy(np.ascontiguousarray(raw[..., 0])),
+            torch.from_numpy(np.ascontiguousarray(raw[..., 1])), ts, pol,
+            torch.from_numpy(o)]
+    kw = dict(bins=5, height=480, width=640, oh_dtype="int8")
+    n0, n0_f32 = vt.launches_int8, vt.launches
+    grid, stats = vt.voxelize_tiled(*[a.to(dev).contiguous() for a in args],
+                                    stats=True, **kw)
+    torch.cuda.synchronize()
+    assert (vt.launches_int8, vt.launches) == (n0 + 1, n0_f32)
+    ref = vt.voxelize_tiled_ref(*args, **kw)
+    assert torch.equal(grid.cpu(), ref)
+    torch.testing.assert_close(stats.cpu(), grid_stats(ref), atol=1e-3,
+                               rtol=1e-5)

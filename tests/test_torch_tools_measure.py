@@ -195,12 +195,12 @@ def test_profile_lstm_runs_on_cpu(tmp_path):
 SHAPE, B, T, N = (24, 128), 2, 2, 600
 
 
-def tiny_cfg(model_name: str = "ess_supervised") -> Config:
+def tiny_cfg(model_name: str = "ess_supervised", shape=SHAPE) -> Config:
     return Config(
         dataset=DatasetConfig(
-            sensor_a=ImageDatasetConfig(shape=SHAPE),
+            sensor_a=ImageDatasetConfig(shape=shape),
             sensor_b=EventDatasetConfig(
-                name="synthetic_events", shape=SHAPE, nr_events_data=T,
+                name="synthetic_events", shape=shape, nr_events_data=T,
                 nr_temporal_bins=5, nr_events_window=N)),
         model=ModelConfig(model_name=model_name, compute_dtype="bfloat16",
                           lstm_impl_train="pallas_int8",
@@ -209,18 +209,18 @@ def tiny_cfg(model_name: str = "ess_supervised") -> Config:
         optim=OptimConfig(batch_size_a=B, batch_size_b=B))
 
 
-def tiny_batch(wire: str, seed: int = 0) -> dict:
+def tiny_batch(wire: str, seed: int = 0, shape=SHAPE) -> dict:
     """B x T windows of N events binned on the host on ``wire``, labels."""
     rng = np.random.default_rng(seed)
     raw = np.zeros((B, T, N, 4), np.float32)
-    raw[..., 0] = rng.uniform(0, SHAPE[1] - 1, (B, T, N))
-    raw[..., 1] = rng.uniform(0, SHAPE[0] - 1, (B, T, N))
+    raw[..., 0] = rng.uniform(0, shape[1] - 1, (B, T, N))
+    raw[..., 1] = rng.uniform(0, shape[0] - 1, (B, T, N))
     raw[..., 2] = np.sort(rng.uniform(0, 1e4, (B, T, N)), axis=-1)
     raw[..., 3] = rng.integers(0, 2, (B, T, N))
     valid = np.ones((B, T, N), bool)
     fn = vt.host_tile_bin if wire == "tile" else vf.host_band_bin_folded
-    rs, vs_, os_ = zip(*(fn(raw[i], valid[i], height=SHAPE[0],
-                            width=SHAPE[1], bins=5) for i in range(B)))
+    rs, vs_, os_ = zip(*(fn(raw[i], valid[i], height=shape[0],
+                            width=shape[1], bins=5) for i in range(B)))
     cap = max(r.shape[1] for r in rs)
     pad = lambda a: np.pad(a, [(0, 0), (0, cap - a.shape[1])]
                            + [(0, 0)] * (a.ndim - 2))
@@ -228,9 +228,45 @@ def tiny_batch(wire: str, seed: int = 0) -> dict:
     out = {"ev_x": rs[..., 0], "ev_y": rs[..., 1], "ev_t": rs[..., 2],
            "ev_p": rs[..., 3], "ev_valid": vs_,
            f"ev_{wire}_offsets": np.stack(os_),
-           "label": rng.integers(0, 6, (B,) + SHAPE)}
+           "label": rng.integers(0, 6, (B,) + tuple(shape))}
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+def test_ladder_pin_rungs_take_their_branch(monkeypatch):
+    """The voxelizer-pin rungs of both ladders run their steps through the
+    pins' rollout branches (``supervised.rollout_form``) at a sensor of two
+    x-slots, where the stack build is possible: raw, stack and the int8
+    planes (the standard branch, the voxelizer's int8 form)."""
+    from ess_tpu_torch.ops import batch_voxel
+    from ess_tpu_torch.train import supervised
+
+    shape = (24, 256)
+    forms, planes = [], []
+    form_of = supervised.rollout_form
+    monkeypatch.setattr(supervised, "rollout_form", lambda *a, **k: (
+        forms.append(form_of(*a, **k)) or forms[-1]))
+    band = batch_voxel.voxelize_band
+    monkeypatch.setattr(batch_voxel, "voxelize_band", lambda *a, **k: (
+        planes.append(k.get("oh_dtype")) or band(*a, **k)))
+    lines = bench_increments.main(
+        ["--iters=1", "--only=2,3,4,5"], device="cpu",
+        cfg=tiny_cfg(shape=shape),
+        batches={"band": tiny_batch("band", shape=shape)})
+    assert [ln["rung"] for ln in lines] == [2, 3, 4, 5]
+    # two calls a rung (the warm-up and one timed step)
+    assert forms == ["standard"] * 2 + ["raw"] * 2 + ["stack"] * 2 + [
+        "standard"] * 2
+    assert planes[-2:] == ["int8"] * 2 and "int8" not in planes[:-2]
+    batch = tiny_batch("band", shape=shape)
+    del batch["label"]
+    g = torch.Generator().manual_seed(2)
+    batch["image_a"] = torch.randn(B, 1, *shape, generator=g)
+    batch["label_a"] = torch.randint(0, 6, (B,) + shape, generator=g)
+    forms.clear()
+    bench_uda_increments.main(["--iters=1", "--only=1,2"], device="cpu",
+                              cfg=tiny_cfg("ess", shape=shape), batch=batch)
+    assert forms == ["standard"] * 2 + ["raw"] * 2
 
 
 def test_bench_increments_runs_on_cpu():
