@@ -9,7 +9,9 @@ voxelizer and cell benches and profiles, the increments ladders), then
 the host event path from an in-memory
 recording to the eval and streaming steps, then the dense and in-loop
 forms of the steps, DSEC rectification on the card and A10's drift, then
-the voxelizer's opt-in pins (int8 tent planes, stack and raw windows).
+the voxelizer's opt-in pins (int8 tent planes, stack and raw windows),
+then the model's forms (the quad-block rollout, the fused-final head, the
+blocked ResNet stem and decoder conv, ``head_conv_impl``).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -226,7 +228,8 @@ exits non-zero, with no result line):
    and ``profile_lstm``, ``bench_increments`` and ``bench_uda_increments``
    (the ladders of the config levers, with the voxelizer pins' rungs
    ``+raw-windows``, ``+stack-emit``, ``+voxel-int8`` and the UDA
-   ladder's ``+raw-windows``) -- launch counts, finite readings;
+   ladder's ``+blocked-stem`` and ``+raw-windows``) -- launch counts,
+   finite readings;
 9. host event path: an in-memory DSEC-shaped recording (20M events on
    480x640, a rectify map with sub-pixel offsets, labels every ~0.3 s)
    through ``DSECSequence.from_store`` (slicer, then the fused native
@@ -280,7 +283,27 @@ exits non-zero, with no result line):
    windows within VOXEL_ATOL); streaming at B=8 on the tile wire with the
    int8 planes (B3-int8), 40 windows, against the plain path under the
    streaming bounds and against the f32 planes (reported), both rates
-   alternated; the phase's seconds.
+   alternated; the phase's seconds;
+12. the model's forms at the bench shape (B=8, T=20 windows of 100k
+   events, band wire): the quad-block rollout (``build_modules(
+   quad_block=True)``, s4d windows) through the eval step (exact cell), the
+   train step (int8 cell, flips) and 20 streamed windows at B=8 on the tile
+   wire, each on the library block convs and on B4 / B4-int8, against the
+   default block-space rollout under the slice bounds (the train loss
+   within TRAIN_LOSS_REL) with launch counts and the branch taken; the
+   supervised train step with the fused-final head and the UDA train step
+   at B=8 with the blocked stem and the fused-final head against the
+   standard forms (losses within TRAIN_LOSS_REL); and the keep-rule
+   timings, each form against its standard one in the same run, calls
+   alternated: the blocked decoder conv on the eval step's decode, the
+   blocked stem and the fused-final head in the UDA train step, the
+   fused-final head in the supervised train step, ``head_conv_impl=
+   'auto'`` on a standard-layout eval rollout; the phase's seconds.
+   Phase 3 also holds B4 and B4-int8 at the quad-block rollout's three
+   block convs and B2 / B2-int8 at its level-0 cell (x, h, c at 110x160
+   with 256 channels, the gate weights remapped by ``gates_kernel_s2d``)
+   against their plain versions, their times and bounds at B=8 in the
+   rows' ``quad`` entries.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -317,6 +340,8 @@ from ess_tpu_torch.ops import (  # noqa: E402
     voxel_folded, voxel_scatter, voxel_tiled)
 from ess_tpu_torch.ops.voxel import (  # noqa: E402
     masked_time_norm, normalize_from_stats, normalize_nonzero)
+from ess_tpu_torch.ops.conv_s2d import (  # noqa: E402
+    gates_bias_s2d, gates_kernel_s2d)
 from ess_tpu_torch.recon import color  # noqa: E402
 from ess_tpu_torch.tools import (  # noqa: E402
     REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head,
@@ -336,7 +361,13 @@ CELL_SHAPES = [(2, 64, 220, 320), (2, 128, 110, 160), (2, 256, 55, 80)]
 # odd shape (other tile widths, a ragged last pixel tile)
 CONV_SHAPES = [("head", 2, 20, 128, 220, 320),
                ("encoder 0", 2, 128, 64, 220, 320),
-               ("odd", 2, 24, 16, 13, 40)]
+               ("odd", 2, 24, 16, 13, 40),
+               ("quad head", 2, 80, 512, 110, 160),
+               ("quad encoder 0", 2, 512, 256, 110, 160),
+               ("quad encoder 1", 2, 256, 128, 110, 160)]
+# the quad-block rollout's level-0 cell (B, C, H, W): x, h and c in 2x2
+# space-to-depth form at 440x640, the gate weights remapped
+QUAD_CELL = (2, 256, 110, 160)
 KERNEL_NAMES = ("B1", "B2", "B2-int8", "B3", "B4", "B4-int8", "B5", "T2",
                 "B3-legacy", "T1", "B1-stack", "B1-raw", "B1-int8",
                 "B3-int8", "B3-legacy-int8", "B3-legacy-raw")
@@ -1083,11 +1114,15 @@ def check_cells(dev, *, int8: bool):
     plain = conv_lstm.conv_lstm_int8_ref if int8 else conv_lstm.conv_lstm_ref
     g = torch.Generator().manual_seed(5 if int8 else 2)
     err = ms = plain_ms = bound_ms = lib_ms = 0.0
-    bound_by = set()
+    bound_by, quad = set(), []
     for b8 in (False, True):
-        for b, ch, hh, ww in CELL_SHAPES:
+        for shape in CELL_SHAPES + [QUAD_CELL]:
+            b, ch, hh, ww = shape
             b = 8 if b8 else b
             x, h, c, w, bias = cell_inputs(g, dev, b, ch, hh, ww, int8=int8)
+            if shape == QUAD_CELL:   # the level-0 gate weights, remapped
+                w, bias = (gates_kernel_s2d(w[:ch, :ch // 2]),
+                           gates_bias_s2d(bias[:ch]))
             prep = conv_lstm.prepare_cell_weights(w, impl)
             h_p, c_p = plain(x, h, c, w, bias)
             n0, p0 = read_counts(), conv_lstm.launches_int8_prep
@@ -1148,9 +1183,17 @@ def check_cells(dev, *, int8: bool):
                          f"{t_l:.3f} ms ({ops / t_l / 1e9:.1f} TFLOP/s; "
                          "F.conv2d with bias on the bf16 concat: "
                          "not the same function, no pointwise)")
-                ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-                bound_ms += t_b
-                bound_by.add(by)
+                if shape == QUAD_CELL:
+                    quad.append(quad_entry("quad level 0", 2 * ch, 4 * ch,
+                                           hh, ww, t_k, t_p, t_b, by, None))
+                    log_cell_plan(f"{name} quad", conv_halo.cell_plan(
+                        b, hh, ww, ch, ch, int8=int8,
+                        sm_count=conv_halo.sm_count(dev)))
+                else:
+                    ms, plain_ms = ms + t_k, plain_ms + t_p
+                    lib_ms += t_l
+                    bound_ms += t_b
+                    bound_by.add(by)
             log(line)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -1174,7 +1217,7 @@ def check_cells(dev, *, int8: bool):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": None}
+            "library_ms": None, "quad": quad}
 
 
 def log_cell_plan(what: str, plan) -> None:
@@ -1261,6 +1304,14 @@ def log_plan(what: str, plan) -> None:
         + (f", {plan.q_stages} s8 halo tiles" if plan.q_stages else ""))
 
 
+def quad_entry(name, cin, cout, hh, ww, t_k, t_p, t_b, by, t_l) -> dict:
+    """One quad-block shape's numbers for a kernel row's ``quad`` list
+    (B=8): kernel, plain and library ms and the bound."""
+    return {"shape": f"{name} B=8 {cin}->{cout} {hh}x{ww}", "ms": t_k,
+            "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+            "library_ms": t_l}
+
+
 def check_conv3x3(dev):
     """B4 against its plain version at CONV_SHAPES (B=2) and at the main
     path's B=8 for the head and encoder-0 block convs; the row's times,
@@ -1268,7 +1319,7 @@ def check_conv3x3(dev):
     logged beside them."""
     g = torch.Generator().manual_seed(9)
     err = ms = plain_ms = bound_ms = lib_ms = 0.0
-    bound_by = set()
+    bound_by, quad = set(), []
 
     def compare(what, got, want):
         d = (got.float() - want).abs()
@@ -1338,9 +1389,13 @@ def check_conv3x3(dev):
             "the library)")
         log_plan("B4", conv_halo.conv_plan(8, hh, ww, cin, cout,
                                            sm_count=conv_halo.sm_count(dev)))
-        ms, plain_ms, lib_ms = ms + t_k8, plain_ms + t_p8, lib_ms + t_l8
-        bound_ms += t_b8
-        bound_by.add(by8)
+        if name.startswith("quad"):
+            quad.append(quad_entry(name, cin, cout, hh, ww, t_k8, t_p8,
+                                   t_b8, by8, t_l8))
+        else:
+            ms, plain_ms, lib_ms = ms + t_k8, plain_ms + t_p8, lib_ms + t_l8
+            bound_ms += t_b8
+            bound_by.add(by8)
         del x8, lib8
     log(f"B4 time for the head and encoder-0 block convs (one window, B=8): "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
@@ -1354,7 +1409,7 @@ def check_conv3x3(dev):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "quad": quad}
 
 
 def check_conv3x3_int8(dev):
@@ -1366,7 +1421,7 @@ def check_conv3x3_int8(dev):
     (not the same function: ``library_ms`` stays None)."""
     g = torch.Generator().manual_seed(10)
     err = ms = plain_ms = bound_ms = 0.0
-    bound_by = set()
+    bound_by, quad = set(), []
 
     def compare(what, got, want, exact=None, enforced=False):
         unequal = int((got != want).sum())
@@ -1445,8 +1500,13 @@ def check_conv3x3_int8(dev):
         log_plan("B4-int8", conv_halo.conv_plan(
             8, hh, ww, cin, cout, int8=True,
             sm_count=conv_halo.sm_count(dev)))
-        ms, plain_ms, bound_ms = ms + t_k8, plain_ms + t_p8, bound_ms + t_b8
-        bound_by.add(by8)
+        if name.startswith("quad"):
+            quad.append(quad_entry(name, cin, cout, hh, ww, t_k8, t_p8,
+                                   t_b8, by8, None))
+        else:
+            ms, plain_ms = ms + t_k8, plain_ms + t_p8
+            bound_ms += t_b8
+            bound_by.add(by8)
         del x8, lib8
     log(f"B4-int8 time for the head and encoder-0 block convs (one window, "
         f"B=8, prep included): kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1462,7 +1522,7 @@ def check_conv3x3_int8(dev):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": None}
+            "library_ms": None, "quad": quad}
 
 
 def level_bound(ushape, ch: int, u_s2d: bool):
@@ -2222,8 +2282,8 @@ def phase_tools_measure(dev, kern_rows) -> None:
     lines += bench_uda_increments.main([f"--iters={UDA_LADDER_ITERS}"])
     counts = read_counts()
     log(f"bench_uda_increments: launches {show_counts(counts)}")
-    need_counts(counts, by_name({
-        "B1": 3 * steps, "B2-int8": 3 * steps * 3 * WINDOWS,
+    need_counts(counts, by_name({   # 5 rungs: the first on the library cell
+        "B1": 4 * steps, "B2-int8": 4 * steps * 3 * WINDOWS,
         "B4-int8": steps * 2 * WINDOWS, "B1-raw": steps}))
     add_launches(kern_rows, "bench_uda_increments", counts)
     if not all(np.isfinite(ln["windows_per_sec"]) for ln in lines):
@@ -6244,6 +6304,274 @@ def phase_pins(dev, kern_rows) -> None:
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+KEEP_RULE = 0.02    # a form more than 2 % slower is not the port's default
+
+
+def seeded(cfg, dev, **forms):
+    """Modules of ``cfg`` at seed 0 (``bench.build_*``'s weights) with the
+    builder's form keywords."""
+    mods = build_modules(cfg, device=dev, **forms)
+    init_params(mods, torch.Generator().manual_seed(0))
+    return mods
+
+
+def keep_rule(what: str, calls: dict, windows: int, reps: int = 3) -> dict:
+    """Time ``calls`` {"form": call, "standard": call} (each synchronized)
+    alternately, ``reps`` calls a turn in the order form, standard,
+    standard, form; print the medians, the form's cost over the standard
+    one and what the keep rule makes of it. Returns the medians (s)."""
+    samples = {n: [] for n in calls}
+    for name in ("form", "standard", "standard", "form"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            samples[name].append(time.perf_counter() - t0)
+    med = {n: statistics.median(v) for n, v in samples.items()}
+    cost = med["form"] / med["standard"] - 1.0
+    log(f"keep rule, {what}: form {1e3 * med['form']:.2f} ms "
+        f"({windows / med['form']:.2f} windows/s), standard "
+        f"{1e3 * med['standard']:.2f} ms ({windows / med['standard']:.2f} "
+        f"windows/s), medians of {len(samples['form'])} calls alternated; "
+        f"the form costs {100.0 * cost:+.2f}% -> "
+        + ("keep the standard form as the port's default"
+           if cost > KEEP_RULE else "the form may be the port's default")
+        + f" (runs form {[round(1e3 * t, 1) for t in samples['form']]}, "
+        f"standard {[round(1e3 * t, 1) for t in samples['standard']]})")
+    return med
+
+
+def model_quad(dev, kern_rows) -> None:
+    """Phase 12, part 1: the quad-block rollout (s4d windows) through the
+    eval and train steps at B=8 on the library block convs and on B4 /
+    B4-int8, and 20 streamed windows at B=8, against the default
+    block-space rollout; launch counts, the branch, both rates alternated."""
+    from ess_tpu_torch.train import supervised
+    from ess_tpu_torch.train.streaming import make_streaming_steps
+
+    pipe = bench.make_pipeline()
+    batch = make_batch(24, 8, dev, ignore_rows=20)
+    flips = AugmentParams(flip=torch.arange(8) % 2 == 0)
+    n = WINDOWS
+    cfg_e = bench.make_cfg(8, None)
+    evals = {"default": seeded(cfg_e, dev),
+             "quad": seeded(cfg_e, dev, quad_block=True)}
+    evals["quad B4"] = builder.with_block_conv_impl(evals["quad"], "pallas")
+    logits = [None]
+
+    def keep_logits(mod, args, out):
+        logits[0] = out[1].float()
+
+    outs, steps = {}, {}
+    for f, mods in evals.items():
+        branch = supervised.rollout_form(mods.recon_val, batch, pipe,
+                                         train=False)
+        hook = mods.head.register_forward_hook(keep_logits)
+        steps[f] = make_eval_step(mods, pipe)
+        reset_counts()
+        out = steps[f](batch)
+        counts = read_counts()
+        hook.remove()
+        log(f"model eval step B=8 T={n} ({f}, branch {branch}): launches "
+            f"{show_counts(counts)}, loss {float(out['loss']):.6f}")
+        want = {"B1": 1, "B2": 3 * n}
+        if f == "quad B4":
+            want["B4"] = 3 * n
+        need_counts(counts, by_name(want))
+        if branch != ("standard" if f == "default" else "s4d"):
+            raise AssertionError(f"eval ({f}) took the {branch} branch")
+        add_launches(kern_rows, f"model_eval_{f.replace(' ', '_')}", counts)
+        outs[f] = (out, logits[0])
+    ref, ref_logits = outs["default"]
+    for f in ("quad", "quad B4"):
+        got = outs[f][0]
+        slice_agreement(f"eval, {f} vs default", got["latent8"],
+                        ref["latent8"], got["pred"], ref["pred"], ref_logits,
+                        got["cm"], ref["cm"])
+    del outs, ref, ref_logits, got
+
+    cfg_t = bench.make_cfg(8)
+    trains, res = {}, {}
+    for f in ("default", "quad", "quad B4"):
+        mods = seeded(cfg_t, dev, quad_block=f != "default")
+        if f == "quad B4":
+            mods = builder.with_block_conv_impl(mods, "pallas", "pallas_int8")
+        state = builder.init_state(mods)
+        trains[f] = (state, make_train_step(mods, pipe))
+        before = [p.detach().clone() for p in state.head.parameters()]
+        reset_counts()
+        loss = float(trains[f][1](state, batch, flips)["loss"])
+        counts = read_counts()
+        log(f"model train step B=8 T={n} (int8 cell, flips; {f}): launches "
+            f"{show_counts(counts)}, loss {loss:.6f}")
+        want = {"B1": 1, "B2-int8": 3 * n}
+        if f == "quad B4":
+            want["B4-int8"] = 3 * n
+        need_counts(counts, by_name(want))
+        add_launches(kern_rows, f"model_train_{f.replace(' ', '_')}", counts)
+        res[f] = (loss, torch.cat([(p.detach() - q).reshape(-1).float()
+                                   for p, q in zip(state.head.parameters(),
+                                                   before)]))
+    for f in ("quad", "quad B4"):
+        rel = abs(res[f][0] - res["default"][0]) / abs(res["default"][0])
+        u, u0 = res[f][1], res["default"][1]
+        urel = ((u - u0).abs().max() / u0.abs().max()).item()
+        log(f"  train, {f} vs default: loss relative difference {rel:.3e} "
+            f"(bound {TRAIN_LOSS_REL}), head update rel max|d| {urel:.3e} "
+            "(reported)")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"train ({f}) loss moved by {rel:.3e}")
+    calls = {}
+    for f in evals:
+        calls[f"eval {f}"] = lambda f=f: float(steps[f](batch)["loss"])
+        calls[f"train {f}"] = lambda f=f: float(trains[f][1](
+            trains[f][0], batch, flips)["loss"])
+    timed_forms_peak(f"model B=8 T={n} band wire", calls, 8 * n)
+    del calls, trains, steps
+
+    # streaming: 20 windows at B=8 on the tile wire, one labeled
+    b = 8
+    windows = bench.make_stream(9, b, dev, "tile",
+                                windows=bench.WINDOWS_PER_SCORE,
+                                resets=((0, 1.0),))
+    runs = {}
+    for f in ("default", "quad"):
+        mods = evals[f]
+        stream_steps = make_streaming_steps(mods, pipe)
+        hook = mods.head.register_forward_hook(keep_logits)
+        reset_counts()
+        state, cm = bench.run_stream(stream_steps,
+                                     mods.recon_val.init_state(b, dev),
+                                     windows)
+        counts = read_counts()
+        hook.remove()
+        log(f"model stream B={b}, tile wire, {len(windows)} windows ({f}): "
+            f"launches {show_counts(counts)}; level-0 state "
+            f"{tuple(state[0][0].shape)}")
+        need_counts(counts, by_name({"B3": len(windows),
+                                     "B2": 3 * len(windows)}))
+        add_launches(kern_rows, f"model_stream_{f}", counts)
+        runs[f] = (state[-1][0].float(), logits[0], cm, stream_steps)
+    got, ref = runs["quad"], runs["default"]
+    slice_agreement("stream, quad vs default", got[0], ref[0],
+                    got[1].argmax(1), ref[1].argmax(1), ref[1], got[2],
+                    ref[2])
+    rates = {f: [] for f in runs}
+    for f in ("default", "quad", "quad", "default"):
+        rates[f].append(bench.stream_windows_per_sec(evals[f], runs[f][3],
+                                                     windows, 1))
+    for f, r in rates.items():
+        log(f"model streaming B={b} ({f}): {statistics.median(r):.2f} "
+            f"windows/s (runs {[round(v, 1) for v in r]})")
+    del evals, runs, windows
+    torch.cuda.empty_cache()
+
+
+def model_forms(dev, kern_rows) -> None:
+    """Phase 12, part 2: JAX's default forms against the standard ones in
+    the same run, agreement and the keep-rule timings (KEEP_RULE): the
+    fused-final head in the supervised train step, the blocked stem and
+    the fused-final head in the UDA train step, the blocked decoder conv on
+    the eval step's decode, ``head_conv_impl='auto'`` on a standard-layout
+    eval rollout."""
+    pipe = bench.make_pipeline()
+    batch = make_batch(25, 8, dev, ignore_rows=20)
+    flips = AugmentParams(flip=torch.arange(8) % 2 == 0)
+    n = WINDOWS
+
+    def train_pair(cfg, make, step_batch, what, path, form, standard):
+        """(form, standard) steps of ``make`` (builder keywords ``form``
+        and ``standard``) from one seeded state each: first-step losses
+        compared, launch counts booked; returns the timed calls."""
+        out, runs = {}, {}
+        for name, kw in (("form", form), ("standard", standard)):
+            mods = seeded(cfg, dev, **kw)
+            state = builder.init_state(mods)
+            step = make(mods, pipe)
+            reset_counts()
+            losses = step(state, *step_batch)
+            counts = read_counts()
+            add_launches(kern_rows, f"{path}_{name}", counts)
+            out[name] = {k: float(v) for k, v in losses.items()
+                         if v.ndim == 0}
+            runs[name] = lambda step=step, state=state: float(
+                step(state, *step_batch)["loss"])
+            log(f"model {what} ({name}): launches {show_counts(counts)}, "
+                f"loss {out[name]['loss']:.6f}")
+        rel = {k: abs(out["form"][k] - v) / max(abs(v), 1e-12)
+               for k, v in out["standard"].items()}
+        log(f"  {what}, form vs standard: loss relative difference "
+            f"{rel['loss']:.3e} (bound {TRAIN_LOSS_REL}); the largest of "
+            f"{len(rel)} losses {max(rel.values()):.3e} (reported)")
+        if not rel["loss"] <= TRAIN_LOSS_REL:
+            raise AssertionError(f"{what}: the forms disagree")
+        return runs
+
+    cfg_t = bench.make_cfg(8)
+    runs = train_pair(cfg_t, make_train_step, (batch, flips),
+                      "supervised train step B=8, fused-final head",
+                      "model_fused_train", {"fused_final": True},
+                      {"fused_final": False})
+    keep_rule("the fused-final head in the supervised train step", runs,
+              8 * n)
+    cfg_u = bench.make_uda_cfg(8)
+    uda_batch = bench.make_uda_batch(4, 8, dev, ignore_rows=20)
+    for what, path, key, values in (
+            ("the blocked stem", "model_uda_stem", "stem_impl",
+             ("auto", "xla")),
+            ("the fused-final head", "model_uda_fused", "fused_final",
+             (True, False))):
+        runs = train_pair(cfg_u, uda.make_train_step, (uda_batch,),
+                          f"UDA train step B=8, {what}", path,
+                          {key: values[0]}, {key: values[1]})
+        keep_rule(f"{what} in the UDA train step", runs, 8 * n)
+    del runs
+
+    cfg_e = bench.make_cfg(8, None)
+    for what, path, form, key in (
+            ("the blocked decoder conv on the eval step's decode",
+             "model_decoder", None, "decoder_conv_impl"),
+            ("head_conv_impl='auto' on a standard-layout eval rollout",
+             "model_head_conv", "standard", "head_conv_impl")):
+        calls, outs = {}, {}
+        for name in ("form", "standard"):
+            impl = "auto" if name == "form" else "xla"
+            if key == "head_conv_impl":   # the config key
+                mods = seeded(cfg_e.replace(model=dataclasses.replace(
+                    cfg_e.model, head_conv_impl=impl)), dev)
+            else:
+                mods = seeded(cfg_e, dev, **{key: impl})
+            mods = bench.apply_form(mods, form)
+            step = make_eval_step(mods, pipe)
+            reset_counts()
+            outs[name] = step(batch)
+            counts = read_counts()
+            add_launches(kern_rows, f"{path}_{name}", counts)
+            log(f"model eval step B=8 ({what}; {name}): launches "
+                f"{show_counts(counts)}, loss "
+                f"{float(outs[name]['loss']):.6f}")
+            calls[name] = lambda step=step: float(step(batch)["loss"])
+        d = (outs["form"]["img_fake"] - outs["standard"]["img_fake"]).abs()
+        rel = abs(float(outs["form"]["loss"]) - float(
+            outs["standard"]["loss"])) / abs(float(outs["standard"]["loss"]))
+        log(f"  {what}: image max|d| {d.max().item():.3e}, loss relative "
+            f"difference {rel:.3e} (bound {TRAIN_LOSS_REL})")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"{what}: the forms disagree")
+        keep_rule(what, calls, 8 * n)
+        del calls, outs
+    torch.cuda.empty_cache()
+
+
+def phase_model_pins(dev, kern_rows) -> None:
+    """Phase 12: the model's forms (module docstring)."""
+    t_phase = time.perf_counter()
+    model_quad(dev, kern_rows)
+    model_forms(dev, kern_rows)
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     at = lambda name: log(f"{name} done at "
@@ -6280,7 +6608,8 @@ def main() -> None:
     for name, phase in (("phase 6", phase_stream), ("phase 9", phase_data),
                         ("phase 7", phase_block), ("phase 8", phase_tools),
                         ("phase 8b", phase_tools_measure),
-                        ("phase 10", phase_forms), ("phase 11", phase_pins)):
+                        ("phase 10", phase_forms), ("phase 11", phase_pins),
+                        ("phase 12", phase_model_pins)):
         phase(dev, rows)
         at(name)
     print(json.dumps({"kernels": rows}), flush=True)

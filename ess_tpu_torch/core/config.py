@@ -95,8 +95,10 @@ class ModelConfig:
     # Implementation selectors. lstm_impl / lstm_impl_train pick the
     # ConvLSTM cell of the eval and train rollouts in both packages
     # ('auto', 'xla', 'pallas', 'pallas_int8'; the port's
-    # ops/conv_lstm.py::resolve_lstm_impl); head_conv_impl is read by the
-    # JAX package only and kept so both parse the same YAML.
+    # ops/conv_lstm.py::resolve_lstm_impl); head_conv_impl picks the E2VID
+    # head conv's evaluation in a standard-layout rollout, as in JAX
+    # ('auto', 'xla', 's2d', 'xla_im2col'; models/layers.py::ConvLayer,
+    # through train/builder.py). The block-space rollout ignores it.
     head_conv_impl: str = "auto"
     lstm_impl: str = "auto"
     lstm_impl_train: Optional[str] = None

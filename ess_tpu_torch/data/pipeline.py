@@ -355,6 +355,17 @@ class EventPipeline:
                 and cfg.sensor_width % 2 == 0
                 and not (cfg.rectify and self.rectify_map is not None))
 
+    def s4d_capable(self, *, train: bool) -> bool:
+        """:meth:`s2d_capable` for the quad-block (4x4) window layout: the
+        bottom crop, the sensor and a resize's width divisible by 4
+        (JAX's)."""
+        cfg = self.cfg
+        return (self.s2d_capable(train=train)
+                and cfg.crop_bottom % 4 == 0
+                and cfg.sensor_height % 4 == 0
+                and cfg.sensor_width % 4 == 0
+                and (cfg.resize_to is None or cfg.resize_to[1] % 4 == 0))
+
     def stack_capable(self, *, train: bool, batch: dict) -> bool:
         """Whether :meth:`build_all_stack` serves ``batch``: the pin on,
         :meth:`s2d_capable`, x-slot band offsets (more groups than bands),
@@ -376,17 +387,21 @@ class EventPipeline:
                     and ("ev_band_offsets" in batch
                          or "band_offsets" in batch))
 
-    def _transform_s2d(self, grids: torch.Tensor, aug: AugmentParams
-                       ) -> torch.Tensor:
-        """(N, 4C, H/2, W/2) block windows: the bottom crop in block rows
-        and the flip, which reverses the block columns and the column
-        phases of the (py * 2 + px) * C + c channels."""
+    def _transform_s2d(self, grids: torch.Tensor, aug: AugmentParams,
+                       block: int = 2) -> torch.Tensor:
+        """(N, b*b*C, H/b, W/b) block windows (``block`` b: 2, or 4 for
+        s4d): the bottom crop in block rows and the flip, which reverses
+        the block columns and the column phases of the (py * b + px) * C +
+        c channels."""
         cfg = self.cfg
         if cfg.crop_bottom > 0:
-            grids = grids[:, :, :(cfg.sensor_height - cfg.crop_bottom) // 2]
+            grids = grids[:, :, :(cfg.sensor_height - cfg.crop_bottom)
+                          // block]
         if aug.flip is not None:
-            c = grids.shape[1] // 4
-            perm = torch.arange(4 * c).view(2, 2, c).flip(1).reshape(-1)
+            nsub = block * block
+            c = grids.shape[1] // nsub
+            perm = torch.arange(nsub * c).view(block, block, c).flip(
+                1).reshape(-1)
             flipped = grids[:, perm.to(grids.device)].flip(-1)
             sel = aug.flip.to(device=grids.device, dtype=torch.bool)
             grids = torch.where(sel.view(-1, 1, 1, 1), flipped, grids)
@@ -527,7 +542,11 @@ class EventPipeline:
         band offsets) gives space-to-depth block windows (T, B, 4C, H'/2,
         W'/2) in channels-last memory: the voxelizer's s2d grids (a width
         resize folded in), cropped and flipped in block space
-        (:meth:`_transform_s2d`).
+        (:meth:`_transform_s2d`). ``layout='s4d'`` (needs
+        :meth:`s4d_capable`) gives the quad-block rollout's 4x4 block
+        windows (T, B, 16C, H'/4, W'/4) the same way: the voxelizer's grid
+        relaid into 4x4 blocks after the kernel, as the JAX package makes
+        its s4d layout outside its Pallas bodies.
         """
         if "ev_xq" in batch:
             batch = self.decode_packed(batch)
@@ -539,14 +558,16 @@ class EventPipeline:
         pre = bool(batch.get("ev_t_prenormalized", False))
         cols = (flat(batch["ev_x"]), flat(batch["ev_y"]), flat(batch["ev_t"]),
                 flat(batch["ev_p"]), flat(batch["ev_valid"]))
-        if layout == "s2d":
+        if layout in ("s2d", "s4d"):
             cfg = self.cfg
-            if not self.s2d_capable(train=aug.crop_y is not None):
-                raise ValueError("the s2d build is not possible with this "
-                                 "pipeline (s2d_capable)")
+            capable = (self.s4d_capable if layout == "s4d"
+                       else self.s2d_capable)
+            if not capable(train=aug.crop_y is not None):
+                raise ValueError(f"the {layout} build is not possible with "
+                                 f"this pipeline ({layout}_capable)")
             resize = None if cfg.resize_to is None else cfg.resize_to[1]
             if resize is not None and kind != "band":
-                raise ValueError("an s2d build with a resize needs "
+                raise ValueError(f"an {layout} build with a resize needs "
                                  "pre-folded band offsets")
             extra = (dict(resize_width_to=resize,
                           resize_align_corners=cfg.resize_align_corners)
@@ -554,9 +575,10 @@ class EventPipeline:
             grids = voxelize_window_soa(
                 *cols, offsets_kind=kind, t_prenormalized=pre,
                 tile_offsets=None if offs is None else flat(offs),
-                oh_dtype=cfg.voxel_oh_dtype, layout="s2d",
+                oh_dtype=cfg.voxel_oh_dtype, layout=layout,
                 **self._voxel_kw(), **extra)
-            grids = self._transform_s2d(grids.permute(0, 3, 1, 2), aug_w)
+            grids = self._transform_s2d(grids.permute(0, 3, 1, 2), aug_w,
+                                        4 if layout == "s4d" else 2)
             grids = _blocks_out(grids.permute(0, 2, 3, 1), out_dtype)
             windows = grids.view(*lead, *grids.shape[1:])
             label = batch.get("label")
@@ -565,7 +587,7 @@ class EventPipeline:
             return windows, label
         if layout != "nchw":
             raise ValueError(f"build_all: layout {layout!r} not in "
-                             "('nchw', 's2d')")
+                             "('nchw', 's2d', 's4d')")
         window_fn = self.make_window_fn(aug_w, t_prenormalized=pre,
                                         offsets_kind=kind)
         grids = window_fn(*cols,

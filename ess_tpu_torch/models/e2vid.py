@@ -12,8 +12,18 @@ With ``block_input`` the window arrives as 2x2 space-to-depth blocks
 (:func:`ess_tpu_torch.ops.conv_s2d.space_to_depth`) and the head conv and
 the first encoder's stride-2 conv run as exact 3x3 convs in block space, on
 the library conv or on the fused conv kernel (``block_conv_impl``); the
-full-resolution head activation exists only on decode windows. Same
-parameters, same function.
+full-resolution head activation exists only on decode windows. With
+``quad_block`` (JAX's opt-in quad-block rollout) the window arrives as 4x4
+blocks (``space_to_depth4``): the head runs at quarter resolution (80 ->
+512 channels at 5 bins and base 32), the first encoder's conv lands in 2x2
+blocks (512 -> 256), its ConvLSTM cell runs on space-to-depth state
+(``state_block=2``) and the second encoder's conv reads that s2d hidden
+state in block form (256 -> 128). In the standard layout the head conv
+takes ``head_conv_impl`` (``ConvLayer.conv_impl``, JAX's ``'auto'`` by
+default), and the decoders' post-upsample convs ``decoder_conv_impl``
+(``UpsampleConvLayer``; ``'xla'`` by default, where JAX's is ``'auto'``:
+the blocked form measured slower on the H100, ``train/builder.py::
+DEFAULT_FORMS``). Same parameters, same function in every form.
 
 Activations and recurrent state live in channels-last memory: the kernels
 read NHWC, and cuDNN runs bf16 convolutions natively in that layout.
@@ -31,7 +41,7 @@ from ess_tpu_torch.models.layers import (
     BLOCK_CONV_IMPLS, ConvLayer, RecurrentConvLayer, ResidualBlock,
     UpsampleConvLayer, skip_merge)
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
-from ess_tpu_torch.ops.conv_s2d import depth_to_space
+from ess_tpu_torch.ops.conv_s2d import depth_to_space, depth_to_space4
 
 Latent = Dict[int, torch.Tensor]
 # one entry per encoder: (h, c) of a ConvLSTM cell, h of a ConvGRU cell
@@ -41,18 +51,23 @@ State = Tuple[Union[Tuple[torch.Tensor, torch.Tensor], torch.Tensor], ...]
 def zero_recurrent_state(batch: int, height: int, width: int, *,
                          num_encoders: int = 3, base_channels: int = 32,
                          recurrent_block: str = "convlstm",
+                         quad_block: bool = False,
                          dtype: torch.dtype = torch.float32,
                          device=None) -> State:
     """Zero state per encoder for a (height, width) input, channels-last,
     on ``device`` (None: the first CUDA device; raises where there is
     none): (h, c) for ``'convlstm'``, distinct buffers (the CUDA cell
-    updates c in place), h alone for ``'convgru'``."""
+    updates c in place), h alone for ``'convgru'``. ``quad_block``: the
+    first encoder's state in 2x2 space-to-depth form (B, 4C, H/4, W/4),
+    the quad-block rollout's layout."""
     device = resolve_device(device)
     states = []
     h, w = height, width
     for i in range(num_encoders):
         h, w = h // 2, w // 2
-        shape = (batch, base_channels * 2 ** (i + 1), h, w)
+        c = base_channels * 2 ** (i + 1)
+        shape = ((batch, 4 * c, h // 2, w // 2) if quad_block and i == 0
+                 else (batch, c, h, w))
         zeros = lambda: torch.zeros(
             shape, dtype=dtype, device=device).contiguous(
                 memory_format=torch.channels_last)
@@ -71,8 +86,13 @@ class RecurrentUNet(nn.Module):
                  recurrent_block: str = "convlstm",
                  norm: Optional[str] = None,
                  lstm_impl: str = "pallas", block_conv_impl: str = "xla",
+                 head_conv_impl: str = "auto",
+                 decoder_conv_impl: str = "xla", quad_block: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        if quad_block and recurrent_block != "convlstm":
+            raise ValueError("the quad-block rollout needs ConvLSTM cells")
+        self.quad_block = quad_block
         self.lstm_impl = resolve_lstm_impl(lstm_impl)
         if block_conv_impl not in BLOCK_CONV_IMPLS:
             raise ValueError(f"unknown block_conv_impl {block_conv_impl!r}; "
@@ -85,7 +105,7 @@ class RecurrentUNet(nn.Module):
         self.norm = norm
         self.dtype = dtype
         self.head = ConvLayer(in_channels, base_channels, 5, 1, "relu",
-                              device=device)
+                              conv_impl=head_conv_impl, device=device)
         self.encoders = nn.ModuleList(
             RecurrentConvLayer(base_channels * 2 ** i,
                                base_channels * 2 ** (i + 1),
@@ -100,7 +120,8 @@ class RecurrentUNet(nn.Module):
         self.decoders = nn.ModuleList(
             UpsampleConvLayer(cat * base_channels * 2 ** (num_encoders - i),
                               base_channels * 2 ** (num_encoders - i) // 2,
-                              5, "relu", norm=norm, device=device)
+                              5, "relu", norm=norm,
+                              conv_impl=decoder_conv_impl, device=device)
             for i in range(num_encoders))
         self.pred = ConvLayer(cat * base_channels, num_output_channels, 1, 1,
                               "sigmoid", norm=norm, device=device)
@@ -118,9 +139,13 @@ class RecurrentUNet(nn.Module):
         does over the same parameters; a ConvGRU model ignores it.
 
         ``block_input``: ``x`` is the space-to-depth window
-        (B, 4C, H/2, W/2); the head conv and the first encoder's conv run in
-        block space on ``block_conv_impl`` (None: the model's); a model with
-        a norm has no block form. The
+        (B, 4C, H/2, W/2), or with ``quad_block`` the 4x4 one (B, 16C, H/4,
+        W/4); the head conv and the first encoder's conv (with
+        ``quad_block`` also the second's) run in block space on
+        ``block_conv_impl`` (None: the model's); a model with a norm has no
+        block form. The first encoder's state then lies in s2d form, and
+        its hidden state reaches the decoder skips and the latent
+        depth-to-spaced. The
         full-resolution head activation, ``latent[1]``, is built only
         where it is consumed: with ``decode=False`` the latent has no entry
         1 (eager PyTorch drops no unused work)."""
@@ -129,9 +154,11 @@ class RecurrentUNet(nn.Module):
                  else block_conv_impl)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         latent: Latent = {}
+        quad = block_input and self.quad_block
         if block_input:
-            h = self.head(x, True, bimpl)
-            head = depth_to_space(h) if decode else None
+            h = self.head(x, 4 if quad else True, bimpl)
+            head = ((depth_to_space4 if quad else depth_to_space)(h)
+                    if decode else None)
         else:
             h = head = self.head(x)
         if head is not None:
@@ -139,12 +166,20 @@ class RecurrentUNet(nn.Module):
         blocks = []
         new_states = []
         for i, enc in enumerate(self.encoders):
-            h, st = enc(h, states[i], impl, block_input and i == 0, bimpl)
+            if quad:
+                bs = 4 if i == 0 else (True if i == 1 else False)
+            else:
+                bs = block_input and i == 0
+            h, st = enc(h, states[i], impl, bs, bimpl)
             new_states.append(st)
-            blocks.append(h)
-            latent[2 ** (i + 1)] = h
+            # the s2d hidden state of a quad level 0 feeds the next block
+            # conv as it is; skips and latent take the standard layout
+            h_std = depth_to_space(h) if bs == 4 else h
+            blocks.append(h_std)
+            latent[2 ** (i + 1)] = h_std
         if not decode:
             return None, tuple(new_states), latent
+        h = blocks[-1]
         for rb in self.resblocks:
             h = rb(h)
         for i, dec in enumerate(self.decoders):

@@ -1,17 +1,24 @@
 """Layer primitives of the E2VID backbone and the segmentation head (NCHW).
 
-Counterpart of ``ess_tpu/models/layers.py`` (``ConvLayer`` with its
-block-space form ``_BlockConv`` at ``in_block=2``, ``ResidualBlock``,
-``UpsampleConvLayer``, ``ConvLSTMCell``, ``ConvGRUCell``,
-``RecurrentConvLayer``, ``ReLUINSConv2d``, ``INSResBlock``,
-``upsample2x_nearest``, ``skip_merge``, ``TorchBatchNorm`` as
-:class:`BatchNorm2d`, ``instance_norm``). The E2VID
-layers take the JAX package's ``norm``: None or ``'IN'`` (instance norm
-without affine parameters, eps 1e-5, before the activation); ``'BN'``
-raises (:func:`check_norm`). The JAX
-package's im2col, decoder and quad-block space-to-depth variants compute
-the same functions with remapped weights; a plain convolution is the same
-function here.
+Counterpart of ``ess_tpu/models/layers.py``: ``ConvLayer`` with its
+``conv_impl`` forms (``'xla'``, ``'s2d'``, ``'xla_im2col'``, ``'auto'``)
+and its block-space form ``_BlockConv`` (:class:`BlockConv`, any odd
+kernel on 2x2 or 4x4 space-to-depth input, ``in_segments`` for a concat of
+separately blocked operands), ``ResidualBlock``, ``UpsampleConvLayer``
+(``conv_impl='auto'``: the post-upsample conv in 2x2 block space),
+``ConvLSTMCell`` (``state_block=2``: operands and state in space-to-depth
+form, the quad-block rollout's level 0), ``ConvGRUCell``,
+``RecurrentConvLayer``, ``ReLUINSConv2d`` (``block_space``,
+``in_segments``, ``up2x_fused``), ``INSResBlock``, ``_UpFusedConv``
+(``ops/conv_s2d.py::up2x_conv_fused``), ``upsample2x_nearest``,
+``skip_merge``,
+``TorchBatchNorm`` as :class:`BatchNorm2d` (``block``: statistics pooled
+over the subpixels of a space-to-depth input), ``instance_norm`` and
+``instance_norm_blocked``. The E2VID layers take the JAX package's
+``norm``: None or ``'IN'`` (instance norm without affine parameters, eps
+1e-5, before the activation); ``'BN'`` raises (:func:`check_norm`). Every
+block and im2col form is an exact remap of the same parameters: the same
+function, evaluated over another layout.
 
 Submodule names follow upstream ESS/E2VID (``conv2d``,
 ``recurrent_block.Gates``, ``recurrent_block.{reset,update,out}_gate``,
@@ -34,7 +41,10 @@ from ess_tpu_torch.ops.conv3x3 import (
     IMPLS as BLOCK_CONV_IMPLS, conv3x3_fused, prepare_conv_weights)
 from ess_tpu_torch.ops.conv_lstm import (
     conv_lstm_cell, int8_route, prepare_cell_weights)
-from ess_tpu_torch.ops.conv_s2d import block_bias, block_kernel
+from ess_tpu_torch.ops.conv_s2d import (
+    block_bias, block_kernel, conv5x5_s2d, depth_to_space, gates_bias_s2d,
+    gates_kernel_s2d, segment_input_perm, up2x_bilinear_s2d,
+    up2x_conv_fused)
 from ess_tpu_torch.parallel import dp
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -56,12 +66,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     the unbiased one, as torch does. It normalizes in f32 with its f32
     parameters and casts back to the input's dtype; ``train`` picks batch
     statistics (and updates the running ones) or the running ones; under
-    data parallel the batch statistics are the global batch's."""
+    data parallel the batch statistics are the global batch's. With
+    ``block`` b > 1 the input is a b x b space-to-depth tensor (channel
+    ``sub*C + c``): statistics and parameters stay per original channel,
+    pooled over the subpixels, the value set of the standard layout (JAX's
+    ``TorchBatchNorm(block=2)``)."""
 
     def __init__(self, num_features: int, *, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                block: int = 1) -> torch.Tensor:
+        if block > 1:
+            b, cb, h, w = x.shape
+            nsub = block * block
+            xs = x.reshape(b, nsub, cb // nsub, h, w).transpose(1, 2)
+            y = self.forward(xs.reshape(b, cb // nsub, nsub * h, w), train)
+            y = y.reshape(b, cb // nsub, nsub, h, w).transpose(1, 2)
+            return _like(y.reshape(b, cb, h, w), x)
         if train:
             self.num_batches_tracked.add_(1)
             if dp.world() > 1:
@@ -92,6 +114,13 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y in x's memory format (channels-last where x is)."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return y.contiguous(memory_format=torch.channels_last)
+    return y
+
+
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
@@ -110,34 +139,49 @@ def skip_merge(kind: str, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
 
 
 class BlockConv:
-    """A 5x5 conv (stride 1 or 2) + activation evaluated on a 2x2
-    space-to-depth input, the JAX ``_BlockConv`` at ``in_block=2``. It owns
-    no parameters: it reads the (C_out, C_in, 5, 5) weight and the bias of
-    ``conv`` and remaps them to an exact 3x3 block conv at apply time
-    (:func:`ess_tpu_torch.ops.conv_s2d.block_kernel`), so checkpoints do not
-    change. Stride 1 gives the output in 2x2 blocks too, stride 2 at half
-    resolution unblocked.
+    """An odd-k conv + activation evaluated on a space-to-depth input, the
+    JAX ``_BlockConv``. It owns no parameters: it reads the (C_out, C_in,
+    k, k) weight and the bias (or none) of ``conv`` and remaps them to an
+    exact stride-1 block conv at apply time
+    (:func:`ess_tpu_torch.ops.conv_s2d.block_kernel`), so checkpoints do
+    not change. ``in_block`` is the input's blocking (2: s2d, 4: the
+    quad-block rollout's s4d); the output's is ``in_block // stride``, so a
+    stride-2 conv on s2d lands unblocked at half resolution, and on s4d in
+    s2d form. ``in_segments``: the input is a concat of separately blocked
+    operands of these widths (a skip connection), and the weight's input
+    dim is permuted to match (``segment_input_perm``).
 
     ``impl``: ``'xla'`` is the library conv rounded to the input's dtype,
     then bias and activation; ``'pallas'`` and ``'pallas_int8'`` (the
     exact conv below the JAX package's int8 size rule, ``int8_route``) run
     :func:`ess_tpu_torch.ops.conv3x3.conv3x3_fused` with the bias and a ReLU
-    fused. While the parameters need no gradient, the remapped weights (cast
-    for ``'xla'``, kernel-ready for the others on CUDA) are kept per
-    ``impl`` and dtype and rebuilt only when a parameter changes."""
+    fused, which takes 3x3 block kernels only. While the parameters need no
+    gradient, the remapped weights (cast for ``'xla'``, kernel-ready for
+    the others on CUDA) are kept per ``impl`` and dtype and rebuilt only
+    when a parameter changes."""
 
-    def __init__(self, conv: nn.Conv2d, activation: Optional[str]):
-        if conv.kernel_size != (5, 5) or conv.stride[0] not in (1, 2):
-            raise ValueError("the block-space form takes 5x5 convs of "
-                             f"stride 1 or 2, got {conv}")
-        self.conv = conv
+    def __init__(self, conv: nn.Conv2d, activation: Optional[str], *,
+                 in_block: int = 2, in_segments: Optional[tuple] = None):
+        k = conv.kernel_size[0]
         self.stride = conv.stride[0]
+        if (conv.kernel_size[1] != k or k % 2 != 1
+                or in_block % self.stride):
+            raise ValueError(f"the block-space form takes odd square convs "
+                             f"whose stride divides the block {in_block}, "
+                             f"got {conv}")
+        self.conv = conv
         self.activation = activation
+        self.in_block = in_block
+        self.in_segments = in_segments
         self._cache: Dict[tuple, Tuple[tuple, tuple]] = {}
 
     def _remap(self, weight, bias):
-        bo = 2 // self.stride
-        w2 = block_kernel(weight, bi=2, bo=bo, stride=self.stride)
+        bi = self.in_block
+        bo = bi // self.stride
+        w2 = block_kernel(weight, bi=bi, bo=bo, stride=self.stride)
+        if self.in_segments is not None:
+            perm = segment_input_perm(bi, self.in_segments)
+            w2 = w2.index_select(1, torch.from_numpy(perm).to(w2.device))
         return w2, None if bias is None else block_bias(bias, bo)
 
     def _frozen_weights(self, impl: str, dtype: torch.dtype):
@@ -175,7 +219,7 @@ class BlockConv:
         if impl == "xla":
             out = F.conv2d(x_blk, w2.to(x_blk.dtype),
                            None if b2 is None else b2.to(x_blk.dtype),
-                           padding=1)
+                           padding=w2.shape[-1] // 2)
             return _ACTIVATIONS[self.activation](out)
         fuse_relu = self.activation == "relu"
         out = conv3x3_fused(x_blk, w2, b2, relu=fuse_relu, impl=impl,
@@ -210,38 +254,104 @@ def instance_norm(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def instance_norm_blocked(x_blk: torch.Tensor, block: int) -> torch.Tensor:
+    """:func:`instance_norm` of a block x block space-to-depth tensor in
+    block space: an original channel's statistics pool over H, W and its
+    ``block**2`` subpixel channels, the value set of the standard
+    layout."""
+    b, cb, h, w = x_blk.shape
+    nsub = block * block
+    xs = x_blk.reshape(b, nsub, cb // nsub, h, w).transpose(1, 2)
+    y = F.instance_norm(xs.reshape(b, cb // nsub, nsub * h, w), eps=1e-5)
+    y = y.reshape(b, cb // nsub, nsub, h, w).transpose(1, 2)
+    return _like(y.reshape(b, cb, h, w), x_blk)
+
+
 def _norm_fn(norm: Optional[str]):
     check_norm(norm)
     return (lambda x: x) if norm is None else instance_norm
 
 
+CONV_IMPLS = ("xla", "s2d", "xla_im2col", "auto")   # ConvLayer.conv_impl
+
+
+def im2col_conv(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Stride-1 SAME conv as an explicit patch contraction over
+    k*k*C_in (JAX's ``_Im2ColConv`` with ``impl='xla'``), in x's dtype."""
+    b, _, h, w = x.shape
+    cout, _, k, _ = weight.shape
+    cols = F.unfold(x, k, padding=k // 2)             # (B, C_in*k*k, H*W)
+    out = torch.matmul(weight.reshape(cout, -1).to(x.dtype), cols)
+    out = out.view(b, cout, h, w)
+    if bias is not None:
+        out = out + bias.to(x.dtype)[None, :, None, None]
+    return _like(out, x)
+
+
 class ConvLayer(nn.Module):
-    """Conv (padding k//2) + optional norm + optional activation. With
-    ``block_space`` the input is a 2x2 space-to-depth tensor and the (5x5,
-    norm-free) conv runs in block form (:class:`BlockConv`) on
-    ``block_conv_impl``, over the same parameters."""
+    """Conv (padding k//2) + optional norm + optional activation.
+
+    ``conv_impl`` picks the evaluation of the standard-layout conv, as JAX
+    ``ConvLayer``: ``'xla'`` the library conv; ``'s2d'`` a stride-1 5x5
+    conv in 2x2 block space (``conv5x5_s2d``, bias included, the other
+    shapes the library conv); ``'xla_im2col'`` a stride-1 conv as a patch
+    contraction (:func:`im2col_conv`); ``'auto'`` ``'s2d'`` for a stride-1
+    5x5 conv on even H and W, else ``'xla'``. An unknown name raises.
+
+    With ``block_space`` the input is space-to-depth (2 or True: 2x2
+    blocks, 4: the quad-block rollout's 4x4) and the (5x5, norm-free)
+    conv runs in block form (:class:`BlockConv`) on ``block_conv_impl``,
+    over the same parameters."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
                  activation: Optional[str] = "relu", *,
-                 norm: Optional[str] = None, device=None):
+                 norm: Optional[str] = None, conv_impl: str = "xla",
+                 device=None):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {conv_impl!r}; use one of "
+                             f"{CONV_IMPLS}")
+        self.conv_impl = conv_impl
         self.conv2d = Conv2d(in_channels, out_channels, kernel_size, stride,
                              padding=kernel_size // 2, device=device)
         self.norm = _norm_fn(norm)
         self.activation = _ACTIVATIONS[activation]
-        self._block = (BlockConv(self.conv2d, activation)
-                       if kernel_size == 5 and stride in (1, 2)
-                       and norm is None else None)
+        ok = kernel_size == 5 and stride in (1, 2) and norm is None
+        self._block = BlockConv(self.conv2d, activation) if ok else None
+        self._block4 = (BlockConv(self.conv2d, activation, in_block=4)
+                        if ok else None)
 
-    def forward(self, x: torch.Tensor, block_space: bool = False,
+    def _resolve_impl(self, x: torch.Tensor) -> str:
+        k, stride = self.conv2d.kernel_size[0], self.conv2d.stride[0]
+        impl = self.conv_impl
+        if impl == "auto":
+            ok = (stride == 1 and k == 5 and x.shape[2] % 2 == 0
+                  and x.shape[3] % 2 == 0)
+            impl = "s2d" if ok else "xla"
+        if stride != 1 or (impl == "s2d" and k != 5):
+            impl = "xla"
+        return impl
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        impl = self._resolve_impl(x)
+        w, b = self.conv2d.weight, self.conv2d.bias
+        if impl == "s2d":
+            return _like(conv5x5_s2d(x, w, b, dtype=x.dtype), x)
+        if impl == "xla_im2col":
+            return im2col_conv(x, w, b)
+        return self.conv2d(x)
+
+    def forward(self, x: torch.Tensor, block_space=False,
                 block_conv_impl: str = "xla") -> torch.Tensor:
         if block_space:
-            if self._block is None:
+            block = self._block4 if block_space == 4 else self._block
+            if block is None:
                 raise ValueError("the block-space path takes norm-free 5x5 "
                                  f"convs of stride 1 or 2, got {self.conv2d}")
-            return self._block(x, block_conv_impl)
-        return self.activation(self.norm(self.conv2d(x)))
+            return block(x, block_conv_impl)
+        return self.activation(self.norm(self._conv(x)))
 
 
 class ResidualBlock(nn.Module):
@@ -259,19 +369,45 @@ class ResidualBlock(nn.Module):
         return torch.relu(self.norm(self.conv2(y)) + x)
 
 
+UPSAMPLE_CONV_IMPLS = ("auto", "xla")   # UpsampleConvLayer.conv_impl
+
+
 class UpsampleConvLayer(nn.Module):
-    """Bilinear 2x upsample + conv + optional norm + activation."""
+    """Bilinear 2x upsample + conv + optional norm + activation.
+
+    ``conv_impl='auto'`` (JAX's default) evaluates a norm-free 5x5 conv
+    with fewer than 128 output channels in 2x2 block space: the upsample
+    lands in s2d form at source resolution (``up2x_bilinear_s2d``), the
+    conv runs as its exact 3x3 block remap (:class:`BlockConv`) and one
+    depth-to-space restores the layout; ``'xla'`` upsamples and convolves
+    in the standard layout. Same parameters, same function."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, activation: Optional[str] = "relu", *,
-                 norm: Optional[str] = None, device=None):
+                 norm: Optional[str] = None, conv_impl: str = "auto",
+                 device=None):
         super().__init__()
+        if conv_impl not in UPSAMPLE_CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {conv_impl!r}; use one of "
+                             f"{UPSAMPLE_CONV_IMPLS}")
+        self.conv_impl = conv_impl
         self.conv2d = Conv2d(in_channels, out_channels, kernel_size,
                              padding=kernel_size // 2, device=device)
         self.norm = _norm_fn(norm)
         self.activation = _ACTIVATIONS[activation]
+        self._block = (BlockConv(self.conv2d, None)
+                       if kernel_size == 5 and norm is None
+                       and out_channels < 128 else None)
+
+    @property
+    def blocked(self) -> bool:
+        """Whether ``forward`` runs the block form."""
+        return self.conv_impl == "auto" and self._block is not None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.blocked:
+            y = depth_to_space(self._block(up2x_bilinear_s2d(x)))
+            return self.activation(_like(y, x))
         return self.activation(self.norm(self.conv2d(upsample2x_bilinear(x))))
 
 
@@ -283,13 +419,24 @@ class ConvLSTMCell(nn.Module):
     rollouts on different cells. The cell routes the name by the input's
     shape (``int8_route``: the JAX package's int8 size rule), and the
     weights are prepared for the routed cell, so an int8 weight matrix
-    never reaches the exact cell."""
+    never reaches the exact cell.
+
+    ``state_block=2`` (JAX's, the quad-block rollout's level 0): x, h and
+    c arrive and leave in 2x2 space-to-depth form (4x the channels), and
+    the same cell runs on the remapped gate weights
+    (``gates_kernel_s2d``: input ``[s2d(x) | s2d(h)]``, output gate-major),
+    so on the card the same kernels run at 4x the channel counts."""
 
     def __init__(self, input_size: int, hidden_size: int, *, device=None):
         super().__init__()
         self.Gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size, 3,
                                padding=1, device=device)
         self._prepared: Dict[str, Tuple[tuple, torch.Tensor]] = {}
+        self._s2d: Dict[str, Tuple[tuple, tuple]] = {}
+
+    def _weight_key(self) -> tuple:
+        w, b = self.Gates.weight, self.Gates.bias
+        return (w.data_ptr(), w._version, w.device, b.data_ptr(), b._version)
 
     def _prepared_weight(self, impl: str) -> Optional[torch.Tensor]:
         """What the cell kernel reads of the gate weight
@@ -306,14 +453,39 @@ class ConvLSTMCell(nn.Module):
             self._prepared[impl] = hit
         return hit[1]
 
+    def _s2d_weights(self, impl: str):
+        """(gate weight, bias, prepared) of the ``state_block=2`` cell:
+        remapped at apply time while the parameters take a gradient, else
+        kept per routed cell name and rebuilt only when they change."""
+        w, b = self.Gates.weight, self.Gates.bias
+        if torch.is_grad_enabled() and (w.requires_grad or b.requires_grad):
+            return gates_kernel_s2d(w), gates_bias_s2d(b), None
+        key = self._weight_key()
+        hit = self._s2d.get(impl)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                w2, b2 = gates_kernel_s2d(w.detach()), gates_bias_s2d(
+                    b.detach())
+                prepared = (prepare_cell_weights(w2, impl)
+                            if w.device.type == "cuda" and impl != "xla"
+                            else None)
+            hit = (key, (w2, b2, prepared))
+            self._s2d[impl] = hit
+        return hit[1]
+
     def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
-                impl: str = "pallas"
+                impl: str = "pallas", state_block: int = 1
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         h_prev, c_prev = state
+        routed = int8_route(impl, x.shape)
+        if state_block == 2:
+            weight, bias, prepared = self._s2d_weights(routed)
+        else:
+            weight, bias = self.Gates.weight, self.Gates.bias
+            prepared = self._prepared_weight(routed)
         h, c = conv_lstm_cell(
-            x, h_prev.to(x.dtype), c_prev.to(x.dtype), self.Gates.weight,
-            self.Gates.bias, impl=impl,
-            prepared=self._prepared_weight(int8_route(impl, x.shape)))
+            x, h_prev.to(x.dtype), c_prev.to(x.dtype), weight, bias,
+            impl=impl, prepared=prepared)
         return h, (h, c)
 
 
@@ -352,9 +524,11 @@ class RecurrentConvLayer(nn.Module):
     """Stride-2 5x5 conv (+ ``norm``) + ReLU followed by a recurrent cell:
     a ConvLSTM cell (``impl`` as :class:`ConvLSTMCell`) or, with
     ``recurrent_block='convgru'``, a :class:`ConvGRUCell` (state one tensor,
-    ``impl`` unused). With ``block_space`` the input is a 2x2 space-to-depth
-    tensor: the conv runs in block form and lands unblocked at half
-    resolution, where the cell runs as always."""
+    ``impl`` unused). ``block_space``: False, a standard input; True or 2,
+    a 2x2 space-to-depth input, the conv in block form landing unblocked
+    at half resolution, where the cell runs as always; 4, the quad-block
+    rollout's 4x4 input, the conv landing in 2x2 blocks and the ConvLSTM
+    cell running on space-to-depth state (``state_block=2``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2, *,
@@ -371,15 +545,27 @@ class RecurrentConvLayer(nn.Module):
         self.recurrent_block = cell(out_channels, out_channels, device=device)
 
     def forward(self, x: torch.Tensor, state, impl: str = "pallas",
-                block_space: bool = False, block_conv_impl: str = "xla"):
+                block_space=False, block_conv_impl: str = "xla"):
         x = self.conv(x, block_space, block_conv_impl)
         if isinstance(self.recurrent_block, ConvGRUCell):
+            if block_space == 4:
+                raise ValueError("the quad-block rollout needs ConvLSTM "
+                                 "cells")
             return self.recurrent_block(x, state)
-        return self.recurrent_block(x, state, impl)
+        return self.recurrent_block(x, state, impl,
+                                    2 if block_space == 4 else 1)
 
 
 class ReLUINSConv2d(nn.Module):
-    """conv -> InstanceNorm (no affine) -> ReLU."""
+    """conv -> InstanceNorm (no affine) -> ReLU.
+
+    ``forward``'s forms, over the same parameters (JAX's): ``block_space``
+    2 or 4, a stride-1 conv on a space-to-depth input (:class:`BlockConv`,
+    ``in_segments`` for a concat of separately blocked operands) with the
+    statistics pooled over the subpixels (:func:`instance_norm_blocked`);
+    ``up2x_fused``, ``conv(up2x_nearest(x))`` at source resolution with the
+    upsample folded into the weights (``up2x_conv_fused``), output in s2d
+    form."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, *, device=None):
@@ -389,8 +575,28 @@ class ReLUINSConv2d(nn.Module):
                    padding=kernel_size // 2, device=device),
             nn.InstanceNorm2d(out_channels, affine=False),
             nn.ReLU())
+        self._blocks: Dict[tuple, BlockConv] = {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block_space: int = 0,
+                in_segments: Optional[tuple] = None,
+                up2x_fused: bool = False) -> torch.Tensor:
+        conv = self.model[0]
+        if up2x_fused:
+            if conv.stride[0] != 1 or block_space:
+                raise ValueError("up2x_fused takes a stride-1 conv on a "
+                                 "standard input")
+            y = _like(up2x_conv_fused(x, conv.weight, conv.bias), x)
+            return torch.relu(instance_norm_blocked(y, 2))
+        if block_space:
+            if conv.stride[0] != 1:
+                raise ValueError("the blocked instance-norm conv is stride-1 "
+                                 "only")
+            key = (block_space, in_segments)
+            if key not in self._blocks:
+                self._blocks[key] = BlockConv(conv, None, in_block=block_space,
+                                              in_segments=in_segments)
+            y = _like(self._blocks[key](x), x)
+            return torch.relu(instance_norm_blocked(y, block_space))
         return self.model(x)
 
 

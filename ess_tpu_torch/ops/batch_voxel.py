@@ -33,7 +33,9 @@ the grid padded to whole tiles, and crop back to the sensor size.
 Grids are NCHW but for :func:`voxelize_windows`, whose output keeps the
 JAX package's channel-last order, and for the voxel grid's other layouts
 (``layout=``, JAX's ``_voxelize_pallas``): ``'nhwc'``, ``'s2d'`` (B, H/2,
-W/2, 4C), and on the band wire ``'raw'`` (the kernel's raw band
+W/2, 4C), ``'s4d'`` (B, H/4, W/4, 16C; relaid from the cropped grid after
+the voxelizer, where JAX too makes it outside its kernels), and on the
+band wire ``'raw'`` (the kernel's raw band
 accumulator and its stats, normalized and width-resized only where a
 resize folds in) and ``'stack'`` (the s2d NCHW stack and its stats, x-slot
 wire); ``oh_dtype='int8'`` selects the voxelizers' int8 tent planes.
@@ -50,7 +52,16 @@ from ess_tpu_torch.ops.voxel import (
     masked_time_norm, normalize_from_stats, normalize_nonzero)
 from ess_tpu_torch.ops.voxel_folded import (
     TILE_W, tile_h_for_bins, voxelize_folded)
-from ess_tpu_torch.ops.voxel_scatter import check_layout, relayout
+from ess_tpu_torch.ops.voxel_scatter import (
+    GRID_LAYOUTS, check_layout, relayout, to_s4d)
+
+# the voxel grid's layouts here: the voxelizers' and the quad-block
+# rollout's 4x4 blocks, relaid from the cropped grid (voxel_scatter.to_s4d)
+BATCH_LAYOUTS = GRID_LAYOUTS + ("s4d",)
+
+
+def _laid_out(grid: torch.Tensor, layout: str) -> torch.Tensor:
+    return to_s4d(grid) if layout == "s4d" else relayout(grid, layout)
 from ess_tpu_torch.ops.voxel_tiled import bin_events_device, voxelize_tiled
 
 
@@ -151,8 +162,9 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     option does), then ``voxelize_folded``. Normalization uses the
     kernel's stats over the grid at sensor resolution.
 
-    ``layout``: ``'nhwc'`` / ``'s2d'`` the grid so laid out (``deint`` the
-    s2d grid from the stack emission), after the width resize to
+    ``layout``: ``'nhwc'`` / ``'s2d'`` / ``'s4d'`` the grid so laid out
+    (``deint`` the s2d grid from the stack emission), after the width
+    resize to
     ``resize_width_to`` where one is given; ``'raw'`` -> (raw band
     accumulator (B, n_bands, C * tile_h, W_pad), stats), with a resize
     normalized (if asked), cut to the sensor width and resized, else as
@@ -192,7 +204,7 @@ def voxelize_band(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     grid = grid[:, :, :height, :width]
     if resize:
         grid = resize_width(grid, resize_width_to, resize_align_corners)
-    return relayout(grid, layout)
+    return _laid_out(grid, layout)
 
 
 def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
@@ -210,13 +222,13 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     the device. ``trilinear=False`` floors the coordinates (pure temporal
     bilinear); with ``separate_pol`` negative events then go to bins
     ``num_bins .. 2 * num_bins - 1`` with weight +1. ``t_prenormalized``
-    takes ``t`` as the normalized time. ``layout`` ``'nhwc'`` or ``'s2d'``
-    lays the normalized grid out so; ``oh_dtype`` picks the tent planes.
+    takes ``t`` as the normalized time. ``layout`` ``'nhwc'``, ``'s2d'`` or
+    ``'s4d'`` lays the normalized grid out so; ``oh_dtype`` picks the tent planes.
     """
     if layout in ("raw", "stack"):
         raise ValueError(f"layout {layout!r} needs the folded band wire "
                          "(band offsets)")
-    check_layout(layout)
+    check_layout(layout, BATCH_LAYOUTS)
     x, y = x.float(), y.float()
     ok = valid & (x > -1) & (x < width) & (y > -1) & (y < height)
     ts = _time(t, valid, num_bins, t_prenormalized)
@@ -239,10 +251,10 @@ def voxelize_tile(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
     if normalize and (hp, wp) == (height, width):
         # the voxelizer's own stats: the same bits whether the windows come
         # in one call or one batch at a time (torch's reductions would not)
-        return relayout(normalize_from_stats(
+        return _laid_out(normalize_from_stats(
             *voxelize_tiled(*cols, **kw, stats=True)), layout)
     grid = voxelize_tiled(*cols, **kw)[:, :, :height, :width]
-    return relayout(normalize_nonzero(grid) if normalize else grid, layout)
+    return _laid_out(normalize_nonzero(grid) if normalize else grid, layout)
 
 
 def _pixel_index(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,

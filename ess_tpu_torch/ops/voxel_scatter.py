@@ -300,13 +300,28 @@ def cells_to_f32(flat: torch.Tensor) -> torch.Tensor:
 
 def check_layout(layout: str, allowed=GRID_LAYOUTS) -> None:
     """Raise unless ``layout`` is one of ``allowed``; ``'s4d'`` (4x4 quad
-    blocks) with its own reason."""
-    if layout == "s4d":
-        raise ValueError("layout 's4d' (4x4 quad blocks) comes with the "
-                         "quad-block rollout, which the port does not have "
-                         "yet")
+    blocks) where it is not with its own reason: it is a relayout of the
+    cropped grid, which ``ops/batch_voxel.py`` makes after the voxelizer
+    (:func:`to_s4d`), as the JAX package makes it outside its Pallas
+    bodies."""
+    if layout == "s4d" and layout not in allowed:
+        raise ValueError("layout 's4d' (4x4 quad blocks) is made from the "
+                         "cropped grid after the voxelizer (ops/batch_voxel."
+                         "py), not by a voxelizer kernel")
     if layout not in allowed:
         raise ValueError(f"layout {layout!r} not in {allowed}")
+
+
+def to_s4d(grid: torch.Tensor) -> torch.Tensor:
+    """An NCHW grid (B, C, H, W) -> its 4x4 blocks (B, H / 4, W / 4, 16C),
+    channel (py * 4 + px) * C + c (a copy): the quad-block rollout's
+    windows."""
+    b, c, h, w = grid.shape
+    if h % 4 or w % 4:
+        raise ValueError(f"layout 's4d' needs H and W divisible by 4, got "
+                         f"{(h, w)}")
+    return grid.reshape(b, c, h // 4, 4, w // 4, 4).permute(
+        0, 2, 4, 3, 5, 1).reshape(b, h // 4, w // 4, 16 * c)
 
 
 def relayout(grid: torch.Tensor, layout: str,

@@ -18,7 +18,12 @@ the (T, B, C, H, W) stack. :meth:`Reconstructor.rollout` also takes
 space-to-depth block windows (``windows_s2d``), and
 :meth:`Reconstructor.rollout_raw` (JAX's) maps each window of a stack or
 raw build (``EventPipeline.build_all_stack`` / ``build_all_raw``) to its
-block window just before its step.
+block window just before its step. A quad-block model
+(``RecurrentUNet(quad_block=True)``) rolls out on 4x4 blocks
+(``space_to_depth4``, or the pipeline's ``layout='s4d'`` windows with
+``windows_s2d``) from a state whose first level lies in s2d form
+(:meth:`Reconstructor.init_state`), in block space as always; with a norm
+it rolls out in the standard layout, as JAX's.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ess_tpu_torch.models.e2vid import RecurrentUNet, zero_recurrent_state
-from ess_tpu_torch.ops.conv_s2d import space_to_depth
+from ess_tpu_torch.ops.conv_s2d import space_to_depth, space_to_depth4
 from ess_tpu_torch.ops.pad import CropGeometry, reflect_pad
 
 
@@ -59,16 +64,23 @@ class Reconstructor:
     def geometry(self) -> CropGeometry:
         return CropGeometry(self.height, self.width, self.model.num_encoders)
 
+    @property
+    def quad(self) -> bool:
+        """A quad-block rollout: the model's ``quad_block`` in block
+        space."""
+        return self.use_blocks and self.model.quad_block
+
     def init_state(self, batch: int, device=None):
         """Zero recurrent state at the padded size on ``device`` (None: the
-        first CUDA device)."""
+        first CUDA device); a quad-block rollout's first level in s2d
+        form."""
         g = self.geometry
         return zero_recurrent_state(
             batch, g.padded_height, g.padded_width,
             num_encoders=self.model.num_encoders,
             base_channels=self.model.base_channels,
             recurrent_block=self.model.recurrent_block,
-            dtype=self.model.dtype, device=device)
+            quad_block=self.quad, dtype=self.model.dtype, device=device)
 
     def step(self, events: torch.Tensor, state, *, decode: bool = True,
              events_s2d: bool = False):
@@ -76,7 +88,8 @@ class Reconstructor:
         Returns (image (B, 1, Hp, Wp) or None, new state, latent);
         :func:`ess_tpu_torch.ops.pad.crop_output` crops the image back.
         With ``events_s2d`` the window arrives as (B, 4C, H/2, W/2)
-        space-to-depth blocks; that needs a block-space rollout and a
+        space-to-depth blocks, or (B, 16C, H/4, W/4) 4x4 blocks for a
+        quad-block rollout; that needs a block-space rollout and a
         geometry that needs no pad."""
         g = self.geometry
         if events_s2d:
@@ -86,17 +99,18 @@ class Reconstructor:
                 raise ValueError(
                     f"events_s2d: a {self.height}x{self.width} rollout pads "
                     f"to {(g.padded_height, g.padded_width)}")
-        want = ((self.height // 2, self.width // 2) if events_s2d
-                else (self.height, self.width))
+        d = (4 if self.quad else 2) if events_s2d else 1
+        want = (self.height // d, self.width // d)
         if tuple(events.shape[-2:]) != want:
             raise ValueError(
                 f"window {tuple(events.shape[-2:])} for a {self.height}x"
                 f"{self.width} rollout"
-                + (" in space-to-depth blocks" if events_s2d else ""))
+                + (f" in {d}x{d} blocks" if events_s2d else ""))
         if not events_s2d:
             events = reflect_pad(events, g)
             if self.use_blocks:
-                events = space_to_depth(events)
+                events = (space_to_depth4 if self.quad
+                          else space_to_depth)(events)
         return self.model(events, state, decode=decode,
                           lstm_impl=self.lstm_impl,
                           block_input=self.use_blocks,

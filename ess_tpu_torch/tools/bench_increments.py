@@ -50,7 +50,8 @@ from ess_tpu_torch.tools import device_line, parse_args
 from ess_tpu_torch.train import builder
 
 # (name, model changes, batch wire, rollout form of bench.apply_form,
-# pipeline changes)
+# pipeline changes); a model change named in builder.DEFAULT_FORMS goes to
+# builder.build_modules (the image front's stem_impl, ...)
 Rung = Tuple[str, Dict[str, object], str, Optional[str], Dict[str, object]]
 LADDER: List[Rung] = [
     ("xla-cells", {"lstm_impl_train": None, "lstm_impl": "xla"}, "tile",
@@ -84,7 +85,8 @@ def run_ladder(ladder: Sequence[Rung], cfg: Config,
                make_step: Callable, device, iters: int,
                only: Optional[Sequence[int]] = None) -> List[dict]:
     """Each rung of ``ladder`` (``only`` its indices): ``cfg`` with the
-    rung's model changes, seeded modules (seed 0) in the rung's form,
+    rung's model changes (those named in ``builder.DEFAULT_FORMS`` as
+    ``build_modules`` keywords), seeded modules (seed 0) in the rung's form,
     ``make_step(mods, pipeline)`` on the rung's batch, the pipeline with
     the rung's changes; prints and returns one line a rung."""
     base = builder.make_pipeline(cfg, train=False)
@@ -92,9 +94,11 @@ def run_ladder(ladder: Sequence[Rung], cfg: Config,
     for i, (name, tweak, wire, form, pins) in enumerate(ladder):
         if only is not None and i not in only:
             continue
-        rung_cfg = dataclasses.replace(
-            cfg, model=dataclasses.replace(cfg.model, **tweak))
-        mods = builder.build_modules(rung_cfg, device=device)
+        forms = {k: v for k, v in tweak.items()
+                 if k in builder.DEFAULT_FORMS}
+        rung_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **{k: v for k, v in tweak.items() if k not in forms}))
+        mods = builder.build_modules(rung_cfg, device=device, **forms)
         builder.init_params(mods, torch.Generator().manual_seed(0))
         mods = bench.apply_form(mods, form)
         state = builder.init_state(mods)

@@ -5,15 +5,19 @@ Counterpart of the JAX package's ``tools/bench_uda_increments.py``, at
 ``bench_extra.py``'s UDA shape (B=8 images and B=8 x T=20 windows of 100k
 events at 440x640), on the x-slot band wire:
 
-  0. xla-cells          the library cell (``lstm_impl='xla'``)
-  1. int8-cells         the int8 cell kernel (B2-int8)
-  2. +raw-windows       ``raw_windows``: B1's raw band accumulator, each
+  0. xla-cells          the library cell (``lstm_impl='xla'``), the
+                        ResNet stem on the plain conv (``stem_impl='xla'``)
+  1. int8-cells         the int8 cell kernel (B2-int8), the plain stem
+  2. +blocked-stem      the ResNet stem and layer1 in space-to-depth block
+                        space (``stem_impl='auto'``, JAX's default; the
+                        port's is the plain stem, ``builder.DEFAULT_FORMS``)
+  3. +raw-windows       ``raw_windows``: B1's raw band accumulator, each
                         window mapped to its blocks just before its step
-  3. +block-conv        the head and first-encoder block convs on the fused
+  4. +block-conv        the head and first-encoder block convs on the fused
                         conv kernels (``block_conv_impl='pallas'``)
 
-The JAX ladder's ``+blocked-stem`` rung (the ResNet stem in space-to-depth
-block space) waits for the model half of A17::
+Rungs 3 and 4 build the front with the builder's default stem
+(``builder.DEFAULT_FORMS``)::
 
     python -m ess_tpu_torch.tools.bench_uda_increments [--iters=8]
         [--only=0,2]
@@ -36,9 +40,10 @@ from ess_tpu_torch.tools import device_line, parse_args
 from ess_tpu_torch.tools.bench_increments import Rung, run_ladder
 
 LADDER: List[Rung] = [
-    ("xla-cells", {"lstm_impl_train": None, "lstm_impl": "xla"}, "band",
-     None, {}),
-    ("int8-cells (default)", {}, "band", None, {}),
+    ("xla-cells", {"lstm_impl_train": None, "lstm_impl": "xla",
+                   "stem_impl": "xla"}, "band", None, {}),
+    ("int8-cells (default)", {"stem_impl": "xla"}, "band", None, {}),
+    ("+blocked-stem", {"stem_impl": "auto"}, "band", None, {}),
     ("+raw-windows", {}, "band", None, {"raw_windows": True}),
     ("+block-conv", {}, "band", "block_pallas", {}),
 ]

@@ -10,6 +10,13 @@ also the ResNet18 image front and its RAdam. Both rollouts run in block
 space, where the backbone has no norm, with the block convs on the library
 conv (``'xla'``), the choice of JAX ``build_modules``;
 :func:`with_block_conv_impl` puts them on the fused conv kernel.
+
+The forms the JAX package makes its defaults, each the same function over
+the same parameters, have their selectors here: ``model.head_conv_impl``
+(the YAML's; the head conv of a standard-layout rollout), the decoders'
+``decoder_conv_impl``, the image front's ``stem_impl`` and the steps'
+``fused_final`` head. :data:`DEFAULT_FORMS` holds the port's defaults
+(keyword arguments of :func:`build_modules` override them).
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ from ess_tpu_torch.recon.reconstructor import Reconstructor
 from ess_tpu_torch.train.state import RAdam, TrainState, make_radam
 
 
+# The port's defaults for JAX's default forms: JAX's values, except where
+# a form measured more than 2 % slower on the H100 on the path JAX makes it
+# the default for (PERF.md, the keep rule; ROADMAP.md Queue C): the
+# blocked decoder conv (+3.6 to +3.9 % on the eval step), the blocked stem
+# (+6.7 to +12.9 % on the UDA train step) and the fused-final head (above
+# 2 % in three of four runs on the supervised and on the UDA train step)
+# stay opt-in here. head_conv_impl keeps JAX's 'auto' (ModelConfig; -1.7
+# to -3.2 %).
+DEFAULT_FORMS = {"decoder_conv_impl": "xla", "stem_impl": "xla",
+                 "fused_final": False}
+
+
 def compute_dtype(cfg: Config) -> torch.dtype:
     return (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
             else torch.float32)
@@ -53,18 +72,30 @@ class ESSModules:
     opt_back: RAdam
     front_a: Optional[ResNet18Encoder] = None
     opt_front: Optional[RAdam] = None
+    fused_final: bool = False
 
 
-def build_modules(cfg: Config, *, device=None,
-                  steps_per_epoch: int = 1) -> ESSModules:
+def build_modules(cfg: Config, *, device=None, steps_per_epoch: int = 1,
+                  quad_block: bool = False,
+                  decoder_conv_impl: Optional[str] = None,
+                  stem_impl: Optional[str] = None,
+                  fused_final: Optional[bool] = None) -> ESSModules:
     """ESS modules (``model_name`` 'ess_supervised' or 'ess', UDA) on
     ``device`` (None: the first CUDA device; raises where there is none),
     parameters uninitialized beyond torch's defaults: call
     :func:`init_params` or load weights. The E2VID parameters are frozen
     (``requires_grad=False``); ``opt_back`` updates the head's and, for
-    UDA, ``opt_front`` the image front's."""
+    UDA, ``opt_front`` the image front's. ``quad_block`` builds the
+    quad-block E2VID (opt-in, as JAX's ``RecurrentUNet(quad_block=True)``);
+    ``decoder_conv_impl``, ``stem_impl`` and ``fused_final`` (None:
+    :data:`DEFAULT_FORMS`) pick the forms of the module docstring."""
     device = resolve_device(device)
     m = cfg.model
+    forms = dict(DEFAULT_FORMS)
+    forms.update({k: v for k, v in (("decoder_conv_impl", decoder_conv_impl),
+                                    ("stem_impl", stem_impl),
+                                    ("fused_final", fused_final))
+                  if v is not None})
     if m.model_name not in ("ess_supervised", "ess"):
         raise ValueError(f"the port builds 'ess_supervised' and 'ess', got "
                          f"{m.model_name!r}")
@@ -81,6 +112,8 @@ def build_modules(cfg: Config, *, device=None,
         num_residual_blocks=m.e2vid_num_residual_blocks,
         skip_type=m.e2vid_skip_type, recurrent_block=m.e2vid_recurrent_block,
         norm=m.e2vid_norm, lstm_impl=resolve_lstm_impl(m.lstm_impl),
+        head_conv_impl=m.head_conv_impl,
+        decoder_conv_impl=forms["decoder_conv_impl"], quad_block=quad_block,
         dtype=dtype, device=device)
     e2vid.requires_grad_(False)
     head = SegmentationHead(
@@ -111,6 +144,7 @@ def build_modules(cfg: Config, *, device=None,
         # layer widths 2b, 4b, 8b match the E2VID latent at scales 2, 4, 8
         front_a = ResNet18Encoder(base_width=2 * m.e2vid_base_channels,
                                   skip_connect=m.skip_connect_encoder,
+                                  stem_impl=forms["stem_impl"],
                                   dtype=dtype, device=device)
         opt_front = make_radam(front_a.parameters(), cfg.optim.lr_front,
                                lr_decay=cfg.optim.lr_decay,
@@ -118,7 +152,8 @@ def build_modules(cfg: Config, *, device=None,
     return ESSModules(cfg=cfg, e2vid=e2vid, head=head,
                       recon_train=recon_train, recon_val=recon_val,
                       opt_back=opt_back, front_a=front_a,
-                      opt_front=opt_front)
+                      opt_front=opt_front,
+                      fused_final=bool(forms["fused_final"]))
 
 
 def with_block_conv_impl(mods: ESSModules, impl: str,

@@ -5,7 +5,12 @@ NHW integer labels: ``cross_entropy_loss``, ``dice_loss`` and their sum
 ``task_loss`` (with ignore label), ``symmetric_js_divergence`` and
 ``l1_loss``, the cycle losses of ESS UDA. The math runs in f32 and is
 differentiable in the logits. The JAX package's class-on-sublane
-transposes and label folds are TPU layouts of the same sums.
+transposes are TPU layouts of the same sums. Its label folds are ported:
+the fused-final head's logits come as (B, C, H/2, 2W) parity
+pseudo-pixels (:func:`fold_labels_up2x`) and the blocked head's s4d
+logits as (B, C, H/4, 4W) (:func:`s4d_logits_class_minor`,
+:func:`fold_labels_s4d`); CE and dice sum over pixels in any order, so
+the folded losses are the standard ones.
 
 Every sum, count and mean over the batch is the global batch's under data
 parallel (``parallel/dp.py``): the ranks' partial sums go through
@@ -113,3 +118,32 @@ def symmetric_js_divergence(p_logits: torch.Tensor,
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Mean absolute error in f32 (the cycle-content loss)."""
     return _mean((a.float() - b.float()).abs())
+
+
+def s4d_logits_class_minor(logits_s4d: torch.Tensor,
+                           num_classes: int) -> torch.Tensor:
+    """The blocked head's s4d logits (B, 16C, h, w) -> (B, C, h, w*16): one
+    pseudo-pixel per subpixel, in (j, r, s) order along the width (JAX's
+    (B, h, w*16, C) with the classes on dim 1)."""
+    b, cc, h, w = logits_s4d.shape
+    if cc != 16 * num_classes:
+        raise ValueError(f"s4d logits have {cc} channels, expected "
+                         f"16 * {num_classes}")
+    return logits_s4d.view(b, 16, num_classes, h, w).permute(
+        0, 2, 3, 4, 1).reshape(b, num_classes, h, w * 16)
+
+
+def fold_labels_up2x(labels: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) labels -> (B, H/2, (W/2)*4) pseudo-pixels in (j, r, s)
+    order, matching the fused-final head's logits."""
+    b, hh, ww = labels.shape
+    return labels.reshape(b, hh // 2, 2, ww // 2, 2).permute(
+        0, 1, 3, 2, 4).reshape(b, hh // 2, (ww // 2) * 4)
+
+
+def fold_labels_s4d(labels: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) labels -> (B, H/4, (W/4)*16) in the s4d subpixel order,
+    matching :func:`s4d_logits_class_minor`."""
+    b, hh, ww = labels.shape
+    return labels.reshape(b, hh // 4, 4, ww // 4, 4).permute(
+        0, 1, 3, 2, 4).reshape(b, hh // 4, (ww // 4) * 16)

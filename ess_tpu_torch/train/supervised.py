@@ -23,15 +23,22 @@ with ``stack_windows`` B1 emits the space-to-depth window stack
 (``build_all_raw``), each mapped to a block window just before its step
 (``Reconstructor.rollout_raw``); ``windows_s2d=True`` (a step keyword)
 builds space-to-depth windows in one batch (``build_all(layout='s2d')``),
-JAX's default branch, which the port keeps opt-in; otherwise the standard
-build. The stack and raw windows equal the standard build's bit for bit.
+JAX's default branch, which the port keeps opt-in; a quad-block rollout
+(``RecurrentUNet(quad_block=True)``) builds 4x4 block windows
+(``build_all(layout='s4d')``) where the pipeline can, and takes no stack
+or raw branch, as JAX's; otherwise the standard build. The stack and raw
+windows equal the standard build's bit for bit.
 
 - Train: voxelize all windows once (with the flip augmentation), roll the
   frozen backbone out under ``torch.no_grad`` on the train rollout's
   ConvLSTM cell with no decoder (the head reads only the latent; XLA drops
   the unused decoder in the JAX step), then the head forward, the task loss
   times ``weight_task_loss``, its backward into the head, and one RAdam
-  update.
+  update. Where ``mods.fused_final`` is on and the geometry allows (JAX's
+  conditions: a skip-connect head, even label sides at twice the latent's
+  scale-2 size), the head runs its fused-final stage and the loss reads
+  the labels folded to its pseudo-pixels (``fold_labels_up2x``): the same
+  loss and gradient.
 - Eval: voxelize, roll out at the validation geometry, run the head on the
   final latent, resize logits to the label size if they differ, then the
   task loss, argmax and confusion matrix.
@@ -55,7 +62,7 @@ from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
 from ess_tpu_torch.parallel import dp
 from ess_tpu_torch.train.builder import ESSModules
-from ess_tpu_torch.train.losses import task_loss
+from ess_tpu_torch.train.losses import fold_labels_up2x, task_loss
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
 
@@ -90,26 +97,32 @@ def rollout_form(recon, batch: Dict[str, torch.Tensor],
                  pipeline: Optional[EventPipeline], *, train: bool,
                  precompute: bool = True, windows_s2d: bool = False) -> str:
     """The branch :func:`_rollout` takes (``'dense'``, ``'in_loop'``,
-    ``'stack'``, ``'raw'``, ``'s2d'`` or ``'standard'``), under JAX's
-    conditions (``ess_tpu/train/supervised.py:52-69``): a
+    ``'s4d'``, ``'stack'``, ``'raw'``, ``'s2d'`` or ``'standard'``), under
+    JAX's conditions (``ess_tpu/train/supervised.py:52-100``): a
     precomputed event batch goes to a block-window branch where the
-    pipeline can build one (``s2d_capable``), the rollout runs in block
-    space at a size that needs no pad, the windows come out at that size,
-    and a resize rides on band offsets; then the stack build if
-    ``stack_capable``, else the raw build if ``raw_capable``, else the s2d
-    build if ``windows_s2d``; else the standard build."""
+    pipeline can build one (``s2d_capable``, and ``s4d_capable`` for a
+    quad-block rollout), the rollout runs in block space at a size that
+    needs no pad, the windows come out at that size, and a resize rides on
+    band offsets; then a quad-block rollout takes the s4d build, any other
+    the stack build if ``stack_capable``, else the raw build if
+    ``raw_capable``, else the s2d build if ``windows_s2d``; else the
+    standard build."""
     if "events" in batch:
         return "dense"
     if not precompute:
         return "in_loop"
     cfg = pipeline.cfg
     g = recon.geometry
+    quad = recon.quad
     blocks = (pipeline.s2d_capable(train=train) and recon.use_blocks
+              and (not quad or pipeline.s4d_capable(train=train))
               and (cfg.resize_to is None or "ev_band_offsets" in batch)
               and (g.padded_height, g.padded_width)
               == (recon.height, recon.width)
               and tuple(cfg.output_size(train))
               == (recon.height, recon.width))
+    if blocks and quad:
+        return "s4d"
     if blocks and pipeline.stack_capable(train=train, batch=batch):
         return "stack"
     if blocks and pipeline.raw_capable(train=train, batch=batch):
@@ -150,9 +163,9 @@ def _rollout(recon, batch: Dict[str, torch.Tensor],
     if precompute:
         windows, labels = pipeline.build_all(
             batch, aug=aug, out_dtype=dtype,
-            layout="s2d" if form == "s2d" else "nchw")
+            layout=form if form in ("s2d", "s4d") else "nchw")
         img, _, latent = recon.rollout(windows, decode=decode,
-                                       windows_s2d=form == "s2d")
+                                       windows_s2d=form in ("s2d", "s4d"))
         return img, latent, labels
     if "ev_xq" in batch:
         batch = pipeline.decode_packed(batch)
@@ -164,6 +177,19 @@ def _rollout(recon, batch: Dict[str, torch.Tensor],
         labels = pipeline.apply_label_transform(labels, aug)
     img, _, latent = recon.rollout_events(batch, voxel_fn, decode=decode)
     return img, latent, labels
+
+
+def fused_final_fits(mods: ESSModules, labels_hw, latent2_hw=None) -> bool:
+    """Whether a head pass runs its fused-final stage: the modules' choice
+    (``mods.fused_final``), a skip-connect head, even label sides and a
+    scale-2 latent at half their size (JAX's conditions); ``latent2_hw``
+    None checks the sides alone (the UDA step's branches, JAX's ``f_img``
+    and ``f_ev``)."""
+    lh, lw = labels_hw
+    return (mods.fused_final and mods.head.skip_connect
+            and lh % 2 == 0 and lw % 2 == 0
+            and (latent2_hw is None
+                 or (lh // 2, lw // 2) == tuple(latent2_hw)))
 
 
 def _step_augment(pipeline, batch, aug, seed: int, step: int,
@@ -204,7 +230,11 @@ def make_train_step(mods: ESSModules,
                                          decode=False, precompute=precompute,
                                          train=True, windows_s2d=windows_s2d)
         params = [p for p in state.head.parameters() if p.requires_grad]
-        logits = state.head(latent)[1]
+        fused = fused_final_fits(mods, labels.shape[1:3],
+                                 latent[2].shape[2:4])
+        if fused:
+            labels = fold_labels_up2x(labels)
+        logits = state.head(latent, fused_final=fused)[1]
         loss = task_loss(
             logits, labels, num_classes=cfg.task.semseg_num_classes,
             ignore_label=cfg.task.semseg_ignore_label,

@@ -24,6 +24,12 @@ reconstructed frame, feeds the front), then:
   prediction: ``t_ev`` (plus the sensor-B task loss with
   ``train_on_event_labels``), which trains the head only.
 
+Each of the three head passes runs its fused-final stage where
+``mods.fused_final`` is on and its branch's input has even sides (JAX's
+``f_img`` / ``f_ev``), with the labels folded to match
+(``fold_labels_up2x``); the cycle losses compare predictions of one
+layout, so every loss is the standard one.
+
 The JAX step is one scalar loss whose ``stop_gradient`` placement decides
 which parameters each term trains. Here the same gradients are two
 ``autograd.grad`` calls over one forward: the front's of ``e_loss`` (plus
@@ -45,11 +51,11 @@ from ess_tpu_torch.data.pipeline import AugmentParams, EventPipeline
 from ess_tpu_torch.ops.resize import resize_nearest
 from ess_tpu_torch.train.builder import ESSModules
 from ess_tpu_torch.train.losses import (
-    l1_loss, symmetric_js_divergence, task_loss)
+    fold_labels_up2x, l1_loss, symmetric_js_divergence, task_loss)
 from ess_tpu_torch.train.metrics import confusion_matrix
 from ess_tpu_torch.train.state import TrainState, apply_updates
 from ess_tpu_torch.train.supervised import (
-    _rollout, _step_augment, draw_augment)
+    _rollout, _step_augment, draw_augment, fused_final_fits)
 
 Losses = Dict[str, torch.Tensor]
 PREFIX = "sensor_b_to_sensor_a"
@@ -94,12 +100,15 @@ def uda_losses(mods: ESSModules, front, head, *, img_a, labels_a, img_fake,
     w = cfg.optim
     tloss = _task_loss_fn(cfg)
     losses: Losses = {}
+    f_img = fused_final_fits(mods, img_a.shape[2:])
+    f_ev = fused_final_fits(mods, img_fake.shape[2:])
 
     # image branch
     latent_a = front(img_a, train=True)
     content_a = _detach(latent_a) if is_dsec else latent_a
-    pred_a = head(content_a)
-    t_img = tloss(pred_a[1], labels_a) * w.weight_task_loss
+    pred_a = head(content_a, fused_final=f_img)
+    t_img = tloss(pred_a[1], fold_labels_up2x(labels_a) if f_img
+                  else labels_a) * w.weight_task_loss
     losses["semseg_sensor_a_loss"] = t_img
 
     # event branch; e_loss trains the front only (the head's gradient is
@@ -109,8 +118,8 @@ def uda_losses(mods: ESSModules, front, head, *, img_a, labels_a, img_fake,
         latent_fake, latent_real,
         skip_connect_encoder=cfg.model.skip_connect_encoder,
         weight=w.weight_cycle_emb_loss, losses=losses, prefix=PREFIX)
-    pred_fake = head(latent_fake)
-    pred_real = head(latent_real)
+    pred_fake = head(latent_fake, fused_final=f_ev)
+    pred_real = head(latent_real, fused_final=f_ev)
     pred_real_ng = _detach(pred_real)
     sym_1x = symmetric_js_divergence(pred_fake[1], pred_real_ng[1])
     losses[f"cycle_pred_1x_{PREFIX}_loss"] = sym_1x
@@ -129,7 +138,8 @@ def uda_losses(mods: ESSModules, front, head, *, img_a, labels_a, img_fake,
         t_ev = t_ev + l1_loss(pred_real[s], pred_fake_ng[s]) \
             * w.weight_cycle_task_loss
     if cfg.model.train_on_event_labels and labels_b is not None:
-        t_b = tloss(pred_real[1], labels_b) * w.weight_task_loss
+        t_b = tloss(pred_real[1], fold_labels_up2x(labels_b) if f_ev
+                    else labels_b) * w.weight_task_loss
         losses["semseg_sensor_b_loss"] = t_b
         t_ev = t_ev + t_b
 

@@ -15,6 +15,14 @@ import numpy as np
 
 from ess_tpu_torch.data.imgproc import resize_linear
 from ess_tpu_torch.recon import color
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
 
 FULL_SCAN = {"resize": 1, "green": 1, "color": 38, "gray": 10, "bound": 38}
 

@@ -10,6 +10,13 @@ from ess_tpu.core.config import load_config as jax_load_config
 
 from ess_tpu_torch.core.config import load_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 YAMLS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..",
                                       "configs", "*.yaml")))
 

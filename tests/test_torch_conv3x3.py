@@ -36,6 +36,13 @@ from ess_tpu_torch.ops.conv3x3 import (
     quantize_conv_weights, tap_channels)
 from ess_tpu_torch.ops.conv_lstm import input_scale
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 SHAPES = {"24to16": (24, 16, 16, 40), "20to32": (20, 32, 8, 24),
           "odd": (24, 16, 13, 40)}
 

@@ -41,6 +41,13 @@ from ess_tpu_torch.ops.conv_lstm import input_scale, quantize
 from test_torch_conv_halo import DSEC_CONV, check_plan, conv_data
 from test_torch_kernels_cuda import CONV_SHAPES
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 DSEC_B = [(b, *s[1:]) for s in DSEC_CONV for b in (1, 2, 8)]
 
 

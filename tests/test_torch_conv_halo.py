@@ -42,6 +42,13 @@ from test_torch_head_cmajor import inputs as head_inputs
 from test_torch_head_cmajor import port_weights
 from test_torch_kernels_cuda import CONV_SHAPES, HEAD_SHAPES
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 ULP_SHARE = 0.999
 MAX_REL = 2.0 ** -7
 

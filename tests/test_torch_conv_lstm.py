@@ -23,6 +23,12 @@ from ess_tpu_torch.ops.conv_lstm import (
     conv_lstm_cell, conv_lstm_ref, gate_column_order, prepare_gate_weights)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 def make(b, h, w, cx, ch, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, h, w, cx)).astype(np.float32)

@@ -44,6 +44,13 @@ from ess_tpu.ops.conv_lstm_pallas import conv_lstm_cell as jax_cell
 from ess_tpu_torch.ops import conv_halo as chl
 from ess_tpu_torch.ops import conv_lstm as cl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # (B, H, W, CX, CH)
 DSEC_CELLS = [(b, h, w, c, c) for b in (1, 2, 8)
               for h, w, c in ((220, 320, 64), (110, 160, 128), (55, 80, 256))]

@@ -30,6 +30,12 @@ from ess_tpu_torch.ops.conv_lstm import (
 from ess_tpu_torch.train.builder import build_modules, init_params
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 def make(b, h, w, cx, ch, seed=0, x_scale=1.0, relu=False, w_scale=0.1):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, h, w, cx)) * x_scale

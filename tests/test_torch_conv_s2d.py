@@ -19,6 +19,12 @@ from ess_tpu_torch.ops.conv_s2d import (
     block_bias, block_kernel, depth_to_space, space_to_depth)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 def nchw(a):
     return torch.from_numpy(np.moveaxis(np.asarray(a), -1, 1).copy())
 

@@ -35,6 +35,13 @@ from ess_tpu_torch.data import dsec, loader, native, slicer, synthetic
 from tests.test_datasets_integration import make_dsec_seq
 from tests.test_torch_host_bin import use_private_jax_native
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # the JAX side loads its own copy of the native library (test_torch_host_bin)
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)

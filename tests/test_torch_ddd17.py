@@ -61,6 +61,13 @@ from tests.test_torch_eval_step import port_config
 from tests.test_torch_host_bin import use_private_jax_native
 from tests.test_train_steps import tiny_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)
 
@@ -432,13 +439,14 @@ def f64_gradients(pmods, modules, inputs, flips=()):
 
 def near_zero_units(inputs):
     """(call, flat index) of every nonzero ReLU input within
-    :data:`ROUNDING` of its tensor's largest."""
+    :data:`ROUNDING` of its tensor's largest, the nearest to 0 (relative
+    to its tensor's largest) first."""
     units = []
     for c, z in enumerate(inputs):
         m = float(z.abs().max())
-        units += [(c, int(j)) for j in torch.nonzero(
-            (z != 0) & (z.abs() <= ROUNDING * m)).reshape(-1)]
-    return units
+        near = torch.nonzero((z != 0) & (z.abs() <= ROUNDING * m)).reshape(-1)
+        units += [(float(z[j].abs()) / m, c, int(j)) for j in near]
+    return [(c, j) for _, c, j in sorted(units)]
 
 
 def excess(got, g64, deltas, chosen):
@@ -559,12 +567,16 @@ def test_uda_train_step_at_reduced_ddd17_geometry(uda_setup, seed):
             g_jax[f"{prefix}.{k}"] = (before[k] - after[k]) / lr
     assert sorted(g_port) == sorted(g64)
 
+    # each flip's delta is one f64 run: they are computed in the units'
+    # order, only until the greedy search explains both gradients (a
+    # routing fault computes them all and is still far outside the bound)
     units, deltas = near_zero_units(relu_inputs), []
-    if max(excess(g, g64, [], []) for g in (g_port, g_jax)) > GRAD_REL_F64:
-        for unit in units:
-            g_flip, _ = f64_gradients(pmods, modules, inputs, [unit])
-            deltas.append({k: g_flip[k] - g64[k] for k in g64})
     for name, g in (("port", g_port), ("jax", g_jax)):
         chosen, worst = explain(g, g64, deltas)
+        while worst > GRAD_REL_F64 and len(deltas) < len(units):
+            g_flip, _ = f64_gradients(pmods, modules, inputs,
+                                      [units[len(deltas)]])
+            deltas.append({k: g_flip[k] - g64[k] for k in g64})
+            chosen, worst = explain(g, g64, deltas)
         assert worst <= GRAD_REL_F64, (name, worst,
                                        [units[i] for i in chosen])

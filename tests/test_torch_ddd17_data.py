@@ -25,6 +25,13 @@ from ess_tpu_torch.data.slicer import DDD17EventStore
 from tests.test_datasets_integration import make_ddd17_dir
 from tests.test_torch_host_bin import use_private_jax_native
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)
 

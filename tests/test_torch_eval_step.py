@@ -48,6 +48,13 @@ from ess_tpu_torch.train.supervised import make_eval_step
 from tests.test_train_steps import tiny_config
 from tests.test_torch_host_bin import use_private_jax_native
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # the JAX side loads its own copy of the native library (test_torch_host_bin)
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)

@@ -38,6 +38,13 @@ from ess_tpu_torch.ops.conv_s2d import (
     block_bias, block_kernel, conv5x5_s2d_blocks, s2d_kernel)
 from ess_tpu_torch.tools import bench_head
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 SHIFT, SCALE = 0.1, 1.5
 ULP_SHARE = 0.999
 MAX_REL = 2.0 ** -7

@@ -29,6 +29,12 @@ from ess_tpu_torch.ops.voxel_folded import (
     host_band_bin_folded, host_band_bin_folded_ref)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _JAX_SRC = os.path.join(_REPO, "native", "ess_host.cpp")
 _PRIVATE_DIR = os.path.join(_REPO, "build", "ess_tpu_torch")

@@ -35,6 +35,13 @@ from ess_tpu_torch.data import imgproc
 from tests.test_torch_host_bin import use_private_jax_native
 from tests.test_torch_png_rgb import encode, scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 cv2 = pytest.importorskip("cv2")
 
 CITY_HW = (128, 256)      # written frames; the sets resize them

@@ -39,6 +39,13 @@ from ess_tpu_torch.ops import conv_lstm as cl
 from ess_tpu_torch.ops.conv_s2d import space_to_depth
 from tests.test_torch_models import BASE, TOL, jax_head, nchw, to_np
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # (name, NHWC input shape, the cell's hidden or the block conv's output
 # channels, whether JAX's 'pallas_int8' runs its int8 kernel there)
 CELLS = [

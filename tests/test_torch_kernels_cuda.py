@@ -762,6 +762,78 @@ def test_conv3x3_int8_kernel_matches_plain(dev, shape, relu, bias):
         assert err.max().item() < 0.02 and err.mean().item() < 2e-3
 
 
+# the quad-block rollout's block convs at 440x640 (B, H, W, C_in, C_out),
+# at B=2: the s4d head 80 -> 512, the s4d -> s2d first encoder 512 -> 256
+# and the second encoder on the s2d hidden state 256 -> 128, all 110x160
+QUAD_CONVS = [(2, 110, 160, 80, 512), (2, 110, 160, 512, 256),
+              (2, 110, 160, 256, 128)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", QUAD_CONVS)
+def test_conv3x3_at_the_quad_shapes(dev, shape, int8):
+    """B4 within its bounds of the plain conv, B4-int8 bit for bit with
+    the plain int8 conv, at the quad-block shapes (weights streamed, not
+    resident, at C_in 512)."""
+    x, wgt, bia = conv_inputs(dev, *shape, seed=2)
+    if int8:   # the int8 conv at every size (B=2's head is below the rule)
+        want = c3.conv3x3_int8_ref(x, wgt, bia, relu=True)
+        i0 = c3.launches_int8
+        got = c3.conv3x3_fused(x, wgt, bia, relu=True, impl=INT8)
+        torch.cuda.synchronize()
+        assert c3.launches_int8 == i0 + 1
+        assert int((got != want).sum()) == 0
+        return
+    want = c3.conv3x3_ref(x, wgt, bia, relu=True)
+    n0 = c3.launches
+    got = c3.conv3x3_fused(x, wgt, bia, relu=True, impl="pallas")
+    torch.cuda.synchronize()
+    assert c3.launches == n0 + 1
+    d = (got.float() - want.float()).abs()
+    assert (d <= bf16_ulp(got, want)).float().mean().item() >= 0.999
+    assert d.max().item() <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_s2d_cell_at_the_quad_shape(dev, int8):
+    """B2 / B2-int8 at the quad-block level 0 (x, h, c at 110x160 with
+    256 channels, 1024 gate columns) through ``ConvLSTMCell(state_block=
+    2)``: the remapped gate weights on the kernel, against the plain cell
+    on the same remapped weights (the bounds of the cell tests above)."""
+    from ess_tpu_torch.models.layers import ConvLSTMCell
+    from ess_tpu_torch.ops.conv_s2d import gates_bias_s2d, gates_kernel_s2d
+
+    x, hp, cp, _, _ = cell_inputs(dev, 2, 110, 160, 256, 256, seed=3)
+    cell = ConvLSTMCell(64, 64, device=dev)
+    with torch.no_grad():
+        cell.Gates.weight.normal_(0, 0.05)
+        cell.Gates.bias.normal_(0, 0.1)
+        w2 = gates_kernel_s2d(cell.Gates.weight)
+        b2 = gates_bias_s2d(cell.Gates.bias)
+    impl = "pallas_int8" if int8 else "pallas"
+    if int8:
+        x = torch.relu(x) * 2
+        h_ref, c_ref = cl.conv_lstm_int8_ref(x, hp, cp, w2, b2)
+    else:
+        h_ref, c_ref = cl.conv_lstm_ref(x, hp, cp, w2, b2)
+    n0, i0 = cl.launches, cl.launches_int8
+    with torch.no_grad():
+        h_new, (_, c_new) = cell(x, (hp, cp.clone(
+            memory_format=torch.channels_last)), impl, state_block=2)
+    torch.cuda.synchronize()
+    assert (cl.launches_int8 - i0, cl.launches - n0) == (
+        (1, 0) if int8 else (0, 1))
+    if int8:
+        for got, want in ((h_new, h_ref), (c_new, c_ref)):
+            d = (got.float() - want.float()).abs()
+            assert (d <= bf16_ulp(got, want) + 1e-6).all(), d.max()
+    else:
+        torch.testing.assert_close(h_new.float(), h_ref.float(), atol=2e-2,
+                                   rtol=0)
+        torch.testing.assert_close(c_new.float(), c_ref.float(), atol=3e-2,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 7, 5, 4, 8), (2, 13, 40, 24, 16),
                                    (2, 22, 32, 128, 64), (1, 8, 16, 512, 136),
                                    (8, 220, 320, 128, 64)])

@@ -37,6 +37,13 @@ from ess_tpu_torch.ops import conv_lstm as cl
 from ess_tpu_torch.ops import conv_s2d as s2d
 from ess_tpu_torch.ops import level as lv
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 TIE_SHARE = 2e-3
 TIE_MAX = 2e-2
 F32_ATOL = 1e-5

@@ -34,6 +34,13 @@ from ess_tpu_torch.ops import conv_halo as chp
 from ess_tpu_torch.ops import level as lv
 from ess_tpu_torch.ops.conv_lstm import gate_column_order, pick_row_tile
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # (B, HO, WO, CU, CH): the three DSEC levels at the tools' B=8 and at B=1,
 # 2, a 55-row level (th = 11), and the CUDA tests' other level shapes
 DSEC_LEVELS = [(b, 220, 320, 128, 64) for b in (1, 2, 8)] + [

@@ -31,6 +31,12 @@ from ess_tpu_torch.ops import conv_lstm
 from ess_tpu_torch.tools import bench_level, bench_lstm_breakdown as bd
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 def make(b=2, h=12, w=20, c=16, seed=0):
     rng = np.random.default_rng(seed)
     f = np.float32

@@ -33,6 +33,13 @@ from ess_tpu_torch.models.e2vid import RecurrentUNet, zero_recurrent_state
 from ess_tpu_torch.models.seghead import SegmentationHead
 from ess_tpu_torch.ops.conv_s2d import space_to_depth
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 B, H, W, BASE = 2, 16, 32, 8
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -25,6 +25,13 @@ import pytest
 
 from ess_tpu_torch.data import png
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 cv2 = pytest.importorskip("cv2")
 
 KINDS = [0, 1, 2, 3, 4, "mixed"]

@@ -21,6 +21,13 @@ from ess_tpu.train.state import make_radam as jax_radam
 
 from ess_tpu_torch.train.state import RAdam, apply_updates, make_radam
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 STEPS = 15
 
 

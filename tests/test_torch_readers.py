@@ -17,6 +17,12 @@ from ess_tpu.data import readers as jax_readers
 from ess_tpu_torch.data import readers
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 def write_stream(path: str, n: int = 2503, seed: int = 0) -> str:
     """A stream of ``n`` events over ~1 s with bad lines mixed in; ``.zip``
     paths hold it as their only member."""

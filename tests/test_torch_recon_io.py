@@ -24,6 +24,13 @@ from ess_tpu_torch.cli.reconstruct import to_frame8
 from ess_tpu_torch.data import png
 from ess_tpu_torch.recon import color
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 cv2 = pytest.importorskip("cv2")
 
 

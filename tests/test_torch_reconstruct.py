@@ -30,6 +30,13 @@ from ess_tpu_torch.ops import pad
 from ess_tpu_torch.ops.conv_s2d import space_to_depth
 from ess_tpu_torch.recon.reconstructor import Reconstructor
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 BASE, BINS, B, T = 8, 5, 2, 6
 ATOL = 1e-5
 SIZES = [(26, 35), (24, 35), (24, 32)]

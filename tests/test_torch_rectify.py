@@ -51,6 +51,13 @@ from tests.test_torch_streaming import (
 from tests.test_torch_voxel_tiled import assert_close
 from tests.test_train_steps import tiny_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 H, W = 48, 256
 
 

@@ -38,6 +38,13 @@ from ess_tpu_torch.ops import voxel_tiled as vt
 from ess_tpu_torch.ops.voxel import masked_time_norm, normalize_from_stats
 from ess_tpu_torch.train.builder import build_modules, init_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 H, W, BINS = 480, 640, 5
 VOXEL_ATOL = 1e-4          # chip_smoke.py's kernel-vs-plain bound
 

@@ -37,6 +37,13 @@ from tests.test_torch_ddd17 import ddd17_cfg, int_events, jax_aug_with_flip
 from tests.test_torch_eval_step import port_config
 from tests.test_torch_host_bin import use_private_jax_native
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)
 

@@ -28,6 +28,13 @@ from ess_tpu_torch.io.convert import front_from_jax
 from ess_tpu_torch.models.layers import BatchNorm2d
 from ess_tpu_torch.models.resnet import ResNet18Encoder
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 WIDTH = 16
 
 

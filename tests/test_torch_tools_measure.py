@@ -37,6 +37,13 @@ from ess_tpu_torch.tools import (
     profile_kernel, profile_lstm, roofline)
 from ess_tpu_torch.train.builder import build_modules, init_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -72,14 +79,17 @@ def hook_macs(shape=(64, 128), b=2, classes=6) -> dict:
     decoded window in the standard layout, the task head on its latent
     and the front on one image batch: {module path: FLOPs}. The cells'
     gate convs are functional; their count is taken on the cell module
-    (output pixels x the gate weight)."""
+    (output pixels x the gate weight). The head conv runs as the plain 5x5
+    conv (``head_conv_impl='xla'``; ``'auto'`` would evaluate it in block
+    space, outside the conv module)."""
     cfg = Config(
         dataset=DatasetConfig(
             sensor_a=ImageDatasetConfig(shape=shape),
             sensor_b=EventDatasetConfig(
                 name="synthetic_events", shape=shape, nr_events_data=1,
                 nr_temporal_bins=5, nr_events_window=500)),
-        model=ModelConfig(model_name="ess", compute_dtype="float32"),
+        model=ModelConfig(model_name="ess", compute_dtype="float32",
+                          head_conv_impl="xla"),
         task=TaskConfig(semseg_num_classes=classes),
         optim=OptimConfig(batch_size_a=b, batch_size_b=b))
     mods = build_modules(cfg, device="cpu")
@@ -264,9 +274,32 @@ def test_ladder_pin_rungs_take_their_branch(monkeypatch):
     batch["image_a"] = torch.randn(B, 1, *shape, generator=g)
     batch["label_a"] = torch.randint(0, 6, (B,) + shape, generator=g)
     forms.clear()
-    bench_uda_increments.main(["--iters=1", "--only=1,2"], device="cpu",
+    bench_uda_increments.main(["--iters=1", "--only=1,3"], device="cpu",
                               cfg=tiny_cfg("ess", shape=shape), batch=batch)
     assert forms == ["standard"] * 2 + ["raw"] * 2
+
+
+def test_uda_ladder_blocked_stem_rung_takes_its_branch(monkeypatch):
+    """The UDA ladder's ``+blocked-stem`` rung runs the image front's stem
+    in block space, the rungs before it the plain stem (JAX's ladder)."""
+    from ess_tpu_torch.models.resnet import ResNet18Encoder
+
+    seen = []
+    blocked = ResNet18Encoder.blocked
+    monkeypatch.setattr(ResNet18Encoder, "blocked", lambda self, x: (
+        seen.append(blocked(self, x)) or seen[-1]))
+    batch = tiny_batch("band")
+    del batch["label"]
+    g = torch.Generator().manual_seed(2)
+    batch["image_a"] = torch.randn(B, 1, *SHAPE, generator=g)
+    batch["label_a"] = torch.randint(0, 6, (B,) + SHAPE, generator=g)
+    lines = bench_uda_increments.main(["--iters=1", "--only=1,2"],
+                                      device="cpu", cfg=tiny_cfg("ess"),
+                                      batch=batch)
+    assert [ln["name"] for ln in lines] == [
+        "int8-cells (default)", "+blocked-stem"]
+    # two front passes a step, two steps a rung
+    assert seen == [False] * 4 + [True] * 4
 
 
 def test_bench_increments_runs_on_cpu():

@@ -63,6 +63,13 @@ from tests.test_torch_eval_step import (B, CLASSES, H, T, W, folded_batch,
                                         jax_with_block_conv, port_config)
 from tests.test_train_steps import tiny_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 STEPS = 3
 
 

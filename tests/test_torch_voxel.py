@@ -27,6 +27,13 @@ from ess_tpu_torch.ops.voxel import voxel_grid_trilinear
 from ess_tpu_torch.ops.voxel_folded import (
     host_band_bin_folded, voxelize_folded, voxelize_folded_ref)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 SIZES = [(48, 256), (26, 170)]
 
 

@@ -39,6 +39,13 @@ from ess_tpu_torch.ops.voxel_folded import (
 from tests.test_torch_host_bin import (
     assert_bytes_equal, raw_events, use_private_jax_native)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # the JAX side loads its own copy of the native library (test_torch_host_bin)
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)

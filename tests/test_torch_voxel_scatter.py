@@ -53,6 +53,13 @@ from ess_tpu_torch.ops import voxel_scatter as vs
 from ess_tpu_torch.ops import voxel_tiled as vt
 from tests.test_torch_voxel_tiled import F32, kernel_inputs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 ORDER = dict(atol=1e-6, rtol=1e-5)
 KAHEAD = 1024      # voxel_scatter.cuh::kAhead
 

@@ -45,6 +45,13 @@ from ess_tpu_torch.ops.batch_voxel import (
     effective_bins, voxelize_tile, voxelize_window_soa)
 from tests.test_torch_host_bin import use_private_jax_native
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    from tests.test_torch_loop import one_torch_thread
+    yield from one_torch_thread()
+
+
 # the JAX side loads its own copy of the native library (test_torch_host_bin)
 _private_jax_native = pytest.fixture(scope="module", autouse=True)(
     use_private_jax_native)
