@@ -11,7 +11,10 @@ recording to the eval and streaming steps, then the dense and in-loop
 forms of the steps, DSEC rectification on the card and A10's drift, then
 the voxelizer's opt-in pins (int8 tent planes, stack and raw windows),
 then the model's forms (the quad-block rollout, the fused-final head, the
-blocked ResNet stem and decoder conv, ``head_conv_impl``).
+blocked ResNet stem and decoder conv, ``head_conv_impl``), then the rest
+of the JAX package's library surface (the reconstruction options and
+``rollout_all``, post-processing and display, the UNet family, the voxel
+ops, the fused level's size rule).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``g++``; it never
@@ -303,7 +306,25 @@ exits non-zero, with no result line):
    block convs and B2 / B2-int8 at its level-0 cell (x, h, c at 110x160
    with 256 channels, the gate weights remapped by ``gates_kernel_s2d``)
    against their plain versions, their times and bounds at B=8 in the
-   rows' ``quad`` entries.
+   rows' ``quad`` entries;
+13. the rest of the library surface at E2VID-lightweight's full width
+   (base 32, bf16, B2 and B4): windows of 100k events voxelized one at a
+   time (B3) and ``Reconstructor(normalize=True, flip=True,
+   standardize=True).rollout_all`` at 480x640, B=8, T=20 and at the
+   DAVIS346's 260x346 (padded), B=1, each against the same path on the
+   plain versions (frames within RECON13_FRAME_BOUND), with launch counts
+   and windows/s; ``no_recurrent``: every ``rollout_all`` frame equal to
+   one step from zero state, ``rollout``'s frame the last one, bit for
+   bit; the post-processing chain on sample 0's 20 windows (100 hot pixels
+   zeroed, its rollout, the auto-HDR rescaler and unsharp mask on the
+   card, the bilateral filter and the display's composed frame on the
+   host), ms a frame for each stage; ``UNet`` at B=8, ``UNetDecoder`` and
+   ``UNetTaskDecoder`` on a rollout's final latent and a transposed-conv,
+   tanh ``RecurrentUNet`` rollout, bf16 against f32, with times;
+   ``voxel_grid_temporal`` and ``event_histogram`` of a 100k-event window
+   against the host voxelizer and numpy; B5 declining an ``h_prev`` below
+   JAX's size rule (no launch) and launching above it, against its plain
+   version; the phase's seconds.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -343,6 +364,7 @@ from ess_tpu_torch.ops.voxel import (  # noqa: E402
 from ess_tpu_torch.ops.conv_s2d import (  # noqa: E402
     gates_bias_s2d, gates_kernel_s2d)
 from ess_tpu_torch.recon import color  # noqa: E402
+from ess_tpu_torch.recon.reconstructor import Reconstructor  # noqa: E402
 from ess_tpu_torch.tools import (  # noqa: E402
     REPEATS as CHAIN_REPEATS, STEPS as CHAIN_STEPS, bench_head,
     bench_increments, bench_kernel, bench_level, bench_lstm,
@@ -564,6 +586,19 @@ def plain_conv(x, w, b, *, relu=True, impl="xla", prepared=None):
           if conv_lstm.int8_route(impl, x.shape) == "pallas_int8"
           else conv3x3.conv3x3_ref)
     return fn(x, w, b, relu=relu)
+
+
+@contextlib.contextmanager
+def level_rule_lowered():
+    """Lower the fused level's size rule (``level.FUSE_MIN_ELEMENTS``), so
+    that its entry launches the kernels at the small shapes that check
+    them against the int8 bounds."""
+    saved = level.FUSE_MIN_ELEMENTS
+    level.FUSE_MIN_ELEMENTS = 0
+    try:
+        yield
+    finally:
+        level.FUSE_MIN_ELEMENTS = saved
 
 
 @contextlib.contextmanager
@@ -1552,7 +1587,8 @@ def check_level(dev):
     tool's B=8 and a full-resolution level 0 with three row tiles; times at
     the three. The kernels are called directly, for the group scales, and
     through ``encoder_level_int8``, the entry the tool drives, which must
-    give the same bits."""
+    give the same bits (at the small level, below JAX's size rule, it must
+    decline)."""
     err = ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for li, (ushape, ch, u_s2d) in enumerate(LEVEL_SHAPES + [LEVEL_ODD]):
@@ -1574,13 +1610,16 @@ def check_level(dev):
         torch.cuda.synchronize()
         x_equal = torch.equal(x_k, x_p)
         del x_k, x_p
-        h_e, (_, c_e) = level.encoder_level_int8(
+        out = level.encoder_level_int8(
             u, (h0, c0.clone(memory_format=torch.channels_last)), ek, eb, gk,
             gb, u_s2d=u_s2d, prepared=prep)
         torch.cuda.synchronize()
-        if level.launches != n0 + 2:
+        if level.launches != n0 + (1 if odd else 2):
             raise AssertionError("the level did not count its launches")
-        if not (torch.equal(h_e, h_k) and torch.equal(c_e, c_k)):
+        if odd and out is not None:
+            raise AssertionError("B5 took an h_prev below the size rule")
+        if not odd and not (torch.equal(out[0], h_k)
+                            and torch.equal(out[1][1], c_k)):
             raise AssertionError(f"B5 ({tuple(ushape)}): encoder_level_int8 "
                                  "and level_int8_cuda give different bits")
         scales_equal = x_equal and all(
@@ -1598,7 +1637,8 @@ def check_level(dev):
             f"{h0.shape[2]}x{h0.shape[3]}, th={th}, {au_k.numel()} groups: "
             f"x and the group scales identical {scales_equal} (bound: "
             f"identical; the quantized operands follow from them); "
-            f"encoder_level_int8 gives the same bits; "
+            f"encoder_level_int8 "
+            f"{'declines (size rule)' if odd else 'gives the same bits'}; "
             f"{unequal} of {2 * h_k.numel()} values of h', c' not "
             f"bit-identical, {bad} beyond one bf16 ulp (bound 0), max|d| "
             f"{e:.3e}")
@@ -1618,7 +1658,7 @@ def check_level(dev):
         log_plan("B5 conv", lp.conv)
         if odd:
             continue
-        del h_p, c_p, h_k, c_k, h_e, c_e
+        del h_p, c_p, h_k, c_k, out
         cw = c0.clone(memory_format=torch.channels_last)
         t_k = cuda_ms(lambda: level.level_int8_cuda(u, h0, cw, prep, **kw),
                       20)
@@ -2085,7 +2125,8 @@ def phase_tools(dev, kern_rows):
     shapes and through the entry the tool drives, a 20-step fused chain
     against the plain chain."""
     chains = 1 + CHAIN_REPEATS                  # warm-up + timed chains
-    res = bench_level.main(["--layers=0,1"], layers=LEVEL_SMALL)
+    with level_rule_lowered():   # LEVEL_SMALL is below the size rule
+        res = bench_level.main(["--layers=0,1"], layers=LEVEL_SMALL)
     for li, paths in res.items():
         r = paths["fused"]
         log(f"bench_level, small level {li}: fused max|dh| {r['dh_max']:.3e} "
@@ -4343,7 +4384,7 @@ def phase_reconstruct(dev, kern_rows, tmp: str):
         torch.cuda.synchronize()
         h2d.append(1e3 * (time.perf_counter() - t0))
     model = reconstruct.build_model(ckpt, dev)
-    recon = Reconstructor(model=model, height=h, width=w)
+    recon = Reconstructor(model=model, height=h, width=w, normalize=False)
 
     def voxelize():
         return batch_voxel.voxelize_window_soa(*cols, num_bins=5, height=h,
@@ -6572,6 +6613,420 @@ def phase_model_pins(dev, kern_rows) -> None:
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# The JAX package's last library surface (phase 13) at E2VID-lightweight's
+# full width (base 32, 3 encoders, 2 residual blocks), bf16, on B2 and B4.
+# Each window of RECON13_EVENTS events is voxelized on its own through
+# voxelize_window_soa (B3), then Reconstructor(normalize, flip,
+# standardize).rollout_all decodes every window. Bounds, stated before the
+# first run on the card:
+# - the kernel path against the same path on the plain versions (B3, the
+#   cell, the block convs), both bf16: frames in 8-bit levels after
+#   standardize, at most RECON13_FRAME_BOUND[0] levels apart and at most
+#   RECON13_FRAME_BOUND[1] of the values more than one level apart. Sized
+#   from bf16 against f32 on the CPU (the same seeded model at 96x128, 20
+#   windows: at most 2 levels, 1.6 % of the values more than one apart);
+#   the kernels differ from their plain versions in summation order only;
+# - no_recurrent: every rollout_all frame equals one step from zero state
+#   on its window, and rollout's frame the last of them, bit for bit (the
+#   same launches on the same inputs);
+# - bf16 against f32 on the card for the UNet family, where no kernel
+#   differs: an image in [0, 1] within UNET_BF16_ABS, task logits within
+#   TASK_BF16_REL of their absmax, the tanh rollout's image within
+#   TANH_BF16_ABS after TANH_WINDOWS carried windows;
+# - voxel_grid_temporal against the host voxelizer (the same f32 tent,
+#   another time normalization expression) within HOST_GRID_ATOL per cell,
+#   event_histogram against numpy's counts exactly.
+RECON13_HW = (480, 640)
+RECON13_DAVIS = (260, 346)
+RECON13_B, RECON13_T = 8, 20
+RECON13_EVENTS = 100_000
+RECON13_FRAME_BOUND = (6, 0.02)
+UNET_BF16_ABS = 0.03
+TASK_BF16_REL = 0.05
+TANH_BF16_ABS = 0.05
+TANH_WINDOWS = 5
+HOST_GRID_ATOL = 1e-5
+HOT_PIXELS = 100
+RECON13_OPTS = dict(normalize=True, flip=True, standardize=True)
+
+
+def seeded_net(cls, dev, dtype, seed: int, **kw):
+    """A seeded net of ``cls`` (every conv drawn as ``nn.Conv2d`` does from
+    a generator seeded ``seed``, transposed convs from torch's seeded
+    default, then doubled as phase 5f's checkpoint) on ``dev``."""
+    from ess_tpu_torch.cli import reconstruct
+
+    torch.manual_seed(seed)
+    model = cls(**kw, dtype=dtype, device="cpu")
+    reconstruct.seeded_init(model, seed=seed)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.mul_(2)
+    return model.to(dev).requires_grad_(False)
+
+
+def recon13_columns(dev, b: int, t_dim: int, h: int, w: int, seed: int):
+    """(T, B, N) event columns x, y, t, p made on the card: uniform
+    coordinates over the sensor, sorted times, random polarity."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (t_dim, b, RECON13_EVENTS)
+    rand = lambda: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+    x, y = rand() * (w - 1), rand() * (h - 1)
+    t = torch.sort(rand() * 5e4, dim=-1).values
+    return x, y, t, (rand() < 0.5).float()
+
+
+def recon13_windows(cols, h: int, w: int) -> torch.Tensor:
+    """(T, B, 5, H, W) grids, one voxelizer call (B3) a window."""
+    x, y, t, p = cols
+    valid = torch.ones_like(x[0], dtype=torch.bool)
+    return torch.stack([batch_voxel.voxelize_window_soa(
+        x[i], y[i], t[i], p[i], valid, num_bins=BINS, height=h, width=w,
+        normalize=False) for i in range(x.shape[0])])
+
+
+def frames8(imgs: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(imgs.float(), 0.0, 1.0) * 255.0).to(torch.int16)
+
+
+def recon13_rollout_all(dev, kern_rows, model, hw, b: int, seed: int):
+    """(a): per-window voxelization and rollout_all with the options on,
+    kernel path against plain path (the first call of each checked, then
+    both timed alternately); returns the kernel path's windows."""
+    h, w = hw
+    cols = recon13_columns(dev, b, RECON13_T, h, w, seed)
+    rec = Reconstructor(model=model, height=h, width=w, **RECON13_OPTS)
+    g = rec.geometry
+
+    def run(path):
+        ctx = plain_versions() if path == "plain" else contextlib.nullcontext()
+        with ctx, torch.no_grad():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wins = recon13_windows(cols, h, w)
+            imgs, _ = rec.rollout_all(wins)
+            torch.cuda.synchronize()
+            return wins, imgs, read_counts(), time.perf_counter() - t0
+
+    out = {}
+    for path in ("kernel", "plain"):
+        wins, imgs, counts, _ = run(path)
+        out[path] = (wins, imgs)
+        log(f"  rollout_all {h}x{w}, B={b} ({path}, first call): launches "
+            f"{show_counts(counts)}")
+        if path == "kernel":
+            need_counts(counts, by_name({"B3": RECON13_T,
+                                         "B2": 3 * RECON13_T,
+                                         "B4": 2 * RECON13_T}))
+            add_launches(kern_rows, f"recon13_rollout_all_{h}x{w}", counts)
+        else:
+            need_counts(counts, ())
+    walls = {"kernel": [], "plain": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        walls[path].append(run(path)[3])
+    for path, ts in walls.items():
+        wall = statistics.median(ts)
+        log(f"  rollout_all {h}x{w} (padded {g.padded_height}x"
+            f"{g.padded_width}), B={b}, T={RECON13_T} ({path}): "
+            f"{RECON13_T * b / wall:.1f} windows/s ({1e3 * wall:.1f} ms a "
+            f"call, voxelizer included; calls "
+            f"{[round(1e3 * t, 1) for t in ts]} ms, alternated)")
+    want_shape = (RECON13_T, b, 1, g.padded_height, g.padded_width)
+    k8, p8 = frames8(out["kernel"][1]), frames8(out["plain"][1])
+    if tuple(k8.shape) != want_shape or not torch.isfinite(
+            out["kernel"][1]).all():
+        raise AssertionError(f"rollout_all: frames {tuple(k8.shape)}")
+    d = (k8 - p8).abs()
+    worst, over = int(d.max()), float((d > 1).float().mean())
+    spread = float(k8.float().std())
+    lo, hi = (float(v) for v in out["kernel"][1].aminmax())
+    log(f"  frames kernel vs plain: max {worst} levels, "
+        f"{100 * over:.3f} % of the values more than one level apart, "
+        f"{100 * float((d > 0).float().mean()):.2f} % apart at all (bound "
+        f"{RECON13_FRAME_BOUND[0]} levels, {100 * RECON13_FRAME_BOUND[1]} "
+        f"%); standardized range [{lo:.4f}, {hi:.4f}], frame std "
+        f"{spread:.1f} levels")
+    if (worst > RECON13_FRAME_BOUND[0] or over > RECON13_FRAME_BOUND[1]
+            or spread < 2 or lo != 0.0 or abs(hi - 1.0) > 1e-3):
+        raise AssertionError("rollout_all: the kernel path's frames "
+                             "disagree with the plain path's or are flat")
+    return out["kernel"][0]
+
+
+def recon13_no_recurrent(dev, kern_rows, model, wins) -> None:
+    """(b): no_recurrent's rollout_all frames against single steps from
+    zero state, bit for bit; rollout steps the last window only."""
+    b = wins.shape[1]
+    h, w = wins.shape[-2:]
+    rec = Reconstructor(model=model, height=h, width=w, no_recurrent=True,
+                        **RECON13_OPTS)
+    with torch.no_grad():
+        reset_counts()
+        imgs, state = rec.rollout_all(wins)
+        counts = read_counts()
+        need_counts(counts, by_name({"B2": 3 * RECON13_T,
+                                     "B4": 2 * RECON13_T}))
+        add_launches(kern_rows, "recon13_no_recurrent", counts)
+        same = [torch.equal(rec.step(wins[i], rec.init_state(b, dev))[0],
+                            imgs[i]) for i in range(RECON13_T)]
+        reset_counts()
+        last = rec.rollout(wins)[0]
+        counts = read_counts()
+    need_counts(counts, by_name({"B2": 3, "B4": 2}))
+    zero = not any(bool(t.any()) for pair in state for t in pair)
+    log(f"  no_recurrent: rollout_all frames equal to one step from zero "
+        f"state on {sum(same)} of {RECON13_T} windows, bit for bit; the "
+        f"final state zero {zero}; rollout's frame the last one "
+        f"{torch.equal(last, imgs[-1])}, with launches "
+        f"{show_counts(counts)} (the last window only)")
+    if not (all(same) and zero and torch.equal(last, imgs[-1])):
+        raise AssertionError("no_recurrent: frames differ from single steps")
+
+
+def recon13_postprocess(dev, kern_rows, model, wins) -> None:
+    """(c): hot pixels zeroed on sample 0's grids, its rollout_all, then
+    the auto-HDR rescaler, the unsharp mask, the host bilateral filter and
+    the display's composed frame, ms a frame for each stage."""
+    from ess_tpu_torch.recon.display import ImageDisplay
+    from ess_tpu_torch.recon.postprocess import (
+        IntensityRescaler, bilateral_filter, unsharp_mask, zero_hot_pixels)
+
+    h, w = wins.shape[-2:]
+    rng = np.random.default_rng(13)
+    hot = np.stack([rng.integers(0, w, HOT_PIXELS),
+                    rng.integers(0, h, HOT_PIXELS)], 1)
+    ms = {k: [] for k in ("hot pixels", "rollout", "rescale", "unsharp",
+                          "bilateral", "compose")}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    with torch.no_grad():
+        grids = timed("hot pixels", zero_hot_pixels, wins[:, 0], hot)
+        if grids[:, :, hot[:, 1], hot[:, 0]].any():
+            raise AssertionError("zero_hot_pixels left a hot pixel")
+        rec = Reconstructor(model=model, height=h, width=w, **RECON13_OPTS)
+        reset_counts()
+        imgs, _ = timed("rollout", rec.rollout_all, grids[:, None])
+        counts = read_counts()
+        need_counts(counts, by_name({"B2": 3 * RECON13_T,
+                                     "B4": 2 * RECON13_T}))
+        add_launches(kern_rows, "recon13_postprocess", counts)
+        rescaler = IntensityRescaler(auto_hdr=True)
+        shown = ImageDisplay(show_events=True)
+        for i in range(RECON13_T):
+            f = timed("rescale", rescaler, imgs[i])
+            f = timed("unsharp", unsharp_mask, f)
+            host = f[0, 0].float().cpu().numpy()
+            host = timed("bilateral", bilateral_filter, host, 1.0)
+            frame = timed("compose", shown.compose,
+                          (np.clip(host, 0, 1) * 255).astype(np.uint8),
+                          grids[i].cpu().numpy())
+            if (frame.shape != (h, 2 * w, 3) or not np.isfinite(host).all()
+                    or host.min() < 0 or host.max() > 1):
+                raise AssertionError(f"post-processing frame {i}: "
+                                     f"{frame.shape}")
+    per = {k: (statistics.median(v) if k not in ("hot pixels", "rollout")
+               else v[0] / RECON13_T) for k, v in ms.items()}
+    log(f"  post-processing on {RECON13_T} frames at {h}x{w} (B=1), ms a "
+        f"frame: " + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+        + f" (host clock, synchronized; hot pixels and rollout the whole "
+        f"stack over {RECON13_T}); auto-HDR bounds now "
+        f"[{statistics.median(rescaler._mins):.4f}, "
+        f"{statistics.median(rescaler._maxs):.4f}]")
+
+
+def recon13_unets(dev, kern_rows, wins) -> None:
+    """(d): UNet at B=8, UNetDecoder and UNetTaskDecoder on the rollout's
+    final latent, and a transposed-conv, tanh RecurrentUNet rollout: bf16
+    against f32 on the card, with times."""
+    from ess_tpu_torch import models
+
+    b = wins.shape[1]
+    h, w = wins.shape[-2:]
+    x = normalize_nonzero(wins[-1])
+    nets = {dt: seeded_net(models.UNet, dev, dt, 31)
+            for dt in (torch.bfloat16, torch.float32)}
+    with torch.no_grad():
+        got, want = (nets[dt](x) for dt in (torch.bfloat16, torch.float32))
+        t_bf, t_f = (cuda_ms(lambda dt=dt: nets[dt](x), 3)
+                     for dt in (torch.bfloat16, torch.float32))
+    e = float((got - want).abs().max())
+    log(f"  UNet B={b} {h}x{w}: bf16 {t_bf:.2f} ms, f32 {t_f:.2f} ms; "
+        f"bf16 vs f32 max|d| {e:.3e} (bound {UNET_BF16_ABS})")
+    if not (torch.isfinite(got).all() and e <= UNET_BF16_ABS):
+        raise AssertionError("UNet bf16 disagrees with f32")
+
+    model = seeded_net(models.RecurrentUNet, dev, torch.bfloat16, 32,
+                       lstm_impl="pallas", block_conv_impl="pallas")
+    rec = Reconstructor(model=model, height=h, width=w, **RECON13_OPTS)
+    with torch.no_grad():
+        reset_counts()
+        _, _, latent = rec.rollout(wins)
+        counts = read_counts()
+    need_counts(counts, by_name({"B2": 3 * RECON13_T,
+                                 "B4": 2 * RECON13_T}))
+    add_launches(kern_rows, "recon13_latent", counts)
+    lat32 = {k: v.float() for k, v in latent.items()}
+    for name, cls, kw in (("UNetDecoder", models.UNetDecoder, {}),
+                          ("UNetTaskDecoder", models.UNetTaskDecoder,
+                           {"num_classes": CLASSES})):
+        decs = {dt: seeded_net(cls, dev, dt, 33, **kw)
+                for dt in (torch.bfloat16, torch.float32)}
+        with torch.no_grad():
+            got = decs[torch.bfloat16](latent)
+            want = decs[torch.float32](lat32)
+            t_bf = cuda_ms(lambda: decs[torch.bfloat16](latent), 3)
+            t_f = cuda_ms(lambda: decs[torch.float32](lat32), 3)
+        if isinstance(got, dict):
+            got, want = got[1], want[1]
+            e = float((got - want).abs().max() / want.abs().max())
+            ok = e <= TASK_BF16_REL
+            what = f"logits rel max|d| {e:.3e} (bound {TASK_BF16_REL})"
+        else:
+            e = float((got - want).abs().max())
+            ok = e <= UNET_BF16_ABS
+            what = f"max|d| {e:.3e} (bound {UNET_BF16_ABS})"
+        log(f"  {name} on the final latent (B={b}): bf16 {t_bf:.2f} ms, "
+            f"f32 {t_f:.2f} ms; bf16 vs f32 {what}; out "
+            f"{tuple(got.shape)}")
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"{name} bf16 disagrees with f32")
+
+    kw = dict(use_upsample_conv=False, final_activation="tanh")
+    tanh = {"bf16": seeded_net(models.RecurrentUNet, dev, torch.bfloat16, 34,
+                               lstm_impl="pallas", block_conv_impl="pallas",
+                               **kw),
+            "f32": seeded_net(models.RecurrentUNet, dev, torch.float32, 34,
+                              lstm_impl="xla", block_conv_impl="xla", **kw)}
+    outs = {}
+    with torch.no_grad():
+        for name, net in tanh.items():
+            rec = Reconstructor(model=net, height=h, width=w, normalize=True)
+            reset_counts()
+            t0 = time.perf_counter()
+            outs[name] = rec.rollout(wins[:TANH_WINDOWS])[0]
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            counts = read_counts()
+            if name == "bf16":
+                need_counts(counts, by_name({"B2": 3 * TANH_WINDOWS,
+                                             "B4": 2 * TANH_WINDOWS}))
+                add_launches(kern_rows, "recon13_tanh_rollout", counts)
+            else:
+                need_counts(counts, ())
+            log(f"  transposed-conv tanh RecurrentUNet rollout ({name}), "
+                f"B={b}, {TANH_WINDOWS} windows: {wall:.1f} ms, launches "
+                f"{show_counts(counts)}")
+    e = float((outs["bf16"] - outs["f32"]).abs().max())
+    lo, hi = (float(v) for v in outs["f32"].aminmax())
+    log(f"  tanh rollout bf16 (kernels) vs f32 (plain): max|d| {e:.3e} "
+        f"(bound {TANH_BF16_ABS}), f32 image in [{lo:.3f}, {hi:.3f}]")
+    if not (e <= TANH_BF16_ABS and -1 <= lo and hi <= 1):
+        raise AssertionError("tanh rollout bf16 disagrees with f32")
+
+
+def recon13_voxel_ops(dev) -> None:
+    """(e): voxel_grid_temporal and event_histogram of one window on the
+    card against the host voxelizer and numpy's counts."""
+    from ess_tpu_torch.ops.voxel import (
+        EventWindow, event_histogram, voxel_grid_temporal)
+
+    h, w = RECON13_HW
+    x, y, t, p = (c[0, 0] for c in recon13_columns(dev, 1, 1, h, w, 17))
+    ev = EventWindow.from_arrays(x, y, t, p, device=dev)
+    raw = torch.stack([x, y, t, p], -1).cpu().numpy()[None]
+    valid = np.ones(raw.shape[:2], bool)
+    for sep in (False, True):
+        kw = dict(num_bins=BINS, height=h, width=w, separate_pol=sep)
+        got = voxel_grid_temporal(ev, **kw)
+        t_dev = cuda_ms(lambda: voxel_grid_temporal(ev, **kw), 10)
+        t0 = time.perf_counter()
+        want = native.voxelize_host(raw, valid, **kw)[0]
+        t_host = 1e3 * (time.perf_counter() - t0)
+        e = float(np.abs(got.cpu().numpy() - want).max())
+        log(f"  voxel_grid_temporal (separate_pol {sep}) of "
+            f"{RECON13_EVENTS} events at {h}x{w}: {t_dev:.3f} ms on the "
+            f"card, voxelize_host {t_host:.2f} ms; max|d| {e:.2e} (bound "
+            f"{HOST_GRID_ATOL})")
+        if not e <= HOST_GRID_ATOL:
+            raise AssertionError("voxel_grid_temporal disagrees with the "
+                                 "host voxelizer")
+    got = event_histogram(ev, height=h, width=w).cpu().numpy()
+    t_dev = cuda_ms(lambda: event_histogram(ev, height=h, width=w), 10)
+    xi, yi = raw[0, :, 0].astype(np.int64), raw[0, :, 1].astype(np.int64)
+    want = np.zeros((2, h, w), np.float32)
+    np.add.at(want, ((raw[0, :, 3] > 0).astype(np.int64), yi, xi), 1.0)
+    log(f"  event_histogram: {t_dev:.3f} ms on the card, equal to numpy's "
+        f"counts {np.array_equal(got, want)} ({int(got.sum())} events)")
+    if not np.array_equal(got, want):
+        raise AssertionError("event_histogram disagrees with numpy")
+
+
+def recon13_level_rule(dev, kern_rows) -> None:
+    """(f): B5 declines below JAX's size rule and launches above it, held
+    against its plain version as phase 3 holds it."""
+    ushape, ch, u_s2d = LEVEL_ODD
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(50, ushape, ch,
+                                                        u_s2d, dev)
+    n_below = h0.numel()
+    reset_counts()
+    below = level.encoder_level_int8(u, (h0, c0.clone(
+        memory_format=torch.channels_last)), ek, eb, gk, gb, u_s2d=u_s2d)
+    counts = read_counts()
+    if level.fuses(n_below) or below is not None or any(counts):
+        raise AssertionError("B5 took an h_prev below the size rule")
+    ushape, ch, u_s2d = LEVEL_SHAPES[-1]
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(51, ushape, ch,
+                                                        u_s2d, dev)
+    prep = level.prepare_level_weights(ek, eb, gk, gb)
+    reset_counts()
+    h_k, (_, c_k) = level.encoder_level_int8(
+        u, (h0, c0.clone(memory_format=torch.channels_last)), ek, eb, gk, gb,
+        u_s2d=u_s2d, prepared=prep)
+    counts = read_counts()
+    need_counts(counts, by_name({"B5": 1}))
+    add_launches(kern_rows, "recon13_level", counts)
+    th = conv_lstm.pick_row_tile(h0.shape[2])
+    h_p, c_p = level.level_int8_ref(u, h0, c0, prep, u_s2d=u_s2d, th=th)[:2]
+    bad = sum(ulp_report(g, p)[0] for g, p in ((h_k, h_p), (c_k, c_p)))
+    log(f"  B5 size rule: h_prev of {n_below} elements "
+        f"(below {level.FUSE_MIN_ELEMENTS}) -> None, no launch; "
+        f"{h0.numel()} elements -> {show_counts(counts)}, {bad} values of "
+        f"h', c' beyond one bf16 ulp of the plain version (bound 0)")
+    if bad:
+        raise AssertionError("B5 disagrees with its plain version")
+
+
+def phase_surface(dev, kern_rows) -> None:
+    """Phase 13: the JAX package's last library surface (module
+    docstring)."""
+    from ess_tpu_torch.models.e2vid import RecurrentUNet
+
+    t_phase = time.perf_counter()
+    model = seeded_net(RecurrentUNet, dev, torch.bfloat16, 30,
+                       lstm_impl="pallas", block_conv_impl="pallas")
+    wins = recon13_rollout_all(dev, kern_rows, model, RECON13_HW, RECON13_B,
+                               41)
+    recon13_rollout_all(dev, kern_rows, model, RECON13_DAVIS, 1, 42)
+    recon13_no_recurrent(dev, kern_rows, model, wins)
+    recon13_postprocess(dev, kern_rows, model, wins)
+    recon13_unets(dev, kern_rows, wins)
+    del wins, model
+    torch.cuda.empty_cache()
+    recon13_voxel_ops(dev)
+    recon13_level_rule(dev, kern_rows)
+    if "cv2" in sys.modules:
+        raise AssertionError("phase 13 imported cv2")
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     at = lambda name: log(f"{name} done at "
@@ -6609,7 +7064,8 @@ def main() -> None:
                         ("phase 7", phase_block), ("phase 8", phase_tools),
                         ("phase 8b", phase_tools_measure),
                         ("phase 10", phase_forms), ("phase 11", phase_pins),
-                        ("phase 12", phase_model_pins)):
+                        ("phase 12", phase_model_pins),
+                        ("phase 13", phase_surface)):
         phase(dev, rows)
         at(name)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -133,12 +133,16 @@ def main(argv=None, *, device=None) -> None:
     from ess_tpu_torch.ops.batch_voxel import voxelize_window_soa
     from ess_tpu_torch.ops.pad import crop_output
     from ess_tpu_torch.ops.voxel import normalize_nonzero
+    from ess_tpu_torch.recon.display import ImageDisplay
     from ess_tpu_torch.recon.reconstructor import Reconstructor
 
-    # without --display the preview flags show nothing, as in JAX
-    if args.display:
-        raise RuntimeError("--display is not ported: the port has no cv2 "
-                           "window (ROADMAP.md, A15)")
+    # built for its checks only: --display raises, the port has no cv2
+    # window to show a frame in; without it the preview flags show nothing,
+    # as in JAX
+    ImageDisplay(display=args.display, show_events=args.show_events,
+                 event_display_mode=args.event_display_mode,
+                 num_bins_to_show=args.num_bins_to_show,
+                 border=args.display_border_crop)
     dev = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,7 +154,8 @@ def main(argv=None, *, device=None) -> None:
                          f"{width} x {height}")
 
     model = build_model(args.checkpoint, dev)
-    recon = Reconstructor(model=model, height=height, width=width)
+    recon = Reconstructor(model=model, height=height, width=width,
+                          normalize=False)
     state = recon.init_state(1, dev)
     if args.window_duration is not None:
         reader = FixedDurationEventReader(args.input_file,
@@ -162,7 +167,7 @@ def main(argv=None, *, device=None) -> None:
         from ess_tpu_torch.recon.color import (
             BAYER_PHASES, bayer_split, merge_channels_into_color_image)
         recon_half = Reconstructor(model=model, height=height // 2,
-                                   width=width // 2)
+                                   width=width // 2, normalize=False)
         color_state = recon_half.init_state(4, dev)
 
     os.makedirs(args.output_folder, exist_ok=True)

@@ -3,7 +3,9 @@
 The port's own binding: it builds the shared library with ``g++`` into
 ``build/ess_tpu_torch/`` at the repository root (never next to the source,
 where the JAX package keeps its copy), keyed by a hash of the source, and
-raises if the build fails. Bound here: the ghost-folded band binning of the
+raises if the build fails. Bound here: the host voxelizers
+(:func:`voxelize_host`, trilinear and temporal-bilinear grids built on the
+CPU), the ghost-folded band binning of the
 fold-free voxelizer and the tile binning of the halo-tiled one, the fused
 DSEC ingests (rectify + per-window time re-zero + one of the two binnings,
 in one pass over the raw event columns) on the f32 wire and on the packed
@@ -85,6 +87,12 @@ def _build() -> ctypes.CDLL:
     cdll.tile_bin_f32.restype = None
     u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    cdll.voxelize_trilinear_f32.argtypes = [f32p, u8p, c_i64, c_i64, c_i64,
+                                            c_i64, f32p]
+    cdll.voxelize_trilinear_f32.restype = None
+    cdll.voxelize_temporal_f32.argtypes = [f32p, u8p, c_i64, c_i64, c_i64,
+                                           c_i64, ctypes.c_int, f32p]
+    cdll.voxelize_temporal_f32.restype = None
     cdll.searchsorted_i64.argtypes = [i64p, c_i64, i64p, c_i64, i64p]
     cdll.searchsorted_i64.restype = None
     cdll.pad_windows_f64.argtypes = [f64p, i64p, i64p, c_i64, c_i64, f32p,
@@ -130,6 +138,16 @@ def get_lib() -> ctypes.CDLL:
         if _lib is None:
             _lib = _build()
     return _lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads here (the entry points
+    raise where it does not)."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def folded_capacity(n: int) -> int:
@@ -210,6 +228,31 @@ def tile_bin(
     lib.tile_bin_f32(ev, vd, t_dim, n, height, width, tile_h, tile_w, ntx,
                      n_tiles, out, out_valid, offsets, counts, tid_scratch)
     return out, out_valid.astype(bool), offsets
+
+
+def voxelize_host(raw_windows: np.ndarray, valid: np.ndarray, *,
+                  num_bins: int, height: int, width: int,
+                  trilinear: bool = False, separate_pol: bool = False
+                  ) -> np.ndarray:
+    """(T, N, 4) [x, y, t, p] raw windows and their (T, N) validity ->
+    (T, C, H, W) f32 grids, built on the host by the library's voxelizers:
+    the trilinear grid (``trilinear``), else the temporal-bilinear one,
+    with 2 * num_bins channels under ``separate_pol``."""
+    lib = get_lib()
+    t_dim = raw_windows.shape[0]
+    channels = num_bins * 2 if (separate_pol and not trilinear) else num_bins
+    out = np.zeros((t_dim, channels, height, width), np.float32)
+    ev = np.ascontiguousarray(raw_windows, np.float32)
+    vd = np.ascontiguousarray(valid, np.uint8)
+    for i in range(t_dim):
+        if trilinear:
+            lib.voxelize_trilinear_f32(ev[i], vd[i], ev.shape[1], num_bins,
+                                       height, width, out[i])
+        else:
+            lib.voxelize_temporal_f32(ev[i], vd[i], ev.shape[1], num_bins,
+                                      height, width, int(separate_pol),
+                                      out[i])
+    return out
 
 
 def searchsorted_i64(t: np.ndarray, queries: np.ndarray) -> np.ndarray:

@@ -10,6 +10,11 @@ header line, as the public E2VID datasets ship them, plain or as the only
 member of a zip archive. ``start_index`` skips that many lines after the
 header; lines without four fields are skipped. Text windows are float64
 (N, 4) ``[t, x, y, p]`` arrays.
+
+``H5DurationReader`` iterates over a DSEC ``events.h5`` in windows of a
+fixed duration (``data/slicer.py``'s store and slicer; ``h5py`` is
+imported when a reader opens a file), yielding (N, 4) ``[x, y, t, p]``
+arrays.
 """
 
 from __future__ import annotations
@@ -97,3 +102,27 @@ class FixedDurationEventReader:
         if buf:
             yield np.asarray(buf)
 
+
+
+class H5DurationReader:
+    """Windows of ``delta_t_ms`` over a DSEC events.h5 stream, from its
+    first event time while a whole window fits before its last: (N_i, 4)
+    [x, y, t, p] arrays, empty windows skipped."""
+
+    def __init__(self, h5_path: str, delta_t_ms: float = 50.0):
+        from ess_tpu_torch.data.slicer import EventSlicer, H5EventStore
+
+        self.store = H5EventStore(h5_path)
+        self.slicer = EventSlicer(self.store)
+        self.delta_t_us = int(delta_t_ms * 1000)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        from ess_tpu_torch.data.slicer import events_dict_to_xytp
+
+        t = self.slicer.start_time_us()
+        t_final = self.slicer.final_time_us()
+        while t + self.delta_t_us <= t_final:
+            ev = self.slicer.get_events(t, t + self.delta_t_us)
+            if ev is not None and len(ev["t"]):
+                yield events_dict_to_xytp(ev)
+            t += self.delta_t_us

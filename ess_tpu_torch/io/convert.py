@@ -1,13 +1,17 @@
 """JAX parameter pytrees and reference-format torch files -> the port's
 state dicts.
 
-The JAX package keeps flax pytrees (``e2vid_params`` of ``RecurrentUNet``,
+The JAX package keeps flax pytrees (``e2vid_params`` of ``RecurrentUNet``
+and the params of ``UNet``, ``UNetDecoder`` and ``UNetTaskDecoder``,
 ``back_params`` of ``SegmentationHead``, ``front_params`` and
 ``front_batch_stats`` of ``ResNet18Encoder``) with HWIO conv kernels; the
 port's modules carry upstream ESS/E2VID and torchvision names with OIHW
 weights. The ConvLSTM gate
 columns keep their (i, f, o, g) order over ``concat([x, h])`` inputs, so
-the mapping is a rename plus a transpose. Inputs are numpy arrays (or
+the mapping is a rename plus a transpose. A transposed-conv decoder's
+flax kernel (kh, kw, in, out) becomes the torch (in, out, kh, kw) weight
+unflipped: ``layers.py::TransposedConvLayer`` flips it where it evaluates
+it. Inputs are numpy arrays (or
 anything ``np.asarray`` takes); no JAX import is needed.
 
 The reference-format loaders (counterparts of the JAX package's
@@ -42,6 +46,70 @@ def conv_state(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     return _conv(p, prefix)
 
 
+def _decoder(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A JAX decoder: an upsample conv (``Conv_0``) -> ``{prefix}.conv2d``,
+    a transposed conv (``ConvTranspose_0``, HWIO) ->
+    ``{prefix}.transposed_conv2d`` (in, out, kh, kw)."""
+    if "Conv_0" in p:
+        return _conv(p["Conv_0"], f"{prefix}.conv2d")
+    t = p["ConvTranspose_0"]
+    kernel = np.asarray(t["kernel"], np.float32).transpose(2, 3, 0, 1)
+    out = {f"{prefix}.transposed_conv2d.weight":
+           torch.tensor(kernel).contiguous()}
+    if "bias" in t:
+        out[f"{prefix}.transposed_conv2d.bias"] = torch.tensor(
+            np.asarray(t["bias"], np.float32))
+    return out
+
+
+def _trunk(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The residual blocks and decoders of a JAX E2VID net."""
+    out: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"resblock_{i}" in params:
+        rb = params[f"resblock_{i}"]
+        out.update(_conv(rb["Conv_0"], f"resblocks.{i}.conv1"))
+        out.update(_conv(rb["Conv_1"], f"resblocks.{i}.conv2"))
+        i += 1
+    i = 0
+    while f"decoder_{i}" in params:
+        out.update(_decoder(params[f"decoder_{i}"], f"decoders.{i}"))
+        i += 1
+    return out
+
+
+def unet_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet`` params -> the port's ``UNet`` state dict."""
+    out = _conv(params["head"]["Conv_0"], "head.conv2d")
+    i = 0
+    while f"encoder_{i}" in params:
+        out.update(_conv(params[f"encoder_{i}"]["Conv_0"],
+                         f"encoders.{i}.conv2d"))
+        i += 1
+    out.update(_trunk(params))
+    out.update(_conv(params["pred"]["Conv_0"], "pred.conv2d"))
+    return out
+
+
+def unet_decoder_from_jax(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetDecoder`` params -> the port's ``UNetDecoder`` state
+    dict."""
+    out = _trunk(params)
+    out.update(_conv(params["pred"]["Conv_0"], "pred.conv2d"))
+    return out
+
+
+def unet_task_decoder_from_jax(params: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetTaskDecoder`` params -> the port's ``UNetTaskDecoder``
+    state dict."""
+    out = _trunk(params)
+    out.update(_conv(params["pred_hidden"]["Conv_0"], "pred_hidden.conv2d"))
+    out.update(_conv(params["pred"]["Conv_0"], "pred.conv2d"))
+    return out
+
+
 _GRU_GATES = ("reset_gate", "update_gate", "out_gate")
 
 
@@ -51,7 +119,9 @@ def params_from_jax(e2vid_params: Mapping[str, Any],
     """(JAX RecurrentUNet params, JAX SegmentationHead params) ->
     (``RecurrentUNet`` state dict, ``SegmentationHead`` state dict), for
     ConvLSTM (``rnn.gates``) or ConvGRU (``rnn.{reset,update,out}_gate``)
-    encoders and the skip-connect or the plain head."""
+    encoders, upsample-conv or transposed-conv decoders, a prediction of
+    any activation (it has no parameters) and the skip-connect or the
+    plain head."""
     e2vid: Dict[str, torch.Tensor] = {}
     e2vid.update(_conv(e2vid_params["head"]["Conv_0"], "head.conv2d"))
     i = 0
@@ -64,17 +134,17 @@ def params_from_jax(e2vid_params: Mapping[str, Any],
         else:
             for gate in _GRU_GATES:
                 e2vid.update(_conv(enc["rnn"][gate], f"{cell}.{gate}"))
-        e2vid.update(_conv(e2vid_params[f"decoder_{i}"]["Conv_0"],
-                           f"decoders.{i}.conv2d"))
         i += 1
-    i = 0
-    while f"resblock_{i}" in e2vid_params:
-        rb = e2vid_params[f"resblock_{i}"]
-        e2vid.update(_conv(rb["Conv_0"], f"resblocks.{i}.conv1"))
-        e2vid.update(_conv(rb["Conv_1"], f"resblocks.{i}.conv2"))
-        i += 1
+    e2vid.update(_trunk(e2vid_params))
     e2vid.update(_conv(e2vid_params["pred"]["Conv_0"], "pred.conv2d"))
+    return e2vid, seghead_from_jax(back_params)
 
+
+def seghead_from_jax(back_params: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``SegmentationHead`` params (skip-connect or plain, with or
+    without ``input_index_map``) -> the port's ``SegmentationHead`` state
+    dict."""
     head: Dict[str, torch.Tensor] = {}
     skip = "reduce" in back_params
     for i in range(5 if skip else 3):
@@ -91,7 +161,7 @@ def params_from_jax(e2vid_params: Mapping[str, Any],
     for name, prefix in convs:
         head.update(_conv(back_params[name]["Conv_0"], f"{prefix}.model.0"))
     head.update(_conv(back_params["logits"], "decoder_scale_5.0"))
-    return e2vid, head
+    return head
 
 
 def front_from_jax(front_params: Mapping[str, Any],

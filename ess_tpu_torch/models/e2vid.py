@@ -1,12 +1,18 @@
-"""E2VID recurrent UNet (NCHW).
+"""E2VID model family (NCHW).
 
-Counterpart of ``ess_tpu/models/e2vid.py`` (``RecurrentUNet``,
-``zero_recurrent_state``): head 5x5 conv -> ``num_encoders`` x (stride-2 5x5
-conv + ConvLSTM or ConvGRU cell) -> residual blocks -> bilinear-upsample
-decoders with skip merges -> 1x1 prediction + sigmoid, every layer but the
-head with the model's ``norm`` (None or ``'IN'``) before its activation.
-The latent dict maps downsample factor to feature (1 = head, 2**(i+1) =
-encoder i), as upstream ``unet.py`` does.
+Counterpart of ``ess_tpu/models/e2vid.py`` (``RecurrentUNet``, ``UNet``,
+``UNetDecoder``, ``UNetTaskDecoder``, ``zero_recurrent_state``). The
+recurrent UNet: head 5x5 conv -> ``num_encoders`` x (stride-2 5x5 conv +
+ConvLSTM or ConvGRU cell) -> residual blocks -> decoders with skip merges
+-> 1x1 prediction + ``final_activation`` (sigmoid by default), every layer
+but the head with the model's ``norm`` (None or ``'IN'``) before its
+activation. The decoders are bilinear-upsample convs
+(``use_upsample_conv``, the default) or stride-2 transposed convs
+(``layers.py::TransposedConvLayer``). The latent dict maps downsample
+factor to feature (1 = head, 2**(i+1) = encoder i), as upstream
+``unet.py`` does. :class:`UNet` is the plain (non-recurrent) net;
+:class:`UNetDecoder` decodes an image and :class:`UNetTaskDecoder` class
+logits at four scales from a latent dict made elsewhere.
 
 With ``block_input`` the window arrives as 2x2 space-to-depth blocks
 (:func:`ess_tpu_torch.ops.conv_s2d.space_to_depth`) and the head conv and
@@ -39,7 +45,7 @@ import torch.nn as nn
 from ess_tpu_torch import resolve_device
 from ess_tpu_torch.models.layers import (
     BLOCK_CONV_IMPLS, ConvLayer, RecurrentConvLayer, ResidualBlock,
-    UpsampleConvLayer, skip_merge)
+    TransposedConvLayer, UpsampleConvLayer, skip_merge)
 from ess_tpu_torch.ops.conv_lstm import resolve_lstm_impl
 from ess_tpu_torch.ops.conv_s2d import depth_to_space, depth_to_space4
 
@@ -76,6 +82,28 @@ def zero_recurrent_state(batch: int, height: int, width: int, *,
     return tuple(states)
 
 
+def decoder_stack(base_channels: int, num_encoders: int, skip_type: str,
+                  norm: Optional[str], use_upsample_conv: bool,
+                  decoder_conv_impl: str, device) -> nn.ModuleList:
+    """The E2VID decoders: per scale from the deepest, a skip merge's
+    channels -> half the scale's features, bilinear-upsample conv
+    (``use_upsample_conv``) or stride-2 transposed conv."""
+    cat = 2 if skip_type == "concat" else 1
+    decs = []
+    for i in range(num_encoders):
+        feats = base_channels * 2 ** (num_encoders - i)
+        if use_upsample_conv:
+            decs.append(UpsampleConvLayer(cat * feats, feats // 2, 5, "relu",
+                                          norm=norm,
+                                          conv_impl=decoder_conv_impl,
+                                          device=device))
+        else:
+            decs.append(TransposedConvLayer(cat * feats, feats // 2, 5,
+                                            "relu", norm=norm,
+                                            device=device))
+    return nn.ModuleList(decs)
+
+
 class RecurrentUNet(nn.Module):
     """E2VID recurrent UNet; ``forward`` returns (image or None, new states,
     latent)."""
@@ -85,6 +113,8 @@ class RecurrentUNet(nn.Module):
                  num_output_channels: int = 1, skip_type: str = "sum",
                  recurrent_block: str = "convlstm",
                  norm: Optional[str] = None,
+                 use_upsample_conv: bool = True,
+                 final_activation: Optional[str] = "sigmoid",
                  lstm_impl: str = "pallas", block_conv_impl: str = "xla",
                  head_conv_impl: str = "auto",
                  decoder_conv_impl: str = "xla", quad_block: bool = False,
@@ -117,14 +147,11 @@ class RecurrentUNet(nn.Module):
             ResidualBlock(top, norm=norm, device=device)
             for _ in range(num_residual_blocks))
         cat = 2 if skip_type == "concat" else 1
-        self.decoders = nn.ModuleList(
-            UpsampleConvLayer(cat * base_channels * 2 ** (num_encoders - i),
-                              base_channels * 2 ** (num_encoders - i) // 2,
-                              5, "relu", norm=norm,
-                              conv_impl=decoder_conv_impl, device=device)
-            for i in range(num_encoders))
+        self.decoders = decoder_stack(base_channels, num_encoders, skip_type,
+                                      norm, use_upsample_conv,
+                                      decoder_conv_impl, device)
         self.pred = ConvLayer(cat * base_channels, num_output_channels, 1, 1,
-                              "sigmoid", norm=norm, device=device)
+                              final_activation, norm=norm, device=device)
 
     def forward(self, x: torch.Tensor, states: Sequence, *,
                 decode: bool = True, lstm_impl: Optional[str] = None,
@@ -187,3 +214,142 @@ class RecurrentUNet(nn.Module):
                                blocks[self.num_encoders - i - 1]))
         img = self.pred(skip_merge(self.skip_type, h, head))
         return img.float(), tuple(new_states), latent
+
+
+class UNet(nn.Module):
+    """Plain (non-recurrent) E2VID UNet: head 5x5 conv -> ``num_encoders``
+    stride-2 5x5 convs -> residual blocks -> decoders with skip merges ->
+    1x1 prediction + ``final_activation``; ``forward(x)`` returns the
+    (B, out, H, W) f32 image. The encoders, residual blocks and decoders
+    take ``norm``; the head and the prediction have none, as JAX's."""
+
+    def __init__(self, *, in_channels: int = 5, base_channels: int = 32,
+                 num_encoders: int = 3, num_residual_blocks: int = 2,
+                 num_output_channels: int = 1, skip_type: str = "sum",
+                 norm: Optional[str] = None, use_upsample_conv: bool = True,
+                 final_activation: Optional[str] = "sigmoid",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.num_encoders = num_encoders
+        self.skip_type = skip_type
+        self.dtype = dtype
+        self.head = ConvLayer(in_channels, base_channels, 5, 1, "relu",
+                              device=device)
+        self.encoders = nn.ModuleList(
+            ConvLayer(base_channels * 2 ** i, base_channels * 2 ** (i + 1),
+                      5, 2, "relu", norm=norm, device=device)
+            for i in range(num_encoders))
+        top = base_channels * 2 ** num_encoders
+        self.resblocks = nn.ModuleList(
+            ResidualBlock(top, norm=norm, device=device)
+            for _ in range(num_residual_blocks))
+        self.decoders = decoder_stack(base_channels, num_encoders, skip_type,
+                                      norm, use_upsample_conv,
+                                      "xla", device)
+        cat = 2 if skip_type == "concat" else 1
+        self.pred = ConvLayer(cat * base_channels, num_output_channels, 1, 1,
+                              final_activation, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        head = h = self.head(x)
+        blocks = []
+        for enc in self.encoders:
+            h = enc(h)
+            blocks.append(h)
+        for rb in self.resblocks:
+            h = rb(h)
+        for i, dec in enumerate(self.decoders):
+            h = dec(skip_merge(self.skip_type, h,
+                               blocks[self.num_encoders - i - 1]))
+        return self.pred(skip_merge(self.skip_type, h, head)).float()
+
+
+class _LatentDecoder(nn.Module):
+    """The residual blocks and decoders over a latent dict {1, 2, ...,
+    2**num_encoders} that :class:`UNetDecoder` and
+    :class:`UNetTaskDecoder` share."""
+
+    def __init__(self, base_channels: int, num_encoders: int,
+                 num_residual_blocks: int, skip_type: str,
+                 norm: Optional[str], use_upsample_conv: bool,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.num_encoders = num_encoders
+        self.skip_type = skip_type
+        self.dtype = dtype
+        top = base_channels * 2 ** num_encoders
+        self.resblocks = nn.ModuleList(
+            ResidualBlock(top, norm=norm, device=device)
+            for _ in range(num_residual_blocks))
+        self.decoders = decoder_stack(base_channels, num_encoders, skip_type,
+                                      norm, use_upsample_conv,
+                                      "xla", device)
+
+    def _decode(self, latent: Latent):
+        """Yield the features after each decoder, then the last one merged
+        with ``latent[1]``."""
+        n = self.num_encoders
+        lat = lambda s: latent[s].to(self.dtype).contiguous(  # noqa: E731
+            memory_format=torch.channels_last)
+        h = lat(2 ** n)
+        for rb in self.resblocks:
+            h = rb(h)
+        for i, dec in enumerate(self.decoders):
+            h = dec(skip_merge(self.skip_type, h, lat(2 ** (n - i))))
+            yield h
+        yield skip_merge(self.skip_type, h, lat(1))
+
+
+class UNetDecoder(_LatentDecoder):
+    """Decoder-only E2VID (upstream ``UNetDecoder`` / ``E2VIDDecoder``):
+    ``forward(latent)`` decodes a latent dict made elsewhere into the
+    (B, out, H, W) f32 image."""
+
+    def __init__(self, *, base_channels: int = 32, num_encoders: int = 3,
+                 num_residual_blocks: int = 2, num_output_channels: int = 1,
+                 skip_type: str = "sum", norm: Optional[str] = None,
+                 use_upsample_conv: bool = True,
+                 final_activation: Optional[str] = "sigmoid",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(base_channels, num_encoders, num_residual_blocks,
+                         skip_type, norm, use_upsample_conv, dtype,
+                         device)
+        cat = 2 if skip_type == "concat" else 1
+        self.pred = ConvLayer(cat * base_channels, num_output_channels, 1, 1,
+                              final_activation, device=device)
+
+    def forward(self, latent: Latent) -> torch.Tensor:
+        *_, h = self._decode(latent)
+        return self.pred(h).float()
+
+
+class UNetTaskDecoder(_LatentDecoder):
+    """Multi-scale segmentation decoder over the E2VID latent dict (JAX's
+    ``UNetTaskDecoder``, upstream ``UNetTask``): ``forward(latent)``
+    returns {2**n: latent[2**n], 2**(n-1): feature, ..., 1: class logits
+    (B, classes, H, W) f32}. Where upstream feeds a zero head at full
+    scale, the real ``latent[1]`` is merged, as in JAX."""
+
+    def __init__(self, num_classes: int, *, base_channels: int = 32,
+                 num_encoders: int = 3, num_residual_blocks: int = 2,
+                 skip_type: str = "sum", norm: Optional[str] = None,
+                 use_upsample_conv: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(base_channels, num_encoders, num_residual_blocks,
+                         skip_type, norm, use_upsample_conv, dtype,
+                         device)
+        cat = 2 if skip_type == "concat" else 1
+        self.pred_hidden = ConvLayer(cat * base_channels, base_channels, 1,
+                                     1, "relu", device=device)
+        self.pred = ConvLayer(base_channels, num_classes, 1, 1, None,
+                              device=device)
+
+    def forward(self, latent: Latent) -> Latent:
+        n = self.num_encoders
+        out: Latent = {2 ** n: latent[2 ** n]}
+        *feats, h = self._decode(latent)
+        for i, f in enumerate(feats):
+            out[2 ** (n - i - 1)] = f
+        out[1] = self.pred(self.pred_hidden(h)).float()
+        return out

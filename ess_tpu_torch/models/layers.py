@@ -8,7 +8,8 @@ separately blocked operands), ``ResidualBlock``, ``UpsampleConvLayer``
 (``conv_impl='auto'``: the post-upsample conv in 2x2 block space),
 ``ConvLSTMCell`` (``state_block=2``: operands and state in space-to-depth
 form, the quad-block rollout's level 0), ``ConvGRUCell``,
-``RecurrentConvLayer``, ``ReLUINSConv2d`` (``block_space``,
+``RecurrentConvLayer``, ``TransposedConvLayer``, ``activation_fn``,
+``ReLUINSConv2d`` (``block_space``,
 ``in_segments``, ``up2x_fused``), ``INSResBlock``, ``_UpFusedConv``
 (``ops/conv_s2d.py::up2x_conv_fused``), ``upsample2x_nearest``,
 ``skip_merge``,
@@ -48,7 +49,13 @@ from ess_tpu_torch.ops.conv_s2d import (
 from ess_tpu_torch.parallel import dp
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-                None: lambda x: x}
+                "tanh": torch.tanh, None: lambda x: x}
+
+
+def activation_fn(name: Optional[str]):
+    """The activation ``name`` names (``'relu'``, ``'sigmoid'``,
+    ``'tanh'``; None: the identity); another name raises ``KeyError``."""
+    return _ACTIVATIONS[name]
 
 
 class Conv2d(nn.Conv2d):
@@ -409,6 +416,39 @@ class UpsampleConvLayer(nn.Module):
             y = depth_to_space(self._block(up2x_bilinear_s2d(x)))
             return self.activation(_like(y, x))
         return self.activation(self.norm(self.conv2d(upsample2x_bilinear(x))))
+
+
+class TransposedConvLayer(nn.Module):
+    """Stride-2 transposed conv (the output twice the input's size) +
+    optional norm + activation, JAX's ``TransposedConvLayer``: flax's
+    ``ConvTranspose(padding='SAME')``, which pads the stride-dilated input
+    by (k+1)//2 before and (k-2)//2 after (3, 2 at k=5) and correlates it
+    with the kernel unflipped. No ``nn.ConvTranspose2d`` padding pair gives
+    that alignment, so the layer keeps upstream's ``transposed_conv2d``
+    parameters, (C_in, C_out, k, k) with flax's kernel unflipped in them,
+    and evaluates ``conv_transpose2d`` of the spatially flipped kernel at
+    the padding that pads (k+1)//2 before, cropped to 2H x 2W: the same
+    function. ``'IN'`` is instance norm; ``'BN'`` raises
+    (:func:`check_norm`)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 5, activation: Optional[str] = "relu", *,
+                 norm: Optional[str] = None, device=None):
+        super().__init__()
+        self.norm = _norm_fn(norm)
+        self.activation = _ACTIVATIONS[activation]
+        self.transposed_conv2d = nn.ConvTranspose2d(
+            in_channels, out_channels, kernel_size, stride=2,
+            padding=kernel_size - 1 - (kernel_size + 1) // 2, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.transposed_conv2d
+        w = conv.weight.to(x.dtype).flip(2, 3)
+        b = None if conv.bias is None else conv.bias.to(x.dtype)
+        h, w_ = x.shape[2:]
+        y = F.conv_transpose2d(x, w, b, stride=2, padding=conv.padding)
+        y = y[:, :, :2 * h, :2 * w_]
+        return self.activation(self.norm(_like(y.contiguous(), x)))
 
 
 class ConvLSTMCell(nn.Module):

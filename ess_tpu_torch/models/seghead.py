@@ -31,15 +31,16 @@ skip-connect head are JAX's, over the same parameters:
 
 Module names are upstream's
 (``decoder_scale_1.{i}`` ... ``decoder_scale_5.0``; in the plain head the
-upsample of a scale is its parameterless ``.0``). JAX's ``input_index_map``
-option of the plain head is not ported: no config sets it.
+upsample of a scale is its parameterless ``.0``). The plain head's
+``input_index_map`` appends two coordinate channels to latent[8], its row
+index i and its column index j in the head's dtype, before the residual
+blocks (which then run at C + 2 channels), as JAX's does.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-import torch
 import torch
 import torch.nn as nn
 
@@ -58,9 +59,12 @@ class SegmentationHead(nn.Module):
 
     def __init__(self, num_classes: int, input_features: int = 256, *,
                  skip_connect: bool = True, skip_type: str = "concat",
+                 input_index_map: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         tch = input_features
+        # an option of the plain head; the skip-connect head ignores it
+        self.input_index_map = input_index_map and not skip_connect
         self.skip_connect = skip_connect
         self.skip_type = skip_type
         self.dtype = dtype
@@ -83,9 +87,10 @@ class SegmentationHead(nn.Module):
             up = lambda cin, cout: nn.Sequential(
                 nn.Upsample(scale_factor=2, mode="nearest"),
                 ReLUINSConv2d(cin, cout, device=device))
+            cin = tch + (2 if input_index_map else 0)
             self.decoder_scale_1 = nn.Sequential(
-                *(INSResBlock(tch, device=device) for _ in range(3)))
-            self.decoder_scale_2 = up(tch, tch // 2)
+                *(INSResBlock(cin, device=device) for _ in range(3)))
+            self.decoder_scale_2 = up(cin, tch // 2)
             self.decoder_scale_3 = up(tch // 2, tch // 4)
             self.decoder_scale_4 = up(tch // 4, tch // 8)
         self.decoder_scale_5 = nn.Sequential(
@@ -100,6 +105,12 @@ class SegmentationHead(nn.Module):
                              "no fused_final")
         x = latent[8].to(self.dtype)
         out: Latent = {8: latent[8]}
+        if self.input_index_map:
+            n, _, h, w = x.shape
+            ii = torch.arange(h, dtype=x.dtype, device=x.device)
+            jj = torch.arange(w, dtype=x.dtype, device=x.device)
+            x = torch.cat([x, ii[None, None, :, None].expand(n, 1, h, w),
+                           jj[None, None, None, :].expand(n, 1, h, w)], 1)
         x = self.decoder_scale_1(x)
         if self.skip_connect:
             x = skip_merge(self.skip_type, upsample2x_nearest(x), latent[4])

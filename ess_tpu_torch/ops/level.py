@@ -36,10 +36,14 @@ absmax of u; the conv on the halo-tile core, u quantized as it is staged;
 the gate conv and the pointwise on the int8 cell kernel's machinery, x and
 h quantized as they are staged), with the plan of
 ``ops/conv_halo.py::level_plan``, writes h' to a new tensor and updates c
-in place (outside autograd); there is no size gate and no route to the
-plain version: a shape the kernels do not take raises. No model or rollout
-uses the level, as in the JAX package: ``ess_tpu_torch/tools/bench_level.py``
-drives it.
+in place (outside autograd); there is no route to the plain version: a
+shape the kernels do not take raises. On CUDA tensors the entry keeps JAX's
+size rule (:func:`fuses`): an ``h_prev`` of fewer than
+``FUSE_MIN_ELEMENTS`` elements gets None before any launch, as on JAX's
+non-interpret path, and the caller takes the split level; the CPU's plain
+version answers at every size, as JAX's interpret mode does. No model or
+rollout uses the level, as in the JAX package:
+``ess_tpu_torch/tools/bench_level.py`` drives it.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ from ess_tpu_torch.ops.conv_s2d import (
 launches = 0   # fused-level calls on CUDA, each the three kernels
 
 AMAX_FLOOR = 1e-6
+# JAX's size rule (ops/level_pallas.py::encoder_level_int8, not interpret):
+# a smaller h_prev takes the split level
+FUSE_MIN_ELEMENTS = 1_000_000
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -334,6 +341,12 @@ class _RecomputeBackward(torch.autograd.Function):
         return (*(next(got) if n else None for n in need), None, None)
 
 
+def fuses(h_prev_elements: int) -> bool:
+    """JAX's size rule for the fused level on the device: an ``h_prev``
+    of at least ``FUSE_MIN_ELEMENTS`` elements."""
+    return h_prev_elements >= FUSE_MIN_ELEMENTS
+
+
 def encoder_level_int8(u: torch.Tensor, state: State,
                        enc_weight: torch.Tensor, enc_bias: torch.Tensor,
                        gate_weight: torch.Tensor, gate_bias: torch.Tensor, *,
@@ -344,7 +357,7 @@ def encoder_level_int8(u: torch.Tensor, state: State,
     ``(h, (h, c))``, or None where the geometry does not tile, as the JAX
     entry does: an encoder kernel that is not 5x5 or a gate kernel that is
     not 3x3, a full-resolution u that is not (2*HO, even), or no row tile
-    for HO rows.
+    for HO rows; on CUDA tensors also below the size rule (:func:`fuses`).
 
     ``state`` is (h, c), (B, CH, HO, WO), cast to u's dtype. CPU tensors:
     the plain version. CUDA tensors: the kernels, which need bf16
@@ -367,6 +380,8 @@ def encoder_level_int8(u: torch.Tensor, state: State,
         return None
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"encoder_level_int8: unsupported device {u.device}")
+    if u.device.type == "cuda" and not fuses(h_prev.numel()):
+        return None
     want_w = h_prev.shape[3] * (1 if u_s2d else 2)
     if u.shape[3] != want_w or (u_s2d and u.shape[2] != ho):
         raise ValueError(f"encoder_level_int8: u {tuple(u.shape)} does not "

@@ -1,9 +1,15 @@
-"""Plain trilinear voxel grid over raw events, and nonzero normalization.
+"""Event windows -> dense grids: the plain trilinear voxel grid, the
+temporal-bilinear grid, the event histogram, and nonzero normalization.
 
-Counterpart of ``ess_tpu/ops/voxel.py`` (``voxel_grid_trilinear``,
+Counterpart of ``ess_tpu/ops/voxel.py`` (``EventWindow``,
+``voxel_grid_temporal``, ``voxel_grid_trilinear``, ``event_histogram``,
 ``normalize_nonzero``) and of the scatter branch of
-``ess_tpu/ops/batch_voxel.py::voxelize_window_soa``, batched over windows and
-in NCHW. It is the reference the folded kernel path is tested against.
+``ess_tpu/ops/batch_voxel.py::voxelize_window_soa``. The trilinear grid is
+batched over windows and in NCHW: it is the reference the folded kernel
+path is tested against. ``voxel_grid_temporal`` and ``event_histogram``
+take one :class:`EventWindow` of (N,) tensors, as JAX's do, and are ATen
+scatters (``index_add_``) as JAX's are XLA scatters: no kernel of the port
+stands behind them.
 
 One deliberate difference from the upstream torch voxelizer, shared with the
 JAX kernels: a coordinate in (-1, 0) floors to -1, so its out-of-frame
@@ -13,7 +19,36 @@ corner drops and only the in-frame corner keeps its bilinear weight
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ess_tpu_torch import resolve_device
+
+
+class EventWindow(NamedTuple):
+    """A fixed-capacity window of events with a validity mask: (N,)
+    tensors ``x``, ``y``, ``t``, ``p`` (f32) and ``valid`` (bool); padded
+    lanes may hold anything."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    t: torch.Tensor
+    p: torch.Tensor
+    valid: torch.Tensor
+
+    @staticmethod
+    def from_arrays(x, y, t, p, valid=None, *, device=None) -> "EventWindow":
+        """Columns (numpy arrays, tensors or sequences) as f32 tensors on
+        ``device`` (None: the first CUDA device); ``valid`` None: every
+        lane."""
+        dev = resolve_device(device)
+        col = lambda a: torch.as_tensor(a).to(dev, torch.float32)  # noqa
+        x, y, t, p = col(x), col(y), col(t), col(p)
+        valid = (torch.ones(x.shape, dtype=torch.bool, device=dev)
+                 if valid is None else torch.as_tensor(valid).to(dev,
+                                                                  torch.bool))
+        return EventWindow(x, y, t, p, valid)
 
 
 def masked_time_norm(t: torch.Tensor, valid: torch.Tensor,
@@ -94,3 +129,56 @@ def normalize_from_stats(grid: torch.Tensor,
     normed = torch.where(grid != 0, (grid - shift) * scale,
                          torch.zeros_like(grid))
     return torch.where((num > 0).view(shape), normed, grid)
+
+
+def voxel_grid_temporal(ev: EventWindow, *, num_bins: int, height: int,
+                        width: int, separate_pol: bool = False
+                        ) -> torch.Tensor:
+    """Temporal-bilinear voxel grid of one window with integer pixels: each
+    in-frame event splits its polarity between its two neighbouring time
+    bins at its (y, x) pixel. Coordinates are cast to integers toward zero;
+    an event is in frame where its pixel is and its *float* normalized time
+    ``ts`` has ``0 <= ts < num_bins`` (masked min / max time bounds, a
+    window of one time normalized over 1). Returns (2 * num_bins, H, W)
+    with ``separate_pol`` (the positive events' grid, then the negative
+    ones'), else the signed (num_bins, H, W) grid."""
+    xs = ev.x.to(torch.int32)
+    ys = ev.y.to(torch.int32)
+    ts = masked_time_norm(ev.t.float()[None], ev.valid[None], num_bins)[0]
+    tis = ts.to(torch.int32)
+    dts = ts - tis.float()
+    in_frame = ((xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
+                & (ts >= 0.0) & (ts < num_bins) & ev.valid)
+    cells = height * width
+    pix = ys.long() * width + xs.long()
+    pos = ev.p > 0
+
+    def scatter(values: torch.Tensor) -> torch.Tensor:
+        flat = torch.zeros(num_bins * cells, dtype=torch.float32,
+                           device=ev.x.device)
+        left = in_frame & (tis < num_bins)
+        right = in_frame & (tis + 1 < num_bins)
+        flat.index_add_(0, (tis.long() * cells + pix)[left],
+                        (values * (1.0 - dts))[left])
+        flat.index_add_(0, ((tis.long() + 1) * cells + pix)[right],
+                        (values * dts)[right])
+        return flat.view(num_bins, height, width)
+
+    if separate_pol:
+        return torch.cat([scatter(pos.float()), scatter((~pos).float())])
+    return scatter(torch.where(pos, 1.0, -1.0))
+
+
+def event_histogram(ev: EventWindow, *, height: int, width: int
+                    ) -> torch.Tensor:
+    """(2, H, W) event counts of one window: channel 0 the negative events,
+    1 the positive ones (``p > 0``); coordinates cast toward zero, events
+    outside the frame dropped."""
+    xs = ev.x.to(torch.int32).long()
+    ys = ev.y.to(torch.int32).long()
+    ok = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height) & ev.valid
+    cells = height * width
+    idx = (ev.p > 0).long() * cells + ys * width + xs
+    flat = torch.zeros(2 * cells, dtype=torch.float32, device=ev.x.device)
+    flat.index_add_(0, idx[ok], torch.ones_like(ev.x)[ok])
+    return flat.view(2, height, width)

@@ -107,7 +107,8 @@ def make_group(num_devices: int = -1, *, device=None,
                backend: Optional[str] = None) -> Group:
     """The data-parallel group over the ranks of the initialized default
     process group (``multihost.initialize``, or the launcher), activated
-    for the collectives of this module. ``num_devices`` must be -1 or the
+    for the collectives of this module: the counterpart of JAX's
+    ``make_mesh``, and :func:`row_range` of its ``batch_sharding``. ``num_devices`` must be -1 or the
     world size. Each rank runs on ``cuda:<LOCAL_RANK>`` (the rank on one
     host) unless ``device`` names a device for every rank; ``backend``
     defaults to NCCL on CUDA and gloo on the CPU, and ranks that share one

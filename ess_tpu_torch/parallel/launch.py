@@ -40,6 +40,10 @@ def _rank_main(rank: int, world: int, store: str, backend: str, device,
         dp.make_group(world, device=device, backend=backend)
         result = fn(*args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+        # no rank tears the group down before every rank is done: a gloo
+        # rank that closes its connections while another still completes
+        # the last collective can abort that one
+        dp.barrier()
     finally:
         dp.release()
 

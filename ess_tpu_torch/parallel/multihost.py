@@ -8,21 +8,25 @@ device (the launcher of :mod:`ess_tpu_torch.parallel.launch`, or
     multihost.initialize()              # init_process_group
     group = make_group()                # every rank's device
 
-The JAX package's ``global_batch_from_local`` assembles one globally
-sharded array from per-process slices; with one process per device each
-rank keeps its own rows (``data/loader.py``'s ``replica``), and nothing
-needs the assembly.
+With one process per device each rank keeps its own rows of a batch
+(``data/loader.py``'s ``replica``). :func:`global_batch_from_local` is the
+JAX package's assembly of the global batch from every process's local
+rows: where JAX builds one array sharded over the mesh, each rank here
+gets the whole global batch, every leaf's rows all-gathered and
+concatenated in rank order on the rank's device.
 """
 
 from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
+from ess_tpu_torch import resolve_device
 from ess_tpu_torch.parallel import dp
 
 TIMEOUT = timedelta(minutes=10)   # of a collective that waits on a rank
@@ -71,3 +75,36 @@ def all_reduce_host(value: np.ndarray) -> np.ndarray:
     """Sum a small host array (e.g. a confusion matrix) over the ranks of
     the active data-parallel group."""
     return dp.host_sum(value)
+
+
+def _gather(t: torch.Tensor, group: dp.Group) -> torch.Tensor:
+    """Every rank's ``t`` (all the same shape) concatenated in rank order
+    (through the host where gloo meets a CUDA tensor)."""
+    src = t.cpu() if group.backend == "gloo" and t.is_cuda else t
+    parts = [torch.empty_like(src) for _ in range(group.world)]
+    dist.all_gather(parts, src.contiguous(), group=group.pg)
+    return torch.cat(parts).to(t.device)
+
+
+def global_batch_from_local(local_batch: Any, device=None) -> Any:
+    """The global batch from every rank's local rows: each leaf (a numpy
+    array or tensor, in nested dicts, lists and tuples) of ``local_batch``
+    as a tensor on ``device`` (None: the active group's, else the first
+    CUDA device), its rows all-gathered from the ranks of the active
+    data-parallel group and concatenated in rank order. Every rank passes
+    leaves of the same shapes. On a world of one it is the local batch on
+    that device."""
+    group = dp.active()
+    if device is None and group is not None:
+        device = group.device
+    dev = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        t = torch.as_tensor(x).to(dev)
+        return t if dp.world() == 1 else _gather(t, group)
+
+    return put(local_batch)

@@ -2,7 +2,7 @@
 
 Counterpart of ``ess_tpu/recon/color.py`` (``BAYER_PHASES``,
 ``bayer_split``, ``shift_image``, ``upsample_color_image``,
-``merge_channels_into_color_image``). A DAVIS346color sensor
+``merge_channels_into_color_image``, ``to_uint8``). A DAVIS346color sensor
 has an RGBW Bayer mosaic: pixel (2i+r, 2j+s) sees color [R G; W B][r][s], so
 slicing the normalized full-resolution voxel grid at the four 2x2 phases
 yields one half-resolution event stream per color; the reconstruction
@@ -21,10 +21,18 @@ every pixel (the tests hold the Lab conversions against ``cv2`` over all
 - ``cv2.cvtColor(..., COLOR_BGR2LAB)`` and ``COLOR_LAB2BGR`` on 8-bit
   images: :func:`bgr_to_lab` and :func:`lab_to_bgr`, OpenCV's fixed-point
   arithmetic (sRGB gamma, D65 white, ``L * 255 / 100``, ``a + 128``,
-  ``b + 128``) and its lookup tables, built here in float64.
-
-The ``'HSV'`` and ``'HLS'`` lightness replacements are not ported (no entry
-point uses them) and raise.
+  ``b + 128``) and its lookup tables, built here in float64;
+- ``COLOR_BGR2HSV`` / ``COLOR_HSV2BGR`` and ``COLOR_BGR2HLS`` /
+  ``COLOR_HLS2BGR`` on 8-bit images (hue in [0, 180)), for
+  ``upsample_color_image``'s ``'HSV'`` and ``'HLS'`` lightness
+  replacements: :func:`bgr_to_hsv` (OpenCV's integer division tables,
+  12-bit shift), :func:`hsv_to_bgr`, :func:`bgr_to_hls` and
+  :func:`hls_to_bgr` (OpenCV's f32 arithmetic, its fused multiply-adds
+  evaluated exactly in float64 and rounded once, as its x86 build with
+  AVX-512 runs them: HSV2BGR truncates to 8 bits in the 32-pixel vector
+  blocks of each row and rounds the rest of the row, the others round).
+  Each equals ``cv2.cvtColor`` on all 2^24 triples and on frames whose
+  rows end in a partial block (``tests/test_torch_color_hsv.py``).
 """
 
 from __future__ import annotations
@@ -178,24 +186,135 @@ def lab_to_bgr(lab: np.ndarray) -> np.ndarray:
     return np.stack(out, -1).astype(np.uint8)
 
 
+_HSV_SHIFT = 12
+# the BGR channel each HSV / HLS sector takes from (v, p, q, t) tables
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
+                     [2, 1, 0]])
+_F32 = np.float32
+
+
+@functools.lru_cache(maxsize=1)
+def _hsv_tables():
+    """OpenCV's 8-bit BGR2HSV division tables: 255 << 12 / v and
+    180 << 12 / (6 d), rounded half to even."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * i))
+    return sdiv, hdiv
+
+
+def _unit(a: np.ndarray) -> np.ndarray:
+    return a.astype(_F32) * _F32(1.0 / 255.0)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """f32 ``a * b + c`` rounded once (the product is exact in f64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(_F32)
+
+
+def _sector_pick(tabs, sector: np.ndarray) -> np.ndarray:
+    return np.take_along_axis(np.stack(tabs, -1), _SECTORS[sector], -1)
+
+
+def bgr_to_hsv(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(bgr, COLOR_BGR2HSV)`` of an 8-bit (..., 3) image."""
+    sdiv, hdiv = _hsv_tables()
+    b, g, r = (bgr[..., k].astype(np.int64) for k in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+HSV_VECTOR_BLOCK = 32   # pixels of a row in one vector step of HSV2BGR
+
+
+def hsv_to_bgr(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, COLOR_HSV2BGR)`` of an 8-bit (..., W, 3) image,
+    rows of W pixels."""
+    h = (hsv[..., 0].astype(_F32) * _F32(6.0 / 180.0)).astype(_F32)
+    s, v = _unit(hsv[..., 1]), _unit(hsv[..., 2])
+    whole = np.trunc(h)
+    frac = h - whole
+    one = _F32(1.0)
+    sector = (whole - np.trunc(whole * _F32(1.0 / 6.0)) * 6).astype(np.int64)
+    tabs = (v, v * (one - s), v * _fma(-s, frac, one),
+            v * _fma(-s, one - frac, one))
+    out = _sector_pick(tabs, sector) * _F32(255.0)
+    w = hsv.shape[-2]
+    vector = np.arange(w) < w // HSV_VECTOR_BLOCK * HSV_VECTOR_BLOCK
+    out = np.where(vector[:, None], np.trunc(out), np.rint(out))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def bgr_to_hls(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(bgr, COLOR_BGR2HLS)`` of an 8-bit (..., 3) image."""
+    b, g, r = (_unit(bgr[..., k]) for k in range(3))
+    vmax = np.maximum(np.maximum(r, g), b)
+    vmin = np.minimum(np.minimum(r, g), b)
+    diff, total = vmax - vmin, vmax + vmin
+    light = total * _F32(0.5)
+    rmax, gmax = vmax == r, vmax == g
+    dh = np.where(rmax, g - b, np.where(gmax, b - r, r - g))
+    base = np.where(rmax, np.where(g < b, _F32(360.0), _F32(0.0)),
+                    np.where(gmax, _F32(120.0), _F32(240.0)))
+    with np.errstate(divide="ignore", invalid="ignore"):  # grays: masked
+        sat = diff / np.where(light < _F32(0.5), total, _F32(2.0) - total)
+        hue = _fma(dh, _F32(60.0) / diff, base) * _F32(0.5)
+    some = diff > np.finfo(np.float32).eps
+    hue, sat = np.where(some, hue, 0), np.where(some, sat, 0)
+    return np.clip(np.rint(np.stack([hue, light * _F32(255.0),
+                                     sat * _F32(255.0)], -1)),
+                   0, 255).astype(np.uint8)
+
+
+def hls_to_bgr(hls: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hls, COLOR_HLS2BGR)`` of an 8-bit (..., 3) image."""
+    h = (hls[..., 0].astype(_F32) * _F32(6.0 / 180.0)).astype(_F32)
+    light, s = _unit(hls[..., 1]), _unit(hls[..., 2])
+    whole = np.trunc(h)
+    frac = h - whole
+    one = _F32(1.0)
+    sector = (whole - np.trunc(h * _F32(1.0 / 6.0)) * 6).astype(np.int64)
+    p2 = np.where(light <= _F32(0.5), light * (one + s),
+                  (light + s) - light * s)
+    p1 = _F32(2.0) * light - p2
+    d = p2 - p1
+    tabs = (p2, p1, p1 + d * (one - frac), p1 + d * frac)
+    out = np.where((s == 0)[..., None], light[..., None],
+                   _sector_pick(tabs, sector))
+    return np.clip(np.rint(out * _F32(255.0)), 0, 255).astype(np.uint8)
+
+
+# colorspace -> (to, from, the lightness channel)
+_LIGHTNESS = {"LAB": (bgr_to_lab, lab_to_bgr, 0),
+              "HSV": (bgr_to_hsv, hsv_to_bgr, 2),
+              "HLS": (bgr_to_hls, hls_to_bgr, 1)}
+
+
 def upsample_color_image(grayscale_highres: np.ndarray,
                          color_lowres_bgr: np.ndarray,
                          colorspace: str = "LAB") -> np.ndarray:
     """Replace the lightness of a BGR uint8 color image with a grayscale
-    image of the same size (the Lab L channel)."""
+    image of the same size: the L channel of ``'LAB'`` or ``'HLS'``, the V
+    channel of ``'HSV'``."""
     if grayscale_highres.ndim != 2:
         raise ValueError("grayscale_highres must be (H, W)")
     if color_lowres_bgr.ndim != 3 or color_lowres_bgr.shape[2] != 3:
         raise ValueError("color_lowres_bgr must be (H, W, 3)")
-    if colorspace in ("HSV", "HLS"):
-        raise NotImplementedError(
-            f"colorspace {colorspace!r}: only 'LAB' is ported (ROADMAP.md, "
-            "A15)")
-    if colorspace != "LAB":
+    if colorspace not in _LIGHTNESS:
         raise ValueError(f"unknown colorspace {colorspace!r}")
-    lab = bgr_to_lab(color_lowres_bgr)
-    lab[:, :, 0] = grayscale_highres
-    return lab_to_bgr(lab)
+    to, back, ch = _LIGHTNESS[colorspace]
+    img = to(color_lowres_bgr)
+    img[:, :, ch] = grayscale_highres
+    return back(img)
 
 
 def merge_channels_into_color_image(channels: Dict[str, np.ndarray]
@@ -276,3 +395,8 @@ def merge_move_bound(b_min: int = 0) -> Dict[str, int]:
     gray = int(np.abs(np.diff(table, axis=0)).max())
     return {"resize": resize, "green": green, "color": color, "gray": gray,
             "bound": max(color, gray) if max(resize, green) <= 1 else -1}
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """A [0, 1] float frame -> uint8 (clip, times 255, truncate)."""
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)

@@ -133,9 +133,11 @@ def build_modules(cfg: Config, *, device=None, steps_per_epoch: int = 1,
         tw = vw = math.ceil(w / 8) * 8
     train_impl = (e2vid.lstm_impl if m.lstm_impl_train is None
                   else resolve_lstm_impl(m.lstm_impl_train))
+    # the pipeline's windows arrive normalized (JAX's normalize=False)
     recon_train = Reconstructor(model=e2vid, height=th, width=tw,
-                                lstm_impl=train_impl)
-    recon_val = Reconstructor(model=e2vid, height=vh, width=vw)
+                                normalize=False, lstm_impl=train_impl)
+    recon_val = Reconstructor(model=e2vid, height=vh, width=vw,
+                              normalize=False)
     opt_back = make_radam(head.parameters(), cfg.optim.lr_back,
                           lr_decay=cfg.optim.lr_decay,
                           steps_per_epoch=steps_per_epoch)

@@ -164,7 +164,7 @@ def test_rollout_matches_jax(variant):
     kw = VARIANTS[variant]
     jmodel, params, port = models(kw, seed=len(variant))
     jrec = JaxReconstructor(model=jmodel, height=H, width=W, normalize=False)
-    rec = Reconstructor(model=port, height=H, width=W)
+    rec = Reconstructor(model=port, height=H, width=W, normalize=False)
     assert rec.use_blocks == jrec._use_blocks == ("norm" not in kw)
     rng = np.random.default_rng(7)
     x = normal(rng, (T, B, H, W, BINS))
@@ -199,7 +199,7 @@ def test_gru_state_and_block_space_rule():
     assert all(s.is_contiguous(memory_format=torch.channels_last)
                and not s.any() for s in st)
     port = RecurrentUNet(base_channels=BASE, norm="IN", device="cpu")
-    rec = Reconstructor(model=port, height=16, width=16)
+    rec = Reconstructor(model=port, height=16, width=16, normalize=False)
     assert rec.block_space and not rec.use_blocks
     mods = dataclasses.make_dataclass("Mods", ["recon_train", "recon_val"])
     swapped = with_block_conv_impl(mods(rec, rec), "pallas")

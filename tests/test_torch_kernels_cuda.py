@@ -1018,8 +1018,15 @@ def assert_within_ulp(got, want, share=1.0, cap=None):
         assert d.max().item() <= cap, d.max().item()
 
 
+@pytest.fixture
+def no_size_rule(monkeypatch):
+    """Lift the level's size rule on the card, so that the kernels run at the
+    small shapes of these tests."""
+    monkeypatch.setattr(lv, "FUSE_MIN_ELEMENTS", 0)
+
+
 @pytest.mark.parametrize("case", LEVEL_CASES)
-def test_level_kernel_matches_plain(dev, case):
+def test_level_kernel_matches_plain(dev, case, no_size_rule):
     ushape, ch, u_s2d = case
     u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(1, ushape, ch, u_s2d,
                                                         dev)
@@ -1059,7 +1066,7 @@ def test_level_kernel_matches_plain(dev, case):
 
 @pytest.mark.parametrize("case", LEVEL_CASES[:3] + LEVEL_CASES[4:5]
                          + LEVEL_CASES[6:])
-def test_level_kernel_20_step_chain(dev, case):
+def test_level_kernel_20_step_chain(dev, case, no_size_rule):
     ushape, ch, u_s2d = case
     u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(2, ushape, ch, u_s2d,
                                                         dev)
@@ -1074,7 +1081,8 @@ def test_level_kernel_20_step_chain(dev, case):
     assert_within_ulp(ck, cp, share=0.999, cap=0.05)
 
 
-def test_level_kernel_is_the_only_route_on_cuda(dev, monkeypatch):
+def test_level_kernel_is_the_only_route_on_cuda(dev, monkeypatch,
+                                               no_size_rule):
     """On CUDA tensors the level launches its kernels and reaches no library
     conv, no matmul and no plain version; it raises on what they do not
     take and returns None where the geometry does not tile."""
@@ -1179,7 +1187,41 @@ def test_level_launcher_refuses_a_plan_that_disagrees(dev):
     assert_within_ulp(h_new, want[0])
 
 
-def test_level_kernel_backward(dev):
+def test_level_size_rule_on_cuda(dev):
+    """On CUDA tensors the entry keeps JAX's size rule: below
+    ``FUSE_MIN_ELEMENTS`` elements of h_prev it returns None and launches
+    nothing (the split level runs instead); at and above it, it launches
+    the kernels, and below it too with the rule's threshold lowered. The
+    CPU's plain version answers below it."""
+    for ushape, ch, u_s2d in (LEVEL_CASES[3], LEVEL_CASES[4]):
+        u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(
+            7, ushape, ch, u_s2d, dev)
+        assert not lv.fuses(h0.numel())
+        n0 = lv.launches
+        assert lv.encoder_level_int8(u, (h0, c0.clone()), ek, eb, gk, gb,
+                                     u_s2d=u_s2d) is None
+        torch.cuda.synchronize()
+        assert lv.launches == n0
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lv, "FUSE_MIN_ELEMENTS", 0)
+            assert lv.encoder_level_int8(u, (h0, c0.clone()), ek, eb, gk, gb,
+                                         u_s2d=u_s2d) is not None
+        assert lv.launches == n0 + 1
+        assert lv.encoder_level_int8(
+            u.cpu(), (h0.cpu(), c0.cpu()), ek.cpu(), eb.cpu(), gk.cpu(),
+            gb.cpu(), u_s2d=u_s2d) is not None
+    ushape, ch, u_s2d = LEVEL_CASES[2]
+    u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(8, ushape, ch, u_s2d,
+                                                        dev)
+    assert lv.fuses(h0.numel())
+    n0 = lv.launches
+    out = lv.encoder_level_int8(u, (h0, c0.clone(
+        memory_format=torch.channels_last)), ek, eb, gk, gb, u_s2d=u_s2d)
+    torch.cuda.synchronize()
+    assert out is not None and lv.launches == n0 + 1
+
+
+def test_level_kernel_backward(dev, no_size_rule):
     ushape, ch, u_s2d = LEVEL_CASES[5]
     u, h0, c0, ek, eb, gk, gb = bench_level.make_inputs(4, ushape, ch, u_s2d,
                                                         dev)
@@ -1272,7 +1314,7 @@ def test_full_mode_is_the_cells_own_entry_point(dev, int8):
     assert h3.shape == h0.shape
 
 
-def test_tools_run_on_the_card(dev, capsys, tmp_path):
+def test_tools_run_on_the_card(dev, capsys, tmp_path, no_size_rule):
     """Both tools' ``main`` at one small level: they launch the kernels;
     ``bench_level --profile`` traces one more chain of each path (two
     warm-up calls and the traced one) and prints its device time by kernel.
@@ -1836,12 +1878,39 @@ def test_voxel_tiled_kernel_reconstruct_window(dev, n):
                                normalize_nonzero(want), atol=1e-4, rtol=1e-4)
 
 
+def test_rollout_all_no_recurrent_on_the_card(dev):
+    """``no_recurrent`` on B2 and B4 (bf16): every ``rollout_all`` frame
+    equals one step from zero state on its window, bit for bit, and the
+    initial state stays zero although the cell updates c in place; the
+    options (normalize, flip, standardize) on."""
+    from ess_tpu_torch.models.e2vid import RecurrentUNet
+
+    torch.manual_seed(0)
+    model = RecurrentUNet(lstm_impl="pallas", block_conv_impl="pallas",
+                          dtype=torch.bfloat16, device=dev)
+    model.requires_grad_(False)
+    rec = Reconstructor(model=model, height=64, width=96, no_recurrent=True,
+                        normalize=True, flip=True, standardize=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    wins = torch.randn(3, 2, 5, 64, 96, generator=g, device=dev)
+    wins = wins * (torch.rand(wins.shape, generator=g, device=dev) < 0.3)
+    n0 = cl.launches
+    with torch.no_grad():
+        imgs, state = rec.rollout_all(wins)
+        assert cl.launches == n0 + 9
+        assert not any(bool(t.any()) for pair in state for t in pair)
+        for i in range(3):
+            one = rec.step(wins[i], rec.init_state(2, dev))[0]
+            assert torch.equal(one, imgs[i]), i
+
+
 def test_padded_reconstructor_step_kernel_vs_plain(dev, monkeypatch):
     """Five carried windows through B3, ``normalize_nonzero`` and the
     padded step at 260x346 (-> 264x352) on the card, against the same with
     B3's plain version."""
     model = reconstruct.build_model("", dev)
-    recon = Reconstructor(model=model, height=DAVIS[0], width=DAVIS[1])
+    recon = Reconstructor(model=model, height=DAVIS[0], width=DAVIS[1],
+                          normalize=False)
     assert recon.geometry.pads == (2, 2, 3, 3)
     rng = np.random.default_rng(5)
     windows = [davis_window(rng, n) for n in (10_000, 7919, 10_000, 4000,

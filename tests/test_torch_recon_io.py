@@ -10,7 +10,9 @@
   channel on at most 0.5 % of the values would be accepted. Result: equal
   at every triple, both ways. ``bayer_split``, ``shift_image`` and
   ``merge_channels_into_color_image`` equal JAX's (cv2) versions on seeded
-  images; the ``'HSV'`` and ``'HLS'`` branches raise.
+  images; the ``'HSV'`` and ``'HLS'`` branches, once refused, now equal
+  JAX's (cv2) on a seeded image (the full check:
+  ``tests/test_torch_color_hsv.py``), and an unknown colorspace raises.
 - ``cli/reconstruct.py::to_frame8`` equals JAX's ``to_uint8``.
 """
 
@@ -115,6 +117,12 @@ def test_bayer_split_shift_and_uint8_match_jax():
 
 @pytest.mark.parametrize("space", ["HSV", "HLS"])
 def test_unported_colorspaces_raise(space):
-    img = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        color.upsample_color_image(img[:, :, 0], img, space)
+    """The branches are ported: they equal JAX's, and only a colorspace
+    that neither package knows raises."""
+    rng = np.random.default_rng(len(space))
+    img = rng.integers(0, 256, (40, 37, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(
+        color.upsample_color_image(img[:, :, 0], img, space),
+        jax_color.upsample_color_image(img[:, :, 0], img, space))
+    with pytest.raises(ValueError, match="colorspace"):
+        color.upsample_color_image(img[:, :, 0], img, space.lower())

@@ -75,7 +75,7 @@ def recons(weights, h, w, block_space=True):
     return (params, JaxReconstructor(model=jmodel, height=h, width=w,
                                      normalize=False,
                                      block_space=block_space),
-            Reconstructor(model=port, height=h, width=w,
+            Reconstructor(model=port, height=h, width=w, normalize=False,
                           block_space=block_space))
 
 

@@ -21,3 +21,10 @@ def run_specs(specs: List[dict], routes: List[tuple] = ()) -> tuple:
     """``run_steps`` of each spec in turn, and :func:`int8_routes` of
     ``routes``: one launch for many."""
     return [run_steps(s) for s in specs], int8_routes(list(routes))
+
+
+def global_batches(local_batches: List[dict]) -> dict:
+    """``multihost.global_batch_from_local`` of this rank's entry of
+    ``local_batches`` (one a rank)."""
+    from ess_tpu_torch.parallel import multihost
+    return multihost.global_batch_from_local(local_batches[dp.rank()])
